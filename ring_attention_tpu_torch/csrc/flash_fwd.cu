@@ -1,0 +1,409 @@
+// Forward flash-attention sweep for NVIDIA Hopper (built for sm_90a).
+//
+// Replaces: ring_attention_tpu/ops/pallas_flash.py::_flash_fwd_call (the
+// pl.pallas_call at :1174; kernel bodies _fwd_kernel :669, _fwd_tile :823,
+// _online_update :776, _fwd_write :645, _tile_keep :240) in its fused mode:
+// normalized `out` in q's dtype plus `lse` in float32.  Partials, resume and
+// int8 modes of that launch are not ported here.
+//
+// What it computes, for q (B, H, Nq, D) and k, v (B, Hk, Nk, D), contiguous:
+//   s    = scale * q . k, then softclamp c * tanh(s / c) when c > 0;
+//   keep = (!causal || (j - i <= hi && (!windowed || j - i >= lo)))
+//          && (kv_mask == null || kv_mask[b, j]);
+//   masked scores take the FINITE mask value -0.5 * f32 max, so a row whose
+//   keys are all masked averages V over all Nk keys (dense-oracle semantics);
+//   out  = acc / max(l, 1e-10), lse = m + log(max(l, 1e-10)), with the
+//   online-softmax state (acc, m, l) in f32.
+// Query head h reads kv head h / (H / Hk) by index (GQA without a repeat).
+// Ragged Nq and Nk are masked here: keys past Nk weigh exactly zero.
+//
+// What bounds it on an H100: the causal forward at long sequence does about
+// Nk / 4 operations per byte it must move (d = 64), far above the card's
+// ~295 bf16 operations per byte, so it is bound by tensor-core operations.
+// Decode (a handful of folded query rows against a long cache) does about
+// one operation per cache byte and is bound by device-memory bytes.
+//
+// Design (right and simple first):
+//   * one thread block per (64-row Q tile, b*h); blocks run heaviest causal
+//     rows first;
+//   * bf16: 4 warps, each owns 16 query rows.  QK^T and PV run on
+//     mma.sync.m16n8k16 (bf16 in, f32 accumulate); the score tile, p and the
+//     output accumulator stay in registers and never touch shared or device
+//     memory.  p is rounded to bf16 for the PV product, as the TPU kernel
+//     does (p.astype(v.dtype)), while l sums the f32 p;
+//   * f32: 64 threads, one query row each, plain FMA on CUDA cores (exact
+//     f32, so the card can be held tightly to the CPU);
+//   * the block computes its own KV-tile range from (lo, hi) and skips tiles
+//     outside the band: the counterpart of the TPU compact band grid and its
+//     scalar-prefetched tables, which are therefore not needed.  A block
+//     holding a row with an empty band visits every tile, so such a row still
+//     averages V over all keys.
+// Not yet: cp.async/TMA double buffering, wgmma, warp specialisation and a
+// split-KV decode (the decode grid is only b*hk blocks wide).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kMaskValue = -0.5f * 3.402823466e38f;  // -0.5 * f32 max, finite
+constexpr float kEpsilon = 1e-10f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kBlockM = 64;  // query rows per block
+constexpr int kBlockN = 64;  // keys per KV tile
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const uint8_t* kv_mask;  // (B, Nk) or null
+  void* out;
+  float* lse;
+  int B, H, Hk, Nq, Nk;
+  float scale;
+  int causal, hi, windowed, lo;
+  float softclamp;  // 0 = off
+};
+
+// [t_begin, t_end) KV tiles that rows [r0, r0 + kBlockM) of a block need.
+__device__ __forceinline__ void tile_range(const Params& p, int r0, int* t_begin,
+                                           int* t_end) {
+  *t_begin = 0;
+  *t_end = (p.Nk + kBlockN - 1) / kBlockN;
+  if (!p.causal) return;
+  const long long r_last = (long long)min(r0 + kBlockM, p.Nq) - 1;
+  // row i attends max(0, i + lo) <= j <= min(Nk - 1, i + hi); the first row
+  // has the narrowest upper bound and the last row the highest lower bound
+  bool empty_row = (long long)r0 + p.hi < 0;
+  long long j_min = 0;
+  if (p.windowed) {
+    empty_row = empty_row || r_last + p.lo > p.Nk - 1 || p.lo > p.hi;
+    j_min = max((long long)r0 + p.lo, 0LL);
+  }
+  if (empty_row) return;
+  const long long j_max = min(r_last + p.hi, (long long)p.Nk - 1);
+  *t_begin = (int)(j_min / kBlockN);
+  *t_end = (int)(j_max / kBlockN) + 1;
+}
+
+// Scaled, soft-clamped and masked score of (row, col).
+__device__ __forceinline__ float score(const Params& p, const uint8_t* kvm,
+                                       int row, int col, float dot) {
+  if (col >= p.Nk) return -INFINITY;  // past the keys: weighs exactly zero
+  float s = dot * p.scale;
+  if (p.softclamp > 0.f) s = p.softclamp * tanhf(s / p.softclamp);
+  bool keep = true;
+  if (p.causal) {
+    const int off = col - row;
+    keep = off <= p.hi && (!p.windowed || off >= p.lo);
+  }
+  if (kvm != nullptr) keep = keep && kvm[col] != 0;
+  return keep ? s : kMaskValue;
+}
+
+__device__ __forceinline__ float exp_nat(float x) { return exp2f(x * kLog2e); }
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores through mma.sync
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
+                                          const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two floats as bf16x2; the first lands in the low half (lower index).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_raw(uint16_t lo, uint16_t hi) {
+  return (uint32_t)lo | ((uint32_t)hi << 16);
+}
+
+// rows [row0, row0 + 64) of a (n, D) bf16 matrix into shared memory with a
+// row stride of D + 8 elements; rows past n are zero.
+template <int D>
+__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
+                                               const __nv_bfloat16* src,
+                                               int row0, int n) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  constexpr int kStride = D + 8;
+  for (int i = threadIdx.x; i < kBlockM * kChunks; i += blockDim.x) {
+    const int r = i / kChunks, c = i % kChunks;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < n)
+      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c * 8);
+    *reinterpret_cast<uint4*>(dst + r * kStride + c * 8) = val;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(128)
+    flash_fwd_bf16_kernel(const Params p) {
+  constexpr int kStride = D + 8;  // staggers shared-memory banks
+  __shared__ __align__(16) __nv_bfloat16 Qs[kBlockM * kStride];
+  __shared__ __align__(16) __nv_bfloat16 Ks[kBlockN * kStride];
+  __shared__ __align__(16) __nv_bfloat16 Vs[kBlockN * kStride];
+
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int kh = h / (p.H / p.Hk);
+  const __nv_bfloat16* q =
+      static_cast<const __nv_bfloat16*>(p.q) + (size_t)bh * p.Nq * D;
+  const size_t kv_off = (size_t)(b * p.Hk + kh) * p.Nk * D;
+  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) + kv_off;
+  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) + kv_off;
+  const uint8_t* kvm = p.kv_mask ? p.kv_mask + (size_t)b * p.Nk : nullptr;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;  // mma group id and thread in group
+  const int row_a = r0 + warp * 16 + g;  // global row of fragment halves 0, 1
+  const int row_b = row_a + 8;           // and of halves 2, 3
+
+  load_tile_bf16<D>(Qs, q, r0, p.Nq);
+  __syncthreads();
+  uint32_t qf[D / 16][4];  // A fragments of this warp's 16 rows
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const __nv_bfloat16* base = Qs + (warp * 16 + g) * kStride + kk * 16 + t * 2;
+    qf[kk][0] = *reinterpret_cast<const uint32_t*>(base);
+    qf[kk][1] = *reinterpret_cast<const uint32_t*>(base + 8 * kStride);
+    qf[kk][2] = *reinterpret_cast<const uint32_t*>(base + 8);
+    qf[kk][3] = *reinterpret_cast<const uint32_t*>(base + 8 * kStride + 8);
+  }
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd)
+    o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
+  float m_r[2] = {kMaskValue, kMaskValue};
+  float l_r[2] = {0.f, 0.f};  // this thread's share of the row sums
+
+  int t_begin, t_end;
+  tile_range(p, r0, &t_begin, &t_end);
+  const uint16_t* Vraw = reinterpret_cast<const uint16_t*>(Vs);
+
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int c0 = tile * kBlockN;
+    __syncthreads();  // every warp is done with the previous K/V tile
+    load_tile_bf16<D>(Ks, k, c0, p.Nk);
+    load_tile_bf16<D>(Vs, v, c0, p.Nk);
+    __syncthreads();
+
+    // s = q k^T: 8 fragments of 16 rows x 8 keys
+    float s[kBlockN / 8][4];
+#pragma unroll
+    for (int j = 0; j < kBlockN / 8; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const __nv_bfloat16* kb = Ks + (j * 8 + g) * kStride + kk * 16 + t * 2;
+        const uint32_t bf[2] = {*reinterpret_cast<const uint32_t*>(kb),
+                                *reinterpret_cast<const uint32_t*>(kb + 8)};
+        mma_16816(s[j], qf[kk], bf);
+      }
+    }
+
+    float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int j = 0; j < kBlockN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = e < 2 ? row_a : row_b;
+        const int col = c0 + j * 8 + t * 2 + (e & 1);
+        s[j][e] = score(p, kvm, row, col, s[j][e]);
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // a row's 64 scores sit on 4 threads
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float alpha = exp_nat(m_r[r] - mx[r]);
+      m_r[r] = mx[r];
+      l_r[r] *= alpha;
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        o[nd][2 * r] *= alpha;
+        o[nd][2 * r + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kBlockN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp_nat(s[j][e] - m_r[e >> 1]);
+        l_r[e >> 1] += s[j][e];
+      }
+    }
+
+    // o += p v: the score fragments of two key groups form one A fragment
+#pragma unroll
+    for (int kk = 0; kk < kBlockN / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        const uint16_t* vb = Vraw + (kk * 16 + t * 2) * kStride + nd * 8 + g;
+        const uint32_t bf[2] = {pack_raw(vb[0], vb[kStride]),
+                                pack_raw(vb[8 * kStride], vb[9 * kStride])};
+        mma_16816(o[nd], a, bf);
+      }
+    }
+  }
+
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) + (size_t)bh * p.Nq * D;
+  float* lse = p.lse + (size_t)bh * p.Nq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+    const int row = r == 0 ? row_a : row_b;
+    if (row >= p.Nq) continue;
+    const float l_safe = fmaxf(l_r[r], kEpsilon);
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd) {
+      *reinterpret_cast<uint32_t*>(out + (size_t)row * D + nd * 8 + t * 2) =
+          pack_bf16(o[nd][2 * r] / l_safe, o[nd][2 * r + 1] / l_safe);
+    }
+    if (t == 0) lse[row] = m_r[r] + logf(l_safe);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32: CUDA-core FMA, one query row per thread
+// ---------------------------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kBlockM)
+    flash_fwd_f32_kernel(const Params p) {
+  constexpr int kChunk = 16;  // keys folded per online-softmax update
+  __shared__ __align__(16) float Ks[kBlockN * D];
+  __shared__ __align__(16) float Vs[kBlockN * D];
+
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int kh = h / (p.H / p.Hk);
+  const float* q = static_cast<const float*>(p.q) + (size_t)bh * p.Nq * D;
+  const size_t kv_off = (size_t)(b * p.Hk + kh) * p.Nk * D;
+  const float* k = static_cast<const float*>(p.k) + kv_off;
+  const float* v = static_cast<const float*>(p.v) + kv_off;
+  const uint8_t* kvm = p.kv_mask ? p.kv_mask + (size_t)b * p.Nk : nullptr;
+  const int row = r0 + threadIdx.x;
+
+  float qv[D], acc[D];
+#pragma unroll
+  for (int d = 0; d < D; d += 4) {
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < p.Nq) x = *reinterpret_cast<const float4*>(q + (size_t)row * D + d);
+    qv[d] = x.x; qv[d + 1] = x.y; qv[d + 2] = x.z; qv[d + 3] = x.w;
+    acc[d] = acc[d + 1] = acc[d + 2] = acc[d + 3] = 0.f;
+  }
+  float m = kMaskValue, l = 0.f;
+
+  int t_begin, t_end;
+  tile_range(p, r0, &t_begin, &t_end);
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int c0 = tile * kBlockN;
+    __syncthreads();
+    for (int i = threadIdx.x; i < kBlockN * D / 4; i += blockDim.x) {
+      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
+      if (c0 + r < p.Nk) {
+        kx = *reinterpret_cast<const float4*>(k + (size_t)(c0 + r) * D + c);
+        vx = *reinterpret_cast<const float4*>(v + (size_t)(c0 + r) * D + c);
+      }
+      *reinterpret_cast<float4*>(Ks + r * D + c) = kx;
+      *reinterpret_cast<float4*>(Vs + r * D + c) = vx;
+    }
+    __syncthreads();
+
+    for (int c = 0; c < kBlockN; c += kChunk) {
+      float s[kChunk];
+      float mx = m;
+#pragma unroll
+      for (int jj = 0; jj < kChunk; ++jj) {
+        const float* kr = Ks + (c + jj) * D;
+        float dot = 0.f;
+#pragma unroll
+        for (int d = 0; d < D; ++d) dot = fmaf(qv[d], kr[d], dot);
+        s[jj] = score(p, kvm, row, c0 + c + jj, dot);
+        mx = fmaxf(mx, s[jj]);
+      }
+      const float alpha = exp_nat(m - mx);
+      m = mx;
+      l *= alpha;
+#pragma unroll
+      for (int d = 0; d < D; ++d) acc[d] *= alpha;
+#pragma unroll
+      for (int jj = 0; jj < kChunk; ++jj) {
+        const float pj = exp_nat(s[jj] - m);
+        l += pj;
+        const float* vr = Vs + (c + jj) * D;
+#pragma unroll
+        for (int d = 0; d < D; ++d) acc[d] = fmaf(pj, vr[d], acc[d]);
+      }
+    }
+  }
+
+  if (row >= p.Nq) return;
+  const float l_safe = fmaxf(l, kEpsilon);
+  float* out = static_cast<float*>(p.out) + ((size_t)bh * p.Nq + row) * D;
+#pragma unroll
+  for (int d = 0; d < D; d += 4)
+    *reinterpret_cast<float4*>(out + d) =
+        make_float4(acc[d] / l_safe, acc[d + 1] / l_safe, acc[d + 2] / l_safe,
+                    acc[d + 3] / l_safe);
+  p.lse[(size_t)bh * p.Nq + row] = m + logf(l_safe);
+}
+
+}  // namespace
+
+// C entry point, bound with ctypes.  Enqueues one launch on `stream` and
+// returns cudaGetLastError() (0 = launched).  Allocates nothing: the caller
+// passes contiguous tensors and preallocated outputs.
+extern "C" int flash_fwd(const void* q, const void* k, const void* v,
+                         const void* kv_mask, void* out, void* lse, int B, int H,
+                         int Hk, int Nq, int Nk, int D, int is_bf16, float scale,
+                         int causal, int hi, int windowed, int lo,
+                         float softclamp, void* stream) {
+  if (D != 64 || H % Hk != 0 || Nq <= 0 || Nk <= 0)
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.kv_mask = static_cast<const uint8_t*>(kv_mask);
+  p.out = out;
+  p.lse = static_cast<float*>(lse);
+  p.B = B;
+  p.H = H;
+  p.Hk = Hk;
+  p.Nq = Nq;
+  p.Nk = Nk;
+  p.scale = scale;
+  p.causal = causal;
+  p.hi = hi;
+  p.windowed = windowed;
+  p.lo = lo;
+  p.softclamp = softclamp;
+  const dim3 grid((Nq + kBlockM - 1) / kBlockM, B * H);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    flash_fwd_bf16_kernel<64><<<grid, 128, 0, s>>>(p);
+  else
+    flash_fwd_f32_kernel<64><<<grid, kBlockM, 0, s>>>(p);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,262 @@
+"""RingAttention: the attention layer, single-device serving path.
+
+Port of ``ring_attention_tpu/models/attention.py`` on its local path: fused
+qkv projection after a prenorm, GQA heads, rotary, and the forward, prefill
+and KV-cache decode entry points.  The layer's kernel path is one field,
+``impl``, the counterpart of the JAX ``RingAttention._kernel_impl``:
+
+- ``"cuda"`` (default; JAX ``"pallas"``): the hand-written CUDA flash kernel
+  (``ops/cuda_flash.py``) for the forward and for decode;
+- ``"torch"`` (JAX ``"xla"``): the blockwise PyTorch path (``ops/flash.py``)
+  for the forward and the dense oracle for decode.
+
+``prefill`` attends with ``ops/flash.py`` under either value, as the JAX
+package's does.  Sequence parallelism (``mesh``) and the other features not
+ported yet raise ``NotImplementedError`` naming the ROADMAP item that brings
+them.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..ops.attention import default_attention
+from ..ops.cuda_flash import cuda_flash_attention, cuda_flash_decode
+from ..ops.flash import flash_attention
+from ..ops.rotary import apply_rotary, rotary_freqs
+from ..utils.validate import check_model_input
+from .layers import Dense, RMSNorm, resolve_device
+
+# Where each feature that is not ported yet will come from (ROADMAP.md).
+UNPORTED = {
+    "mesh": "the ring slice, ROADMAP.md Port queue item 2",
+    "mask": "the mask algebra, ROADMAP.md Port queue item 7",
+    "segment_ids": "packed sequences with the mask algebra, ROADMAP.md Port queue item 7",
+    "quantize_cache": "the int8 decode cache (TPU kernel B6), ROADMAP.md Port queue item 3",
+    "compute_dtype": "int8 compute (TPU kernel B4), ROADMAP.md Port queue item 4",
+    "windowed_cache": "the memory knobs, ROADMAP.md Port queue item 7",
+    "ff_chunk_size": "the memory knobs, ROADMAP.md Port queue item 7",
+    "loss_chunk_size": "the memory knobs, ROADMAP.md Port queue item 7",
+    "remat": "the memory knobs, ROADMAP.md Port queue item 7",
+}
+IMPLS = ("cuda", "torch")
+UNPORTED_IMPLS = {
+    "fused": "the fused ring kernel (TPU kernel B7), ROADMAP.md Port queue item 5",
+    "auto": "the degradation runtime (utils/resilience.py), ROADMAP.md Port queue item 7",
+}
+
+
+def reject_unported(fn: str, **settings) -> None:
+    """Raise for any setting that asks for a feature not ported yet."""
+    for name, value in settings.items():
+        if value is not None and value is not False:
+            raise NotImplementedError(
+                f"{fn}: {name}= is not ported yet; it arrives with {UNPORTED[name]}"
+            )
+
+
+def check_impl(fn: str, impl: str) -> None:
+    if impl in UNPORTED_IMPLS:
+        raise NotImplementedError(
+            f'{fn}: impl="{impl}" is not ported yet; it arrives with '
+            f"{UNPORTED_IMPLS[impl]}"
+        )
+    if impl not in IMPLS:
+        raise ValueError(f"{fn}: impl must be one of {IMPLS}, got {impl!r}")
+
+
+class RingAttention(nn.Module):
+    """Attention layer ``x: (b, n, dim) -> (b, n, dim)``.
+
+    Arguments mirror the JAX ``RingAttention`` fields; ``kv_heads`` sets
+    GQA, ``max_lookback_seq_len`` a causal lookback window, ``dtype`` the
+    compute dtype (parameters stay float32)."""
+
+    def __init__(
+        self,
+        dim: int,
+        heads: int = 8,
+        dim_head: int = 64,
+        kv_heads: int | None = None,
+        causal: bool = False,
+        bucket_size: int = 512,
+        rotary: bool = True,
+        rotary_theta: float = 10000.0,
+        softclamp_value: float | None = None,
+        max_lookback_seq_len: int | None = None,
+        impl: str = "cuda",
+        dtype: torch.dtype | None = None,
+        device: torch.device | str | None = None,
+        *,
+        mesh=None,
+        mask=None,
+        quantize_cache: bool = False,
+        compute_dtype: str | None = None,
+    ):
+        super().__init__()
+        reject_unported("RingAttention", mesh=mesh, mask=mask,
+                        quantize_cache=quantize_cache, compute_dtype=compute_dtype)
+        check_impl("RingAttention", impl)
+        kv_heads = kv_heads or heads
+        if heads % kv_heads:
+            raise ValueError(
+                f"RingAttention: heads ({heads}) must be a multiple of "
+                f"kv_heads ({kv_heads})"
+            )
+        device = resolve_device(device)
+        self.dim, self.heads, self.dim_head = dim, heads, dim_head
+        self.kv_heads = kv_heads
+        self.causal = causal
+        self.bucket_size = bucket_size
+        self.rotary = rotary
+        self.rotary_theta = rotary_theta
+        self.softclamp_value = softclamp_value
+        self.max_lookback_seq_len = max_lookback_seq_len
+        self.impl = impl
+        self.prenorm = RMSNorm(dim, device=device)
+        self.to_qkv = Dense(dim, (heads + 2 * kv_heads) * dim_head,
+                            dtype=dtype, device=device)
+        self.to_out = Dense(heads * dim_head, dim, dtype=dtype, device=device)
+
+    def _project_qkv(self, x: torch.Tensor):
+        """prenorm + fused qkv -> heads-major (b, h|hk, n, dh)."""
+        h, kvh, dh = self.heads, self.kv_heads, self.dim_head
+        qkv = self.to_qkv(self.prenorm(x))
+        q, k, v = qkv.split([h * dh, kvh * dh, kvh * dh], dim=-1)
+        b, n, _ = x.shape
+        q = q.reshape(b, n, h, dh).transpose(1, 2)
+        k = k.reshape(b, n, kvh, dh).transpose(1, 2)
+        v = v.reshape(b, n, kvh, dh).transpose(1, 2)
+        return q, k, v
+
+    def _rotate(self, q, k, positions: torch.Tensor):
+        if not self.rotary:
+            return q, k
+        freqs = rotary_freqs(positions, self.dim_head, self.rotary_theta)
+        return apply_rotary(q, freqs), apply_rotary(k, freqs)
+
+    def _merge_heads(self, out: torch.Tensor) -> torch.Tensor:
+        b, _, n, _ = out.shape
+        return self.to_out(out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head))
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        mask: torch.Tensor | None = None,
+        segment_ids: torch.Tensor | None = None,
+    ) -> torch.Tensor:
+        """``x: (b, n, dim)`` -> ``(b, n, dim)``; ``mask: (b, n)`` key padding
+        (True = attend), ignored when the layer is causal."""
+        check_model_input("RingAttention", x, self.dim)
+        reject_unported("RingAttention", segment_ids=segment_ids)
+        q, k, v = self._project_qkv(x)
+        if self.causal:
+            mask = None
+        return self._merge_heads(self._local_attend(q, k, v, mask))
+
+    def _local_attend(self, q, k, v, mask):
+        n = q.shape[2]
+        q, k = self._rotate(q, k, torch.arange(n, device=q.device))
+        if self.impl == "cuda":
+            return cuda_flash_attention(
+                q, k, v, mask, causal=self.causal,
+                window=self.max_lookback_seq_len,
+                softclamp_value=self.softclamp_value,
+            )
+        return flash_attention(
+            q, k, v, mask, causal=self.causal, bucket_size=self.bucket_size,
+            window=self.max_lookback_seq_len,
+            softclamp_value=self.softclamp_value,
+        )
+
+    # ------------------------------------------------------------------
+    # Incremental decoding
+    # ------------------------------------------------------------------
+
+    def decode_step(
+        self,
+        x: torch.Tensor,  # (b, 1, dim): the new token's activation
+        cache_k: torch.Tensor,  # (b, hk, size, dh)
+        cache_v: torch.Tensor,
+        pos: int,  # position the new token occupies
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """One token of autoregressive decoding against a KV cache.
+
+        Writes this token's K/V into slot ``pos % size`` of the ring-buffer
+        cache IN PLACE (no copy of the cache per step) and attends the valid
+        slots: positions ``[0, pos]``, restricted to the last
+        ``max_lookback_seq_len`` when the layer has a window.  Returns
+        ``(out (b, 1, dim), cache_k, cache_v)``."""
+        pos = int(pos)
+        q, k, v = self._project_qkv(x)
+        q, k = self._rotate(q, k, torch.tensor([pos], device=x.device))
+        size = cache_k.shape[2]
+        slot = pos % size
+        cache_k[:, :, slot:slot + 1] = k.to(cache_k.dtype)
+        cache_v[:, :, slot:slot + 1] = v.to(cache_v.dtype)
+        kv_mask = self._buffer_mask(size, pos, x.shape[0], x.device)
+        if self.impl == "cuda":
+            # one sweep, each cache byte read once per kv head
+            out, _ = cuda_flash_decode(
+                q, cache_k, cache_v, kv_mask, softclamp_value=self.softclamp_value
+            )
+        else:
+            out = default_attention(
+                q, cache_k, cache_v, kv_mask, softclamp_value=self.softclamp_value
+            )
+        return self._merge_heads(out), cache_k, cache_v
+
+    def _buffer_mask(self, size: int, pos: int, batch: int,
+                     device: torch.device) -> torch.Tensor:
+        """Valid-slot mask ``(batch, size)`` for a ring-buffer cache.
+
+        Slot ``s`` holds the most recent position ``p_s <= pos`` with
+        ``p_s ≡ s (mod size)``; it is valid when that position exists and
+        sits inside the lookback window.  With ``size > pos`` this is the
+        plain ``idx <= pos`` mask."""
+        s = torch.arange(size, device=device)
+        p = pos - ((pos - s) % size)
+        keep = p >= 0
+        if self.max_lookback_seq_len is not None:
+            keep = keep & (p > pos - self.max_lookback_seq_len)
+        return keep[None, :].expand(batch, size)
+
+    def prefill(
+        self,
+        x: torch.Tensor,  # (b, n, dim): the whole prompt
+        cache_k: torch.Tensor,  # (b, hk, size, dh)
+        cache_v: torch.Tensor,
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """One causal pass over the prompt, writing cache slots in place.
+
+        The written K/V carry rotary exactly as ``decode_step`` writes them,
+        so decoding continues from position ``n``.  Attention runs on the
+        blockwise PyTorch path (``ops/flash.py``) whatever ``impl`` is, as
+        in the JAX package.  Returns ``(out (b, n, dim), cache_k, cache_v)``."""
+        n = x.shape[1]
+        size = cache_k.shape[2]
+        lookback = self.max_lookback_seq_len
+        if n > size and (lookback is None or size < lookback):
+            raise ValueError(
+                f"prefill: prompt ({n}) longer than the cache ({size}) "
+                f"is only valid for a window-sized cache covering "
+                f"max_lookback_seq_len ({lookback})"
+            )
+        q, k, v = self._project_qkv(x)
+        q, k = self._rotate(q, k, torch.arange(n, device=x.device))
+        out = flash_attention(
+            q, k, v, causal=True, bucket_size=self.bucket_size,
+            window=lookback, softclamp_value=self.softclamp_value,
+        )
+        if n > size:
+            # keep the last `size` rows in ring-buffer slot order:
+            # cache[s] = row at position p ≡ s (mod size)
+            k_rows = torch.roll(k[:, :, n - size:], n % size, dims=2)
+            v_rows = torch.roll(v[:, :, n - size:], n % size, dims=2)
+        else:
+            k_rows, v_rows = k, v
+        rows = k_rows.shape[2]
+        cache_k[:, :, :rows] = k_rows.to(cache_k.dtype)
+        cache_v[:, :, :rows] = v_rows.to(cache_v.dtype)
+        return self._merge_heads(out), cache_k, cache_v

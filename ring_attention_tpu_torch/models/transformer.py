@@ -1,0 +1,258 @@
+"""RingTransformer: causal LM on one device, the serving entry points.
+
+Port of ``ring_attention_tpu/models/transformer.py`` on one device: token
+embedding, ``depth`` x (RingAttention + FeedForward) residual blocks, final
+RMSNorm and logits, the dense cross-entropy loss with label shift and
+``ignore_index``, and incremental decoding (``init_cache`` / ``prefill`` /
+``decode_step`` / ``generate``).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..utils.validate import check_tokens_input
+from .attention import RingAttention, check_impl, reject_unported
+from .layers import Dense, Embed, FeedForward, RMSNorm, resolve_device
+
+
+def _position_nll(
+    logits: torch.Tensor,  # (..., vocab), any float dtype
+    labels: torch.Tensor,  # (...)
+    valid: torch.Tensor,  # (...) bool
+) -> torch.Tensor:
+    """Per-position negative log likelihood in f32, zero where invalid."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    chosen = lf.gather(-1, torch.where(valid, labels, 0)[..., None])[..., 0]
+    return torch.where(valid, lse - chosen, 0.0)
+
+
+def _sample(logits, temperature, top_k, top_p, generator):
+    """Next tokens ``(b,)`` from logits ``(b, vocab)``: greedy argmax at
+    ``temperature <= 0``, else temperature, then top-k, then the top-p
+    nucleus, then a categorical draw from ``generator``."""
+    if temperature <= 0.0:
+        return logits.argmax(dim=-1)
+    logits = logits.float() / temperature
+    if top_k is not None:
+        kth = logits.topk(top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, -torch.inf, logits)
+    if top_p is not None:
+        # keep the smallest prefix of descending-probability tokens whose
+        # mass reaches top_p (at least one token: each token's test uses
+        # the mass before it)
+        sorted_logits = logits.sort(dim=-1, descending=True).values
+        probs = torch.softmax(sorted_logits, dim=-1)
+        mass_before = probs.cumsum(dim=-1) - probs
+        cut = (mass_before < top_p).sum(dim=-1, keepdim=True)
+        thresh = sorted_logits.gather(-1, cut - 1)
+        logits = torch.where(logits < thresh, -torch.inf, logits)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+class RingTransformer(nn.Module):
+    """Causal LM ``tokens (b, n) -> logits (b, n, num_tokens)`` (or loss).
+
+    Arguments mirror the JAX ``RingTransformer`` fields on one device;
+    ``max_lookback_seq_len`` takes an int or a per-layer tuple.  Built on
+    CUDA unless ``device`` names another device."""
+
+    def __init__(
+        self,
+        num_tokens: int,
+        dim: int,
+        depth: int,
+        causal: bool = False,
+        heads: int = 8,
+        dim_head: int = 64,
+        kv_heads: int | None = None,
+        bucket_size: int = 512,
+        rotary: bool = True,
+        softclamp_value: float | None = None,
+        max_lookback_seq_len: int | tuple[int | None, ...] | None = None,
+        ff_mult: int = 4,
+        ignore_index: int = -1,
+        impl: str = "cuda",
+        dtype: torch.dtype | None = None,
+        device: torch.device | str | None = None,
+        *,
+        mesh=None,
+        mask=None,
+        quantize_cache: bool = False,
+        compute_dtype: str | None = None,
+        windowed_cache: bool = False,
+        ff_chunk_size: int | None = None,
+        loss_chunk_size: int | None = None,
+        remat: bool = False,
+    ):
+        super().__init__()
+        reject_unported(
+            "RingTransformer", mesh=mesh, mask=mask,
+            quantize_cache=quantize_cache, compute_dtype=compute_dtype,
+            windowed_cache=windowed_cache, ff_chunk_size=ff_chunk_size,
+            loss_chunk_size=loss_chunk_size, remat=remat,
+        )
+        check_impl("RingTransformer", impl)
+        lookbacks = max_lookback_seq_len
+        if not isinstance(lookbacks, tuple):
+            lookbacks = (lookbacks,) * depth
+        if len(lookbacks) != depth:
+            raise ValueError(
+                f"RingTransformer: max_lookback_seq_len tuple has "
+                f"{len(lookbacks)} entries for depth {depth}"
+            )
+        device = resolve_device(device)
+        self.kv_heads = kv_heads or heads
+        self.dim_head = dim_head
+        self.ignore_index = ignore_index
+        self.dtype = dtype
+        self.embed = Embed(num_tokens, dim, dtype=dtype, device=device)
+        self.attn_layers = nn.ModuleList(
+            RingAttention(
+                dim, heads=heads, dim_head=dim_head, kv_heads=kv_heads,
+                causal=causal, bucket_size=bucket_size, rotary=rotary,
+                softclamp_value=softclamp_value, max_lookback_seq_len=lookback,
+                impl=impl, dtype=dtype, device=device,
+            )
+            for lookback in lookbacks
+        )
+        self.ff_layers = nn.ModuleList(
+            FeedForward(dim, ff_mult, dtype=dtype, device=device)
+            for _ in range(depth)
+        )
+        self.final_norm = RMSNorm(dim, device=device)
+        self.to_logits = Dense(dim, num_tokens, dtype=dtype, device=device)
+
+    def _device(self) -> torch.device:
+        return self.embed.weight.device
+
+    def forward(
+        self,
+        tokens: torch.Tensor,
+        mask: torch.Tensor | None = None,
+        return_loss: bool = False,
+        example_mask: torch.Tensor | None = None,
+        segment_ids: torch.Tensor | None = None,
+    ) -> torch.Tensor:
+        """``tokens: (b, n)`` integer ids -> logits ``(b, n, num_tokens)``,
+        or with ``return_loss`` the mean next-token cross-entropy over labels
+        that are not ``ignore_index`` (rows with ``example_mask`` False drop
+        out)."""
+        check_tokens_input("RingTransformer", tokens)
+        reject_unported("RingTransformer", segment_ids=segment_ids)
+        tokens = tokens.to(self._device())
+        if mask is not None:
+            mask = mask.to(self._device())
+        if return_loss:
+            labels = tokens[:, 1:]
+            tokens = tokens[:, :-1]
+        x = self.embed(tokens)
+        for attn, ff in zip(self.attn_layers, self.ff_layers):
+            x = attn(x, mask) + x
+            x = ff(x) + x
+        logits = self.to_logits(self.final_norm(x))
+        if not return_loss:
+            return logits
+        valid = labels != self.ignore_index
+        if example_mask is not None:
+            valid = valid & example_mask.to(valid.device)[:, None]
+        nll = _position_nll(logits, labels, valid)
+        return nll.sum() / valid.sum().clamp(min=1)
+
+    # ------------------------------------------------------------------
+    # Incremental decoding
+    # ------------------------------------------------------------------
+
+    def init_cache(self, batch: int, max_len: int) -> dict[str, list[torch.Tensor]]:
+        """Zeroed KV cache ``{"k": [...], "v": [...]}``, one
+        ``(batch, kv_heads, max_len, dim_head)`` entry per layer, in the
+        model dtype (float32 when it is None)."""
+        shape = (batch, self.kv_heads, max_len, self.dim_head)
+        dtype = self.dtype or torch.float32
+
+        def entry():
+            return torch.zeros(shape, dtype=dtype, device=self._device())
+
+        depth = len(self.attn_layers)
+        return {"k": [entry() for _ in range(depth)],
+                "v": [entry() for _ in range(depth)]}
+
+    def decode_step(
+        self,
+        token: torch.Tensor,  # (b,) token at position `pos`
+        cache: dict[str, list[torch.Tensor]],
+        pos: int,
+    ) -> tuple[torch.Tensor, dict[str, list[torch.Tensor]]]:
+        """Next-token logits ``(b, vocab)`` given the token at ``pos`` and a
+        cache holding positions ``[0, pos)``; the cache is updated in place
+        and returned."""
+        x = self.embed(token.to(self._device())[:, None])
+        for i, (attn, ff) in enumerate(zip(self.attn_layers, self.ff_layers)):
+            a, _, _ = attn.decode_step(x, cache["k"][i], cache["v"][i], pos)
+            x = a + x
+            x = ff(x) + x
+        return self.to_logits(self.final_norm(x))[:, 0], cache
+
+    def prefill(
+        self,
+        tokens: torch.Tensor,  # (b, n)
+        cache: dict[str, list[torch.Tensor]],
+    ) -> tuple[torch.Tensor, dict[str, list[torch.Tensor]]]:
+        """One causal pass over the prompt, filling cache positions
+        ``[0, n)`` in place.  Returns ``(last_logits (b, vocab), cache)``."""
+        x = self.embed(tokens.to(self._device()))
+        for i, (attn, ff) in enumerate(zip(self.attn_layers, self.ff_layers)):
+            a, _, _ = attn.prefill(x, cache["k"][i], cache["v"][i])
+            x = a + x
+            x = ff(x) + x
+        return self.to_logits(self.final_norm(x))[:, -1], cache
+
+    @torch.inference_mode()
+    def generate(
+        self,
+        prompt: torch.Tensor,  # (b, n)
+        max_len: int,
+        num_steps: int,
+        *,
+        temperature: float = 0.0,
+        top_k: int | None = None,
+        top_p: float | None = None,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
+        """One prefill pass over the prompt, then ``num_steps - 1`` decode
+        steps.  Returns the ``(b, num_steps)`` new tokens.
+
+        ``temperature == 0.0`` (default) is greedy argmax; otherwise
+        categorical sampling at that temperature, truncated to the ``top_k``
+        most probable tokens and/or the ``top_p`` nucleus, drawn from
+        ``generator`` (which must then be given, on the model's device)."""
+        b, n = prompt.shape
+        if n < 1 or num_steps < 1:
+            raise ValueError("generate: needs a non-empty prompt and num_steps >= 1")
+        if n + num_steps - 1 > max_len:
+            raise ValueError(
+                f"generate: cache of {max_len} too small for a prompt of {n} "
+                f"and {num_steps} steps"
+            )
+        if temperature > 0.0 and generator is None:
+            raise ValueError("generate: temperature > 0 needs a torch.Generator")
+        if temperature <= 0.0 and (top_k is not None or top_p is not None):
+            raise ValueError(
+                "generate: top_k/top_p need temperature > 0 (greedy mode "
+                "would silently ignore them)"
+            )
+        if top_p is not None and not 0.0 < top_p <= 1.0:
+            raise ValueError(f"generate: top_p must be in (0, 1], got {top_p}")
+
+        cache = self.init_cache(b, max_len)
+        logits, cache = self.prefill(prompt, cache)
+        tok = _sample(logits, temperature, top_k, top_p, generator)
+        out = [tok]
+        for pos in range(n, n + num_steps - 1):
+            logits, cache = self.decode_step(tok, cache, pos)
+            tok = _sample(logits, temperature, top_k, top_p, generator)
+            out.append(tok)
+        return torch.stack(out, dim=1)

@@ -1,0 +1,89 @@
+"""Build the package's CUDA sources with ``nvcc`` and bind them with ctypes.
+
+Each source under ``csrc/`` compiles, at first use, into a shared library
+with a plain C interface for ``sm_90a`` (Hopper).  The library lands in the
+package's ``build/`` directory (ignored by git) under a name that carries a
+hash of the source, so an edited source never reuses a stale library.
+Nothing here runs at import time: this module imports on machines without
+``nvcc`` or a GPU, where only the kernels' plain versions run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "build"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+
+
+@dataclass(frozen=True)
+class BuildResult:
+    path: Path
+    seconds: float  # 0.0 when an up-to-date library was already on disk
+    log: str  # nvcc/ptxas output (registers, shared memory, spills)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.is_file():
+        return str(default)
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels build with the CUDA toolkit's nvcc "
+        "(on PATH or under /usr/local/cuda/bin)"
+    )
+
+
+def build(name: str) -> BuildResult:
+    """Compile ``csrc/<name>.cu`` into ``build/<name>-<hash>.so``.
+
+    Raises ``RuntimeError`` with nvcc's output when the compile fails."""
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    lib = BUILD_DIR / f"{name}-{digest}.so"
+    if lib.is_file():
+        return BuildResult(lib, 0.0, "")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [
+        _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+        "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+        "-o", str(tmp), str(src),
+    ]
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - start
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {src.name}:\n{log}")
+    os.replace(tmp, lib)  # atomic: a concurrent reader never sees half a file
+    return BuildResult(lib, seconds, log)
+
+
+@functools.cache
+def flash_fwd_library() -> ctypes.CDLL:
+    """The built ``flash_fwd`` library with its C signature declared."""
+    lib = ctypes.CDLL(str(build("flash_fwd").path))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_fwd.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,  # q, k, v, kv_mask, out, lse
+        i32, i32, i32, i32, i32, i32,  # B, H, Hk, Nq, Nk, D
+        i32, f32,  # is_bf16, scale
+        i32, i32, i32, i32,  # causal, hi, windowed, lo
+        f32, ptr,  # softclamp, stream
+    ]
+    lib.flash_fwd.restype = i32
+    return lib

@@ -1,0 +1,219 @@
+"""Blockwise (flash) attention forward with an exposed online-softmax carry.
+
+Port of the forward half of ``ring_attention_tpu/ops/flash.py`` (the XLA
+blockwise path, not a kernel).  ``attend_blocks`` folds one KV span into a
+running ``(acc, m, l)`` carry bucket by bucket; ``finalize`` normalizes it;
+``flash_attention`` is the single-device entry point.  The model's
+``impl="torch"`` path and every ``prefill`` attend through it, as the JAX
+package's do.
+
+Masking is one band of index offsets: local tile element ``(i, j)`` attends
+iff ``window_lo <= j - i <= causal_offset`` (the lower bound only with a
+lookback window), combined with an optional ``(b, nk)`` key mask.  Masked
+scores take the finite ``MASK_VALUE``.  All softmax state is float32.
+
+The backward (``flash_backward_blocks`` and the custom gradient) arrives
+with the training slice; autograd through these plain ops works meanwhile.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .attention import EPSILON, MASK_VALUE, softclamp
+from ..utils.validate import check_attention_args
+
+
+class FlashCarry(NamedTuple):
+    """Running online-softmax state.
+
+    acc: (b, hk, g, nq, d) float32 — unnormalized output accumulator
+    m:   (b, hk, g, nq)    float32 — running row max
+    l:   (b, hk, g, nq)    float32 — running row sum of exp(s - m)
+    """
+
+    acc: torch.Tensor
+    m: torch.Tensor
+    l: torch.Tensor
+
+
+def init_carry(
+    b: int, hk: int, g: int, nq: int, d: int, device: torch.device | str = "cpu"
+) -> FlashCarry:
+    return FlashCarry(
+        acc=torch.zeros((b, hk, g, nq, d), dtype=torch.float32, device=device),
+        m=torch.full((b, hk, g, nq), MASK_VALUE, dtype=torch.float32, device=device),
+        l=torch.zeros((b, hk, g, nq), dtype=torch.float32, device=device),
+    )
+
+
+def _group_q(q: torch.Tensor, hk: int) -> torch.Tensor:
+    """(b, h, n, d) -> (b, hk, g, n, d) without repeating KV."""
+    b, h, n, d = q.shape
+    return q.reshape(b, hk, h // hk, n, d)
+
+
+def _ungroup(x: torch.Tensor) -> torch.Tensor:
+    b, hk, g, n, d = x.shape
+    return x.reshape(b, hk * g, n, d)
+
+
+def _tile_scores(
+    qg: torch.Tensor,  # (b, hk, g, nq, d)
+    k: torch.Tensor,  # (b, hk, bk, d)
+    scale: float,
+    softclamp_value: float | None,
+) -> torch.Tensor:
+    s = torch.einsum("bhgid,bhjd->bhgij", qg.float(), k.float()) * scale
+    if softclamp_value is not None:
+        s = softclamp(s, softclamp_value)
+    return s
+
+
+def _tile_mask(
+    nq: int,
+    bk: int,
+    j0: int,
+    offset: int | None,
+    window_lo: int | None,
+    kv_mask_tile: torch.Tensor | None,
+    device: torch.device,
+) -> torch.Tensor | None:
+    """Boolean (…, nq, bk) tile mask (True = attend), or None if unmasked.
+
+    ``j0`` is the first local column of this KV tile; rows are the full
+    local query range ``[0, nq)``."""
+    masks = []
+    if offset is not None:
+        i = torch.arange(nq, device=device)[:, None]
+        j = j0 + torch.arange(bk, device=device)[None, :]
+        band = j <= i + offset
+        if window_lo is not None:
+            band = band & (j >= i + window_lo)
+        masks.append(band)
+    if kv_mask_tile is not None:
+        masks.append(kv_mask_tile[:, None, None, None, :])  # (b, 1, 1, 1, bk)
+    if not masks:
+        return None
+    out = masks[0]
+    for m in masks[1:]:
+        out = out & m
+    return out
+
+
+def _online_update(carry: FlashCarry, s: torch.Tensor, v: torch.Tensor) -> FlashCarry:
+    """Fold one score tile ``s: (b,hk,g,nq,bk)`` and values ``v: (b,hk,bk,d)``."""
+    acc, m, l = carry
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    # while a row has seen only masked scores, m_new is the sentinel and
+    # exp(s - m) = 1: the masked keys average uniformly until a real score
+    # arrives, whose rescale exp(sentinel - real) = 0 then wipes them
+    p = torch.exp(s - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    l_new = l * alpha + p.sum(dim=-1)
+    acc_new = acc * alpha[..., None] + torch.einsum("bhgij,bhjd->bhgid", p, v.float())
+    return FlashCarry(acc_new, m_new, l_new)
+
+
+def attend_blocks(
+    q: torch.Tensor,  # (b, h, nq, d)
+    k: torch.Tensor,  # (b, hk, nk, d)
+    v: torch.Tensor,  # (b, hk, nk, d)
+    carry: FlashCarry,
+    *,
+    scale: float,
+    bucket_size: int | None = None,
+    causal_offset: int | None = None,
+    window_lo: int | None = None,
+    kv_mask: torch.Tensor | None = None,  # (b, nk) True = attend
+    softclamp_value: float | None = None,
+) -> FlashCarry:
+    """Fold one KV span into the running carry, bucket by bucket.
+
+    ``window_lo`` is the band's absolute lower offset (attend iff
+    ``window_lo <= j - i <= causal_offset``); for a contiguous layout with a
+    token window ``w`` it is ``causal_offset - (w - 1)``."""
+    b, h, nq, d = q.shape
+    _, hk, nk, _ = k.shape
+    qg = _group_q(q, hk)
+    bk = nk if bucket_size is None or bucket_size >= nk else bucket_size
+    if nk % bk:
+        raise ValueError(f"kv length {nk} must divide into buckets of {bk}")
+    for j0 in range(0, nk, bk):
+        s = _tile_scores(qg, k[:, :, j0:j0 + bk], scale, softclamp_value)
+        mask = _tile_mask(
+            nq, bk, j0, causal_offset, window_lo,
+            None if kv_mask is None else kv_mask[:, j0:j0 + bk], q.device,
+        )
+        if mask is not None:
+            s = torch.where(mask, s, MASK_VALUE)
+        carry = _online_update(carry, s, v[:, :, j0:j0 + bk])
+    return carry
+
+
+def finalize(carry: FlashCarry) -> tuple[torch.Tensor, torch.Tensor]:
+    """Normalize the carry: ``out (b,hk,g,nq,d)`` f32 and ``lse (b,hk,g,nq)``."""
+    acc, m, l = carry
+    l_safe = torch.clamp(l, min=EPSILON)
+    return acc / l_safe[..., None], m + torch.log(l_safe)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: torch.Tensor | None = None,
+    *,
+    causal: bool = False,
+    bucket_size: int | None = None,
+    window: int | None = None,
+    softclamp_value: float | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Single-device exact flash attention (GQA-aware), forward.
+
+    Matches ``default_attention``; score memory scales with ``bucket_size``
+    instead of ``nk``.  Any KV length is accepted: a length that is not a
+    multiple of ``bucket_size`` is padded with masked-out slots.  The causal
+    band is end-aligned (``offset = nk - nq``), so decode-style ``nq < nk``
+    calls match the oracle.  ``window`` (causal only) keeps the last
+    ``window`` keys of each query, its own included."""
+    check_attention_args("flash_attention", q, k, v, mask)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if window is not None and not causal:
+        raise ValueError("flash_attention: lookback windows require causal attention")
+    if causal:
+        mask = None  # causal and a key-padding mask are exclusive
+    causal_offset = k.shape[2] - q.shape[2] if causal else None
+    # computed from the real nk: pad keys sit at j >= nk > i + offset
+    window_lo = causal_offset - (window - 1) if window is not None else None
+    k, v, mask = _pad_kv_to_bucket(q, k, v, mask, bucket_size)
+
+    b, h, nq, d = q.shape
+    hk = k.shape[1]
+    carry = init_carry(b, hk, h // hk, nq, d, device=q.device)
+    carry = attend_blocks(
+        q, k, v, carry,
+        scale=scale, bucket_size=bucket_size, causal_offset=causal_offset,
+        window_lo=window_lo, kv_mask=mask, softclamp_value=softclamp_value,
+    )
+    out, _ = finalize(carry)
+    return _ungroup(out).to(q.dtype)
+
+
+def _pad_kv_to_bucket(q, k, v, mask, bucket_size):
+    nk = k.shape[2]
+    if bucket_size is None or nk % bucket_size == 0:
+        return k, v, mask
+    pad = bucket_size - nk % bucket_size
+    k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+    v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    if mask is None:
+        mask = torch.arange(nk + pad, device=k.device)[None, :] < nk
+        mask = mask.expand(q.shape[0], nk + pad)
+    else:
+        mask = torch.nn.functional.pad(mask, (0, pad), value=False)
+    return k, v, mask

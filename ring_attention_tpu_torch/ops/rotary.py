@@ -1,0 +1,31 @@
+"""Rotary position embeddings (NeoX-style half rotation).
+
+Port of ``ring_attention_tpu/ops/rotary.py:67-83``.  Positions are explicit,
+so the single-device model passes ``arange(n)`` (or the decode position);
+the ring and hybrid position helpers arrive with the ring slice.  Rotary
+math runs in float32 and casts back to the input dtype.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def rotary_freqs(positions: torch.Tensor, dim: int, theta: float = 10000.0) -> torch.Tensor:
+    """Angles ``(n, dim)`` for the positions ``(n,)``."""
+    exponent = torch.arange(0, dim, 2, dtype=torch.float32, device=positions.device) / dim
+    inv_freq = 1.0 / (theta**exponent)
+    freqs = positions.to(torch.float32)[:, None] * inv_freq[None, :]
+    return torch.cat([freqs, freqs], dim=-1)
+
+
+def rotate_half(x: torch.Tensor) -> torch.Tensor:
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([-x2, x1], dim=-1)
+
+
+def apply_rotary(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
+    """Apply rotary embedding.  ``x: (..., n, d)``, ``freqs: (n, d)``."""
+    xf = x.to(torch.float32)
+    out = xf * torch.cos(freqs) + rotate_half(xf) * torch.sin(freqs)
+    return out.to(x.dtype)

@@ -1,0 +1,90 @@
+"""Hygiene of the torch port: it stands alone and never quietly falls back.
+
+- An AST scan of every module of ``ring_attention_tpu_torch`` and of
+  ``chip_smoke.py`` finds no import of ``jax``, ``flax`` or
+  ``ring_attention_tpu``.  (A ``sys.modules`` check could not tell: the
+  test process imports JAX for the parity tests.)
+- Building a model with the default device raises when there is no CUDA
+  device, instead of carrying on on the CPU.
+- Every feature this slice leaves out raises ``NotImplementedError``
+  naming the ROADMAP item that brings it.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+import ring_attention_tpu_torch
+from ring_attention_tpu_torch import RingAttention, RingTransformer
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = Path(ring_attention_tpu_torch.__file__).resolve().parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "ring_attention_tpu")
+SMALL = dict(num_tokens=16, dim=32, depth=1, heads=2, dim_head=16, causal=True)
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def _port_sources():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize(
+    "path", _port_sources(), ids=lambda p: str(p.relative_to(REPO))
+)
+def test_port_imports_no_jax(path):
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_default_device_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RingTransformer(**SMALL)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RingAttention(32, heads=2, dim_head=16)
+    assert RingTransformer(**SMALL, device="cpu").embed.weight.device.type == "cpu"
+
+
+# test ids must be the same in every pytest-xdist worker: plain strings,
+# never an object's repr (which carries its address)
+UNPORTED_SETTINGS = {
+    "mesh": dict(mesh="a mesh"),
+    "mask": dict(mask="a mask expression"),
+    "quantize_cache": dict(quantize_cache=True),
+    "compute_dtype": dict(compute_dtype="int8"),
+    "windowed_cache": dict(windowed_cache=True),
+    "ff_chunk_size": dict(ff_chunk_size=64),
+    "loss_chunk_size": dict(loss_chunk_size=64),
+    "remat": dict(remat=True),
+    "impl_fused": dict(impl="fused"),
+    "impl_auto": dict(impl="auto"),
+}
+
+
+@pytest.mark.parametrize("name", list(UNPORTED_SETTINGS))
+def test_unported_features_raise(name):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item"):
+        RingTransformer(**SMALL, device="cpu", **UNPORTED_SETTINGS[name])
+
+
+def test_segment_ids_raise():
+    model = RingTransformer(**SMALL, device="cpu")
+    tokens = torch.zeros((1, 8), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item"):
+        model(tokens, segment_ids=tokens)
+
+
+def test_unknown_impl_is_a_value_error():
+    with pytest.raises(ValueError, match="impl must be one of"):
+        RingTransformer(**SMALL, device="cpu", impl="pallas")
