@@ -12,23 +12,37 @@ result line):
 1. The card's name and power limit; every CUDA kernel of the package is
    built from ``csrc/`` (one nvcc per source, all started together).
 2. Each kernel against its plain PyTorch version on the card, in bf16 and
-   f32, at the shapes of the serving path and of the cases its port must
-   cover (causal, offset, window, softclamp, key mask with an all-False
-   row, GQA, folded-row decode).
+   f32, at the shapes of its path and of the cases its port must cover
+   (causal, offset, band-empty rows, window, softclamp, key mask with an
+   all-False row, GQA):
+   2. the forward (and folded-row decode) kernel;
+   2b. the dk/dv and dq backward kernels, also on the 65,536-token causal
+       backward in 1,024-row and 1,024-key slices.
 3. The serving path through the entry points a user calls: RingTransformer
    at the full width of the repository's benchmark model (vocab 256,
    dim 512, 8 heads of 64, depth 2, ff_mult 4, rotary, causal, bf16) with
    weights from a seeded generator: logits for one 65,536-token request,
    then ``generate`` for 4 requests of 2,048-token prompts (128 new tokens,
-   max_len 4096, greedy).  Every launch counter is set to 0 just before
-   each run and read just after; a kernel that never launched fails the
-   run.  A float32 copy of the model (seq 256) on the card is held to the
-   same weights on the CPU, forward and decode.
+   max_len 4096, greedy).  A float32 copy of the model (seq 256) on the
+   card is held to the same weights on the CPU, forward and decode.
+3b. The training path: the same model takes 4 ``make_train_step`` steps
+   with ``torch.optim.Adam(lr=1e-3)`` on one batch of 65,536 tokens (65,537
+   ids); every loss must be finite, the last below the first, and each
+   step must launch each of the three kernels exactly twice (once per
+   layer).  A float32 copy (seq 256) computes one step's gradients on the
+   card and on the CPU, which must agree.
+   In phases 3 and 3b every launch counter is set to 0 just before each
+   run and read just after; a kernel that never launched fails the run.
 4. Timings with CUDA events (median of 10 runs after warm-up): each kernel
    beside its bound (the larger of its bytes over 3.35 TB/s and its
    operations over the peak rate of their type), its plain version and
    one PyTorch library call computing the same function (a yardstick the
    package never calls); the model's forward tokens/s and decode ms/step.
+4b. The same for the backward kernels (the library call is the backward
+   of ``scaled_dot_product_attention``), and the train step: ms per step
+   (host clock around a synchronized step, median after warm-up), tokens/s,
+   peak device memory, and the step split into forward, backward and
+   optimizer.
 5. The kernels line, one JSON object.
 6. The last line: ``{"ok": true, "device": {...}}``.
 
@@ -41,6 +55,7 @@ from __future__ import annotations
 import concurrent.futures
 import copy
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -56,14 +71,37 @@ PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 # rounds p to bf16 for the PV product; f32 differs by summation order only.
 OUT_TOL = {"torch.bfloat16": (2e-2, 1e-2), "torch.float32": (1e-4, 0.0)}
 LSE_TOL = {"torch.bfloat16": (1e-3, 0.0), "torch.float32": (1e-4, 0.0)}
+# Phase-2b tolerances, ||kernel - plain|| / ||plain|| per gradient: the plain
+# version stays in f32 where the bf16 kernels round p and ds to bf16 (a
+# relative 2^-9 each) before their products, and dk/dv sum up to 65,536
+# such terms; f32 differs by summation order and exp2 rounding only.
+BWD_REL_TOL = {"torch.bfloat16": 1e-2, "torch.float32": 1e-5}
 # Phase-3 f32 card-vs-CPU logits: two layers of f32 matmuls (k up to 2048)
 # and attention summed in another order on each side.
 MODEL_ATOL = 1e-3
+# Phase-3b f32 card-vs-CPU gradients, ||card - cpu|| / ||cpu|| per parameter:
+# the same f32 sums in another order through two layers and back.
+GRAD_REL_TOL = 1e-4
+TRAIN_STEPS = 4
 
 BENCH_MODEL = dict(num_tokens=256, dim=512, depth=2, causal=True, heads=8,
                    dim_head=64, bucket_size=2048, rotary=True, ff_mult=4)
 SEED = 0
-KERNEL_SOURCES = ("flash_fwd",)
+KERNEL_SOURCES = ("flash_fwd", "flash_bwd")
+
+# The kernels' cases on the card, forward and backward alike:
+# name: (b, h, hk, nq, nk, causal_offset, window_lo, softclamp, masked)
+KERNEL_CASES = {
+    "causal (1,8,4096,64)": (1, 8, 8, 4096, 4096, 0, None, None, False),
+    "causal offset nq1024 nk4096": (1, 8, 8, 1024, 4096, 3072, None, None, False),
+    # rows 0..1023 have no key in their band: the forward averages all of V
+    # there, the backward gives them no gradient (as the TPU kernels do)
+    "causal nq2048 > nk1024": (1, 8, 8, 2048, 1024, -1024, None, None, False),
+    "window 1024": (1, 8, 8, 4096, 4096, 0, -1023, None, False),
+    "softclamp 50": (1, 8, 8, 4096, 4096, 0, None, 50.0, False),
+    "kv_mask, one all-False row": (2, 8, 8, 2048, 2048, None, None, None, True),
+    "GQA h32 hk4 (1,32,2048,64)": (1, 32, 4, 2048, 2048, 0, None, None, False),
+}
 
 
 def log(*parts) -> None:
@@ -143,6 +181,22 @@ def _rand(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
 
 
+def _case_inputs(gen, case, dtype):
+    """q, k, v, the key mask (its last row all False) and the band of a case."""
+    import torch
+
+    b, h, hk, nq, nk, hi, lo, clamp, masked = case
+    q = _rand(gen, (b, h, nq, 64), dtype)
+    k = _rand(gen, (b, hk, nk, 64), dtype)
+    v = _rand(gen, (b, hk, nk, 64), dtype)
+    mask = None
+    if masked:
+        mask = torch.rand((b, nk), generator=gen, device="cuda") > 0.3
+        mask[-1] = False
+    kw = dict(scale=0.125, causal_offset=hi, window_lo=lo, softclamp_value=clamp)
+    return q, k, v, mask, kw
+
+
 def _compare(name, dtype, out, ref_out, lse, ref_lse, errors):
     import torch
 
@@ -170,26 +224,8 @@ def phase_kernel_vs_plain() -> float:
     errors: list[float] = []
     log("phase 2: flash_fwd kernel vs flash_fwd_reference on the card")
     for dtype in (torch.bfloat16, torch.float32):
-        # name: (b, h, hk, nq, nk, causal_offset, window_lo, softclamp, masked)
-        cases = {
-            "causal (1,8,4096,64)": (1, 8, 8, 4096, 4096, 0, None, None, False),
-            "causal offset nq1024 nk4096": (1, 8, 8, 1024, 4096, 3072, None, None, False),
-            # rows 0..1023 have no key in their band: they average all of V
-            "causal nq2048 > nk1024": (1, 8, 8, 2048, 1024, -1024, None, None, False),
-            "window 1024": (1, 8, 8, 4096, 4096, 0, -1023, None, False),
-            "softclamp 50": (1, 8, 8, 4096, 4096, 0, None, 50.0, False),
-            "kv_mask, one all-False row": (2, 8, 8, 2048, 2048, None, None, None, True),
-            "GQA h32 hk4 (1,32,2048,64)": (1, 32, 4, 2048, 2048, 0, None, None, False),
-        }
-        for name, (b, h, hk, nq, nk, hi, lo, clamp, masked) in cases.items():
-            q = _rand(gen, (b, h, nq, 64), dtype)
-            k = _rand(gen, (b, hk, nk, 64), dtype)
-            v = _rand(gen, (b, hk, nk, 64), dtype)
-            mask = None
-            if masked:
-                mask = torch.rand((b, nk), generator=gen, device="cuda") > 0.3
-                mask[-1] = False
-            kw = dict(scale=0.125, causal_offset=hi, window_lo=lo, softclamp_value=clamp)
+        for name, case in KERNEL_CASES.items():
+            q, k, v, mask, kw = _case_inputs(gen, case, dtype)
             out, lse = cf.flash_fwd(q, k, v, mask, **kw)
             torch.cuda.synchronize()
             ref_out, ref_lse = cf.flash_fwd_reference(q, k, v, mask, **kw)
@@ -230,6 +266,87 @@ def phase_kernel_vs_plain() -> float:
                  ref_lse, errors)
     torch.cuda.synchronize()
     return max(errors)
+
+
+def _compare_bwd(name, dtype, got, ref, errors) -> None:
+    """Norm-relative and max-abs error of each of (dq, dk, dv)."""
+    import torch
+
+    tol = BWD_REL_TOL[str(dtype)]
+    parts = []
+    ok = True
+    for label, x, r in zip(("dq", "dk", "dv"), got, ref):
+        if x is None:
+            continue
+        check(bool(torch.isfinite(x).all()), f"{name} {dtype}: non-finite {label}")
+        diff = x.float() - r.float()
+        rel = (diff.norm() / r.float().norm().clamp_min(1e-30)).item()
+        abs_err = diff.abs().max().item()
+        errors.setdefault(label, []).append(abs_err)
+        ok = ok and rel <= tol
+        parts.append(f"{label} rel {rel:.2e} max|d| {abs_err:.2e}")
+    log(f"  {name:<32} {str(dtype):<15} " + ", ".join(parts)
+        + f" (tol rel {tol})  {'ok' if ok else 'FAIL'}")
+    check(ok, f"{name} {dtype}: backward kernels disagree with plain")
+
+
+def phase_bwd_kernel_vs_plain() -> dict:
+    """Both backward kernels against ``flash_bwd_reference`` on the
+    forward's cases and on the 65,536-token causal backward; returns the
+    largest |kernel - plain| of each gradient."""
+    import torch
+
+    from ring_attention_tpu_torch.ops import cuda_flash as cf
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    errors: dict[str, list[float]] = {}
+    log("phase 2b: flash_bwd_dkv and flash_bwd_dq kernels vs flash_bwd_reference")
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, case in KERNEL_CASES.items():
+            q, k, v, mask, kw = _case_inputs(gen, case, dtype)
+            do = _rand(gen, q.shape, dtype)
+            out, lse = cf.flash_fwd(q, k, v, mask, **kw)
+            delta = (do.float() * out.float()).sum(-1)
+            dk, dv = cf.flash_bwd_dkv(do, q, k, v, lse, delta, mask, **kw)
+            dq = cf.flash_bwd_dq(do, q, k, v, lse, delta, mask, **kw)
+            torch.cuda.synchronize()
+            ref = cf.flash_bwd_reference(do, q, k, v, lse, delta, mask, **kw)
+            _compare_bwd(name, dtype, (dq, dk, dv), ref, errors)
+            del ref
+            torch.cuda.synchronize()
+
+    # the training path's own shape, held in slices: the plain version takes
+    # lse and delta as inputs, so a block of query rows (dq) or of keys
+    # (dk, dv) is checked with the band shifted to the slice
+    n, w = 65536, 1024
+    q, k, v, do = (_rand(gen, (1, 8, n, 64), torch.bfloat16) for _ in range(4))
+    kw = dict(scale=0.125, causal_offset=0)
+    out, lse = cf.flash_fwd(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1)
+    dk, dv = cf.flash_bwd_dkv(do, q, k, v, lse, delta, **kw)
+    dq = cf.flash_bwd_dq(do, q, k, v, lse, delta, **kw)
+    torch.cuda.synchronize()
+    for r0 in (0, n // 2, n - w):
+        rows = slice(r0, r0 + w)
+        ref = cf.flash_bwd_reference(
+            do[:, :, rows].contiguous(), q[:, :, rows].contiguous(), k, v,
+            lse[:, :, rows].contiguous(), delta[:, :, rows].contiguous(),
+            scale=0.125, causal_offset=r0,
+        )
+        _compare_bwd(f"causal 65536 dq rows {r0}+", torch.bfloat16,
+                     (dq[:, :, rows], None, None), ref, errors)
+        del ref
+    for c0 in (0, n // 2, n - w):
+        keys = slice(c0, c0 + w)
+        ref = cf.flash_bwd_reference(
+            do, q, k[:, :, keys].contiguous(), v[:, :, keys].contiguous(), lse,
+            delta, scale=0.125, causal_offset=-c0,
+        )
+        _compare_bwd(f"causal 65536 dk/dv keys {c0}+", torch.bfloat16,
+                     (None, dk[:, :, keys], dv[:, :, keys]), ref, errors)
+        del ref
+    torch.cuda.synchronize()
+    return {label: max(errs) for label, errs in errors.items()}
 
 
 def _model(dtype, device):
@@ -309,6 +426,70 @@ def _hold_f32_model_to_cpu() -> None:
     check(max(errs) <= MODEL_ATOL, "f32 model on the card disagrees with the CPU")
 
 
+def phase_training_path() -> dict:
+    """The training path at full width; returns launch counts, losses and
+    what phase 4b times."""
+    import torch
+
+    from ring_attention_tpu_torch import make_train_step
+    from ring_attention_tpu_torch.ops import cuda_flash as cf
+
+    log(f"phase 3b: training path, bench model at full width, bf16, "
+        f"Adam(lr=1e-3), {TRAIN_STEPS} steps of 1 x 65536 tokens")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    model = _model(torch.bfloat16, "cuda").train()
+    tokens = torch.randint(0, BENCH_MODEL["num_tokens"], (1, 65537),
+                           generator=gen, device="cuda")
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    step = make_train_step(lambda t: model(t, return_loss=True), opt)
+    losses, launches = [], {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+    for i in range(TRAIN_STEPS):
+        cf.launch_count = cf.dkv_launch_count = cf.dq_launch_count = 0
+        start = time.perf_counter()
+        loss = float(step(tokens))
+        seconds = time.perf_counter() - start
+        counts = {"flash_fwd": cf.launch_count, "flash_bwd_dkv": cf.dkv_launch_count,
+                  "flash_bwd_dq": cf.dq_launch_count}
+        log(f"  step {i}: loss {loss:.6f}, {seconds:.3f} s, launches {counts}")
+        check(counts == {name: 2 for name in counts},
+              f"step {i} launched {counts}, expected 2 of each kernel")
+        check(math.isfinite(loss), f"step {i}: loss {loss}")
+        losses.append(loss)
+        for name, n in counts.items():
+            launches[name] += n
+    check(losses[-1] < losses[0], f"loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    _hold_f32_grads_to_cpu()
+    return {"launches": launches, "losses": losses, "model": model, "opt": opt,
+            "step": step, "tokens": tokens}
+
+
+def _hold_f32_grads_to_cpu() -> None:
+    """One step's gradients of a float32 copy of the model at seq 256, on
+    the card (the f32 kernels) and on the CPU (the plain versions)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gpu = _model(None, "cuda")
+    cpu = copy.deepcopy(gpu).to("cpu")
+    gen = torch.Generator().manual_seed(SEED + 6)
+    tokens = torch.randint(0, BENCH_MODEL["num_tokens"], (2, 257), generator=gen)
+    losses = []
+    for m, t in ((gpu, tokens.cuda()), (cpu, tokens)):
+        loss = m(t, return_loss=True)
+        loss.backward()
+        losses.append(loss.item())
+    worst, worst_name = 0.0, ""
+    for (name, pg), pc in zip(gpu.named_parameters(), cpu.parameters()):
+        rel = ((pg.grad.cpu() - pc.grad).norm() / pc.grad.norm()).item()
+        if rel >= worst:
+            worst, worst_name = rel, name
+    log(f"  f32 model seq 256, card vs CPU: loss {losses[0]:.7f} vs {losses[1]:.7f}, "
+        f"worst gradient ||card - cpu|| / ||cpu|| {worst:.3e} ({worst_name}) "
+        f"(tol {GRAD_REL_TOL})")
+    check(worst <= GRAD_REL_TOL, "f32 gradients on the card disagree with the CPU")
+
+
 def _causal_timing(name, n, with_plain):
     import torch
     import torch.nn.functional as F
@@ -372,6 +553,93 @@ def _decode_timing(name, h, hk, nk):
     return row
 
 
+def _bwd_timings(n, iters, with_plain) -> dict[str, dict]:
+    """Both backward kernels on the causal (1, 8, n, 64) bf16 backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from ring_attention_tpu_torch.ops import cuda_flash as cf
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    q, k, v, do = (_rand(gen, (1, 8, n, 64), torch.bfloat16) for _ in range(4))
+    kw = dict(scale=0.125, causal_offset=0)
+    out, lse = cf.flash_fwd(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (do, q, k, v, lse, delta)
+    pairs = 8 * band_pairs(n, n, 0, None)  # in-band (query, key) pairs, 8 heads
+    # the plain version and the library call compute all three gradients
+    plain_ms = (time_ms(lambda: cf.flash_bwd_reference(*args, **kw), iters=iters)
+                if with_plain else None)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    ref_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        ref_out, (qg, kg, vg), do, retain_graph=True), iters=iters)
+    f32_grad = 4 * n * 64 * 8  # one (1, 8, n, 64) float32 gradient, bytes
+    rows = {}
+    for name, fn, products, out_bytes in (
+        ("flash_bwd_dkv", cf.flash_bwd_dkv, 4, 2 * f32_grad),
+        ("flash_bwd_dq", cf.flash_bwd_dq, 3, f32_grad),
+    ):
+        ops = 2 * products * 64 * pairs
+        b_ms, b_by = bound_ms(ops, nbytes(*args) + out_bytes, torch.bfloat16)
+        ms = time_ms(lambda: fn(*args, **kw), iters=iters)
+        rows[name] = {"shape": f"causal (1,8,{n},64) bf16", "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": library_ms}
+        log(f"  {name} causal {n}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"plain (all three gradients) {plain_ms} ms, sdpa backward "
+            f"{library_ms:.4f} ms, {ops / ms / 1e9:.1f} TFLOP/s")
+    return rows
+
+
+def phase_train_timings(training: dict) -> dict[str, list[dict]]:
+    """Phase 4b; returns each backward kernel's rows by shape."""
+    import torch
+
+    log("phase 4b: backward kernels and the train step")
+    rows: dict[str, list[dict]] = {"flash_bwd_dkv": [], "flash_bwd_dq": []}
+    for n, iters, with_plain in ((4096, 10, True), (65536, 10, False),
+                                 (262144, 3, False)):
+        for name, row in _bwd_timings(n, iters, with_plain).items():
+            rows[name].append(row)
+
+    model, opt, step, tokens = (training[k] for k in ("model", "opt", "step", "tokens"))
+    n = tokens.shape[1] - 1
+    for _ in range(2):  # warm-up
+        step(tokens)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s, fwd_s, bwd_s, opt_s = [], [], [], []
+    for _ in range(5):
+        start = time.perf_counter()
+        step(tokens)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - start)
+    peak = torch.cuda.max_memory_allocated()
+    for _ in range(3):  # the same work, split at its three stages
+        opt.zero_grad(set_to_none=True)
+        t0 = time.perf_counter()
+        loss = model(tokens, return_loss=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        opt.step()
+        torch.cuda.synchronize()
+        fwd_s.append(t1 - t0)
+        bwd_s.append(t2 - t1)
+        opt_s.append(time.perf_counter() - t2)
+    ms = statistics.median(step_s) * 1e3
+    log(f"  train step 1 x {n} tokens: {ms:.3f} ms (median of 5 after 2 warm-up; "
+        f"all {[round(x * 1e3, 3) for x in step_s]}), {n / ms * 1e3:.0f} tokens/s, "
+        f"peak device memory {peak / 2**30:.3f} GiB")
+    log(f"  step split: forward + loss {statistics.median(fwd_s) * 1e3:.3f} ms, "
+        f"backward {statistics.median(bwd_s) * 1e3:.3f} ms, "
+        f"optimizer {statistics.median(opt_s) * 1e3:.3f} ms (medians of 3)")
+    return rows
+
+
 def phase_timings(serving: dict) -> list[dict]:
     import torch
 
@@ -424,25 +692,38 @@ def main() -> int:
     start = time.perf_counter()
     phase_build(port_dir)
     max_err = phase_kernel_vs_plain()
+    bwd_err = phase_bwd_kernel_vs_plain()
     serving = phase_serving_path()
+    training = phase_training_path()
     rows = phase_timings(serving)
-    headline = rows[0]
-    kernels = [{
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "ring_attention_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "ring_attention_tpu/ops/pallas_flash.py:1174",
-        "launches": serving["launches"],
-        "max_abs_err": max_err,
-        "shape": headline["shape"],
-        "ms": headline["ms"],
-        "plain_ms": headline["plain_ms"],
-        "bound_ms": headline["bound_ms"],
-        "bound_by": headline["bound_by"],
-        "library_ms": headline["library_ms"],
-        "pass": True,
-        "per_shape": rows,
-    }]
+    bwd_rows = phase_train_timings(training)
+    entries = [
+        ("flash_fwd", "flash_fwd.cu", 1174,
+         serving["launches"] + training["launches"]["flash_fwd"], max_err, rows),
+        ("flash_bwd_dkv", "flash_bwd.cu", 2108, training["launches"]["flash_bwd_dkv"],
+         max(bwd_err["dk"], bwd_err["dv"]), bwd_rows["flash_bwd_dkv"]),
+        ("flash_bwd_dq", "flash_bwd.cu", 2186, training["launches"]["flash_bwd_dq"],
+         bwd_err["dq"], bwd_rows["flash_bwd_dq"]),
+    ]
+    kernels = []
+    for name, source, line, launches, err, per_shape in entries:
+        headline = per_shape[0]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"ring_attention_tpu_torch/csrc/{source}",
+            "replaces": f"ring_attention_tpu/ops/pallas_flash.py:{line}",
+            "launches": launches,
+            "max_abs_err": err,
+            "shape": headline["shape"],
+            "ms": headline["ms"],
+            "plain_ms": headline["plain_ms"],
+            "bound_ms": headline["bound_ms"],
+            "bound_by": headline["bound_by"],
+            "library_ms": headline["library_ms"],
+            "pass": True,
+            "per_shape": per_shape,
+        })
     log(f"total {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,10 @@
 """ring_attention_tpu_torch: the PyTorch/CUDA port of ring_attention_tpu.
 
-This slice ports the single-device serving path of ``RingTransformer``
-(forward logits, ``prefill``, KV-cache ``decode_step``, ``generate``) onto a
-hand-written CUDA flash-forward kernel for Hopper (``csrc/flash_fwd.cu``).
+The port covers the single-device serving path of ``RingTransformer``
+(forward logits, ``prefill``, KV-cache ``decode_step``, ``generate``) on a
+hand-written CUDA flash-forward kernel for Hopper (``csrc/flash_fwd.cu``)
+and its training path (``loss.backward()`` and ``make_train_step``) on the
+hand-written dk/dv and dq kernels (``csrc/flash_bwd.cu``).
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; on CPU tensors every kernel wrapper runs its plain
 PyTorch version.  The package imports torch only.
@@ -21,6 +23,11 @@ from .ops import (
     default_attention,
     finalize,
     flash_attention,
+    flash_backward_blocks,
+    flash_bwd,
+    flash_bwd_dkv,
+    flash_bwd_dq,
+    flash_bwd_reference,
     flash_fwd,
     flash_fwd_reference,
     init_carry,
@@ -28,7 +35,8 @@ from .ops import (
     rotate_half,
     softclamp,
 )
-from .weights import init_random_params, load_jax_params
+from .utils.train import StepStats, init_step_stats, make_train_step
+from .weights import export_jax_params, init_random_params, load_jax_params
 
 __all__ = [
     "EPSILON",
@@ -39,18 +47,27 @@ __all__ = [
     "RMSNorm",
     "RingAttention",
     "RingTransformer",
+    "StepStats",
     "apply_rotary",
     "attend_blocks",
     "cuda_flash_attention",
     "cuda_flash_decode",
     "default_attention",
+    "export_jax_params",
     "finalize",
     "flash_attention",
+    "flash_backward_blocks",
+    "flash_bwd",
+    "flash_bwd_dkv",
+    "flash_bwd_dq",
+    "flash_bwd_reference",
     "flash_fwd",
     "flash_fwd_reference",
     "init_carry",
     "init_random_params",
+    "init_step_stats",
     "load_jax_params",
+    "make_train_step",
     "rotary_freqs",
     "rotate_half",
     "softclamp",

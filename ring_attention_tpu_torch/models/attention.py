@@ -1,14 +1,15 @@
-"""RingAttention: the attention layer, single-device serving path.
+"""RingAttention: the attention layer, single-device serving and training.
 
 Port of ``ring_attention_tpu/models/attention.py`` on its local path: fused
 qkv projection after a prenorm, GQA heads, rotary, and the forward, prefill
 and KV-cache decode entry points.  The layer's kernel path is one field,
 ``impl``, the counterpart of the JAX ``RingAttention._kernel_impl``:
 
-- ``"cuda"`` (default; JAX ``"pallas"``): the hand-written CUDA flash kernel
-  (``ops/cuda_flash.py``) for the forward and for decode;
-- ``"torch"`` (JAX ``"xla"``): the blockwise PyTorch path (``ops/flash.py``)
-  for the forward and the dense oracle for decode.
+- ``"cuda"`` (default; JAX ``"pallas"``): the hand-written CUDA flash kernels
+  (``ops/cuda_flash.py``) for the forward, its backward and decode;
+- ``"torch"`` (JAX ``"xla"``): the blockwise PyTorch path (``ops/flash.py``,
+  with its custom gradient) for the forward and backward, and the dense
+  oracle for decode.
 
 ``prefill`` attends with ``ops/flash.py`` under either value, as the JAX
 package's does.  Sequence parallelism (``mesh``) and the other features not

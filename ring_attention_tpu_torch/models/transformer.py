@@ -1,10 +1,11 @@
-"""RingTransformer: causal LM on one device, the serving entry points.
+"""RingTransformer: causal LM on one device, serving and training.
 
 Port of ``ring_attention_tpu/models/transformer.py`` on one device: token
 embedding, ``depth`` x (RingAttention + FeedForward) residual blocks, final
 RMSNorm and logits, the dense cross-entropy loss with label shift and
-``ignore_index``, and incremental decoding (``init_cache`` / ``prefill`` /
-``decode_step`` / ``generate``).
+``ignore_index`` (differentiable into the float32 parameters; train with
+``utils/train.py::make_train_step``), and incremental decoding
+(``init_cache`` / ``prefill`` / ``decode_step`` / ``generate``).
 """
 
 from __future__ import annotations

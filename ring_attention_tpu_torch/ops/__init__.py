@@ -1,5 +1,5 @@
 """Attention ops: the dense oracle, rotary, the blockwise PyTorch flash path
-and the CUDA flash-forward kernel's host side."""
+and the host side of the CUDA flash kernels (forward, dk/dv, dq)."""
 
 from .attention import (
     EPSILON,
@@ -11,10 +11,21 @@ from .attention import (
 from .cuda_flash import (
     cuda_flash_attention,
     cuda_flash_decode,
+    flash_bwd,
+    flash_bwd_dkv,
+    flash_bwd_dq,
+    flash_bwd_reference,
     flash_fwd,
     flash_fwd_reference,
 )
-from .flash import FlashCarry, attend_blocks, finalize, flash_attention, init_carry
+from .flash import (
+    FlashCarry,
+    attend_blocks,
+    finalize,
+    flash_attention,
+    flash_backward_blocks,
+    init_carry,
+)
 from .rotary import apply_rotary, rotary_freqs, rotate_half
 
 __all__ = [
@@ -29,6 +40,11 @@ __all__ = [
     "default_attention",
     "finalize",
     "flash_attention",
+    "flash_backward_blocks",
+    "flash_bwd",
+    "flash_bwd_dkv",
+    "flash_bwd_dq",
+    "flash_bwd_reference",
     "flash_fwd",
     "flash_fwd_reference",
     "init_carry",

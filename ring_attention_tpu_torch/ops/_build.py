@@ -87,3 +87,22 @@ def flash_fwd_library() -> ctypes.CDLL:
     ]
     lib.flash_fwd.restype = i32
     return lib
+
+
+@functools.cache
+def flash_bwd_library() -> ctypes.CDLL:
+    """The built ``flash_bwd`` library with its two C signatures declared."""
+    lib = ctypes.CDLL(str(build("flash_bwd").path))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    inputs = [ptr] * 7  # q, k, v, do, lse, delta, kv_mask
+    shape = [
+        i32, i32, i32, i32, i32, i32,  # B, H, Hk, Nq, Nk, D
+        i32, f32,  # is_bf16, scale
+        i32, i32, i32, i32,  # causal, hi, windowed, lo
+        f32, ptr,  # softclamp, stream
+    ]
+    lib.flash_bwd_dkv.argtypes = inputs + [ptr, ptr] + shape  # dk, dv
+    lib.flash_bwd_dkv.restype = i32
+    lib.flash_bwd_dq.argtypes = inputs + [ptr] + shape  # dq
+    lib.flash_bwd_dq.restype = i32
+    return lib

@@ -1,18 +1,23 @@
-"""Forward flash attention on the hand-written CUDA kernel ``csrc/flash_fwd.cu``.
+"""Flash attention on the hand-written CUDA kernels ``csrc/flash_fwd.cu``
+and ``csrc/flash_bwd.cu``.
 
-Host side of the port of the TPU forward sweep
-``ring_attention_tpu/ops/pallas_flash.py::_flash_fwd_call`` in its fused mode
-(normalized output + lse):
+Host side of the ports of ``ring_attention_tpu/ops/pallas_flash.py``: the
+forward sweep ``_flash_fwd_call`` in its fused mode (normalized output +
+lse) and the two passes of ``pallas_flash_backward`` (dk/dv and dq):
 
-- ``flash_fwd`` is the kernel wrapper.  A CUDA tensor launches the kernel
-  (or raises); a CPU tensor runs ``flash_fwd_reference``, the plain version
-  of the same function.  Nothing else selects between the two.
-- ``cuda_flash_attention`` mirrors ``pallas_flash_attention`` (:2281).
+- ``flash_fwd`` and ``flash_bwd`` are the kernel wrappers.  A CUDA tensor
+  launches the kernels (or raises); a CPU tensor runs
+  ``flash_fwd_reference`` / ``flash_bwd_reference``, the plain versions of
+  the same functions.  Nothing else selects between the two.
+- ``cuda_flash_attention`` mirrors ``pallas_flash_attention`` (:2281) with
+  its custom gradient (``_pallas_flash_core``, :2213-2278): the forward
+  keeps ``(out, lse)`` and the backward runs both passes from them.
 - ``cuda_flash_decode`` mirrors ``pallas_flash_decode`` (:1340): the GQA
   group folds onto query rows so each cache byte is read once per kv head.
 
-``launch_count`` counts kernel launches (plain-version calls do not count),
-so a run can show that its main path went through the kernel.
+``launch_count`` (forward), ``dkv_launch_count`` and ``dq_launch_count``
+count kernel launches (plain-version calls do not count), so a run can
+show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -27,8 +32,25 @@ from ..utils.validate import check_attention_args
 SUPPORTED_HEAD_DIMS = (64,)
 SUPPORTED_DTYPES = (torch.bfloat16, torch.float32)
 
-# Kernel launches since the last reset; the caller may set it to 0.
-launch_count = 0
+# Kernel launches since the last reset; the caller may set them to 0.
+launch_count = 0  # flash_fwd
+dkv_launch_count = 0  # flash_bwd_dkv
+dq_launch_count = 0  # flash_bwd_dq
+
+
+def _keep(nq, nk, kv_mask, causal_offset, window_lo, device) -> torch.Tensor:
+    """Boolean ``(b|1, 1, 1, nq, nk)`` keep mask of the band and key mask."""
+    keep = torch.ones((nq, nk), dtype=torch.bool, device=device)
+    if causal_offset is not None:
+        off = (torch.arange(nk, device=device)[None, :]
+               - torch.arange(nq, device=device)[:, None])
+        keep = off <= causal_offset
+        if window_lo is not None:
+            keep = keep & (off >= window_lo)
+    keep = keep[None, None, None]
+    if kv_mask is not None:
+        keep = keep & kv_mask[:, None, None, None, :]
+    return keep
 
 
 def flash_fwd_reference(
@@ -53,16 +75,7 @@ def flash_fwd_reference(
     s = torch.einsum("bhgid,bhjd->bhgij", qg, k.float()) * scale
     if softclamp_value is not None:
         s = softclamp(s, softclamp_value)
-    keep = torch.ones((nq, nk), dtype=torch.bool, device=q.device)
-    if causal_offset is not None:
-        off = (torch.arange(nk, device=q.device)[None, :]
-               - torch.arange(nq, device=q.device)[:, None])
-        keep = off <= causal_offset
-        if window_lo is not None:
-            keep = keep & (off >= window_lo)
-    keep = keep[None, None, None]
-    if kv_mask is not None:
-        keep = keep & kv_mask[:, None, None, None, :]
+    keep = _keep(nq, nk, kv_mask, causal_offset, window_lo, q.device)
     s = torch.where(keep, s, MASK_VALUE)
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
@@ -72,32 +85,100 @@ def flash_fwd_reference(
     return out.reshape(b, h, nq, d).to(q.dtype), lse.reshape(b, h, nq)
 
 
-def _check_kernel_args(q, k, v, kv_mask) -> None:
+def flash_bwd_reference(
+    do: torch.Tensor,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    kv_mask: torch.Tensor | None = None,
+    *,
+    scale: float,
+    causal_offset: int | None = None,
+    window_lo: int | None = None,
+    softclamp_value: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward kernels: dense scores in float32.
+
+    ``do, q: (b, h, nq, d)``, ``k, v: (b, hk, nk, d)``, ``lse`` (the
+    forward's) and ``delta = rowsum(do * out)``: ``(b, h, nq)`` float32.
+    The band and key mask follow :func:`flash_fwd_reference`; a masked pair
+    takes ``p = 0`` by a select, so a row with no key contributes nothing.
+    Returns float32 ``(dq (b, h, nq, d), dk (b, hk, nk, d), dv (b, hk, nk,
+    d))``, dk and dv summed over each kv head's group of query heads."""
+    b, h, nq, d = q.shape
+    _, hk, nk, _ = k.shape
+    g = h // hk
+    qg = q.reshape(b, hk, g, nq, d).float()
+    dog = do.reshape(b, hk, g, nq, d).float()
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bhgid,bhjd->bhgij", qg, kf) * scale
+    if softclamp_value is not None:
+        s = softclamp(s, softclamp_value)
+    keep = _keep(nq, nk, kv_mask, causal_offset, window_lo, q.device)
+    p = torch.where(keep, torch.exp(s - lse.reshape(b, hk, g, nq, 1)), 0.0)
+    dv = torch.einsum("bhgij,bhgid->bhjd", p, dog)
+    dp = torch.einsum("bhgid,bhjd->bhgij", dog, vf)
+    ds = p * (dp - delta.reshape(b, hk, g, nq, 1))
+    if softclamp_value is not None:
+        ds = ds * (1.0 - (s / softclamp_value) ** 2)  # s is post-clamp
+    ds = ds * scale
+    dk = torch.einsum("bhgij,bhgid->bhjd", ds, qg)
+    dq = torch.einsum("bhgij,bhjd->bhgid", ds, kf)
+    return dq.reshape(b, h, nq, d), dk, dv
+
+
+def _check_kernel_args(fn, q, k, v, kv_mask, *rows) -> None:
+    """What the kernels take; ``rows`` are further ``(b, h, nq, ...)``
+    inputs (``do`` in q's dtype, ``lse`` and ``delta`` in float32)."""
     if q.dtype not in SUPPORTED_DTYPES:
-        raise ValueError(f"flash_fwd: dtype {q.dtype} unsupported; use bf16 or f32")
+        raise ValueError(f"{fn}: dtype {q.dtype} unsupported; use bf16 or f32")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
-            f"flash_fwd: q, k, v must share a dtype, got {q.dtype}, {k.dtype}, "
+            f"{fn}: q, k, v must share a dtype, got {q.dtype}, {k.dtype}, "
             f"{v.dtype}"
         )
     if q.shape[-1] not in SUPPORTED_HEAD_DIMS:
         raise ValueError(
-            f"flash_fwd: head dim {q.shape[-1]} unsupported; the kernel is "
+            f"{fn}: head dim {q.shape[-1]} unsupported; the kernel is "
             f"built for {SUPPORTED_HEAD_DIMS}"
         )
     if q.shape[2] == 0 or k.shape[2] == 0:
-        raise ValueError("flash_fwd: empty query or key sequence")
+        raise ValueError(f"{fn}: empty query or key sequence")
     if q.shape[0] * q.shape[1] > 65535:
-        raise ValueError("flash_fwd: batch * heads exceeds the grid's 65535 rows")
-    tensors = [q, k, v] + ([kv_mask] if kv_mask is not None else [])
-    for x in tensors:
+        raise ValueError(f"{fn}: batch * heads exceeds the grid's 65535 rows")
+    for x, shape, dtype in rows:
+        if tuple(x.shape) != shape or x.dtype != dtype:
+            raise ValueError(
+                f"{fn}: expected {shape} {dtype}, got {tuple(x.shape)} {x.dtype}"
+            )
+    tensors = [q, k, v] + [x for x, _, _ in rows]
+    for x in tensors + ([kv_mask] if kv_mask is not None else []):
         if x.device != q.device:
-            raise ValueError(f"flash_fwd: tensors on {x.device} and {q.device}")
-    for x in (q, k, v):
+            raise ValueError(f"{fn}: tensors on {x.device} and {q.device}")
+    for x in tensors:
         if not x.is_contiguous():
-            raise ValueError("flash_fwd: q, k and v must be contiguous")
+            raise ValueError(f"{fn}: every input must be contiguous")
         if x.data_ptr() % 16:
-            raise ValueError("flash_fwd: q, k and v must be 16-byte aligned")
+            raise ValueError(f"{fn}: every input must be 16-byte aligned")
+
+
+def _band_args(causal_offset, window_lo, softclamp_value) -> tuple:
+    """``(causal, hi, windowed, lo, softclamp)`` as the C entry points take them."""
+    causal = causal_offset is not None
+    windowed = causal and window_lo is not None
+    return (int(causal), int(causal_offset) if causal else 0,
+            int(windowed), int(window_lo) if windowed else 0,
+            float(softclamp_value or 0.0))
+
+
+def _check_launch(rc: int, name: str, q, k) -> None:
+    if rc != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed: CUDA error {rc} "
+            f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype})"
+        )
 
 
 def flash_fwd(
@@ -122,7 +203,7 @@ def flash_fwd(
         )
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd: no kernel for device {q.device}")
-    _check_kernel_args(q, k, v, kv_mask)
+    _check_kernel_args("flash_fwd", q, k, v, kv_mask)
     from ._build import flash_fwd_library
 
     lib = flash_fwd_library()
@@ -131,8 +212,6 @@ def flash_fwd(
     out = torch.empty_like(q)
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
     mask_u8 = None if kv_mask is None else kv_mask.to(torch.uint8).contiguous()
-    causal = causal_offset is not None
-    windowed = causal and window_lo is not None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.flash_fwd(
@@ -140,37 +219,152 @@ def flash_fwd(
             None if mask_u8 is None else mask_u8.data_ptr(),
             out.data_ptr(), lse.data_ptr(),
             b, h, hk, nq, nk, d, int(q.dtype == torch.bfloat16), float(scale),
-            int(causal), int(causal_offset) if causal else 0,
-            int(windowed), int(window_lo) if windowed else 0,
-            float(softclamp_value or 0.0), ctypes.c_void_p(stream),
+            *_band_args(causal_offset, window_lo, softclamp_value),
+            ctypes.c_void_p(stream),
         )
-    if rc != 0:
-        raise RuntimeError(
-            f"flash_fwd kernel launch failed: CUDA error {rc} "
-            f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype})"
-        )
+    _check_launch(rc, "flash_fwd", q, k)
     global launch_count
     launch_count += 1
     return out, lse
 
 
+def _launch_bwd(entry, outs, do, q, k, v, lse, delta, kv_mask, band) -> None:
+    """Check the inputs and launch one backward kernel into ``outs``."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{entry}: no kernel for device {q.device}")
+    b, h, nq, d = q.shape
+    _, hk, nk, _ = k.shape
+    _check_kernel_args(
+        entry, q, k, v, kv_mask, (do, tuple(q.shape), q.dtype),
+        (lse, (b, h, nq), torch.float32), (delta, (b, h, nq), torch.float32),
+    )
+    from ._build import flash_bwd_library
+
+    lib = flash_bwd_library()
+    mask_u8 = None if kv_mask is None else kv_mask.to(torch.uint8).contiguous()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(),
+            None if mask_u8 is None else mask_u8.data_ptr(),
+            *(o.data_ptr() for o in outs),
+            b, h, hk, nq, nk, d, int(q.dtype == torch.bfloat16),
+            float(band["scale"]),
+            *_band_args(band["causal_offset"], band["window_lo"],
+                        band["softclamp_value"]),
+            ctypes.c_void_p(stream),
+        )
+    _check_launch(rc, entry, q, k)
+
+
+def flash_bwd_dkv(
+    do: torch.Tensor,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    kv_mask: torch.Tensor | None = None,
+    *,
+    scale: float,
+    causal_offset: int | None = None,
+    window_lo: int | None = None,
+    softclamp_value: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dk/dv pass: float32 ``(dk, dv)``, each ``(b, hk, nk, d)``.
+
+    Arguments as :func:`flash_bwd_reference`, whose dk and dv a CPU tensor
+    takes; a CUDA tensor launches the kernel.  ``do`` has q's dtype."""
+    band = dict(scale=scale, causal_offset=causal_offset, window_lo=window_lo,
+                softclamp_value=softclamp_value)
+    if q.device.type == "cpu":
+        _, dk, dv = flash_bwd_reference(do, q, k, v, lse, delta, kv_mask, **band)
+        return dk, dv
+    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    _launch_bwd("flash_bwd_dkv", (dk, dv), do, q, k, v, lse, delta, kv_mask, band)
+    global dkv_launch_count
+    dkv_launch_count += 1
+    return dk, dv
+
+
+def flash_bwd_dq(
+    do: torch.Tensor,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    kv_mask: torch.Tensor | None = None,
+    *,
+    scale: float,
+    causal_offset: int | None = None,
+    window_lo: int | None = None,
+    softclamp_value: float | None = None,
+) -> torch.Tensor:
+    """The dq pass: float32 ``dq (b, h, nq, d)``.
+
+    Arguments as :func:`flash_bwd_reference`, whose dq a CPU tensor takes; a
+    CUDA tensor launches the kernel.  ``do`` has q's dtype."""
+    band = dict(scale=scale, causal_offset=causal_offset, window_lo=window_lo,
+                softclamp_value=softclamp_value)
+    if q.device.type == "cpu":
+        return flash_bwd_reference(do, q, k, v, lse, delta, kv_mask, **band)[0]
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    _launch_bwd("flash_bwd_dq", (dq,), do, q, k, v, lse, delta, kv_mask, band)
+    global dq_launch_count
+    dq_launch_count += 1
+    return dq
+
+
+def flash_bwd(
+    do: torch.Tensor,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    kv_mask: torch.Tensor | None = None,
+    **band,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Both backward passes: float32 ``(dq, dk, dv)``.
+
+    Same arguments and result as :func:`flash_bwd_reference`.  CPU tensors
+    take that plain version; CUDA tensors launch the dk/dv kernel, then the
+    dq kernel."""
+    if q.device.type == "cpu":
+        return flash_bwd_reference(do, q, k, v, lse, delta, kv_mask, **band)
+    dk, dv = flash_bwd_dkv(do, q, k, v, lse, delta, kv_mask, **band)
+    return flash_bwd_dq(do, q, k, v, lse, delta, kv_mask, **band), dk, dv
+
+
 class _CudaFlashAttention(torch.autograd.Function):
+    """Port of the ``_pallas_flash_core`` custom_vjp: the forward saves
+    ``(q, k, v, kv_mask, out, lse)``; the backward recomputes p from lse."""
+
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, scale, causal_offset, window_lo,
                 softclamp_value):
-        out, _ = flash_fwd(
+        out, lse = flash_fwd(
             q, k, v, kv_mask, scale=scale, causal_offset=causal_offset,
             window_lo=window_lo, softclamp_value=softclamp_value,
         )
+        ctx.save_for_backward(q, k, v, kv_mask, out, lse)
+        ctx.band = dict(scale=scale, causal_offset=causal_offset,
+                        window_lo=window_lo, softclamp_value=softclamp_value)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        raise NotImplementedError(
-            "cuda_flash_attention has no backward yet: the dk/dv and dq "
-            "kernels (TPU kernels B2/B3) come with the training slice, "
-            "ROADMAP.md Port queue item 1"
+        q, k, v, kv_mask, out, lse = ctx.saved_tensors
+        # outside the kernels, as the JAX backward computes it (:2266)
+        delta = (do.float() * out.float()).sum(-1)
+        dq, dk, dv = flash_bwd(
+            do.to(q.dtype).contiguous(), q, k, v, lse, delta, kv_mask, **ctx.band
         )
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None, None)
 
 
 def cuda_flash_attention(
@@ -184,7 +378,7 @@ def cuda_flash_attention(
     softclamp_value: float | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Exact flash attention on the CUDA kernel (GQA-aware), forward only.
+    """Exact flash attention on the CUDA kernels (GQA-aware), differentiable.
 
     Same contract as ``ops.flash.flash_attention``: ``causal`` is
     end-aligned (``causal_offset = nk - nq``) and drops ``mask``;

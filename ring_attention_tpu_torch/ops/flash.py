@@ -1,19 +1,19 @@
-"""Blockwise (flash) attention forward with an exposed online-softmax carry.
+"""Blockwise (flash) attention with an exposed online-softmax carry.
 
-Port of the forward half of ``ring_attention_tpu/ops/flash.py`` (the XLA
-blockwise path, not a kernel).  ``attend_blocks`` folds one KV span into a
-running ``(acc, m, l)`` carry bucket by bucket; ``finalize`` normalizes it;
-``flash_attention`` is the single-device entry point.  The model's
-``impl="torch"`` path and every ``prefill`` attend through it, as the JAX
-package's do.
+Port of ``ring_attention_tpu/ops/flash.py`` (the XLA blockwise path, not a
+kernel).  ``attend_blocks`` folds one KV span into a running ``(acc, m, l)``
+carry bucket by bucket; ``finalize`` normalizes it;
+``flash_backward_blocks`` is the matching backward over one KV span;
+``flash_attention`` is the single-device entry point, differentiated by a
+custom gradient (the port of the ``_flash_attention_core`` custom_vjp) that
+keeps ``(out, lse)`` and runs ``flash_backward_blocks`` instead of autograd
+over the bucket loop.  The model's ``impl="torch"`` path and every
+``prefill`` attend through it, as the JAX package's do.
 
 Masking is one band of index offsets: local tile element ``(i, j)`` attends
 iff ``window_lo <= j - i <= causal_offset`` (the lower bound only with a
 lookback window), combined with an optional ``(b, nk)`` key mask.  Masked
 scores take the finite ``MASK_VALUE``.  All softmax state is float32.
-
-The backward (``flash_backward_blocks`` and the custom gradient) arrives
-with the training slice; autograd through these plain ops works meanwhile.
 """
 
 from __future__ import annotations
@@ -160,6 +160,90 @@ def finalize(carry: FlashCarry) -> tuple[torch.Tensor, torch.Tensor]:
     return acc / l_safe[..., None], m + torch.log(l_safe)
 
 
+def flash_backward_blocks(
+    do: torch.Tensor,  # (b, h, nq, d)
+    q: torch.Tensor,
+    k: torch.Tensor,  # (b, hk, nk, d)
+    v: torch.Tensor,
+    lse: torch.Tensor,  # (b, hk, g, nq) f32
+    delta: torch.Tensor,  # (b, hk, g, nq) f32 = rowsum(do * out)
+    *,
+    scale: float,
+    bucket_size: int | None = None,
+    causal_offset: int | None = None,
+    window_lo: int | None = None,
+    kv_mask: torch.Tensor | None = None,  # (b, nk) True = attend
+    softclamp_value: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash backward over one KV span, bucket by bucket.
+
+    Returns float32 ``(dq (b, h, nq, d), dk (b, hk, nk, d), dv (b, hk, nk,
+    d))``.  ``p`` is recomputed from ``lse`` and masked by a select, so a
+    row with no key in its band contributes nothing."""
+    b, h, nq, d = q.shape
+    _, hk, nk, _ = k.shape
+    qg = _group_q(q, hk).float()
+    dog = _group_q(do, hk).float()
+    bk = nk if bucket_size is None or bucket_size >= nk else bucket_size
+    if nk % bk:
+        raise ValueError(f"kv length {nk} must divide into buckets of {bk}")
+    dq = torch.zeros(qg.shape, dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for j0 in range(0, nk, bk):
+        k_j = k[:, :, j0:j0 + bk].float()
+        v_j = v[:, :, j0:j0 + bk].float()
+        s = _tile_scores(qg, k_j, scale, softclamp_value)
+        mask = _tile_mask(
+            nq, bk, j0, causal_offset, window_lo,
+            None if kv_mask is None else kv_mask[:, j0:j0 + bk], q.device,
+        )
+        p = torch.exp(s - lse[..., None])  # (b, hk, g, nq, bk)
+        if mask is not None:
+            p = torch.where(mask, p, 0.0)
+        dvs.append(torch.einsum("bhgij,bhgid->bhjd", p, dog))
+        dp = torch.einsum("bhgid,bhjd->bhgij", dog, v_j)
+        ds = p * (dp - delta[..., None])
+        if softclamp_value is not None:
+            # s is post-clamp; d(clamp)/d(raw) = 1 - (s/c)^2
+            ds = ds * (1.0 - (s / softclamp_value) ** 2)
+        ds = ds * scale
+        dks.append(torch.einsum("bhgij,bhgid->bhjd", ds, qg))
+        dq = dq + torch.einsum("bhgij,bhjd->bhgid", ds, k_j)
+    return _ungroup(dq), torch.cat(dks, dim=2), torch.cat(dvs, dim=2)
+
+
+class _FlashAttentionCore(torch.autograd.Function):
+    """Port of the ``_flash_attention_core`` custom_vjp: the forward keeps
+    ``(out, lse)``, the backward runs :func:`flash_backward_blocks`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, causal_offset, scale, bucket_size,
+                window_lo, softclamp_value):
+        b, h, nq, d = q.shape
+        hk = k.shape[1]
+        band = dict(scale=scale, bucket_size=bucket_size,
+                    causal_offset=causal_offset, window_lo=window_lo,
+                    softclamp_value=softclamp_value)
+        carry = init_carry(b, hk, h // hk, nq, d, device=q.device)
+        carry = attend_blocks(q, k, v, carry, kv_mask=kv_mask, **band)
+        out_g, lse = finalize(carry)
+        out = _ungroup(out_g).to(q.dtype)
+        ctx.save_for_backward(q, k, v, kv_mask, out, lse)
+        ctx.band = band
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_mask, out, lse = ctx.saved_tensors
+        hk = k.shape[1]
+        delta = (_group_q(do, hk).float() * _group_q(out, hk).float()).sum(-1)
+        dq, dk, dv = flash_backward_blocks(
+            do, q, k, v, lse, delta, kv_mask=kv_mask, **ctx.band
+        )
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None, None, None)
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -172,7 +256,7 @@ def flash_attention(
     softclamp_value: float | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Single-device exact flash attention (GQA-aware), forward.
+    """Single-device exact flash attention (GQA-aware), differentiable.
 
     Matches ``default_attention``; score memory scales with ``bucket_size``
     instead of ``nk``.  Any KV length is accepted: a length that is not a
@@ -192,16 +276,10 @@ def flash_attention(
     window_lo = causal_offset - (window - 1) if window is not None else None
     k, v, mask = _pad_kv_to_bucket(q, k, v, mask, bucket_size)
 
-    b, h, nq, d = q.shape
-    hk = k.shape[1]
-    carry = init_carry(b, hk, h // hk, nq, d, device=q.device)
-    carry = attend_blocks(
-        q, k, v, carry,
-        scale=scale, bucket_size=bucket_size, causal_offset=causal_offset,
-        window_lo=window_lo, kv_mask=mask, softclamp_value=softclamp_value,
+    return _FlashAttentionCore.apply(
+        q, k, v, mask, causal_offset, scale, bucket_size, window_lo,
+        softclamp_value,
     )
-    out, _ = finalize(carry)
-    return _ungroup(out).to(q.dtype)
 
 
 def _pad_kv_to_bucket(q, k, v, mask, bucket_size):

@@ -1,0 +1,171 @@
+"""Training-step composition: gradient accumulation, clipping, a guarded step.
+
+Port of ``ring_attention_tpu/utils/train.py::make_train_step`` (with
+``StepStats`` and ``init_step_stats``) over a ``torch.optim.Optimizer``.
+PyTorch holds parameters and optimizer state in place, so the JAX step's
+``(params, opt_state)`` arguments and results fall away: ``loss_fn`` closes
+over the model, and the optimizer's parameter groups are what the step
+updates.
+
+- ``step(*batch) -> loss``: one optimizer step over ``accum_steps``
+  microbatches (each batch tensor split along its leading axis), gradients
+  accumulated in float32 and averaged, then one update.
+- ``clip_grad_norm`` clips the full-batch gradient to that global L2 norm
+  with JAX's factor ``min(1, c / max(norm, 1e-12))``.
+- ``skip_nonfinite=True`` is the guarded step ``step(stats, *batch) ->
+  (stats, loss)``: when the loss or any gradient is non-finite the
+  optimizer is not stepped, so parameters and optimizer state stay
+  bit-identical.  The check reads one scalar on the host.
+- ``on_step_end(outputs)`` is called after each step with its return value.
+
+The JAX step's ``collect_metrics``, ``offload_opt_state``,
+``shard_opt_state`` and ``jit_donate`` are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+# Where each option that is not ported yet will come from (ROADMAP.md).
+UNPORTED = {
+    "collect_metrics": "the runtime's telemetry, ROADMAP.md Port queue item 7",
+    "offload_opt_state": "the memory knobs, ROADMAP.md Port queue item 7",
+    "shard_opt_state": "ZeRO-1 with the memory knobs, ROADMAP.md Port queue item 7",
+    "jit_donate": "a captured (CUDA-graph) step with the runtime, ROADMAP.md Port queue item 7",
+}
+
+
+class StepStats(NamedTuple):
+    """What the guarded step reports.
+
+    ``step_ok``: whether this step's update was applied (False: a
+    non-finite loss or gradient was found and the update skipped).
+    ``skipped``: skipped steps since :func:`init_step_stats`."""
+
+    step_ok: bool
+    skipped: int
+
+
+def init_step_stats() -> StepStats:
+    return StepStats(step_ok=True, skipped=0)
+
+
+def make_train_step(
+    loss_fn: Callable[..., torch.Tensor],
+    optimizer: torch.optim.Optimizer,
+    *,
+    accum_steps: int = 1,
+    skip_nonfinite: bool = False,
+    clip_grad_norm: float | None = None,
+    on_step_end: Callable[[Any], None] | None = None,
+    collect_metrics: bool = False,
+    offload_opt_state: bool = False,
+    shard_opt_state: bool = False,
+    jit_donate: bool = False,
+) -> Callable:
+    """Build ``step(*batch) -> loss`` (or ``step(stats, *batch) -> (stats,
+    loss)`` with ``skip_nonfinite``).
+
+    ``loss_fn(*microbatch)`` returns a scalar computed from the parameters
+    ``optimizer`` holds.  With ``accum_steps > 1`` each batch tensor's
+    leading dimension must divide by it; the returned loss is then the mean
+    of the microbatch losses (float32).  A parameter that gets no gradient
+    is updated with a zero one, as the JAX step's dense gradient tree is."""
+    for name, value in (("collect_metrics", collect_metrics),
+                        ("offload_opt_state", offload_opt_state),
+                        ("shard_opt_state", shard_opt_state),
+                        ("jit_donate", jit_donate)):
+        if value:
+            raise NotImplementedError(
+                f"make_train_step: {name}= is not ported yet; it arrives with "
+                f"{UNPORTED[name]}"
+            )
+    if accum_steps < 1:
+        raise ValueError(f"make_train_step: accum_steps must be >= 1, got {accum_steps}")
+    if clip_grad_norm is not None and clip_grad_norm <= 0:
+        raise ValueError(
+            f"make_train_step: clip_grad_norm must be > 0, got {clip_grad_norm}"
+        )
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+
+    def gradients(batch) -> tuple[torch.Tensor, list[torch.Tensor]]:
+        if accum_steps == 1:
+            optimizer.zero_grad(set_to_none=True)
+            loss = loss_fn(*batch)
+            loss.backward()
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+            return loss.detach(), grads
+
+        def split(x):
+            n = x.shape[0]
+            if n % accum_steps:
+                raise ValueError(
+                    f"make_train_step: leading batch dim {n} not divisible "
+                    f"by accum_steps={accum_steps}"
+                )
+            return x.split(n // accum_steps)
+
+        micro = list(zip(*(split(x) for x in batch)))
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in params]
+        loss_sum = torch.zeros((), dtype=torch.float32, device=params[0].device)
+        for mb in micro:
+            optimizer.zero_grad(set_to_none=True)
+            loss = loss_fn(*mb)
+            loss.backward()
+            for a, p in zip(acc, params):
+                if p.grad is not None:
+                    a += p.grad.float()
+            loss_sum += loss.detach().float()
+        inv = 1.0 / accum_steps
+        grads = [(a * inv).to(p.dtype) for a, p in zip(acc, params)]
+        return loss_sum * inv, grads
+
+    def compute_update(batch) -> tuple[torch.Tensor, list[torch.Tensor], torch.Tensor | None]:
+        loss, grads = gradients(batch)
+        # one global norm serves clipping and the non-finite guard: any
+        # NaN/inf in any gradient propagates into it
+        gnorm = None
+        if clip_grad_norm is not None or skip_nonfinite:
+            gnorm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+        if clip_grad_norm is not None:
+            clip = torch.clamp(clip_grad_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+            grads = [(g * clip).to(g.dtype) for g in grads]
+        return loss, grads, gnorm
+
+    def apply(grads) -> None:
+        for p, g in zip(params, grads):
+            p.grad = g
+        optimizer.step()
+
+    def finish(step):
+        if on_step_end is None:
+            return step
+
+        def stepped(*args):
+            out = step(*args)
+            on_step_end(out)
+            return out
+
+        return stepped
+
+    if not skip_nonfinite:
+
+        def plain_step(*batch) -> torch.Tensor:
+            loss, grads, _ = compute_update(batch)
+            apply(grads)
+            return loss
+
+        return finish(plain_step)
+
+    def guarded_step(stats: StepStats, *batch) -> tuple[StepStats, torch.Tensor]:
+        loss, grads, gnorm = compute_update(batch)
+        ok = bool(torch.isfinite(loss) & torch.isfinite(gnorm))
+        if ok:
+            apply(grads)
+        # the skip leaves parameters and optimizer state untouched; the
+        # returned loss is not masked, so logs show the offending value
+        return StepStats(step_ok=ok, skipped=stats.skipped + (0 if ok else 1)), loss
+
+    return finish(guarded_step)

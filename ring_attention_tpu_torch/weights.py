@@ -1,11 +1,12 @@
-"""Parameters: carry a flax ``RingTransformer`` param tree over, or make
-seeded random ones.
+"""Parameters: carry a flax ``RingTransformer`` param tree over and back,
+or make seeded random ones.
 
 ``load_jax_params`` takes the tree as nested dicts of numpy arrays (the
 ``params`` collection of ``RingTransformer.init``; a dict holding it under
 ``"params"`` is accepted too), so this module needs neither JAX nor flax.
 A flax ``Dense`` kernel is ``(in, out)`` and becomes the transposed
 ``nn.Linear`` weight; embeddings and norm gains copy as they are.
+``export_jax_params`` is the inverse.
 """
 
 from __future__ import annotations
@@ -76,6 +77,23 @@ def load_jax_params(model: RingTransformer, params) -> RingTransformer:
         unused = sorted("/".join(p) for p in leaves)
         raise ValueError(f"load_jax_params: unused flax params {unused}")
     return model
+
+
+@torch.no_grad()
+def export_jax_params(model: RingTransformer) -> dict:
+    """The model's parameters as a flax param tree: ``{"params": nested
+    dicts of float32 numpy arrays}``, the layout ``load_jax_params`` reads
+    and ``RingTransformer.init`` returns.  The arrays are copies: later
+    updates of the model leave them as they were."""
+    torch_params = dict(model.named_parameters())
+    tree: dict = {}
+    for name, (path, transpose) in _flax_paths(model).items():
+        value = torch_params[name].detach().to("cpu", torch.float32).numpy()
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.array(value.T if transpose else value, order="C")
+    return {"params": tree}
 
 
 @torch.no_grad()

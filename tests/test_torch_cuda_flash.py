@@ -1,5 +1,6 @@
 """Parity: the CUDA flash kernel's wrappers, on CPU tensors, vs the Pallas
-forward kernel run in interpret mode.
+forward kernel run in interpret mode (the backward's parity is in
+``test_torch_flash_bwd.py``).
 
 On the CPU ``flash_fwd`` (and through it ``cuda_flash_attention`` and
 ``cuda_flash_decode``) runs the kernel's plain version; the JAX side runs
@@ -128,13 +129,18 @@ def test_band_empty_rows_follow_the_oracle():
 
 
 def test_cpu_calls_never_count_as_launches():
-    """The launch counter moves only where the CUDA kernel launches."""
+    """The launch counters move only where a CUDA kernel launches: a
+    forward and backward on CPU tensors leaves all three where they were."""
     q, k, v, _ = make_inputs(3, nq=8, nk=8)
-    before = cuda_flash.launch_count
-    cuda_flash.cuda_flash_attention(
-        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal=True
+    counts = (cuda_flash.launch_count, cuda_flash.dkv_launch_count,
+              cuda_flash.dq_launch_count)
+    q = torch.from_numpy(q).requires_grad_()
+    out = cuda_flash.cuda_flash_attention(
+        q, torch.from_numpy(k), torch.from_numpy(v), causal=True
     )
-    assert cuda_flash.launch_count == before
+    out.sum().backward()
+    assert (cuda_flash.launch_count, cuda_flash.dkv_launch_count,
+            cuda_flash.dq_launch_count) == counts
 
 
 def test_no_silent_fallback_on_other_devices():
@@ -146,10 +152,17 @@ def test_no_silent_fallback_on_other_devices():
 
 
 def test_backward_raises_until_the_training_slice():
+    """The training slice has arrived: the backward that used to raise now
+    gives finite gradients of the right shapes for q, k and v (held to the
+    JAX package in ``test_torch_flash_bwd.py``), and a tensor on a device
+    with no kernel still raises instead of taking the plain version."""
     q, k, v, _ = make_inputs(4, nq=8, nk=8)
-    q = torch.from_numpy(q).requires_grad_()
-    out = cuda_flash.cuda_flash_attention(
-        q, torch.from_numpy(k), torch.from_numpy(v), causal=True
-    )
-    with pytest.raises(NotImplementedError, match="B2/B3"):
-        out.sum().backward()
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = cuda_flash.cuda_flash_attention(q, k, v, causal=True)
+    out.sum().backward()
+    for x in (q, k, v):
+        assert x.grad.shape == x.shape and bool(torch.isfinite(x.grad).all())
+    m = torch.empty((1, 2, 4, 64), device="meta")
+    lse = torch.empty((1, 2, 4), device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        cuda_flash.flash_bwd(m, m, m, m, lse, lse, scale=0.125)

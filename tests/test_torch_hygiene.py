@@ -6,8 +6,9 @@
   test process imports JAX for the parity tests.)
 - Building a model with the default device raises when there is no CUDA
   device, instead of carrying on on the CPU.
-- Every feature this slice leaves out raises ``NotImplementedError``
-  naming the ROADMAP item that brings it.
+- Every feature the port leaves out (model settings and ``make_train_step``
+  options) raises ``NotImplementedError`` naming the ROADMAP item that
+  brings it.
 """
 
 import ast
@@ -17,7 +18,7 @@ import pytest
 import torch
 
 import ring_attention_tpu_torch
-from ring_attention_tpu_torch import RingAttention, RingTransformer
+from ring_attention_tpu_torch import RingAttention, RingTransformer, make_train_step
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = Path(ring_attention_tpu_torch.__file__).resolve().parent
@@ -88,3 +89,15 @@ def test_segment_ids_raise():
 def test_unknown_impl_is_a_value_error():
     with pytest.raises(ValueError, match="impl must be one of"):
         RingTransformer(**SMALL, device="cpu", impl="pallas")
+
+
+UNPORTED_STEP_OPTIONS = ("collect_metrics", "offload_opt_state",
+                         "shard_opt_state", "jit_donate")
+
+
+@pytest.mark.parametrize("name", UNPORTED_STEP_OPTIONS)
+def test_unported_train_step_options_raise(name):
+    model = RingTransformer(**SMALL, device="cpu")
+    opt = torch.optim.SGD(model.parameters(), lr=0.1)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item"):
+        make_train_step(lambda t: model(t, return_loss=True), opt, **{name: True})
