@@ -2,9 +2,12 @@
 
 The port covers the single-device serving path of ``RingTransformer``
 (forward logits, ``prefill``, KV-cache ``decode_step``, ``generate``) on a
-hand-written CUDA flash-forward kernel for Hopper (``csrc/flash_fwd.cu``)
-and its training path (``loss.backward()`` and ``make_train_step``) on the
-hand-written dk/dv and dq kernels (``csrc/flash_bwd.cu``).
+hand-written CUDA flash-forward kernel for Hopper (``csrc/flash_fwd.cu``),
+its training path (``loss.backward()`` and ``make_train_step``) on the
+hand-written dk/dv and dq kernels (``csrc/flash_bwd.cu``), and the ring
+(``parallel/``: ``ring_flash_attention`` forward and backward over a
+``VirtualRing`` or a ``DistributedRing``, and ``RingTransformer(mesh=)``
+on a virtual ring) on the forward kernel's partials and resume modes.
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; on CPU tensors every kernel wrapper runs its plain
 PyTorch version.  The package imports torch only.
@@ -16,12 +19,14 @@ from .ops import (
     MASK_VALUE,
     PAD_SEGMENT_ID,
     FlashCarry,
+    FlashPartials,
     apply_rotary,
     attend_blocks,
     cuda_flash_attention,
     cuda_flash_decode,
     default_attention,
     finalize,
+    finalize_partials,
     flash_attention,
     flash_backward_blocks,
     flash_bwd,
@@ -30,10 +35,23 @@ from .ops import (
     flash_bwd_reference,
     flash_fwd,
     flash_fwd_reference,
+    flash_partials,
+    flash_partials_reference,
     init_carry,
+    init_partials,
+    merge_partials,
+    ring_positions,
     rotary_freqs,
     rotate_half,
     softclamp,
+)
+from .parallel import (
+    DistributedRing,
+    Mesh,
+    Ring,
+    VirtualRing,
+    create_mesh,
+    ring_flash_attention,
 )
 from .utils.train import StepStats, init_step_stats, make_train_step
 from .weights import export_jax_params, init_random_params, load_jax_params
@@ -42,19 +60,26 @@ __all__ = [
     "EPSILON",
     "MASK_VALUE",
     "PAD_SEGMENT_ID",
+    "DistributedRing",
     "FeedForward",
     "FlashCarry",
+    "FlashPartials",
+    "Mesh",
     "RMSNorm",
+    "Ring",
     "RingAttention",
     "RingTransformer",
     "StepStats",
+    "VirtualRing",
     "apply_rotary",
     "attend_blocks",
+    "create_mesh",
     "cuda_flash_attention",
     "cuda_flash_decode",
     "default_attention",
     "export_jax_params",
     "finalize",
+    "finalize_partials",
     "flash_attention",
     "flash_backward_blocks",
     "flash_bwd",
@@ -63,11 +88,17 @@ __all__ = [
     "flash_bwd_reference",
     "flash_fwd",
     "flash_fwd_reference",
+    "flash_partials",
+    "flash_partials_reference",
     "init_carry",
+    "init_partials",
     "init_random_params",
     "init_step_stats",
     "load_jax_params",
     "make_train_step",
+    "merge_partials",
+    "ring_flash_attention",
+    "ring_positions",
     "rotary_freqs",
     "rotate_half",
     "softclamp",

@@ -2,9 +2,18 @@
 //
 // Replaces: ring_attention_tpu/ops/pallas_flash.py::_flash_fwd_call (the
 // pl.pallas_call at :1174; kernel bodies _fwd_kernel :669, _fwd_tile :823,
-// _online_update :776, _fwd_write :645, _tile_keep :240) in its fused mode:
-// normalized `out` in q's dtype plus `lse` in float32.  Partials, resume and
-// int8 modes of that launch are not ported here.
+// _online_update :776, _fwd_write :645, _tile_keep :240) in its three
+// modes, one kernel whose pointers say which:
+//   * fused: normalized `out` in q's dtype plus `lse` in float32;
+//   * partials: the raw online-softmax state (acc, m, l) in float32, the
+//     mergeable state of one ring hop (`_fwd_write` with fused=False);
+//   * resume: either of the above, starting from a carried (acc, m, l)
+//     instead of the empty state (the resume load at :732-745).
+// A carry crosses hops in natural units, as on the TPU: m is the running
+// row max of the scaled scores, out = acc / l, lse = m + log l.  With no
+// carry m starts at the finite mask value, so a seed's partials equal the
+// empty state merged with the span.  The int8 mode of that launch is not
+// ported here.
 //
 // What it computes, for q (B, H, Nq, D) and k, v (B, Hk, Nk, D), contiguous:
 //   s    = scale * q . k, then softclamp c * tanh(s / c) when c > 0;
@@ -14,6 +23,9 @@
 //   keys are all masked averages V over all Nk keys (dense-oracle semantics);
 //   out  = acc / max(l, 1e-10), lse = m + log(max(l, 1e-10)), with the
 //   online-softmax state (acc, m, l) in f32.
+// A resumed block reads its rows of the carry before the first barrier and
+// writes its rows of the partials after it, so the partials may overwrite
+// the carry they resume (the ring resumes in place).
 // Query head h reads kv head h / (H / Hk) by index (GQA without a repeat).
 // Ragged Nq and Nk are masked here: keys past Nk weigh exactly zero.
 //
@@ -21,7 +33,10 @@
 // Nk / 4 operations per byte it must move (d = 64), far above the card's
 // ~295 bf16 operations per byte, so it is bound by tensor-core operations.
 // Decode (a handful of folded query rows against a long cache) does about
-// one operation per cache byte and is bound by device-memory bytes.
+// one operation per cache byte and is bound by device-memory bytes.  A ring
+// hop's carry adds (D + 2) f32 per query row, read and written: 0.28 GB for
+// 65,536 rows of 8 heads, 0.08 ms at 3.35 TB/s beside the 8.9 ms operation
+// bound of a full 65,536-key hop.
 //
 // Design (right and simple first):
 //   * one thread block per (64-row Q tile, b*h); blocks run heaviest causal
@@ -59,12 +74,24 @@ struct Params {
   const void* k;
   const void* v;
   const uint8_t* kv_mask;  // (B, Nk) or null
-  void* out;
-  float* lse;
+  void* out;               // (B, H, Nq, D) in q's dtype; null: partials
+  float* lse;              // (B, H, Nq); null: partials
   int B, H, Hk, Nq, Nk;
   float scale;
   int causal, hi, windowed, lo;
   float softclamp;  // 0 = off
+};
+
+// The ring modes' pointers, a kernel argument of their own, so that Params
+// stays as the fused mode had it: as six more fields of Params they slowed
+// the fused sweep on an H100 at an unchanged 128 registers.
+struct RingIO {
+  const float* c_acc;  // carry (B, H, Nq, D), or null: no carry
+  const float* c_m;    // carry (B, H, Nq)
+  const float* c_l;    // carry (B, H, Nq)
+  float* p_acc;        // partials (B, H, Nq, D), or null: fused
+  float* p_m;          // partials (B, H, Nq)
+  float* p_l;          // partials (B, H, Nq)
 };
 
 // [t_begin, t_end) KV tiles that rows [r0, r0 + kBlockM) of a block need.
@@ -145,9 +172,11 @@ __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
   }
 }
 
+// (128, 4): four blocks per SM need at most 128 registers a thread; at 130
+// to 132 only three fit and the sweep runs ~50% slower.
 template <int D>
-__global__ void __launch_bounds__(128)
-    flash_fwd_bf16_kernel(const Params p) {
+__global__ void __launch_bounds__(128, 4)
+    flash_fwd_bf16_kernel(const Params p, const RingIO io) {
   constexpr int kStride = D + 8;  // staggers shared-memory banks
   __shared__ __align__(16) __nv_bfloat16 Qs[kBlockM * kStride];
   __shared__ __align__(16) __nv_bfloat16 Ks[kBlockN * kStride];
@@ -169,8 +198,30 @@ __global__ void __launch_bounds__(128)
   const int row_a = r0 + warp * 16 + g;  // global row of fragment halves 0, 1
   const int row_b = row_a + 8;           // and of halves 2, 3
 
+  // the online-softmax state, in fragment layout: o[nd][2r + c] is row
+  // (r ? row_b : row_a), column nd * 8 + 2t + c
+  float o[D / 8][4];
+  float m_r[2], l_r[2];  // l_r: this thread's share of the row sums
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r == 0 ? row_a : row_b;
+    const bool resume = io.c_acc != nullptr && row < p.Nq;
+    const size_t idx = (size_t)bh * p.Nq + row;
+    m_r[r] = resume ? io.c_m[idx] : kMaskValue;  // the same on all 4 threads
+    // a row's sum is split over its 4 threads: the carry seeds one of them
+    l_r[r] = resume && t == 0 ? io.c_l[idx] : 0.f;
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd) {
+      float2 a = make_float2(0.f, 0.f);
+      if (resume)
+        a = *reinterpret_cast<const float2*>(io.c_acc + idx * D + nd * 8 + t * 2);
+      o[nd][2 * r] = a.x;
+      o[nd][2 * r + 1] = a.y;
+    }
+  }
+
   load_tile_bf16<D>(Qs, q, r0, p.Nq);
-  __syncthreads();
+  __syncthreads();  // also orders every carry read before any write below
   uint32_t qf[D / 16][4];  // A fragments of this warp's 16 rows
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
@@ -180,13 +231,6 @@ __global__ void __launch_bounds__(128)
     qf[kk][2] = *reinterpret_cast<const uint32_t*>(base + 8);
     qf[kk][3] = *reinterpret_cast<const uint32_t*>(base + 8 * kStride + 8);
   }
-
-  float o[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-    o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
-  float m_r[2] = {kMaskValue, kMaskValue};
-  float l_r[2] = {0.f, 0.f};  // this thread's share of the row sums
 
   int t_begin, t_end;
   tile_range(p, r0, &t_begin, &t_end);
@@ -263,21 +307,32 @@ __global__ void __launch_bounds__(128)
     }
   }
 
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) + (size_t)bh * p.Nq * D;
-  float* lse = p.lse + (size_t)bh * p.Nq;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
     const int row = r == 0 ? row_a : row_b;
     if (row >= p.Nq) continue;
-    const float l_safe = fmaxf(l_r[r], kEpsilon);
+    const size_t idx = (size_t)bh * p.Nq + row;
+    if (io.p_acc != nullptr) {  // the raw state, l reduced above
 #pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      *reinterpret_cast<uint32_t*>(out + (size_t)row * D + nd * 8 + t * 2) =
-          pack_bf16(o[nd][2 * r] / l_safe, o[nd][2 * r + 1] / l_safe);
+      for (int nd = 0; nd < D / 8; ++nd)
+        *reinterpret_cast<float2*>(io.p_acc + idx * D + nd * 8 + t * 2) =
+            make_float2(o[nd][2 * r], o[nd][2 * r + 1]);
+      if (t == 0) {
+        io.p_m[idx] = m_r[r];
+        io.p_l[idx] = l_r[r];
+      }
+    } else {
+      __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+      const float l_safe = fmaxf(l_r[r], kEpsilon);
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        *reinterpret_cast<uint32_t*>(out + idx * D + nd * 8 + t * 2) =
+            pack_bf16(o[nd][2 * r] / l_safe, o[nd][2 * r + 1] / l_safe);
+      }
+      if (t == 0) p.lse[idx] = m_r[r] + logf(l_safe);
     }
-    if (t == 0) lse[row] = m_r[r] + logf(l_safe);
   }
 }
 
@@ -287,7 +342,7 @@ __global__ void __launch_bounds__(128)
 
 template <int D>
 __global__ void __launch_bounds__(kBlockM)
-    flash_fwd_f32_kernel(const Params p) {
+    flash_fwd_f32_kernel(const Params p, const RingIO io) {
   constexpr int kChunk = 16;  // keys folded per online-softmax update
   __shared__ __align__(16) float Ks[kBlockN * D];
   __shared__ __align__(16) float Vs[kBlockN * D];
@@ -312,6 +367,16 @@ __global__ void __launch_bounds__(kBlockM)
     acc[d] = acc[d + 1] = acc[d + 2] = acc[d + 3] = 0.f;
   }
   float m = kMaskValue, l = 0.f;
+  const size_t idx = (size_t)bh * p.Nq + row;
+  if (io.c_acc != nullptr && row < p.Nq) {  // resume this thread's own row
+#pragma unroll
+    for (int d = 0; d < D; d += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(io.c_acc + idx * D + d);
+      acc[d] = a.x; acc[d + 1] = a.y; acc[d + 2] = a.z; acc[d + 3] = a.w;
+    }
+    m = io.c_m[idx];
+    l = io.c_l[idx];
+  }
 
   int t_begin, t_end;
   tile_range(p, r0, &t_begin, &t_end);
@@ -359,27 +424,46 @@ __global__ void __launch_bounds__(kBlockM)
   }
 
   if (row >= p.Nq) return;
-  const float l_safe = fmaxf(l, kEpsilon);
-  float* out = static_cast<float*>(p.out) + ((size_t)bh * p.Nq + row) * D;
+  if (io.p_acc != nullptr) {  // the raw state
 #pragma unroll
-  for (int d = 0; d < D; d += 4)
-    *reinterpret_cast<float4*>(out + d) =
-        make_float4(acc[d] / l_safe, acc[d + 1] / l_safe, acc[d + 2] / l_safe,
-                    acc[d + 3] / l_safe);
-  p.lse[(size_t)bh * p.Nq + row] = m + logf(l_safe);
+    for (int d = 0; d < D; d += 4)
+      *reinterpret_cast<float4*>(io.p_acc + idx * D + d) =
+          make_float4(acc[d], acc[d + 1], acc[d + 2], acc[d + 3]);
+    io.p_m[idx] = m;
+    io.p_l[idx] = l;
+  } else {
+    const float l_safe = fmaxf(l, kEpsilon);
+    float* out = static_cast<float*>(p.out) + idx * D;
+#pragma unroll
+    for (int d = 0; d < D; d += 4)
+      *reinterpret_cast<float4*>(out + d) =
+          make_float4(acc[d] / l_safe, acc[d + 1] / l_safe, acc[d + 2] / l_safe,
+                      acc[d + 3] / l_safe);
+    p.lse[idx] = m + logf(l_safe);
+  }
 }
 
 }  // namespace
 
 // C entry point, bound with ctypes.  Enqueues one launch on `stream` and
 // returns cudaGetLastError() (0 = launched).  Allocates nothing: the caller
-// passes contiguous tensors and preallocated outputs.
+// passes contiguous tensors and preallocated outputs.  The mode follows the
+// pointers: (out, lse) or (p_acc, p_m, p_l) is written, and (c_acc, c_m,
+// c_l), when given, is resumed; each triple is all null or all set.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
-                         const void* kv_mask, void* out, void* lse, int B, int H,
+                         const void* kv_mask, void* out, void* lse,
+                         const void* c_acc, const void* c_m, const void* c_l,
+                         void* p_acc, void* p_m, void* p_l, int B, int H,
                          int Hk, int Nq, int Nk, int D, int is_bf16, float scale,
                          int causal, int hi, int windowed, int lo,
                          float softclamp, void* stream) {
   if (D != 64 || H % Hk != 0 || Nq <= 0 || Nk <= 0)
+    return (int)cudaErrorInvalidValue;
+  const bool carry = c_acc != nullptr;
+  const bool partials = p_acc != nullptr;
+  if ((c_m != nullptr) != carry || (c_l != nullptr) != carry ||
+      (p_m != nullptr) != partials || (p_l != nullptr) != partials ||
+      (out != nullptr) == partials || (lse != nullptr) == partials)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -399,11 +483,14 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   p.windowed = windowed;
   p.lo = lo;
   p.softclamp = softclamp;
+  const RingIO io{static_cast<const float*>(c_acc), static_cast<const float*>(c_m),
+                  static_cast<const float*>(c_l), static_cast<float*>(p_acc),
+                  static_cast<float*>(p_m), static_cast<float*>(p_l)};
   const dim3 grid((Nq + kBlockM - 1) / kBlockM, B * H);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    flash_fwd_bf16_kernel<64><<<grid, 128, 0, s>>>(p);
+    flash_fwd_bf16_kernel<64><<<grid, 128, 0, s>>>(p, io);
   else
-    flash_fwd_f32_kernel<64><<<grid, kBlockM, 0, s>>>(p);
+    flash_fwd_f32_kernel<64><<<grid, kBlockM, 0, s>>>(p, io);
   return (int)cudaGetLastError();
 }

@@ -1,23 +1,31 @@
-"""RingAttention: the attention layer, single-device serving and training.
+"""RingAttention: the attention layer, local and over a ring.
 
-Port of ``ring_attention_tpu/models/attention.py`` on its local path: fused
-qkv projection after a prenorm, GQA heads, rotary, and the forward, prefill
-and KV-cache decode entry points.  The layer's kernel path is one field,
-``impl``, the counterpart of the JAX ``RingAttention._kernel_impl``:
+Port of ``ring_attention_tpu/models/attention.py``: fused qkv projection
+after a prenorm, GQA heads, rotary, the local forward, prefill and KV-cache
+decode entry points, and the ring strategy over a ``mesh``
+(``parallel/mesh.py``).  The layer's kernel path is one field, ``impl``,
+the counterpart of the JAX ``RingAttention._kernel_impl``:
 
 - ``"cuda"`` (default; JAX ``"pallas"``): the hand-written CUDA flash kernels
-  (``ops/cuda_flash.py``) for the forward, its backward and decode;
+  (``ops/cuda_flash.py``) for the forward (the ring's partials, resume and
+  fused modes), its backward and decode;
 - ``"torch"`` (JAX ``"xla"``): the blockwise PyTorch path (``ops/flash.py``,
   with its custom gradient) for the forward and backward, and the dense
   oracle for decode.
 
-``prefill`` attends with ``ops/flash.py`` under either value, as the JAX
-package's does.  Sequence parallelism (``mesh``) and the other features not
-ported yet raise ``NotImplementedError`` naming the ROADMAP item that brings
-them.
+On a mesh whose sequence world is above one the forward runs
+``parallel/ring.py::ring_flash_attention`` with each rank's rotary
+positions; with ``auto_shard`` the layer pads, stripes and unpermutes
+around it.  The ring runs on a mesh whose ring this process holds whole (a
+``VirtualRing``: one GPU, or the CPU).  ``prefill`` attends with
+``ops/flash.py`` under either value, as the JAX package's does.  Features
+not ported yet raise ``NotImplementedError`` naming the ROADMAP item that
+brings them.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -25,13 +33,20 @@ from torch import nn
 from ..ops.attention import default_attention
 from ..ops.cuda_flash import cuda_flash_attention, cuda_flash_decode
 from ..ops.flash import flash_attention
-from ..ops.rotary import apply_rotary, rotary_freqs
+from ..ops.rotary import apply_rotary, ring_positions, rotary_freqs
+from ..parallel.mesh import seq_world
+from ..parallel.ring import _fit_bucket, ring_flash_attention
+from ..parallel.sharding import (
+    layout_for,
+    layout_permute,
+    layout_unpermute,
+    pad_seq_and_mask,
+)
 from ..utils.validate import check_model_input
 from .layers import Dense, RMSNorm, resolve_device
 
 # Where each feature that is not ported yet will come from (ROADMAP.md).
 UNPORTED = {
-    "mesh": "the ring slice, ROADMAP.md Port queue item 2",
     "mask": "the mask algebra, ROADMAP.md Port queue item 7",
     "segment_ids": "packed sequences with the mask algebra, ROADMAP.md Port queue item 7",
     "quantize_cache": "the int8 decode cache (TPU kernel B6), ROADMAP.md Port queue item 3",
@@ -40,6 +55,12 @@ UNPORTED = {
     "ff_chunk_size": "the memory knobs, ROADMAP.md Port queue item 7",
     "loss_chunk_size": "the memory knobs, ROADMAP.md Port queue item 7",
     "remat": "the memory knobs, ROADMAP.md Port queue item 7",
+    "ring_bidirectional": "the ring variants, ROADMAP.md Port queue item 7",
+    "ring_counter_rotate": "the ring variants, ROADMAP.md Port queue item 7",
+    "ring_hop_compression": "the ring variants, ROADMAP.md Port queue item 7",
+    "ring_dkv_dtype": "the ring variants, ROADMAP.md Port queue item 7",
+    "decode": "tree-attention decoding on a mesh, ROADMAP.md Port queue item 7",
+    "multiprocess": "the model over a multi-process mesh, ROADMAP.md Port queue item 6",
 }
 IMPLS = ("cuda", "torch")
 UNPORTED_IMPLS = {
@@ -57,6 +78,19 @@ def reject_unported(fn: str, **settings) -> None:
             )
 
 
+def unported(fn: str, name: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{fn}: {name} is not ported yet; it arrives with {UNPORTED[name]}"
+    )
+
+
+def check_mesh(fn: str, mesh, sequence_parallel: str) -> None:
+    """Raise for a mesh or strategy the port cannot run yet."""
+    layout_for(sequence_parallel, False, 1)  # raises for unported strategies
+    if mesh is not None and len(mesh.ring.ranks) != mesh.ring.world:
+        raise unported(fn, "multiprocess")
+
+
 def check_impl(fn: str, impl: str) -> None:
     if impl in UNPORTED_IMPLS:
         raise NotImplementedError(
@@ -72,7 +106,10 @@ class RingAttention(nn.Module):
 
     Arguments mirror the JAX ``RingAttention`` fields; ``kv_heads`` sets
     GQA, ``max_lookback_seq_len`` a causal lookback window, ``dtype`` the
-    compute dtype (parameters stay float32)."""
+    compute dtype (parameters stay float32).  ``mesh`` runs the ring over
+    the mesh's sequence ranks, in the ``striped`` layout when set;
+    ``auto_shard`` takes ``x`` in the natural order and pads and permutes
+    it for the ring (without it ``x`` arrives in the ring's layout)."""
 
     def __init__(
         self,
@@ -91,14 +128,26 @@ class RingAttention(nn.Module):
         device: torch.device | str | None = None,
         *,
         mesh=None,
+        striped: bool = False,
+        auto_shard: bool = False,
+        sequence_parallel: str = "ring",
         mask=None,
         quantize_cache: bool = False,
         compute_dtype: str | None = None,
+        ring_bidirectional: bool = False,
+        ring_counter_rotate: bool = False,
+        ring_hop_compression: str | None = None,
+        ring_dkv_dtype: str | None = None,
     ):
         super().__init__()
-        reject_unported("RingAttention", mesh=mesh, mask=mask,
-                        quantize_cache=quantize_cache, compute_dtype=compute_dtype)
+        reject_unported("RingAttention", mask=mask,
+                        quantize_cache=quantize_cache, compute_dtype=compute_dtype,
+                        ring_bidirectional=ring_bidirectional,
+                        ring_counter_rotate=ring_counter_rotate,
+                        ring_hop_compression=ring_hop_compression,
+                        ring_dkv_dtype=ring_dkv_dtype)
         check_impl("RingAttention", impl)
+        check_mesh("RingAttention", mesh, sequence_parallel)
         kv_heads = kv_heads or heads
         if heads % kv_heads:
             raise ValueError(
@@ -115,6 +164,9 @@ class RingAttention(nn.Module):
         self.softclamp_value = softclamp_value
         self.max_lookback_seq_len = max_lookback_seq_len
         self.impl = impl
+        self.mesh = mesh
+        self.striped = striped
+        self.auto_shard = auto_shard
         self.prenorm = RMSNorm(dim, device=device)
         self.to_qkv = Dense(dim, (heads + 2 * kv_heads) * dim_head,
                             dtype=dtype, device=device)
@@ -151,10 +203,58 @@ class RingAttention(nn.Module):
         (True = attend), ignored when the layer is causal."""
         check_model_input("RingAttention", x, self.dim)
         reject_unported("RingAttention", segment_ids=segment_ids)
+        ring = seq_world(self.mesh) > 1
+        n_orig = x.shape[1]
+        scheme, factor = layout_for("ring", self.striped, seq_world(self.mesh))
+        if ring and self.auto_shard:
+            x, mask, n_orig = pad_seq_and_mask(x, mask, seq_world(self.mesh))
+            x = layout_permute(x, scheme, factor)
+            if mask is not None:
+                mask = layout_permute(mask, scheme, factor)
         q, k, v = self._project_qkv(x)
         if self.causal:
             mask = None
-        return self._merge_heads(self._local_attend(q, k, v, mask))
+        attend = self._ring_attend if ring else self._local_attend
+        out = self._merge_heads(attend(q, k, v, mask))
+        if ring and self.auto_shard:
+            out = layout_unpermute(out, scheme, factor)[:, :n_orig]
+        return out
+
+    def _ring_leg(self, n_chunk: int) -> tuple[int, int | None, int | None]:
+        """``(bucket, window, max_ring_passes)`` for shards of ``n_chunk``:
+        the bucket fitted to divide the shard, and a lookback turned into an
+        exact window plus, in the contiguous layout, the hops that can hold
+        in-window keys (``ceil((w - 1) / n_chunk)`` earlier shards and the
+        own).  Striped, every hop holds some in-window key."""
+        bucket = _fit_bucket(min(self.bucket_size, n_chunk), n_chunk)
+        window = self.max_lookback_seq_len
+        max_ring_passes = None
+        if window is not None and not self.striped:
+            max_ring_passes = math.ceil((window - 1) / n_chunk) + 1
+        return bucket, window, max_ring_passes
+
+    def _ring_attend(self, q, k, v, mask):
+        ring = self.mesh.ring
+        world = seq_world(self.mesh)
+        n = q.shape[2]
+        if n % world:
+            raise ValueError(
+                f"RingAttention: sequence {n} must divide over {world} (ring); "
+                "use auto_shard=True to pad"
+            )
+        n_local = n // world
+        bucket, window, max_ring_passes = self._ring_leg(n_local)
+        if self.rotary:
+            pos = torch.cat([
+                ring_positions(n_local, rank, striped=self.striped, world=world,
+                               device=q.device)
+                for rank in ring.ranks
+            ])
+            q, k = self._rotate(q, k, pos)
+        return ring_flash_attention(
+            q, k, v, mask, ring, self.causal, self.striped, bucket,
+            max_ring_passes, window, self.softclamp_value, None, self.impl,
+        )
 
     def _local_attend(self, q, k, v, mask):
         n = q.shape[2]
@@ -189,6 +289,8 @@ class RingAttention(nn.Module):
         slots: positions ``[0, pos]``, restricted to the last
         ``max_lookback_seq_len`` when the layer has a window.  Returns
         ``(out (b, 1, dim), cache_k, cache_v)``."""
+        if seq_world(self.mesh) > 1:
+            raise unported("RingAttention.decode_step", "decode")
         pos = int(pos)
         q, k, v = self._project_qkv(x)
         q, k = self._rotate(q, k, torch.tensor([pos], device=x.device))
@@ -235,6 +337,8 @@ class RingAttention(nn.Module):
         so decoding continues from position ``n``.  Attention runs on the
         blockwise PyTorch path (``ops/flash.py``) whatever ``impl`` is, as
         in the JAX package.  Returns ``(out (b, n, dim), cache_k, cache_v)``."""
+        if seq_world(self.mesh) > 1:
+            raise unported("RingAttention.prefill", "decode")
         n = x.shape[1]
         size = cache_k.shape[2]
         lookback = self.max_lookback_seq_len

@@ -1,11 +1,14 @@
-"""RingTransformer: causal LM on one device, serving and training.
+"""RingTransformer: causal LM, local or over a ring, serving and training.
 
-Port of ``ring_attention_tpu/models/transformer.py`` on one device: token
-embedding, ``depth`` x (RingAttention + FeedForward) residual blocks, final
-RMSNorm and logits, the dense cross-entropy loss with label shift and
+Port of ``ring_attention_tpu/models/transformer.py``: token embedding,
+``depth`` x (RingAttention + FeedForward) residual blocks, final RMSNorm
+and logits, the dense cross-entropy loss with label shift and
 ``ignore_index`` (differentiable into the float32 parameters; train with
 ``utils/train.py::make_train_step``), and incremental decoding
-(``init_cache`` / ``prefill`` / ``decode_step`` / ``generate``).
+(``init_cache`` / ``prefill`` / ``decode_step`` / ``generate``).  On a
+``mesh`` the model shards once at its top (pad, stripe when ``striped``)
+and every layer runs the ring on that layout; the parameters are the same
+as without a mesh.  Decoding on a mesh is not ported yet.
 """
 
 from __future__ import annotations
@@ -14,7 +17,9 @@ import torch
 from torch import nn
 
 from ..utils.validate import check_tokens_input
-from .attention import RingAttention, check_impl, reject_unported
+from ..parallel.mesh import seq_world
+from ..parallel.sharding import layout_for, layout_permute, layout_unpermute, pad_to_multiple
+from .attention import RingAttention, check_impl, check_mesh, reject_unported, unported
 from .layers import Dense, Embed, FeedForward, RMSNorm, resolve_device
 
 
@@ -57,9 +62,11 @@ def _sample(logits, temperature, top_k, top_p, generator):
 class RingTransformer(nn.Module):
     """Causal LM ``tokens (b, n) -> logits (b, n, num_tokens)`` (or loss).
 
-    Arguments mirror the JAX ``RingTransformer`` fields on one device;
-    ``max_lookback_seq_len`` takes an int or a per-layer tuple.  Built on
-    CUDA unless ``device`` names another device."""
+    Arguments mirror the JAX ``RingTransformer`` fields;
+    ``max_lookback_seq_len`` takes an int or a per-layer tuple; ``mesh``
+    (``parallel/mesh.py::create_mesh``) runs every layer's attention on the
+    ring, in the ``striped`` layout when set.  Built on CUDA unless
+    ``device`` names another device."""
 
     def __init__(
         self,
@@ -81,6 +88,8 @@ class RingTransformer(nn.Module):
         device: torch.device | str | None = None,
         *,
         mesh=None,
+        striped: bool = False,
+        sequence_parallel: str = "ring",
         mask=None,
         quantize_cache: bool = False,
         compute_dtype: str | None = None,
@@ -88,15 +97,24 @@ class RingTransformer(nn.Module):
         ff_chunk_size: int | None = None,
         loss_chunk_size: int | None = None,
         remat: bool = False,
+        ring_bidirectional: bool = False,
+        ring_counter_rotate: bool = False,
+        ring_hop_compression: str | None = None,
+        ring_dkv_dtype: str | None = None,
     ):
         super().__init__()
         reject_unported(
-            "RingTransformer", mesh=mesh, mask=mask,
+            "RingTransformer", mask=mask,
             quantize_cache=quantize_cache, compute_dtype=compute_dtype,
             windowed_cache=windowed_cache, ff_chunk_size=ff_chunk_size,
             loss_chunk_size=loss_chunk_size, remat=remat,
+            ring_bidirectional=ring_bidirectional,
+            ring_counter_rotate=ring_counter_rotate,
+            ring_hop_compression=ring_hop_compression,
+            ring_dkv_dtype=ring_dkv_dtype,
         )
         check_impl("RingTransformer", impl)
+        check_mesh("RingTransformer", mesh, sequence_parallel)
         lookbacks = max_lookback_seq_len
         if not isinstance(lookbacks, tuple):
             lookbacks = (lookbacks,) * depth
@@ -110,13 +128,17 @@ class RingTransformer(nn.Module):
         self.dim_head = dim_head
         self.ignore_index = ignore_index
         self.dtype = dtype
+        self.causal = causal
+        self.mesh = mesh
+        self.striped = striped and seq_world(mesh) > 1
         self.embed = Embed(num_tokens, dim, dtype=dtype, device=device)
         self.attn_layers = nn.ModuleList(
             RingAttention(
                 dim, heads=heads, dim_head=dim_head, kv_heads=kv_heads,
                 causal=causal, bucket_size=bucket_size, rotary=rotary,
                 softclamp_value=softclamp_value, max_lookback_seq_len=lookback,
-                impl=impl, dtype=dtype, device=device,
+                impl=impl, dtype=dtype, device=device, mesh=mesh,
+                striped=self.striped, auto_shard=False,  # sharded once at the top
             )
             for lookback in lookbacks
         )
@@ -150,11 +172,27 @@ class RingTransformer(nn.Module):
         if return_loss:
             labels = tokens[:, 1:]
             tokens = tokens[:, :-1]
+        world = seq_world(self.mesh)
+        n_orig = tokens.shape[1]
+        scheme, factor = layout_for("ring", self.striped, world)
+        if world > 1:
+            tokens, _ = pad_to_multiple(tokens, world)
+            if tokens.shape[1] != n_orig and mask is None and not self.causal:
+                # real tokens must not attend to the pad slots; causal needs
+                # no mask (the pad sits after every real query)
+                mask = torch.arange(tokens.shape[1], device=tokens.device) < n_orig
+                mask = mask[None, :].expand(tokens.shape[0], -1)
+            tokens = layout_permute(tokens, scheme, factor)
+            if mask is not None:
+                mask, _ = pad_to_multiple(mask, world, value=False)
+                mask = layout_permute(mask, scheme, factor)
         x = self.embed(tokens)
         for attn, ff in zip(self.attn_layers, self.ff_layers):
             x = attn(x, mask) + x
             x = ff(x) + x
         logits = self.to_logits(self.final_norm(x))
+        if world > 1:
+            logits = layout_unpermute(logits, scheme, factor)[:, :n_orig]
         if not return_loss:
             return logits
         valid = labels != self.ignore_index
@@ -171,6 +209,8 @@ class RingTransformer(nn.Module):
         """Zeroed KV cache ``{"k": [...], "v": [...]}``, one
         ``(batch, kv_heads, max_len, dim_head)`` entry per layer, in the
         model dtype (float32 when it is None)."""
+        if seq_world(self.mesh) > 1:
+            raise unported("RingTransformer.init_cache", "decode")
         shape = (batch, self.kv_heads, max_len, self.dim_head)
         dtype = self.dtype or torch.float32
 
@@ -190,6 +230,8 @@ class RingTransformer(nn.Module):
         """Next-token logits ``(b, vocab)`` given the token at ``pos`` and a
         cache holding positions ``[0, pos)``; the cache is updated in place
         and returned."""
+        if seq_world(self.mesh) > 1:
+            raise unported("RingTransformer.decode_step", "decode")
         x = self.embed(token.to(self._device())[:, None])
         for i, (attn, ff) in enumerate(zip(self.attn_layers, self.ff_layers)):
             a, _, _ = attn.decode_step(x, cache["k"][i], cache["v"][i], pos)
@@ -204,6 +246,8 @@ class RingTransformer(nn.Module):
     ) -> tuple[torch.Tensor, dict[str, list[torch.Tensor]]]:
         """One causal pass over the prompt, filling cache positions
         ``[0, n)`` in place.  Returns ``(last_logits (b, vocab), cache)``."""
+        if seq_world(self.mesh) > 1:
+            raise unported("RingTransformer.prefill", "decode")
         x = self.embed(tokens.to(self._device()))
         for i, (attn, ff) in enumerate(zip(self.attn_layers, self.ff_layers)):
             a, _, _ = attn.prefill(x, cache["k"][i], cache["v"][i])
@@ -230,6 +274,8 @@ class RingTransformer(nn.Module):
         categorical sampling at that temperature, truncated to the ``top_k``
         most probable tokens and/or the ``top_p`` nucleus, drawn from
         ``generator`` (which must then be given, on the model's device)."""
+        if seq_world(self.mesh) > 1:
+            raise unported("RingTransformer.generate", "decode")
         b, n = prompt.shape
         if n < 1 or num_steps < 1:
             raise ValueError("generate: needs a non-empty prompt and num_steps >= 1")

@@ -1,5 +1,6 @@
-"""Attention ops: the dense oracle, rotary, the blockwise PyTorch flash path
-and the host side of the CUDA flash kernels (forward, dk/dv, dq)."""
+"""Attention ops: the dense oracle, rotary, the blockwise PyTorch flash path,
+the partial-state ops and the host side of the CUDA flash kernels (forward
+in its fused, partials and resume modes; dk/dv; dq)."""
 
 from .attention import (
     EPSILON,
@@ -17,6 +18,8 @@ from .cuda_flash import (
     flash_bwd_reference,
     flash_fwd,
     flash_fwd_reference,
+    flash_partials,
+    flash_partials_reference,
 )
 from .flash import (
     FlashCarry,
@@ -26,19 +29,22 @@ from .flash import (
     flash_backward_blocks,
     init_carry,
 )
-from .rotary import apply_rotary, rotary_freqs, rotate_half
+from .partials import FlashPartials, finalize_partials, init_partials, merge_partials
+from .rotary import apply_rotary, ring_positions, rotary_freqs, rotate_half
 
 __all__ = [
     "EPSILON",
     "MASK_VALUE",
     "PAD_SEGMENT_ID",
     "FlashCarry",
+    "FlashPartials",
     "apply_rotary",
     "attend_blocks",
     "cuda_flash_attention",
     "cuda_flash_decode",
     "default_attention",
     "finalize",
+    "finalize_partials",
     "flash_attention",
     "flash_backward_blocks",
     "flash_bwd",
@@ -47,7 +53,12 @@ __all__ = [
     "flash_bwd_reference",
     "flash_fwd",
     "flash_fwd_reference",
+    "flash_partials",
+    "flash_partials_reference",
     "init_carry",
+    "init_partials",
+    "merge_partials",
+    "ring_positions",
     "rotary_freqs",
     "rotate_half",
     "softclamp",

@@ -80,6 +80,8 @@ def flash_fwd_library() -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_fwd.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr,  # q, k, v, kv_mask, out, lse
+        ptr, ptr, ptr,  # carry acc, m, l (all null: no carry)
+        ptr, ptr, ptr,  # partials acc, m, l (all null: out + lse)
         i32, i32, i32, i32, i32, i32,  # B, H, Hk, Nq, Nk, D
         i32, f32,  # is_bf16, scale
         i32, i32, i32, i32,  # causal, hi, windowed, lo

@@ -2,22 +2,28 @@
 and ``csrc/flash_bwd.cu``.
 
 Host side of the ports of ``ring_attention_tpu/ops/pallas_flash.py``: the
-forward sweep ``_flash_fwd_call`` in its fused mode (normalized output +
-lse) and the two passes of ``pallas_flash_backward`` (dk/dv and dq):
+forward sweep ``_flash_fwd_call`` (:869-1193) in its three modes and the
+two passes of ``pallas_flash_backward`` (dk/dv and dq):
 
-- ``flash_fwd`` and ``flash_bwd`` are the kernel wrappers.  A CUDA tensor
-  launches the kernels (or raises); a CPU tensor runs
-  ``flash_fwd_reference`` / ``flash_bwd_reference``, the plain versions of
-  the same functions.  Nothing else selects between the two.
+- ``flash_fwd`` (fused: normalized output + lse, optionally resuming a
+  carry, as ``pallas_flash_fused``), ``flash_partials`` (raw f32
+  ``(acc, m, l)`` from no carry or a carry, as ``pallas_flash_partials``)
+  and ``flash_bwd`` are the kernel wrappers.  A CUDA tensor launches the
+  kernels (or raises); a CPU tensor runs ``flash_fwd_reference`` /
+  ``flash_partials_reference`` / ``flash_bwd_reference``, the plain
+  versions of the same functions.  Nothing else selects between the two.
 - ``cuda_flash_attention`` mirrors ``pallas_flash_attention`` (:2281) with
   its custom gradient (``_pallas_flash_core``, :2213-2278): the forward
   keeps ``(out, lse)`` and the backward runs both passes from them.
 - ``cuda_flash_decode`` mirrors ``pallas_flash_decode`` (:1340): the GQA
   group folds onto query rows so each cache byte is read once per kv head.
 
-``launch_count`` (forward), ``dkv_launch_count`` and ``dq_launch_count``
-count kernel launches (plain-version calls do not count), so a run can
-show that its main path went through the kernels.
+``launch_count`` counts every launch of the forward kernel;
+``seed_launch_count``, ``resume_launch_count`` and
+``fused_carry_launch_count`` count its ring modes (partials from no carry,
+partials from a carry, out + lse from a carry); ``dkv_launch_count`` and
+``dq_launch_count`` count the backward kernels.  Plain-version calls do not
+count, so a run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -26,14 +32,18 @@ import ctypes
 
 import torch
 
-from .attention import EPSILON, MASK_VALUE, softclamp
+from .attention import MASK_VALUE, softclamp
+from .partials import FlashPartials, finalize_partials, init_partials
 from ..utils.validate import check_attention_args
 
 SUPPORTED_HEAD_DIMS = (64,)
 SUPPORTED_DTYPES = (torch.bfloat16, torch.float32)
 
 # Kernel launches since the last reset; the caller may set them to 0.
-launch_count = 0  # flash_fwd
+launch_count = 0  # flash_fwd, every mode
+seed_launch_count = 0  # flash_fwd writing partials, no carry
+resume_launch_count = 0  # flash_fwd writing partials from a carry
+fused_carry_launch_count = 0  # flash_fwd writing out + lse from a carry
 dkv_launch_count = 0  # flash_bwd_dkv
 dq_launch_count = 0  # flash_bwd_dq
 
@@ -53,6 +63,47 @@ def _keep(nq, nk, kv_mask, causal_offset, window_lo, device) -> torch.Tensor:
     return keep
 
 
+def flash_partials_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_mask: torch.Tensor | None = None,
+    *,
+    scale: float,
+    causal_offset: int | None = None,
+    window_lo: int | None = None,
+    softclamp_value: float | None = None,
+    carry: FlashPartials | None = None,
+) -> FlashPartials:
+    """Plain PyTorch version of the kernel's partials modes: the span folded
+    into ``carry`` (``init_partials`` when None) with dense f32 scores.
+
+    Local element ``(i, j)`` attends iff ``window_lo <= j - i <=
+    causal_offset`` (each bound only when given) and ``kv_mask[b, j]``;
+    masked scores take the finite ``MASK_VALUE``, so a row that has seen no
+    key averages V over every key until a real score wipes that out."""
+    b, h, nq, d = q.shape
+    _, hk, nk, _ = k.shape
+    g = h // hk
+    if carry is None:
+        carry = init_partials(b, h, nq, d, device=q.device)
+    qg = q.reshape(b, hk, g, nq, d).float()
+    s = torch.einsum("bhgid,bhjd->bhgij", qg, k.float()) * scale
+    if softclamp_value is not None:
+        s = softclamp(s, softclamp_value)
+    keep = _keep(nq, nk, kv_mask, causal_offset, window_lo, q.device)
+    s = torch.where(keep, s, MASK_VALUE)
+    m_c = carry.m.reshape(b, hk, g, nq)
+    m = torch.maximum(m_c, s.amax(dim=-1))
+    p = torch.exp(s - m[..., None])
+    alpha = torch.exp(m_c - m)
+    l = carry.l.reshape(b, hk, g, nq) * alpha + p.sum(dim=-1)
+    acc = (carry.acc.reshape(b, hk, g, nq, d) * alpha[..., None]
+           + torch.einsum("bhgij,bhjd->bhgid", p, v.float()))
+    return FlashPartials(acc.reshape(b, h, nq, d), m.reshape(b, h, nq),
+                         l.reshape(b, h, nq))
+
+
 def flash_fwd_reference(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -63,26 +114,16 @@ def flash_fwd_reference(
     causal_offset: int | None = None,
     window_lo: int | None = None,
     softclamp_value: float | None = None,
+    carry: FlashPartials | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: dense scores in float32.
-
-    Local element ``(i, j)`` attends iff ``window_lo <= j - i <=
-    causal_offset`` (each bound only when given) and ``kv_mask[b, j]``.
-    Returns ``(out (b, h, nq, d) in q.dtype, lse (b, h, nq) f32)``."""
-    b, h, nq, d = q.shape
-    _, hk, nk, _ = k.shape
-    qg = q.reshape(b, hk, h // hk, nq, d).float()
-    s = torch.einsum("bhgid,bhjd->bhgij", qg, k.float()) * scale
-    if softclamp_value is not None:
-        s = softclamp(s, softclamp_value)
-    keep = _keep(nq, nk, kv_mask, causal_offset, window_lo, q.device)
-    s = torch.where(keep, s, MASK_VALUE)
-    m = s.amax(dim=-1)
-    p = torch.exp(s - m[..., None])
-    l_safe = torch.clamp(p.sum(dim=-1), min=EPSILON)
-    out = torch.einsum("bhgij,bhjd->bhgid", p, v.float()) / l_safe[..., None]
-    lse = m + torch.log(l_safe)
-    return out.reshape(b, h, nq, d).to(q.dtype), lse.reshape(b, h, nq)
+    """Plain PyTorch version of the kernel's fused mode: the partials of
+    :func:`flash_partials_reference`, normalized.  Returns ``(out (b, h,
+    nq, d) in q.dtype, lse (b, h, nq) f32)``."""
+    out, lse = finalize_partials(flash_partials_reference(
+        q, k, v, kv_mask, scale=scale, causal_offset=causal_offset,
+        window_lo=window_lo, softclamp_value=softclamp_value, carry=carry,
+    ))
+    return out.to(q.dtype), lse
 
 
 def flash_bwd_reference(
@@ -181,6 +222,71 @@ def _check_launch(rc: int, name: str, q, k) -> None:
         )
 
 
+def _partials_rows(parts: FlashPartials, b, h, nq, d) -> tuple:
+    """``_check_kernel_args`` rows of f32 partials for ``(b, h, nq, d)``."""
+    return ((parts.acc, (b, h, nq, d), torch.float32),
+            (parts.m, (b, h, nq), torch.float32),
+            (parts.l, (b, h, nq), torch.float32))
+
+
+def _launch_fwd(q, k, v, kv_mask, band, carry, partials, out=None):
+    """Check the inputs and launch the forward kernel in one of its modes:
+    ``(out, lse)``, or f32 partials into ``out`` (new tensors when None).
+    ``out`` may be ``carry`` itself: each block reads its rows of the carry
+    before it writes them."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_fwd: no kernel for device {q.device}")
+    b, h, nq, d = q.shape
+    _, hk, nk, _ = k.shape
+    rows = ()
+    for parts in (carry, out):
+        if parts is not None:
+            rows += _partials_rows(parts, b, h, nq, d)
+    _check_kernel_args("flash_fwd", q, k, v, kv_mask, *rows)
+    from ._build import flash_fwd_library
+
+    lib = flash_fwd_library()
+    if partials:
+        result = out if out is not None else FlashPartials(
+            torch.empty((b, h, nq, d), dtype=torch.float32, device=q.device),
+            torch.empty((b, h, nq), dtype=torch.float32, device=q.device),
+            torch.empty((b, h, nq), dtype=torch.float32, device=q.device),
+        )
+        fused_ptrs = (None, None)
+        partial_ptrs = tuple(x.data_ptr() for x in result)
+    else:
+        result = (torch.empty_like(q),
+                  torch.empty((b, h, nq), dtype=torch.float32, device=q.device))
+        fused_ptrs = tuple(x.data_ptr() for x in result)
+        partial_ptrs = (None, None, None)
+    carry_ptrs = ((None,) * 3 if carry is None
+                  else tuple(x.data_ptr() for x in carry))
+    mask_u8 = None if kv_mask is None else kv_mask.to(torch.uint8).contiguous()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask_u8 is None else mask_u8.data_ptr(),
+            *fused_ptrs, *carry_ptrs, *partial_ptrs,
+            b, h, hk, nq, nk, d, int(q.dtype == torch.bfloat16),
+            float(band["scale"]),
+            *_band_args(band["causal_offset"], band["window_lo"],
+                        band["softclamp_value"]),
+            ctypes.c_void_p(stream),
+        )
+    _check_launch(rc, "flash_fwd", q, k)
+    global launch_count, seed_launch_count, resume_launch_count
+    global fused_carry_launch_count
+    launch_count += 1
+    if partials and carry is None:
+        seed_launch_count += 1
+    elif partials:
+        resume_launch_count += 1
+    elif carry is not None:
+        fused_carry_launch_count += 1
+    return result
+
+
 def flash_fwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -191,41 +297,52 @@ def flash_fwd(
     causal_offset: int | None = None,
     window_lo: int | None = None,
     softclamp_value: float | None = None,
+    carry: FlashPartials | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One forward flash sweep: ``(out in q.dtype, lse f32)``.
+    """One forward flash sweep: ``(out in q.dtype, lse f32)``, resuming
+    ``carry`` when given (a ring's last hop) and leaving it unchanged.
 
     Same arguments and result as :func:`flash_fwd_reference`.  CPU tensors
     take that plain version; CUDA tensors launch the kernel."""
+    band = dict(scale=scale, causal_offset=causal_offset, window_lo=window_lo,
+                softclamp_value=softclamp_value)
     if q.device.type == "cpu":
-        return flash_fwd_reference(
-            q, k, v, kv_mask, scale=scale, causal_offset=causal_offset,
-            window_lo=window_lo, softclamp_value=softclamp_value,
-        )
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_fwd: no kernel for device {q.device}")
-    _check_kernel_args("flash_fwd", q, k, v, kv_mask)
-    from ._build import flash_fwd_library
+        return flash_fwd_reference(q, k, v, kv_mask, carry=carry, **band)
+    return _launch_fwd(q, k, v, kv_mask, band, carry, partials=False)
 
-    lib = flash_fwd_library()
-    b, h, nq, d = q.shape
-    _, hk, nk, _ = k.shape
-    out = torch.empty_like(q)
-    lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
-    mask_u8 = None if kv_mask is None else kv_mask.to(torch.uint8).contiguous()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if mask_u8 is None else mask_u8.data_ptr(),
-            out.data_ptr(), lse.data_ptr(),
-            b, h, hk, nq, nk, d, int(q.dtype == torch.bfloat16), float(scale),
-            *_band_args(causal_offset, window_lo, softclamp_value),
-            ctypes.c_void_p(stream),
-        )
-    _check_launch(rc, "flash_fwd", q, k)
-    global launch_count
-    launch_count += 1
-    return out, lse
+
+def flash_partials(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_mask: torch.Tensor | None = None,
+    *,
+    scale: float,
+    causal_offset: int | None = None,
+    window_lo: int | None = None,
+    softclamp_value: float | None = None,
+    carry: FlashPartials | None = None,
+    out: FlashPartials | None = None,
+) -> FlashPartials:
+    """One forward flash sweep returning f32 partials ``(acc, m, l)``,
+    seeded from no carry or resuming ``carry`` (a ring's first and middle
+    hops).  The result is written into ``out`` when given, else into new
+    tensors; ``out=carry`` resumes in place, which saves an f32 ``(b, h,
+    nq, d)`` buffer per hop.  ``carry`` is left unchanged otherwise.
+
+    Same arguments and result as :func:`flash_partials_reference`.  CPU
+    tensors take that plain version (copied into ``out``); CUDA tensors
+    launch the kernel."""
+    band = dict(scale=scale, causal_offset=causal_offset, window_lo=window_lo,
+                softclamp_value=softclamp_value)
+    if q.device.type == "cpu":
+        result = flash_partials_reference(q, k, v, kv_mask, carry=carry, **band)
+        if out is None:
+            return result
+        for dst, src in zip(out, result):
+            dst.copy_(src)
+        return out
+    return _launch_fwd(q, k, v, kv_mask, band, carry, partials=True, out=out)
 
 
 def _launch_bwd(entry, outs, do, q, k, v, lse, delta, kv_mask, band) -> None:

@@ -1,14 +1,25 @@
 """Rotary position embeddings (NeoX-style half rotation).
 
-Port of ``ring_attention_tpu/ops/rotary.py:67-83``.  Positions are explicit,
-so the single-device model passes ``arange(n)`` (or the decode position);
-the ring and hybrid position helpers arrive with the ring slice.  Rotary
+Port of ``ring_attention_tpu/ops/rotary.py:26-37,67-83``.  Positions are
+explicit: the single-device model passes ``arange(n)`` (or the decode
+position), a ring rank :func:`ring_positions` of its shard.  The hybrid
+helper arrives with that strategy (ROADMAP.md Port queue item 7).  Rotary
 math runs in float32 and casts back to the input dtype.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def ring_positions(n_local: int, rank: int, *, striped: bool, world: int,
+                   device: torch.device | str = "cpu") -> torch.Tensor:
+    """Global token positions ``(n_local,)`` of ring rank ``rank``'s shard:
+    ``i * world + rank`` striped, ``i + rank * n_local`` contiguous."""
+    i = torch.arange(n_local, device=device)
+    if striped:
+        return i * world + rank
+    return i + rank * n_local
 
 
 def rotary_freqs(positions: torch.Tensor, dim: int, theta: float = 10000.0) -> torch.Tensor:

@@ -1,0 +1,439 @@
+"""Ring attention: each rank's queries stay put while the KV shards rotate
+around the ring, one hop per rank, under an online softmax.
+
+Port of the unidirectional scan path of ``ring_attention_tpu/parallel/
+ring.py``.  Where the JAX ring runs under ``shard_map`` with
+``lax.ppermute``, this one loops over the ranks its process holds
+(``ring.ranks``) and rotates through a :class:`~.collectives.Ring`: a
+:class:`~.collectives.VirtualRing` holds every rank in one process (one
+GPU, or a CPU test) and a :class:`~.collectives.DistributedRing` one rank
+per process.  The arithmetic of a rank is the same either way.
+
+Masking is one band of index offsets per hop (``_hop_offsets``): attend iff
+``lo <= j - i <= hi`` in local indices, from ``(rank, origin)``:
+
+- contiguous causal: ``hi = (rank - origin) * n_local`` covers "skip the
+  hop" (origin ahead), "triangle" (own shard) and "all visible" (origin
+  behind) in one expression;
+- striped causal: ``hi = 0`` if ``origin <= rank`` else ``-1``;
+- a lookback window adds the lower bound ``lo``.
+
+Two per-hop compute paths:
+
+- ``impl="torch"`` follows the JAX scanned XLA path (``_ring_fwd_impl``
+  :1342-1396): the blockwise PyTorch flash (``ops/flash.py``) folds each
+  hop into a ``(b, hk, g, n, d)`` carry;
+- ``impl="cuda"`` follows ``_ring_fwd_pallas`` (:503-620) on the CUDA
+  forward kernel: seed partials on hop 0, in-kernel resume (in place) on
+  the middle hops, normalization fused into the last hop's write.  A rank
+  whose last hop has no work finalizes its carry on the host; hops whose
+  band covers the whole span for every rank with work run unmasked.
+
+The gradient is one ``torch.autograd.Function`` over the whole ring (the
+counterpart of the JAX ``custom_vjp``): its backward rotates ``(k, v, dk,
+dv)`` together, accumulates dk and dv in f32, and ends with one composed
+catch-up rotation when ``max_ring_passes`` cut the loop.  On CUDA tensors
+the per-hop backward is the dk/dv and dq kernels.
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import torch
+
+from ..ops.cuda_flash import (
+    cuda_flash_attention,
+    flash_bwd,
+    flash_fwd,
+    flash_partials,
+)
+from ..ops.flash import (
+    _group_q,
+    _ungroup,
+    attend_blocks,
+    finalize,
+    flash_attention,
+    flash_backward_blocks,
+    init_carry,
+)
+from ..ops.partials import finalize_partials
+from ..utils.validate import check_attention_args
+from .collectives import Ring
+
+IMPLS = ("torch", "cuda")
+# Where each ring option that is not ported yet will come from (ROADMAP.md).
+UNPORTED = {
+    "bidirectional": "the ring variants, ROADMAP.md Port queue item 7",
+    "counter_rotate": "the ring variants, ROADMAP.md Port queue item 7",
+    "hop_compression": "the ring variants, ROADMAP.md Port queue item 7",
+    "dkv_dtype": "the ring variants, ROADMAP.md Port queue item 7",
+    "compute_dtype": "int8 compute (TPU kernel B4), ROADMAP.md Port queue item 4",
+    "segment_ids": "packed sequences with the mask algebra, ROADMAP.md Port queue item 7",
+}
+UNPORTED_IMPLS = {
+    "fused": "the fused ring kernel (TPU kernel B7), ROADMAP.md Port queue item 5",
+}
+
+
+def _rotate(ring: Ring, payloads: list, shift: int = 1) -> list:
+    """Rotate the held ranks' payloads; a ring of one, or a shift that is a
+    whole turn, moves nothing."""
+    if ring.world == 1 or shift % ring.world == 0:
+        return payloads
+    return ring.rotate(payloads, shift)
+
+
+def _payloads(k, v, kv_mask) -> list:
+    """Each held rank's circulating payload ``(k, v[, kv_mask])``: a mask
+    that is None never enters the rotation.  The ring has one
+    unidirectional stream (shift 1, the whole shard): the JAX package's
+    bidirectional half-streams are not ported."""
+    return [(kx, vx) if kv_mask is None else (kx, vx, mx)
+            for kx, vx, mx in zip(k, v, kv_mask or [None] * len(k))]
+
+
+def _offsets_at_hop(rank, i, n_local, causal, striped, window, ring_size):
+    """Band offsets ``(hi, lo)`` of hop ``i``, whose keys come from rank
+    ``rank - i``."""
+    return _hop_offsets(rank, (rank - i) % ring_size, n_local, causal,
+                        striped, window, ring_size)
+
+
+def _hop_offsets(rank: int, origin: int, n_local: int, causal: bool,
+                 striped: bool, window: int | None,
+                 ring_size: int) -> tuple[int | None, int | None]:
+    """Band offsets ``(hi, lo)`` for the tile (my queries) x (origin's keys):
+    attend iff ``lo <= j - i <= hi`` in local indices.  Striped, the window
+    bound ``j*W + o >= i*W + r - w + 1`` is exactly ``j >= i + ceil((r - o -
+    w + 1) / W)``."""
+    if not causal:
+        return None, None
+    if striped:
+        hi = 0 if origin <= rank else -1
+        if window is None:
+            return hi, None
+        return hi, -((origin + window - 1 - rank) // ring_size)
+    hi = (rank - origin) * n_local
+    return hi, (hi - (window - 1) if window is not None else None)
+
+
+def _hop_is_full(i: int, n_local, causal, striped, window, ring_size) -> bool:
+    """Whether every rank with work at hop ``i`` sees the whole span
+    unmasked, so that the hop may run with ``hi = lo = None`` (the ``full``
+    of the JAX ``_static_hop_band``).  Only contiguous causal hops past the
+    diagonal can be; a striped hop always has a band."""
+    if not causal or striped:
+        return False
+    hi = i * n_local
+    lo = hi - (window - 1) if window is not None else None
+    return hi >= n_local - 1 and (lo is None or lo <= -(n_local - 1))
+
+
+def _hop_has_work(hi: int | None, lo: int | None, n_q: int, n_k: int) -> bool:
+    """Whether the band ``lo <= j - i <= hi`` touches the ``(n_q, n_k)``
+    span; ``lo > hi`` (striped hops with a window under the ring size) is
+    empty."""
+    if hi is None:
+        return True
+    ok = hi >= -(n_q - 1)
+    if lo is not None:
+        ok = ok and lo <= n_k - 1 and lo <= hi
+    return ok
+
+
+def _fit_bucket(bucket_size: int | None, nk: int) -> int | None:
+    """Largest divisor of ``nk`` that is <= ``bucket_size``; warns when it
+    falls to half or less.  The one copy of the bucket fit: the ring fits
+    once per call, the attention layer once per shard length."""
+    if bucket_size is None or nk == 0:
+        return bucket_size
+    b = min(bucket_size, nk)
+    while nk % b:
+        b -= 1
+    if b * 2 <= bucket_size:
+        warnings.warn(
+            f"ring flash bucket refitted from {bucket_size} to {b} to divide "
+            f"the {nk}-token KV stream; tiny buckets mean many small steps — "
+            f"pick a bucket_size dividing the shard length",
+            stacklevel=2,
+        )
+    return b
+
+
+def _span_ops(q, hk, scale, bucket_size, softclamp_value):
+    """Per-hop ``(init, attend, final)`` of the ``impl="torch"`` path for
+    one rank's queries ``q``; the carry is a grouped ``FlashCarry``."""
+    b, h, n_local, d = q.shape
+
+    def init():
+        return init_carry(b, hk, h // hk, n_local, d, device=q.device)
+
+    def attend(carry, k, v, kv_mask, hi, lo):
+        return attend_blocks(
+            q, k, v, carry, scale=scale, bucket_size=bucket_size,
+            causal_offset=hi, window_lo=lo, kv_mask=kv_mask,
+            softclamp_value=softclamp_value,
+        )
+
+    def final(carry):
+        out_g, lse = finalize(carry)  # lse: (b, hk, g, n)
+        return _ungroup(out_g).to(q.dtype), lse
+
+    return init, attend, final
+
+
+def _span_bwd(impl, do, q, k, v, lse, delta, kv_mask, hi, lo, scale,
+              bucket_size, softclamp_value):
+    """Per-hop backward: float32 ``(dq (b, h, ..), dk (b, hk, ..), dv)``."""
+    if impl == "cuda":
+        return flash_bwd(do, q, k, v, lse, delta, kv_mask, scale=scale,
+                         causal_offset=hi, window_lo=lo,
+                         softclamp_value=softclamp_value)
+    return flash_backward_blocks(
+        do, q, k, v, lse, delta, scale=scale, bucket_size=bucket_size,
+        causal_offset=hi, window_lo=lo, kv_mask=kv_mask,
+        softclamp_value=softclamp_value,
+    )
+
+
+def _ring_fwd_cuda(qs, ks, vs, masks, ring, cfg):
+    """Forward of every held rank on the CUDA kernel's ring modes."""
+    n_local = qs[0].shape[2]
+    payloads = _payloads(ks, vs, masks)
+    passes, geo = cfg["passes"], _geometry(cfg, n_local, ring.world)
+    carries = [None] * len(qs)
+    results = [None] * len(qs)
+    for i in range(passes):
+        full = _hop_is_full(i, **geo)
+        for j, rank in enumerate(ring.ranks):
+            q, (kx, vx, *mx) = qs[j], payloads[j]
+            hi, lo = _offsets_at_hop(rank, i, **geo)
+            has_work = _hop_has_work(hi, lo, n_local, n_local)
+            if full:  # every rank with work sees the whole span
+                hi, lo = None, None
+            band = dict(scale=cfg["scale"], causal_offset=hi, window_lo=lo,
+                        softclamp_value=cfg["softclamp_value"])
+            mask = mx[0] if mx else None
+            if i == passes - 1:
+                if carries[j] is None:  # one pass: a plain fused sweep
+                    results[j] = flash_fwd(q, kx, vx, mask, **band)
+                elif has_work:
+                    results[j] = flash_fwd(q, kx, vx, mask, carry=carries[j], **band)
+                else:
+                    out, lse = finalize_partials(carries[j])
+                    results[j] = (out.to(q.dtype), lse)
+            elif carries[j] is None:  # hop 0 holds the own shard: always work
+                carries[j] = flash_partials(q, kx, vx, mask, **band)
+            elif has_work:  # resumed in place
+                flash_partials(q, kx, vx, mask, carry=carries[j], out=carries[j],
+                               **band)
+        if i < passes - 1:
+            payloads = _rotate(ring, payloads)
+    return [r[0] for r in results], [r[1] for r in results]
+
+
+def _ring_fwd_torch(qs, ks, vs, masks, ring, cfg):
+    """Forward of every held rank on the blockwise PyTorch flash."""
+    n_local = qs[0].shape[2]
+    hk = ks[0].shape[1]
+    payloads = _payloads(ks, vs, masks)
+    geo = _geometry(cfg, n_local, ring.world)
+    ops = [_span_ops(q, hk, cfg["scale"], cfg["bucket_size"],
+                     cfg["softclamp_value"]) for q in qs]
+    carries = [init() for init, _, _ in ops]
+    for i in range(cfg["passes"]):
+        for j, rank in enumerate(ring.ranks):
+            kx, vx, *mx = payloads[j]
+            hi, lo = _offsets_at_hop(rank, i, **geo)
+            if _hop_has_work(hi, lo, n_local, n_local):
+                carries[j] = ops[j][1](carries[j], kx, vx,
+                                       mx[0] if mx else None, hi, lo)
+        if i < cfg["passes"] - 1:
+            payloads = _rotate(ring, payloads)
+    results = [final(c) for (_, _, final), c in zip(ops, carries)]
+    return [r[0] for r in results], [r[1] for r in results]
+
+
+def _ring_bwd(dos, qs, ks, vs, masks, outs, lses, ring, cfg):
+    """Backward of every held rank: ``(dqs, dks, dvs)`` in float32."""
+    impl = cfg["impl"]
+    n_local = qs[0].shape[2]
+    hk = ks[0].shape[1]
+    ring_size, passes = ring.world, cfg["passes"]
+    geo = _geometry(cfg, n_local, ring_size)
+    if impl == "cuda":  # lse and delta in the flat (b, h, n) layout
+        deltas = [(do.float() * o.float()).sum(-1) for do, o in zip(dos, outs)]
+    else:
+        deltas = [(_group_q(do, hk).float() * _group_q(o, hk).float()).sum(-1)
+                  for do, o in zip(dos, outs)]
+    payloads = _payloads(ks, vs, masks)
+    dqs = [torch.zeros(q.shape, dtype=torch.float32, device=q.device) for q in qs]
+    dkvs = [(torch.zeros(k.shape, dtype=torch.float32, device=k.device),
+             torch.zeros(k.shape, dtype=torch.float32, device=k.device))
+            for k in ks]
+    for i in range(passes):
+        full = impl == "cuda" and _hop_is_full(i, **geo)
+        for j, rank in enumerate(ring.ranks):
+            kx, vx, *mx = payloads[j]
+            hi, lo = _offsets_at_hop(rank, i, **geo)
+            if not _hop_has_work(hi, lo, n_local, n_local):
+                continue
+            if full:
+                hi, lo = None, None
+            dq_i, dk_i, dv_i = _span_bwd(
+                impl, dos[j], qs[j], kx, vx, lses[j], deltas[j],
+                mx[0] if mx else None, hi, lo, cfg["scale"],
+                cfg["bucket_size"], cfg["softclamp_value"],
+            )
+            dqs[j] += dq_i
+            dkvs[j][0].add_(dk_i)
+            dkvs[j][1].add_(dv_i)
+        # dk/dv travel with their k/v; after the last hop only they move on
+        if i < passes - 1:
+            moved = _rotate(ring, [p + d for p, d in zip(payloads, dkvs)])
+            payloads = [m[:-2] for m in moved]
+            dkvs = [m[-2:] for m in moved]
+        else:
+            dkvs = _rotate(ring, dkvs)
+    # after `passes` rotations the dk/dv on a rank belong to origin
+    # (rank - passes): one composed rotation returns each to its owner
+    dkvs = _rotate(ring, dkvs, (ring_size - passes) % ring_size)
+    return dqs, [d[0] for d in dkvs], [d[1] for d in dkvs]
+
+
+def _geometry(cfg, n_local, ring_size) -> dict:
+    return dict(n_local=n_local, causal=cfg["causal"], striped=cfg["striped"],
+                window=cfg["window"], ring_size=ring_size)
+
+
+def _shards(x: torch.Tensor | None, count: int, dim: int) -> list | None:
+    """Contiguous per-rank shards along ``dim`` (copied once, at ring
+    entry: the kernels take no strided view)."""
+    if x is None:
+        return None
+    return [s.contiguous() for s in x.chunk(count, dim=dim)]
+
+
+class _RingFlashAttention(torch.autograd.Function):
+    """The whole ring's forward and backward; the counterpart of the JAX
+    ``_ring_flash_attention_core`` custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, ring, cfg):
+        count = len(ring.ranks)
+        qs, ks, vs = (_shards(x, count, 2) for x in (q, k, v))
+        masks = _shards(kv_mask, count, 1)
+        fwd = _ring_fwd_cuda if cfg["impl"] == "cuda" else _ring_fwd_torch
+        outs, lses = fwd(qs, ks, vs, masks, ring, cfg)
+        ctx.shards = (qs, ks, vs, masks, outs, lses)
+        ctx.ring, ctx.cfg = ring, cfg
+        return torch.cat(outs, dim=2)
+
+    @staticmethod
+    def backward(ctx, do):
+        qs, ks, vs, masks, outs, lses = ctx.shards
+        dos = _shards(do.to(qs[0].dtype), len(qs), 2)
+        dqs, dks, dvs = _ring_bwd(dos, qs, ks, vs, masks, outs, lses,
+                                  ctx.ring, ctx.cfg)
+        return (torch.cat(dqs, dim=2).to(qs[0].dtype),
+                torch.cat(dks, dim=2).to(ks[0].dtype),
+                torch.cat(dvs, dim=2).to(vs[0].dtype), None, None, None)
+
+
+def ring_flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_mask: torch.Tensor | None,
+    ring: Ring,
+    causal: bool = False,
+    striped: bool = False,
+    bucket_size: int | None = None,
+    max_ring_passes: int | None = None,
+    window: int | None = None,
+    softclamp_value: float | None = None,
+    scale: float | None = None,
+    impl: str = "torch",
+    bidirectional: bool = False,
+    dkv_dtype: str | None = None,
+    segment_ids: torch.Tensor | None = None,
+    counter_rotate: bool = False,
+    hop_compression: str | None = None,
+    compute_dtype: str | None = None,
+) -> torch.Tensor:
+    """Sequence-parallel exact attention over ``ring``, differentiable.
+
+    Args:
+      q: ``(b, h, n, d)`` queries of the ranks this process holds
+        (``ring.ranks``), their shards concatenated in rank order along the
+        sequence: the whole sequence on a ``VirtualRing``, the local shard
+        on a ``DistributedRing``.
+      k, v: ``(b, hk, n, d)`` keys and values in the same layout (GQA when
+        ``hk < h``: the ring then moves ``hk``-wide shards).
+      kv_mask: optional ``(b, n)`` key-padding mask in the same layout; it
+        rotates with ``k`` and ``v``.
+      ring: the :class:`~.collectives.Ring` the shards belong to.
+      causal, striped: causal masking, in the striped (load-balanced)
+        layout when the sequence was stripe-permuted before sharding.
+      bucket_size: the blockwise flash tile of ``impl="torch"`` within a hop
+        (the CUDA kernel's tiles are fixed).
+      max_ring_passes: limit the hops (a lookback window's reach).
+      window: exact sliding-window lookback in tokens (causal only).
+      impl: ``"torch"`` (the blockwise PyTorch flash, JAX ``"xla"``) or
+        ``"cuda"`` (the CUDA kernels, JAX ``"pallas"``; the plain versions
+        on CPU tensors).
+
+    ``bidirectional``, ``dkv_dtype``, ``segment_ids``, ``counter_rotate``,
+    ``hop_compression``, ``compute_dtype`` and ``impl="fused"`` are not
+    ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
+
+    Cross-attention (unequal q and kv shard lengths) bypasses the ring: each
+    rank attends its local KV shard only, as in the JAX package.
+
+    Returns ``(b, h, n, d)`` in ``q.dtype``, in the layout of ``q``.
+    """
+    for name, value in (("bidirectional", bidirectional),
+                        ("dkv_dtype", dkv_dtype), ("segment_ids", segment_ids),
+                        ("counter_rotate", counter_rotate),
+                        ("hop_compression", hop_compression),
+                        ("compute_dtype", compute_dtype)):
+        if value is not None and value is not False:
+            raise NotImplementedError(
+                f"ring_flash_attention: {name}= is not ported yet; it arrives "
+                f"with {UNPORTED[name]}"
+            )
+    if impl in UNPORTED_IMPLS:
+        raise NotImplementedError(
+            f'ring_flash_attention: impl="{impl}" is not ported yet; it '
+            f"arrives with {UNPORTED_IMPLS[impl]}"
+        )
+    if impl not in IMPLS:
+        raise ValueError(f"ring_flash_attention: impl must be one of {IMPLS}, got {impl!r}")
+    count = len(ring.ranks)
+    check_attention_args("ring_flash_attention", q, k, v, kv_mask, shards=count)
+    if window is not None and not causal:
+        raise ValueError("ring_flash_attention: lookback windows require causal attention")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.shape[2] != k.shape[2]:
+        # cross-attention: each rank attends its local KV shard only
+        local = cuda_flash_attention if impl == "cuda" else flash_attention
+        kw = dict(causal=causal, window=window, softclamp_value=softclamp_value,
+                  scale=scale)
+        if impl == "torch":
+            kw["bucket_size"] = bucket_size
+        masks = kv_mask.chunk(count, dim=1) if kv_mask is not None else [None] * count
+        return torch.cat([
+            local(qx, kx, vx, mx, **kw)
+            for qx, kx, vx, mx in zip(q.chunk(count, dim=2), k.chunk(count, dim=2),
+                                      v.chunk(count, dim=2), masks)
+        ], dim=2)
+    if impl == "torch":  # fitted once to the shard every hop attends
+        bucket_size = _fit_bucket(bucket_size, q.shape[2] // count)
+    cfg = dict(
+        impl=impl, causal=causal, striped=striped, bucket_size=bucket_size,
+        passes=min(max_ring_passes or ring.world, ring.world), window=window,
+        softclamp_value=softclamp_value, scale=scale,
+    )
+    return _RingFlashAttention.apply(q, k, v, kv_mask, ring, cfg)

@@ -29,12 +29,15 @@ def check_attention_args(
     kv_mask=None,
     *,
     equal_qkv_len: bool = False,
+    shards: int = 1,
 ) -> None:
     """Validate a ``q/k/v (+ kv_mask)`` attention call.
 
     Layout contract (package-wide): ``q: (b, h, n, d)``,
     ``k, v: (b, hk, n, d)`` with ``h`` a multiple of ``hk`` (GQA),
-    ``kv_mask: (b, n_kv)`` boolean.
+    ``kv_mask: (b, n_kv)`` boolean.  ``shards > 1`` (a ring entry point
+    whose process holds that many ranks) needs both sequences to split
+    into that many equal shards.
     """
     for name, x in (("q", q), ("k", k), ("v", v)):
         if getattr(x, "ndim", None) != 4:
@@ -68,6 +71,11 @@ def check_attention_args(
     if equal_qkv_len and nq != nk:
         raise ValueError(
             f"{fn}: q and k must share the sequence length, got nq={nq} nk={nk}"
+        )
+    if nq % shards or nk % shards:
+        raise ValueError(
+            f"{fn}: q ({nq}) and k ({nk}) sequences must split into {shards} "
+            f"equal shards, one per ring rank this process holds"
         )
     if kv_mask is not None:
         if getattr(kv_mask, "ndim", None) != 2 or tuple(kv_mask.shape) != (b, nk):

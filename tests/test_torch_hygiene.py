@@ -6,9 +6,9 @@
   test process imports JAX for the parity tests.)
 - Building a model with the default device raises when there is no CUDA
   device, instead of carrying on on the CPU.
-- Every feature the port leaves out (model settings and ``make_train_step``
-  options) raises ``NotImplementedError`` naming the ROADMAP item that
-  brings it.
+- Every feature the port leaves out (model settings, decoding on a mesh
+  and ``make_train_step`` options) raises ``NotImplementedError`` naming
+  the ROADMAP item that brings it.
 """
 
 import ast
@@ -19,6 +19,7 @@ import torch
 
 import ring_attention_tpu_torch
 from ring_attention_tpu_torch import RingAttention, RingTransformer, make_train_step
+from ring_attention_tpu_torch.parallel import create_mesh
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = Path(ring_attention_tpu_torch.__file__).resolve().parent
@@ -60,7 +61,11 @@ def test_default_device_without_cuda_raises(monkeypatch):
 # test ids must be the same in every pytest-xdist worker: plain strings,
 # never an object's repr (which carries its address)
 UNPORTED_SETTINGS = {
-    "mesh": dict(mesh="a mesh"),
+    "ring_bidirectional": dict(ring_bidirectional=True),
+    "ring_counter_rotate": dict(ring_counter_rotate=True),
+    "ring_hop_compression": dict(ring_hop_compression="int8"),
+    "ring_dkv_dtype": dict(ring_dkv_dtype="bfloat16"),
+    "sequence_parallel_zigzag": dict(sequence_parallel="zigzag"),
     "mask": dict(mask="a mask expression"),
     "quantize_cache": dict(quantize_cache=True),
     "compute_dtype": dict(compute_dtype="int8"),
@@ -77,6 +82,20 @@ UNPORTED_SETTINGS = {
 def test_unported_features_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item"):
         RingTransformer(**SMALL, device="cpu", **UNPORTED_SETTINGS[name])
+
+
+@pytest.mark.parametrize("entry", ["init_cache", "prefill", "decode_step", "generate"])
+def test_decode_on_a_mesh_raises(entry):
+    model = RingTransformer(**SMALL, device="cpu", mesh=create_mesh(ring_size=2))
+    tokens = torch.zeros((1, 8), dtype=torch.long)
+    calls = {
+        "init_cache": lambda: model.init_cache(1, 8),
+        "prefill": lambda: model.prefill(tokens, {}),
+        "decode_step": lambda: model.decode_step(tokens[:, 0], {}, 0),
+        "generate": lambda: model.generate(tokens, max_len=16, num_steps=2),
+    }
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item 7"):
+        calls[entry]()
 
 
 def test_segment_ids_raise():

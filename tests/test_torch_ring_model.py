@@ -1,0 +1,185 @@
+"""Parity: the port's models on a ring mesh vs the JAX models on theirs.
+
+The JAX ``RingTransformer`` runs on ``create_mesh(ring_size=4,
+data_size=2)`` of the 8 virtual CPU devices; the port's on
+``create_mesh(ring_size=4)``, a ``VirtualRing`` of 4 ranks in this process,
+with the JAX weights (``load_jax_params``).  The sequence is odd (127
+positions), so both pad at the model top; striped and contiguous layouts,
+a lookback window that cuts the ring passes (the dk/dv catch-up rotation),
+softclamp and GQA.  Loss and every parameter gradient, both port impls
+(``"cuda"``'s kernel wrappers run their plain versions on CPU tensors)
+against the JAX ``impl="xla"`` model; three SGD steps of
+``make_train_step`` against the JAX step on its mesh; the attention layer's
+own pad -> stripe -> unpermute path with a key mask.  Tolerances are
+``test_torch_train.py``'s: float32 on both sides, loss 1e-5 relative,
+gradients 2e-5 absolute plus 1e-4 relative.
+"""
+
+import copy
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from ring_attention_tpu.models import RingAttention as JaxAttention
+from ring_attention_tpu.models import RingTransformer as JaxTransformer
+from ring_attention_tpu.parallel import create_mesh as jax_create_mesh
+from ring_attention_tpu.utils.train import make_train_step as jax_make_train_step
+from ring_attention_tpu_torch import (
+    RingAttention,
+    RingTransformer,
+    export_jax_params,
+    load_jax_params,
+    make_train_step,
+)
+from ring_attention_tpu_torch.parallel import Mesh, Ring, create_mesh
+
+GRAD_TOL = dict(atol=2e-5, rtol=1e-4)
+CONFIG = dict(num_tokens=256, dim=64, depth=2, heads=4, kv_heads=2,
+              dim_head=16, causal=True, bucket_size=16)
+VARIANTS = {
+    "contiguous": {},
+    "striped": dict(striped=True),
+    # layer 0 looks back 12 tokens: shards of 32 need 2 of the 4 passes
+    "lookback_softclamp": dict(max_lookback_seq_len=(12, None), softclamp_value=4.0),
+}
+
+
+def _tokens(seed, b=2, n=128):
+    return np.random.default_rng(seed).integers(0, 256, (b, n)).astype(np.int32)
+
+
+@functools.cache
+def _jax_model(variant):
+    jm = JaxTransformer(**CONFIG, **VARIANTS[variant],
+                        mesh=jax_create_mesh(ring_size=4, data_size=2))
+    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(_tokens(0)))
+    return jm, jax.tree_util.tree_map(np.asarray, params)
+
+
+def _port_model(variant, impl, params):
+    tm = RingTransformer(**CONFIG, **VARIANTS[variant], impl=impl, device="cpu",
+                         mesh=create_mesh(ring_size=4))
+    return load_jax_params(tm, params)
+
+
+def _grads_as_jax(model):
+    holder = copy.deepcopy(model)
+    with torch.no_grad():
+        for p, src in zip(holder.parameters(), model.parameters()):
+            p.copy_(src.grad)
+    return export_jax_params(holder)
+
+
+def _assert_trees_close(got, ref, **tol):
+    flat_ref = dict(jax.tree_util.tree_leaves_with_path(ref))
+    flat_got = dict(jax.tree_util.tree_leaves_with_path(got))
+    assert set(flat_got) == set(flat_ref)
+    for path, r in flat_ref.items():
+        np.testing.assert_allclose(flat_got[path], np.asarray(r), err_msg=str(path), **tol)
+
+
+@functools.cache
+def _jax_loss_and_grads(variant):
+    jm, params = _jax_model(variant)
+    tokens = _tokens(1)
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p: jm.apply(p, jnp.asarray(tokens), return_loss=True)))(params)
+    return float(loss), grads
+
+
+@pytest.mark.parametrize("impl", ["torch", "cuda"])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_ring_model_loss_and_grads_match_jax(variant, impl):
+    _, params = _jax_model(variant)
+    ref_loss, ref_grads = _jax_loss_and_grads(variant)
+    tm = _port_model(variant, impl, params)
+    loss = tm(torch.from_numpy(_tokens(1)), return_loss=True)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), ref_loss, rtol=1e-5)
+    _assert_trees_close(_grads_as_jax(tm), ref_grads, **GRAD_TOL)
+
+
+def test_ring_model_logits_match_local_model():
+    """The ring changes where attention runs, not what the model computes:
+    logits on the mesh equal the same weights' local model."""
+    _, params = _jax_model("striped")
+    tm = _port_model("striped", "cuda", params)
+    local = load_jax_params(RingTransformer(**CONFIG, device="cpu"), params)
+    tokens = torch.from_numpy(_tokens(2, n=127))
+    with torch.no_grad():
+        np.testing.assert_allclose(tm(tokens).numpy(), local(tokens).numpy(),
+                                   atol=1e-4)
+
+
+def test_ring_sgd_steps_match_jax_make_train_step():
+    """Three SGD steps on the striped model: the port's step on the virtual
+    ring and the JAX step on its mesh land on the same parameters."""
+    jm, params = _jax_model("striped")
+    tm = _port_model("striped", "cuda", params)
+    lr = 0.5
+    jstep = jax.jit(jax_make_train_step(
+        lambda p, t: jm.apply(p, t, return_loss=True), optax.sgd(lr)))
+    step = make_train_step(lambda t: tm(t, return_loss=True),
+                           torch.optim.SGD(tm.parameters(), lr=lr))
+    jparams, jstate = params, optax.sgd(lr).init(params)
+    for seed in (3, 4, 5):
+        tokens = _tokens(seed)
+        jparams, jstate, jloss = jstep(jparams, jstate, jnp.asarray(tokens))
+        np.testing.assert_allclose(float(step(torch.from_numpy(tokens))),
+                                   float(jloss), rtol=1e-5)
+    _assert_trees_close(export_jax_params(tm), jparams, **GRAD_TOL)
+
+
+def test_ring_model_export_round_trips():
+    _, params = _jax_model("contiguous")
+    tm = _port_model("contiguous", "torch", params)
+    exported = export_jax_params(tm)
+    _assert_trees_close(exported, params, atol=0, rtol=0)
+    again = load_jax_params(RingTransformer(**CONFIG, device="cpu",
+                                            mesh=create_mesh(ring_size=4)), exported)
+    for a, b in zip(again.parameters(), tm.parameters()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("striped", [False, True])
+def test_ring_layer_auto_shard_matches_jax(striped):
+    """The layer's own pad -> stripe -> ring -> unpermute path: non-causal,
+    an odd sequence and a key mask (padding extends the mask)."""
+    dim, n = 32, 29
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2, n, dim)).astype(np.float32)
+    mask = rng.random((2, n)) > 0.3
+    jl = JaxAttention(dim=dim, heads=4, dim_head=8, kv_heads=2, striped=striped,
+                      auto_shard=True, bucket_size=4,
+                      mesh=jax_create_mesh(ring_size=4, data_size=2))
+    params = jl.init(jax.random.PRNGKey(1), jnp.asarray(x), jnp.asarray(mask))["params"]
+    ref = jl.apply({"params": params}, jnp.asarray(x), jnp.asarray(mask))
+    tl = RingAttention(dim, heads=4, dim_head=8, kv_heads=2, striped=striped,
+                       auto_shard=True, bucket_size=4, device="cpu",
+                       mesh=create_mesh(ring_size=4))
+    with torch.no_grad():
+        tl.prenorm.gamma.copy_(torch.from_numpy(np.array(params["prenorm"]["gamma"])))
+        tl.to_qkv.weight.copy_(torch.from_numpy(np.array(params["to_qkv"]["kernel"]).T))
+        tl.to_out.weight.copy_(torch.from_numpy(np.array(params["to_out"]["kernel"]).T))
+        out = tl(torch.from_numpy(x), torch.from_numpy(mask))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+
+
+class _OneOfTwo(Ring):
+    """A ring of which this process holds one rank of two."""
+
+    world, ranks = 2, (0,)
+
+    def rotate(self, payloads, shift):
+        raise AssertionError("never reached")
+
+
+def test_model_on_a_multiprocess_mesh_raises():
+    mesh = Mesh(data=1, seq=2, ring=_OneOfTwo())
+    with pytest.raises(NotImplementedError, match="Port queue item 6"):
+        RingTransformer(**CONFIG, device="cpu", mesh=mesh)
