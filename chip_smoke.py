@@ -26,6 +26,14 @@ result line):
        262,144 tokens (n_local 65,536), the long chains in 1,024-row
        slices; outputs are held elementwise and by their norm-relative
        error (RING_REL_TOL).
+   2d. the int8 kernels: the int8 forward (csrc/flash_fwd_q8.cu) in every
+       mode (fused, seed, resume into new tensors and in place, fused from
+       a carry) on every forward case and at a ring hop's quantization
+       block, a case where every key carries its own value, the
+       65,536-token causal launch in 1,024-row slices and two 4 x 16,384
+       int8 hop chains; the int8 decode (csrc/flash_decode_q8.cu) fused,
+       with softclamp and as partials on the decode shapes; each held by
+       its norm-relative error and its lse (Q8_REL_TOL, Q8_LSE_TOL).
 3. The serving path through the entry points a user calls: RingTransformer
    at the full width of the repository's benchmark model (vocab 256,
    dim 512, 8 heads of 64, depth 2, ff_mult 4, rotary, causal, bf16) with
@@ -46,7 +54,14 @@ result line):
    launch the forward kernel's ring modes and the backward kernels exactly
    as the hop schedule says (RING_SCHEDULE).  A float32 copy (seq 256)
    on the card is held to the CPU, logits and gradients, in both layouts.
-   In phases 3, 3b and 3c every launch counter is set to 0 just before each
+3d. The int8 path: the same model with ``quantize_cache=True,
+   compute_dtype="int8"``: logits for the 65,536-token request held to the
+   bf16 model's (Q8_FWD_REL_L2), ``generate`` on the int8 cache, 4 Adam
+   steps; a float32 copy (seq 256) on the card held to the CPU; then the
+   ring of 4 in both layouts, forward and one step.  Every run launches
+   exactly what its path says: the int8 forward twice per forward, the int8
+   decode once per layer and step, the ring modes per RING_SCHEDULE.
+   In phases 3 to 3d every launch counter is set to 0 just before each
    run and read just after; a kernel that never launched fails the run.
 4. Timings with CUDA events (median of 10 runs after warm-up): each kernel
    beside its bound (the larger of its bytes over 3.35 TB/s and its
@@ -64,8 +79,16 @@ result line):
    262,144 tokens (ms, TFLOP/s, bound, ratio to the single causal sweep)
    beside SDPA per span merged in PyTorch; the ring models' forward and
    train step (ms, tokens/s, peak memory) beside the local model's.
-5. The kernels line, one JSON object; the forward kernel's entry lists its
-   ring modes.
+4d. The int8 kernels: the int8 forward at causal 4,096 and 65,536 (the
+   kernel on quantized operands and the wrapper with its quantization),
+   its ring modes on a 65,536-row span, the int8 decode at b4 h8 hk8
+   nk4,096 and b4 h8 hk2 nk32,768 (per call in a stream of 20 calls, and
+   one synchronized call), each beside its bound at the int8 or byte rate,
+   its plain version and the bf16 kernel and SDPA on the same inputs (no
+   PyTorch call computes int8 attention); the int8 model's forward
+   tokens/s (and the int8 ring models'), decode ms/step and train step.
+5. The kernels line, one JSON object; the forward kernels' entries list
+   their ring modes.
 6. The last line: ``{"ok": true, "device": {...}}``.
 
 It exits non-zero when ``torch.cuda.is_available()`` is false and when the
@@ -86,7 +109,7 @@ from pathlib import Path
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12, "torch.int8": 1979e12}
 
 # Phase-2 tolerances, |kernel - plain| <= atol + rtol * |plain|:
 # bf16 output is rounded to bf16 (one ulp is 7.8e-3 at 1.0) and the kernel
@@ -125,7 +148,31 @@ RING_SCHEDULE = {False: (4, 5, 1, 10, 10), True: (4, 8, 4, 16, 16)}
 BENCH_MODEL = dict(num_tokens=256, dim=512, depth=2, causal=True, heads=8,
                    dim_head=64, bucket_size=2048, rotary=True, ff_mult=4)
 SEED = 0
-KERNEL_SOURCES = ("flash_fwd", "flash_bwd")
+KERNEL_SOURCES = ("flash_fwd", "flash_bwd", "flash_fwd_q8", "flash_decode_q8")
+
+# Phase-2d tolerances of the int8 kernels against their plain versions,
+# which quantize q, k, v and p exactly as the kernels do.  B4: the output's
+# norm-relative error (bf16 rounds the output, a relative 2^-9; f32 differs
+# where the card's exp or tanh differs from the plain version's in its last
+# bit and a p8 unit flips, 1.6e-5 measured with softclamp) and max|lse -
+# plain| (a flipped p8 unit moves l by at most safe = rowmax(p) / 127).
+# B6 dequantizes in f32 and does not quantize p: summation order only.
+Q8_REL_TOL = {"torch.bfloat16": 5e-3, "torch.float32": 1e-4}
+Q8_LSE_TOL = 1e-3
+DECODE_Q8_REL_TOL = {"torch.bfloat16": 5e-3, "torch.float32": 1e-5}
+DECODE_Q8_LSE_TOL = 1e-4
+# Phase-3d: the int8 model's bf16 logits against the bf16 model's,
+# ||int8 - bf16|| / ||bf16||: the JAX package's own pin for the int8 forward
+# (tests/test_quant.py Q8_FWD_REL_L2).
+Q8_FWD_REL_L2 = 2e-2
+# Phase-3d f32 int8 model, card vs CPU, norm-relative per output.  The int8
+# forward amplifies last-bit differences: an f32 sum taken in another order
+# moves q, k, v or p across a half step of their int8 grid now and then, and
+# one p8 unit is 1/127 of a row's largest weight.  The phase measures that
+# spread on the CPU each run (every weight times 1 + 1.2e-7 noise) and prints
+# it beside the int8 error itself (the int8 model's distance from the exact
+# f32 one); the bound sits between the two.
+Q8_MODEL_REL_TOL = 5e-3
 
 # The kernels' cases on the card, forward and backward alike:
 # name: (b, h, hk, nq, nk, causal_offset, window_lo, softclamp, masked)
@@ -192,6 +239,35 @@ def nbytes(*tensors) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _kernel_name(mangled: str) -> str:
+    """The ``..._kernel`` identifier inside an Itanium-mangled name, found by
+    its length prefix (which may follow other digits)."""
+    import re
+
+    for run in re.finditer(r"\d+", mangled):
+        digits = run.group()
+        for i in range(len(digits)):
+            name = mangled[run.end():run.end() + int(digits[i:])]
+            if name.endswith("_kernel") and name.isidentifier():
+                return name
+    return mangled
+
+
+def _ptxas_usage(log_text: str) -> list[str]:
+    """``kernel: Used N registers, ...`` for each entry function that
+    ``ptxas -v`` reports."""
+    import re
+
+    usage, kernel = [], "?"
+    for line in log_text.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            kernel = _kernel_name(entry.group(1))
+        elif "registers" in line:
+            usage.append(f"{kernel}: " + line.split(":", 1)[1].strip())
+    return usage
+
+
 def phase_build(port_dir: Path) -> None:
     from ring_attention_tpu_torch.ops import _build
 
@@ -208,8 +284,7 @@ def phase_build(port_dir: Path) -> None:
         check(res.path.is_file(), f"{name} did not build")
         check(port_dir in res.path.resolve().parents,
               f"{name} built outside the checkout: {res.path}")
-        usage = [ln.strip() for ln in res.log.splitlines() if "registers" in ln]
-        log(f"build {name}: {res.seconds:.1f} s nvcc; " + " | ".join(usage))
+        log(f"build {name}: {res.seconds:.1f} s nvcc; " + " | ".join(_ptxas_usage(res.log)))
     log(f"phase 1 build: {time.perf_counter() - start:.1f} s wall")
 
 
@@ -334,48 +409,60 @@ def _compare_partials(name, dtype, got, ref, errors) -> None:
              rel_tol=RING_REL_TOL[str(dtype)])
 
 
-def _hop_chain(q, spans, bands):
+def _hop_chain(q, spans, bands, int8_block=None):
     """A rank's ring forward on the kernels, as parallel/ring.py runs it:
     seed, resumes in place, fused last span; ``spans`` are (k, v) and
-    ``bands`` the causal offset of each hop (None: unmasked)."""
+    ``bands`` the causal offset of each hop (None: unmasked).  With
+    ``int8_block`` the hops run the int8 sweep, quantized per block of that
+    many keys (the ring's bucket)."""
     from ring_attention_tpu_torch.ops import cuda_flash as cf
 
+    q8 = {} if int8_block is None else dict(compute_dtype="int8", block_k=int8_block)
     carry = None
     for (k, v), hi in zip(spans[:-1], bands[:-1]):
         carry = cf.flash_partials(q, k, v, scale=0.125, causal_offset=hi,
-                                  carry=carry, out=carry)
+                                  carry=carry, out=carry, **q8)
     (k, v), hi = spans[-1], bands[-1]
-    return cf.flash_fwd(q, k, v, scale=0.125, causal_offset=hi, carry=carry)
+    return cf.flash_fwd(q, k, v, scale=0.125, causal_offset=hi, carry=carry, **q8)
 
 
-def _hop_chain_reference(q, spans, bands):
+def _hop_chain_reference(q, spans, bands, int8_block=None):
     from ring_attention_tpu_torch.ops import cuda_flash as cf
+    from ring_attention_tpu_torch.ops import cuda_flash_q8 as q8
 
+    if int8_block is None:
+        partials, fused, kw = cf.flash_partials_reference, cf.flash_fwd_reference, {}
+    else:
+        partials, fused = q8.flash_partials_q8_reference, q8.flash_fwd_q8_reference
+        kw = dict(block_k=int8_block)
     carry = None
     for (k, v), hi in zip(spans[:-1], bands[:-1]):
-        carry = cf.flash_partials_reference(q, k, v, scale=0.125,
-                                            causal_offset=hi, carry=carry)
+        carry = partials(q, k, v, scale=0.125, causal_offset=hi, carry=carry, **kw)
     (k, v), hi = spans[-1], bands[-1]
-    return cf.flash_fwd_reference(q, k, v, scale=0.125, causal_offset=hi, carry=carry)
+    return fused(q, k, v, scale=0.125, causal_offset=hi, carry=carry, **kw)
 
 
-def _hold_chain_in_slices(name, q, spans, bands, errors, w=1024) -> None:
+def _hold_chain_in_slices(name, q, spans, bands, errors, w=1024, int8_block=None) -> None:
     """A bf16 hop chain against its plain version in ``w``-row slices at
     the start, middle and end (the dense plain version of the whole chain
     would not fit): each slice's bands shift by its first row."""
     import torch
 
-    out, lse = _hop_chain(q, spans, bands)
+    out, lse = _hop_chain(q, spans, bands, int8_block)
     torch.cuda.synchronize()
     n = q.shape[2]
     for r0 in (0, n // 2, n - w):
         rows = slice(r0, r0 + w)
         ref_out, ref_lse = _hop_chain_reference(
             q[:, :, rows].contiguous(), spans,
-            tuple(None if hi is None else hi + r0 for hi in bands))
-        _compare(f"{name} rows {r0}+", torch.bfloat16, out[:, :, rows], ref_out,
-                 lse[:, :, rows], ref_lse, errors,
-                 rel_tol=RING_REL_TOL["torch.bfloat16"])
+            tuple(None if hi is None else hi + r0 for hi in bands), int8_block)
+        if int8_block is None:
+            _compare(f"{name} rows {r0}+", torch.bfloat16, out[:, :, rows], ref_out,
+                     lse[:, :, rows], ref_lse, errors,
+                     rel_tol=RING_REL_TOL["torch.bfloat16"])
+        else:
+            _compare_q8(f"{name} rows {r0}+", torch.bfloat16, out[:, :, rows], ref_out,
+                        lse[:, :, rows], ref_lse, errors)
         del ref_out, ref_lse
     torch.cuda.synchronize()
 
@@ -881,31 +968,51 @@ def phase_timings(serving: dict) -> list[dict]:
         f"{step_ms:.3f} ms/step ({4 / step_ms * 1e3:.0f} tokens/s)")
     return rows
 
-COUNTERS = {"flash_fwd": "launch_count", "seed": "seed_launch_count",
-            "resume": "resume_launch_count", "fused_carry": "fused_carry_launch_count",
-            "flash_bwd_dkv": "dkv_launch_count", "flash_bwd_dq": "dq_launch_count"}
+# name: (module of ring_attention_tpu_torch.ops, launch counter)
+COUNTERS = {"flash_fwd": ("cuda_flash", "launch_count"),
+            "seed": ("cuda_flash", "seed_launch_count"),
+            "resume": ("cuda_flash", "resume_launch_count"),
+            "fused_carry": ("cuda_flash", "fused_carry_launch_count"),
+            "flash_bwd_dkv": ("cuda_flash", "dkv_launch_count"),
+            "flash_bwd_dq": ("cuda_flash", "dq_launch_count"),
+            "flash_fwd_q8": ("cuda_flash_q8", "fwd_launch_count"),
+            "q8_seed": ("cuda_flash_q8", "seed_launch_count"),
+            "q8_resume": ("cuda_flash_q8", "resume_launch_count"),
+            "q8_fused_carry": ("cuda_flash_q8", "fused_carry_launch_count"),
+            "flash_decode_q8": ("cuda_flash_q8", "decode_launch_count")}
+
+
+def _counter_module(name: str):
+    import importlib
+
+    return importlib.import_module(f"ring_attention_tpu_torch.ops.{name}")
 
 
 def _reset_counts() -> None:
-    from ring_attention_tpu_torch.ops import cuda_flash as cf
-
-    for attr in COUNTERS.values():
-        setattr(cf, attr, 0)
+    for module, attr in COUNTERS.values():
+        setattr(_counter_module(module), attr, 0)
 
 
 def _read_counts() -> dict[str, int]:
-    from ring_attention_tpu_torch.ops import cuda_flash as cf
+    return {name: getattr(_counter_module(module), attr)
+            for name, (module, attr) in COUNTERS.items()}
 
-    return {name: getattr(cf, attr) for name, attr in COUNTERS.items()}
+
+def _counts(**nonzero) -> dict[str, int]:
+    """Every counter at 0 but those named."""
+    return {name: nonzero.get(name, 0) for name in COUNTERS}
 
 
-def _ring_counts(striped: bool, backward: bool) -> dict[str, int]:
+def _ring_counts(striped: bool, backward: bool, int8: bool = False) -> dict[str, int]:
     """Launches of one forward (and backward) of the model on the ring:
-    RING_SCHEDULE per layer, times the depth."""
+    RING_SCHEDULE per layer, times the depth; ``int8`` runs the forward's
+    modes on the int8 kernel."""
     seed, resume, fused, dkv, dq = (x * BENCH_MODEL["depth"] for x in RING_SCHEDULE[striped])
-    return {"flash_fwd": seed + resume + fused, "seed": seed, "resume": resume,
-            "fused_carry": fused, "flash_bwd_dkv": dkv if backward else 0,
-            "flash_bwd_dq": dq if backward else 0}
+    prefix, fwd = ("q8_", "flash_fwd_q8") if int8 else ("", "flash_fwd")
+    return _counts(**{fwd: seed + resume + fused, f"{prefix}seed": seed,
+                      f"{prefix}resume": resume, f"{prefix}fused_carry": fused,
+                      "flash_bwd_dkv": dkv if backward else 0,
+                      "flash_bwd_dq": dq if backward else 0})
 
 
 def phase_ring_path(serving: dict, training: dict) -> dict:
@@ -1138,6 +1245,488 @@ def phase_ring_timings(ring: dict, serving: dict, training: dict,
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The int8 path: B4 (csrc/flash_fwd_q8.cu) and B6 (csrc/flash_decode_q8.cu)
+# ---------------------------------------------------------------------------
+
+
+def _compare_q8(name, dtype, out, ref_out, lse, ref_lse, errors,
+                rel_tol=None, lse_tol=Q8_LSE_TOL) -> None:
+    """Norm-relative error of an int8 kernel's output and max|lse - plain|
+    against its plain version (``Q8_REL_TOL``, ``Q8_LSE_TOL``)."""
+    import torch
+
+    rel_tol = Q8_REL_TOL[str(dtype)] if rel_tol is None else rel_tol
+    diff = out.float() - ref_out.float()
+    rel = (diff.norm() / ref_out.float().norm().clamp_min(1e-30)).item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    errors.append(diff.abs().max().item())
+    ok = rel <= rel_tol and lse_err <= lse_tol
+    log(f"  {name:<34} {str(dtype):<15} ||out-plain||/||plain|| {rel:.3e} (tol {rel_tol}) "
+        f"max|out-plain| {diff.abs().max().item():.3e} max|lse-plain| {lse_err:.3e} "
+        f"(tol {lse_tol})  {'ok' if ok else 'FAIL'}")
+    check(ok, f"{name} {dtype}: int8 kernel disagrees with plain")
+    check(bool(torch.isfinite(out.float()).all()), f"{name} {dtype}: non-finite output")
+
+
+def _compare_q8_partials(name, dtype, got, ref, errors) -> None:
+    from ring_attention_tpu_torch.ops.partials import finalize_partials
+
+    check(all(x.dtype == r.dtype and x.shape == r.shape for x, r in zip(got, ref)),
+          f"{name}: partials layout")
+    (out, lse), (ref_out, ref_lse) = finalize_partials(got), finalize_partials(ref)
+    _compare_q8(name, dtype, out.to(dtype), ref_out.to(dtype), lse, ref_lse, errors)
+
+
+def _q8_modes_vs_plain(name, dtype, q, k, v, mask, kw, carry, errors) -> None:
+    """B4 in every mode against its plain version: fused, seed partials,
+    resume into new tensors (the carry unchanged) and in place (bit-equal to
+    the former), and fused from a carry."""
+    import torch
+
+    from ring_attention_tpu_torch.ops import cuda_flash_q8 as q8
+
+    out, lse = q8.flash_fwd_q8(q, k, v, mask, **kw)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = q8.flash_fwd_q8_reference(q, k, v, mask, **kw)
+    _compare_q8(f"{name} fused", dtype, out, ref_out, lse, ref_lse, errors["fused"])
+    got = q8.flash_partials_q8(q, k, v, mask, **kw)
+    torch.cuda.synchronize()
+    _compare_q8_partials(f"{name} seed", dtype, got,
+                         q8.flash_partials_q8_reference(q, k, v, mask, **kw), errors["seed"])
+    kept = _clone(carry)
+    got = q8.flash_partials_q8(q, k, v, mask, carry=carry, **kw)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(carry, kept)),
+          f"{name} {dtype}: an int8 resume without out= changed its carry")
+    _compare_q8_partials(f"{name} resume", dtype, got,
+                         q8.flash_partials_q8_reference(q, k, v, mask, carry=carry, **kw),
+                         errors["resume"])
+    q8.flash_partials_q8(q, k, v, mask, carry=kept, out=kept, **kw)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(kept, got)),
+          f"{name} {dtype}: the int8 in-place resume differs from the resume")
+    out, lse = q8.flash_fwd_q8(q, k, v, mask, carry=carry, **kw)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = q8.flash_fwd_q8_reference(q, k, v, mask, carry=carry, **kw)
+    _compare_q8(f"{name} fused+carry", dtype, out, ref_out, lse, ref_lse,
+                errors["fused_carry"])
+
+
+def phase_q8_kernels_vs_plain() -> dict:
+    """B4 in every mode and B6 fused and partials against their plain
+    versions on the card; returns the largest |out - plain| by mode."""
+    import torch
+
+    from ring_attention_tpu_torch.ops import cuda_flash as cf
+    from ring_attention_tpu_torch.ops import cuda_flash_q8 as q8
+    from ring_attention_tpu_torch.ops.partials import FlashPartials, finalize_partials
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    errors: dict[str, list[float]] = {m: [] for m in
+                                      ("fused", "seed", "resume", "fused_carry", "decode")}
+    log("phase 2d: flash_fwd_q8 (every mode) and flash_decode_q8 (fused, partials) "
+        "vs their plain versions")
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, case in KERNEL_CASES.items():
+            q, k, v, mask, kw = _case_inputs(gen, case, dtype)
+            carry = cf.flash_partials_reference(
+                q, _rand(gen, k.shape, dtype), _rand(gen, v.shape, dtype), scale=0.125)
+            _q8_modes_vs_plain(name, dtype, q, k, v, mask, kw, carry, errors)
+            del carry
+        # quantization blocks of a ring hop (the bucket, 2048 of 4096 keys)
+        # and of a short, unaligned span (96 keys, one block of 96)
+        for name, shape, bk in (("hop span bk2048 (1,8,2048,4096)", (1, 8, 2048, 4096), 2048),
+                                ("ragged bk96 (1,4,80,96) causal", (1, 4, 80, 96), None)):
+            b, h, nq, nk = shape
+            q = _rand(gen, (b, h, nq, 64), dtype)
+            k, v = (_rand(gen, (b, h, nk, 64), dtype) for _ in range(2))
+            kw = dict(scale=0.125, causal_offset=None if bk else nk - nq, block_k=bk)
+            carry = cf.flash_partials_reference(q, _rand(gen, k.shape, dtype),
+                                                _rand(gen, v.shape, dtype), scale=0.125)
+            _q8_modes_vs_plain(name, dtype, q, k, v, None, kw, carry, errors)
+        # every key carries its own value in its own column: a key order of
+        # p and V that disagreed inside the kernel could not pass
+        n = 256
+        q, k = (_rand(gen, (1, 8, n, 64), dtype) for _ in range(2))
+        v = torch.zeros((1, 8, n, 64), device="cuda")
+        keys = torch.arange(n, device="cuda")
+        v[:, :, keys, keys % 64] = (keys + 1).float()
+        v = v.to(dtype)
+        out, lse = q8.flash_fwd_q8(q, k, v, scale=0.125, causal_offset=0, block_k=64)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = q8.flash_fwd_q8_reference(q, k, v, scale=0.125, causal_offset=0,
+                                                     block_k=64)
+        _compare_q8("distinct value per key", dtype, out, ref_out, lse, ref_lse,
+                    errors["fused"])
+
+        # B6 on the decode shapes of phase 2, ragged valid prefixes
+        for h, hk, nk in ((8, 2, 32768), (8, 8, 4096)):
+            b = 4
+            q = _rand(gen, (b, h, 1, 64), dtype)
+            kv = q8.quantize_kv_cache(_rand(gen, (b, hk, nk, 64), dtype),
+                                      _rand(gen, (b, hk, nk, 64), dtype))
+            lengths = torch.randint(1, nk + 1, (b,), generator=gen, device="cuda")
+            mask = torch.arange(nk, device="cuda")[None, :] < lengths[:, None]
+            for clamp in (None, 30.0):
+                out, lse = q8.flash_decode_q8(q, kv, mask, softclamp_value=clamp)
+                torch.cuda.synchronize()
+                ref_out, ref_lse = q8.flash_decode_q8_reference(q, kv, mask,
+                                                                softclamp_value=clamp)
+                _compare_q8(f"decode_q8 b4 h{h} hk{hk} nk{nk} clamp {clamp}", dtype, out,
+                            ref_out, lse, ref_lse, errors["decode"],
+                            DECODE_Q8_REL_TOL[str(dtype)], DECODE_Q8_LSE_TOL)
+            acc, m, l = q8.flash_decode_q8(q, kv, mask, fused=False)
+            torch.cuda.synchronize()
+            ref = q8.flash_decode_q8_reference(q, kv, mask, fused=False)
+            (out, lse), (ref_out, ref_lse) = (
+                finalize_partials(FlashPartials(*(x.flatten(1, 2) for x in parts)))
+                for parts in ((acc, m, l), ref))
+            _compare_q8(f"decode_q8 b4 h{h} hk{hk} nk{nk} partials", dtype, out, ref_out,
+                        lse, ref_lse, errors["decode"], DECODE_Q8_REL_TOL[str(dtype)],
+                        DECODE_Q8_LSE_TOL)
+
+    # the int8 serving forward's own launch, held in row slices (the block
+    # of the whole 65,536-key sweep is 1,024 keys), and a ring chain of
+    # 16,384-row hops at the bench model's bucket of 2,048
+    n, w = 65536, 1024
+    q, k, v = (_rand(gen, (1, 8, n, 64), torch.bfloat16) for _ in range(3))
+    out, lse = q8.flash_fwd_q8(q, k, v, scale=0.125, causal_offset=0)
+    torch.cuda.synchronize()
+    for r0 in (0, n // 2, n - w):
+        ref_out, ref_lse = q8.flash_fwd_q8_reference(
+            q[:, :, r0:r0 + w].contiguous(), k, v, scale=0.125, causal_offset=r0)
+        _compare_q8(f"causal (1,8,65536,64) rows {r0}+", torch.bfloat16,
+                    out[:, :, r0:r0 + w], ref_out, lse[:, :, r0:r0 + w], ref_lse,
+                    errors["fused"])
+    del q, k, v, out, lse
+    n = 16384
+    for layout, bands in (("contiguous rank 3", (0, None, None, None)),
+                          ("striped rank 1", (0, 0, -1, -1))):
+        q = _rand(gen, (1, 8, n, 64), torch.bfloat16)
+        spans = [(_rand(gen, q.shape, torch.bfloat16), _rand(gen, q.shape, torch.bfloat16))
+                 for _ in range(4)]
+        _hold_chain_in_slices(f"int8 {layout} 4 x {n}", q, spans, bands,
+                              errors["fused_carry"], int8_block=2048)
+    return {mode: max(errs) for mode, errs in errors.items()}
+
+
+def _q8_model(dtype, device, **ring):
+    return _model(dtype, device, quantize_cache=True, compute_dtype="int8", **ring)
+
+
+def _rel_err(got, ref) -> float:
+    return ((got.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+def phase_q8_path(serving: dict, training: dict) -> dict:
+    """The int8 serving and training path at full width, then on a ring of
+    4; returns launch counts and what phase 4d times."""
+    import torch
+
+    from ring_attention_tpu_torch import make_train_step
+    from ring_attention_tpu_torch.parallel import create_mesh
+
+    depth = BENCH_MODEL["depth"]
+    log('phase 3d: int8 path, RingTransformer(quantize_cache=True, compute_dtype="int8"), '
+        "bench model at full width, bf16")
+    model = _q8_model(torch.bfloat16, "cuda")
+    tokens, prompts = serving["tokens"], serving["prompts"]
+    launches = {name: 0 for name in COUNTERS}
+
+    def run(label, fn, expect):
+        _reset_counts()
+        start = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        counts = _read_counts()
+        log(f"  {label}: {seconds:.3f} s (first call), launches "
+            f"{ {k: n for k, n in counts.items() if n} }")
+        check(counts == expect, f"{label} launched {counts}, expected {expect}")
+        for name, n in counts.items():
+            launches[name] += n
+        return result
+
+    with torch.inference_mode():
+        ref = serving["model"](tokens).float()
+        logits = run("forward 1 x 65536", lambda: model(tokens),
+                     _counts(flash_fwd_q8=depth))
+        check(tuple(logits.shape) == tuple(ref.shape), f"logits shape {tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits.float()).all()), "int8 forward: non-finite logits")
+        rel = _rel_err(logits, ref)
+        log(f"  int8 logits vs the bf16 model: ||int8 - bf16|| / ||bf16|| {rel:.3e} "
+            f"(tol {Q8_FWD_REL_L2})")
+        check(rel <= Q8_FWD_REL_L2, "int8 logits disagree with the bf16 model")
+        del logits
+        steps = 128
+        new = run(f"generate 4 x (2048 prompt + {steps} new)",
+                  lambda: model.generate(prompts, max_len=4096, num_steps=steps),
+                  _counts(flash_decode_q8=depth * (steps - 1)))
+        check(tuple(new.shape) == (4, steps), f"generate shape {tuple(new.shape)}")
+        check(bool(((new >= 0) & (new < BENCH_MODEL["num_tokens"])).all()),
+              "generated ids out of range")
+        ref_new = serving["model"].generate(prompts, max_len=4096, num_steps=steps)
+        agree = (new == ref_new).float().mean().item()
+        log(f"  greedy tokens equal to the bf16 model's: {agree:.4f} of {new.numel()}")
+
+    model.train()
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    step = make_train_step(lambda t: model(t, return_loss=True), opt)
+    losses = []
+    for i in range(TRAIN_STEPS):
+        loss = float(run(f"train step {i}", lambda: step(training["tokens"]),
+                         _counts(flash_fwd_q8=depth, flash_bwd_dkv=depth,
+                                 flash_bwd_dq=depth)))
+        log(f"    loss {loss:.6f}")
+        check(math.isfinite(loss), f"int8 step {i}: loss {loss}")
+        losses.append(loss)
+    check(losses[-1] < losses[0], f"int8 loss did not fall: {losses}")
+    model.eval()
+    _hold_f32_q8_model_to_cpu()
+
+    ring_models = {}
+    for striped in (False, True):
+        layout = "striped" if striped else "contiguous"
+        ring_model = _q8_model(torch.bfloat16, "cuda", mesh=create_mesh(ring_size=RING_SIZE),
+                               striped=striped)
+        with torch.inference_mode():
+            logits = run(f"ring {layout} forward 1 x 65536", lambda: ring_model(tokens),
+                         _ring_counts(striped, backward=False, int8=True))
+            rel = _rel_err(logits, ref)
+            log(f"  ring {layout} int8 logits vs the bf16 local model: {rel:.3e} "
+                f"(tol {Q8_FWD_REL_L2})")
+            check(rel <= Q8_FWD_REL_L2, f"ring {layout} int8 logits disagree")
+            del logits
+        ring_model.train()
+        ring_step = make_train_step(lambda t, m=ring_model: m(t, return_loss=True),
+                                    torch.optim.Adam(ring_model.parameters(), lr=1e-3))
+        loss = float(run(f"ring {layout} train step", lambda: ring_step(training["tokens"]),
+                         _ring_counts(striped, backward=True, int8=True)))
+        check(math.isfinite(loss), f"ring {layout} int8 step: loss {loss}")
+        log(f"    loss {loss:.6f}")
+        ring_models[layout] = ring_model.eval()
+    return {"launches": launches, "model": model, "step": step, "losses": losses,
+            "ring_models": ring_models}
+
+
+def _hold_f32_q8_model_to_cpu() -> None:
+    """A float32 int8 model (seq 256) on the card against the same weights
+    on the CPU (plain versions): logits, prefill and decode steps, and the
+    quantized cache entries."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gpu = _q8_model(None, "cuda")
+    cpu = copy.deepcopy(gpu).to("cpu")
+    gen = torch.Generator().manual_seed(SEED + 13)
+    tokens = torch.randint(0, BENCH_MODEL["num_tokens"], (2, 256), generator=gen)
+    with torch.inference_mode():
+        ref = cpu(tokens)
+        errs = [_rel_err(gpu(tokens.cuda()).cpu(), ref)]
+        # the spread of the int8 model itself under last-bit weight noise,
+        # and its distance from the exact model, both on the CPU
+        noisy = copy.deepcopy(cpu)
+        for w in noisy.parameters():
+            w.mul_(1 + 1.2e-7 * torch.randn(w.shape, generator=gen))
+        spread = _rel_err(noisy(tokens), ref)
+        exact = copy.deepcopy(cpu)
+        for layer in exact.attn_layers:
+            layer.compute_dtype = None
+        int8_err = _rel_err(ref, exact(tokens))
+        caches = [m.init_cache(2, 256) for m in (gpu, cpu)]
+        logits = [m.prefill(tokens[:, :200], c)[0].cpu() for m, c in zip((gpu, cpu), caches)]
+        errs.append(_rel_err(logits[0], logits[1]))
+        for pos in range(200, 208):
+            step = [m.decode_step(tokens[:, pos], c, pos)[0].cpu()
+                    for m, c in zip((gpu, cpu), caches)]
+            errs.append(_rel_err(step[0], step[1]))
+    (values, scales), (cpu_values, cpu_scales) = caches[0]["k"][0], caches[1]["k"][0]
+    flips = (values.cpu() != cpu_values).float().mean().item()
+    scale_err = ((scales.cpu() - cpu_scales).abs() / cpu_scales.clamp_min(1e-30)).max().item()
+    log(f"  f32 int8 model seq 256, card vs CPU, ||card - cpu|| / ||cpu||: forward "
+        f"{errs[0]:.3e}, prefill {errs[1]:.3e}, 8 decode steps {max(errs[2:]):.3e} "
+        f"(tol {Q8_MODEL_REL_TOL}); int8 cache values that differ {flips:.2e}, scales "
+        f"max rel {scale_err:.2e}; "
+        f"on the CPU, weights x (1 + 1.2e-7 noise) move the forward {spread:.3e}, the "
+        f"int8 forward is {int8_err:.3e} from the exact one")
+    check(max(errs) <= Q8_MODEL_REL_TOL, "f32 int8 model on the card disagrees with the CPU")
+
+
+def _q8_causal_rows(n, with_plain) -> dict:
+    """B4 on the causal (1, 8, n, 64) bf16 sweep: the kernel on quantized
+    operands, the wrapper (quantization included), the plain version, B1's
+    bf16 sweep and SDPA on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from ring_attention_tpu_torch.ops import cuda_flash as cf
+    from ring_attention_tpu_torch.ops import cuda_flash_q8 as q8
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    q, k, v = (_rand(gen, (1, 8, n, 64), torch.bfloat16) for _ in range(3))
+    ops8 = q8.quantize_operands(q, k, v)
+    band = dict(scale=0.125, causal_offset=0, window_lo=None, softclamp_value=None)
+    out, lse = q8.launch_fwd_q8(ops8, None, band, torch.bfloat16)
+    ops = 4 * 64 * 8 * band_pairs(n, n, 0, None)
+    moved = nbytes(*ops8[:6], out, lse)
+    b_ms, b_by = bound_ms(ops, moved, torch.int8)
+    kw = dict(scale=0.125, causal_offset=0)
+    row = {
+        "shape": f"causal (1,8,{n},64) bf16 in, int8 operands, block {ops8.block}",
+        "ms": time_ms(lambda: q8.launch_fwd_q8(ops8, None, band, torch.bfloat16)),
+        "wrapper_ms": time_ms(lambda: q8.flash_fwd_q8(q, k, v, **kw)),
+        "plain_ms": time_ms(lambda: q8.flash_fwd_q8_reference(q, k, v, **kw), iters=3)
+        if with_plain else None,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,  # no PyTorch call computes int8 attention
+        "bf16_kernel_ms": time_ms(lambda: cf.flash_fwd(q, k, v, **kw)),
+        "bf16_sdpa_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)),
+    }
+    log(f"  flash_fwd_q8 causal {n}: kernel {row['ms']:.4f} ms (wrapper with quantization "
+        f"{row['wrapper_ms']:.4f} ms), bound {b_ms:.4f} ms ({b_by}), plain {row['plain_ms']} "
+        f"ms; bf16 comparison: flash_fwd {row['bf16_kernel_ms']:.4f} ms, sdpa "
+        f"{row['bf16_sdpa_ms']:.4f} ms; {ops / row['ms'] / 1e9:.1f} TOP/s")
+    return row
+
+
+def _q8_mode_rows(n) -> dict[str, dict]:
+    """B4's ring modes on a (1, 8, n, 64) span at the bench model's hop block
+    (2,048): seed (the diagonal), resume and fused (spans fully in view)."""
+    import torch
+
+    from ring_attention_tpu_torch.ops import cuda_flash as cf
+    from ring_attention_tpu_torch.ops import cuda_flash_q8 as q8
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    q, k, v = (_rand(gen, (1, 8, n, 64), torch.bfloat16) for _ in range(3))
+    ops8 = q8.quantize_operands(q, k, v, 2048)
+    band = dict(scale=0.125, causal_offset=None, window_lo=None, softclamp_value=None)
+    carry = q8.launch_fwd_q8(ops8, None, dict(band, causal_offset=0), torch.bfloat16,
+                             partials=True)
+    f32_state = 4 * 8 * n * (64 + 2)
+    qkv8 = nbytes(*ops8[:6])
+    cases = {
+        "seed": (lambda: q8.launch_fwd_q8(ops8, None, dict(band, causal_offset=0),
+                                          torch.bfloat16, partials=True),
+                 lambda: cf.flash_partials(q, k, v, scale=0.125, causal_offset=0),
+                 band_pairs(n, n, 0, None), qkv8 + f32_state),
+        "resume": (lambda: q8.launch_fwd_q8(ops8, None, band, torch.bfloat16, carry=carry,
+                                            partials=True, out=carry),
+                   lambda: cf.flash_partials(q, k, v, scale=0.125, carry=carry, out=carry),
+                   n * n, qkv8 + 2 * f32_state),
+        "fused_carry": (lambda: q8.launch_fwd_q8(ops8, None, band, torch.bfloat16,
+                                                 carry=carry),
+                        lambda: cf.flash_fwd(q, k, v, scale=0.125, carry=carry),
+                        n * n, qkv8 + f32_state + nbytes(q) + 4 * 8 * n),
+    }
+    rows = {}
+    for mode, (kernel, bf16, pairs, moved) in cases.items():
+        ops = 4 * 64 * 8 * pairs
+        b_ms, b_by = bound_ms(ops, moved, torch.int8)
+        ms = time_ms(kernel)
+        rows[mode] = {"shape": f"{mode} (1,8,{n},64) int8 operands, block 2048", "ms": ms,
+                      "plain_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": None, "bf16_kernel_ms": time_ms(bf16)}
+        log(f"  flash_fwd_q8 {mode} {n}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"bf16 flash_fwd {mode} {rows[mode]['bf16_kernel_ms']:.4f} ms, "
+            f"{ops / ms / 1e9:.1f} TOP/s")
+    return rows
+
+
+def _q8_decode_row(h, hk, nk) -> dict:
+    """B6 at b4 against its plain version and B1's folded decode on a bf16
+    cache of the same size."""
+    import torch
+    import torch.nn.functional as F
+
+    from ring_attention_tpu_torch.ops import cuda_flash as cf
+    from ring_attention_tpu_torch.ops import cuda_flash_q8 as q8
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    b = 4
+    q = _rand(gen, (b, h, 1, 64), torch.bfloat16)
+    k, v = (_rand(gen, (b, hk, nk, 64), torch.bfloat16) for _ in range(2))
+    kv = q8.quantize_kv_cache(k, v)
+    mask = torch.ones((b, nk), dtype=torch.bool, device="cuda")
+    out, lse = q8.flash_decode_q8(q, kv, mask)
+    ops = 4 * 64 * b * h * nk
+    b_ms, b_by = bound_ms(ops, nbytes(q, *kv, mask, out, lse), torch.float32)
+    def streamed(fn, calls=20):
+        # per call in a stream of back-to-back calls: a single call of a
+        # decode-sized kernel is host-bound (timed as sync_call_ms)
+        return time_ms(lambda: [fn() for _ in range(calls)]) / calls
+
+    def decode():
+        return q8.flash_decode_q8(q, kv, mask)
+
+    row = {
+        "shape": f"decode b{b} h{h} hk{hk} nk{nk} int8 cache",
+        "ms": streamed(decode),
+        "sync_call_ms": time_ms(decode, iters=50),
+        "plain_ms": time_ms(lambda: q8.flash_decode_q8_reference(q, kv, mask)),
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,  # no PyTorch call attends over an int8 cache
+        "bf16_kernel_ms": streamed(lambda: cf.cuda_flash_decode(q, k, v, mask)),
+        "bf16_sdpa_ms": streamed(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask[:, None, None, :], enable_gqa=h != hk)),
+    }
+    log(f"  flash_decode_q8 b{b} h{h} hk{hk} nk{nk}: kernel {row['ms']:.4f} ms per call in "
+        f"a stream of 20 ({row['sync_call_ms']:.4f} ms a single synchronized call), bound "
+        f"{b_ms:.4f} ms ({b_by}), plain {row['plain_ms']:.4f} ms; bf16 cache, streamed: "
+        f"flash_fwd decode {row['bf16_kernel_ms']:.4f} ms, sdpa {row['bf16_sdpa_ms']:.4f} "
+        f"ms; {nbytes(*kv) / row['ms'] / 1e6:.1f} GB/s of cache")
+    return row
+
+
+def phase_q8_timings(q8_path: dict, serving: dict, training: dict) -> dict:
+    """Phase 4d; returns B4's rows (with its modes) and B6's rows."""
+    import torch
+
+    log("phase 4d: the int8 kernels and the int8 model (CUDA events, median after warm-up)")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    log(f"  card: {smi.stdout.strip()}")
+    fwd_rows = [_q8_causal_rows(4096, with_plain=True), _q8_causal_rows(65536, with_plain=False)]
+    mode_rows = _q8_mode_rows(65536)
+    decode_rows = [_q8_decode_row(8, 8, 4096), _q8_decode_row(8, 2, 32768)]
+
+    model, tokens, prompts = q8_path["model"], serving["tokens"], serving["prompts"]
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: model(tokens))
+        cache = model.init_cache(4, 4096)
+        logits, cache = model.prefill(prompts, cache)
+        tok = logits.argmax(-1)
+        pos = [prompts.shape[1]]
+
+        def step():
+            model.decode_step(tok, cache, pos[0])
+            pos[0] += 1
+
+        step_ms = time_ms(step)
+    model.train()
+    ms, step_s, peak, base = _train_step_timing(q8_path["step"], training["tokens"])
+    log(f"  int8 model forward 1 x 65536: {fwd_ms:.3f} ms, {65536 / fwd_ms * 1e3:.0f} tokens/s "
+        f"(bf16 model {serving['fwd_ms']:.3f} ms)")
+    for layout, ring_model in q8_path["ring_models"].items():
+        with torch.inference_mode():
+            ring_ms = time_ms(lambda m=ring_model: m(tokens))
+        log(f"  int8 ring {layout} model forward 1 x 65536: {ring_ms:.3f} ms "
+            f"({ring_ms / fwd_ms:.3f} x the int8 local model)")
+    log(f"  int8 model decode step, 4 requests at ~2048-2060 cached tokens: {step_ms:.3f} "
+        f"ms/step ({4 / step_ms * 1e3:.0f} tokens/s)")
+    log(f"  int8 train step 1 x 65536: {ms:.3f} ms (all {[round(x * 1e3, 3) for x in step_s]}), "
+        f"{65536 / ms * 1e3:.0f} tokens/s, peak {peak / 2**30:.3f} GiB, "
+        f"{(peak - base) / 2**30:.3f} GiB above the live memory (bf16 model "
+        f"{training['step_ms']:.3f} ms)")
+    return {"fwd": fwd_rows, "modes": mode_rows, "decode": decode_rows}
+
+
 def main() -> int:
     import torch
 
@@ -1161,23 +1750,33 @@ def main() -> int:
     max_err = phase_kernel_vs_plain()
     mode_err = phase_ring_modes_vs_plain()
     bwd_err = phase_bwd_kernel_vs_plain()
+    q8_err = phase_q8_kernels_vs_plain()
     serving = phase_serving_path()
     training = phase_training_path()
     ring = phase_ring_path(serving, training)
+    q8_path = phase_q8_path(serving, training)
     rows = phase_timings(serving)
     bwd_rows = phase_train_timings(training)
     mode_rows = phase_ring_timings(ring, serving, training, rows)
+    q8_rows = phase_q8_timings(q8_path, serving, training)
     ring_launches = ring["launches"]
+    q8_launches = q8_path["launches"]
     entries = [
         ("flash_fwd", "flash_fwd.cu", 1174,
          serving["launches"] + training["launches"]["flash_fwd"]
          + ring_launches["flash_fwd"], max(max_err, *mode_err.values()), rows),
         ("flash_bwd_dkv", "flash_bwd.cu", 2108,
-         training["launches"]["flash_bwd_dkv"] + ring_launches["flash_bwd_dkv"],
+         training["launches"]["flash_bwd_dkv"] + ring_launches["flash_bwd_dkv"]
+         + q8_launches["flash_bwd_dkv"],
          max(bwd_err["dk"], bwd_err["dv"]), bwd_rows["flash_bwd_dkv"]),
         ("flash_bwd_dq", "flash_bwd.cu", 2186,
-         training["launches"]["flash_bwd_dq"] + ring_launches["flash_bwd_dq"],
+         training["launches"]["flash_bwd_dq"] + ring_launches["flash_bwd_dq"]
+         + q8_launches["flash_bwd_dq"],
          bwd_err["dq"], bwd_rows["flash_bwd_dq"]),
+        ("flash_fwd_q8", "flash_fwd_q8.cu", 1174, q8_launches["flash_fwd_q8"],
+         max(q8_err[m] for m in ("fused", "seed", "resume", "fused_carry")), q8_rows["fwd"]),
+        ("flash_decode_q8", "flash_decode_q8.cu", 1585, q8_launches["flash_decode_q8"],
+         q8_err["decode"], q8_rows["decode"]),
     ]
     kernels = []
     for name, source, line, launches, err, per_shape in entries:
@@ -1195,6 +1794,8 @@ def main() -> int:
             "bound_ms": headline["bound_ms"],
             "bound_by": headline["bound_by"],
             "library_ms": headline["library_ms"],
+            **{key: headline[key] for key in ("bf16_kernel_ms", "bf16_sdpa_ms")
+               if key in headline},
             "pass": True,
             "per_shape": per_shape,
         })
@@ -1204,6 +1805,13 @@ def main() -> int:
          **{key: mode_rows[mode][0][key] for key in
             ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
          "per_shape": mode_rows[mode]}
+        for mode in ("seed", "resume", "fused_carry")
+    ]
+    kernels[3]["modes"] = [
+        {"mode": mode, "launches": q8_launches[f"q8_{mode}"], "max_abs_err": q8_err[mode],
+         **{key: q8_rows["modes"][mode][key] for key in
+            ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "bf16_kernel_ms")}}
         for mode in ("seed", "resume", "fused_carry")
     ]
     log(f"total {time.perf_counter() - start:.1f} s")

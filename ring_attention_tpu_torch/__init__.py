@@ -7,10 +7,13 @@ its training path (``loss.backward()`` and ``make_train_step``) on the
 hand-written dk/dv and dq kernels (``csrc/flash_bwd.cu``), and the ring
 (``parallel/``: ``ring_flash_attention`` forward and backward over a
 ``VirtualRing`` or a ``DistributedRing``, and ``RingTransformer(mesh=)``
-on a virtual ring) on the forward kernel's partials and resume modes.
-Entry points run on the CUDA device unless the caller passes
-``device="cpu"``; on CPU tensors every kernel wrapper runs its plain
-PyTorch version.  The package imports torch only.
+on a virtual ring) on the forward kernel's partials and resume modes,
+and int8 serving (``RingTransformer(quantize_cache=True,
+compute_dtype="int8")``: the int8 forward ``csrc/flash_fwd_q8.cu`` and
+the int8-cache decode ``csrc/flash_decode_q8.cu``).  Entry points run
+on the CUDA device unless the caller passes ``device="cpu"``; on CPU
+tensors every kernel wrapper runs its plain PyTorch version.  The package
+imports torch only.
 """
 
 from .models import FeedForward, RingAttention, RingTransformer, RMSNorm
@@ -20,11 +23,13 @@ from .ops import (
     PAD_SEGMENT_ID,
     FlashCarry,
     FlashPartials,
+    QuantizedKV,
     apply_rotary,
     attend_blocks,
     cuda_flash_attention,
     cuda_flash_decode,
     default_attention,
+    dequantize_kv_cache,
     finalize,
     finalize_partials,
     flash_attention,
@@ -33,13 +38,20 @@ from .ops import (
     flash_bwd_dkv,
     flash_bwd_dq,
     flash_bwd_reference,
+    flash_decode_q8,
+    flash_decode_q8_reference,
     flash_fwd,
+    flash_fwd_q8,
+    flash_fwd_q8_reference,
     flash_fwd_reference,
     flash_partials,
+    flash_partials_q8,
+    flash_partials_q8_reference,
     flash_partials_reference,
     init_carry,
     init_partials,
     merge_partials,
+    quantize_kv_cache,
     ring_positions,
     rotary_freqs,
     rotate_half,
@@ -65,6 +77,7 @@ __all__ = [
     "FlashCarry",
     "FlashPartials",
     "Mesh",
+    "QuantizedKV",
     "RMSNorm",
     "Ring",
     "RingAttention",
@@ -77,6 +90,7 @@ __all__ = [
     "cuda_flash_attention",
     "cuda_flash_decode",
     "default_attention",
+    "dequantize_kv_cache",
     "export_jax_params",
     "finalize",
     "finalize_partials",
@@ -86,9 +100,15 @@ __all__ = [
     "flash_bwd_dkv",
     "flash_bwd_dq",
     "flash_bwd_reference",
+    "flash_decode_q8",
+    "flash_decode_q8_reference",
     "flash_fwd",
+    "flash_fwd_q8",
+    "flash_fwd_q8_reference",
     "flash_fwd_reference",
     "flash_partials",
+    "flash_partials_q8",
+    "flash_partials_q8_reference",
     "flash_partials_reference",
     "init_carry",
     "init_partials",
@@ -97,6 +117,7 @@ __all__ = [
     "load_jax_params",
     "make_train_step",
     "merge_partials",
+    "quantize_kv_cache",
     "ring_flash_attention",
     "ring_positions",
     "rotary_freqs",

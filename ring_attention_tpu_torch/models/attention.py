@@ -13,6 +13,15 @@ the counterpart of the JAX ``RingAttention._kernel_impl``:
   with its custom gradient) for the forward and backward, and the dense
   oracle for decode.
 
+Two int8 serving knobs, as in the JAX layer: ``quantize_cache`` keeps the
+decode cache as int8 values with one f32 scale per ``(head, token)`` row
+(cache entries are ``(values, scales)`` tuples; decode runs
+``ops/cuda_flash_q8.py::flash_decode_q8`` on ``"cuda"`` and the dequantized
+oracle on ``"torch"``), and ``compute_dtype="int8"`` runs the forward's QK^T
+and PV on int8 operands (the int8 CUDA sweep, local and on the ring; the
+backward stays on the float kernels).  ``compute_dtype="int8"`` needs
+``impl="cuda"``, as the JAX one needs the Pallas kernels.
+
 On a mesh whose sequence world is above one the forward runs
 ``parallel/ring.py::ring_flash_attention`` with each rank's rotary
 positions; with ``auto_shard`` the layer pads, stripes and unpermutes
@@ -31,7 +40,13 @@ import torch
 from torch import nn
 
 from ..ops.attention import default_attention
-from ..ops.cuda_flash import cuda_flash_attention, cuda_flash_decode
+from ..ops.cuda_flash import cuda_flash_attention, cuda_flash_decode, int8_compute
+from ..ops.cuda_flash_q8 import (
+    QuantizedKV,
+    dequantize_kv_cache,
+    flash_decode_q8,
+    quantize_kv_cache,
+)
 from ..ops.flash import flash_attention
 from ..ops.rotary import apply_rotary, ring_positions, rotary_freqs
 from ..parallel.mesh import seq_world
@@ -49,8 +64,6 @@ from .layers import Dense, RMSNorm, resolve_device
 UNPORTED = {
     "mask": "the mask algebra, ROADMAP.md Port queue item 7",
     "segment_ids": "packed sequences with the mask algebra, ROADMAP.md Port queue item 7",
-    "quantize_cache": "the int8 decode cache (TPU kernel B6), ROADMAP.md Port queue item 3",
-    "compute_dtype": "int8 compute (TPU kernel B4), ROADMAP.md Port queue item 4",
     "windowed_cache": "the memory knobs, ROADMAP.md Port queue item 7",
     "ff_chunk_size": "the memory knobs, ROADMAP.md Port queue item 7",
     "loss_chunk_size": "the memory knobs, ROADMAP.md Port queue item 7",
@@ -82,6 +95,18 @@ def unported(fn: str, name: str) -> NotImplementedError:
     return NotImplementedError(
         f"{fn}: {name} is not ported yet; it arrives with {UNPORTED[name]}"
     )
+
+
+def check_compute_dtype(fn: str, compute_dtype, impl: str) -> None:
+    """The int8-compute knob, validated as the JAX layer's
+    ``_compute_dtype`` does: ``None`` or ``"int8"``, and ``"int8"`` only on
+    the kernels (the PyTorch path has no int8 matmul form; running the
+    quantized model in the model dtype would misreport it)."""
+    if int8_compute(compute_dtype, fn) and impl != "cuda":
+        raise ValueError(
+            f'{fn}: compute_dtype="int8" runs on the CUDA kernels only; set '
+            f'impl="cuda" (got impl="{impl}")'
+        )
 
 
 def check_mesh(fn: str, mesh, sequence_parallel: str) -> None:
@@ -141,13 +166,13 @@ class RingAttention(nn.Module):
     ):
         super().__init__()
         reject_unported("RingAttention", mask=mask,
-                        quantize_cache=quantize_cache, compute_dtype=compute_dtype,
                         ring_bidirectional=ring_bidirectional,
                         ring_counter_rotate=ring_counter_rotate,
                         ring_hop_compression=ring_hop_compression,
                         ring_dkv_dtype=ring_dkv_dtype)
         check_impl("RingAttention", impl)
         check_mesh("RingAttention", mesh, sequence_parallel)
+        check_compute_dtype("RingAttention", compute_dtype, impl)
         kv_heads = kv_heads or heads
         if heads % kv_heads:
             raise ValueError(
@@ -167,6 +192,8 @@ class RingAttention(nn.Module):
         self.mesh = mesh
         self.striped = striped
         self.auto_shard = auto_shard
+        self.quantize_cache = quantize_cache
+        self.compute_dtype = compute_dtype
         self.prenorm = RMSNorm(dim, device=device)
         self.to_qkv = Dense(dim, (heads + 2 * kv_heads) * dim_head,
                             dtype=dtype, device=device)
@@ -254,6 +281,7 @@ class RingAttention(nn.Module):
         return ring_flash_attention(
             q, k, v, mask, ring, self.causal, self.striped, bucket,
             max_ring_passes, window, self.softclamp_value, None, self.impl,
+            compute_dtype=self.compute_dtype,
         )
 
     def _local_attend(self, q, k, v, mask):
@@ -264,6 +292,7 @@ class RingAttention(nn.Module):
                 q, k, v, mask, causal=self.causal,
                 window=self.max_lookback_seq_len,
                 softclamp_value=self.softclamp_value,
+                compute_dtype=self.compute_dtype,
             )
         return flash_attention(
             q, k, v, mask, causal=self.causal, bucket_size=self.bucket_size,
@@ -278,22 +307,38 @@ class RingAttention(nn.Module):
     def decode_step(
         self,
         x: torch.Tensor,  # (b, 1, dim): the new token's activation
-        cache_k: torch.Tensor,  # (b, hk, size, dh)
-        cache_v: torch.Tensor,
+        cache_k,  # (b, hk, size, dh); (values, scales) with quantize_cache
+        cache_v,
         pos: int,  # position the new token occupies
-    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    ):
         """One token of autoregressive decoding against a KV cache.
 
         Writes this token's K/V into slot ``pos % size`` of the ring-buffer
         cache IN PLACE (no copy of the cache per step) and attends the valid
         slots: positions ``[0, pos]``, restricted to the last
-        ``max_lookback_seq_len`` when the layer has a window.  Returns
-        ``(out (b, 1, dim), cache_k, cache_v)``."""
+        ``max_lookback_seq_len`` when the layer has a window.  Under
+        ``quantize_cache`` each cache entry is an ``(int8 values (b, hk,
+        size, dh), f32 scales (b, hk, size))`` tuple and the new row is
+        quantized as it is written.  Returns ``(out (b, 1, dim), cache_k,
+        cache_v)``."""
         if seq_world(self.mesh) > 1:
             raise unported("RingAttention.decode_step", "decode")
         pos = int(pos)
         q, k, v = self._project_qkv(x)
         q, k = self._rotate(q, k, torch.tensor([pos], device=x.device))
+        if self.quantize_cache:
+            size = cache_k[0].shape[2]
+            self._quantized_write(cache_k, cache_v, k, v, pos % size)
+            kv = QuantizedKV(*cache_k, *cache_v)
+            kv_mask = self._buffer_mask(size, pos, x.shape[0], x.device)
+            if self.impl == "cuda":
+                out, _ = flash_decode_q8(q, kv, kv_mask,
+                                         softclamp_value=self.softclamp_value)
+            else:
+                k_deq, v_deq = dequantize_kv_cache(kv, q.dtype)
+                out = default_attention(q, k_deq, v_deq, kv_mask,
+                                        softclamp_value=self.softclamp_value)
+            return self._merge_heads(out), cache_k, cache_v
         size = cache_k.shape[2]
         slot = pos % size
         cache_k[:, :, slot:slot + 1] = k.to(cache_k.dtype)
@@ -309,6 +354,17 @@ class RingAttention(nn.Module):
                 q, cache_k, cache_v, kv_mask, softclamp_value=self.softclamp_value
             )
         return self._merge_heads(out), cache_k, cache_v
+
+    @staticmethod
+    def _quantized_write(cache_k, cache_v, k, v, slot: int) -> None:
+        """Quantize K/V rows ``(b, hk, n, dh)`` per token and write values
+        and scales at slots ``[slot, slot + n)`` of ``(values, scales)``
+        cache entries, in place (JAX ``_quantized_write``)."""
+        kq, ks, vq, vs = quantize_kv_cache(k, v)
+        n = k.shape[2]
+        for (values, scales), q8, s in ((cache_k, kq, ks), (cache_v, vq, vs)):
+            values[:, :, slot:slot + n] = q8
+            scales[:, :, slot:slot + n] = s
 
     def _buffer_mask(self, size: int, pos: int, batch: int,
                      device: torch.device) -> torch.Tensor:
@@ -328,19 +384,21 @@ class RingAttention(nn.Module):
     def prefill(
         self,
         x: torch.Tensor,  # (b, n, dim): the whole prompt
-        cache_k: torch.Tensor,  # (b, hk, size, dh)
-        cache_v: torch.Tensor,
-    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        cache_k,  # (b, hk, size, dh); (values, scales) with quantize_cache
+        cache_v,
+    ):
         """One causal pass over the prompt, writing cache slots in place.
 
         The written K/V carry rotary exactly as ``decode_step`` writes them,
         so decoding continues from position ``n``.  Attention runs on the
-        blockwise PyTorch path (``ops/flash.py``) whatever ``impl`` is, as
-        in the JAX package.  Returns ``(out (b, n, dim), cache_k, cache_v)``."""
+        blockwise PyTorch path (``ops/flash.py``) on the exact K/V whatever
+        ``impl`` and ``compute_dtype`` are, as in the JAX package; under
+        ``quantize_cache`` only the cache is quantized.  Returns ``(out (b,
+        n, dim), cache_k, cache_v)``."""
         if seq_world(self.mesh) > 1:
             raise unported("RingAttention.prefill", "decode")
         n = x.shape[1]
-        size = cache_k.shape[2]
+        size = (cache_k[0] if self.quantize_cache else cache_k).shape[2]
         lookback = self.max_lookback_seq_len
         if n > size and (lookback is None or size < lookback):
             raise ValueError(
@@ -361,7 +419,10 @@ class RingAttention(nn.Module):
             v_rows = torch.roll(v[:, :, n - size:], n % size, dims=2)
         else:
             k_rows, v_rows = k, v
-        rows = k_rows.shape[2]
-        cache_k[:, :, :rows] = k_rows.to(cache_k.dtype)
-        cache_v[:, :, :rows] = v_rows.to(cache_v.dtype)
+        if self.quantize_cache:
+            self._quantized_write(cache_k, cache_v, k_rows, v_rows, 0)
+        else:
+            rows = k_rows.shape[2]
+            cache_k[:, :, :rows] = k_rows.to(cache_k.dtype)
+            cache_v[:, :, :rows] = v_rows.to(cache_v.dtype)
         return self._merge_heads(out), cache_k, cache_v

@@ -5,7 +5,9 @@ Port of ``ring_attention_tpu/models/transformer.py``: token embedding,
 and logits, the dense cross-entropy loss with label shift and
 ``ignore_index`` (differentiable into the float32 parameters; train with
 ``utils/train.py::make_train_step``), and incremental decoding
-(``init_cache`` / ``prefill`` / ``decode_step`` / ``generate``).  On a
+(``init_cache`` / ``prefill`` / ``decode_step`` / ``generate``), with the
+int8 serving knobs ``quantize_cache`` and ``compute_dtype="int8"`` of
+``models/attention.py``.  On a
 ``mesh`` the model shards once at its top (pad, stripe when ``striped``)
 and every layer runs the ring on that layout; the parameters are the same
 as without a mesh.  Decoding on a mesh is not ported yet.
@@ -19,7 +21,14 @@ from torch import nn
 from ..utils.validate import check_tokens_input
 from ..parallel.mesh import seq_world
 from ..parallel.sharding import layout_for, layout_permute, layout_unpermute, pad_to_multiple
-from .attention import RingAttention, check_impl, check_mesh, reject_unported, unported
+from .attention import (
+    RingAttention,
+    check_compute_dtype,
+    check_impl,
+    check_mesh,
+    reject_unported,
+    unported,
+)
 from .layers import Dense, Embed, FeedForward, RMSNorm, resolve_device
 
 
@@ -105,7 +114,6 @@ class RingTransformer(nn.Module):
         super().__init__()
         reject_unported(
             "RingTransformer", mask=mask,
-            quantize_cache=quantize_cache, compute_dtype=compute_dtype,
             windowed_cache=windowed_cache, ff_chunk_size=ff_chunk_size,
             loss_chunk_size=loss_chunk_size, remat=remat,
             ring_bidirectional=ring_bidirectional,
@@ -115,6 +123,7 @@ class RingTransformer(nn.Module):
         )
         check_impl("RingTransformer", impl)
         check_mesh("RingTransformer", mesh, sequence_parallel)
+        check_compute_dtype("RingTransformer", compute_dtype, impl)
         lookbacks = max_lookback_seq_len
         if not isinstance(lookbacks, tuple):
             lookbacks = (lookbacks,) * depth
@@ -130,6 +139,7 @@ class RingTransformer(nn.Module):
         self.dtype = dtype
         self.causal = causal
         self.mesh = mesh
+        self.quantize_cache = quantize_cache
         self.striped = striped and seq_world(mesh) > 1
         self.embed = Embed(num_tokens, dim, dtype=dtype, device=device)
         self.attn_layers = nn.ModuleList(
@@ -139,6 +149,7 @@ class RingTransformer(nn.Module):
                 softclamp_value=softclamp_value, max_lookback_seq_len=lookback,
                 impl=impl, dtype=dtype, device=device, mesh=mesh,
                 striped=self.striped, auto_shard=False,  # sharded once at the top
+                quantize_cache=quantize_cache, compute_dtype=compute_dtype,
             )
             for lookback in lookbacks
         )
@@ -205,17 +216,23 @@ class RingTransformer(nn.Module):
     # Incremental decoding
     # ------------------------------------------------------------------
 
-    def init_cache(self, batch: int, max_len: int) -> dict[str, list[torch.Tensor]]:
+    def init_cache(self, batch: int, max_len: int) -> dict[str, list]:
         """Zeroed KV cache ``{"k": [...], "v": [...]}``, one
         ``(batch, kv_heads, max_len, dim_head)`` entry per layer, in the
-        model dtype (float32 when it is None)."""
+        model dtype (float32 when it is None); with ``quantize_cache`` each
+        entry is an ``(int8 values, f32 scales (batch, kv_heads, max_len))``
+        tuple."""
         if seq_world(self.mesh) > 1:
             raise unported("RingTransformer.init_cache", "decode")
         shape = (batch, self.kv_heads, max_len, self.dim_head)
         dtype = self.dtype or torch.float32
+        device = self._device()
 
         def entry():
-            return torch.zeros(shape, dtype=dtype, device=self._device())
+            if self.quantize_cache:
+                return (torch.zeros(shape, dtype=torch.int8, device=device),
+                        torch.zeros(shape[:3], dtype=torch.float32, device=device))
+            return torch.zeros(shape, dtype=dtype, device=device)
 
         depth = len(self.attn_layers)
         return {"k": [entry() for _ in range(depth)],
@@ -224,9 +241,9 @@ class RingTransformer(nn.Module):
     def decode_step(
         self,
         token: torch.Tensor,  # (b,) token at position `pos`
-        cache: dict[str, list[torch.Tensor]],
+        cache: dict[str, list],
         pos: int,
-    ) -> tuple[torch.Tensor, dict[str, list[torch.Tensor]]]:
+    ) -> tuple[torch.Tensor, dict[str, list]]:
         """Next-token logits ``(b, vocab)`` given the token at ``pos`` and a
         cache holding positions ``[0, pos)``; the cache is updated in place
         and returned."""
@@ -242,8 +259,8 @@ class RingTransformer(nn.Module):
     def prefill(
         self,
         tokens: torch.Tensor,  # (b, n)
-        cache: dict[str, list[torch.Tensor]],
-    ) -> tuple[torch.Tensor, dict[str, list[torch.Tensor]]]:
+        cache: dict[str, list],
+    ) -> tuple[torch.Tensor, dict[str, list]]:
         """One causal pass over the prompt, filling cache positions
         ``[0, n)`` in place.  Returns ``(last_logits (b, vocab), cache)``."""
         if seq_world(self.mesh) > 1:

@@ -108,3 +108,40 @@ def flash_bwd_library() -> ctypes.CDLL:
     lib.flash_bwd_dq.argtypes = inputs + [ptr] + shape  # dq
     lib.flash_bwd_dq.restype = i32
     return lib
+
+
+@functools.cache
+def flash_fwd_q8_library() -> ctypes.CDLL:
+    """The built ``flash_fwd_q8`` library with its C signature declared."""
+    lib = ctypes.CDLL(str(build("flash_fwd_q8").path))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_fwd_q8.argtypes = [
+        ptr, ptr, ptr,  # q8, k8, v8
+        ptr, ptr, ptr,  # q, k (per row) and v (per block) scales
+        ptr, ptr, ptr,  # kv_mask, out, lse
+        ptr, ptr, ptr,  # carry acc, m, l (all null: no carry)
+        ptr, ptr, ptr,  # partials acc, m, l (all null: out + lse)
+        i32, i32, i32, i32, i32, i32, i32,  # B, H, Hk, Nq, Nk, D, Bk
+        i32, f32,  # out_bf16, scale
+        i32, i32, i32, i32,  # causal, hi, windowed, lo
+        f32, ptr,  # softclamp, stream
+    ]
+    lib.flash_fwd_q8.restype = i32
+    return lib
+
+
+@functools.cache
+def flash_decode_q8_library() -> ctypes.CDLL:
+    """The built ``flash_decode_q8`` library with its C signature declared."""
+    lib = ctypes.CDLL(str(build("flash_decode_q8").path))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_decode_q8.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,  # q, k8, k scales, v8, v scales, kv_mask
+        ptr, ptr,  # out, lse (both null: partials)
+        ptr, ptr, ptr,  # partials acc, m, l (all null: out + lse)
+        ptr,  # scratch
+        i32, i32, i32, i32, i32, i32,  # B, Hk, R, Nk, D, P
+        i32, f32, f32, ptr,  # q_bf16, scale, softclamp, stream
+    ]
+    lib.flash_decode_q8.restype = i32
+    return lib

@@ -17,6 +17,9 @@ two passes of ``pallas_flash_backward`` (dk/dv and dq):
   keeps ``(out, lse)`` and the backward runs both passes from them.
 - ``cuda_flash_decode`` mirrors ``pallas_flash_decode`` (:1340): the GQA
   group folds onto query rows so each cache byte is read once per kv head.
+- ``compute_dtype="int8"`` on ``flash_fwd``, ``flash_partials`` and
+  ``cuda_flash_attention`` runs the sweep's int8 mode instead, the
+  separate kernel of ``cuda_flash_q8.py``; the backward stays here.
 
 ``launch_count`` counts every launch of the forward kernel;
 ``seed_launch_count``, ``resume_launch_count`` and
@@ -170,11 +173,12 @@ def flash_bwd_reference(
     return dq.reshape(b, h, nq, d), dk, dv
 
 
-def _check_kernel_args(fn, q, k, v, kv_mask, *rows) -> None:
+def _check_kernel_args(fn, q, k, v, kv_mask, *rows, dtypes=SUPPORTED_DTYPES) -> None:
     """What the kernels take; ``rows`` are further ``(b, h, nq, ...)``
-    inputs (``do`` in q's dtype, ``lse`` and ``delta`` in float32)."""
-    if q.dtype not in SUPPORTED_DTYPES:
-        raise ValueError(f"{fn}: dtype {q.dtype} unsupported; use bf16 or f32")
+    inputs (``do`` in q's dtype, ``lse`` and ``delta`` in float32) and
+    ``dtypes`` the operand types the kernel is built for."""
+    if q.dtype not in dtypes:
+        raise ValueError(f"{fn}: dtype {q.dtype} unsupported; use one of {dtypes}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
             f"{fn}: q, k, v must share a dtype, got {q.dtype}, {k.dtype}, "
@@ -227,6 +231,18 @@ def _partials_rows(parts: FlashPartials, b, h, nq, d) -> tuple:
     return ((parts.acc, (b, h, nq, d), torch.float32),
             (parts.m, (b, h, nq), torch.float32),
             (parts.l, (b, h, nq), torch.float32))
+
+
+def int8_compute(compute_dtype, fn: str = "flash_fwd") -> bool:
+    """Whether ``compute_dtype`` asks for the int8 sweep; raises
+    ``ValueError`` naming ``fn`` for a value other than None and ``"int8"``,
+    as every JAX entry point with the knob does."""
+    if compute_dtype not in (None, "int8"):
+        raise ValueError(
+            f"{fn}: compute_dtype={compute_dtype!r}; supported values are None "
+            '(model-dtype matmuls) and "int8" (quantized QK^T/PV)'
+        )
+    return compute_dtype == "int8"
 
 
 def _launch_fwd(q, k, v, kv_mask, band, carry, partials, out=None):
@@ -298,14 +314,23 @@ def flash_fwd(
     window_lo: int | None = None,
     softclamp_value: float | None = None,
     carry: FlashPartials | None = None,
+    compute_dtype: str | None = None,
+    block_k: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One forward flash sweep: ``(out in q.dtype, lse f32)``, resuming
     ``carry`` when given (a ring's last hop) and leaving it unchanged.
 
     Same arguments and result as :func:`flash_fwd_reference`.  CPU tensors
-    take that plain version; CUDA tensors launch the kernel."""
+    take that plain version; CUDA tensors launch the kernel.
+    ``compute_dtype="int8"`` runs the int8 sweep instead
+    (``cuda_flash_q8.flash_fwd_q8``, quantized per block of ``block_k``
+    keys); the float sweep does not depend on ``block_k``."""
     band = dict(scale=scale, causal_offset=causal_offset, window_lo=window_lo,
                 softclamp_value=softclamp_value)
+    if int8_compute(compute_dtype):
+        from .cuda_flash_q8 import flash_fwd_q8
+
+        return flash_fwd_q8(q, k, v, kv_mask, carry=carry, block_k=block_k, **band)
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, kv_mask, carry=carry, **band)
     return _launch_fwd(q, k, v, kv_mask, band, carry, partials=False)
@@ -323,6 +348,8 @@ def flash_partials(
     softclamp_value: float | None = None,
     carry: FlashPartials | None = None,
     out: FlashPartials | None = None,
+    compute_dtype: str | None = None,
+    block_k: int | None = None,
 ) -> FlashPartials:
     """One forward flash sweep returning f32 partials ``(acc, m, l)``,
     seeded from no carry or resuming ``carry`` (a ring's first and middle
@@ -332,9 +359,15 @@ def flash_partials(
 
     Same arguments and result as :func:`flash_partials_reference`.  CPU
     tensors take that plain version (copied into ``out``); CUDA tensors
-    launch the kernel."""
+    launch the kernel.  ``compute_dtype`` and ``block_k`` as in
+    :func:`flash_fwd`."""
     band = dict(scale=scale, causal_offset=causal_offset, window_lo=window_lo,
                 softclamp_value=softclamp_value)
+    if int8_compute(compute_dtype):
+        from .cuda_flash_q8 import flash_partials_q8
+
+        return flash_partials_q8(q, k, v, kv_mask, carry=carry, out=out,
+                                 block_k=block_k, **band)
     if q.device.type == "cpu":
         result = flash_partials_reference(q, k, v, kv_mask, carry=carry, **band)
         if out is None:
@@ -458,14 +491,18 @@ def flash_bwd(
 
 class _CudaFlashAttention(torch.autograd.Function):
     """Port of the ``_pallas_flash_core`` custom_vjp: the forward saves
-    ``(q, k, v, kv_mask, out, lse)``; the backward recomputes p from lse."""
+    ``(q, k, v, kv_mask, out, lse)``; the backward recomputes p from lse.
+    With ``compute_dtype="int8"`` the forward is the int8 sweep and the
+    backward the same float kernels, from the exact ``(q, k, v)`` and the
+    int8 forward's ``(out, lse)``, as in the JAX package (:2258-2275)."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, scale, causal_offset, window_lo,
-                softclamp_value):
+                softclamp_value, compute_dtype):
         out, lse = flash_fwd(
             q, k, v, kv_mask, scale=scale, causal_offset=causal_offset,
             window_lo=window_lo, softclamp_value=softclamp_value,
+            compute_dtype=compute_dtype,
         )
         ctx.save_for_backward(q, k, v, kv_mask, out, lse)
         ctx.band = dict(scale=scale, causal_offset=causal_offset,
@@ -481,7 +518,7 @@ class _CudaFlashAttention(torch.autograd.Function):
             do.to(q.dtype).contiguous(), q, k, v, lse, delta, kv_mask, **ctx.band
         )
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
-                None, None, None, None, None)
+                None, None, None, None, None, None)
 
 
 def cuda_flash_attention(
@@ -494,13 +531,18 @@ def cuda_flash_attention(
     window: int | None = None,
     softclamp_value: float | None = None,
     scale: float | None = None,
+    compute_dtype: str | None = None,
 ) -> torch.Tensor:
     """Exact flash attention on the CUDA kernels (GQA-aware), differentiable.
 
     Same contract as ``ops.flash.flash_attention``: ``causal`` is
     end-aligned (``causal_offset = nk - nq``) and drops ``mask``;
-    ``window`` keeps the last ``window`` keys of each query."""
+    ``window`` keeps the last ``window`` keys of each query.
+    ``compute_dtype="int8"`` runs the forward's QK^T and PV on int8
+    operands (``pallas_flash_attention(compute_dtype="int8")``); the
+    backward stays on the float kernels."""
     check_attention_args("cuda_flash_attention", q, k, v, mask)
+    int8_compute(compute_dtype, "cuda_flash_attention")
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if window is not None and not causal:
@@ -513,7 +555,7 @@ def cuda_flash_attention(
     window_lo = causal_offset - (window - 1) if window is not None else None
     return _CudaFlashAttention.apply(
         q.contiguous(), k.contiguous(), v.contiguous(), mask, scale,
-        causal_offset, window_lo, softclamp_value,
+        causal_offset, window_lo, softclamp_value, compute_dtype,
     )
 
 

@@ -27,7 +27,10 @@ Two per-hop compute paths:
   forward kernel: seed partials on hop 0, in-kernel resume (in place) on
   the middle hops, normalization fused into the last hop's write.  A rank
   whose last hop has no work finalizes its carry on the host; hops whose
-  band covers the whole span for every rank with work run unmasked.
+  band covers the whole span for every rank with work run unmasked.  With
+  ``compute_dtype="int8"`` the same launches run the int8 sweep
+  (``ops/cuda_flash_q8.py``), each hop quantized per block of the bucket,
+  as ``_ring_fwd_pallas`` does with its ``_q8_block``.
 
 The gradient is one ``torch.autograd.Function`` over the whole ring (the
 counterpart of the JAX ``custom_vjp``): its backward rotates ``(k, v, dk,
@@ -47,6 +50,7 @@ from ..ops.cuda_flash import (
     flash_bwd,
     flash_fwd,
     flash_partials,
+    int8_compute,
 )
 from ..ops.flash import (
     _group_q,
@@ -68,7 +72,6 @@ UNPORTED = {
     "counter_rotate": "the ring variants, ROADMAP.md Port queue item 7",
     "hop_compression": "the ring variants, ROADMAP.md Port queue item 7",
     "dkv_dtype": "the ring variants, ROADMAP.md Port queue item 7",
-    "compute_dtype": "int8 compute (TPU kernel B4), ROADMAP.md Port queue item 4",
     "segment_ids": "packed sequences with the mask algebra, ROADMAP.md Port queue item 7",
 }
 UNPORTED_IMPLS = {
@@ -213,7 +216,9 @@ def _ring_fwd_cuda(qs, ks, vs, masks, ring, cfg):
             if full:  # every rank with work sees the whole span
                 hi, lo = None, None
             band = dict(scale=cfg["scale"], causal_offset=hi, window_lo=lo,
-                        softclamp_value=cfg["softclamp_value"])
+                        softclamp_value=cfg["softclamp_value"],
+                        compute_dtype=cfg["compute_dtype"],
+                        block_k=cfg["bucket_size"])
             mask = mx[0] if mx else None
             if i == passes - 1:
                 if carries[j] is None:  # one pass: a plain fused sweep
@@ -384,9 +389,14 @@ def ring_flash_attention(
         ``"cuda"`` (the CUDA kernels, JAX ``"pallas"``; the plain versions
         on CPU tensors).
 
+      compute_dtype: ``"int8"`` runs each hop's forward on int8 operands
+        (``impl="cuda"`` only, as the JAX ring needs the Pallas kernels), q
+        and k quantized per row and v per block of ``bucket_size`` keys
+        fitted to the hop; the backward stays on the float kernels.
+
     ``bidirectional``, ``dkv_dtype``, ``segment_ids``, ``counter_rotate``,
-    ``hop_compression``, ``compute_dtype`` and ``impl="fused"`` are not
-    ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
+    ``hop_compression`` and ``impl="fused"`` are not ported yet and raise
+    ``NotImplementedError`` naming their ROADMAP item.
 
     Cross-attention (unequal q and kv shard lengths) bypasses the ring: each
     rank attends its local KV shard only, as in the JAX package.
@@ -396,8 +406,7 @@ def ring_flash_attention(
     for name, value in (("bidirectional", bidirectional),
                         ("dkv_dtype", dkv_dtype), ("segment_ids", segment_ids),
                         ("counter_rotate", counter_rotate),
-                        ("hop_compression", hop_compression),
-                        ("compute_dtype", compute_dtype)):
+                        ("hop_compression", hop_compression)):
         if value is not None and value is not False:
             raise NotImplementedError(
                 f"ring_flash_attention: {name}= is not ported yet; it arrives "
@@ -410,6 +419,12 @@ def ring_flash_attention(
         )
     if impl not in IMPLS:
         raise ValueError(f"ring_flash_attention: impl must be one of {IMPLS}, got {impl!r}")
+    if int8_compute(compute_dtype, "ring_flash_attention") and impl != "cuda":
+        raise ValueError(
+            'ring_flash_attention: compute_dtype="int8" runs on the CUDA kernels '
+            'only; pass impl="cuda" (the blockwise PyTorch flash has no int8 '
+            "matmul form)"
+        )
     count = len(ring.ranks)
     check_attention_args("ring_flash_attention", q, k, v, kv_mask, shards=count)
     if window is not None and not causal:
@@ -423,6 +438,8 @@ def ring_flash_attention(
                   scale=scale)
         if impl == "torch":
             kw["bucket_size"] = bucket_size
+        else:
+            kw["compute_dtype"] = compute_dtype
         masks = kv_mask.chunk(count, dim=1) if kv_mask is not None else [None] * count
         return torch.cat([
             local(qx, kx, vx, mx, **kw)
@@ -434,6 +451,6 @@ def ring_flash_attention(
     cfg = dict(
         impl=impl, causal=causal, striped=striped, bucket_size=bucket_size,
         passes=min(max_ring_passes or ring.world, ring.world), window=window,
-        softclamp_value=softclamp_value, scale=scale,
+        softclamp_value=softclamp_value, scale=scale, compute_dtype=compute_dtype,
     )
     return _RingFlashAttention.apply(q, k, v, kv_mask, ring, cfg)

@@ -67,8 +67,6 @@ UNPORTED_SETTINGS = {
     "ring_dkv_dtype": dict(ring_dkv_dtype="bfloat16"),
     "sequence_parallel_zigzag": dict(sequence_parallel="zigzag"),
     "mask": dict(mask="a mask expression"),
-    "quantize_cache": dict(quantize_cache=True),
-    "compute_dtype": dict(compute_dtype="int8"),
     "windowed_cache": dict(windowed_cache=True),
     "ff_chunk_size": dict(ff_chunk_size=64),
     "loss_chunk_size": dict(loss_chunk_size=64),
@@ -82,6 +80,22 @@ UNPORTED_SETTINGS = {
 def test_unported_features_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item"):
         RingTransformer(**SMALL, device="cpu", **UNPORTED_SETTINGS[name])
+
+
+# the int8 knobs are ported; the settings they cannot take raise as the JAX
+# layer's _compute_dtype does
+INVALID_INT8_SETTINGS = {
+    "compute_dtype_int8_on_impl_torch": dict(compute_dtype="int8", impl="torch"),
+    "compute_dtype_fp8": dict(compute_dtype="fp8"),
+}
+
+
+@pytest.mark.parametrize("name", list(INVALID_INT8_SETTINGS))
+def test_invalid_int8_settings_raise(name):
+    with pytest.raises(ValueError, match="compute_dtype"):
+        RingTransformer(**SMALL, device="cpu", **INVALID_INT8_SETTINGS[name])
+    with pytest.raises(ValueError, match="compute_dtype"):
+        RingAttention(32, heads=2, dim_head=16, device="cpu", **INVALID_INT8_SETTINGS[name])
 
 
 @pytest.mark.parametrize("entry", ["init_cache", "prefill", "decode_step", "generate"])

@@ -334,12 +334,22 @@ def test_ring_unported_options_raise():
     x = torch.zeros((1, 2, 8, 16))
     for name, value in (("bidirectional", True), ("counter_rotate", True),
                         ("hop_compression", "int8"), ("dkv_dtype", "bfloat16"),
-                        ("compute_dtype", "int8"), ("segment_ids", x[:, 0, :, 0]),
+                        ("segment_ids", x[:, 0, :, 0]),
                         ("impl", "fused")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item"):
             ring_flash_attention(x, x, x, None, VirtualRing(2), **{name: value})
     with pytest.raises(ValueError, match="equal shards"):
         ring_flash_attention(x[:, :, :7], x[:, :, :7], x[:, :, :7], None, VirtualRing(2))
+
+
+@pytest.mark.parametrize("impl,compute_dtype", [("torch", "int8"), ("cuda", "fp8")])
+def test_ring_compute_dtype_validates(impl, compute_dtype):
+    """compute_dtype is ported: "int8" off the kernels and values other
+    than None/"int8" raise ValueError, as the JAX ring does."""
+    x = torch.zeros((1, 2, 8, 16))
+    with pytest.raises(ValueError, match="compute_dtype"):
+        ring_flash_attention(x, x, x, None, VirtualRing(2), impl=impl,
+                             compute_dtype=compute_dtype)
 
 
 # ---------------------------------------------------------------------------
