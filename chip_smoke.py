@@ -34,6 +34,19 @@ result line):
        int8 hop chains; the int8 decode (csrc/flash_decode_q8.cu) fused,
        with softclamp and as partials on the decode shapes; each held by
        its norm-relative error and its lse (Q8_REL_TOL, Q8_LSE_TOL).
+   2e. the fused ring kernel (csrc/flash_ring.cu) in bf16 and f32 against
+       its plain version (OUT_TOL and RING_REL_TOL) for every rank of a
+       ring of 4, with contiguous and striped tables, a lookback window
+       with limited passes over ragged 1,000-key shards, a striped window,
+       GQA h8/hk2, softclamp and a key mask with an all-False row; each
+       case's whole ring also against the hop chain of the forward kernel
+       (``impl="cuda"``), where a causal key mask with an all-False row
+       pins the (hop, tile) set the two visit; then the launches of phase
+       3e (n_local 16,384, h8 hk8 bf16): every rank, contiguous and
+       striped, against the plain chain in 1,024-row slices, and each
+       layout's whole ring against the hop chain; then the 262,144-token
+       schedule of ring rank 3 (4 x 65,536) against the hop chain and, in
+       1,024-row slices, against the plain chain.
 3. The serving path through the entry points a user calls: RingTransformer
    at the full width of the repository's benchmark model (vocab 256,
    dim 512, 8 heads of 64, depth 2, ff_mult 4, rotary, causal, bf16) with
@@ -61,7 +74,13 @@ result line):
    ring of 4 in both layouts, forward and one step.  Every run launches
    exactly what its path says: the int8 forward twice per forward, the int8
    decode once per layer and step, the ring modes per RING_SCHEDULE.
-   In phases 3 to 3d every launch counter is set to 0 just before each
+3e. The fused ring path: the same model with ``mesh=create_mesh(ring_size=4),
+   impl="fused"``, contiguous and striped, as in 3c: logits held to the
+   local model's, 4 Adam steps, the float32 copy held to the CPU.  Each
+   forward launches the fused ring kernel once per rank and layer (8) and
+   no mode of the forward kernel; each step's backward launches the
+   backward kernels per RING_SCHEDULE.
+   In phases 3 to 3e every launch counter is set to 0 just before each
    run and read just after; a kernel that never launched fails the run.
 4. Timings with CUDA events (median of 10 runs after warm-up): each kernel
    beside its bound (the larger of its bytes over 3.35 TB/s and its
@@ -87,8 +106,17 @@ result line):
    its plain version and the bf16 kernel and SDPA on the same inputs (no
    PyTorch call computes int8 attention); the int8 model's forward
    tokens/s (and the int8 ring models'), decode ms/step and train step.
-5. The kernels line, one JSON object; the forward kernels' entries list
-   their ring modes.
+4e. The fused ring: the kernel on ring rank 3's schedule at n_local 16,384
+   (the fused model's launches, contiguous and striped), 4,096 and 65,536
+   (262,144 tokens) beside its bound, the forward kernel's hop chain on
+   the same spans (timed in turns: chain, fused, fused, chain), SDPA per
+   span merged in PyTorch (the yardstick of 4c) and, at 16,384 contiguous
+   and at 4,096, its plain version; one 65,536-key span, unbanded and causal, through
+   the forward kernel and through the fused kernel with a one-hop table
+   (the same function, in turns); the fused ring models' forward (in turns
+   with the scan-path ring models') and train step.
+5. The kernels line, one JSON object with six kernels; the forward
+   kernels' entries list their ring modes.
 6. The last line: ``{"ok": true, "device": {...}}``.
 
 It exits non-zero when ``torch.cuda.is_available()`` is false and when the
@@ -148,7 +176,8 @@ RING_SCHEDULE = {False: (4, 5, 1, 10, 10), True: (4, 8, 4, 16, 16)}
 BENCH_MODEL = dict(num_tokens=256, dim=512, depth=2, causal=True, heads=8,
                    dim_head=64, bucket_size=2048, rotary=True, ff_mult=4)
 SEED = 0
-KERNEL_SOURCES = ("flash_fwd", "flash_bwd", "flash_fwd_q8", "flash_decode_q8")
+KERNEL_SOURCES = ("flash_fwd", "flash_bwd", "flash_fwd_q8", "flash_decode_q8",
+                  "flash_ring")
 
 # Phase-2d tolerances of the int8 kernels against their plain versions,
 # which quantize q, k, v and p exactly as the kernels do.  B4: the output's
@@ -442,13 +471,15 @@ def _hop_chain_reference(q, spans, bands, int8_block=None):
     return fused(q, k, v, scale=0.125, causal_offset=hi, carry=carry, **kw)
 
 
-def _hold_chain_in_slices(name, q, spans, bands, errors, w=1024, int8_block=None) -> None:
-    """A bf16 hop chain against its plain version in ``w``-row slices at
-    the start, middle and end (the dense plain version of the whole chain
-    would not fit): each slice's bands shift by its first row."""
+def _hold_chain_in_slices(name, q, spans, bands, errors, w=1024, int8_block=None,
+                          result=None) -> None:
+    """A bf16 hop chain (or ``result``, the ``(out, lse)`` of a kernel that
+    computes the same) against the chain's plain version in ``w``-row
+    slices at the start, middle and end (the dense plain version of the
+    whole chain would not fit): each slice's bands shift by its first row."""
     import torch
 
-    out, lse = _hop_chain(q, spans, bands, int8_block)
+    out, lse = result if result is not None else _hop_chain(q, spans, bands, int8_block)
     torch.cuda.synchronize()
     n = q.shape[2]
     for r0 in (0, n // 2, n - w):
@@ -548,6 +579,169 @@ def phase_ring_modes_vs_plain() -> dict:
     _hold_chain_in_slices(f"hop chain 4 x {n}", q, spans, (0, None, None, None),
                           errors["fused_carry"])
     return {mode: max(errs) for mode, errs in errors.items()}
+
+
+# Phase-2e cases of the fused ring kernel, every rank of a ring of 4:
+# name: (b, h, hk, n_local, ring arguments, softclamp, key mask)
+FUSED_CASES = {
+    "contiguous causal": (1, 8, 8, 1024, dict(causal=True), None, False),
+    "striped causal": (1, 8, 8, 1024, dict(causal=True, striped=True), None, False),
+    # 1,500 tokens back over shards of 1,000 (ragged tiles): 3 of 4 passes
+    "window 1500, 3 passes, n_local 1000": (
+        1, 8, 8, 1000, dict(causal=True, window=1500, max_ring_passes=3), None, False),
+    "striped window 700": (1, 8, 8, 1024, dict(causal=True, striped=True, window=700),
+                           None, False),
+    "GQA h8 hk2 striped": (1, 8, 2, 1024, dict(causal=True, striped=True), None, False),
+    "softclamp 50": (1, 8, 8, 1024, dict(causal=True), 50.0, False),
+    "kv_mask, one all-False row": (2, 8, 8, 1024, dict(), None, True),
+    # held to the hop chain only: a causal row that sees no key averages V
+    # over the tiles the kernels visit, the plain version over every key
+    "causal kv_mask, one all-False row": (2, 8, 8, 1024, dict(causal=True), None, True),
+}
+FUSED_CHAIN_ONLY = ("causal kv_mask, one all-False row",)
+
+
+def _fused_tables(rank, n_local, ring_size=RING_SIZE, causal=False, striped=False,
+                  window=None, max_ring_passes=None):
+    """The hop tables of ``rank`` on the card, as the fused ring builds them."""
+    from ring_attention_tpu_torch.parallel import ring as pring
+
+    passes = min(max_ring_passes or ring_size, ring_size)
+    tables = pring._fused_tables(rank, passes, n_local, causal, striped, window,
+                                 ring_size, device="cuda")
+    return dict(zip(("origins", "his", "los", "works"), tables))
+
+
+def _compare_to_chain(name, dtype, out, chain, lse=None, chain_lse=None) -> float:
+    """The fused kernel's output against the hop chain of the forward
+    kernel on the same spans: max|diff|, whether every element is
+    identical, and OUT_TOL / RING_REL_TOL as against the plain version."""
+    atol, rtol = OUT_TOL[str(dtype)]
+    diff = out.float() - chain.float()
+    err = diff.abs().max().item()
+    rel = (diff.norm() / chain.float().norm().clamp_min(1e-30)).item()
+    same = bool((out == chain).all())
+    note = ""
+    if lse is not None:
+        note = f", max|lse - chain| {(lse - chain_lse).abs().max().item():.3e}"
+        same = same and bool((lse == chain_lse).all())
+    log(f"  {name:<40} {str(dtype):<15} vs the hop chain: max|diff| {err:.3e}, "
+        f"rel {rel:.3e}{note}, bit-identical {same}")
+    ok = bool((diff.abs() <= atol + rtol * chain.float().abs()).all())
+    check(ok and rel <= RING_REL_TOL[str(dtype)], f"{name} {dtype}: fused ring vs hop chain")
+    return err
+
+
+def _chain_schedule(k_all, v_all, tables, n):
+    """The hop chain that one fused launch stands for: the (k, v) blocks of
+    the hops with work, in hop order, and each one's causal offset (None
+    where the band covers the whole block).  Unwindowed tables only."""
+    origins, his, los, works = (tables[key].tolist()
+                                for key in ("origins", "his", "los", "works"))
+    check(all(lo <= -n for lo in los), "a windowed table has no plain hop chain here")
+    live = [(o, hi) for o, hi, w in zip(origins, his, works) if w]
+    spans = [(k_all[:, :, o * n:(o + 1) * n].contiguous(),
+              v_all[:, :, o * n:(o + 1) * n].contiguous()) for o, _ in live]
+    return spans, tuple(None if hi >= n - 1 else hi for _, hi in live)
+
+
+def _fused_rank_inputs(gen, n, rank=RING_SIZE - 1, striped=False):
+    """One rank of a causal ring of 4, contiguous or striped: (1, 8, n, 64)
+    queries, the gathered (1, 8, 4n, 64) keys and values, the tables, and
+    the spans and bands of its hop chain (bench.py::_hop_sequence)."""
+    import torch
+
+    q = _rand(gen, (1, 8, n, 64), torch.bfloat16)
+    k_all, v_all = (_rand(gen, (1, 8, RING_SIZE * n, 64), torch.bfloat16)
+                    for _ in range(2))
+    tables = _fused_tables(rank, n, causal=True, striped=striped)
+    return (q, k_all, v_all, tables) + _chain_schedule(k_all, v_all, tables, n)
+
+
+def phase_fused_ring_vs_plain() -> float:
+    """The fused ring kernel (csrc/flash_ring.cu) against its plain version
+    and against the forward kernel's hop chain on the same spans; returns
+    the largest |out - plain|."""
+    import torch
+
+    from ring_attention_tpu_torch.ops import cuda_ring as cr
+    from ring_attention_tpu_torch.parallel import VirtualRing, ring_flash_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    errors: list[float] = []
+    chain_errors: list[float] = []
+    log("phase 2e: fused ring kernel (flash_ring) vs fused_ring_local_plain and vs "
+        "the hop chain of flash_fwd, every rank of a ring of 4")
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, (b, h, hk, n, ring_kw, clamp, masked) in FUSED_CASES.items():
+            q = _rand(gen, (b, h, RING_SIZE * n, 64), dtype)
+            k, v = (_rand(gen, (b, hk, RING_SIZE * n, 64), dtype) for _ in range(2))
+            mask = None
+            if masked:
+                mask = torch.rand((b, RING_SIZE * n), generator=gen, device="cuda") > 0.3
+                mask[-1] = False
+            if name not in FUSED_CHAIN_ONLY:
+                for rank in range(RING_SIZE):
+                    q_r = q[:, :, rank * n:(rank + 1) * n].contiguous()
+                    kw = dict(n_local=n, scale=0.125, softclamp_value=clamp,
+                              **_fused_tables(rank, n, **ring_kw))
+                    out, lse = cr.fused_ring_local(q_r, k, v, mask, **kw)
+                    torch.cuda.synchronize()
+                    ref_out, ref_lse = cr.fused_ring_local_plain(q_r, k, v, mask, **kw)
+                    _compare(f"{name} rank {rank}", dtype, out, ref_out, lse, ref_lse,
+                             errors, rel_tol=RING_REL_TOL[str(dtype)])
+                    del out, lse, ref_out, ref_lse
+            with torch.no_grad():
+                ring = dict(ring_kw, softclamp_value=clamp, scale=0.125)
+                chain = ring_flash_attention(q, k, v, mask, VirtualRing(RING_SIZE),
+                                             impl="cuda", **ring)
+                fused = ring_flash_attention(q, k, v, mask, VirtualRing(RING_SIZE),
+                                             impl="fused", **ring)
+            torch.cuda.synchronize()
+            chain_errors.append(_compare_to_chain(f"{name}, ring of 4", dtype, fused, chain))
+
+    # the launches phase 3e makes: 65,536 tokens on a ring of 4 (n_local
+    # 16,384, h8 hk8 bf16), every rank of both layouts, each launch held to
+    # the plain chain in 1,024-row slices, then the whole ring held to the
+    # scan-path ring (impl="cuda") on the same inputs
+    n = 16384
+    for striped in (False, True):
+        layout = "striped" if striped else "contiguous"
+        q = _rand(gen, (1, 8, RING_SIZE * n, 64), torch.bfloat16)
+        k, v = (_rand(gen, q.shape, torch.bfloat16) for _ in range(2))
+        for rank in range(RING_SIZE):
+            tables = _fused_tables(rank, n, causal=True, striped=striped)
+            q_r = q[:, :, rank * n:(rank + 1) * n].contiguous()
+            result = cr.fused_ring_local(q_r, k, v, n_local=n, scale=0.125, **tables)
+            spans, bands = _chain_schedule(k, v, tables, n)
+            _hold_chain_in_slices(f"flash_ring {layout} rank {rank} 4 x {n}", q_r, spans,
+                                  bands, errors, result=result)
+            del result, spans
+        with torch.no_grad():
+            ring = dict(causal=True, striped=striped, scale=0.125)
+            chain = ring_flash_attention(q, k, v, None, VirtualRing(RING_SIZE),
+                                         impl="cuda", **ring)
+            fused = ring_flash_attention(q, k, v, None, VirtualRing(RING_SIZE),
+                                         impl="fused", **ring)
+        torch.cuda.synchronize()
+        chain_errors.append(_compare_to_chain(f"{layout} causal 4 x {n}, ring of 4",
+                                              torch.bfloat16, fused, chain))
+        del q, k, v, chain, fused
+
+    # ring rank 3 at 262,144 tokens: one launch over the 4 x 65,536 span
+    n = 65536
+    q, k_all, v_all, tables, spans, bands = _fused_rank_inputs(gen, n)
+    out, lse = cr.fused_ring_local(q, k_all, v_all, n_local=n, scale=0.125, **tables)
+    torch.cuda.synchronize()
+    chain_out, chain_lse = _hop_chain(q, spans, bands)
+    torch.cuda.synchronize()
+    chain_errors.append(_compare_to_chain(f"rank 3 at 262144 (4 x {n})", torch.bfloat16,
+                                          out, chain_out, lse, chain_lse))
+    del chain_out, chain_lse
+    _hold_chain_in_slices(f"flash_ring rank 3 4 x {n}", q, spans, bands, errors,
+                          result=(out, lse))
+    log(f"  largest |fused - hop chain| over phase 2e: {max(chain_errors):.3e}")
+    return max(errors)
 
 
 def _compare_bwd(name, dtype, got, ref, errors) -> None:
@@ -979,7 +1173,8 @@ COUNTERS = {"flash_fwd": ("cuda_flash", "launch_count"),
             "q8_seed": ("cuda_flash_q8", "seed_launch_count"),
             "q8_resume": ("cuda_flash_q8", "resume_launch_count"),
             "q8_fused_carry": ("cuda_flash_q8", "fused_carry_launch_count"),
-            "flash_decode_q8": ("cuda_flash_q8", "decode_launch_count")}
+            "flash_decode_q8": ("cuda_flash_q8", "decode_launch_count"),
+            "flash_ring": ("cuda_ring", "launch_count")}
 
 
 def _counter_module(name: str):
@@ -1015,17 +1210,31 @@ def _ring_counts(striped: bool, backward: bool, int8: bool = False) -> dict[str,
                       "flash_bwd_dq": dq if backward else 0})
 
 
-def phase_ring_path(serving: dict, training: dict) -> dict:
+def _fused_counts(striped: bool, backward: bool) -> dict[str, int]:
+    """Launches of one forward (and backward) of the model on the fused
+    ring: the fused kernel once per rank and layer, nothing of the forward
+    kernel, and the backward kernels per RING_SCHEDULE."""
+    depth = BENCH_MODEL["depth"]
+    *_, dkv, dq = RING_SCHEDULE[striped]
+    return _counts(flash_ring=RING_SIZE * depth,
+                   flash_bwd_dkv=dkv * depth if backward else 0,
+                   flash_bwd_dq=dq * depth if backward else 0)
+
+
+def phase_ring_path(serving: dict, training: dict, impl: str = "cuda") -> dict:
     """The ring path at full width on a virtual ring of 4: logits against
     the local model, launch counts against the hop schedule, Adam steps;
-    then the float32 ring on the card against the CPU."""
+    then the float32 ring on the card against the CPU.  ``impl="fused"``
+    runs each rank's forward as one fused ring launch (phase 3e)."""
     import torch
 
     from ring_attention_tpu_torch import make_train_step
     from ring_attention_tpu_torch.parallel import create_mesh
 
-    log(f"phase 3c: RingTransformer(mesh=create_mesh(ring_size={RING_SIZE})) on a "
-        f"virtual ring, bench model at full width, bf16")
+    expected = _ring_counts if impl == "cuda" else _fused_counts
+    phase = "3c" if impl == "cuda" else "3e"
+    log(f"phase {phase}: RingTransformer(mesh=create_mesh(ring_size={RING_SIZE}), "
+        f"impl={impl!r}) on a virtual ring, bench model at full width, bf16")
     tokens, local = serving["tokens"], serving["model"]
     with torch.inference_mode():
         ref = local(tokens).float()
@@ -1034,7 +1243,7 @@ def phase_ring_path(serving: dict, training: dict) -> dict:
     for striped in (False, True):
         layout = "striped" if striped else "contiguous"
         model = _model(torch.bfloat16, "cuda", mesh=create_mesh(ring_size=RING_SIZE),
-                       striped=striped)
+                       striped=striped, impl=impl)
         with torch.inference_mode():
             _reset_counts()
             start = time.perf_counter()
@@ -1042,8 +1251,8 @@ def phase_ring_path(serving: dict, training: dict) -> dict:
             torch.cuda.synchronize()
             seconds = time.perf_counter() - start
             counts = _read_counts()
-        check(counts == _ring_counts(striped, backward=False),
-              f"{layout} forward launched {counts}, expected {_ring_counts(striped, False)}")
+        check(counts == expected(striped, backward=False),
+              f"{layout} forward launched {counts}, expected {expected(striped, False)}")
         for name, n in counts.items():
             launches[name] += n
         check(bool(torch.isfinite(logits.float()).all()), f"{layout}: non-finite logits")
@@ -1066,7 +1275,7 @@ def phase_ring_path(serving: dict, training: dict) -> dict:
             seconds = time.perf_counter() - start
             counts = _read_counts()
             log(f"  {layout} step {i}: loss {loss:.6f}, {seconds:.3f} s, launches {counts}")
-            check(counts == _ring_counts(striped, backward=True),
+            check(counts == expected(striped, backward=True),
                   f"{layout} step {i} launched {counts}")
             check(math.isfinite(loss), f"{layout} step {i}: loss {loss}")
             losses.append(loss)
@@ -1074,11 +1283,11 @@ def phase_ring_path(serving: dict, training: dict) -> dict:
                 launches[name] += n
         check(losses[-1] < losses[0], f"{layout}: loss did not fall: {losses}")
         models[layout] = (model, step)
-    _hold_f32_ring_to_cpu()
+    _hold_f32_ring_to_cpu(impl)
     return {"launches": launches, "models": models}
 
 
-def _hold_f32_ring_to_cpu() -> None:
+def _hold_f32_ring_to_cpu(impl: str) -> None:
     """A float32 copy of the ring model (seq 256, ring 4) on the card against
     the same model on the CPU: logits and one step's gradients."""
     import torch
@@ -1090,7 +1299,8 @@ def _hold_f32_ring_to_cpu() -> None:
     gen = torch.Generator().manual_seed(SEED + 9)
     tokens = torch.randint(0, BENCH_MODEL["num_tokens"], (2, 257), generator=gen)
     for striped in (False, True):
-        gpu = _model(None, "cuda", mesh=create_mesh(ring_size=RING_SIZE), striped=striped)
+        gpu = _model(None, "cuda", mesh=create_mesh(ring_size=RING_SIZE), striped=striped,
+                     impl=impl)
         cpu = copy.deepcopy(gpu).to("cpu")
         with torch.no_grad():
             logits_err = (gpu(tokens[:, :256].cuda()).cpu() - cpu(tokens[:, :256])).abs().max().item()
@@ -1104,7 +1314,7 @@ def _hold_f32_ring_to_cpu() -> None:
             rel = ((pg.grad.cpu() - pc.grad).norm() / pc.grad.norm()).item()
             if rel >= worst:
                 worst, worst_name = rel, name
-        log(f"  f32 ring model ({'striped' if striped else 'contiguous'}) seq 256, card "
+        log(f"  f32 {impl} ring model ({'striped' if striped else 'contiguous'}) seq 256, card "
             f"vs CPU: logits max|diff| {logits_err:.3e} (tol {MODEL_ATOL}), loss "
             f"{losses[0]:.7f} vs {losses[1]:.7f}, worst gradient ||card - cpu|| / "
             f"||cpu|| {worst:.3e} ({worst_name}) (tol {GRAD_REL_TOL})")
@@ -1230,18 +1440,143 @@ def phase_ring_timings(ring: dict, serving: dict, training: dict,
         f"{training['step_ms']:.3f} ms ({65536 / training['step_ms'] * 1e3:.0f} "
         f"tokens/s), peak {training['peak'] / 2**30:.3f} GiB, "
         f"{training['above'] / 2**30:.3f} GiB above the live memory (phases 4, 4b)")
+    ring["timings"] = {}
     for layout, (model, step) in ring["models"].items():
         model.eval()
         with torch.inference_mode():
             fwd_ms = time_ms(lambda: model(tokens))
         model.train()
         ms, step_s, peak, base = _train_step_timing(step, training["tokens"])
+        ring["timings"][layout] = {"fwd_ms": fwd_ms, "step_ms": ms}
         log(f"  ring {layout} model: forward 1 x 65536 {fwd_ms:.3f} ms "
             f"({65536 / fwd_ms * 1e3:.0f} tokens/s, {fwd_ms / serving['fwd_ms']:.3f} x "
             f"local), train step {ms:.3f} ms (all {[round(x * 1e3, 3) for x in step_s]}; "
             f"{65536 / ms * 1e3:.0f} tokens/s, {ms / training['step_ms']:.3f} x local), "
             f"peak {peak / 2**30:.3f} GiB, {(peak - base) / 2**30:.3f} GiB above the "
             f"live memory")
+    return rows
+
+
+def _fused_row(n, with_plain, iters, striped=False) -> dict:
+    """The fused ring kernel on ring rank 3's schedule of a causal ring of 4
+    (n_local ``n``, contiguous or striped) beside its bound, its plain
+    version, the hop chain of the forward kernel on the same spans (timed
+    chain, fused, fused, chain) and the SDPA-per-span yardstick."""
+    import torch
+
+    from ring_attention_tpu_torch.ops import cuda_ring as cr
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    q, k_all, v_all, tables, spans, bands = _fused_rank_inputs(gen, n, striped=striped)
+    ops = 4 * 64 * 8 * sum(band_pairs(n, n, hi, None) for hi in bands)
+    moved = nbytes(q, k_all, v_all) + nbytes(q) + 4 * 8 * n  # inputs, out, lse
+    b_ms, b_by = bound_ms(ops, moved, torch.bfloat16)
+
+    def kernel():
+        return cr.fused_ring_local(q, k_all, v_all, n_local=n, scale=0.125, **tables)
+
+    def chain():
+        return _hop_chain(q, spans, bands)
+
+    chain_ms = [time_ms(chain, iters=iters)]
+    fused_ms = [time_ms(kernel, iters=iters), time_ms(kernel, iters=iters)]
+    chain_ms.append(time_ms(chain, iters=iters))
+    ms, hop_chain_ms = statistics.mean(fused_ms), statistics.mean(chain_ms)
+    library_ms = time_ms(lambda: _sdpa_chain(q, spans, bands), iters=iters)
+    plain_ms = None
+    if with_plain:
+        torch.cuda.empty_cache()  # the dense plain version holds n x n scores
+        plain_ms = time_ms(lambda: cr.fused_ring_local_plain(
+            q, k_all, v_all, n_local=n, scale=0.125, **tables), iters=min(iters, 3))
+    layout = "striped" if striped else "contiguous"
+    log(f"  flash_ring rank 3 of a {layout} causal ring of 4, 4 x {n}: kernel {ms:.3f} ms "
+        f"(runs {[round(x, 3) for x in fused_ms]}), {ops / ms / 1e9:.1f} TFLOP/s, bound "
+        f"{b_ms:.3f} ms ({b_by}); hop chain of flash_fwd on the same spans "
+        f"{hop_chain_ms:.3f} ms (runs {[round(x, 3) for x in chain_ms]}), "
+        f"{ops / hop_chain_ms / 1e9:.1f} TFLOP/s, fused / chain {ms / hop_chain_ms:.4f}; "
+        f"plain {plain_ms} ms; SDPA per span merged in PyTorch (library yardstick) "
+        f"{library_ms:.3f} ms")
+    return {"shape": f"rank 3 of {layout} causal ring 4, 4 x (1,8,{n},64) bf16", "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms, "hop_chain_ms": hop_chain_ms}
+
+
+def _one_span_row(n, causal) -> None:
+    """One span of n keys (causal, or unbanded) two ways: the forward
+    kernel's fused sweep and the fused ring kernel with a one-hop table of
+    the same band, which compute the same function over the same tiles
+    (outputs checked bit-identical); timed in turns B1, B7, B7, B1, to
+    show whether B7's speed is the hop walk or the kernel itself."""
+    import torch
+
+    from ring_attention_tpu_torch.ops import cuda_flash as cf
+    from ring_attention_tpu_torch.ops import cuda_ring as cr
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    q, k, v = (_rand(gen, (1, 8, n, 64), torch.bfloat16) for _ in range(3))
+    table = [[0], [0 if causal else n], [-n], [1]]
+    tables = dict(zip(("origins", "his", "los", "works"),
+                      torch.tensor(table, dtype=torch.int32, device="cuda")))
+
+    def b1():
+        return cf.flash_fwd(q, k, v, scale=0.125, causal_offset=0 if causal else None)
+
+    def b7():
+        return cr.fused_ring_local(q, k, v, n_local=n, scale=0.125, **tables)
+
+    same = all(bool((x == y).all()) for x, y in zip(b1(), b7()))
+    check(same, f"one span {n} causal={causal}: B7 and B1 differ")
+    b1_ms = [time_ms(b1, iters=5)]
+    b7_ms = [time_ms(b7, iters=5), time_ms(b7, iters=5)]
+    b1_ms.append(time_ms(b1, iters=5))
+    ops = 4 * 64 * 8 * band_pairs(n, n, 0 if causal else None, None)
+    b1_mean, b7_mean = statistics.mean(b1_ms), statistics.mean(b7_ms)
+    log(f"  one {'causal' if causal else 'unbanded'} span (1,8,{n},64) bf16, outputs "
+        f"bit-identical: flash_fwd {b1_mean:.3f} ms (runs {[round(x, 3) for x in b1_ms]}, "
+        f"{ops / b1_mean / 1e9:.1f} TFLOP/s), flash_ring one hop {b7_mean:.3f} ms (runs "
+        f"{[round(x, 3) for x in b7_ms]}, {ops / b7_mean / 1e9:.1f} TFLOP/s), ring / fwd "
+        f"{b7_mean / b1_mean:.4f}")
+
+
+def phase_fused_ring_timings(fused: dict, ring: dict, serving: dict,
+                             training: dict) -> list[dict]:
+    """Phase 4e: the fused ring kernel and the fused ring models."""
+    import torch
+
+    log("phase 4e: the fused ring (CUDA events, median after warm-up)")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    log(f"  card: {smi.stdout.strip()}")
+    # first the launches the fused model makes (n_local 16,384), the
+    # headline; then 4,096 and the 262,144-token schedule
+    rows = [_fused_row(16384, with_plain=True, iters=10),
+            _fused_row(16384, with_plain=False, iters=10, striped=True),
+            _fused_row(4096, with_plain=True, iters=10),
+            _fused_row(65536, with_plain=False, iters=5)]
+    for causal in (False, True):
+        _one_span_row(65536, causal)
+    tokens = serving["tokens"]
+    for layout, (model, step) in fused["models"].items():
+        scan_model = ring["models"][layout][0].eval()
+        model.eval()
+        with torch.inference_mode():  # in turns: scan, fused, fused, scan
+            scan_ms = [time_ms(lambda: scan_model(tokens))]
+            fwd_ms = [time_ms(lambda: model(tokens)), time_ms(lambda: model(tokens))]
+            scan_ms.append(time_ms(lambda: scan_model(tokens)))
+        model.train()
+        ms, step_s, peak, base = _train_step_timing(step, training["tokens"])
+        fwd, scan = statistics.mean(fwd_ms), statistics.mean(scan_ms)
+        log(f"  fused ring {layout} model: forward 1 x 65536 {fwd:.3f} ms (runs "
+            f"{[round(x, 3) for x in fwd_ms]}; {65536 / fwd * 1e3:.0f} tokens/s), scan-path "
+            f"ring {scan:.3f} ms (runs {[round(x, 3) for x in scan_ms]}), fused / scan "
+            f"{fwd / scan:.4f}, {fwd / serving['fwd_ms']:.3f} x local; train step "
+            f"{ms:.3f} ms (all {[round(x * 1e3, 3) for x in step_s]}; "
+            f"{65536 / ms * 1e3:.0f} tokens/s), scan-path ring "
+            f"{ring['timings'][layout]['step_ms']:.3f} ms (phase 4c), local "
+            f"{training['step_ms']:.3f} ms; peak {peak / 2**30:.3f} GiB, "
+            f"{(peak - base) / 2**30:.3f} GiB above the live memory")
     return rows
 
 
@@ -1749,43 +2084,50 @@ def main() -> int:
     phase_build(port_dir)
     max_err = phase_kernel_vs_plain()
     mode_err = phase_ring_modes_vs_plain()
+    fused_err = phase_fused_ring_vs_plain()
     bwd_err = phase_bwd_kernel_vs_plain()
     q8_err = phase_q8_kernels_vs_plain()
     serving = phase_serving_path()
     training = phase_training_path()
     ring = phase_ring_path(serving, training)
+    fused = phase_ring_path(serving, training, impl="fused")
     q8_path = phase_q8_path(serving, training)
     rows = phase_timings(serving)
     bwd_rows = phase_train_timings(training)
     mode_rows = phase_ring_timings(ring, serving, training, rows)
     q8_rows = phase_q8_timings(q8_path, serving, training)
+    fused_rows = phase_fused_ring_timings(fused, ring, serving, training)
     ring_launches = ring["launches"]
+    fused_launches = fused["launches"]
     q8_launches = q8_path["launches"]
+    flash, pallas_ring = "ring_attention_tpu/ops/pallas_flash.py", "ring_attention_tpu/ops/pallas_ring.py"
     entries = [
-        ("flash_fwd", "flash_fwd.cu", 1174,
+        ("flash_fwd", "flash_fwd.cu", f"{flash}:1174",
          serving["launches"] + training["launches"]["flash_fwd"]
          + ring_launches["flash_fwd"], max(max_err, *mode_err.values()), rows),
-        ("flash_bwd_dkv", "flash_bwd.cu", 2108,
+        ("flash_bwd_dkv", "flash_bwd.cu", f"{flash}:2108",
          training["launches"]["flash_bwd_dkv"] + ring_launches["flash_bwd_dkv"]
-         + q8_launches["flash_bwd_dkv"],
+         + fused_launches["flash_bwd_dkv"] + q8_launches["flash_bwd_dkv"],
          max(bwd_err["dk"], bwd_err["dv"]), bwd_rows["flash_bwd_dkv"]),
-        ("flash_bwd_dq", "flash_bwd.cu", 2186,
+        ("flash_bwd_dq", "flash_bwd.cu", f"{flash}:2186",
          training["launches"]["flash_bwd_dq"] + ring_launches["flash_bwd_dq"]
-         + q8_launches["flash_bwd_dq"],
+         + fused_launches["flash_bwd_dq"] + q8_launches["flash_bwd_dq"],
          bwd_err["dq"], bwd_rows["flash_bwd_dq"]),
-        ("flash_fwd_q8", "flash_fwd_q8.cu", 1174, q8_launches["flash_fwd_q8"],
+        ("flash_fwd_q8", "flash_fwd_q8.cu", f"{flash}:1174", q8_launches["flash_fwd_q8"],
          max(q8_err[m] for m in ("fused", "seed", "resume", "fused_carry")), q8_rows["fwd"]),
-        ("flash_decode_q8", "flash_decode_q8.cu", 1585, q8_launches["flash_decode_q8"],
-         q8_err["decode"], q8_rows["decode"]),
+        ("flash_decode_q8", "flash_decode_q8.cu", f"{flash}:1585",
+         q8_launches["flash_decode_q8"], q8_err["decode"], q8_rows["decode"]),
+        ("flash_ring", "flash_ring.cu", f"{pallas_ring}:341", fused_launches["flash_ring"],
+         fused_err, fused_rows),
     ]
     kernels = []
-    for name, source, line, launches, err, per_shape in entries:
+    for name, source, replaces, launches, err, per_shape in entries:
         headline = per_shape[0]
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"ring_attention_tpu_torch/csrc/{source}",
-            "replaces": f"ring_attention_tpu/ops/pallas_flash.py:{line}",
+            "replaces": replaces,
             "launches": launches,
             "max_abs_err": err,
             "shape": headline["shape"],
@@ -1794,8 +2136,8 @@ def main() -> int:
             "bound_ms": headline["bound_ms"],
             "bound_by": headline["bound_by"],
             "library_ms": headline["library_ms"],
-            **{key: headline[key] for key in ("bf16_kernel_ms", "bf16_sdpa_ms")
-               if key in headline},
+            **{key: headline[key] for key in ("bf16_kernel_ms", "bf16_sdpa_ms",
+                                              "hop_chain_ms") if key in headline},
             "pass": True,
             "per_shape": per_shape,
         })

@@ -38,7 +38,8 @@
 // 65,536 rows of 8 heads, 0.08 ms at 3.35 TB/s beside the 8.9 ms operation
 // bound of a full 65,536-key hop.
 //
-// Design (right and simple first):
+// Design (right and simple first; the tile body is flash_tile.cuh's, shared
+// with flash_ring.cu):
 //   * one thread block per (64-row Q tile, b*h); blocks run heaviest causal
 //     rows first;
 //   * bf16: 4 warps, each owns 16 query rows.  QK^T and PV run on
@@ -56,18 +57,9 @@
 // Not yet: cp.async/TMA double buffering, wgmma, warp specialisation and a
 // split-KV decode (the decode grid is only b*hk blocks wide).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_tile.cuh"
 
 namespace {
-
-constexpr float kMaskValue = -0.5f * 3.402823466e38f;  // -0.5 * f32 max, finite
-constexpr float kEpsilon = 1e-10f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kBlockM = 64;  // query rows per block
-constexpr int kBlockN = 64;  // keys per KV tile
 
 struct Params {
   const void* q;
@@ -94,82 +86,11 @@ struct RingIO {
   float* p_l;          // partials (B, H, Nq)
 };
 
-// [t_begin, t_end) KV tiles that rows [r0, r0 + kBlockM) of a block need.
-__device__ __forceinline__ void tile_range(const Params& p, int r0, int* t_begin,
-                                           int* t_end) {
-  *t_begin = 0;
-  *t_end = (p.Nk + kBlockN - 1) / kBlockN;
-  if (!p.causal) return;
-  const long long r_last = (long long)min(r0 + kBlockM, p.Nq) - 1;
-  // row i attends max(0, i + lo) <= j <= min(Nk - 1, i + hi); the first row
-  // has the narrowest upper bound and the last row the highest lower bound
-  bool empty_row = (long long)r0 + p.hi < 0;
-  long long j_min = 0;
-  if (p.windowed) {
-    empty_row = empty_row || r_last + p.lo > p.Nk - 1 || p.lo > p.hi;
-    j_min = max((long long)r0 + p.lo, 0LL);
-  }
-  if (empty_row) return;
-  const long long j_max = min(r_last + p.hi, (long long)p.Nk - 1);
-  *t_begin = (int)(j_min / kBlockN);
-  *t_end = (int)(j_max / kBlockN) + 1;
-}
-
-// Scaled, soft-clamped and masked score of (row, col).
-__device__ __forceinline__ float score(const Params& p, const uint8_t* kvm,
-                                       int row, int col, float dot) {
-  if (col >= p.Nk) return -INFINITY;  // past the keys: weighs exactly zero
-  float s = dot * p.scale;
-  if (p.softclamp > 0.f) s = p.softclamp * tanhf(s / p.softclamp);
-  bool keep = true;
-  if (p.causal) {
-    const int off = col - row;
-    keep = off <= p.hi && (!p.windowed || off >= p.lo);
-  }
-  if (kvm != nullptr) keep = keep && kvm[col] != 0;
-  return keep ? s : kMaskValue;
-}
-
-__device__ __forceinline__ float exp_nat(float x) { return exp2f(x * kLog2e); }
-
-// ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Two floats as bf16x2; the first lands in the low half (lower index).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(uint16_t lo, uint16_t hi) {
-  return (uint32_t)lo | ((uint32_t)hi << 16);
-}
-
-// rows [row0, row0 + 64) of a (n, D) bf16 matrix into shared memory with a
-// row stride of D + 8 elements; rows past n are zero.
-template <int D>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               int row0, int n) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  constexpr int kStride = D + 8;
-  for (int i = threadIdx.x; i < kBlockM * kChunks; i += blockDim.x) {
-    const int r = i / kChunks, c = i % kChunks;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * kStride + c * 8) = val;
-  }
+// The launch's band in flash_tile.cuh's form: a side that causal or windowed
+// leaves open takes a bound no (row, col) pair crosses.
+__device__ __forceinline__ Band launch_band(const Params& p, const uint8_t* kvm) {
+  return Band{p.causal ? p.hi : p.Nk, p.causal && p.windowed ? p.lo : -p.Nq, p.Nk, kvm,
+              p.scale, p.softclamp};
 }
 
 // (128, 4): four blocks per SM need at most 128 registers a thread; at 130
@@ -198,10 +119,9 @@ __global__ void __launch_bounds__(128, 4)
   const int row_a = r0 + warp * 16 + g;  // global row of fragment halves 0, 1
   const int row_b = row_a + 8;           // and of halves 2, 3
 
-  // the online-softmax state, in fragment layout: o[nd][2r + c] is row
-  // (r ? row_b : row_a), column nd * 8 + 2t + c
+  // the online-softmax state in fragment layout (flash_tile.cuh)
   float o[D / 8][4];
-  float m_r[2], l_r[2];  // l_r: this thread's share of the row sums
+  float m_r[2], l_r[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r == 0 ? row_a : row_b;
@@ -222,90 +142,14 @@ __global__ void __launch_bounds__(128, 4)
 
   load_tile_bf16<D>(Qs, q, r0, p.Nq);
   __syncthreads();  // also orders every carry read before any write below
-  uint32_t qf[D / 16][4];  // A fragments of this warp's 16 rows
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* base = Qs + (warp * 16 + g) * kStride + kk * 16 + t * 2;
-    qf[kk][0] = *reinterpret_cast<const uint32_t*>(base);
-    qf[kk][1] = *reinterpret_cast<const uint32_t*>(base + 8 * kStride);
-    qf[kk][2] = *reinterpret_cast<const uint32_t*>(base + 8);
-    qf[kk][3] = *reinterpret_cast<const uint32_t*>(base + 8 * kStride + 8);
-  }
+  uint32_t qf[D / 16][4];
+  load_q_frags<D>(Qs, qf);
 
+  const Band bd = launch_band(p, kvm);
   int t_begin, t_end;
-  tile_range(p, r0, &t_begin, &t_end);
-  const uint16_t* Vraw = reinterpret_cast<const uint16_t*>(Vs);
-
-  for (int tile = t_begin; tile < t_end; ++tile) {
-    const int c0 = tile * kBlockN;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile_bf16<D>(Ks, k, c0, p.Nk);
-    load_tile_bf16<D>(Vs, v, c0, p.Nk);
-    __syncthreads();
-
-    // s = q k^T: 8 fragments of 16 rows x 8 keys
-    float s[kBlockN / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const __nv_bfloat16* kb = Ks + (j * 8 + g) * kStride + kk * 16 + t * 2;
-        const uint32_t bf[2] = {*reinterpret_cast<const uint32_t*>(kb),
-                                *reinterpret_cast<const uint32_t*>(kb + 8)};
-        mma_16816(s[j], qf[kk], bf);
-      }
-    }
-
-    float mx[2] = {m_r[0], m_r[1]};
-#pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? row_a : row_b;
-        const int col = c0 + j * 8 + t * 2 + (e & 1);
-        s[j][e] = score(p, kvm, row, col, s[j][e]);
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {  // a row's 64 scores sit on 4 threads
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float alpha = exp_nat(m_r[r] - mx[r]);
-      m_r[r] = mx[r];
-      l_r[r] *= alpha;
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        o[nd][2 * r] *= alpha;
-        o[nd][2 * r + 1] *= alpha;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = exp_nat(s[j][e] - m_r[e >> 1]);
-        l_r[e >> 1] += s[j][e];
-      }
-    }
-
-    // o += p v: the score fragments of two key groups form one A fragment
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        const uint16_t* vb = Vraw + (kk * 16 + t * 2) * kStride + nd * 8 + g;
-        const uint32_t bf[2] = {pack_raw(vb[0], vb[kStride]),
-                                pack_raw(vb[8 * kStride], vb[9 * kStride])};
-        mma_16816(o[nd], a, bf);
-      }
-    }
-  }
+  band_tiles(bd, p.Nq, r0, &t_begin, &t_end);
+  for (int tile = t_begin; tile < t_end; ++tile)
+    bf16_tile<D>(Ks, Vs, k, v, bd, tile * kBlockN, qf, o, m_r, l_r, row_a);
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -324,26 +168,15 @@ __global__ void __launch_bounds__(128, 4)
         io.p_l[idx] = l_r[r];
       }
     } else {
-      __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
-      const float l_safe = fmaxf(l_r[r], kEpsilon);
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        *reinterpret_cast<uint32_t*>(out + idx * D + nd * 8 + t * 2) =
-            pack_bf16(o[nd][2 * r] / l_safe, o[nd][2 * r + 1] / l_safe);
-      }
-      if (t == 0) p.lse[idx] = m_r[r] + logf(l_safe);
+      store_out_bf16<D>(static_cast<__nv_bfloat16*>(p.out), p.lse, idx, o, r, m_r[r],
+                        l_r[r]);
     }
   }
 }
 
-// ---------------------------------------------------------------------------
-// f32: CUDA-core FMA, one query row per thread
-// ---------------------------------------------------------------------------
-
 template <int D>
 __global__ void __launch_bounds__(kBlockM)
     flash_fwd_f32_kernel(const Params p, const RingIO io) {
-  constexpr int kChunk = 16;  // keys folded per online-softmax update
   __shared__ __align__(16) float Ks[kBlockN * D];
   __shared__ __align__(16) float Vs[kBlockN * D];
 
@@ -359,13 +192,7 @@ __global__ void __launch_bounds__(kBlockM)
   const int row = r0 + threadIdx.x;
 
   float qv[D], acc[D];
-#pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < p.Nq) x = *reinterpret_cast<const float4*>(q + (size_t)row * D + d);
-    qv[d] = x.x; qv[d + 1] = x.y; qv[d + 2] = x.z; qv[d + 3] = x.w;
-    acc[d] = acc[d + 1] = acc[d + 2] = acc[d + 3] = 0.f;
-  }
+  load_q_row_f32<D>(q, row, p.Nq, qv, acc);
   float m = kMaskValue, l = 0.f;
   const size_t idx = (size_t)bh * p.Nq + row;
   if (io.c_acc != nullptr && row < p.Nq) {  // resume this thread's own row
@@ -378,50 +205,11 @@ __global__ void __launch_bounds__(kBlockM)
     l = io.c_l[idx];
   }
 
+  const Band bd = launch_band(p, kvm);
   int t_begin, t_end;
-  tile_range(p, r0, &t_begin, &t_end);
-  for (int tile = t_begin; tile < t_end; ++tile) {
-    const int c0 = tile * kBlockN;
-    __syncthreads();
-    for (int i = threadIdx.x; i < kBlockN * D / 4; i += blockDim.x) {
-      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-      if (c0 + r < p.Nk) {
-        kx = *reinterpret_cast<const float4*>(k + (size_t)(c0 + r) * D + c);
-        vx = *reinterpret_cast<const float4*>(v + (size_t)(c0 + r) * D + c);
-      }
-      *reinterpret_cast<float4*>(Ks + r * D + c) = kx;
-      *reinterpret_cast<float4*>(Vs + r * D + c) = vx;
-    }
-    __syncthreads();
-
-    for (int c = 0; c < kBlockN; c += kChunk) {
-      float s[kChunk];
-      float mx = m;
-#pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        const float* kr = Ks + (c + jj) * D;
-        float dot = 0.f;
-#pragma unroll
-        for (int d = 0; d < D; ++d) dot = fmaf(qv[d], kr[d], dot);
-        s[jj] = score(p, kvm, row, c0 + c + jj, dot);
-        mx = fmaxf(mx, s[jj]);
-      }
-      const float alpha = exp_nat(m - mx);
-      m = mx;
-      l *= alpha;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= alpha;
-#pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        const float pj = exp_nat(s[jj] - m);
-        l += pj;
-        const float* vr = Vs + (c + jj) * D;
-#pragma unroll
-        for (int d = 0; d < D; ++d) acc[d] = fmaf(pj, vr[d], acc[d]);
-      }
-    }
-  }
+  band_tiles(bd, p.Nq, r0, &t_begin, &t_end);
+  for (int tile = t_begin; tile < t_end; ++tile)
+    f32_tile<D>(Ks, Vs, k, v, bd, tile * kBlockN, qv, acc, m, l, row);
 
   if (row >= p.Nq) return;
   if (io.p_acc != nullptr) {  // the raw state
@@ -432,14 +220,7 @@ __global__ void __launch_bounds__(kBlockM)
     io.p_m[idx] = m;
     io.p_l[idx] = l;
   } else {
-    const float l_safe = fmaxf(l, kEpsilon);
-    float* out = static_cast<float*>(p.out) + idx * D;
-#pragma unroll
-    for (int d = 0; d < D; d += 4)
-      *reinterpret_cast<float4*>(out + d) =
-          make_float4(acc[d] / l_safe, acc[d + 1] / l_safe, acc[d + 2] / l_safe,
-                      acc[d + 3] / l_safe);
-    p.lse[idx] = m + logf(l_safe);
+    store_out_f32<D>(static_cast<float*>(p.out), p.lse, idx, acc, m, l);
   }
 }
 

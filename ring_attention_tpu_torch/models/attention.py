@@ -11,7 +11,11 @@ the counterpart of the JAX ``RingAttention._kernel_impl``:
   fused modes), its backward and decode;
 - ``"torch"`` (JAX ``"xla"``): the blockwise PyTorch path (``ops/flash.py``,
   with its custom gradient) for the forward and backward, and the dense
-  oracle for decode.
+  oracle for decode;
+- ``"fused"`` (JAX ``"fused"``): the ring's forward in one fused ring
+  kernel launch per rank (``ops/cuda_ring.py``); every local, prefill and
+  decode path, and the ring's backward, run as under ``"cuda"``
+  (``_kernel_impl``, as the JAX layer's ``_use_pallas`` treats ``"fused"``).
 
 Two int8 serving knobs, as in the JAX layer: ``quantize_cache`` keeps the
 decode cache as int8 values with one f32 scale per ``(head, token)`` row
@@ -20,7 +24,9 @@ decode cache as int8 values with one f32 scale per ``(head, token)`` row
 oracle on ``"torch"``), and ``compute_dtype="int8"`` runs the forward's QK^T
 and PV on int8 operands (the int8 CUDA sweep, local and on the ring; the
 backward stays on the float kernels).  ``compute_dtype="int8"`` needs
-``impl="cuda"``, as the JAX one needs the Pallas kernels.
+``impl="cuda"`` or ``"fused"``, as the JAX one needs the Pallas kernels;
+under ``"fused"`` it runs locally only (the fused ring's int8 feed is not
+ported yet, and a mesh of more than one rank raises).
 
 On a mesh whose sequence world is above one the forward runs
 ``parallel/ring.py::ring_flash_attention`` with each rank's rotary
@@ -50,7 +56,7 @@ from ..ops.cuda_flash_q8 import (
 from ..ops.flash import flash_attention
 from ..ops.rotary import apply_rotary, ring_positions, rotary_freqs
 from ..parallel.mesh import seq_world
-from ..parallel.ring import _fit_bucket, ring_flash_attention
+from ..parallel.ring import UNPORTED_FUSED_INT8, _fit_bucket, ring_flash_attention
 from ..parallel.sharding import (
     layout_for,
     layout_permute,
@@ -75,9 +81,8 @@ UNPORTED = {
     "decode": "tree-attention decoding on a mesh, ROADMAP.md Port queue item 7",
     "multiprocess": "the model over a multi-process mesh, ROADMAP.md Port queue item 6",
 }
-IMPLS = ("cuda", "torch")
+IMPLS = ("cuda", "torch", "fused")
 UNPORTED_IMPLS = {
-    "fused": "the fused ring kernel (TPU kernel B7), ROADMAP.md Port queue item 5",
     "auto": "the degradation runtime (utils/resilience.py), ROADMAP.md Port queue item 7",
 }
 
@@ -102,10 +107,21 @@ def check_compute_dtype(fn: str, compute_dtype, impl: str) -> None:
     ``_compute_dtype`` does: ``None`` or ``"int8"``, and ``"int8"`` only on
     the kernels (the PyTorch path has no int8 matmul form; running the
     quantized model in the model dtype would misreport it)."""
-    if int8_compute(compute_dtype, fn) and impl != "cuda":
+    if int8_compute(compute_dtype, fn) and impl == "torch":
         raise ValueError(
             f'{fn}: compute_dtype="int8" runs on the CUDA kernels only; set '
-            f'impl="cuda" (got impl="{impl}")'
+            f'impl="cuda" or "fused" (got impl="{impl}")'
+        )
+
+
+def check_fused_int8(fn: str, compute_dtype, impl: str, mesh) -> None:
+    """The fused ring takes no int8 feed yet: ``compute_dtype="int8"`` under
+    ``impl="fused"`` runs the local paths only, and a mesh of more than one
+    rank raises at construction."""
+    if impl == "fused" and compute_dtype == "int8" and seq_world(mesh) > 1:
+        raise NotImplementedError(
+            f'{fn}: compute_dtype="int8" on the fused ring (impl="fused" on a '
+            f"mesh) is not ported yet; it arrives with {UNPORTED_FUSED_INT8}"
         )
 
 
@@ -173,6 +189,7 @@ class RingAttention(nn.Module):
         check_impl("RingAttention", impl)
         check_mesh("RingAttention", mesh, sequence_parallel)
         check_compute_dtype("RingAttention", compute_dtype, impl)
+        check_fused_int8("RingAttention", compute_dtype, impl, mesh)
         kv_heads = kv_heads or heads
         if heads % kv_heads:
             raise ValueError(
@@ -198,6 +215,12 @@ class RingAttention(nn.Module):
         self.to_qkv = Dense(dim, (heads + 2 * kv_heads) * dim_head,
                             dtype=dtype, device=device)
         self.to_out = Dense(heads * dim_head, dim, dtype=dtype, device=device)
+
+    @property
+    def _kernel_impl(self) -> str:
+        """The kernel path of every call but the ring's forward: ``"fused"``
+        runs as ``"cuda"`` there (JAX ``_use_pallas``)."""
+        return "cuda" if self.impl == "fused" else self.impl
 
     def _project_qkv(self, x: torch.Tensor):
         """prenorm + fused qkv -> heads-major (b, h|hk, n, dh)."""
@@ -287,7 +310,7 @@ class RingAttention(nn.Module):
     def _local_attend(self, q, k, v, mask):
         n = q.shape[2]
         q, k = self._rotate(q, k, torch.arange(n, device=q.device))
-        if self.impl == "cuda":
+        if self._kernel_impl == "cuda":
             return cuda_flash_attention(
                 q, k, v, mask, causal=self.causal,
                 window=self.max_lookback_seq_len,
@@ -331,7 +354,7 @@ class RingAttention(nn.Module):
             self._quantized_write(cache_k, cache_v, k, v, pos % size)
             kv = QuantizedKV(*cache_k, *cache_v)
             kv_mask = self._buffer_mask(size, pos, x.shape[0], x.device)
-            if self.impl == "cuda":
+            if self._kernel_impl == "cuda":
                 out, _ = flash_decode_q8(q, kv, kv_mask,
                                          softclamp_value=self.softclamp_value)
             else:
@@ -344,7 +367,7 @@ class RingAttention(nn.Module):
         cache_k[:, :, slot:slot + 1] = k.to(cache_k.dtype)
         cache_v[:, :, slot:slot + 1] = v.to(cache_v.dtype)
         kv_mask = self._buffer_mask(size, pos, x.shape[0], x.device)
-        if self.impl == "cuda":
+        if self._kernel_impl == "cuda":
             # one sweep, each cache byte read once per kv head
             out, _ = cuda_flash_decode(
                 q, cache_k, cache_v, kv_mask, softclamp_value=self.softclamp_value

@@ -9,8 +9,10 @@ and logits, the dense cross-entropy loss with label shift and
 int8 serving knobs ``quantize_cache`` and ``compute_dtype="int8"`` of
 ``models/attention.py``.  On a
 ``mesh`` the model shards once at its top (pad, stripe when ``striped``)
-and every layer runs the ring on that layout; the parameters are the same
-as without a mesh.  Decoding on a mesh is not ported yet.
+and every layer runs the ring on that layout, hop by hop under
+``impl="cuda"`` or in one fused ring launch per rank under ``"fused"``;
+the parameters are the same as without a mesh.  Decoding on a mesh is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from ..parallel.sharding import layout_for, layout_permute, layout_unpermute, pa
 from .attention import (
     RingAttention,
     check_compute_dtype,
+    check_fused_int8,
     check_impl,
     check_mesh,
     reject_unported,
@@ -124,6 +127,7 @@ class RingTransformer(nn.Module):
         check_impl("RingTransformer", impl)
         check_mesh("RingTransformer", mesh, sequence_parallel)
         check_compute_dtype("RingTransformer", compute_dtype, impl)
+        check_fused_int8("RingTransformer", compute_dtype, impl, mesh)
         lookbacks = max_lookback_seq_len
         if not isinstance(lookbacks, tuple):
             lookbacks = (lookbacks,) * depth

@@ -3,7 +3,8 @@
 Each source under ``csrc/`` compiles, at first use, into a shared library
 with a plain C interface for ``sm_90a`` (Hopper).  The library lands in the
 package's ``build/`` directory (ignored by git) under a name that carries a
-hash of the source, so an edited source never reuses a stale library.
+hash of the source and of the shared headers (``csrc/*.cuh``), so an edited
+source or header never reuses a stale library.
 Nothing here runs at import time: this module imports on machines without
 ``nvcc`` or a GPU, where only the kernels' plain versions run.
 """
@@ -51,8 +52,10 @@ def build(name: str) -> BuildResult:
 
     Raises ``RuntimeError`` with nvcc's output when the compile fails."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"{name}-{digest}.so"
+    hasher = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        hasher.update(header.read_bytes())
+    lib = BUILD_DIR / f"{name}-{hasher.hexdigest()[:16]}.so"
     if lib.is_file():
         return BuildResult(lib, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -144,4 +147,20 @@ def flash_decode_q8_library() -> ctypes.CDLL:
         i32, f32, f32, ptr,  # q_bf16, scale, softclamp, stream
     ]
     lib.flash_decode_q8.restype = i32
+    return lib
+
+
+@functools.cache
+def flash_ring_library() -> ctypes.CDLL:
+    """The built ``flash_ring`` library with its C signature declared."""
+    lib = ctypes.CDLL(str(build("flash_ring").path))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_ring.argtypes = [
+        ptr, ptr, ptr, ptr,  # q, k_all, v_all, kv_mask
+        ptr, ptr, ptr, ptr, i32,  # origins, his, los, works (int32), hops
+        ptr, ptr,  # out, lse
+        i32, i32, i32, i32, i32, i32,  # B, H, Hk, N, Ntot, D
+        i32, f32, f32, ptr,  # is_bf16, scale, softclamp, stream
+    ]
+    lib.flash_ring.restype = i32
     return lib

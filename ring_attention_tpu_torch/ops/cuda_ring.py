@@ -1,0 +1,214 @@
+"""The fused ring forward, local tier, on the hand-written CUDA kernel
+``csrc/flash_ring.cu``.
+
+Host side of the port of ``ring_attention_tpu/ops/pallas_ring.py``'s local
+tier (``fused_ring_local`` :208, launch :341): one launch per ring rank
+walks that rank's whole hop schedule over an all-gathered KV span, keeping
+the online-softmax state ``(acc, m, l)`` on chip across the hops, and
+writes ``(out, lse)`` once.  The schedule is four int32 ``(hops,)`` tables
+(``parallel/ring.py::_fused_tables``): the origin rank each hop reads, its
+band offsets in per-hop local coordinates (attend iff ``lo <= j - i <=
+hi``; the sentinels ``hi = n_local``, ``lo = -n_local`` mean unbanded) and
+its work flag.
+
+- ``fused_ring_local`` is the kernel wrapper: a CUDA tensor launches the
+  kernel (or raises), a CPU tensor runs ``fused_ring_local_plain``.
+  Nothing else selects between the two.
+- ``fused_ring_local_plain`` is its plain version: the port's hop chain
+  over slices of the gathered span, on the plain versions of
+  ``ops/cuda_flash.py`` (seed partials, resumes, the fused write from the
+  carry; hops whose work flag is 0 are skipped).
+- ``fitted_blocks`` is the JAX launch's block fit (``pallas_ring.py:105``),
+  the quantization block an int8 feed of this launch will need; it stays
+  out of the package's exports until that feed is ported.  The float
+  kernel's 64-row tiles do not change its result.
+
+The int8 feed (``kv_quantized``) and segment ids of the JAX launch are not
+ported yet: ROADMAP.md Queue 2 K4 (Port queue item 7e) and K3 (7b).
+``launch_count`` counts the kernel's launches; plain-version calls do not
+count.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .cuda_flash import (
+    _check_kernel_args,
+    _check_launch,
+    flash_fwd_reference,
+    flash_partials_reference,
+)
+from .cuda_flash_q8 import q8_block
+from .partials import finalize_partials, init_partials
+
+# Kernel launches since the last reset; the caller may set it to 0.
+launch_count = 0
+
+
+def fitted_blocks(n_local: int, block_q: int | None = None,
+                  block_k: int | None = None) -> tuple[int, int]:
+    """``(bq, bk)`` the JAX fused launch runs for ``n_local`` (each
+    ``min(block or 1024, n_local)`` halved until it divides ``n_local``):
+    an int8 feed must be quantized per block of ``bk`` keys."""
+    return q8_block(n_local, block_q), q8_block(n_local, block_k)
+
+
+def _check_tables(origins, his, los, works, device) -> int:
+    """The four hop tables: int32, one dimension, one length, on
+    ``device``; returns the hop count."""
+    hops = origins.shape[0] if origins.dim() == 1 else -1
+    for name, t in (("origins", origins), ("his", his), ("los", los), ("works", works)):
+        if t.dim() != 1 or t.shape[0] != hops or t.dtype != torch.int32:
+            raise ValueError(
+                f"fused_ring_local: {name} must be int32 of shape ({hops},), got "
+                f"{t.dtype} {tuple(t.shape)}"
+            )
+        if t.device != device:
+            raise ValueError(f"fused_ring_local: {name} on {t.device}, q on {device}")
+    if hops < 1:
+        raise ValueError("fused_ring_local: the hop tables are empty")
+    return hops
+
+
+def _check_span(q, k_all, v_all, kv_mask, n_local) -> None:
+    b, h, n_q, d = q.shape
+    if k_all.dim() != 4 or v_all.shape != k_all.shape:
+        raise ValueError(
+            f"fused_ring_local: k_all and v_all must be (b, hk, n_total, d), got "
+            f"{tuple(k_all.shape)} and {tuple(v_all.shape)}"
+        )
+    bk, hk, n_total, dk = k_all.shape
+    if bk != b or dk != d:
+        raise ValueError(
+            f"fused_ring_local: q {tuple(q.shape)} and k_all {tuple(k_all.shape)} "
+            "disagree on batch or head dim"
+        )
+    if h % hk:
+        raise ValueError(f"fused_ring_local: query heads {h} not a multiple of kv heads {hk}")
+    if n_q != n_local:
+        raise ValueError(f"fused_ring_local: q length {n_q} != n_local {n_local}")
+    if n_total % n_local:
+        raise ValueError(
+            f"fused_ring_local: gathered span {n_total} not a multiple of {n_local}"
+        )
+    if kv_mask is not None and tuple(kv_mask.shape) != (b, n_total):
+        raise ValueError(
+            f"fused_ring_local: kv_mask must be ({b}, {n_total}), got "
+            f"{tuple(kv_mask.shape)}"
+        )
+
+
+def fused_ring_local_plain(
+    q: torch.Tensor,
+    k_all: torch.Tensor,
+    v_all: torch.Tensor,
+    kv_mask: torch.Tensor | None = None,
+    *,
+    origins: torch.Tensor,
+    his: torch.Tensor,
+    los: torch.Tensor,
+    works: torch.Tensor,
+    n_local: int,
+    scale: float,
+    softclamp_value: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`fused_ring_local`: the hop chain of
+    ``parallel/ring.py`` over the origins' blocks of the gathered span.
+
+    Each hop with work folds ``k_all[:, :, o * n_local:(o + 1) * n_local]``
+    (``o = origins[hop]``) into the carry under its band, the last one
+    writing ``(out, lse)`` from it; with dense f32 scores, as
+    ``flash_partials_reference`` computes them.  Returns ``(out (b, h,
+    n_local, d) in q.dtype, lse (b, h, n_local) f32)``."""
+    _check_span(q, k_all, v_all, kv_mask, n_local)
+    schedule = [(o, hi, lo) for o, hi, lo, w in
+                zip(origins.tolist(), his.tolist(), los.tolist(), works.tolist()) if w]
+    carry = None
+    for i, (o, hi, lo) in enumerate(schedule):
+        rows = slice(o * n_local, (o + 1) * n_local)
+        kw = dict(scale=scale, causal_offset=hi, window_lo=lo,
+                  softclamp_value=softclamp_value, carry=carry)
+        span = (q, k_all[:, :, rows], v_all[:, :, rows],
+                None if kv_mask is None else kv_mask[:, rows])
+        if i == len(schedule) - 1:
+            return flash_fwd_reference(*span, **kw)
+        carry = flash_partials_reference(*span, **kw)
+    # no hop with work: the empty state, normalized, as the kernel writes it
+    # (never on a ring's schedule, whose own hop always has work)
+    out, lse = finalize_partials(init_partials(*q.shape, device=q.device))
+    return out.to(q.dtype), lse
+
+
+def _launch(q, k_all, v_all, kv_mask, tables, scale, softclamp_value):
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_ring_local: no kernel for device {q.device}")
+    hops = _check_tables(*tables, q.device)
+    _check_kernel_args("fused_ring_local", q, k_all, v_all, kv_mask)
+    if any(not t.is_contiguous() for t in tables):
+        raise ValueError("fused_ring_local: the hop tables must be contiguous")
+    from ._build import flash_ring_library
+
+    lib = flash_ring_library()
+    b, h, n, d = q.shape
+    _, hk, n_total, _ = k_all.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    mask_u8 = None if kv_mask is None else kv_mask.to(torch.uint8).contiguous()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.flash_ring(
+            q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
+            None if mask_u8 is None else mask_u8.data_ptr(),
+            *(t.data_ptr() for t in tables), hops,
+            out.data_ptr(), lse.data_ptr(),
+            b, h, hk, n, n_total, d, int(q.dtype == torch.bfloat16),
+            float(scale), float(softclamp_value or 0.0), ctypes.c_void_p(stream),
+        )
+    _check_launch(rc, "fused_ring_local", q, k_all)
+    global launch_count
+    launch_count += 1
+    return out, lse
+
+
+def fused_ring_local(
+    q: torch.Tensor,
+    k_all: torch.Tensor,
+    v_all: torch.Tensor,
+    kv_mask: torch.Tensor | None = None,
+    *,
+    origins: torch.Tensor,
+    his: torch.Tensor,
+    los: torch.Tensor,
+    works: torch.Tensor,
+    n_local: int,
+    scale: float,
+    softclamp_value: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused ring forward of one rank over a gathered KV span.
+
+    Args:
+      q: ``(b, h, n_local, d)``, this rank's queries.
+      k_all, v_all: ``(b, hk, n_total, d)``, every rank's keys and values
+        in ring order (rank-major).
+      kv_mask: optional ``(b, n_total)`` bool key mask in the same order.
+      origins, his, los, works: the ``(hops,)`` int32 hop schedule
+        (``parallel/ring.py::_fused_tables``), on q's device.
+      n_local, scale, softclamp_value: the rank's shard length, the score
+        scale and the optional soft clamp.
+
+    Returns ``(out (b, h, n_local, d) in q.dtype, lse (b, h, n_local)
+    f32)``, lse = m + log l.  A CPU tensor runs
+    :func:`fused_ring_local_plain`; a CUDA tensor launches the kernel,
+    which trusts every origin to lie in ``[0, n_total / n_local)``."""
+    if q.device.type == "cpu":
+        return fused_ring_local_plain(
+            q, k_all, v_all, kv_mask, origins=origins, his=his, los=los,
+            works=works, n_local=n_local, scale=scale,
+            softclamp_value=softclamp_value,
+        )
+    _check_span(q, k_all, v_all, kv_mask, n_local)
+    return _launch(q, k_all, v_all, kv_mask, (origins, his, los, works), scale,
+                   softclamp_value)

@@ -12,6 +12,11 @@ behind a small :class:`Ring` interface with two implementations:
   ``torch.distributed.batch_isend_irecv`` (gloo on the CPU, NCCL across
   GPUs), within a process group.
 
+Beside the rotation the seam has one collective, ``all_gather``: each held
+rank's view of the rank-major concatenation of every rank's payload (the
+JAX ``lax.all_gather(..., tiled=True)`` of the fused ring,
+``ring_attention_tpu/parallel/ring.py::_gather_seq``).
+
 A ring function handles a *list of payloads*, one per rank this process
 holds (``ring.ranks``, in order); each payload is a tuple of tensors that
 travel together.  ``quantize_ring_payload`` and the other payload codecs of
@@ -45,6 +50,12 @@ class Ring(abc.ABC):
         and return, for each held rank in order, the payload that rank
         received (the one of rank ``(rank - shift) % world``)."""
 
+    @abc.abstractmethod
+    def all_gather(self, payloads: list[Payload], dim: int) -> list[Payload]:
+        """Concatenate every rank's payload, tensor by tensor, along
+        ``dim`` in rank order, and return that concatenation for each held
+        rank in order (the fused ring's one collective)."""
+
 
 class VirtualRing(Ring):
     """All ``world`` ranks in this process; a rotation moves no data."""
@@ -65,6 +76,17 @@ class VirtualRing(Ring):
         for src, dst in ring_perm(self.world, shift):
             out[dst] = payloads[src]
         return out
+
+    def all_gather(self, payloads: list[Payload], dim: int) -> list[Payload]:
+        """One ``torch.cat`` per tensor, shared by every rank: no bytes move
+        between devices, as none do in :meth:`rotate`."""
+        if len(payloads) != self.world:
+            raise ValueError(
+                f"VirtualRing.all_gather: {len(payloads)} payloads for a ring "
+                f"of {self.world}"
+            )
+        gathered = tuple(torch.cat(parts, dim=dim) for parts in zip(*payloads))
+        return [gathered] * self.world
 
     def __repr__(self) -> str:
         return f"VirtualRing(world={self.world})"
@@ -107,6 +129,26 @@ class DistributedRing(Ring):
         for request in dist.batch_isend_irecv(ops):
             request.wait()
         return [received]
+
+    def all_gather(self, payloads: list[Payload], dim: int) -> list[Payload]:
+        """``torch.distributed.all_gather`` within the group, tensor by
+        tensor (a bool tensor travels as uint8)."""
+        import torch.distributed as dist
+
+        if len(payloads) != 1:
+            raise ValueError(
+                f"DistributedRing.all_gather: one payload per process, got "
+                f"{len(payloads)}"
+            )
+        gathered = []
+        for x in payloads[0]:
+            sent = x.contiguous()
+            if sent.dtype == torch.bool:
+                sent = sent.to(torch.uint8)
+            parts = [torch.empty_like(sent) for _ in range(self.world)]
+            dist.all_gather(parts, sent, group=self.group)
+            gathered.append(torch.cat(parts, dim=dim).to(x.dtype))
+        return [tuple(gathered)]
 
     def __repr__(self) -> str:
         return f"DistributedRing(world={self.world}, rank={self.rank})"

@@ -18,7 +18,7 @@ Masking is one band of index offsets per hop (``_hop_offsets``): attend iff
 - striped causal: ``hi = 0`` if ``origin <= rank`` else ``-1``;
 - a lookback window adds the lower bound ``lo``.
 
-Two per-hop compute paths:
+Three compute paths:
 
 - ``impl="torch"`` follows the JAX scanned XLA path (``_ring_fwd_impl``
   :1342-1396): the blockwise PyTorch flash (``ops/flash.py``) folds each
@@ -30,7 +30,14 @@ Two per-hop compute paths:
   band covers the whole span for every rank with work run unmasked.  With
   ``compute_dtype="int8"`` the same launches run the int8 sweep
   (``ops/cuda_flash_q8.py``), each hop quantized per block of the bucket,
-  as ``_ring_fwd_pallas`` does with its ``_q8_block``.
+  as ``_ring_fwd_pallas`` does with its ``_q8_block``;
+- ``impl="fused"`` follows the local tier of ``_ring_fwd_fused``
+  (:661-762): one all-gather of k, v and the key mask through the ring
+  (``Ring.all_gather``), then ONE launch of the fused ring kernel
+  (``ops/cuda_ring.py``, TPU kernel B7) per held rank, walking that rank's
+  hop tables (``_fused_tables``) with the online-softmax state on chip.
+  Its backward is the ``impl="cuda"`` ring's, as the JAX
+  ``_ring_vjp_bwd`` maps ``"fused"`` to ``"pallas"``.
 
 The gradient is one ``torch.autograd.Function`` over the whole ring (the
 counterpart of the JAX ``custom_vjp``): its backward rotates ``(k, v, dk,
@@ -52,6 +59,7 @@ from ..ops.cuda_flash import (
     flash_partials,
     int8_compute,
 )
+from ..ops.cuda_ring import fused_ring_local
 from ..ops.flash import (
     _group_q,
     _ungroup,
@@ -65,7 +73,7 @@ from ..ops.partials import finalize_partials
 from ..utils.validate import check_attention_args
 from .collectives import Ring
 
-IMPLS = ("torch", "cuda")
+IMPLS = ("torch", "cuda", "fused")
 # Where each ring option that is not ported yet will come from (ROADMAP.md).
 UNPORTED = {
     "bidirectional": "the ring variants, ROADMAP.md Port queue item 7",
@@ -74,9 +82,9 @@ UNPORTED = {
     "dkv_dtype": "the ring variants, ROADMAP.md Port queue item 7",
     "segment_ids": "packed sequences with the mask algebra, ROADMAP.md Port queue item 7",
 }
-UNPORTED_IMPLS = {
-    "fused": "the fused ring kernel (TPU kernel B7), ROADMAP.md Port queue item 5",
-}
+# The fused ring's int8 feed (JAX ``fused_ring_local(kv_quantized=)``).
+UNPORTED_FUSED_INT8 = ("the fused ring's int8 feed (QuantizedBlockKV, ROADMAP.md "
+                       "Queue 2 K4), ROADMAP.md Port queue item 7e")
 
 
 def _rotate(ring: Ring, payloads: list, shift: int = 1) -> list:
@@ -143,6 +151,25 @@ def _hop_has_work(hi: int | None, lo: int | None, n_q: int, n_k: int) -> bool:
     if lo is not None:
         ok = ok and lo <= n_k - 1 and lo <= hi
     return ok
+
+
+def _fused_tables(rank, passes, n_local, causal, striped, window, ring_size,
+                  device=None) -> tuple[torch.Tensor, ...]:
+    """Per-hop ``(origins, his, los, works)`` int32 tables of the fused ring
+    kernel for ``rank`` (JAX ``_fused_tables``, :623): hop ``i`` reads
+    origin ``(rank - i) % ring_size``, its band from :func:`_hop_offsets`
+    and its work flag from :func:`_hop_has_work`, the scan path's own
+    helpers; an unbanded ``None`` becomes the sentinel ``hi = n_local`` /
+    ``lo = -n_local``.  One host-to-device copy, on ``device``."""
+    rows = []
+    for i in range(passes):
+        origin = (rank - i) % ring_size
+        hi, lo = _hop_offsets(rank, origin, n_local, causal, striped, window,
+                              ring_size)
+        rows.append((origin, n_local if hi is None else hi,
+                     -n_local if lo is None else lo,
+                     int(_hop_has_work(hi, lo, n_local, n_local))))
+    return tuple(torch.tensor(list(zip(*rows)), dtype=torch.int32, device=device))
 
 
 def _fit_bucket(bucket_size: int | None, nk: int) -> int | None:
@@ -238,6 +265,37 @@ def _ring_fwd_cuda(qs, ks, vs, masks, ring, cfg):
     return [r[0] for r in results], [r[1] for r in results]
 
 
+def _gather(ring: Ring, payloads: list, dim: int) -> list:
+    """Every held rank's view of the whole ring's payloads, concatenated in
+    rank order along ``dim``; a ring of one gathers nothing."""
+    if ring.world == 1:
+        return payloads
+    return ring.all_gather(payloads, dim)
+
+
+def _ring_fwd_fused(qs, ks, vs, masks, ring, cfg):
+    """Forward of every held rank on the fused ring kernel: one all-gather
+    of k, v and the key mask, then one launch per held rank over the
+    gathered span; ``(out, lse)`` in the flat layout of ``impl="cuda"``."""
+    n_local = qs[0].shape[2]
+    geo = _geometry(cfg, n_local, ring.world)
+    kvs = _gather(ring, list(zip(ks, vs)), dim=2)
+    mask_all = ([None] * len(qs) if masks is None
+                else [m for (m,) in _gather(ring, [(m,) for m in masks], dim=1)])
+    outs, lses = [], []
+    for j, rank in enumerate(ring.ranks):
+        origins, his, los, works = _fused_tables(rank, cfg["passes"], **geo,
+                                                 device=qs[j].device)
+        out, lse = fused_ring_local(
+            qs[j], *kvs[j], mask_all[j], origins=origins, his=his, los=los,
+            works=works, n_local=n_local, scale=cfg["scale"],
+            softclamp_value=cfg["softclamp_value"],
+        )
+        outs.append(out)
+        lses.append(lse)
+    return outs, lses
+
+
 def _ring_fwd_torch(qs, ks, vs, masks, ring, cfg):
     """Forward of every held rank on the blockwise PyTorch flash."""
     n_local = qs[0].shape[2]
@@ -262,7 +320,9 @@ def _ring_fwd_torch(qs, ks, vs, masks, ring, cfg):
 
 def _ring_bwd(dos, qs, ks, vs, masks, outs, lses, ring, cfg):
     """Backward of every held rank: ``(dqs, dks, dvs)`` in float32."""
-    impl = cfg["impl"]
+    # the fused forward keeps the scan-path backward of the kernels, as the
+    # JAX _ring_vjp_bwd maps "fused" to "pallas"
+    impl = "cuda" if cfg["impl"] == "fused" else cfg["impl"]
     n_local = qs[0].shape[2]
     hk = ks[0].shape[1]
     ring_size, passes = ring.world, cfg["passes"]
@@ -329,7 +389,8 @@ class _RingFlashAttention(torch.autograd.Function):
         count = len(ring.ranks)
         qs, ks, vs = (_shards(x, count, 2) for x in (q, k, v))
         masks = _shards(kv_mask, count, 1)
-        fwd = _ring_fwd_cuda if cfg["impl"] == "cuda" else _ring_fwd_torch
+        fwd = {"torch": _ring_fwd_torch, "cuda": _ring_fwd_cuda,
+               "fused": _ring_fwd_fused}[cfg["impl"]]
         outs, lses = fwd(qs, ks, vs, masks, ring, cfg)
         ctx.shards = (qs, ks, vs, masks, outs, lses)
         ctx.ring, ctx.cfg = ring, cfg
@@ -385,9 +446,12 @@ def ring_flash_attention(
         (the CUDA kernel's tiles are fixed).
       max_ring_passes: limit the hops (a lookback window's reach).
       window: exact sliding-window lookback in tokens (causal only).
-      impl: ``"torch"`` (the blockwise PyTorch flash, JAX ``"xla"``) or
-        ``"cuda"`` (the CUDA kernels, JAX ``"pallas"``; the plain versions
-        on CPU tensors).
+      impl: ``"torch"`` (the blockwise PyTorch flash, JAX ``"xla"``),
+        ``"cuda"`` (the CUDA kernels hop by hop, JAX ``"pallas"``) or
+        ``"fused"`` (one fused ring kernel launch per rank over the
+        all-gathered KV, JAX ``"fused"``'s local tier; the backward is
+        ``"cuda"``'s).  On CPU tensors the kernel wrappers run their plain
+        versions.
 
       compute_dtype: ``"int8"`` runs each hop's forward on int8 operands
         (``impl="cuda"`` only, as the JAX ring needs the Pallas kernels), q
@@ -395,14 +459,23 @@ def ring_flash_attention(
         fitted to the hop; the backward stays on the float kernels.
 
     ``bidirectional``, ``dkv_dtype``, ``segment_ids``, ``counter_rotate``,
-    ``hop_compression`` and ``impl="fused"`` are not ported yet and raise
-    ``NotImplementedError`` naming their ROADMAP item.
+    ``hop_compression`` and ``compute_dtype="int8"`` with ``impl="fused"``
+    are not ported yet and raise ``NotImplementedError`` naming their
+    ROADMAP item; ``counter_rotate`` with ``impl="fused"`` is a
+    ``ValueError``, as in the JAX package (the alternating schedule has no
+    fused form).
 
     Cross-attention (unequal q and kv shard lengths) bypasses the ring: each
     rank attends its local KV shard only, as in the JAX package.
 
     Returns ``(b, h, n, d)`` in ``q.dtype``, in the layout of ``q``.
     """
+    if impl == "fused" and counter_rotate:
+        raise ValueError(
+            'ring_flash_attention: impl="fused" carries the whole hop schedule '
+            "in one kernel launch; the counter-rotation schedule has no fused "
+            'form (pass impl="cuda" with counter_rotate)'
+        )
     for name, value in (("bidirectional", bidirectional),
                         ("dkv_dtype", dkv_dtype), ("segment_ids", segment_ids),
                         ("counter_rotate", counter_rotate),
@@ -412,14 +485,15 @@ def ring_flash_attention(
                 f"ring_flash_attention: {name}= is not ported yet; it arrives "
                 f"with {UNPORTED[name]}"
             )
-    if impl in UNPORTED_IMPLS:
-        raise NotImplementedError(
-            f'ring_flash_attention: impl="{impl}" is not ported yet; it '
-            f"arrives with {UNPORTED_IMPLS[impl]}"
-        )
     if impl not in IMPLS:
         raise ValueError(f"ring_flash_attention: impl must be one of {IMPLS}, got {impl!r}")
-    if int8_compute(compute_dtype, "ring_flash_attention") and impl != "cuda":
+    int8 = int8_compute(compute_dtype, "ring_flash_attention")
+    if int8 and impl == "fused":
+        raise NotImplementedError(
+            'ring_flash_attention: compute_dtype="int8" with impl="fused" is '
+            f"not ported yet; it arrives with {UNPORTED_FUSED_INT8}"
+        )
+    if int8 and impl != "cuda":
         raise ValueError(
             'ring_flash_attention: compute_dtype="int8" runs on the CUDA kernels '
             'only; pass impl="cuda" (the blockwise PyTorch flash has no int8 '
@@ -433,7 +507,7 @@ def ring_flash_attention(
         scale = q.shape[-1] ** -0.5
     if q.shape[2] != k.shape[2]:
         # cross-attention: each rank attends its local KV shard only
-        local = cuda_flash_attention if impl == "cuda" else flash_attention
+        local = flash_attention if impl == "torch" else cuda_flash_attention
         kw = dict(causal=causal, window=window, softclamp_value=softclamp_value,
                   scale=scale)
         if impl == "torch":

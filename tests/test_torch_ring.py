@@ -4,8 +4,8 @@ The same numpy inputs go through ``ring_attention_tpu.parallel.
 ring_flash_attention`` under ``shard_map`` (as ``tests/test_ring.py`` runs
 it: ``impl="xla"``, and ``impl="pallas"`` in interpret mode for two cases)
 and through the port's ``ring_flash_attention`` on a ``VirtualRing``, with
-``impl="torch"`` and ``impl="cuda"`` (whose kernel wrappers run their plain
-versions on CPU tensors).  Outputs to ``test_ring.py``'s ``ATOL = 2e-5``,
+``impl="torch"``, ``impl="cuda"`` and ``impl="fused"`` (whose kernel
+wrappers run their plain versions on CPU tensors).  Outputs to ``test_ring.py``'s ``ATOL = 2e-5``,
 dq/dk/dv through ``jax.vjp`` to its ``GRAD_ATOL = 5e-4`` (float32 on both
 sides).  Also: the hop arithmetic equals the JAX helpers exactly for every
 (rank, hop); the plain partials chain equals the Pallas partials/resume/
@@ -270,7 +270,7 @@ def _jax_case(case):
                      impl="xla", **kw)
 
 
-@pytest.mark.parametrize("impl", ["torch", "cuda"])
+@pytest.mark.parametrize("impl", ["torch", "cuda", "fused"])
 @pytest.mark.parametrize("case", list(RING_CASES))
 def test_ring_equals_jax(case, impl):
     q, k, v, mask, do, ring_size, kw = _inputs(case)
@@ -334,10 +334,13 @@ def test_ring_unported_options_raise():
     x = torch.zeros((1, 2, 8, 16))
     for name, value in (("bidirectional", True), ("counter_rotate", True),
                         ("hop_compression", "int8"), ("dkv_dtype", "bfloat16"),
-                        ("segment_ids", x[:, 0, :, 0]),
-                        ("impl", "fused")):
+                        ("segment_ids", x[:, 0, :, 0])):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item"):
             ring_flash_attention(x, x, x, None, VirtualRing(2), **{name: value})
+    # the fused ring is ported; its int8 feed is not
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item 7e"):
+        ring_flash_attention(x, x, x, None, VirtualRing(2), impl="fused",
+                             compute_dtype="int8")
     with pytest.raises(ValueError, match="equal shards"):
         ring_flash_attention(x[:, :, :7], x[:, :, :7], x[:, :, :7], None, VirtualRing(2))
 

@@ -3,7 +3,8 @@
 Each process holds one rank of a ``DistributedRing`` (``create_mesh`` over
 the initialized process group: one ring of 4, and a data 2 x ring 2 mesh)
 and runs ``ring_flash_attention`` forward and backward on its shard of the
-same seeded inputs.  Every shard of the output and of dq, dk and dv must
+same seeded inputs (``impl="fused"`` gathers k, v and the key mask with
+``DistributedRing.all_gather``).  Every shard of the output and of dq, dk and dv must
 equal, bit for bit, the ``VirtualRing`` run of the same ranks in this
 process: the same arithmetic in the same order, only the transport differs.
 The processes rendezvous through a ``FileStore`` under the test's temporary
@@ -33,6 +34,11 @@ CASES = {
     "striped_gqa_cuda": (4, 1, dict(causal=True, striped=True, impl="cuda")),
     "data2_ring2_mask_torch": (2, 2, dict(impl="torch", bucket_size=8, masked=True)),
     "data2_ring2_mask_cuda": (2, 2, dict(impl="cuda", masked=True)),
+    # the fused ring: one all-gather of k, v (and the mask) per call
+    "window_passes_fused": (4, 1, dict(causal=True, window=20, max_ring_passes=3,
+                                       impl="fused")),
+    "striped_gqa_fused": (4, 1, dict(causal=True, striped=True, impl="fused")),
+    "data2_ring2_mask_fused": (2, 2, dict(impl="fused", masked=True)),
 }
 
 

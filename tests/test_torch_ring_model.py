@@ -6,8 +6,9 @@ data_size=2)`` of the 8 virtual CPU devices; the port's on
 with the JAX weights (``load_jax_params``).  The sequence is odd (127
 positions), so both pad at the model top; striped and contiguous layouts,
 a lookback window that cuts the ring passes (the dk/dv catch-up rotation),
-softclamp and GQA.  Loss and every parameter gradient, both port impls
-(``"cuda"``'s kernel wrappers run their plain versions on CPU tensors)
+softclamp and GQA.  Loss and every parameter gradient, the three port
+impls (the kernel wrappers of ``"cuda"`` and ``"fused"`` run their plain
+versions on CPU tensors)
 against the JAX ``impl="xla"`` model; three SGD steps of
 ``make_train_step`` against the JAX step on its mesh; the attention layer's
 own pad -> stripe -> unpermute path with a key mask.  Tolerances are
@@ -92,7 +93,7 @@ def _jax_loss_and_grads(variant):
     return float(loss), grads
 
 
-@pytest.mark.parametrize("impl", ["torch", "cuda"])
+@pytest.mark.parametrize("impl", ["torch", "cuda", "fused"])
 @pytest.mark.parametrize("variant", list(VARIANTS))
 def test_ring_model_loss_and_grads_match_jax(variant, impl):
     _, params = _jax_model(variant)
@@ -176,6 +177,9 @@ class _OneOfTwo(Ring):
     world, ranks = 2, (0,)
 
     def rotate(self, payloads, shift):
+        raise AssertionError("never reached")
+
+    def all_gather(self, payloads, dim):
         raise AssertionError("never reached")
 
 

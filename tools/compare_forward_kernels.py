@@ -1,0 +1,248 @@
+#!/usr/bin/env python3
+"""Compare the port's forward kernels between two source trees on one GPU.
+
+Builds ``csrc/flash_fwd.cu`` (B1) and ``csrc/flash_ring.cu`` (B7) of this
+checkout and of a base checkout (for example the parent commit, unpacked
+with ``git archive``), checks that both trees' kernels give bit-identical
+outputs on a set of cases, and times them in turns (base, head, head,
+base) with CUDA events:
+
+    python3 tools/compare_forward_kernels.py BASE_DIR
+
+A kernel whose source the base tree lacks is built and timed for this
+checkout alone.  Libraries land in ``build/compare/`` (ignored by git).
+Prints the card's name and power limit, each build's ptxas register
+count, each case's check, each timing and, as its last line, one JSON
+object with the timings.  Exits non-zero when a build fails or an output
+differs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+OUT_DIR = HERE / "build" / "compare"
+SOURCES = ("flash_fwd", "flash_ring")
+
+
+def build(tree: str, csrc: Path, name: str) -> tuple[Path, list[str]]:
+    from ring_attention_tpu_torch.ops import _build
+
+    lib = OUT_DIR / tree / f"{name}.so"
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo", "-o", str(lib),
+           str(csrc / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for {tree}/{name}.cu:\n{proc.stdout}{proc.stderr}")
+    log = (proc.stdout + proc.stderr).splitlines()
+    return lib, [line.split(":", 1)[1].strip() for line in log if "registers" in line]
+
+
+def time_ms(fn, iters: int = 5) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def fwd_launcher(lib_path: Path):
+    """``run(q, k, v, mask, causal, hi, windowed, lo, softclamp, carry)``:
+    one B1 launch, fused (carry None) or resumed into partials."""
+    import torch
+
+    lib = ctypes.CDLL(str(lib_path))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_fwd.argtypes = [ptr] * 12 + [i32] * 7 + [f32] + [i32] * 4 + [f32, ptr]
+
+    def run(q, k, v, mask, causal, hi, windowed, lo, softclamp, carry=None):
+        b, h, nq, d = q.shape
+        hk, nk = k.shape[1], k.shape[2]
+        out = lse = None
+        parts = (None, None, None)
+        if carry is None:
+            out = torch.empty_like(q)
+            lse = torch.empty((b, h, nq), device=q.device)
+        else:
+            parts = tuple(torch.empty_like(x) for x in carry)
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        rc = lib.flash_fwd(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(out), _ptr(lse),
+            *(_ptr(x) for x in (carry or (None, None, None))), *(_ptr(x) for x in parts),
+            b, h, hk, nq, nk, d, int(q.dtype == torch.bfloat16), 0.125,
+            int(causal), hi, int(windowed), lo, softclamp, stream)
+        if rc:
+            raise RuntimeError(f"flash_fwd launch failed: {rc}")
+        return (out, lse) if carry is None else parts
+
+    return run
+
+
+def ring_launcher(lib_path: Path):
+    """``run(q, k_all, v_all, mask, tables, softclamp)``: one B7 launch."""
+    import torch
+
+    lib = ctypes.CDLL(str(lib_path))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_ring.argtypes = [ptr] * 8 + [i32, ptr, ptr] + [i32] * 7 + [f32, f32, ptr]
+
+    def run(q, k_all, v_all, mask, tables, softclamp):
+        b, h, n, d = q.shape
+        out = torch.empty_like(q)
+        lse = torch.empty((b, h, n), device=q.device)
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        rc = lib.flash_ring(
+            _ptr(q), _ptr(k_all), _ptr(v_all), _ptr(mask), *(_ptr(t) for t in tables),
+            tables[0].shape[0], _ptr(out), _ptr(lse), b, h, k_all.shape[1], n,
+            k_all.shape[2], d, int(q.dtype == torch.bfloat16), 0.125, softclamp, stream)
+        if rc:
+            raise RuntimeError(f"flash_ring launch failed: {rc}")
+        return out, lse
+
+    return run
+
+
+def main() -> int:
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("base", type=Path, help="root of the base checkout")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("compare_forward_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(HERE))
+    from ring_attention_tpu_torch.parallel import ring as pring
+
+    trees = {"base": args.base.resolve() / "ring_attention_tpu_torch" / "csrc",
+             "head": HERE / "ring_attention_tpu_torch" / "csrc"}
+    jobs = [(tree, csrc, name) for tree, csrc in trees.items() for name in SOURCES
+            if (csrc / f"{name}.cu").is_file()]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        built = dict(zip([(t, n) for t, _, n in jobs], pool.map(lambda j: build(*j), jobs)))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip())
+    for (tree, name), (_, regs) in built.items():
+        print(f"{tree} {name}: " + " | ".join(regs))
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def mask(b, n):
+        m = torch.rand((b, n), generator=gen, device="cuda") > 0.3
+        m[-1] = False  # a batch row whose keys are all masked
+        return m.to(torch.uint8)
+
+    ok = True
+    fwd = {tree: fwd_launcher(built[(tree, "flash_fwd")][0])
+           for tree in trees if (tree, "flash_fwd") in built}
+    ring = {tree: ring_launcher(built[(tree, "flash_ring")][0])
+            for tree in trees if (tree, "flash_ring") in built}
+
+    # B1 cases: (b, h, hk, nq, nk, causal, hi, windowed, lo, softclamp, masked, carry)
+    fwd_cases = {
+        "causal 4096": (1, 8, 8, 4096, 4096, 1, 0, 0, 0, 0.0, False, False),
+        "unbanded 4096": (1, 8, 8, 4096, 4096, 0, 0, 0, 0, 0.0, False, False),
+        "causal offset nq 4096 nk 8192": (1, 8, 2, 4096, 8192, 1, 4096, 0, 0, 0.0, False, False),
+        "window -700..-100 ragged 3000, mask, softclamp": (
+            2, 8, 8, 3000, 3000, 1, -100, 1, -700, 30.0, True, False),
+        "band-empty rows (hi -5000)": (1, 8, 8, 4096, 4096, 1, -5000, 0, 0, 0.0, False, False),
+        "decode 32 folded rows, nk 5000, mask": (4, 2, 2, 32, 5000, 0, 0, 0, 0, 0.0, True, False),
+        "window -700..-100 ragged 3000, mask, softclamp, f32": (
+            2, 8, 8, 3000, 3000, 1, -100, 1, -700, 30.0, True, False),
+        "resume causal hi -1, f32": (1, 8, 8, 2048, 2048, 1, -1, 0, 0, 0.0, False, True),
+    }
+    for name, (b, h, hk, nq, nk, causal, hi, windowed, lo, clamp, masked, carry) in fwd_cases.items():
+        dtype = torch.float32 if "f32" in name else torch.bfloat16
+        q = rand(b, h, nq, 64, dtype=dtype)
+        k, v = rand(b, hk, nk, 64, dtype=dtype), rand(b, hk, nk, 64, dtype=dtype)
+        m = mask(b, nk) if masked else None
+        c = None
+        if carry:
+            c = (rand(b, h, nq, 64, dtype=torch.float32), rand(b, h, nq, dtype=torch.float32),
+                 rand(b, h, nq, dtype=torch.float32).abs() + 1.0)
+        outs = [fn(q, k, v, m, causal, hi, windowed, lo, clamp, c) for fn in fwd.values()]
+        same = all(bool((x == y).all()) for x, y in zip(outs[0], outs[-1]))
+        ok = ok and same
+        print(f"B1 {name}: trees bit-identical {same}")
+
+    n = 4096
+    for layout, rank, dtype in (("contiguous", 3, torch.bfloat16),
+                                ("striped", 1, torch.bfloat16), ("striped", 2, torch.float32)):
+        q = rand(2, 8, n, 64, dtype=dtype)
+        k_all, v_all = rand(2, 2, 4 * n, 64, dtype=dtype), rand(2, 2, 4 * n, 64, dtype=dtype)
+        tables = pring._fused_tables(rank, 4, n, True, layout == "striped", None, 4,
+                                     device="cuda")
+        m = mask(2, 4 * n)
+        outs = [fn(q, k_all, v_all, m, tables, 0.0) for fn in ring.values()]
+        same = all(bool((x == y).all()) for x, y in zip(outs[0], outs[-1]))
+        ok = ok and same
+        print(f"B7 {layout} rank {rank}, h8 hk2, mask, {dtype}: trees bit-identical {same}")
+
+    # timings, in turns: base, head, head, base
+    n = 65536
+    q, k, v = rand(1, 8, n, 64), rand(1, 8, n, 64), rand(1, 8, n, 64)
+    carry = (rand(1, 8, n, 64, dtype=torch.float32), rand(1, 8, n, dtype=torch.float32),
+             rand(1, 8, n, dtype=torch.float32).abs() + 1.0)
+    nl = 16384
+    k_all, v_all = rand(1, 8, 4 * nl, 64), rand(1, 8, 4 * nl, 64)
+    q_r = rand(1, 8, nl, 64)
+    rank3 = pring._fused_tables(3, 4, nl, True, False, None, 4, device="cuda")
+    one_hop = {causal: [torch.tensor([x], dtype=torch.int32, device="cuda")
+                        for x in (0, 0 if causal else n, -n, 1)] for causal in (True, False)}
+    runs = {
+        "B1 fused causal (1,8,65536,64)": (fwd, lambda fn: fn(q, k, v, None, 1, 0, 0, 0, 0.0)),
+        "B1 fused unbanded (1,8,65536,64)": (fwd, lambda fn: fn(q, k, v, None, 0, 0, 0, 0, 0.0)),
+        "B1 resume causal (1,8,65536,64)": (
+            fwd, lambda fn: fn(q, k, v, None, 1, 0, 0, 0, 0.0, carry)),
+        "B7 one causal hop (1,8,65536,64)": (
+            ring, lambda fn: fn(q, k, v, None, one_hop[True], 0.0)),
+        "B7 one unbanded hop (1,8,65536,64)": (
+            ring, lambda fn: fn(q, k, v, None, one_hop[False], 0.0)),
+        "B7 rank 3 of a contiguous causal ring of 4, n_local 16384": (
+            ring, lambda fn: fn(q_r, k_all, v_all, None, rank3, 0.0)),
+    }
+    result = {"card": smi.stdout.strip(), "ms": {}}
+    for label, (fns, call) in runs.items():
+        order = [t for t in ("base", "head", "head", "base") if t in fns]
+        times: dict[str, list[float]] = {t: [] for t in fns}
+        for tree in order:
+            times[tree].append(time_ms(lambda: call(fns[tree])))
+        means = {t: statistics.mean(ts) for t, ts in times.items()}
+        ratio = means["head"] / means["base"] if "base" in means else None
+        result["ms"][label] = {**means, "head_over_base": ratio}
+        print(f"{label}: " + ", ".join(
+            f"{t} {means[t]:.3f} ms (runs {[round(x, 3) for x in times[t]]})" for t in means)
+            + ("" if ratio is None else f", head / base {ratio:.4f}"))
+    print(json.dumps(result))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
