@@ -47,6 +47,22 @@ result line):
        layout's whole ring against the hop chain; then the 262,144-token
        schedule of ring rank 3 (4 x 65,536) against the hop chain and, in
        1,024-row slices, against the plain chain.
+   2f. the fused ring's remote tier (csrc/flash_ring_remote.cu, one
+       cooperative launch for the whole ring, the ranks passing KV to each
+       other under the grant protocol) in bf16 and f32: rings of 2, 4 and
+       8, contiguous and striped, a window with 3 passes, GQA h8/hk2,
+       softclamp 50; every rank against its plain version (OUT_TOL,
+       LSE_TOL, RING_REL_TOL) and against B7 over the gathered span and the
+       ``impl="cuda"`` hop chain, max|diff| == 0 on out and lse; the
+       fused model's launch (4 ranks x n_local 16,384, h8 hk8 bf16, both
+       layouts) the same, and against the plain chain in 1,024-row slices;
+       then the stress: 50 launches of the causal ring of 4, each bit for
+       bit the first, with the default block split and with rank 0, then
+       rank 3, starved to one block; a grid the card cannot hold at
+       once must raise.  Phase 1 also reads B7's and B8's ptxas reports
+       and SASS: their local-memory traffic (in all and in the innermost
+       HMMA loop), and B8 may take no load through the non-coherent
+       read-only path (LDG...CONSTANT).
 3. The serving path through the entry points a user calls: RingTransformer
    at the full width of the repository's benchmark model (vocab 256,
    dim 512, 8 heads of 64, depth 2, ff_mult 4, rotary, causal, bf16) with
@@ -76,10 +92,14 @@ result line):
    decode once per layer and step, the ring modes per RING_SCHEDULE.
 3e. The fused ring path: the same model with ``mesh=create_mesh(ring_size=4),
    impl="fused"``, contiguous and striped, as in 3c: logits held to the
-   local model's, 4 Adam steps, the float32 copy held to the CPU.  Each
-   forward launches the fused ring kernel once per rank and layer (8) and
-   no mode of the forward kernel; each step's backward launches the
-   backward kernels per RING_SCHEDULE.
+   local model's and, bit for bit, to the scan-path ring model's (the same
+   seeded weights), 4 Adam steps, the float32 copy held to the CPU.  Each
+   unmasked forward launches the remote-tier kernel once per layer (2) and
+   nothing of the local tier or the forward kernel; each step's backward
+   launches the backward kernels per RING_SCHEDULE.  A non-causal copy of
+   the model at 65,535 tokens, which the model pads and masks (a causal
+   layer drops the mask), takes the local tier: B7 once per rank and layer
+   (8), its logits held to the local non-causal model's.
    In phases 3 to 3e every launch counter is set to 0 just before each
    run and read just after; a kernel that never launched fails the run.
 4. Timings with CUDA events (median of 10 runs after warm-up): each kernel
@@ -113,9 +133,17 @@ result line):
    span merged in PyTorch (the yardstick of 4c) and, at 16,384 contiguous
    and at 4,096, its plain version; one 65,536-key span, unbanded and causal, through
    the forward kernel and through the fused kernel with a one-hop table
-   (the same function, in turns); the fused ring models' forward (in turns
-   with the scan-path ring models') and train step.
-5. The kernels line, one JSON object with six kernels; the forward
+   (the same function, in turns); the remote tier for the whole causal
+   ring of 4 at n_local 16,384 (contiguous and striped), 4,096 and 65,536
+   (262,144 tokens), timed in turns with the four B7 launches over the
+   gathered span and the four ranks' hop chains, beside its bound (all
+   ranks' in-band operations), its plain version (16,384 and 4,096) and
+   SDPA per span merged, summed over the ranks; B8's diagnostics (a ring
+   of one against B7, causal and unbanded; the whole ring under even,
+   proportional and default block splits beside each one's modelled
+   time); the fused ring models' forward (in turns with the scan-path
+   ring models') and train step.
+5. The kernels line, one JSON object with seven kernels; the forward
    kernels' entries list their ring modes.
 6. The last line: ``{"ok": true, "device": {...}}``.
 
@@ -177,7 +205,7 @@ BENCH_MODEL = dict(num_tokens=256, dim=512, depth=2, causal=True, heads=8,
                    dim_head=64, bucket_size=2048, rotary=True, ff_mult=4)
 SEED = 0
 KERNEL_SOURCES = ("flash_fwd", "flash_bwd", "flash_fwd_q8", "flash_decode_q8",
-                  "flash_ring")
+                  "flash_ring", "flash_ring_remote")
 
 # Phase-2d tolerances of the int8 kernels against their plain versions,
 # which quantize q, k, v and p exactly as the kernels do.  B4: the output's
@@ -315,6 +343,57 @@ def phase_build(port_dir: Path) -> None:
               f"{name} built outside the checkout: {res.path}")
         log(f"build {name}: {res.seconds:.1f} s nvcc; " + " | ".join(_ptxas_usage(res.log)))
     log(f"phase 1 build: {time.perf_counter() - start:.1f} s wall")
+    # slot memory is rewritten by other SMs during the remote tier's launch:
+    # none of its loads may take the non-coherent read-only path; beside it,
+    # the local memory the ring kernels touch, in all and in their hot loop
+    for name in ("flash_ring", "flash_ring_remote"):
+        function = "?"
+        for line in results[name].log.splitlines():
+            if "Function properties for" in line:
+                function = _kernel_name(line.split()[-1])
+            elif "stack frame" in line and function.endswith("_kernel"):
+                log(f"  ptxas {function}: {line.strip()}")
+        for kernel, row in _sass_report(results[name].path).items():
+            log(f"  SASS {kernel}: {row['loads']} global loads, {row['constant']} through "
+                f"the read-only path (LDG...CONSTANT); local loads/stores {row['ldl']}/"
+                f"{row['stl']}, in the innermost HMMA loop {row['hot']}")
+            if name == "flash_ring_remote":
+                check(row["loads"] > 0 and row["constant"] == 0,
+                      f"{kernel}: read-only-path loads in the SASS")
+
+
+def _sass_report(lib: Path) -> dict[str, dict]:
+    """Per kernel of a built library (``cuobjdump -sass``): its global loads,
+    those through the non-coherent read-only path, its local loads and
+    stores, and those inside its innermost loop that holds HMMA (None
+    without one)."""
+    import re
+
+    from ring_attention_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    report = {}
+    for section in sass.split("Function : ")[1:]:
+        lines = section.splitlines()
+        ops = [(int(m.group(1), 16), m.group(2)) for m in
+               (re.search(r"/\*([0-9a-f]{4,6})\*/\s+(.*?);", line) for line in lines) if m]
+
+        def count(pattern, lo=0, hi=1 << 40):
+            return sum(bool(re.search(pattern, t)) for a, t in ops if lo <= a <= hi)
+
+        loops = [(int(b.group(1), 16), a) for a, t in ops
+                 if (b := re.search(r"BRA\s+0x([0-9a-f]+)", t)) and int(b.group(1), 16) < a]
+        hot = [(lo, hi) for lo, hi in loops if count("HMMA", lo, hi)]
+        inner = min(hot, key=lambda x: x[1] - x[0]) if hot else None
+        report[_kernel_name(lines[0].strip())] = {
+            "loads": count("LDG"), "constant": count(r"LDG.*CONSTANT"),
+            "ldl": count("LDL"), "stl": count("STL"),
+            "hot": None if inner is None else f"LDL {count('LDL', *inner)}, STL "
+                                              f"{count('STL', *inner)}"}
+    check(len(report) >= 2, f"no kernels in the SASS of {lib.name}")
+    return report
 
 
 def _rand(gen, shape, dtype):
@@ -744,6 +823,190 @@ def phase_fused_ring_vs_plain() -> float:
     return max(errors)
 
 
+# Phase-2f cases of the remote-tier kernel, every rank of each ring:
+# name: (ring size, b, h, hk, n_local, ring arguments, softclamp)
+REMOTE_CASES = {
+    "ring 2 contiguous causal": (2, 1, 8, 8, 1024, dict(causal=True), None),
+    "ring 2 striped causal": (2, 1, 8, 8, 1024, dict(causal=True, striped=True), None),
+    "ring 4 contiguous causal": (4, 1, 8, 8, 1024, dict(causal=True), None),
+    "ring 4 striped causal": (4, 1, 8, 8, 1024, dict(causal=True, striped=True), None),
+    "ring 8 contiguous causal": (8, 1, 8, 8, 512, dict(causal=True), None),
+    "ring 8 striped causal": (8, 1, 8, 8, 512, dict(causal=True, striped=True), None),
+    # 1,500 tokens back over shards of 1,000 (ragged tiles): 3 of 4 passes
+    "ring 4 window 1500, 3 passes, n_local 1000": (
+        4, 2, 8, 8, 1000, dict(causal=True, window=1500, max_ring_passes=3), None),
+    "ring 4 GQA h8 hk2 striped": (4, 1, 8, 2, 1024, dict(causal=True, striped=True), None),
+    "ring 4 softclamp 50": (4, 1, 8, 8, 1024, dict(causal=True), 50.0),
+    "ring 4 not causal": (4, 2, 8, 8, 512, dict(), None),
+}
+STRESS_LAUNCHES = 50
+TABLE_NAMES = ("origins", "his", "los", "works")
+
+
+def _remote_tables(ring_size, n_local, causal=False, striped=False, window=None,
+                   max_ring_passes=None):
+    """Every rank's hop tables on the host, as the remote tier takes them."""
+    from ring_attention_tpu_torch.parallel import ring as pring
+
+    passes = min(max_ring_passes or ring_size, ring_size)
+    return [pring._fused_tables(rank, passes, n_local, causal, striped, window, ring_size)
+            for rank in range(ring_size)]
+
+
+def _remote_inputs(gen, ring_size, b, h, hk, n, dtype):
+    """Per-rank shards q (b, h, n, 64), k and v (b, hk, n, 64)."""
+    qs = [_rand(gen, (b, h, n, 64), dtype) for _ in range(ring_size)]
+    ks = [_rand(gen, (b, hk, n, 64), dtype) for _ in range(ring_size)]
+    vs = [_rand(gen, (b, hk, n, 64), dtype) for _ in range(ring_size)]
+    return qs, ks, vs
+
+
+def _local_tier(qs, ks, vs, tables, clamp=None):
+    """B7 for every rank over the gathered span: per-rank (outs, lses)."""
+    import torch
+
+    from ring_attention_tpu_torch.ops import cuda_ring as cr
+
+    k_all, v_all = torch.cat(ks, dim=2), torch.cat(vs, dim=2)
+    results = [cr.fused_ring_local(q, k_all, v_all, n_local=q.shape[2], scale=0.125,
+                                   softclamp_value=clamp,
+                                   **dict(zip(TABLE_NAMES, (t.cuda() for t in table))))
+               for q, table in zip(qs, tables)]
+    return [o for o, _ in results], [lse for _, lse in results]
+
+
+def _chain_ring(qs, ks, vs, ring_kw, clamp=None):
+    """The ``impl="cuda"`` hop chain of every rank, as
+    ``parallel/ring.py::_ring_fwd_cuda`` runs it: per-rank (outs, lses)."""
+    from ring_attention_tpu_torch.parallel import VirtualRing
+    from ring_attention_tpu_torch.parallel import ring as pring
+
+    ring_size = len(qs)
+    cfg = dict(impl="cuda", causal=ring_kw.get("causal", False),
+               striped=ring_kw.get("striped", False), bucket_size=None,
+               passes=min(ring_kw.get("max_ring_passes") or ring_size, ring_size),
+               window=ring_kw.get("window"), softclamp_value=clamp, scale=0.125,
+               compute_dtype=None)
+    return pring._ring_fwd_cuda(qs, ks, vs, None, VirtualRing(ring_size), cfg)
+
+
+def _hold_identical(name, dtype, got, ref, what) -> None:
+    """Every rank's out and lse of ``got`` equal to ``ref``'s, bit for bit."""
+    out_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got[0], ref[0]))
+    lse_err = max((a - b).abs().max().item() for a, b in zip(got[1], ref[1]))
+    same = all(bool((a == b).all()) for a, b in zip(got[0] + got[1], ref[0] + ref[1]))
+    log(f"  {name:<44} {str(dtype):<15} vs {what}: max|out diff| {out_err:.3e}, "
+        f"max|lse diff| {lse_err:.3e}, bit-identical {same}")
+    check(same and out_err == 0 and lse_err == 0, f"{name} {dtype}: remote tier vs {what}")
+
+
+def _raises(fn, exc_type) -> str | None:
+    """The message of the ``exc_type`` that ``fn`` raises, or None."""
+    try:
+        fn()
+    except exc_type as exc:
+        return str(exc)
+    return None
+
+
+def _remote_stress(gen) -> None:
+    """50 launches of the causal ring of 4 with each block split, every one
+    bit for bit the first launch; then a grid the card cannot hold at once,
+    which must raise."""
+    import torch
+
+    from ring_attention_tpu_torch.ops import cuda_ring_remote as crr
+
+    n, ring_size = 1024, RING_SIZE
+    qs, ks, vs = _remote_inputs(gen, ring_size, 1, 8, 8, n, torch.bfloat16)
+    kw = dict(tables=_remote_tables(ring_size, n, causal=True), n_local=n, scale=0.125)
+    capacity = crr._capacity(torch.cuda.current_device(), True, False)
+    tiles = ring_size * 8 * n // 64
+    split = crr.balanced_split(kw["tables"], n, 8, min(capacity, tiles))
+    first_outs, first_lses = crr.fused_ring_remote(qs, ks, vs, **kw)
+    first = first_outs + first_lses
+    for label, cta_split in (("balanced", split),
+                             ("rank 0 on one block", [1] + split[1:]),
+                             ("rank 3 on one block", split[:3] + [1])):
+        start = time.perf_counter()
+        same = 0
+        for _ in range(STRESS_LAUNCHES):
+            outs, lses = crr.fused_ring_remote(qs, ks, vs, **kw, cta_split=cta_split)
+            same += all(bool(torch.equal(a, b)) for a, b in zip(outs + lses, first))
+        seconds = time.perf_counter() - start
+        log(f"  stress, causal ring of 4 x {n} bf16, blocks {cta_split} ({label}): "
+            f"{same} of {STRESS_LAUNCHES} launches bit-identical to the first, "
+            f"{seconds:.2f} s")
+        check(same == STRESS_LAUNCHES, f"stress ({label}): a launch differed")
+    too_big = split[:3] + [capacity + 1 - sum(split[:3])]
+    message = _raises(lambda: crr.fused_ring_remote(qs, ks, vs, **kw, cta_split=too_big),
+                      ValueError)
+    log(f"  blocks {too_big} ({capacity + 1}, the card holds {capacity} at once): "
+        f"raised {message!r}")
+    check(message is not None and "does not fit" in message,
+          "a grid the card cannot hold at once did not raise")
+    outs, lses = crr.fused_ring_remote(qs, ks, vs, **kw)
+    check(all(bool(torch.equal(a, b)) for a, b in zip(outs + lses, first)),
+          "the launch after the refused grid differs")
+
+
+def phase_fused_remote_vs_plain() -> float:
+    """The remote-tier kernel (csrc/flash_ring_remote.cu) against its plain
+    version, B7 and the hop chain, then the stress launches; returns the
+    largest |out - plain|."""
+    import torch
+
+    from ring_attention_tpu_torch.ops import cuda_ring_remote as crr
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    errors: list[float] = []
+    log("phase 2f: the remote tier (flash_ring_remote, one launch per ring) vs "
+        "fused_ring_remote_plain, vs B7 over the gathered span and vs the hop chain")
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, (ring_size, b, h, hk, n, ring_kw, clamp) in REMOTE_CASES.items():
+            qs, ks, vs = _remote_inputs(gen, ring_size, b, h, hk, n, dtype)
+            kw = dict(tables=_remote_tables(ring_size, n, **ring_kw), n_local=n,
+                      scale=0.125, softclamp_value=clamp)
+            outs, lses = crr.fused_ring_remote(qs, ks, vs, **kw)
+            torch.cuda.synchronize()
+            ref_outs, ref_lses = crr.fused_ring_remote_plain(qs, ks, vs, **kw)
+            for rank in range(ring_size):
+                _compare(f"{name} rank {rank}", dtype, outs[rank], ref_outs[rank],
+                         lses[rank], ref_lses[rank], errors,
+                         rel_tol=RING_REL_TOL[str(dtype)])
+            del ref_outs, ref_lses
+            _hold_identical(name, dtype, (outs, lses),
+                            _local_tier(qs, ks, vs, kw["tables"], clamp), "B7")
+            _hold_identical(name, dtype, (outs, lses),
+                            _chain_ring(qs, ks, vs, ring_kw, clamp), "the hop chain")
+
+    # the launch the fused model makes: a causal ring of 4 x 16,384, h8 hk8
+    # bf16, both layouts; each rank also against the plain chain in slices
+    n = 16384
+    for striped in (False, True):
+        layout = "striped" if striped else "contiguous"
+        qs, ks, vs = _remote_inputs(gen, RING_SIZE, 1, 8, 8, n, torch.bfloat16)
+        tables = _remote_tables(RING_SIZE, n, causal=True, striped=striped)
+        outs, lses = crr.fused_ring_remote(qs, ks, vs, tables=tables, n_local=n, scale=0.125)
+        torch.cuda.synchronize()
+        name = f"{layout} causal ring of 4 x {n}"
+        _hold_identical(name, torch.bfloat16, (outs, lses), _local_tier(qs, ks, vs, tables),
+                        "B7")
+        _hold_identical(name, torch.bfloat16, (outs, lses),
+                        _chain_ring(qs, ks, vs, dict(causal=True, striped=striped)),
+                        "the hop chain")
+        k_all, v_all = torch.cat(ks, dim=2), torch.cat(vs, dim=2)
+        for rank, table in enumerate(tables):
+            spans, bands = _chain_schedule(k_all, v_all, dict(zip(TABLE_NAMES, table)), n)
+            _hold_chain_in_slices(f"flash_ring_remote {layout} rank {rank} 4 x {n}",
+                                  qs[rank], spans, bands, errors,
+                                  result=(outs[rank], lses[rank]))
+            del spans
+        del qs, ks, vs, outs, lses, k_all, v_all
+    _remote_stress(gen)
+    return max(errors)
+
+
 def _compare_bwd(name, dtype, got, ref, errors) -> None:
     """Norm-relative and max-abs error of each of (dq, dk, dv)."""
     import torch
@@ -827,12 +1090,13 @@ def phase_bwd_kernel_vs_plain() -> dict:
 
 def _model(dtype, device, **ring):
     """The benchmark model with the seeded weights (the same with and
-    without a ring mesh in ``ring``)."""
+    without a ring mesh in ``ring``, which may also override a field of
+    BENCH_MODEL)."""
     import torch
 
     from ring_attention_tpu_torch import RingTransformer, init_random_params
 
-    model = RingTransformer(**BENCH_MODEL, dtype=dtype, device=device, **ring)
+    model = RingTransformer(**{**BENCH_MODEL, **ring}, dtype=dtype, device=device)
     init_random_params(model, torch.Generator().manual_seed(SEED))
     return model.eval()
 
@@ -1174,7 +1438,8 @@ COUNTERS = {"flash_fwd": ("cuda_flash", "launch_count"),
             "q8_resume": ("cuda_flash_q8", "resume_launch_count"),
             "q8_fused_carry": ("cuda_flash_q8", "fused_carry_launch_count"),
             "flash_decode_q8": ("cuda_flash_q8", "decode_launch_count"),
-            "flash_ring": ("cuda_ring", "launch_count")}
+            "flash_ring": ("cuda_ring", "launch_count"),
+            "flash_ring_remote": ("cuda_ring_remote", "launch_count")}
 
 
 def _counter_module(name: str):
@@ -1211,21 +1476,67 @@ def _ring_counts(striped: bool, backward: bool, int8: bool = False) -> dict[str,
 
 
 def _fused_counts(striped: bool, backward: bool) -> dict[str, int]:
-    """Launches of one forward (and backward) of the model on the fused
-    ring: the fused kernel once per rank and layer, nothing of the forward
-    kernel, and the backward kernels per RING_SCHEDULE."""
+    """Launches of one unmasked forward (and backward) of the model on the
+    fused ring: the remote-tier kernel once per layer (the whole ring in
+    one launch), nothing of the local tier or the forward kernel, and the
+    backward kernels per RING_SCHEDULE."""
     depth = BENCH_MODEL["depth"]
     *_, dkv, dq = RING_SCHEDULE[striped]
-    return _counts(flash_ring=RING_SIZE * depth,
+    return _counts(flash_ring_remote=depth,
                    flash_bwd_dkv=dkv * depth if backward else 0,
                    flash_bwd_dq=dq * depth if backward else 0)
+
+
+def _hold_fused_ring_model(model, tokens, local, striped, logits, launches) -> None:
+    """Phase 3e beside the logits: the scan-path ring model with the same
+    seeded weights gives bit-identical logits; and a request that the model
+    pads and masks takes the local tier (B7 once per rank and layer), its
+    logits held to the local model's.  That request goes to a non-causal
+    copy of the model: 65,535 tokens do not divide over 4 ranks, so the
+    model pads and builds a key mask, which only a non-causal layer keeps
+    (a causal one drops it: the pad sits after every real query)."""
+    import torch
+
+    from ring_attention_tpu_torch.parallel import create_mesh
+
+    layout = "striped" if striped else "contiguous"
+    mesh = create_mesh(ring_size=RING_SIZE)
+    scan = _model(torch.bfloat16, "cuda", mesh=mesh, striped=striped, impl="cuda")
+    with torch.inference_mode():
+        same = bool(torch.equal(scan(tokens), logits))
+    del scan
+    log(f"  {layout} forward 1 x 65536 vs the scan-path ring model (impl='cuda', the "
+        f"same weights): logits bit-identical {same}")
+    check(same, f"{layout}: the remote-tier model's logits differ from the scan ring's")
+    short = tokens[:, :-1]
+    masked_model = _model(torch.bfloat16, "cuda", mesh=mesh, striped=striped, impl="fused",
+                          causal=False)
+    local_nc = _model(torch.bfloat16, "cuda", causal=False)
+    with torch.inference_mode():
+        ref = local_nc(short).float()
+        _reset_counts()
+        masked = masked_model(short)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+    del masked_model, local_nc
+    expected = _counts(flash_ring=RING_SIZE * BENCH_MODEL["depth"])
+    check(counts == expected, f"{layout} masked forward launched {counts}, expected {expected}")
+    for name, n in counts.items():
+        launches[name] += n
+    rel = ((masked.float() - ref).norm() / ref.norm()).item()
+    log(f"  {layout} non-causal forward 1 x 65535 (padded to 65536 and masked): launches "
+        f"{counts}; logits vs the local non-causal model ||diff|| / ||local|| {rel:.3e} "
+        f"(tol rel {RING_LOGITS_REL_TOL})")
+    check(bool(torch.isfinite(masked.float()).all()) and rel <= RING_LOGITS_REL_TOL,
+          f"{layout}: masked fused ring logits disagree with the local model")
 
 
 def phase_ring_path(serving: dict, training: dict, impl: str = "cuda") -> dict:
     """The ring path at full width on a virtual ring of 4: logits against
     the local model, launch counts against the hop schedule, Adam steps;
     then the float32 ring on the card against the CPU.  ``impl="fused"``
-    runs each rank's forward as one fused ring launch (phase 3e)."""
+    runs the whole ring's forward as one remote-tier launch per layer, and
+    a masked request as one B7 launch per rank and layer (phase 3e)."""
     import torch
 
     from ring_attention_tpu_torch import make_train_step
@@ -1262,6 +1573,8 @@ def phase_ring_path(serving: dict, training: dict, impl: str = "cuda") -> dict:
             f"{counts}; logits vs the local model ||diff|| / ||local|| {rel:.3e}, "
             f"max|diff| {diff.abs().max().item():.3e} (tol rel {RING_LOGITS_REL_TOL})")
         check(rel <= RING_LOGITS_REL_TOL, f"{layout} ring logits disagree with the local model")
+        if impl == "fused":
+            _hold_fused_ring_model(model, tokens, local, striped, logits, launches)
         del logits, diff
 
         model.train()
@@ -1538,6 +1851,105 @@ def _one_span_row(n, causal) -> None:
         f"{b7_mean / b1_mean:.4f}")
 
 
+def _remote_row(n, striped=False, iters=10, with_plain=False) -> dict:
+    """The remote tier for the whole causal ring of 4 at n_local ``n``
+    beside its bound (every rank's in-band operations), the four B7
+    launches over the gathered span (the gather itself not timed) and the
+    four ranks' hop chains (timed in turns: B7, chain, B8, B8, chain, B7),
+    its plain version and SDPA per span merged, summed over the ranks."""
+    import torch
+
+    from ring_attention_tpu_torch.ops import cuda_ring_remote as crr
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    qs, ks, vs = _remote_inputs(gen, RING_SIZE, 1, 8, 8, n, torch.bfloat16)
+    tables = _remote_tables(RING_SIZE, n, causal=True, striped=striped)
+    k_all, v_all = torch.cat(ks, dim=2), torch.cat(vs, dim=2)
+    chains = [_chain_schedule(k_all, v_all, dict(zip(TABLE_NAMES, t)), n) for t in tables]
+    ops = 4 * 64 * 8 * sum(band_pairs(n, n, hi, None) for _, bands in chains for hi in bands)
+    moved = nbytes(*qs, *ks, *vs) + nbytes(*qs) + RING_SIZE * 4 * 8 * n  # inputs, out, lse
+    b_ms, b_by = bound_ms(ops, moved, torch.bfloat16)
+
+    def b8():
+        return crr.fused_ring_remote(qs, ks, vs, tables=tables, n_local=n, scale=0.125)
+
+    def b7():
+        return _local_tier(qs, ks, vs, tables)
+
+    def chain():
+        return [_hop_chain(q, spans, bands) for q, (spans, bands) in zip(qs, chains)]
+
+    runs = {"b7": [], "chain": [], "b8": []}
+    for name in ("b7", "chain", "b8", "b8", "chain", "b7"):
+        runs[name].append(time_ms({"b7": b7, "chain": chain, "b8": b8}[name], iters=iters,
+                                  warmup=1))
+    ms, b7_ms, chain_ms = (statistics.mean(runs[k]) for k in ("b8", "b7", "chain"))
+    library_ms = time_ms(lambda: [_sdpa_chain(q, spans, bands)
+                                  for q, (spans, bands) in zip(qs, chains)],
+                         iters=iters, warmup=1)
+    plain_ms = None
+    if with_plain:
+        del chains
+        torch.cuda.empty_cache()  # the dense plain version holds n x n scores
+        plain_ms = time_ms(lambda: crr.fused_ring_remote_plain(
+            qs, ks, vs, tables=tables, n_local=n, scale=0.125), iters=min(iters, 3), warmup=1)
+    layout = "striped" if striped else "contiguous"
+    log(f"  flash_ring_remote, the whole {layout} causal ring of 4, 4 x {n}: kernel "
+        f"{ms:.3f} ms (runs {[round(x, 3) for x in runs['b8']]}), {ops / ms / 1e9:.1f} "
+        f"TFLOP/s, bound {b_ms:.3f} ms ({b_by}); four B7 launches {b7_ms:.3f} ms (runs "
+        f"{[round(x, 3) for x in runs['b7']]}), B8 / B7 {ms / b7_ms:.4f}; four hop chains "
+        f"{chain_ms:.3f} ms (runs {[round(x, 3) for x in runs['chain']]}), B8 / chain "
+        f"{ms / chain_ms:.4f}; plain {plain_ms} ms; SDPA per span merged, summed over "
+        f"the ranks (library yardstick) {library_ms:.3f} ms")
+    return {"shape": f"whole {layout} causal ring 4 x (1,8,{n},64) bf16", "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms, "local_tier_ms": b7_ms, "hop_chain_ms": chain_ms}
+
+
+def _remote_diagnostics() -> None:
+    """What the remote tier's time is made of: a ring of one (one rank, one
+    hop: B8's tile body with no ring around it) against B7 on the same span,
+    causal and unbanded, in turns (B7, B8, B8, B7); and the whole causal ring
+    of 4 at n_local 16,384 under three block splits (even, in proportion to
+    each rank's work, the wrapper's default) beside each one's modelled
+    time (KV tiles a block walks on the protocol's critical path)."""
+    import torch
+
+    from ring_attention_tpu_torch.ops import cuda_ring_remote as crr
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    n = 16384
+    for causal in (True, False):
+        qs, ks, vs = _remote_inputs(gen, 1, 1, 8, 8, n, torch.bfloat16)
+        tables = _remote_tables(1, n, causal=causal)
+
+        def b8():
+            return crr.fused_ring_remote(qs, ks, vs, tables=tables, n_local=n, scale=0.125)
+
+        def b7():
+            return _local_tier(qs, ks, vs, tables)
+
+        runs = [time_ms(fn) for fn in (b7, b8, b8, b7)]
+        log(f"  ring of one, {'causal' if causal else 'unbanded'} (1,8,{n},64) bf16: B7 "
+            f"{(runs[0] + runs[3]) / 2:.3f} ms (runs {runs[0]:.3f}, {runs[3]:.3f}), B8 "
+            f"{(runs[1] + runs[2]) / 2:.3f} ms (runs {runs[1]:.3f}, {runs[2]:.3f})")
+    capacity = crr._capacity(torch.cuda.current_device(), True, False)
+    for striped in (False, True):
+        qs, ks, vs = _remote_inputs(gen, RING_SIZE, 1, 8, 8, n, torch.bfloat16)
+        tables = _remote_tables(RING_SIZE, n, causal=True, striped=striped)
+        model = crr._SplitModel(crr._schedule_key(tables), n, 8)
+        work = [sum(int(v.sum()) for v in hops if v is not None) for hops in model.visits]
+        splits = {"even": [capacity // RING_SIZE] * RING_SIZE,
+                  "proportional": [max(1, capacity * w // sum(work)) for w in work],
+                  "default": crr.balanced_split(tables, n, 8, capacity)}
+        for label, split in splits.items():
+            ms = time_ms(lambda: crr.fused_ring_remote(qs, ks, vs, tables=tables, n_local=n,
+                                                       scale=0.125, cta_split=split))
+            log(f"  {'striped' if striped else 'contiguous'} causal ring of 4 x {n}, blocks "
+                f"{split} ({label}): {ms:.3f} ms, modelled {model.makespan(split):.0f} KV "
+                "tiles a block")
+
+
 def phase_fused_ring_timings(fused: dict, ring: dict, serving: dict,
                              training: dict) -> list[dict]:
     """Phase 4e: the fused ring kernel and the fused ring models."""
@@ -1557,6 +1969,12 @@ def phase_fused_ring_timings(fused: dict, ring: dict, serving: dict,
             _fused_row(65536, with_plain=False, iters=5)]
     for causal in (False, True):
         _one_span_row(65536, causal)
+    # the remote tier: first the launch the fused model makes (the headline)
+    fused["remote_rows"] = [_remote_row(16384, with_plain=True),
+                            _remote_row(16384, striped=True),
+                            _remote_row(4096, with_plain=True),
+                            _remote_row(65536, iters=3)]
+    _remote_diagnostics()
     tokens = serving["tokens"]
     for layout, (model, step) in fused["models"].items():
         scan_model = ring["models"][layout][0].eval()
@@ -2085,6 +2503,7 @@ def main() -> int:
     max_err = phase_kernel_vs_plain()
     mode_err = phase_ring_modes_vs_plain()
     fused_err = phase_fused_ring_vs_plain()
+    remote_err = phase_fused_remote_vs_plain()
     bwd_err = phase_bwd_kernel_vs_plain()
     q8_err = phase_q8_kernels_vs_plain()
     serving = phase_serving_path()
@@ -2119,6 +2538,8 @@ def main() -> int:
          q8_launches["flash_decode_q8"], q8_err["decode"], q8_rows["decode"]),
         ("flash_ring", "flash_ring.cu", f"{pallas_ring}:341", fused_launches["flash_ring"],
          fused_err, fused_rows),
+        ("flash_ring_remote", "flash_ring_remote.cu", f"{pallas_ring}:866",
+         fused_launches["flash_ring_remote"], remote_err, fused["remote_rows"]),
     ]
     kernels = []
     for name, source, replaces, launches, err, per_shape in entries:
@@ -2137,7 +2558,8 @@ def main() -> int:
             "bound_by": headline["bound_by"],
             "library_ms": headline["library_ms"],
             **{key: headline[key] for key in ("bf16_kernel_ms", "bf16_sdpa_ms",
-                                              "hop_chain_ms") if key in headline},
+                                              "hop_chain_ms", "local_tier_ms")
+               if key in headline},
             "pass": True,
             "per_shape": per_shape,
         })

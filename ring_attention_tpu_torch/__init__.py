@@ -11,8 +11,11 @@ on a virtual ring) on the forward kernel's partials and resume modes,
 and int8 serving (``RingTransformer(quantize_cache=True,
 compute_dtype="int8")``: the int8 forward ``csrc/flash_fwd_q8.cu`` and
 the int8-cache decode ``csrc/flash_decode_q8.cu``), and the fused ring
-(``impl="fused"``: one launch of ``csrc/flash_ring.cu`` per ring rank over
-the all-gathered KV, the backward on the dk/dv and dq kernels).  Entry
+(``impl="fused"``: on a virtual ring without a key mask one launch of
+``csrc/flash_ring_remote.cu`` for the whole ring, the ranks passing KV to
+each other inside it; otherwise one launch of ``csrc/flash_ring.cu`` per
+ring rank over the all-gathered KV; the backward on the dk/dv and dq
+kernels).  Entry
 points run on the CUDA device unless the caller passes ``device="cpu"``;
 on CPU tensors every kernel wrapper runs its plain PyTorch version.  The
 package imports torch only.
@@ -52,6 +55,8 @@ from .ops import (
     flash_partials_reference,
     fused_ring_local,
     fused_ring_local_plain,
+    fused_ring_remote,
+    fused_ring_remote_plain,
     init_carry,
     init_partials,
     merge_partials,
@@ -116,6 +121,8 @@ __all__ = [
     "flash_partials_reference",
     "fused_ring_local",
     "fused_ring_local_plain",
+    "fused_ring_remote",
+    "fused_ring_remote_plain",
     "init_carry",
     "init_partials",
     "init_random_params",

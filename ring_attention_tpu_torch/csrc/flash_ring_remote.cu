@@ -1,0 +1,683 @@
+// Fused ring forward, remote tier, for NVIDIA Hopper (built for sm_90a).
+//
+// Replaces: ring_attention_tpu/ops/pallas_ring.py::fused_ring_remote (the
+// pl.pallas_call at :866; kernel body _fused_remote_kernel :523) for float
+// operands.  Its int8 wire (payload=) is not ported here.
+//
+// What it computes, for every rank r of a ring of W, from q_r (B, H, N, D)
+// and the rank's own k_r, v_r (B, Hk, N, D) alone: for hop = 0 .. hops - 1
+// with works[r][hop] != 0, the keys of origin (r - hop) mod W in local
+// coordinates j in [0, N):
+//   s    = scale * q . k, then softclamp c * tanh(s / c) when c > 0;
+//   keep = los[r][hop] <= j - i <= his[r][hop]  (sentinels +-N: unbanded);
+//   masked scores take the FINITE mask value -0.5 * f32 max;
+// the online-softmax state (acc, m, l) in f32 carries across the hops, and
+// out_r = acc / max(l, 1e-10) in q's dtype, lse_r = m + log(max(l, 1e-10))
+// in f32.  That is flash_ring.cu's function (B7) over a gathered span, and
+// the port's hop chain (parallel/ring.py, impl="cuda"); no gathered copy is
+// made here: each rank's KV travels around the ring inside the launch.
+//
+// One cooperative launch holds every rank.  The blocks of the grid are
+// split into W groups, one per rank (cta_start), all resident on the card
+// at once, so that blocks of different ranks can wait on each other.  The
+// wrapper sizes the groups from each rank's work per hop (the grant couples
+// neighbours hop by hop, so a split that evens total work is not the
+// fastest: ops/cuda_ring_remote.py::balanced_split); a grid the card
+// cannot hold at once is refused, never shrunk.  Per rank, in global
+// memory: a double-buffered slot pair (2 slots x {k, v} x (B, Hk, N, D)),
+// an f32 carry spill (acc (B*H, N, D), m and l (B*H, N)), and one counter
+// word per hop for each of three flags (landed, grant, done), zeroed by
+// the wrapper before the launch.  Per hop, each block of rank r
+// (ops/cuda_ring_remote.py::PROTOCOL lists these steps as rows):
+//   * before hop 0, seed_slot: its share of k_r, v_r into slot 0 (a copy:
+//     hop 1's incoming push overwrites slot 0, and the caller's k and v
+//     stay untouched for the backward), then one landed signal, and
+//     wait_landed until every block of the rank has seeded;
+//   * hop < hops - 1: push_slot, its share of slot hop % 2 into the right
+//     neighbour's slot (hop + 1) % 2, then one landed signal there; from
+//     hop 1 on only after wait_grant: the right neighbour finished its hop
+//     hop - 1, the last reader of that slot;
+//   * if the hop has work: its query tiles, each with load_carry (not on
+//     the rank's first hop with work), walk_hop over slot hop % 2 and
+//     store_carry (the write of out and lse after the last hop with work);
+//   * hop < hops - 1: wait_landed, until every block of the left neighbour
+//     has pushed the next hop's slot (the TPU kernel's hop-drain);
+//   * send_grant (hop < hops - 2): the block counts itself done with slot
+//     hop % 2 (its tiles and its push), and the rank's last block grants
+//     the left neighbour its push of hop + 1.
+// This is the order of the JAX PROTOCOL table, which the port's PROTOCOL
+// repeats and the JAX verifier model-checks: the landing of hop + 1 is
+// awaited before the grant that lets the left neighbour's hop + 1 push
+// begin, so no count can be met by a later hop's signal.
+// Every rank pushes and grants on every hop, also where it has no work,
+// as the TPU kernel's _push and _grant do.  Flags are release/acquire
+// operations at gpu scope: one thread spins, the block meets at a barrier
+// (the pattern of cooperative groups' grid sync).  Each spin is bounded
+// by clock64() and ends in __trap(): a protocol fault fails the launch
+// instead of hanging it.  Slot memory is rewritten by other SMs between
+// hops, so it is read with plain loads after the acquire (which drops the
+// SM's L1 lines), never through the read-only path: no slot pointer is
+// const __restrict__ and none goes through __ldg.
+//
+// Within a hop a block folds a query tile exactly as flash_ring.cu does
+// (the tile body and band of flash_tile.cuh, a hop whose works flag is 0
+// skipped, l summed over a row's 4 threads at the hop's end), and the f32
+// spill is exact, so the result is bit-identical to B7 and to the hop
+// chain.
+//
+// What bounds it on an H100: the causal ring of 4 at n_local 16,384 (h 8,
+// d 64) does 4.4e12 operations over all ranks on 0.13 GB of inputs, far
+// above the card's ~295 bf16 operations per byte: tensor-core operations
+// bound it (4.4 ms at 989 TFLOP/s).  The pushes move 3 x 33.5 MB per rank
+// and the spill 2 x 33.5 MB per rank and hop, ~0.2 ms at 3.35 TB/s beside
+// tens of ms of compute; a push overlaps the receiver's previous hop.
+//
+// Design (right and simple first):
+//   * persistent blocks: block c of a rank's nc walks a fixed list of the
+//     rank's (b*h, 64-row query tile) tiles, hop by hop: rounds of nc
+//     tiles, heaviest causal rows first, taken forward and backward in
+//     turn (a snake, which evens the blocks' sums on a causal hop); the
+//     carry of a tile lives in the spill between hops;
+//   * registers: the tile body is inlined, as in B7; the block's place in
+//     the walk (rank, block index, first and last hop with work) sits in
+//     shared memory and is read where used, and the protocol's steps
+//     (seed, push, waits, grant) are __noinline__ calls on a
+//     __grid_constant__ Params.  Held in registers and inlined, they
+//     spilled the tile body's state (268 bytes of stack);
+//   * the soft clamp is a template flag (hop_band);
+//   * bf16: 4 warps, mma.sync.m16n8k16, __launch_bounds__(128, 4) as B1
+//     and B7; f32: 64 threads, one query row each, plain FMA;
+//   * copies: each block moves a contiguous 1/nc of a slot, 16 bytes a
+//     thread, four loads in flight;
+//   * every offset into slots, spills and outputs is 64-bit.
+// Not yet: cp.async/TMA, wgmma, peer-mapped slots across GPUs.
+
+#include "flash_tile.cuh"
+
+namespace {
+
+constexpr int kMaxRanks = 16;
+constexpr long long kSpinCycles = 1LL << 34;  // ~8.7 s at 1.98 GHz
+
+struct Params {
+  const void* q[kMaxRanks];  // per rank (B, H, N, D)
+  const void* k[kMaxRanks];  // per rank (B, Hk, N, D), its own shard
+  const void* v[kMaxRanks];
+  void* out[kMaxRanks];      // per rank (B, H, N, D) in q's dtype
+  float* lse[kMaxRanks];     // per rank (B, H, N)
+  void* slots;               // (W, 2 slots, 2 parts, B, Hk, N, D) in q's dtype
+  float* acc;                // (W, B * H, N, D) carry spill
+  float* m;                  // (W, B * H, N)
+  float* l;                  // (W, B * H, N)
+  const int* his;            // (W, hops) band upper offset, N: unbanded
+  const int* los;            // (W, hops) band lower offset, -N: unbounded
+  const int* works;          // (W, hops) 0: skip the hop
+  unsigned* landed;          // (W, hops) blocks whose share of the slot landed
+  unsigned* grant;           // (W, hops) 1: the push of this hop may start
+  unsigned* done;            // (W, hops) blocks done with the hop's slot
+  int cta_start[kMaxRanks + 1];  // rank r's blocks: [cta_start[r], cta_start[r + 1])
+  size_t part;  // elements of one part (k or v) of a shard, B * Hk * N * D
+  int W, B, H, Hk, N, hops;
+  float scale;
+  float softclamp;  // 0 = off
+};
+
+// This block's place in the ring.
+struct Rank {
+  int r;        // ring rank
+  int c, nc;    // index among the rank's blocks, and their count
+  int senders;  // blocks of the left neighbour: one landed signal each
+};
+
+__device__ __forceinline__ Rank rank_of(const Params& p) {
+  int r = 0;
+  while ((int)blockIdx.x >= p.cta_start[r + 1]) ++r;
+  const int left = (r + p.W - 1) % p.W;
+  return Rank{r, (int)blockIdx.x - p.cta_start[r], p.cta_start[r + 1] - p.cta_start[r],
+              p.cta_start[left + 1] - p.cta_start[left]};
+}
+
+// ---------------------------------------------------------------------------
+// Flags: release/acquire at gpu scope
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* flag) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(flag) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void red_release_add(unsigned* flag, unsigned v) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(flag), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned atom_acq_rel_add(unsigned* flag, unsigned v) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], %2;"
+               : "=r"(old)
+               : "l"(flag), "r"(v)
+               : "memory");
+  return old;
+}
+
+__device__ __forceinline__ void st_release(unsigned* flag, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(flag), "r"(v) : "memory");
+}
+
+// The whole block waits until *flag >= target: thread 0 spins on acquire
+// loads (bounded: a fault traps), then the block meets at the barrier.
+__device__ __forceinline__ void wait_flag(const unsigned* flag, unsigned target) {
+  if (threadIdx.x == 0) {
+    const long long start = clock64();
+    while (ld_acquire(flag) < target) {
+      if (clock64() - start > kSpinCycles) __trap();
+      __nanosleep(64);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// Once every thread of the block has issued its stores: one release add.
+__device__ __forceinline__ void signal_flag(unsigned* flag) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    red_release_add(flag, 1u);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The circulated KV: seed, landed wait, grant wait, push, grant
+// ---------------------------------------------------------------------------
+
+// Elements of one part (k or v) of a rank's shard, precomputed: the
+// compiler rematerializes it inside the tile loads, where a product of
+// three params put a multiply chain before every V load.
+template <int D>
+__device__ __forceinline__ size_t part_elems(const Params& p) {
+  return p.part;
+}
+
+// Slot `s` of rank `r`: its k part, the v part follows it.
+template <typename T, int D>
+__device__ __forceinline__ T* slot_ptr(const Params& p, int r, int s) {
+  return static_cast<T*>(p.slots) + ((size_t)r * 2 + s) * 2 * part_elems<D>(p);
+}
+
+// Block c of nc copies the c-th of nc contiguous chunks of `bytes` (a
+// multiple of 16): 16 bytes a thread, kUnroll loads in flight.
+__device__ __forceinline__ void copy_share(void* dst, const void* src, size_t bytes,
+                                           int c, int nc) {
+  constexpr int kUnroll = 4;
+  const size_t n16 = bytes / 16;
+  const size_t begin = n16 * c / nc, end = n16 * (c + 1) / nc;
+  uint4* d = static_cast<uint4*>(dst);
+  const uint4* s = static_cast<const uint4*>(src);
+  for (size_t i = begin + threadIdx.x; i < end; i += (size_t)blockDim.x * kUnroll) {
+    uint4 x[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const size_t j = i + (size_t)u * blockDim.x;
+      if (j < end) x[u] = s[j];
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const size_t j = i + (size_t)u * blockDim.x;
+      if (j < end) d[j] = x[u];
+    }
+  }
+}
+
+// Hop 0: this block's share of the rank's own k and v into slot 0, then
+// its landed signal for hop 0 (the rank's own blocks wait for all of them).
+template <typename T, int D>
+__device__ __noinline__ void seed_slot(const Params& p, const Rank& rk) {
+  const size_t elems = part_elems<D>(p);
+  T* slot = slot_ptr<T, D>(p, rk.r, 0);
+  copy_share(slot, p.k[rk.r], elems * sizeof(T), rk.c, rk.nc);
+  copy_share(slot + elems, p.v[rk.r], elems * sizeof(T), rk.c, rk.nc);
+  signal_flag(&p.landed[rk.r * p.hops]);
+}
+
+// Slot hop % 2 is complete: every block of its writer (the rank itself at
+// hop 0, the left neighbour after) has signalled.  Called before hop 0 and
+// at the end of hop - 1.
+__device__ __noinline__ void wait_landed(const Params& p, const Rank& rk, int hop) {
+  wait_flag(&p.landed[rk.r * p.hops + hop], hop == 0 ? rk.nc : rk.senders);
+}
+
+// The right neighbour has finished its hop hop - 1, the last reader of the
+// slot that this hop's push overwrites.
+__device__ __noinline__ void wait_grant(const Params& p, const Rank& rk, int hop) {
+  wait_flag(&p.grant[rk.r * p.hops + hop], 1u);
+}
+
+// This block's share of slot hop % 2 into the right neighbour's slot
+// (hop + 1) % 2, then its landed signal there.  The stores are the block's
+// own: the send is complete when this returns.
+template <typename T, int D>
+__device__ __noinline__ void push_slot(const Params& p, const Rank& rk, int hop) {
+  const int right = (rk.r + 1) % p.W;
+  copy_share(slot_ptr<T, D>(p, right, (hop + 1) & 1), slot_ptr<T, D>(p, rk.r, hop & 1),
+             2 * part_elems<D>(p) * sizeof(T), rk.c, rk.nc);
+  signal_flag(&p.landed[right * p.hops + hop + 1]);
+}
+
+// The block is done with slot hop % 2 (its tiles and its push); the rank's
+// last block to say so grants the left neighbour its push of hop + 1,
+// which overwrites this slot.  Hops hops - 2 and after grant nothing.
+__device__ __noinline__ void send_grant(const Params& p, const Rank& rk, int hop) {
+  if (hop >= p.hops - 2) return;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    const unsigned before = atom_acq_rel_add(&p.done[rk.r * p.hops + hop], 1u);
+    if (before + 1 == (unsigned)rk.nc) {
+      const int left = (rk.r + p.W - 1) % p.W;
+      st_release(&p.grant[left * p.hops + hop + 1], 1u);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Compute: the tiles of one hop, and the f32 carry spill between hops
+// ---------------------------------------------------------------------------
+
+// The hop's band in flash_tile.cuh's form, in the hop's local coordinates.
+// Without kClamp the soft clamp is the constant 0, so the compiler drops
+// its path from the tile body: left to the runtime value, it if-converted
+// the per-score branch and ran the clamp's division and tanh for every
+// score (on one unbanded span the kernel took 1.5x B7's time, 1.2x without).
+template <bool kClamp>
+__device__ __forceinline__ Band hop_band(const Params& p, int r, int hop) {
+  const int at = r * p.hops + hop;
+  return Band{p.his[at], p.los[at], p.N, nullptr, p.scale, kClamp ? p.softclamp : 0.f};
+}
+
+// bf16: rows [r0, r0 + 64) folded over the band's KV tiles of slot k / v.
+template <int D>
+__device__ __forceinline__ void walk_hop(__nv_bfloat16* Ks, __nv_bfloat16* Vs,
+                                         const __nv_bfloat16* k, const __nv_bfloat16* v,
+                                         const Band& bd, int n, int r0,
+                                         const uint32_t (&qf)[D / 16][4],
+                                         float (&o)[D / 8][4], float (&m_r)[2],
+                                         float (&l_r)[2], int row_a) {
+  int t_begin, t_end;
+  band_tiles(bd, n, r0, &t_begin, &t_end);
+  for (int tile = t_begin; tile < t_end; ++tile)
+    bf16_tile<D>(Ks, Vs, k, v, bd, tile * kBlockN, qf, o, m_r, l_r, row_a);
+}
+
+// f32: this thread's row folded over the band's KV tiles of slot k / v.
+template <int D>
+__device__ __forceinline__ void walk_hop(float* Ks, float* Vs, const float* k,
+                                         const float* v, const Band& bd, int n, int r0,
+                                         const float (&qv)[D], float (&acc)[D], float& m,
+                                         float& l, int row) {
+  int t_begin, t_end;
+  band_tiles(bd, n, r0, &t_begin, &t_end);
+  for (int tile = t_begin; tile < t_end; ++tile)
+    f32_tile<D>(Ks, Vs, k, v, bd, tile * kBlockN, qv, acc, m, l, row);
+}
+
+// bf16 fragments of rows row_a and row_a + 8 of the tile (base: the spill
+// row of row 0 of batch-head bh, (r * B * H + bh) * N).  After a hop's end
+// only thread 0 of a row holds l (the others hold 0), m is the same on
+// the row's 4 threads: thread 0 writes both, and on the way back the
+// others take m and a zero l.  Rows past N are never stored.
+template <int D>
+__device__ __forceinline__ void store_carry(const Params& p, size_t base, int row_a,
+                                            const float (&o)[D / 8][4], const float (&m_r)[2],
+                                            const float (&l_r)[2]) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    if (row >= p.N) continue;
+    float* acc = p.acc + (base + row) * D;
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+      *reinterpret_cast<float2*>(acc + nd * 8 + t * 2) =
+          make_float2(o[nd][2 * r], o[nd][2 * r + 1]);
+    if (t == 0) {
+      p.m[base + row] = m_r[r];
+      p.l[base + row] = l_r[r];
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void load_carry(const Params& p, size_t base, int row_a,
+                                           float (&o)[D / 8][4], float (&m_r)[2],
+                                           float (&l_r)[2]) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    if (row >= p.N) continue;  // keeps the initial state
+    const float* acc = p.acc + (base + row) * D;
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd) {
+      const float2 x = *reinterpret_cast<const float2*>(acc + nd * 8 + t * 2);
+      o[nd][2 * r] = x.x;
+      o[nd][2 * r + 1] = x.y;
+    }
+    m_r[r] = p.m[base + row];
+    l_r[r] = t == 0 ? p.l[base + row] : 0.f;
+  }
+}
+
+// f32: one row (idx = (r * B * H + bh) * N + row), acc, m and l.
+template <int D>
+__device__ __forceinline__ void store_carry(const Params& p, size_t idx,
+                                            const float (&acc)[D], float m, float l) {
+  float* dst = p.acc + idx * D;
+#pragma unroll
+  for (int d = 0; d < D; d += 4)
+    *reinterpret_cast<float4*>(dst + d) = make_float4(acc[d], acc[d + 1], acc[d + 2], acc[d + 3]);
+  p.m[idx] = m;
+  p.l[idx] = l;
+}
+
+template <int D>
+__device__ __forceinline__ void load_carry(const Params& p, size_t idx, float (&acc)[D],
+                                           float& m, float& l) {
+  const float* src = p.acc + idx * D;
+#pragma unroll
+  for (int d = 0; d < D; d += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(src + d);
+    acc[d] = x.x; acc[d + 1] = x.y; acc[d + 2] = x.z; acc[d + 3] = x.w;
+  }
+  m = p.m[idx];
+  l = p.l[idx];
+}
+
+// The rank's first and last hop with work (the wrapper checks that every
+// rank has one).
+__device__ __forceinline__ void work_span(const Params& p, const Rank& rk, int* first,
+                                          int* last) {
+  *first = *last = -1;
+  for (int hop = 0; hop < p.hops; ++hop) {
+    if (p.works[rk.r * p.hops + hop] == 0) continue;
+    if (*first < 0) *first = hop;
+    *last = hop;
+  }
+}
+
+// Tile `tile` of a rank's B * H * ceil(N / 64) query tiles: its batch-head
+// and first row, heaviest causal rows first.  Head-minor: the weights of
+// a causal hop's tiles then fall evenly down the list, which the snake
+// order needs (head-major, each head's run of falling weights left blocks
+// up to 1.4x the mean, and was slower on the card).
+__device__ __forceinline__ void tile_coords(const Params& p, int tile, int* bh, int* r0) {
+  const int bh_count = p.B * p.H, q_tiles = (p.N + kBlockM - 1) / kBlockM;
+  *bh = tile % bh_count;
+  *r0 = (q_tiles - 1 - tile / bh_count) * kBlockM;
+}
+
+// The j-th tile of block c of nc: rounds of nc tiles, taken forward on even
+// rounds and backward on odd ones, so that on a causal hop, whose tiles get
+// lighter down the list, the blocks' sums come out even.
+__device__ __forceinline__ int snake_tile(int j, int c, int nc) {
+  return j * nc + ((j & 1) ? nc - 1 - c : c);
+}
+
+// The block's place in the walk, in shared memory: written once before the
+// walk, then read where it is used, so that none of it holds a register
+// across the tile body (held in registers, it spilled the tile body's
+// state, 268 bytes of stack, and the kernel ran 1.5x slower than B7).
+struct WalkState {
+  int r, c, nc, senders;  // as in Rank
+  int first, last;        // the rank's first and last hop with work
+};
+
+__device__ __forceinline__ Rank rank_of(const volatile WalkState& ws) {
+  return Rank{ws.r, ws.c, ws.nc, ws.senders};
+}
+
+// One query tile of one hop, bf16: the carry from the spill (the empty
+// state on the rank's first hop with work), the hop's KV tiles of the slot
+// folded in, then the carry back, or out and lse on the rank's last hop
+// with work.
+template <int D, bool kClamp>
+__device__ __forceinline__ void fold_tile_bf16(const Params& p, const volatile WalkState& ws,
+                                               int hop, int tile, __nv_bfloat16* Qs,
+                                               __nv_bfloat16* Ks, __nv_bfloat16* Vs) {
+  int bh, r0;
+  tile_coords(p, tile, &bh, &r0);
+  const int lane = threadIdx.x % 32, t = lane % 4;
+  const int row_a = r0 + (threadIdx.x / 32) * 16 + lane / 4;  // rows row_a, row_a + 8
+
+  __syncthreads();  // every warp is done with the previous tile's Qs
+  load_tile_bf16<D>(Qs, static_cast<const __nv_bfloat16*>(p.q[ws.r]) + (size_t)bh * p.N * D,
+                    r0, p.N);
+  __syncthreads();
+  uint32_t qf[D / 16][4];
+  load_q_frags<D>(Qs, qf);
+  float o[D / 8][4];
+  float m_r[2] = {kMaskValue, kMaskValue};
+  float l_r[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
+  if (hop != ws.first)
+    load_carry<D>(p, ((size_t)ws.r * p.B * p.H + bh) * p.N, row_a, o, m_r, l_r);
+
+  {
+    const int kh = (bh % p.H) / (p.H / p.Hk);
+    const __nv_bfloat16* k = slot_ptr<__nv_bfloat16, D>(p, ws.r, hop & 1) +
+                             ((size_t)(bh / p.H) * p.Hk + kh) * (size_t)p.N * D;
+    walk_hop<D>(Ks, Vs, k, k + part_elems<D>(p), hop_band<kClamp>(p, ws.r, hop), p.N, r0, qf,
+                o, m_r, l_r, row_a);
+  }
+
+  // the hop's end: sum l over the row's 4 threads and keep it on thread 0,
+  // as a resumed launch of the chain is seeded
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 1);
+    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 2);
+    if (t != 0) l_r[h] = 0.f;
+  }
+  if (hop != ws.last) {
+    store_carry<D>(p, ((size_t)ws.r * p.B * p.H + bh) * p.N, row_a, o, m_r, l_r);
+    return;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    // only thread 0 of the row holds its sum: adding the zeros is exact
+    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 1);
+    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 2);
+    const int row = row_a + 8 * h;
+    if (row < p.N)
+      store_out_bf16<D>(static_cast<__nv_bfloat16*>(p.out[ws.r]), p.lse[ws.r],
+                        (size_t)bh * p.N + row, o, h, m_r[h], l_r[h]);
+  }
+}
+
+// One query tile of one hop, f32: as fold_tile_bf16, one row per thread.
+template <int D, bool kClamp>
+__device__ __forceinline__ void fold_tile_f32(const Params& p, const volatile WalkState& ws,
+                                              int hop, int tile, float* Ks, float* Vs) {
+  int bh, r0;
+  tile_coords(p, tile, &bh, &r0);
+  const int row = r0 + threadIdx.x;
+
+  float qv[D], acc[D];
+  load_q_row_f32<D>(static_cast<const float*>(p.q[ws.r]) + (size_t)bh * p.N * D, row, p.N,
+                    qv, acc);
+  float m = kMaskValue, l = 0.f;
+  if (hop != ws.first && row < p.N)
+    load_carry<D>(p, ((size_t)ws.r * p.B * p.H + bh) * p.N + row, acc, m, l);
+
+  {
+    const int kh = (bh % p.H) / (p.H / p.Hk);
+    const float* k = slot_ptr<float, D>(p, ws.r, hop & 1) +
+                     ((size_t)(bh / p.H) * p.Hk + kh) * (size_t)p.N * D;
+    walk_hop<D>(Ks, Vs, k, k + part_elems<D>(p), hop_band<kClamp>(p, ws.r, hop), p.N, r0, qv,
+                acc, m, l, row);
+  }
+
+  if (row >= p.N) return;
+  if (hop == ws.last)
+    store_out_f32<D>(static_cast<float*>(p.out[ws.r]), p.lse[ws.r], (size_t)bh * p.N + row,
+                     acc, m, l);
+  else
+    store_carry<D>(p, ((size_t)ws.r * p.B * p.H + bh) * p.N + row, acc, m, l);
+}
+
+// The block's part of its rank's ring walk: seed, then per hop the push,
+// its tiles, the landing of the next hop and the grant.
+template <typename T, int D, bool kClamp>
+__device__ __forceinline__ void ring_walk(const Params& p) {
+  constexpr bool is_bf16 = sizeof(T) == 2;
+  constexpr int kStride = is_bf16 ? D + 8 : D;  // bf16 staggers shared-memory banks
+  __shared__ __align__(16) T Qs[is_bf16 ? kBlockM * kStride : 1];
+  __shared__ __align__(16) T Ks[kBlockN * kStride];
+  __shared__ __align__(16) T Vs[kBlockN * kStride];
+  __shared__ WalkState state;
+  volatile WalkState& ws = state;
+  if (threadIdx.x == 0) {
+    const Rank rk = rank_of(p);
+    int first, last;
+    work_span(p, rk, &first, &last);
+    ws.r = rk.r;
+    ws.c = rk.c;
+    ws.nc = rk.nc;
+    ws.senders = rk.senders;
+    ws.first = first;
+    ws.last = last;
+  }
+  __syncthreads();
+  const int tiles = p.B * p.H * ((p.N + kBlockM - 1) / kBlockM);
+
+  seed_slot<T, D>(p, rank_of(ws));
+  wait_landed(p, rank_of(ws), 0);
+  for (int hop = 0; hop < p.hops; ++hop) {
+    if (hop < p.hops - 1) {
+      if (hop > 0) wait_grant(p, rank_of(ws), hop);
+      push_slot<T, D>(p, rank_of(ws), hop);
+    }
+    if (p.works[ws.r * p.hops + hop]) {
+      for (int j = 0, tile; (tile = snake_tile(j, ws.c, ws.nc)) < tiles; ++j) {
+        if constexpr (is_bf16)
+          fold_tile_bf16<D, kClamp>(p, ws, hop, tile, Qs, Ks, Vs);
+        else
+          fold_tile_f32<D, kClamp>(p, ws, hop, tile, Ks, Vs);
+      }
+    }
+    if (hop < p.hops - 1) wait_landed(p, rank_of(ws), hop + 1);
+    send_grant(p, rank_of(ws), hop);
+  }
+}
+
+// The bf16 kernel keeps flash_ring.cu's __launch_bounds__(128, 4): four
+// blocks an SM fit only at 128 registers or fewer.  kClamp: the launch has
+// a soft clamp.
+template <int D, bool kClamp>
+__global__ void __launch_bounds__(128, 4)
+    flash_ring_remote_bf16_kernel(const __grid_constant__ Params p) {
+  ring_walk<__nv_bfloat16, D, kClamp>(p);
+}
+
+template <int D, bool kClamp>
+__global__ void __launch_bounds__(kBlockM)
+    flash_ring_remote_f32_kernel(const __grid_constant__ Params p) {
+  ring_walk<float, D, kClamp>(p);
+}
+
+// The kernel of a launch, and its block size.
+const void* kernel_of(int is_bf16, int clamp, int* threads) {
+  *threads = is_bf16 ? 128 : kBlockM;
+  if (is_bf16)
+    return clamp ? (const void*)flash_ring_remote_bf16_kernel<64, true>
+                 : (const void*)flash_ring_remote_bf16_kernel<64, false>;
+  return clamp ? (const void*)flash_ring_remote_f32_kernel<64, true>
+               : (const void*)flash_ring_remote_f32_kernel<64, false>;
+}
+
+}  // namespace
+
+// Blocks of the cooperative launch (bf16 or f32, with or without a soft
+// clamp) that fit on the current device at once (0 when it cannot launch
+// cooperatively); returns a cudaError_t.
+extern "C" int flash_ring_remote_capacity(int is_bf16, int clamp, int* blocks) {
+  int dev = 0, sms = 0, coop = 0, per_sm = 0, threads = 0;
+  const void* kernel = kernel_of(is_bf16, clamp, &threads);
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  if (e != cudaSuccess) return (int)e;
+  *blocks = coop ? per_sm * sms : 0;
+  return 0;
+}
+
+// C entry point, bound with ctypes.  Enqueues one cooperative launch for the
+// whole ring on `stream` and returns its cudaError_t (0 = launched).
+// Allocates nothing: q, k, v, out and lse are arrays of W device pointers
+// (contiguous tensors), slots and the spills are preallocated, his / los /
+// works are (W, hops) int32 on the device, flags is (3, W, hops) uint32
+// zeroed on the stream (landed, grant, done), and cta_split gives each
+// rank's block count.  A grid the device cannot hold at once is refused
+// with cudaErrorCooperativeLaunchTooLarge before anything is launched.
+extern "C" int flash_ring_remote(const void* const* q, const void* const* k,
+                                 const void* const* v, void* const* out, void* const* lse,
+                                 void* slots, void* acc, void* m, void* l, const void* his,
+                                 const void* los, const void* works, void* flags,
+                                 const int* cta_split, int W, int hops, int B, int H, int Hk,
+                                 int N, int D, int is_bf16, float scale, float softclamp,
+                                 void* stream) {
+  if (D != 64 || W < 1 || W > kMaxRanks || hops < 1 || hops > W || B <= 0 || Hk <= 0 ||
+      H % Hk != 0 || N <= 0 || q == nullptr || k == nullptr || v == nullptr ||
+      out == nullptr || lse == nullptr || slots == nullptr || acc == nullptr ||
+      m == nullptr || l == nullptr || his == nullptr || los == nullptr ||
+      works == nullptr || flags == nullptr || cta_split == nullptr)
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  p.cta_start[0] = 0;
+  for (int r = 0; r < W; ++r) {
+    if (cta_split[r] < 1 || q[r] == nullptr || k[r] == nullptr || v[r] == nullptr ||
+        out[r] == nullptr || lse[r] == nullptr)
+      return (int)cudaErrorInvalidValue;
+    p.q[r] = q[r];
+    p.k[r] = k[r];
+    p.v[r] = v[r];
+    p.out[r] = out[r];
+    p.lse[r] = static_cast<float*>(lse[r]);
+    p.cta_start[r + 1] = p.cta_start[r] + cta_split[r];
+  }
+  const int clamp = softclamp > 0.f;
+  int capacity = 0;
+  const int rc = flash_ring_remote_capacity(is_bf16, clamp, &capacity);
+  if (rc != 0) return rc;
+  if (p.cta_start[W] > capacity) return (int)cudaErrorCooperativeLaunchTooLarge;
+  unsigned* f = static_cast<unsigned*>(flags);
+  p.slots = slots;
+  p.acc = static_cast<float*>(acc);
+  p.m = static_cast<float*>(m);
+  p.l = static_cast<float*>(l);
+  p.his = static_cast<const int*>(his);
+  p.los = static_cast<const int*>(los);
+  p.works = static_cast<const int*>(works);
+  p.landed = f;
+  p.grant = f + W * hops;
+  p.done = f + 2 * W * hops;
+  p.W = W;
+  p.B = B;
+  p.H = H;
+  p.Hk = Hk;
+  p.N = N;
+  p.part = (size_t)B * Hk * N * D;
+  p.hops = hops;
+  p.scale = scale;
+  p.softclamp = softclamp;
+  void* args[] = {&p};
+  int threads = 0;
+  const void* kernel = kernel_of(is_bf16, clamp, &threads);
+  const cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(p.cta_start[W]), dim3(threads),
+                                                    args, 0, static_cast<cudaStream_t>(stream));
+  const cudaError_t last = cudaGetLastError();
+  return (int)(e != cudaSuccess ? e : last);
+}

@@ -12,10 +12,14 @@ the counterpart of the JAX ``RingAttention._kernel_impl``:
 - ``"torch"`` (JAX ``"xla"``): the blockwise PyTorch path (``ops/flash.py``,
   with its custom gradient) for the forward and backward, and the dense
   oracle for decode;
-- ``"fused"`` (JAX ``"fused"``): the ring's forward in one fused ring
-  kernel launch per rank (``ops/cuda_ring.py``); every local, prefill and
-  decode path, and the ring's backward, run as under ``"cuda"``
-  (``_kernel_impl``, as the JAX layer's ``_use_pallas`` treats ``"fused"``).
+- ``"fused"`` (JAX ``"fused"``): the ring's forward on a fused ring
+  kernel, whose tier ``parallel/ring.py`` picks as JAX does: without a key
+  mask on a virtual ring, one launch for the whole ring in which the ranks
+  pass KV to each other (``ops/cuda_ring_remote.py``); with one (a padded
+  request), one launch per rank over the gathered KV
+  (``ops/cuda_ring.py``); every local, prefill and decode path, and the
+  ring's backward, run as under ``"cuda"`` (``_kernel_impl``, as the JAX
+  layer's ``_use_pallas`` treats ``"fused"``).
 
 Two int8 serving knobs, as in the JAX layer: ``quantize_cache`` keeps the
 decode cache as int8 values with one f32 scale per ``(head, token)`` row

@@ -10,8 +10,9 @@ int8 serving knobs ``quantize_cache`` and ``compute_dtype="int8"`` of
 ``models/attention.py``.  On a
 ``mesh`` the model shards once at its top (pad, stripe when ``striped``)
 and every layer runs the ring on that layout, hop by hop under
-``impl="cuda"`` or in one fused ring launch per rank under ``"fused"``;
-the parameters are the same as without a mesh.  Decoding on a mesh is not
+``impl="cuda"`` or fused under ``"fused"`` (one launch for the whole
+ring, or one per rank when padding added a key mask); the parameters are
+the same as without a mesh.  Decoding on a mesh is not
 ported yet.
 """
 

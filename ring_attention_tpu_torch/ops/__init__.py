@@ -1,7 +1,8 @@
 """Attention ops: the dense oracle, rotary, the blockwise PyTorch flash path,
 the partial-state ops, the int8 codec and the host side of the CUDA flash
 kernels (forward in its fused, partials and resume modes; dk/dv; dq; the
-int8 forward and the int8 decode) and of the fused ring kernel."""
+int8 forward and the int8 decode) and of the fused ring kernels (local
+and remote tier)."""
 
 from .attention import (
     EPSILON,
@@ -35,6 +36,7 @@ from .cuda_flash_q8 import (
     quantize_kv_cache,
 )
 from .cuda_ring import fused_ring_local, fused_ring_local_plain
+from .cuda_ring_remote import fused_ring_remote, fused_ring_remote_plain
 from .flash import (
     FlashCarry,
     attend_blocks,
@@ -90,6 +92,8 @@ __all__ = [
     "flash_partials_reference",
     "fused_ring_local",
     "fused_ring_local_plain",
+    "fused_ring_remote",
+    "fused_ring_remote_plain",
     "init_carry",
     "init_partials",
     "merge_partials",

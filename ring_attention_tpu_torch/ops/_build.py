@@ -25,6 +25,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the CUDA toolkit's, off PATH
 
 
 @dataclass(frozen=True)
@@ -38,9 +39,8 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.is_file():
-        return str(default)
+    if DEFAULT_NVCC.is_file():
+        return str(DEFAULT_NVCC)
     raise RuntimeError(
         "nvcc not found: the CUDA kernels build with the CUDA toolkit's nvcc "
         "(on PATH or under /usr/local/cuda/bin)"
@@ -163,4 +163,25 @@ def flash_ring_library() -> ctypes.CDLL:
         i32, f32, f32, ptr,  # is_bf16, scale, softclamp, stream
     ]
     lib.flash_ring.restype = i32
+    return lib
+
+
+@functools.cache
+def flash_ring_remote_library() -> ctypes.CDLL:
+    """The built ``flash_ring_remote`` library with its C signatures
+    declared."""
+    lib = ctypes.CDLL(str(build("flash_ring_remote").path))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ptrs = ctypes.POINTER(ctypes.c_void_p)
+    lib.flash_ring_remote.argtypes = [
+        ptrs, ptrs, ptrs, ptrs, ptrs,  # per-rank q, k, v, out, lse
+        ptr, ptr, ptr, ptr,  # slots, spill acc, m, l
+        ptr, ptr, ptr, ptr,  # his, los, works (W, hops) int32; flags
+        ctypes.POINTER(i32), i32, i32,  # cta_split, W, hops
+        i32, i32, i32, i32, i32,  # B, H, Hk, N, D
+        i32, f32, f32, ptr,  # is_bf16, scale, softclamp, stream
+    ]
+    lib.flash_ring_remote.restype = i32
+    lib.flash_ring_remote_capacity.argtypes = [i32, i32, ctypes.POINTER(i32)]  # bf16, clamp
+    lib.flash_ring_remote_capacity.restype = i32
     return lib

@@ -129,17 +129,25 @@ def fused_ring_local_plain(
     carry = None
     for i, (o, hi, lo) in enumerate(schedule):
         rows = slice(o * n_local, (o + 1) * n_local)
-        kw = dict(scale=scale, causal_offset=hi, window_lo=lo,
-                  softclamp_value=softclamp_value, carry=carry)
-        span = (q, k_all[:, :, rows], v_all[:, :, rows],
-                None if kv_mask is None else kv_mask[:, rows])
-        if i == len(schedule) - 1:
-            return flash_fwd_reference(*span, **kw)
-        carry = flash_partials_reference(*span, **kw)
-    # no hop with work: the empty state, normalized, as the kernel writes it
-    # (never on a ring's schedule, whose own hop always has work)
-    out, lse = finalize_partials(init_partials(*q.shape, device=q.device))
-    return out.to(q.dtype), lse
+        carry = fold_hop(q, k_all[:, :, rows], v_all[:, :, rows],
+                         None if kv_mask is None else kv_mask[:, rows], hi, lo, carry,
+                         i == len(schedule) - 1, scale, softclamp_value)
+    if carry is None:  # no hop with work: the empty state, normalized, as the
+        # kernel writes it (never on a ring's schedule, whose own hop has work)
+        out, lse = finalize_partials(init_partials(*q.shape, device=q.device))
+        return out.to(q.dtype), lse
+    return carry
+
+
+def fold_hop(q, k, v, kv_mask, hi, lo, carry, last, scale, softclamp_value):
+    """One hop of the plain hop chain: ``(k, v)`` folded into ``carry``
+    (None on the first hop with work) under the band ``lo <= j - i <= hi``;
+    the new f32 partials, or on the ``last`` hop ``(out, lse)``."""
+    kw = dict(scale=scale, causal_offset=hi, window_lo=lo,
+              softclamp_value=softclamp_value, carry=carry)
+    if last:
+        return flash_fwd_reference(q, k, v, kv_mask, **kw)
+    return flash_partials_reference(q, k, v, kv_mask, **kw)
 
 
 def _launch(q, k_all, v_all, kv_mask, tables, scale, softclamp_value):

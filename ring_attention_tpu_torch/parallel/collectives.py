@@ -14,8 +14,12 @@ behind a small :class:`Ring` interface with two implementations:
 
 Beside the rotation the seam has one collective, ``all_gather``: each held
 rank's view of the rank-major concatenation of every rank's payload (the
-JAX ``lax.all_gather(..., tiled=True)`` of the fused ring,
-``ring_attention_tpu/parallel/ring.py::_gather_seq``).
+JAX ``lax.all_gather(..., tiled=True)`` of the fused ring's local tier,
+``ring_attention_tpu/parallel/ring.py::_gather_seq``), and one property,
+``colocated``: whether one kernel launch can address every rank, so that
+the fused ring's remote tier can pass KV between the ranks inside it (the
+port's counterpart of ``pallas_ring.neighbor_mesh_coords`` not returning
+None).
 
 A ring function handles a *list of payloads*, one per rank this process
 holds (``ring.ranks``, in order); each payload is a tuple of tensors that
@@ -43,6 +47,9 @@ class Ring(abc.ABC):
 
     world: int
     ranks: tuple[int, ...]
+    # Every rank lives in this process, on one device: one launch can hold
+    # them all.  Static, from the ring's kind, never probed.
+    colocated: bool = False
 
     @abc.abstractmethod
     def rotate(self, payloads: list[Payload], shift: int) -> list[Payload]:
@@ -59,6 +66,8 @@ class Ring(abc.ABC):
 
 class VirtualRing(Ring):
     """All ``world`` ranks in this process; a rotation moves no data."""
+
+    colocated = True
 
     def __init__(self, world: int):
         if world < 1:

@@ -31,13 +31,22 @@ Three compute paths:
   ``compute_dtype="int8"`` the same launches run the int8 sweep
   (``ops/cuda_flash_q8.py``), each hop quantized per block of the bucket,
   as ``_ring_fwd_pallas`` does with its ``_q8_block``;
-- ``impl="fused"`` follows the local tier of ``_ring_fwd_fused``
-  (:661-762): one all-gather of k, v and the key mask through the ring
-  (``Ring.all_gather``), then ONE launch of the fused ring kernel
-  (``ops/cuda_ring.py``, TPU kernel B7) per held rank, walking that rank's
-  hop tables (``_fused_tables``) with the online-softmax state on chip.
-  Its backward is the ``impl="cuda"`` ring's, as the JAX
-  ``_ring_vjp_bwd`` maps ``"fused"`` to ``"pallas"``.
+- ``impl="fused"`` follows ``_ring_fwd_fused`` (:661-762), which has two
+  tiers, chosen statically from the configuration as JAX chooses them:
+  - the remote tier (TPU kernel B8, ``ops/cuda_ring_remote.py``) when no
+    key mask is given, the ring has more than one rank and its ranks can
+    be addressed inside one launch (``Ring.colocated``: a
+    ``VirtualRing``): ONE launch for the whole ring, in which every rank
+    keeps only its own KV and passes it to its right neighbour hop by hop
+    under the grant protocol;
+  - otherwise the local tier (a masked ring, a ``DistributedRing``): one
+    all-gather of k, v and the key mask through the ring
+    (``Ring.all_gather``), then ONE launch of the fused ring kernel
+    (``ops/cuda_ring.py``, TPU kernel B7) per held rank over the gathered
+    span.
+  Both walk each rank's hop tables (``_fused_tables``) with the
+  online-softmax state on chip.  Its backward is the ``impl="cuda"``
+  ring's, as the JAX ``_ring_vjp_bwd`` maps ``"fused"`` to ``"pallas"``.
 
 The gradient is one ``torch.autograd.Function`` over the whole ring (the
 counterpart of the JAX ``custom_vjp``): its backward rotates ``(k, v, dk,
@@ -60,6 +69,7 @@ from ..ops.cuda_flash import (
     int8_compute,
 )
 from ..ops.cuda_ring import fused_ring_local
+from ..ops.cuda_ring_remote import fused_ring_remote
 from ..ops.flash import (
     _group_q,
     _ungroup,
@@ -274,9 +284,14 @@ def _gather(ring: Ring, payloads: list, dim: int) -> list:
 
 
 def _ring_fwd_fused(qs, ks, vs, masks, ring, cfg):
-    """Forward of every held rank on the fused ring kernel: one all-gather
+    """Forward of every held rank on a fused ring kernel; ``(out, lse)`` in
+    the flat layout of ``impl="cuda"``.  The remote tier when there is no
+    key mask and one launch can hold the whole ring (as JAX takes it where
+    ``neighbor_mesh_coords`` resolves), else the local tier: one all-gather
     of k, v and the key mask, then one launch per held rank over the
-    gathered span; ``(out, lse)`` in the flat layout of ``impl="cuda"``."""
+    gathered span."""
+    if masks is None and ring.world > 1 and ring.colocated:
+        return _ring_fwd_remote(qs, ks, vs, ring, cfg)
     n_local = qs[0].shape[2]
     geo = _geometry(cfg, n_local, ring.world)
     kvs = _gather(ring, list(zip(ks, vs)), dim=2)
@@ -294,6 +309,18 @@ def _ring_fwd_fused(qs, ks, vs, masks, ring, cfg):
         outs.append(out)
         lses.append(lse)
     return outs, lses
+
+
+def _ring_fwd_remote(qs, ks, vs, ring, cfg):
+    """Forward of the whole ring in one launch of the remote-tier kernel:
+    each rank's own KV circulates inside it; the hop tables stay on the
+    host, where the launch sizes each rank's share of the card."""
+    n_local = qs[0].shape[2]
+    geo = _geometry(cfg, n_local, ring.world)
+    tables = [_fused_tables(rank, cfg["passes"], **geo) for rank in ring.ranks]
+    return fused_ring_remote(qs, ks, vs, tables=tables, n_local=n_local,
+                             scale=cfg["scale"],
+                             softclamp_value=cfg["softclamp_value"])
 
 
 def _ring_fwd_torch(qs, ks, vs, masks, ring, cfg):
@@ -448,10 +475,12 @@ def ring_flash_attention(
       window: exact sliding-window lookback in tokens (causal only).
       impl: ``"torch"`` (the blockwise PyTorch flash, JAX ``"xla"``),
         ``"cuda"`` (the CUDA kernels hop by hop, JAX ``"pallas"``) or
-        ``"fused"`` (one fused ring kernel launch per rank over the
-        all-gathered KV, JAX ``"fused"``'s local tier; the backward is
-        ``"cuda"``'s).  On CPU tensors the kernel wrappers run their plain
-        versions.
+        ``"fused"`` (JAX ``"fused"``: without a key mask on a
+        ``VirtualRing``, one launch of the remote-tier kernel for the whole
+        ring, the KV passed between the ranks inside it; otherwise one
+        fused ring launch per rank over the all-gathered KV, the local
+        tier; the backward is ``"cuda"``'s).  On CPU tensors the kernel
+        wrappers run their plain versions.
 
       compute_dtype: ``"int8"`` runs each hop's forward on int8 operands
         (``impl="cuda"`` only, as the JAX ring needs the Pallas kernels), q

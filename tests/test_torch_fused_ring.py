@@ -266,12 +266,12 @@ def test_fused_ring_equals_cuda_ring(case):
         np.testing.assert_array_equal(g, r, err_msg=f"d{name}")
 
 
-def test_fused_ring_launches_once_per_rank(monkeypatch):
-    """One fused launch per rank, nothing of the hop-by-hop forward; the
-    backward runs the kernels' per-hop backward (counted at the wrappers,
-    which run their plain versions here)."""
+def _spy_ring_calls(monkeypatch) -> list:
+    """Record the kernel wrappers the ring calls (they run their plain
+    versions here)."""
     calls = []
-    for name in ("fused_ring_local", "flash_partials", "flash_fwd", "flash_bwd"):
+    for name in ("fused_ring_remote", "fused_ring_local", "flash_partials",
+                 "flash_fwd", "flash_bwd"):
         real = getattr(pring, name)
 
         def spy(*a, _name=name, _real=real, **kw):
@@ -279,11 +279,35 @@ def test_fused_ring_launches_once_per_rank(monkeypatch):
             return _real(*a, **kw)
 
         monkeypatch.setattr(pring, name, spy)
+    return calls
+
+
+def test_fused_ring_launches_once_per_rank(monkeypatch):
+    """Unmasked on a VirtualRing: one remote-tier launch for the whole ring
+    (every rank's forward), nothing of the local tier or the hop-by-hop
+    forward; the backward runs the kernels' per-hop backward."""
+    calls = _spy_ring_calls(monkeypatch)
     rng = np.random.default_rng(4)
     x = [torch.from_numpy(_np((1, 2, 32, 16), rng)).requires_grad_() for _ in range(3)]
     for striped, backward in ((False, 10), (True, 16)):
         calls.clear()
         out = ring_flash_attention(*x, None, VirtualRing(4), causal=True,
+                                   striped=striped, impl="fused")
+        assert calls == ["fused_ring_remote"]
+        out.sum().backward()
+        assert calls[1:] == ["flash_bwd"] * backward
+
+
+def test_fused_ring_masked_launches_local_once_per_rank(monkeypatch):
+    """With a key mask the ring takes the local tier: one launch per rank
+    over the gathered span, as in the JAX package."""
+    calls = _spy_ring_calls(monkeypatch)
+    rng = np.random.default_rng(4)
+    x = [torch.from_numpy(_np((1, 2, 32, 16), rng)).requires_grad_() for _ in range(3)]
+    mask = torch.from_numpy(rng.random((1, 32)) > 0.3)
+    for striped, backward in ((False, 10), (True, 16)):
+        calls.clear()
+        out = ring_flash_attention(*x, mask, VirtualRing(4), causal=True,
                                    striped=striped, impl="fused")
         assert calls == ["fused_ring_local"] * 4
         out.sum().backward()
