@@ -62,7 +62,18 @@ result line):
        once must raise.  Phase 1 also reads B7's and B8's ptxas reports
        and SASS: their local-memory traffic (in all and in the innermost
        HMMA loop), and B8 may take no load through the non-coherent
-       read-only path (LDG...CONSTANT).
+       read-only path (LDG...CONSTANT); and every flash kernel's stack and
+       spills per instantiation (the segmented ones are ``<64,1>``).
+   2g. packed sequences: the segmented instantiations of the forward
+       kernel (fused, seed, resume into new tensors and in place, fused
+       from a carry) and of both backward kernels against their plain
+       versions, bf16 and f32, on the forward cases that take
+       self-attention ids (causal, window, softclamp, a key mask with an
+       all-False row, GQA), packed as documents of 100-1,500 tokens whose
+       boundaries fall inside tiles and ending in a PAD_SEGMENT_ID tail;
+       the resumed hops' keys hold the same documents with their
+       boundaries moved; then phase 3f's 65,536-token launch, forward and
+       backward, in 1,024-row and 1,024-key slices.
 3. The serving path through the entry points a user calls: RingTransformer
    at the full width of the repository's benchmark model (vocab 256,
    dim 512, 8 heads of 64, depth 2, ff_mult 4, rotary, causal, bf16) with
@@ -100,7 +111,20 @@ result line):
    the model at 65,535 tokens, which the model pads and masks (a causal
    layer drops the mask), takes the local tier: B7 once per rank and layer
    (8), its logits held to the local non-causal model's.
-   In phases 3 to 3e every launch counter is set to 0 just before each
+3f. The packed path: the same model on 1 x 65,536 tokens packed as
+   documents of log-uniform 512-16,384 tokens (numpy default_rng(0), the
+   last cut at the row's end, ids 0, 1, 2, ...): the forward and one
+   ``make_train_step`` step locally and on the ring of 4 (contiguous and
+   striped, ``impl="cuda"``), the ring's logits held to the local packed
+   model's; every launch segmented, the hops the ids skip (worked out here
+   from the ids) missing from the counts exactly.  The f32 model's packed
+   logits of each document held to the document run alone at the rotary
+   positions it holds in the row (MODEL_ATOL; the distance from the
+   document run from position 0 printed beside it), and the packed f32
+   model at seq 256 on the card held to the CPU, logits and gradients,
+   locally and on both ring layouts.  Then the packed forward and step
+   beside the unpacked ones of the same models, in turns.
+   In phases 3 to 3f every launch counter is set to 0 just before each
    run and read just after; a kernel that never launched fails the run.
 4. Timings with CUDA events (median of 10 runs after warm-up): each kernel
    beside its bound (the larger of its bytes over 3.35 TB/s and its
@@ -143,8 +167,15 @@ result line):
    proportional and default block splits beside each one's modelled
    time); the fused ring models' forward (in turns with the scan-path
    ring models') and train step.
+4f. The segmented kernels on packed causal (1, 8, n, 64) bf16 at 4,096
+   (with the plain versions), 16,384 and 65,536 beside their bound (only
+   the same-document in-band pairs count) and SDPA with the packing's
+   dense boolean block-diagonal causal ``attn_mask`` (its backward for
+   B2/B3; null where it does not fit on the card).
 5. The kernels line, one JSON object with seven kernels; the forward
-   kernels' entries list their ring modes.
+   kernels' entries list their ring modes; the per-shape rows of
+   flash_fwd, flash_bwd_dkv and flash_bwd_dq end with phase 4f's, each
+   with the segmented launches of phase 3f.
 6. The last line: ``{"ok": true, "device": {...}}``.
 
 It exits non-zero when ``torch.cuda.is_available()`` is false and when the
@@ -296,9 +327,11 @@ def nbytes(*tensors) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _kernel_name(mangled: str) -> str:
+def _kernel_name(mangled: str, with_args: bool = False) -> str:
     """The ``..._kernel`` identifier inside an Itanium-mangled name, found by
-    its length prefix (which may follow other digits)."""
+    its length prefix (which may follow other digits); with ``with_args``,
+    followed by its integer and bool template arguments (``<64,1>``: the
+    segmented instantiation of a flash kernel)."""
     import re
 
     for run in re.finditer(r"\d+", mangled):
@@ -306,6 +339,10 @@ def _kernel_name(mangled: str) -> str:
         for i in range(len(digits)):
             name = mangled[run.end():run.end() + int(digits[i:])]
             if name.endswith("_kernel") and name.isidentifier():
+                rest = mangled[run.end() + len(name):]
+                args = re.match(r"I((?:L[a-z]\d+E)+)E", rest)
+                if with_args and args:
+                    name += "<" + ",".join(re.findall(r"L[a-z](\d+)E", args.group(1))) + ">"
                 return name
     return mangled
 
@@ -319,7 +356,7 @@ def _ptxas_usage(log_text: str) -> list[str]:
     for line in log_text.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            kernel = _kernel_name(entry.group(1))
+            kernel = _kernel_name(entry.group(1), with_args=True)
         elif "registers" in line:
             usage.append(f"{kernel}: " + line.split(":", 1)[1].strip())
     return usage
@@ -343,16 +380,20 @@ def phase_build(port_dir: Path) -> None:
               f"{name} built outside the checkout: {res.path}")
         log(f"build {name}: {res.seconds:.1f} s nvcc; " + " | ".join(_ptxas_usage(res.log)))
     log(f"phase 1 build: {time.perf_counter() - start:.1f} s wall")
+    # the stack and spills of every instantiation of the kernels that share
+    # csrc/flash_tile.cuh or take document ids (the segmented ones are
+    # <64,1>; the unsegmented ones must keep their registers and spills)
+    for name in ("flash_fwd", "flash_bwd", "flash_ring", "flash_ring_remote"):
+        function = "?"
+        for line in results[name].log.splitlines():
+            if "Function properties for" in line:
+                function = _kernel_name(line.split()[-1], with_args=True)
+            elif "stack frame" in line and "_kernel" in function:
+                log(f"  ptxas {function}: {line.strip()}")
     # slot memory is rewritten by other SMs during the remote tier's launch:
     # none of its loads may take the non-coherent read-only path; beside it,
     # the local memory the ring kernels touch, in all and in their hot loop
     for name in ("flash_ring", "flash_ring_remote"):
-        function = "?"
-        for line in results[name].log.splitlines():
-            if "Function properties for" in line:
-                function = _kernel_name(line.split()[-1])
-            elif "stack frame" in line and function.endswith("_kernel"):
-                log(f"  ptxas {function}: {line.strip()}")
         for kernel, row in _sass_report(results[name].path).items():
             log(f"  SASS {kernel}: {row['loads']} global loads, {row['constant']} through "
                 f"the read-only path (LDG...CONSTANT); local loads/stores {row['ldl']}/"
@@ -887,7 +928,7 @@ def _chain_ring(qs, ks, vs, ring_kw, clamp=None):
                passes=min(ring_kw.get("max_ring_passes") or ring_size, ring_size),
                window=ring_kw.get("window"), softclamp_value=clamp, scale=0.125,
                compute_dtype=None)
-    return pring._ring_fwd_cuda(qs, ks, vs, None, VirtualRing(ring_size), cfg)
+    return pring._ring_fwd_cuda(qs, ks, vs, None, None, None, VirtualRing(ring_size), cfg)
 
 
 def _hold_identical(name, dtype, got, ref, what) -> None:
@@ -1433,6 +1474,9 @@ COUNTERS = {"flash_fwd": ("cuda_flash", "launch_count"),
             "fused_carry": ("cuda_flash", "fused_carry_launch_count"),
             "flash_bwd_dkv": ("cuda_flash", "dkv_launch_count"),
             "flash_bwd_dq": ("cuda_flash", "dq_launch_count"),
+            "seg_flash_fwd": ("cuda_flash", "seg_launch_count"),
+            "seg_flash_bwd_dkv": ("cuda_flash", "seg_dkv_launch_count"),
+            "seg_flash_bwd_dq": ("cuda_flash", "seg_dq_launch_count"),
             "flash_fwd_q8": ("cuda_flash_q8", "fwd_launch_count"),
             "q8_seed": ("cuda_flash_q8", "seed_launch_count"),
             "q8_resume": ("cuda_flash_q8", "resume_launch_count"),
@@ -2480,6 +2524,513 @@ def phase_q8_timings(q8_path: dict, serving: dict, training: dict) -> dict:
     return {"fwd": fwd_rows, "modes": mode_rows, "decode": decode_rows}
 
 
+# ---------------------------------------------------------------------------
+# Packed sequences: document ids through B1 (every mode), B2 and B3
+# ---------------------------------------------------------------------------
+
+# Phases 2g, 3f and 4f pack documents whose lengths are drawn log-uniform on
+# PACK_LEN_RANGE tokens from numpy.random.default_rng(PACK_SEED), the last
+# one cut at the row's end; their ids run 0, 1, 2, ... in order.
+PACK_LEN_RANGE = (512, 16384)
+PACK_SEED = 0
+# Phase 2g and 4f's 4,096-token row: shorter documents, so that a 4,096
+# (or 2,048) token row holds several, their boundaries inside tiles.
+SHORT_LEN_RANGE = (100, 1500)
+# Phase 2g: the forward cases that take self-attention ids (nq == nk, so a
+# causal row always meets its own key), each packing ending in a tail of
+# PAD_SEGMENT_ID tokens.
+SEG_CASES = ("causal (1,8,4096,64)", "window 1024", "softclamp 50",
+             "kv_mask, one all-False row", "GQA h32 hk4 (1,32,2048,64)")
+PACK_PAD_TAIL = 100
+# Phase 3f: the f32 model at seq 256 on the card and the CPU, packed as
+# documents of these lengths (sum 257: the train step's ids).
+SMALL_PACKING = (37, 90, 51, 79)
+
+
+def packed_ids(n: int, pad_tail: int = 0, len_range=PACK_LEN_RANGE):
+    """``(1, n)`` int32 document ids on the card: documents of lengths drawn
+    log-uniform on ``len_range``, the last ``pad_tail`` tokens
+    PAD_SEGMENT_ID (-1)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(PACK_SEED)
+    lo, hi = np.log(len_range)
+    ids = np.empty(n, np.int32)
+    start = doc = 0
+    while start < n:
+        length = int(round(float(np.exp(rng.uniform(lo, hi)))))
+        ids[start:start + length] = doc
+        start, doc = start + length, doc + 1
+    if pad_tail:
+        ids[n - pad_tail:] = -1
+    return torch.from_numpy(ids)[None].cuda()
+
+
+def doc_lengths(ids) -> list[int]:
+    """Lengths of the runs of equal ids of a ``(1, n)`` packing, in order."""
+    import torch
+
+    return torch.unique_consecutive(ids[0], return_counts=True)[1].tolist()
+
+
+def same_doc_pairs(ids) -> int:
+    """Causal (query, key) pairs of one document each: what a packed causal
+    sweep must compute (sum of L (L + 1) / 2 over its documents)."""
+    return sum(n * (n + 1) // 2 for n in doc_lengths(ids))
+
+
+def _rolled(ids, shift: int):
+    """The same documents with their boundaries moved (a ring hop's keys)."""
+    import torch
+
+    return torch.roll(ids, shift, dims=1).contiguous()
+
+
+def phase_segmented_vs_plain() -> dict[str, float]:
+    """B1 (fused, seed, resume in place and into new tensors, fused from a
+    carry), B2 and B3 with document ids against their plain versions on
+    the card; returns the largest |kernel - plain| of each."""
+    import torch
+
+    from ring_attention_tpu_torch.ops import cuda_flash as cf
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    errors: dict[str, list[float]] = {m: [] for m in ("fused", "seed", "resume",
+                                                      "fused_carry")}
+    bwd_errors: dict[str, list[float]] = {}
+    log(f"phase 2g: segmented flash_fwd (every mode), flash_bwd_dkv and flash_bwd_dq vs "
+        f"their plain versions; documents log-uniform on {SHORT_LEN_RANGE} tokens, "
+        f"a {PACK_PAD_TAIL}-token PAD_SEGMENT_ID tail; then the 65,536-token launch "
+        f"of phase 3f's packing in slices")
+    for dtype in (torch.bfloat16, torch.float32):
+        for name in SEG_CASES:
+            q, k, v, mask, kw = _case_inputs(gen, KERNEL_CASES[name], dtype)
+            b, n = q.shape[0], q.shape[2]
+            ids = packed_ids(n, PACK_PAD_TAIL, SHORT_LEN_RANGE).expand(b, n).contiguous()
+            if dtype == torch.bfloat16:
+                log(f"  {name}: documents {doc_lengths(ids[:1])}")
+            seg = dict(q_seg=ids, kv_seg=ids)
+            out, lse = cf.flash_fwd(q, k, v, mask, **kw, **seg)
+            torch.cuda.synchronize()
+            ref_out, ref_lse = cf.flash_fwd_reference(q, k, v, mask, **kw, **seg)
+            _compare(f"{name} packed", dtype, out, ref_out, lse, ref_lse, errors["fused"])
+
+            do = _rand(gen, q.shape, dtype)
+            delta = (do.float() * out.float()).sum(-1)
+            dk, dv = cf.flash_bwd_dkv(do, q, k, v, lse, delta, mask, **kw, **seg)
+            dq = cf.flash_bwd_dq(do, q, k, v, lse, delta, mask, **kw, **seg)
+            torch.cuda.synchronize()
+            ref = cf.flash_bwd_reference(do, q, k, v, lse, delta, mask, **kw, **seg)
+            _compare_bwd(f"{name} packed", dtype, (dq, dk, dv), ref, bwd_errors)
+            del ref
+
+            # a hop chain: the seed on this span (the diagonal), then two
+            # spans whose keys hold the same documents with their boundaries
+            # moved, unbanded, resumed and fused from the carry
+            spans = [(_rand(gen, k.shape, dtype), _rand(gen, k.shape, dtype),
+                      _rolled(ids, shift)) for shift in (n // 3, -n // 5)]
+            hop = dict(scale=kw["scale"], softclamp_value=kw["softclamp_value"])
+            seed = cf.flash_partials(q, k, v, mask, **kw, **seg)
+            torch.cuda.synchronize()
+            ref_seed = cf.flash_partials_reference(q, k, v, mask, **kw, **seg)
+            _compare_partials(f"{name} packed seed", dtype, seed, ref_seed, errors["seed"])
+            (k2, v2, ids2), (k3, v3, ids3) = spans
+            hop2 = dict(hop, q_seg=ids, kv_seg=ids2)
+            resumed = cf.flash_partials(q, k2, v2, carry=seed, **hop2)
+            carry = _clone(seed)
+            cf.flash_partials(q, k2, v2, carry=carry, out=carry, **hop2)
+            torch.cuda.synchronize()
+            ref_resumed = cf.flash_partials_reference(q, k2, v2, carry=ref_seed, **hop2)
+            for label, got in (("resume new tensors", resumed), ("resume in place", carry)):
+                _compare_partials(f"{name} packed {label}", dtype, got, ref_resumed,
+                                  errors["resume"])
+            hop3 = dict(hop, q_seg=ids, kv_seg=ids3)
+            out, lse = cf.flash_fwd(q, k3, v3, carry=resumed, **hop3)
+            torch.cuda.synchronize()
+            ref_out, ref_lse = cf.flash_fwd_reference(q, k3, v3, carry=ref_resumed, **hop3)
+            _compare(f"{name} packed fused-carry", dtype, out, ref_out, lse, ref_lse,
+                     errors["fused_carry"], rel_tol=RING_REL_TOL[str(dtype)])
+            torch.cuda.synchronize()
+
+    # the packed model's own launch: one 65,536-token causal sweep and its
+    # backward, held in 1,024-row and 1,024-key slices as phases 2 and 2b
+    n, w = 65536, 1024
+    ids = packed_ids(n)
+    q, k, v, do = (_rand(gen, (1, 8, n, 64), torch.bfloat16) for _ in range(4))
+    kw = dict(scale=0.125, causal_offset=0, q_seg=ids, kv_seg=ids)
+    out, lse = cf.flash_fwd(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1)
+    dk, dv = cf.flash_bwd_dkv(do, q, k, v, lse, delta, **kw)
+    dq = cf.flash_bwd_dq(do, q, k, v, lse, delta, **kw)
+    torch.cuda.synchronize()
+    for r0 in (0, n // 2, n - w):
+        rows = slice(r0, r0 + w)
+        sliced = dict(scale=0.125, causal_offset=r0, q_seg=ids[:, rows].contiguous(),
+                      kv_seg=ids)
+        ref_out, ref_lse = cf.flash_fwd_reference(q[:, :, rows].contiguous(), k, v,
+                                                  **sliced)
+        _compare(f"packed causal 65536 rows {r0}+", torch.bfloat16, out[:, :, rows],
+                 ref_out, lse[:, :, rows], ref_lse, errors["fused"])
+        ref = cf.flash_bwd_reference(
+            do[:, :, rows].contiguous(), q[:, :, rows].contiguous(), k, v,
+            lse[:, :, rows].contiguous(), delta[:, :, rows].contiguous(), **sliced)
+        _compare_bwd(f"packed causal 65536 dq rows {r0}+", torch.bfloat16,
+                     (dq[:, :, rows], None, None), ref, bwd_errors)
+        keys = slice(r0, r0 + w)
+        ref = cf.flash_bwd_reference(
+            do, q, k[:, :, keys].contiguous(), v[:, :, keys].contiguous(), lse, delta,
+            scale=0.125, causal_offset=-r0, q_seg=ids, kv_seg=ids[:, keys].contiguous())
+        _compare_bwd(f"packed causal 65536 dk/dv keys {r0}+", torch.bfloat16,
+                     (None, dk[:, :, keys], dv[:, :, keys]), ref, bwd_errors)
+        del ref
+    torch.cuda.synchronize()
+    result = {mode: max(errs) for mode, errs in errors.items()}
+    result.update({label: max(errs) for label, errs in bwd_errors.items()})
+    return result
+
+
+def _expected_doc_skips(ids, striped: bool) -> int:
+    """(rank, hop) pairs of a causal ring of RING_SIZE, per layer, whose band
+    has work and whose two id ranges share no document: worked out here
+    from the ids alone.  Contiguous, rank r has work on hops 0..r; striped
+    (rank r holds tokens r, r + W, ...), on every hop."""
+    x = ids[0].cpu().numpy()
+    if striped:
+        x = x.reshape(-1, RING_SIZE).T.reshape(-1)
+    shards = x.reshape(RING_SIZE, -1)
+    lo, hi = shards.min(1), shards.max(1)
+    skips = 0
+    for rank in range(RING_SIZE):
+        for i in range(RING_SIZE):
+            origin = (rank - i) % RING_SIZE
+            if (striped or i <= rank) and not (lo[rank] <= hi[origin] and lo[origin] <= hi[rank]):
+                skips += 1
+    return skips
+
+
+def _packed_ring_counts(counts, skips, striped, backward) -> bool:
+    """Whether a packed ring run launched what the hop schedule and the
+    skipped hops say: every seed, one resume or fused-carry launch fewer
+    per skipped hop, one backward hop fewer per skipped hop, and every
+    launch the segmented kernels'."""
+    depth = BENCH_MODEL["depth"]
+    seed, resume, fused, dkv, dq = RING_SCHEDULE[striped]
+    ok = (counts["seed"] == seed * depth
+          and counts["resume"] + counts["fused_carry"] == (resume + fused - skips) * depth
+          and counts["flash_fwd"] == counts["seed"] + counts["resume"] + counts["fused_carry"]
+          and counts["seg_flash_fwd"] == counts["flash_fwd"]
+          and counts["flash_bwd_dkv"] == ((dkv - skips) * depth if backward else 0)
+          and counts["flash_bwd_dq"] == ((dq - skips) * depth if backward else 0)
+          and counts["seg_flash_bwd_dkv"] == counts["flash_bwd_dkv"]
+          and counts["seg_flash_bwd_dq"] == counts["flash_bwd_dq"])
+    others = {name: n for name, n in counts.items() if name not in (
+        "flash_fwd", "seed", "resume", "fused_carry", "flash_bwd_dkv", "flash_bwd_dq",
+        "seg_flash_fwd", "seg_flash_bwd_dkv", "seg_flash_bwd_dq")}
+    return ok and not any(others.values())
+
+
+def _alone_logits(model, tokens, p0: int):
+    """``tokens`` run alone through the local ``model`` on the unsegmented
+    kernels, with the rotary positions p0, p0 + 1, ... they hold in the
+    packed row (the model itself would rotate from 0)."""
+    import types
+
+    import torch
+
+    from ring_attention_tpu_torch import cuda_flash_attention
+
+    def local_attend(layer, q, k, v, mask, segment_ids=None):
+        positions = torch.arange(p0, p0 + q.shape[2], device=q.device)
+        q, k = layer._rotate(q, k, positions)
+        return cuda_flash_attention(q, k, v, mask, causal=layer.causal,
+                                    softclamp_value=layer.softclamp_value)
+
+    for layer in model.attn_layers:
+        layer._local_attend = types.MethodType(local_attend, layer)
+    try:
+        return model(tokens)
+    finally:
+        for layer in model.attn_layers:
+            del layer._local_attend
+
+
+def _hold_packed_f32(tokens, ids) -> None:
+    """The f32 model, packed at 65,536 tokens on the card: each document's
+    logits against the same document run alone (the unsegmented kernels)
+    at the rotary positions it holds in the row, within MODEL_ATOL; beside
+    it, against the document run alone from position 0 (rotary is
+    relative, so only f32 rounding of large angles separates the two).
+    Then the packed f32 model at seq 256, card vs CPU, logits and one
+    step's gradients, locally and on the ring."""
+    import torch
+
+    from ring_attention_tpu_torch.parallel import create_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = _model(None, "cuda")
+    with torch.inference_mode():
+        packed = model(tokens, segment_ids=ids)
+        worst, worst_from_0, start = 0.0, 0.0, 0
+        for length in doc_lengths(ids):
+            doc = tokens[:, start:start + length]
+            got = packed[:, start:start + length]
+            err = (got - _alone_logits(model, doc, start)).abs().max().item()
+            err_0 = (got - model(doc)).abs().max().item()
+            worst, worst_from_0 = max(worst, err), max(worst_from_0, err_0)
+            log(f"  f32 document at {start} ({length} tokens): packed vs alone at its "
+                f"positions max|diff| {err:.3e}, vs alone from position 0 {err_0:.3e}")
+            start += length
+    log(f"  f32 packed vs alone: worst {worst:.3e} (tol {MODEL_ATOL}); from position 0 "
+        f"{worst_from_0:.3e} (not held: rotary angles rounded at large positions)")
+    check(worst <= MODEL_ATOL, "f32 packed documents disagree with the documents alone")
+    del model, packed
+
+    gen = torch.Generator().manual_seed(SEED + 13)
+    small = torch.randint(0, BENCH_MODEL["num_tokens"], (2, sum(SMALL_PACKING)), generator=gen)
+    small_ids = torch.repeat_interleave(torch.arange(len(SMALL_PACKING)),
+                                        torch.tensor(SMALL_PACKING))[None].expand(2, -1)
+    for ring in ({}, dict(mesh=create_mesh(ring_size=RING_SIZE)),
+                 dict(mesh=create_mesh(ring_size=RING_SIZE), striped=True)):
+        gpu = _model(None, "cuda", **ring)
+        cpu = copy.deepcopy(gpu).to("cpu")
+        with torch.no_grad():
+            logits_err = (gpu(small[:, :256].cuda(), segment_ids=small_ids[:, :256].cuda()).cpu()
+                          - cpu(small[:, :256], segment_ids=small_ids[:, :256])).abs().max().item()
+        losses = []
+        for m, dev in ((gpu, "cuda"), (cpu, "cpu")):
+            loss = m(small.to(dev), return_loss=True, segment_ids=small_ids.to(dev))
+            loss.backward()
+            losses.append(loss.item())
+        grad_err = max(((pg.grad.cpu() - pc.grad).norm() / pc.grad.norm()).item()
+                       for pg, pc in zip(gpu.parameters(), cpu.parameters()))
+        name = "local" if not ring else ("striped" if ring.get("striped") else "contiguous")
+        log(f"  f32 packed model seq 256 ({name}), card vs CPU: logits max|diff| "
+            f"{logits_err:.3e} (tol {MODEL_ATOL}), loss {losses[0]:.7f} vs {losses[1]:.7f}, "
+            f"worst gradient ||card - cpu|| / ||cpu|| {grad_err:.3e} (tol {GRAD_REL_TOL})")
+        check(logits_err <= MODEL_ATOL and grad_err <= GRAD_REL_TOL,
+              f"f32 packed {name} model on the card disagrees with the CPU")
+
+
+def phase_packed_path(serving: dict, training: dict) -> dict:
+    """The packed path at full width: the bench model on 1 x 65,536 packed
+    tokens, forward and one train step, locally and on the ring of 4
+    (contiguous and striped, ``impl="cuda"``), with exact launch counts and
+    the hops the ids skip; the f32 checks of ``_hold_packed_f32``; then the
+    packed forward and step timed beside the unpacked ones (phase 4f's
+    model rows)."""
+    import torch
+
+    from ring_attention_tpu_torch import make_train_step
+    from ring_attention_tpu_torch.parallel import create_mesh
+    from ring_attention_tpu_torch.parallel import ring as pring
+
+    tokens, local = serving["tokens"], serving["model"]
+    ids = packed_ids(65536)
+    # the train step takes 65,537 ids: its last document is one longer
+    step_tokens = training["tokens"]
+    step_ids = torch.cat([ids, ids[:, -1:]], dim=1)
+    log(f"phase 3f: packed documents, bench model at full width, bf16: 1 x 65536 tokens "
+        f"in {len(doc_lengths(ids))} documents {doc_lengths(ids)}")
+    launches = {name: 0 for name in COUNTERS}
+    with torch.inference_mode():
+        _reset_counts()
+        ref = local(tokens, segment_ids=ids)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+    depth = BENCH_MODEL["depth"]
+    expected = _counts(flash_fwd=depth, seg_flash_fwd=depth)
+    check(counts == expected, f"local packed forward launched {counts}, expected {expected}")
+    check(bool(torch.isfinite(ref.float()).all()) and tuple(ref.shape) == (1, 65536, 256),
+          "local packed forward: logits")
+    for name, n in counts.items():
+        launches[name] += n
+    log(f"  local forward: launches {counts}")
+
+    models = {"local": _model(torch.bfloat16, "cuda").train()}
+    for striped in (False, True):
+        layout = "striped" if striped else "contiguous"
+        skips = _expected_doc_skips(ids, striped)
+        model = _model(torch.bfloat16, "cuda", mesh=create_mesh(ring_size=RING_SIZE),
+                       striped=striped)
+        with torch.inference_mode():
+            _reset_counts()
+            pring.doc_skip_count = pring.doc_skip_bwd_count = 0
+            logits = model(tokens, segment_ids=ids)
+            torch.cuda.synchronize()
+            counts = _read_counts()
+        check(_packed_ring_counts(counts, skips, striped, backward=False)
+              and pring.doc_skip_count == skips * depth,
+              f"{layout} packed forward launched {counts}, {pring.doc_skip_count} hops "
+              f"skipped; expected {skips} skipped per layer")
+        for name, n in counts.items():
+            launches[name] += n
+        rel = ((logits.float() - ref.float()).norm() / ref.float().norm()).item()
+        log(f"  {layout} ring forward: {skips} of the {16 if striped else 10} hops with band "
+            f"work skipped per layer (the ids share no document), launches {counts}; "
+            f"logits vs the local packed model ||diff|| / ||local|| {rel:.3e} "
+            f"(tol rel {RING_LOGITS_REL_TOL})")
+        check(rel <= RING_LOGITS_REL_TOL, f"{layout} packed ring logits disagree")
+        models[layout] = model.train()
+        del logits
+
+    steps = {}
+    for layout, model in models.items():
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        packed_step = make_train_step(
+            lambda t, m=model: m(t, return_loss=True, segment_ids=step_ids), opt)
+        plain_step = make_train_step(lambda t, m=model: m(t, return_loss=True), opt)
+        _reset_counts()
+        pring.doc_skip_count = pring.doc_skip_bwd_count = 0
+        loss = float(packed_step(step_tokens))
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        if layout == "local":
+            ok = counts == _counts(flash_fwd=depth, seg_flash_fwd=depth,
+                                   flash_bwd_dkv=depth, flash_bwd_dq=depth,
+                                   seg_flash_bwd_dkv=depth, seg_flash_bwd_dq=depth)
+        else:
+            skips = _expected_doc_skips(ids, layout == "striped")
+            ok = (_packed_ring_counts(counts, skips, layout == "striped", backward=True)
+                  and pring.doc_skip_bwd_count == skips * depth)
+        check(ok and math.isfinite(loss), f"{layout} packed step: loss {loss}, launches {counts}")
+        for name, n in counts.items():
+            launches[name] += n
+        log(f"  {layout} packed train step: loss {loss:.6f}, launches {counts}")
+        steps[layout] = (packed_step, plain_step)
+
+    _hold_packed_f32(tokens, ids)
+
+    log("  packed vs unpacked, the same model and tokens (CUDA events for the forward, "
+        "host clock around synchronized steps; in turns: unpacked, packed, packed, "
+        "unpacked)")
+    timings = {}
+    for layout, model in models.items():
+        model.eval()
+        fwd = {"unpacked": [], "packed": []}
+        with torch.inference_mode():
+            for kind in ("unpacked", "packed", "packed", "unpacked"):
+                seg = ids if kind == "packed" else None
+                fwd[kind].append(time_ms(lambda: model(tokens, segment_ids=seg), iters=5))
+        model.train()
+        step_ms = {"unpacked": [], "packed": []}
+        for kind in ("unpacked", "packed", "packed", "unpacked"):
+            step = steps[layout][0 if kind == "packed" else 1]
+            step_ms[kind].append(_train_step_timing(step, step_tokens)[0])
+        timings[layout] = {kind: (statistics.mean(fwd[kind]), statistics.mean(step_ms[kind]))
+                           for kind in fwd}
+        (uf, us), (pf, ps) = timings[layout]["unpacked"], timings[layout]["packed"]
+        log(f"  {layout}: forward 1 x 65536 unpacked {uf:.3f} ms, packed {pf:.3f} ms "
+            f"({pf / uf:.3f} x); train step unpacked {us:.3f} ms, packed {ps:.3f} ms "
+            f"({ps / us:.3f} x)")
+    del models, steps
+    return {"launches": launches, "timings": timings}
+
+
+def _sdpa_packed_mask(ids):
+    """The dense boolean block-diagonal causal mask ``(n, n)`` of a ``(1,
+    n)`` packing: the library yardstick's ``attn_mask``."""
+    import torch
+
+    n = ids.shape[1]
+    same = ids[0][:, None] == ids[0][None, :]
+    return same & torch.ones((n, n), dtype=torch.bool, device=ids.device).tril()
+
+
+def _sdpa_masked(fn):
+    """``fn()``'s time, or None when the card cannot hold its dense mask
+    and scores (SDPA with an arbitrary mask at long sequence)."""
+    import torch
+
+    try:
+        return time_ms(fn, iters=5)
+    except torch.cuda.OutOfMemoryError as err:
+        log(f"  (library yardstick did not fit: {str(err).splitlines()[0]})")
+        torch.cuda.empty_cache()
+        return None
+
+
+def phase_segmented_timings(packed: dict) -> dict[str, list[dict]]:
+    """Phase 4f: the segmented B1, B2 and B3 on the packed causal (1, 8, n,
+    64) bf16 shape at 4,096 (with the plain versions), 16,384 and 65,536,
+    beside their bound (same-document in-band pairs only) and SDPA with the
+    packing's dense boolean block-diagonal causal mask; returns each
+    kernel's rows, every row carrying the segmented launches of the packed
+    path (phase 3f)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ring_attention_tpu_torch.ops import cuda_flash as cf
+
+    log("phase 4f: segmented kernels on the packed shape (CUDA events)")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    rows: dict[str, list[dict]] = {"flash_fwd": [], "flash_bwd_dkv": [], "flash_bwd_dq": []}
+    launches = packed["launches"]
+    for n in (4096, 16384, 65536):
+        ids = packed_ids(n, len_range=SHORT_LEN_RANGE if n == 4096 else PACK_LEN_RANGE)
+        q, k, v, do = (_rand(gen, (1, 8, n, 64), torch.bfloat16) for _ in range(4))
+        kw = dict(scale=0.125, causal_offset=0, q_seg=ids, kv_seg=ids)
+        out, lse = cf.flash_fwd(q, k, v, **kw)
+        delta = (do.float() * out.float()).sum(-1)
+        pairs = 8 * same_doc_pairs(ids)
+        docs = len(doc_lengths(ids))
+        shape = (f"packed causal (1,8,{n},64) bf16, {docs} document{'s' * (docs > 1)} "
+                 f"(lengths log-uniform on {SHORT_LEN_RANGE if n == 4096 else PACK_LEN_RANGE})")
+        mask = _sdpa_packed_mask(ids)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+
+        fwd_lib = _sdpa_masked(sdpa)
+        bwd_lib = None
+        if fwd_lib is not None:
+            try:
+                ref = sdpa()
+                bwd_lib = _sdpa_masked(lambda: torch.autograd.grad(
+                    ref, (qg, kg, vg), do, retain_graph=True))
+                del ref
+            except torch.cuda.OutOfMemoryError:
+                torch.cuda.empty_cache()
+        del mask
+        with_plain = n == 4096
+        args = (do, q, k, v, lse, delta)
+        bwd_plain = (time_ms(lambda: cf.flash_bwd_reference(*args, **kw), iters=3)
+                     if with_plain else None)
+        id_bytes = nbytes(ids, ids)
+        f32_grad = 4 * n * 64 * 8
+        for name, fn, products, moved, plain, library in (
+            ("flash_fwd", lambda: cf.flash_fwd(q, k, v, **kw), 2,
+             nbytes(q, k, v, out, lse) + id_bytes,
+             (time_ms(lambda: cf.flash_fwd_reference(q, k, v, **kw), iters=3)
+              if with_plain else None), fwd_lib),
+            ("flash_bwd_dkv", lambda: cf.flash_bwd_dkv(*args, **kw), 4,
+             nbytes(*args) + id_bytes + 2 * f32_grad, bwd_plain, bwd_lib),
+            ("flash_bwd_dq", lambda: cf.flash_bwd_dq(*args, **kw), 3,
+             nbytes(*args) + id_bytes + f32_grad, bwd_plain, bwd_lib),
+        ):
+            ops = 2 * products * 64 * pairs
+            b_ms, b_by = bound_ms(ops, moved, torch.bfloat16)
+            ms = time_ms(fn, iters=10 if n < 65536 else 5)
+            rows[name].append({"shape": shape, "launches": launches[f"seg_{name}"],
+                               "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                               "bound_by": b_by, "library_ms": library})
+            log(f"  {name} {shape}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+                f"same-document pairs only), plain {plain} ms"
+                f"{' (all three gradients)' if plain and name != 'flash_fwd' else ''}, "
+                f"sdpa with the dense block-diagonal causal mask"
+                f"{' backward' if name != 'flash_fwd' else ''} {library} ms, "
+                f"{ops / ms / 1e9:.1f} TFLOP/s")
+        del q, k, v, do, out, lse, delta, qg, kg, vg
+        torch.cuda.empty_cache()
+    for layout, t in packed["timings"].items():
+        (uf, us), (pf, ps) = t["unpacked"], t["packed"]
+        log(f"  {layout} model: forward unpacked {uf:.3f} / packed {pf:.3f} ms, "
+            f"train step unpacked {us:.3f} / packed {ps:.3f} ms (phase 3f)")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -2506,32 +3057,42 @@ def main() -> int:
     remote_err = phase_fused_remote_vs_plain()
     bwd_err = phase_bwd_kernel_vs_plain()
     q8_err = phase_q8_kernels_vs_plain()
+    seg_err = phase_segmented_vs_plain()
     serving = phase_serving_path()
     training = phase_training_path()
     ring = phase_ring_path(serving, training)
     fused = phase_ring_path(serving, training, impl="fused")
     q8_path = phase_q8_path(serving, training)
+    packed = phase_packed_path(serving, training)
     rows = phase_timings(serving)
     bwd_rows = phase_train_timings(training)
     mode_rows = phase_ring_timings(ring, serving, training, rows)
     q8_rows = phase_q8_timings(q8_path, serving, training)
     fused_rows = phase_fused_ring_timings(fused, ring, serving, training)
+    seg_rows = phase_segmented_timings(packed)
     ring_launches = ring["launches"]
+    packed_launches = packed["launches"]
     fused_launches = fused["launches"]
     q8_launches = q8_path["launches"]
     flash, pallas_ring = "ring_attention_tpu/ops/pallas_flash.py", "ring_attention_tpu/ops/pallas_ring.py"
     entries = [
         ("flash_fwd", "flash_fwd.cu", f"{flash}:1174",
          serving["launches"] + training["launches"]["flash_fwd"]
-         + ring_launches["flash_fwd"], max(max_err, *mode_err.values()), rows),
+         + ring_launches["flash_fwd"] + packed_launches["flash_fwd"],
+         max(max_err, *mode_err.values(), *(seg_err[m] for m in
+                                            ("fused", "seed", "resume", "fused_carry"))),
+         rows + seg_rows["flash_fwd"]),
         ("flash_bwd_dkv", "flash_bwd.cu", f"{flash}:2108",
          training["launches"]["flash_bwd_dkv"] + ring_launches["flash_bwd_dkv"]
-         + fused_launches["flash_bwd_dkv"] + q8_launches["flash_bwd_dkv"],
-         max(bwd_err["dk"], bwd_err["dv"]), bwd_rows["flash_bwd_dkv"]),
+         + fused_launches["flash_bwd_dkv"] + q8_launches["flash_bwd_dkv"]
+         + packed_launches["flash_bwd_dkv"],
+         max(bwd_err["dk"], bwd_err["dv"], seg_err["dk"], seg_err["dv"]),
+         bwd_rows["flash_bwd_dkv"] + seg_rows["flash_bwd_dkv"]),
         ("flash_bwd_dq", "flash_bwd.cu", f"{flash}:2186",
          training["launches"]["flash_bwd_dq"] + ring_launches["flash_bwd_dq"]
-         + fused_launches["flash_bwd_dq"] + q8_launches["flash_bwd_dq"],
-         bwd_err["dq"], bwd_rows["flash_bwd_dq"]),
+         + fused_launches["flash_bwd_dq"] + q8_launches["flash_bwd_dq"]
+         + packed_launches["flash_bwd_dq"],
+         max(bwd_err["dq"], seg_err["dq"]), bwd_rows["flash_bwd_dq"] + seg_rows["flash_bwd_dq"]),
         ("flash_fwd_q8", "flash_fwd_q8.cu", f"{flash}:1174", q8_launches["flash_fwd_q8"],
          max(q8_err[m] for m in ("fused", "seed", "resume", "fused_carry")), q8_rows["fwd"]),
         ("flash_decode_q8", "flash_decode_q8.cu", f"{flash}:1585",
@@ -2565,7 +3126,8 @@ def main() -> int:
         })
     # the forward kernel's ring modes, each with its own launches and numbers
     kernels[0]["modes"] = [
-        {"mode": mode, "launches": ring_launches[mode], "max_abs_err": mode_err[mode],
+        {"mode": mode, "launches": ring_launches[mode] + packed_launches[mode],
+         "max_abs_err": max(mode_err[mode], seg_err[mode]),
          **{key: mode_rows[mode][0][key] for key in
             ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
          "per_shape": mode_rows[mode]}

@@ -15,7 +15,9 @@ the int8-cache decode ``csrc/flash_decode_q8.cu``), and the fused ring
 ``csrc/flash_ring_remote.cu`` for the whole ring, the ranks passing KV to
 each other inside it; otherwise one launch of ``csrc/flash_ring.cu`` per
 ring rank over the all-gathered KV; the backward on the dk/dv and dq
-kernels).  Entry
+kernels), and packed sequences (``segment_ids=``: per-token document
+ids through the forward and backward kernels, locally and on the scan-path
+ring).  Entry
 points run on the CUDA device unless the caller passes ``device="cpu"``;
 on CPU tensors every kernel wrapper runs its plain PyTorch version.  The
 package imports torch only.
@@ -29,6 +31,7 @@ from .ops import (
     FlashCarry,
     FlashPartials,
     QuantizedKV,
+    SegmentIds,
     apply_rotary,
     attend_blocks,
     cuda_flash_attention,
@@ -60,10 +63,12 @@ from .ops import (
     init_carry,
     init_partials,
     merge_partials,
+    normalize_segment_ids,
     quantize_kv_cache,
     ring_positions,
     rotary_freqs,
     rotate_half,
+    segments_overlap,
     softclamp,
 )
 from .parallel import (
@@ -91,6 +96,7 @@ __all__ = [
     "Ring",
     "RingAttention",
     "RingTransformer",
+    "SegmentIds",
     "StepStats",
     "VirtualRing",
     "apply_rotary",
@@ -130,10 +136,12 @@ __all__ = [
     "load_jax_params",
     "make_train_step",
     "merge_partials",
+    "normalize_segment_ids",
     "quantize_kv_cache",
     "ring_flash_attention",
     "ring_positions",
     "rotary_freqs",
     "rotate_half",
+    "segments_overlap",
     "softclamp",
 ]

@@ -5,13 +5,16 @@
 //   * flash_bwd_dkv: the dk/dv pass, pl.pallas_call at :2108 (kernel bodies
 //     _bwd_dkv_kernel :1691, _dkv_tile :1727);
 //   * flash_bwd_dq: the dq pass, pl.pallas_call at :2186 (_bwd_dq_kernel
-//     :1774, _dq_tile :1808).
+//     :1774, _dq_tile :1808);
+// both with the runtime segment ids of _bwd_parse_refs (:1649) and
+// _tile_keep (:240).
 //
 // What they compute, for q, do (B, H, Nq, D) and k, v (B, Hk, Nk, D),
 // contiguous, lse and delta (B, H, Nq) float32 (delta = rowsum(do * out)):
 //   s    = scale * q . k, then c * tanh(s / c) when c > 0;
 //   keep = (!causal || (j - i <= hi && (!windowed || j - i >= lo)))
-//          && (kv_mask == null || kv_mask[b, j]);
+//          && (kv_mask == null || kv_mask[b, j])
+//          && (q_seg == null || q_seg[b, i] == kv_seg[b, j]);
 //   p    = keep ? exp(s - lse) : 0            (a select, never a multiply:
 //          a row with no key has lse ~ mask value, so exp(s - lse) = inf);
 //   dp   = do . v;  ds = p * (dp - delta) * (1 - (s / c)^2 when c > 0) * scale;
@@ -45,7 +48,15 @@
 //     p and ds stay in registers, and an accumulator fragment becomes the A
 //     fragment of the next product without touching shared memory.
 //   * f32: 64 threads, one key (dk/dv) or one query row (dq) per thread,
-//     plain FMA on CUDA cores, so the card can be held tightly to the CPU.
+//     plain FMA on CUDA cores, so the card can be held tightly to the CPU;
+//   * packed sequences (q_seg, kv_seg int32 document ids, a kernel argument
+//     of their own) run a second instantiation of each kernel (kSeg): the
+//     document test sits in kept_seg() beside the key mask, each thread's
+//     fixed-side ids in registers, the other side's ids in shared memory
+//     beside the tile they belong to (the query rows' beside lse and delta
+//     for dk/dv, the keys' beside K and V for dq).  The same tiles are
+//     visited as without ids, and the unsegmented kernels compile as
+//     before.
 // Not yet: cp.async/TMA double buffering, wgmma, warp specialisation.
 
 #include <cuda_bf16.h>
@@ -76,6 +87,14 @@ struct Params {
   float scale;
   int causal, hi, windowed, lo;
   float softclamp;  // 0 = off
+};
+
+// Packed sequences: (B, Nq) and (B, Nk) int32 document ids, a kernel
+// argument of their own (Params stays as the unsegmented kernels had it),
+// read by the kSeg instantiations only.
+struct Segs {
+  const int* q;
+  const int* kv;
 };
 
 // [t_begin, t_end) query tiles of `bm` rows holding a row that attends a
@@ -122,6 +141,18 @@ __device__ __forceinline__ bool kept(const Params& p, const uint8_t* kvm,
     if (off > p.hi || (p.windowed && off < p.lo)) return false;
   }
   return kvm == nullptr || kvm[col] != 0;
+}
+
+// kept() of a kSeg instantiation: also both in one document (qs and ks are
+// their ids; a caller may pass anything for a row or column out of range).
+__device__ __forceinline__ bool kept_seg(const Params& p, const uint8_t* kvm,
+                                         int row, int col, int qs, int ks) {
+  return kept(p, kvm, row, col) && qs == ks;
+}
+
+// ids[i] when i < n, else 0 (a row or key past the end, which kept() drops).
+__device__ __forceinline__ int seg_at(const int* ids, int i, int n) {
+  return i < n ? ids[i] : 0;
 }
 
 __device__ __forceinline__ float exp_nat(float x) { return exp2f(x * kLog2e); }
@@ -257,14 +288,15 @@ __device__ __forceinline__ void store_rows_f32(float* out, const float (*acc)[4]
   }
 }
 
-template <int D>
+template <int D, bool kSeg>
 __global__ void __launch_bounds__(128)
-    flash_bwd_dkv_bf16_kernel(const Params p) {
+    flash_bwd_dkv_bf16_kernel(const Params p, const Segs sg) {
   constexpr int kStride = D + 8;
   __shared__ __align__(16) __nv_bfloat16 Qs[kBlockM * kStride];
   __shared__ __align__(16) __nv_bfloat16 Ds[kBlockM * kStride];  // dO
   __shared__ float Ls[kBlockM];  // lse of the tile's rows
   __shared__ float Es[kBlockM];  // delta of the tile's rows
+  __shared__ int Ss[kSeg ? kBlockM : 1];  // document ids of the tile's rows
 
   const int c0 = blockIdx.x * kBlockN;  // causal: heaviest key tiles first
   const int bkh = blockIdx.y;
@@ -278,6 +310,11 @@ __global__ void __launch_bounds__(128)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int key_a = c0 + warp * 16 + g;  // key of fragment halves 0, 1
+  int ks_r[2] = {0, 0};  // document ids of keys key_a and key_a + 8
+  if constexpr (kSeg) {
+    ks_r[0] = seg_at(sg.kv + (size_t)b * p.Nk, key_a, p.Nk);
+    ks_r[1] = seg_at(sg.kv + (size_t)b * p.Nk, key_a + 8, p.Nk);
+  }
 
   // this warp's 16 keys of K and V as A fragments, staged through Qs / Ds
   load_tile_bf16<D>(Qs, k, c0, p.Nk);
@@ -312,6 +349,7 @@ __global__ void __launch_bounds__(128)
         const bool in = r0 + i < p.Nq;
         Ls[i] = in ? lse[r0 + i] : 0.f;
         Es[i] = in ? delta[r0 + i] : 0.f;
+        if constexpr (kSeg) Ss[i] = seg_at(sg.q + (size_t)b * p.Nq, r0 + i, p.Nq);
       }
       __syncthreads();
 
@@ -326,8 +364,10 @@ __global__ void __launch_bounds__(128)
           const int key = key_a + (e >> 1) * 8;
           const int i = j * 8 + t * 2 + (e & 1);  // query row in the tile
           float pr, ds;
-          grad_pair(p, kept(p, kvm, r0 + i, key), s[j][e], dp[j][e], Ls[i],
-                    Es[i], &pr, &ds);
+          grad_pair(p,
+                    kSeg ? kept_seg(p, kvm, r0 + i, key, Ss[i], ks_r[e >> 1])
+                         : kept(p, kvm, r0 + i, key),
+                    s[j][e], dp[j][e], Ls[i], Es[i], &pr, &ds);
           s[j][e] = pr;
           dp[j][e] = ds;
         }
@@ -340,12 +380,13 @@ __global__ void __launch_bounds__(128)
   store_rows_f32<D>(p.dk + kv_off, dk, key_a, p.Nk, t);
 }
 
-template <int D>
+template <int D, bool kSeg>
 __global__ void __launch_bounds__(128)
-    flash_bwd_dq_bf16_kernel(const Params p) {
+    flash_bwd_dq_bf16_kernel(const Params p, const Segs sg) {
   constexpr int kStride = D + 8;
   __shared__ __align__(16) __nv_bfloat16 Ks[kBlockN * kStride];
   __shared__ __align__(16) __nv_bfloat16 Vs[kBlockN * kStride];
+  __shared__ int Kid[kSeg ? kBlockN : 1];  // document ids of the tile's keys
 
   const int r0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;  // heaviest first
   const size_t bh = blockIdx.y;
@@ -361,11 +402,14 @@ __global__ void __launch_bounds__(128)
   const int row_a = r0 + warp * 16 + g;  // row of fragment halves 0, 1
 
   float lse_r[2], delta_r[2];
+  int qs_r[2] = {0, 0};  // document ids of rows row_a and row_a + 8
+  const int* kseg = kSeg ? sg.kv + (size_t)b * p.Nk : nullptr;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row_a + 8 * r;
     lse_r[r] = row < p.Nq ? p.lse[bh * p.Nq + row] : 0.f;
     delta_r[r] = row < p.Nq ? p.delta[bh * p.Nq + row] : 0.f;
+    if constexpr (kSeg) qs_r[r] = seg_at(sg.q + (size_t)b * p.Nq, row, p.Nq);
   }
 
   // this warp's 16 rows of q and do as A fragments, staged through Ks / Vs
@@ -389,6 +433,9 @@ __global__ void __launch_bounds__(128)
     __syncthreads();  // every warp is done with the previous K/V tile
     load_tile_bf16<D>(Ks, k, c0, p.Nk);
     load_tile_bf16<D>(Vs, v, c0, p.Nk);
+    if constexpr (kSeg) {
+      for (int i = threadIdx.x; i < kBlockN; i += blockDim.x) Kid[i] = seg_at(kseg, c0 + i, p.Nk);
+    }
     __syncthreads();
 
     // s = q k^T and dp = do v^T: 16 query rows x 64 keys per warp
@@ -402,8 +449,11 @@ __global__ void __launch_bounds__(128)
         const int r = e >> 1;
         const int col = c0 + j * 8 + t * 2 + (e & 1);
         float pr, ds;
-        grad_pair(p, kept(p, kvm, row_a + 8 * r, col), s[j][e], dp[j][e],
-                  lse_r[r], delta_r[r], &pr, &ds);
+        grad_pair(p,
+                  kSeg ? kept_seg(p, kvm, row_a + 8 * r, col, qs_r[r],
+                                  Kid[j * 8 + t * 2 + (e & 1)])
+                       : kept(p, kvm, row_a + 8 * r, col),
+                  s[j][e], dp[j][e], lse_r[r], delta_r[r], &pr, &ds);
         s[j][e] = ds;
       }
     }
@@ -418,9 +468,9 @@ __global__ void __launch_bounds__(128)
 
 // One key per thread: its K and V rows sit in shared memory with a padded
 // stride (conflict-free), query rows are read by every thread (broadcast).
-template <int D>
+template <int D, bool kSeg>
 __global__ void __launch_bounds__(kBlockN)
-    flash_bwd_dkv_f32_kernel(const Params p) {
+    flash_bwd_dkv_f32_kernel(const Params p, const Segs sg) {
   constexpr int kKV = D + 1;
   __shared__ float Ks[kBlockN * kKV];
   __shared__ float Vs[kBlockN * kKV];
@@ -428,6 +478,7 @@ __global__ void __launch_bounds__(kBlockN)
   __shared__ __align__(16) float Ds[kRowsF32 * D];
   __shared__ float Ls[kRowsF32];
   __shared__ float Es[kRowsF32];
+  __shared__ int Ss[kSeg ? kRowsF32 : 1];  // document ids of the step's rows
 
   const int c0 = blockIdx.x * kBlockN;
   const int bkh = blockIdx.y;
@@ -438,6 +489,7 @@ __global__ void __launch_bounds__(kBlockN)
   const float* v = static_cast<const float*>(p.v) + kv_off;
   const uint8_t* kvm = p.kv_mask ? p.kv_mask + (size_t)b * p.Nk : nullptr;
   const int key = c0 + threadIdx.x;
+  const int ks = kSeg ? seg_at(sg.kv + (size_t)b * p.Nk, key, p.Nk) : 0;
 
   for (int i = threadIdx.x; i < kBlockN * D; i += blockDim.x) {
     const int r = i / D, c = i % D;
@@ -470,6 +522,7 @@ __global__ void __launch_bounds__(kBlockN)
         const bool in = r0 + i < p.Nq;
         Ls[i] = in ? p.lse[bh * p.Nq + r0 + i] : 0.f;
         Es[i] = in ? p.delta[bh * p.Nq + r0 + i] : 0.f;
+        if constexpr (kSeg) Ss[i] = seg_at(sg.q + (size_t)b * p.Nq, r0 + i, p.Nq);
       }
       __syncthreads();
       for (int i = 0; i < kRowsF32; ++i) {
@@ -482,7 +535,8 @@ __global__ void __launch_bounds__(kBlockN)
           dov = fmaf(di[d], vr[d], dov);
         }
         float pr, ds;
-        grad_pair(p, kept(p, kvm, r0 + i, key), qk, dov, Ls[i], Es[i], &pr, &ds);
+        grad_pair(p, kSeg ? kept_seg(p, kvm, r0 + i, key, Ss[i], ks) : kept(p, kvm, r0 + i, key),
+                  qk, dov, Ls[i], Es[i], &pr, &ds);
 #pragma unroll
         for (int d = 0; d < D; ++d) {
           dv[d] = fmaf(pr, di[d], dv[d]);
@@ -505,14 +559,15 @@ __global__ void __launch_bounds__(kBlockN)
 
 // One query row per thread: its q and do rows sit in shared memory with a
 // padded stride, key rows are read by every thread (broadcast).
-template <int D>
+template <int D, bool kSeg>
 __global__ void __launch_bounds__(kBlockM)
-    flash_bwd_dq_f32_kernel(const Params p) {
+    flash_bwd_dq_f32_kernel(const Params p, const Segs sg) {
   constexpr int kRow = D + 1;
   __shared__ float Qs[kBlockM * kRow];
   __shared__ float Ds[kBlockM * kRow];
   __shared__ __align__(16) float Ks[kKeysF32 * D];
   __shared__ __align__(16) float Vs[kKeysF32 * D];
+  __shared__ int Kid[kSeg ? kKeysF32 : 1];  // document ids of the step's keys
 
   const int r0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;
   const size_t bh = blockIdx.y;
@@ -536,6 +591,8 @@ __global__ void __launch_bounds__(kBlockM)
   const float* dr = Ds + threadIdx.x * kRow;
   const float lse = row < p.Nq ? p.lse[bh * p.Nq + row] : 0.f;
   const float delta = row < p.Nq ? p.delta[bh * p.Nq + row] : 0.f;
+  const int qs = kSeg ? seg_at(sg.q + (size_t)b * p.Nq, row, p.Nq) : 0;
+  const int* kseg = kSeg ? sg.kv + (size_t)b * p.Nk : nullptr;
 
   float dq[D];
 #pragma unroll
@@ -551,6 +608,9 @@ __global__ void __launch_bounds__(kBlockM)
       Ks[i] = in ? k[(size_t)c0 * D + i] : 0.f;
       Vs[i] = in ? v[(size_t)c0 * D + i] : 0.f;
     }
+    if constexpr (kSeg) {
+      for (int i = threadIdx.x; i < kKeysF32; i += blockDim.x) Kid[i] = seg_at(kseg, c0 + i, p.Nk);
+    }
     __syncthreads();
     for (int jj = 0; jj < kKeysF32; ++jj) {
       const float* kj = Ks + jj * D;
@@ -562,7 +622,9 @@ __global__ void __launch_bounds__(kBlockM)
         dov = fmaf(dr[d], vj[d], dov);
       }
       float pr, ds;
-      grad_pair(p, kept(p, kvm, row, c0 + jj), qk, dov, lse, delta, &pr, &ds);
+      grad_pair(p,
+                kSeg ? kept_seg(p, kvm, row, c0 + jj, qs, Kid[jj]) : kept(p, kvm, row, c0 + jj),
+                qk, dov, lse, delta, &pr, &ds);
 #pragma unroll
       for (int d = 0; d < D; ++d) dq[d] = fmaf(ds, kj[d], dq[d]);
     }
@@ -610,6 +672,8 @@ int fill_params(Params* p, const void* q, const void* k, const void* v,
 // C entry points, bound with ctypes.  Each enqueues one launch on `stream`
 // and returns cudaGetLastError() (0 = launched).  They allocate nothing: the
 // caller passes contiguous tensors and preallocated float32 outputs.
+// (q_seg, kv_seg), both set, runs the segmented kernels; both null, the
+// unsegmented ones.
 
 // dk, dv: (B, Hk, Nk, D) float32, fully written (zero where no row attends).
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -618,19 +682,25 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              void* dv, int B, int H, int Hk, int Nq, int Nk,
                              int D, int is_bf16, float scale, int causal,
                              int hi, int windowed, int lo, float softclamp,
-                             void* stream) {
+                             const void* q_seg, const void* kv_seg, void* stream) {
   Params p;
   if (!fill_params(&p, q, k, v, dout, lse, delta, kv_mask, B, H, Hk, Nq, Nk,
-                   D, scale, causal, hi, windowed, lo, softclamp))
+                   D, scale, causal, hi, windowed, lo, softclamp) ||
+      (q_seg == nullptr) != (kv_seg == nullptr))
     return (int)cudaErrorInvalidValue;
+  const Segs sg{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg)};
   p.dk = static_cast<float*>(dk);
   p.dv = static_cast<float*>(dv);
   const dim3 grid((Nk + kBlockN - 1) / kBlockN, B * Hk);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    flash_bwd_dkv_bf16_kernel<64><<<grid, 128, 0, s>>>(p);
+  if (is_bf16 && q_seg != nullptr)
+    flash_bwd_dkv_bf16_kernel<64, true><<<grid, 128, 0, s>>>(p, sg);
+  else if (is_bf16)
+    flash_bwd_dkv_bf16_kernel<64, false><<<grid, 128, 0, s>>>(p, sg);
+  else if (q_seg != nullptr)
+    flash_bwd_dkv_f32_kernel<64, true><<<grid, kBlockN, 0, s>>>(p, sg);
   else
-    flash_bwd_dkv_f32_kernel<64><<<grid, kBlockN, 0, s>>>(p);
+    flash_bwd_dkv_f32_kernel<64, false><<<grid, kBlockN, 0, s>>>(p, sg);
   return (int)cudaGetLastError();
 }
 
@@ -641,17 +711,23 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             int B, int H, int Hk, int Nq, int Nk, int D,
                             int is_bf16, float scale, int causal, int hi,
                             int windowed, int lo, float softclamp,
-                            void* stream) {
+                            const void* q_seg, const void* kv_seg, void* stream) {
   Params p;
   if (!fill_params(&p, q, k, v, dout, lse, delta, kv_mask, B, H, Hk, Nq, Nk,
-                   D, scale, causal, hi, windowed, lo, softclamp))
+                   D, scale, causal, hi, windowed, lo, softclamp) ||
+      (q_seg == nullptr) != (kv_seg == nullptr))
     return (int)cudaErrorInvalidValue;
+  const Segs sg{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg)};
   p.dq = static_cast<float*>(dq);
   const dim3 grid((Nq + kBlockM - 1) / kBlockM, B * H);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    flash_bwd_dq_bf16_kernel<64><<<grid, 128, 0, s>>>(p);
+  if (is_bf16 && q_seg != nullptr)
+    flash_bwd_dq_bf16_kernel<64, true><<<grid, 128, 0, s>>>(p, sg);
+  else if (is_bf16)
+    flash_bwd_dq_bf16_kernel<64, false><<<grid, 128, 0, s>>>(p, sg);
+  else if (q_seg != nullptr)
+    flash_bwd_dq_f32_kernel<64, true><<<grid, kBlockM, 0, s>>>(p, sg);
   else
-    flash_bwd_dq_f32_kernel<64><<<grid, kBlockM, 0, s>>>(p);
+    flash_bwd_dq_f32_kernel<64, false><<<grid, kBlockM, 0, s>>>(p, sg);
   return (int)cudaGetLastError();
 }

@@ -2,8 +2,9 @@
 //
 // Replaces: ring_attention_tpu/ops/pallas_flash.py::_flash_fwd_call (the
 // pl.pallas_call at :1174; kernel bodies _fwd_kernel :669, _fwd_tile :823,
-// _online_update :776, _fwd_write :645, _tile_keep :240) in its three
-// modes, one kernel whose pointers say which:
+// _online_update :776, _fwd_write :645, _tile_keep :240, with its runtime
+// segment ids qseg_ref/kseg_ref) in its three modes, one kernel whose
+// pointers say which:
 //   * fused: normalized `out` in q's dtype plus `lse` in float32;
 //   * partials: the raw online-softmax state (acc, m, l) in float32, the
 //     mergeable state of one ring hop (`_fwd_write` with fused=False);
@@ -18,7 +19,8 @@
 // What it computes, for q (B, H, Nq, D) and k, v (B, Hk, Nk, D), contiguous:
 //   s    = scale * q . k, then softclamp c * tanh(s / c) when c > 0;
 //   keep = (!causal || (j - i <= hi && (!windowed || j - i >= lo)))
-//          && (kv_mask == null || kv_mask[b, j]);
+//          && (kv_mask == null || kv_mask[b, j])
+//          && (q_seg == null || q_seg[b, i] == kv_seg[b, j]);
 //   masked scores take the FINITE mask value -0.5 * f32 max, so a row whose
 //   keys are all masked averages V over all Nk keys (dense-oracle semantics);
 //   out  = acc / max(l, 1e-10), lse = m + log(max(l, 1e-10)), with the
@@ -53,7 +55,15 @@
 //     outside the band: the counterpart of the TPU compact band grid and its
 //     scalar-prefetched tables, which are therefore not needed.  A block
 //     holding a row with an empty band visits every tile, so such a row still
-//     averages V over all keys.
+//     averages V over all keys;
+//   * packed sequences (q_seg, kv_seg int32 document ids) run a second
+//     instantiation of each kernel (kSeg): the document test sits in the
+//     score beside the key mask; the block's query ids and each tile's key
+//     ids sit in shared memory (the key ids loaded with K and V) and are
+//     read there score by score, so they take no registers through the
+//     products.  It visits the same tiles as the unsegmented kernel (no
+//     tile is skipped on ids, as the TPU kernel skips none on runtime ids),
+//     and the unsegmented kernels compile as before.
 // Not yet: cp.async/TMA double buffering, wgmma, warp specialisation and a
 // split-KV decode (the decode grid is only b*hk blocks wide).
 
@@ -86,6 +96,13 @@ struct RingIO {
   float* p_l;          // partials (B, H, Nq)
 };
 
+// Packed sequences: (B, Nq) and (B, Nk) int32 document ids, read by the
+// kSeg instantiations only.
+struct Segs {
+  const int* q;
+  const int* kv;
+};
+
 // The launch's band in flash_tile.cuh's form: a side that causal or windowed
 // leaves open takes a bound no (row, col) pair crosses.
 __device__ __forceinline__ Band launch_band(const Params& p, const uint8_t* kvm) {
@@ -95,13 +112,14 @@ __device__ __forceinline__ Band launch_band(const Params& p, const uint8_t* kvm)
 
 // (128, 4): four blocks per SM need at most 128 registers a thread; at 130
 // to 132 only three fit and the sweep runs ~50% slower.
-template <int D>
+template <int D, bool kSeg>
 __global__ void __launch_bounds__(128, 4)
-    flash_fwd_bf16_kernel(const Params p, const RingIO io) {
+    flash_fwd_bf16_kernel(const Params p, const RingIO io, const Segs sg) {
   constexpr int kStride = D + 8;  // staggers shared-memory banks
   __shared__ __align__(16) __nv_bfloat16 Qs[kBlockM * kStride];
   __shared__ __align__(16) __nv_bfloat16 Ks[kBlockN * kStride];
   __shared__ __align__(16) __nv_bfloat16 Vs[kBlockN * kStride];
+  __shared__ int Ids[kSeg ? kBlockM + kBlockN : 1];  // SegTile's
 
   const int r0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;
   const int bh = blockIdx.y;
@@ -118,6 +136,7 @@ __global__ void __launch_bounds__(128, 4)
   const int g = lane / 4, t = lane % 4;  // mma group id and thread in group
   const int row_a = r0 + warp * 16 + g;  // global row of fragment halves 0, 1
   const int row_b = row_a + 8;           // and of halves 2, 3
+  const SegTile st{kSeg ? sg.kv + (size_t)b * p.Nk : nullptr, kSeg ? Ids : nullptr};
 
   // the online-softmax state in fragment layout (flash_tile.cuh)
   float o[D / 8][4];
@@ -141,6 +160,10 @@ __global__ void __launch_bounds__(128, 4)
   }
 
   load_tile_bf16<D>(Qs, q, r0, p.Nq);
+  if constexpr (kSeg) {
+    for (int i = threadIdx.x; i < kBlockM; i += blockDim.x)
+      Ids[i] = r0 + i < p.Nq ? sg.q[(size_t)b * p.Nq + r0 + i] : 0;
+  }
   __syncthreads();  // also orders every carry read before any write below
   uint32_t qf[D / 16][4];
   load_q_frags<D>(Qs, qf);
@@ -149,7 +172,7 @@ __global__ void __launch_bounds__(128, 4)
   int t_begin, t_end;
   band_tiles(bd, p.Nq, r0, &t_begin, &t_end);
   for (int tile = t_begin; tile < t_end; ++tile)
-    bf16_tile<D>(Ks, Vs, k, v, bd, tile * kBlockN, qf, o, m_r, l_r, row_a);
+    bf16_tile<D, kSeg>(Ks, Vs, k, v, bd, tile * kBlockN, qf, o, m_r, l_r, row_a, st);
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -174,11 +197,12 @@ __global__ void __launch_bounds__(128, 4)
   }
 }
 
-template <int D>
+template <int D, bool kSeg>
 __global__ void __launch_bounds__(kBlockM)
-    flash_fwd_f32_kernel(const Params p, const RingIO io) {
+    flash_fwd_f32_kernel(const Params p, const RingIO io, const Segs sg) {
   __shared__ __align__(16) float Ks[kBlockN * D];
   __shared__ __align__(16) float Vs[kBlockN * D];
+  __shared__ int Ids[kSeg ? kBlockM + kBlockN : 1];  // SegTile's
 
   const int r0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;
   const int bh = blockIdx.y;
@@ -190,6 +214,8 @@ __global__ void __launch_bounds__(kBlockM)
   const float* v = static_cast<const float*>(p.v) + kv_off;
   const uint8_t* kvm = p.kv_mask ? p.kv_mask + (size_t)b * p.Nk : nullptr;
   const int row = r0 + threadIdx.x;
+  const SegTile st{kSeg ? sg.kv + (size_t)b * p.Nk : nullptr, kSeg ? Ids : nullptr};
+  if constexpr (kSeg) Ids[threadIdx.x] = row < p.Nq ? sg.q[(size_t)b * p.Nq + row] : 0;
 
   float qv[D], acc[D];
   load_q_row_f32<D>(q, row, p.Nq, qv, acc);
@@ -209,7 +235,7 @@ __global__ void __launch_bounds__(kBlockM)
   int t_begin, t_end;
   band_tiles(bd, p.Nq, r0, &t_begin, &t_end);
   for (int tile = t_begin; tile < t_end; ++tile)
-    f32_tile<D>(Ks, Vs, k, v, bd, tile * kBlockN, qv, acc, m, l, row);
+    f32_tile<D, kSeg>(Ks, Vs, k, v, bd, tile * kBlockN, qv, acc, m, l, row, st);
 
   if (row >= p.Nq) return;
   if (io.p_acc != nullptr) {  // the raw state
@@ -231,14 +257,17 @@ __global__ void __launch_bounds__(kBlockM)
 // passes contiguous tensors and preallocated outputs.  The mode follows the
 // pointers: (out, lse) or (p_acc, p_m, p_l) is written, and (c_acc, c_m,
 // c_l), when given, is resumed; each triple is all null or all set.
+// (q_seg, kv_seg), both set, runs the segmented kernel; both null, the
+// unsegmented one.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* kv_mask, void* out, void* lse,
                          const void* c_acc, const void* c_m, const void* c_l,
                          void* p_acc, void* p_m, void* p_l, int B, int H,
                          int Hk, int Nq, int Nk, int D, int is_bf16, float scale,
                          int causal, int hi, int windowed, int lo,
-                         float softclamp, void* stream) {
-  if (D != 64 || H % Hk != 0 || Nq <= 0 || Nk <= 0)
+                         float softclamp, const void* q_seg, const void* kv_seg,
+                         void* stream) {
+  if (D != 64 || H % Hk != 0 || Nq <= 0 || Nk <= 0 || (q_seg == nullptr) != (kv_seg == nullptr))
     return (int)cudaErrorInvalidValue;
   const bool carry = c_acc != nullptr;
   const bool partials = p_acc != nullptr;
@@ -267,11 +296,16 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   const RingIO io{static_cast<const float*>(c_acc), static_cast<const float*>(c_m),
                   static_cast<const float*>(c_l), static_cast<float*>(p_acc),
                   static_cast<float*>(p_m), static_cast<float*>(p_l)};
+  const Segs sg{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg)};
   const dim3 grid((Nq + kBlockM - 1) / kBlockM, B * H);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    flash_fwd_bf16_kernel<64><<<grid, 128, 0, s>>>(p, io);
+  if (is_bf16 && q_seg != nullptr)
+    flash_fwd_bf16_kernel<64, true><<<grid, 128, 0, s>>>(p, io, sg);
+  else if (is_bf16)
+    flash_fwd_bf16_kernel<64, false><<<grid, 128, 0, s>>>(p, io, sg);
+  else if (q_seg != nullptr)
+    flash_fwd_f32_kernel<64, true><<<grid, kBlockM, 0, s>>>(p, io, sg);
   else
-    flash_fwd_f32_kernel<64><<<grid, kBlockM, 0, s>>>(p, io);
+    flash_fwd_f32_kernel<64, false><<<grid, kBlockM, 0, s>>>(p, io, sg);
   return (int)cudaGetLastError();
 }

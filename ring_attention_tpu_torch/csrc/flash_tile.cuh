@@ -4,7 +4,8 @@
 // (tensor cores) and f32 (CUDA-core FMA).  Every function is
 // __forceinline__, so each kernel keeps its own __global__, its own Params
 // and its own register budget; a fix to the tile loop is made here once for
-// both.
+// both.  Packed sequences (per-token document ids) are a template flag of
+// the tile body, kSeg: false, the default, compiles the body as it was.
 //
 // Layouts, as both kernels use them:
 //   * bf16: 4 warps, each owns 16 query rows.  The online-softmax state is
@@ -61,15 +62,38 @@ __device__ __forceinline__ void band_tiles(const Band& bd, int nq, int r0, int* 
   *t_end = (int)(j_max / kBlockN) + 1;
 }
 
+// Packed sequences: this batch row's key ids in device memory (by column)
+// and a block's ids in shared memory: [0, kBlockM) those of its query rows
+// (the kernel loads them with its Q tile), [kBlockM, kBlockM + kBlockN)
+// those of the current KV tile's keys (the tile body loads them with K and
+// V).  Only a kSeg instantiation reads it.
+struct SegTile {
+  const int* kseg;
+  int* ids;
+};
+
+// The current tile's key ids, keys [c0, c0 + kBlockN), into st.ids; a key
+// past nk takes 0 (its score is -inf whatever its id).
+__device__ __forceinline__ void load_seg_tile(const SegTile& st, int c0, int nk) {
+  for (int i = threadIdx.x; i < kBlockN; i += blockDim.x)
+    st.ids[kBlockM + i] = c0 + i < nk ? st.kseg[c0 + i] : 0;
+}
+
 // The scaled, soft-clamped score of (row, col); a key outside the band or
-// masked out takes the finite mask value.
-__device__ __forceinline__ float band_score(const Band& bd, int row, int col, float dot) {
+// masked out takes the finite mask value, and so does (kSeg) a key of
+// another document than the row's (same_doc false).  The document test is
+// a template flag and not a runtime one: a flag in the score slows the
+// sweep (Band).
+template <bool kSeg = false>
+__device__ __forceinline__ float band_score(const Band& bd, int row, int col, float dot,
+                                            bool same_doc = true) {
   const int off = col - row;
   bool keep = off <= bd.hi && off >= bd.lo;
   if (col >= bd.nk) return -INFINITY;
   float s = dot * bd.scale;
   if (bd.softclamp > 0.f) s = bd.softclamp * tanhf(s / bd.softclamp);
   if (bd.kvm != nullptr) keep = keep && bd.kvm[col] != 0;
+  if constexpr (kSeg) keep = keep && same_doc;
   return keep ? s : kMaskValue;
 }
 
@@ -135,14 +159,16 @@ __device__ __forceinline__ void load_q_frags(const __nv_bfloat16* Qs,
 
 // One KV tile of the bf16 forward: keys [c0, c0 + 64) of k and v (bd.nk
 // rows) into Ks and Vs, s = q k^T, the online-softmax update of (o, m_r,
-// l_r) and o += p v, for this warp's rows row_a and row_a + 8.
-template <int D>
+// l_r) and o += p v, for this warp's rows row_a and row_a + 8; with kSeg,
+// only the keys of each row's document (st) count.
+template <int D, bool kSeg = false>
 __device__ __forceinline__ void bf16_tile(__nv_bfloat16* Ks, __nv_bfloat16* Vs,
                                           const __nv_bfloat16* k,
                                           const __nv_bfloat16* v, const Band& bd,
                                           int c0, const uint32_t (&qf)[D / 16][4],
                                           float (&o)[D / 8][4], float (&m_r)[2],
-                                          float (&l_r)[2], int row_a) {
+                                          float (&l_r)[2], int row_a,
+                                          const SegTile& st = SegTile{}) {
   constexpr int kStride = D + 8;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;  // mma group id and thread in group
@@ -150,6 +176,7 @@ __device__ __forceinline__ void bf16_tile(__nv_bfloat16* Ks, __nv_bfloat16* Vs,
   __syncthreads();  // every warp is done with the previous K/V tile
   load_tile_bf16<D>(Ks, k, c0, bd.nk);
   load_tile_bf16<D>(Vs, v, c0, bd.nk);
+  if constexpr (kSeg) load_seg_tile(st, c0, bd.nk);
   __syncthreads();
 
   // s = q k^T: 8 fragments of 16 rows x 8 keys
@@ -173,7 +200,13 @@ __device__ __forceinline__ void bf16_tile(__nv_bfloat16* Ks, __nv_bfloat16* Vs,
     for (int e = 0; e < 4; ++e) {
       const int row = e < 2 ? row_a : row_b;
       const int col = c0 + j * 8 + t * 2 + (e & 1);
-      s[j][e] = band_score(bd, row, col, s[j][e]);
+      // kSeg: the ids from shared memory, key by key (held in registers
+      // through the products, or folded into a bit mask there, they
+      // spilled at the 128-register cap and ran slower)
+      s[j][e] = band_score<kSeg>(
+          bd, row, col, s[j][e],
+          !kSeg || st.ids[kBlockM + j * 8 + t * 2 + (e & 1)] ==
+                       st.ids[threadIdx.x / 32 * 16 + g + 8 * (e >> 1)]);
       mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
     }
   }
@@ -252,12 +285,14 @@ __device__ __forceinline__ void load_q_row_f32(const float* q, int row, int n,
 
 // One KV tile of the f32 forward: keys [c0, c0 + 64) of k and v (bd.nk
 // rows) into Ks and Vs, then this thread's row folded into (acc, m, l) 16
-// keys at a time.
-template <int D>
+// keys at a time; with kSeg, only the keys of the row's document (st; the
+// block's row threadIdx.x).
+template <int D, bool kSeg = false>
 __device__ __forceinline__ void f32_tile(float* Ks, float* Vs, const float* k,
                                          const float* v, const Band& bd, int c0,
                                          const float (&qv)[D], float (&acc)[D],
-                                         float& m, float& l, int row) {
+                                         float& m, float& l, int row,
+                                         const SegTile& st = SegTile{}) {
   constexpr int kChunk = 16;  // keys folded per online-softmax update
   __syncthreads();
   for (int i = threadIdx.x; i < kBlockN * D / 4; i += blockDim.x) {
@@ -270,6 +305,7 @@ __device__ __forceinline__ void f32_tile(float* Ks, float* Vs, const float* k,
     *reinterpret_cast<float4*>(Ks + r * D + c) = kx;
     *reinterpret_cast<float4*>(Vs + r * D + c) = vx;
   }
+  if constexpr (kSeg) load_seg_tile(st, c0, bd.nk);
   __syncthreads();
 
   for (int c = 0; c < kBlockN; c += kChunk) {
@@ -281,7 +317,8 @@ __device__ __forceinline__ void f32_tile(float* Ks, float* Vs, const float* k,
       float dot = 0.f;
 #pragma unroll
       for (int d = 0; d < D; ++d) dot = fmaf(qv[d], kr[d], dot);
-      s[jj] = band_score(bd, row, c0 + c + jj, dot);
+      s[jj] = band_score<kSeg>(bd, row, c0 + c + jj, dot,
+                               !kSeg || st.ids[kBlockM + c + jj] == st.ids[threadIdx.x]);
       mx = fmaxf(mx, s[jj]);
     }
     const float alpha = exp_nat(m - mx);

@@ -35,8 +35,13 @@ ported yet, and a mesh of more than one rank raises).
 On a mesh whose sequence world is above one the forward runs
 ``parallel/ring.py::ring_flash_attention`` with each rank's rotary
 positions; with ``auto_shard`` the layer pads, stripes and unpermutes
-around it.  The ring runs on a mesh whose ring this process holds whole (a
-``VirtualRing``: one GPU, or the CPU).  ``prefill`` attends with
+around it.  ``forward(segment_ids=)`` packs documents into one row: a
+query attends only keys of its own document, locally and on the
+``"torch"``/``"cuda"`` ring (padding takes ``PAD_SEGMENT_ID``); rotary
+positions stay global, as in the JAX layer (rotary is relative).  The
+fused ring and the int8 sweep take no ids yet and raise.  The ring runs
+on a mesh whose ring this process holds whole (a ``VirtualRing``: one
+GPU, or the CPU).  ``prefill`` attends with
 ``ops/flash.py`` under either value, as the JAX package's does.  Features
 not ported yet raise ``NotImplementedError`` naming the ROADMAP item that
 brings them.
@@ -49,7 +54,7 @@ import math
 import torch
 from torch import nn
 
-from ..ops.attention import default_attention
+from ..ops.attention import PAD_SEGMENT_ID, default_attention
 from ..ops.cuda_flash import cuda_flash_attention, cuda_flash_decode, int8_compute
 from ..ops.cuda_flash_q8 import (
     QuantizedKV,
@@ -66,6 +71,7 @@ from ..parallel.sharding import (
     layout_permute,
     layout_unpermute,
     pad_seq_and_mask,
+    pad_to_multiple,
 )
 from ..utils.validate import check_model_input
 from .layers import Dense, RMSNorm, resolve_device
@@ -73,7 +79,6 @@ from .layers import Dense, RMSNorm, resolve_device
 # Where each feature that is not ported yet will come from (ROADMAP.md).
 UNPORTED = {
     "mask": "the mask algebra, ROADMAP.md Port queue item 7",
-    "segment_ids": "packed sequences with the mask algebra, ROADMAP.md Port queue item 7",
     "windowed_cache": "the memory knobs, ROADMAP.md Port queue item 7",
     "ff_chunk_size": "the memory knobs, ROADMAP.md Port queue item 7",
     "loss_chunk_size": "the memory knobs, ROADMAP.md Port queue item 7",
@@ -254,9 +259,9 @@ class RingAttention(nn.Module):
         segment_ids: torch.Tensor | None = None,
     ) -> torch.Tensor:
         """``x: (b, n, dim)`` -> ``(b, n, dim)``; ``mask: (b, n)`` key padding
-        (True = attend), ignored when the layer is causal."""
+        (True = attend), ignored when the layer is causal; ``segment_ids:
+        (b, n)`` integer document ids of packed sequences."""
         check_model_input("RingAttention", x, self.dim)
-        reject_unported("RingAttention", segment_ids=segment_ids)
         ring = seq_world(self.mesh) > 1
         n_orig = x.shape[1]
         scheme, factor = layout_for("ring", self.striped, seq_world(self.mesh))
@@ -265,11 +270,16 @@ class RingAttention(nn.Module):
             x = layout_permute(x, scheme, factor)
             if mask is not None:
                 mask = layout_permute(mask, scheme, factor)
+            if segment_ids is not None:
+                # pad slots are a document of their own, attending nothing real
+                segment_ids, _ = pad_to_multiple(segment_ids, seq_world(self.mesh),
+                                                 value=PAD_SEGMENT_ID)
+                segment_ids = layout_permute(segment_ids, scheme, factor)
         q, k, v = self._project_qkv(x)
         if self.causal:
             mask = None
         attend = self._ring_attend if ring else self._local_attend
-        out = self._merge_heads(attend(q, k, v, mask))
+        out = self._merge_heads(attend(q, k, v, mask, segment_ids))
         if ring and self.auto_shard:
             out = layout_unpermute(out, scheme, factor)[:, :n_orig]
         return out
@@ -287,7 +297,7 @@ class RingAttention(nn.Module):
             max_ring_passes = math.ceil((window - 1) / n_chunk) + 1
         return bucket, window, max_ring_passes
 
-    def _ring_attend(self, q, k, v, mask):
+    def _ring_attend(self, q, k, v, mask, segment_ids=None):
         ring = self.mesh.ring
         world = seq_world(self.mesh)
         n = q.shape[2]
@@ -308,10 +318,10 @@ class RingAttention(nn.Module):
         return ring_flash_attention(
             q, k, v, mask, ring, self.causal, self.striped, bucket,
             max_ring_passes, window, self.softclamp_value, None, self.impl,
-            compute_dtype=self.compute_dtype,
+            segment_ids=segment_ids, compute_dtype=self.compute_dtype,
         )
 
-    def _local_attend(self, q, k, v, mask):
+    def _local_attend(self, q, k, v, mask, segment_ids=None):
         n = q.shape[2]
         q, k = self._rotate(q, k, torch.arange(n, device=q.device))
         if self._kernel_impl == "cuda":
@@ -319,12 +329,12 @@ class RingAttention(nn.Module):
                 q, k, v, mask, causal=self.causal,
                 window=self.max_lookback_seq_len,
                 softclamp_value=self.softclamp_value,
-                compute_dtype=self.compute_dtype,
+                compute_dtype=self.compute_dtype, segment_ids=segment_ids,
             )
         return flash_attention(
             q, k, v, mask, causal=self.causal, bucket_size=self.bucket_size,
             window=self.max_lookback_seq_len,
-            softclamp_value=self.softclamp_value,
+            softclamp_value=self.softclamp_value, segment_ids=segment_ids,
         )
 
     # ------------------------------------------------------------------

@@ -12,8 +12,9 @@ int8 serving knobs ``quantize_cache`` and ``compute_dtype="int8"`` of
 and every layer runs the ring on that layout, hop by hop under
 ``impl="cuda"`` or fused under ``"fused"`` (one launch for the whole
 ring, or one per rank when padding added a key mask); the parameters are
-the same as without a mesh.  Decoding on a mesh is not
-ported yet.
+the same as without a mesh.  ``forward(segment_ids=)`` trains and scores
+packed documents (the ids are padded with ``PAD_SEGMENT_ID`` and permuted
+with the tokens on a mesh).  Decoding on a mesh is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops.attention import PAD_SEGMENT_ID
 from ..utils.validate import check_tokens_input
 from ..parallel.mesh import seq_world
 from ..parallel.sharding import layout_for, layout_permute, layout_unpermute, pad_to_multiple
@@ -179,15 +181,26 @@ class RingTransformer(nn.Module):
         """``tokens: (b, n)`` integer ids -> logits ``(b, n, num_tokens)``,
         or with ``return_loss`` the mean next-token cross-entropy over labels
         that are not ``ignore_index`` (rows with ``example_mask`` False drop
-        out)."""
+        out).
+
+        ``segment_ids: (b, n)`` integer document ids pack several documents
+        into one row: every attention layer masks cross-document attention,
+        and the loss drops each label that starts a new document (it would
+        be predicted from the previous one)."""
         check_tokens_input("RingTransformer", tokens)
-        reject_unported("RingTransformer", segment_ids=segment_ids)
         tokens = tokens.to(self._device())
         if mask is not None:
             mask = mask.to(self._device())
+        if segment_ids is not None:
+            segment_ids = torch.as_tensor(segment_ids, device=self._device())
+        segment_same = None
         if return_loss:
             labels = tokens[:, 1:]
             tokens = tokens[:, :-1]
+            if segment_ids is not None:
+                # label i is token i + 1: valid only within one document
+                segment_same = segment_ids[:, 1:] == segment_ids[:, :-1]
+                segment_ids = segment_ids[:, :-1]
         world = seq_world(self.mesh)
         n_orig = tokens.shape[1]
         scheme, factor = layout_for("ring", self.striped, world)
@@ -202,9 +215,13 @@ class RingTransformer(nn.Module):
             if mask is not None:
                 mask, _ = pad_to_multiple(mask, world, value=False)
                 mask = layout_permute(mask, scheme, factor)
+            if segment_ids is not None:
+                # pad slots are a document of their own, attending nothing real
+                segment_ids, _ = pad_to_multiple(segment_ids, world, value=PAD_SEGMENT_ID)
+                segment_ids = layout_permute(segment_ids, scheme, factor)
         x = self.embed(tokens)
         for attn, ff in zip(self.attn_layers, self.ff_layers):
-            x = attn(x, mask) + x
+            x = attn(x, mask, segment_ids) + x
             x = ff(x) + x
         logits = self.to_logits(self.final_norm(x))
         if world > 1:
@@ -214,6 +231,8 @@ class RingTransformer(nn.Module):
         valid = labels != self.ignore_index
         if example_mask is not None:
             valid = valid & example_mask.to(valid.device)[:, None]
+        if segment_same is not None:
+            valid = valid & segment_same
         nll = _position_nll(logits, labels, valid)
         return nll.sum() / valid.sum().clamp(min=1)
 

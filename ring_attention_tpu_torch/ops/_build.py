@@ -88,7 +88,7 @@ def flash_fwd_library() -> ctypes.CDLL:
         i32, i32, i32, i32, i32, i32,  # B, H, Hk, Nq, Nk, D
         i32, f32,  # is_bf16, scale
         i32, i32, i32, i32,  # causal, hi, windowed, lo
-        f32, ptr,  # softclamp, stream
+        f32, ptr, ptr, ptr,  # softclamp, q_seg, kv_seg (both null: none), stream
     ]
     lib.flash_fwd.restype = i32
     return lib
@@ -104,7 +104,7 @@ def flash_bwd_library() -> ctypes.CDLL:
         i32, i32, i32, i32, i32, i32,  # B, H, Hk, Nq, Nk, D
         i32, f32,  # is_bf16, scale
         i32, i32, i32, i32,  # causal, hi, windowed, lo
-        f32, ptr,  # softclamp, stream
+        f32, ptr, ptr, ptr,  # softclamp, q_seg, kv_seg (both null: none), stream
     ]
     lib.flash_bwd_dkv.argtypes = inputs + [ptr, ptr] + shape  # dk, dv
     lib.flash_bwd_dkv.restype = i32

@@ -11,18 +11,57 @@ Layout at every public function: ``q: (b, h, n, d)``, ``k, v: (b, hk, n, d)``
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from ..utils.validate import check_attention_args
+from ..utils.validate import check_attention_args, check_segment_ids
 
 # Large-but-finite mask value: -inf would make a fully masked row NaN
 # (exp(-inf - -inf)); with a finite value such a row averages V uniformly.
 MASK_VALUE = -0.5 * float(torch.finfo(torch.float32).max)
 EPSILON = 1e-10
 
-# Segment id reserved for padding (packed sequences arrive with the
-# mask-algebra slice; the constant is shared already).
+# Segment id reserved for padding: never equal to a real document id (real
+# ids are >= 0), so pad queries and keys attend only each other.
 PAD_SEGMENT_ID = -1
+
+
+class SegmentIds(NamedTuple):
+    """Per-token document ids of packed sequences.
+
+    A query at row ``i`` attends a key at column ``j`` only when ``q[.., i]
+    == kv[.., j]``, on top of the band, the key mask and the window.  Real
+    ids are ``>= 0``; ``PAD_SEGMENT_ID`` marks padding."""
+
+    q: torch.Tensor  # (b, nq) int32
+    kv: torch.Tensor  # (b, nk) int32
+
+
+def normalize_segment_ids(segment_ids, q, k, fn: str = "attention"):
+    """``(q_seg, kv_seg)`` int32 tensors from the public ``segment_ids``
+    argument: a ``(b, n)`` tensor used for both sides (``nq == nk``), a
+    ``(q_ids, kv_ids)`` pair or :class:`SegmentIds`, or None -> ``(None,
+    None)``.  Validated against ``q`` and ``k``; on their device, contiguous."""
+    if segment_ids is None:
+        return None, None
+    if isinstance(segment_ids, (tuple, list)):
+        q_seg, kv_seg = segment_ids
+    else:
+        q_seg = kv_seg = segment_ids
+    q_seg, kv_seg = (torch.as_tensor(s, device=q.device) for s in (q_seg, kv_seg))
+    check_segment_ids(fn, q, k, q_seg, kv_seg)
+    return (q_seg.to(torch.int32).contiguous(), kv_seg.to(torch.int32).contiguous())
+
+
+def segments_overlap(q_seg: torch.Tensor, kv_seg: torch.Tensor) -> bool:
+    """Conservative "any shared document?" test of two id blocks: disjoint
+    id ranges share no document whatever their order, so skipping on a
+    False is always sound (overlapping ranges may still share nothing; the
+    per-element mask handles those).  Reads two scalars to the host."""
+    lo_q, hi_q, lo_k, hi_k = torch.stack(
+        [q_seg.min(), q_seg.max(), kv_seg.min(), kv_seg.max()]).tolist()
+    return lo_q <= hi_k and lo_k <= hi_q
 
 
 def softclamp(x: torch.Tensor, value: float) -> torch.Tensor:
@@ -38,6 +77,7 @@ def default_attention(
     *,
     causal: bool = False,
     softclamp_value: float | None = None,
+    segment_ids=None,
 ) -> torch.Tensor:
     """Exact dense attention.
 
@@ -49,6 +89,9 @@ def default_attention(
       causal: end-aligned causal mask (query ``i`` sees keys
         ``j <= i + nk - nq``); ``mask`` is ignored when set.
       softclamp_value: if set, logits are soft-clamped to this magnitude.
+      segment_ids: packed-sequence document ids (see
+        :func:`normalize_segment_ids`); composes with every other mask:
+        cross-document logits are masked out.
 
     Returns:
       ``(b, h, nq, d)`` attention output in ``q.dtype``.
@@ -57,6 +100,7 @@ def default_attention(
     b, h, nq, d = q.shape
     _, hk, nk, _ = k.shape
     g = h // hk
+    q_seg, kv_seg = normalize_segment_ids(segment_ids, q, k, "default_attention")
 
     scale = d**-0.5
     qg = q.reshape(b, hk, g, nq, d).float()
@@ -71,6 +115,10 @@ def default_attention(
         sim = torch.where(j <= i + (nk - nq), sim, MASK_VALUE)
     elif mask is not None:
         sim = torch.where(mask[:, None, None, None, :], sim, MASK_VALUE)
+
+    if q_seg is not None:
+        same = q_seg[:, None, None, :, None] == kv_seg[:, None, None, None, :]
+        sim = torch.where(same, sim, MASK_VALUE)
 
     attn = torch.softmax(sim, dim=-1)
     out = torch.einsum("bhgij,bhjd->bhgid", attn, v.float())

@@ -20,12 +20,21 @@ two passes of ``pallas_flash_backward`` (dk/dv and dq):
 - ``compute_dtype="int8"`` on ``flash_fwd``, ``flash_partials`` and
   ``cuda_flash_attention`` runs the sweep's int8 mode instead, the
   separate kernel of ``cuda_flash_q8.py``; the backward stays here.
+- ``q_seg``/``kv_seg`` (packed sequences, ``_flash_fwd_call(q_segment_ids=,
+  kv_segment_ids=)`` and ``pallas_flash_backward(segment_ids=)``): int32
+  ``(b, nq)`` and ``(b, nk)`` document ids; a pair attends only within one
+  document.  They select the kernels' segmented instantiation, which
+  visits the same tiles as the unsegmented one (no tile is skipped on
+  ids, as the TPU kernel skips none on runtime ids).  The int8 sweep takes
+  no ids yet.
 
 ``launch_count`` counts every launch of the forward kernel;
 ``seed_launch_count``, ``resume_launch_count`` and
 ``fused_carry_launch_count`` count its ring modes (partials from no carry,
 partials from a carry, out + lse from a carry); ``dkv_launch_count`` and
-``dq_launch_count`` count the backward kernels.  Plain-version calls do not
+``dq_launch_count`` count the backward kernels; ``seg_launch_count``,
+``seg_dkv_launch_count`` and ``seg_dq_launch_count`` count again those of
+the three launches that took document ids.  Plain-version calls do not
 count, so a run can show that its main path went through the kernels.
 """
 
@@ -35,7 +44,7 @@ import ctypes
 
 import torch
 
-from .attention import MASK_VALUE, softclamp
+from .attention import MASK_VALUE, normalize_segment_ids, softclamp
 from .partials import FlashPartials, finalize_partials, init_partials
 from ..utils.validate import check_attention_args
 
@@ -49,10 +58,20 @@ resume_launch_count = 0  # flash_fwd writing partials from a carry
 fused_carry_launch_count = 0  # flash_fwd writing out + lse from a carry
 dkv_launch_count = 0  # flash_bwd_dkv
 dq_launch_count = 0  # flash_bwd_dq
+# The same launches, counted again when they ran the segmented instantiation.
+seg_launch_count = 0  # flash_fwd, every mode
+seg_dkv_launch_count = 0  # flash_bwd_dkv
+seg_dq_launch_count = 0  # flash_bwd_dq
+
+# B4's segment ids (ROADMAP.md Queue 2 K3c).
+UNPORTED_INT8_SEGMENTS = ("segment ids in the int8 sweep (ROADMAP.md Queue 2 K3c), "
+                          "ROADMAP.md Port queue item 7b")
 
 
-def _keep(nq, nk, kv_mask, causal_offset, window_lo, device) -> torch.Tensor:
-    """Boolean ``(b|1, 1, 1, nq, nk)`` keep mask of the band and key mask."""
+def _keep(nq, nk, kv_mask, causal_offset, window_lo, device, q_seg=None,
+          kv_seg=None) -> torch.Tensor:
+    """Boolean ``(b|1, 1, 1, nq, nk)`` keep mask of the band, the key mask
+    and the document ids."""
     keep = torch.ones((nq, nk), dtype=torch.bool, device=device)
     if causal_offset is not None:
         off = (torch.arange(nk, device=device)[None, :]
@@ -63,6 +82,8 @@ def _keep(nq, nk, kv_mask, causal_offset, window_lo, device) -> torch.Tensor:
     keep = keep[None, None, None]
     if kv_mask is not None:
         keep = keep & kv_mask[:, None, None, None, :]
+    if q_seg is not None:
+        keep = keep & (q_seg[:, None, None, :, None] == kv_seg[:, None, None, None, :])
     return keep
 
 
@@ -77,14 +98,17 @@ def flash_partials_reference(
     window_lo: int | None = None,
     softclamp_value: float | None = None,
     carry: FlashPartials | None = None,
+    q_seg: torch.Tensor | None = None,
+    kv_seg: torch.Tensor | None = None,
 ) -> FlashPartials:
     """Plain PyTorch version of the kernel's partials modes: the span folded
     into ``carry`` (``init_partials`` when None) with dense f32 scores.
 
     Local element ``(i, j)`` attends iff ``window_lo <= j - i <=
-    causal_offset`` (each bound only when given) and ``kv_mask[b, j]``;
-    masked scores take the finite ``MASK_VALUE``, so a row that has seen no
-    key averages V over every key until a real score wipes that out."""
+    causal_offset`` (each bound only when given), ``kv_mask[b, j]`` and,
+    with ids, ``q_seg[b, i] == kv_seg[b, j]``; masked scores take the
+    finite ``MASK_VALUE``, so a row that has seen no key averages V over
+    every key until a real score wipes that out."""
     b, h, nq, d = q.shape
     _, hk, nk, _ = k.shape
     g = h // hk
@@ -94,7 +118,7 @@ def flash_partials_reference(
     s = torch.einsum("bhgid,bhjd->bhgij", qg, k.float()) * scale
     if softclamp_value is not None:
         s = softclamp(s, softclamp_value)
-    keep = _keep(nq, nk, kv_mask, causal_offset, window_lo, q.device)
+    keep = _keep(nq, nk, kv_mask, causal_offset, window_lo, q.device, q_seg, kv_seg)
     s = torch.where(keep, s, MASK_VALUE)
     m_c = carry.m.reshape(b, hk, g, nq)
     m = torch.maximum(m_c, s.amax(dim=-1))
@@ -118,6 +142,8 @@ def flash_fwd_reference(
     window_lo: int | None = None,
     softclamp_value: float | None = None,
     carry: FlashPartials | None = None,
+    q_seg: torch.Tensor | None = None,
+    kv_seg: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel's fused mode: the partials of
     :func:`flash_partials_reference`, normalized.  Returns ``(out (b, h,
@@ -125,6 +151,7 @@ def flash_fwd_reference(
     out, lse = finalize_partials(flash_partials_reference(
         q, k, v, kv_mask, scale=scale, causal_offset=causal_offset,
         window_lo=window_lo, softclamp_value=softclamp_value, carry=carry,
+        q_seg=q_seg, kv_seg=kv_seg,
     ))
     return out.to(q.dtype), lse
 
@@ -142,12 +169,14 @@ def flash_bwd_reference(
     causal_offset: int | None = None,
     window_lo: int | None = None,
     softclamp_value: float | None = None,
+    q_seg: torch.Tensor | None = None,
+    kv_seg: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the backward kernels: dense scores in float32.
 
     ``do, q: (b, h, nq, d)``, ``k, v: (b, hk, nk, d)``, ``lse`` (the
     forward's) and ``delta = rowsum(do * out)``: ``(b, h, nq)`` float32.
-    The band and key mask follow :func:`flash_fwd_reference`; a masked pair
+    The band, key mask and ids follow :func:`flash_fwd_reference`; a masked pair
     takes ``p = 0`` by a select, so a row with no key contributes nothing.
     Returns float32 ``(dq (b, h, nq, d), dk (b, hk, nk, d), dv (b, hk, nk,
     d))``, dk and dv summed over each kv head's group of query heads."""
@@ -160,7 +189,7 @@ def flash_bwd_reference(
     s = torch.einsum("bhgid,bhjd->bhgij", qg, kf) * scale
     if softclamp_value is not None:
         s = softclamp(s, softclamp_value)
-    keep = _keep(nq, nk, kv_mask, causal_offset, window_lo, q.device)
+    keep = _keep(nq, nk, kv_mask, causal_offset, window_lo, q.device, q_seg, kv_seg)
     p = torch.where(keep, torch.exp(s - lse.reshape(b, hk, g, nq, 1)), 0.0)
     dv = torch.einsum("bhgij,bhgid->bhjd", p, dog)
     dp = torch.einsum("bhgid,bhjd->bhgij", dog, vf)
@@ -173,10 +202,12 @@ def flash_bwd_reference(
     return dq.reshape(b, h, nq, d), dk, dv
 
 
-def _check_kernel_args(fn, q, k, v, kv_mask, *rows, dtypes=SUPPORTED_DTYPES) -> None:
+def _check_kernel_args(fn, q, k, v, kv_mask, *rows, dtypes=SUPPORTED_DTYPES,
+                       segs=(None, None)) -> None:
     """What the kernels take; ``rows`` are further ``(b, h, nq, ...)``
-    inputs (``do`` in q's dtype, ``lse`` and ``delta`` in float32) and
-    ``dtypes`` the operand types the kernel is built for."""
+    inputs (``do`` in q's dtype, ``lse`` and ``delta`` in float32),
+    ``dtypes`` the operand types the kernel is built for and ``segs`` the
+    ``(q_seg, kv_seg)`` ids, both None or int32 ``(b, nq)`` and ``(b, nk)``."""
     if q.dtype not in dtypes:
         raise ValueError(f"{fn}: dtype {q.dtype} unsupported; use one of {dtypes}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -193,6 +224,12 @@ def _check_kernel_args(fn, q, k, v, kv_mask, *rows, dtypes=SUPPORTED_DTYPES) -> 
         raise ValueError(f"{fn}: empty query or key sequence")
     if q.shape[0] * q.shape[1] > 65535:
         raise ValueError(f"{fn}: batch * heads exceeds the grid's 65535 rows")
+    q_seg, kv_seg = segs
+    if (q_seg is None) != (kv_seg is None):
+        raise ValueError(f"{fn}: q_seg and kv_seg go together")
+    if q_seg is not None:
+        rows += ((q_seg, (q.shape[0], q.shape[2]), torch.int32),
+                 (kv_seg, (k.shape[0], k.shape[2]), torch.int32))
     for x, shape, dtype in rows:
         if tuple(x.shape) != shape or x.dtype != dtype:
             raise ValueError(
@@ -233,6 +270,23 @@ def _partials_rows(parts: FlashPartials, b, h, nq, d) -> tuple:
             (parts.l, (b, h, nq), torch.float32))
 
 
+def _seg_ptrs(band) -> tuple:
+    """The ``(q_seg, kv_seg)`` pointers the C entry points take (both null:
+    the unsegmented instantiation)."""
+    if band["q_seg"] is None:
+        return None, None
+    return band["q_seg"].data_ptr(), band["kv_seg"].data_ptr()
+
+
+def check_int8_segments(fn: str, q_seg) -> None:
+    """The int8 sweep takes no document ids yet."""
+    if q_seg is not None:
+        raise NotImplementedError(
+            f'{fn}: segment ids with compute_dtype="int8" are not ported yet; '
+            f"they arrive with {UNPORTED_INT8_SEGMENTS}"
+        )
+
+
 def int8_compute(compute_dtype, fn: str = "flash_fwd") -> bool:
     """Whether ``compute_dtype`` asks for the int8 sweep; raises
     ``ValueError`` naming ``fn`` for a value other than None and ``"int8"``,
@@ -258,7 +312,8 @@ def _launch_fwd(q, k, v, kv_mask, band, carry, partials, out=None):
     for parts in (carry, out):
         if parts is not None:
             rows += _partials_rows(parts, b, h, nq, d)
-    _check_kernel_args("flash_fwd", q, k, v, kv_mask, *rows)
+    _check_kernel_args("flash_fwd", q, k, v, kv_mask, *rows,
+                       segs=(band["q_seg"], band["kv_seg"]))
     from ._build import flash_fwd_library
 
     lib = flash_fwd_library()
@@ -288,12 +343,13 @@ def _launch_fwd(q, k, v, kv_mask, band, carry, partials, out=None):
             float(band["scale"]),
             *_band_args(band["causal_offset"], band["window_lo"],
                         band["softclamp_value"]),
-            ctypes.c_void_p(stream),
+            *_seg_ptrs(band), ctypes.c_void_p(stream),
         )
     _check_launch(rc, "flash_fwd", q, k)
     global launch_count, seed_launch_count, resume_launch_count
-    global fused_carry_launch_count
+    global fused_carry_launch_count, seg_launch_count
     launch_count += 1
+    seg_launch_count += band["q_seg"] is not None
     if partials and carry is None:
         seed_launch_count += 1
     elif partials:
@@ -316,21 +372,25 @@ def flash_fwd(
     carry: FlashPartials | None = None,
     compute_dtype: str | None = None,
     block_k: int | None = None,
+    q_seg: torch.Tensor | None = None,
+    kv_seg: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One forward flash sweep: ``(out in q.dtype, lse f32)``, resuming
     ``carry`` when given (a ring's last hop) and leaving it unchanged.
 
     Same arguments and result as :func:`flash_fwd_reference`.  CPU tensors
-    take that plain version; CUDA tensors launch the kernel.
-    ``compute_dtype="int8"`` runs the int8 sweep instead
-    (``cuda_flash_q8.flash_fwd_q8``, quantized per block of ``block_k``
-    keys); the float sweep does not depend on ``block_k``."""
+    take that plain version; CUDA tensors launch the kernel (its segmented
+    instantiation when ids are given).  ``compute_dtype="int8"`` runs the
+    int8 sweep instead (``cuda_flash_q8.flash_fwd_q8``, quantized per block
+    of ``block_k`` keys); the float sweep does not depend on ``block_k``."""
     band = dict(scale=scale, causal_offset=causal_offset, window_lo=window_lo,
                 softclamp_value=softclamp_value)
     if int8_compute(compute_dtype):
+        check_int8_segments("flash_fwd", q_seg)
         from .cuda_flash_q8 import flash_fwd_q8
 
         return flash_fwd_q8(q, k, v, kv_mask, carry=carry, block_k=block_k, **band)
+    band.update(q_seg=q_seg, kv_seg=kv_seg)
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, kv_mask, carry=carry, **band)
     return _launch_fwd(q, k, v, kv_mask, band, carry, partials=False)
@@ -350,6 +410,8 @@ def flash_partials(
     out: FlashPartials | None = None,
     compute_dtype: str | None = None,
     block_k: int | None = None,
+    q_seg: torch.Tensor | None = None,
+    kv_seg: torch.Tensor | None = None,
 ) -> FlashPartials:
     """One forward flash sweep returning f32 partials ``(acc, m, l)``,
     seeded from no carry or resuming ``carry`` (a ring's first and middle
@@ -359,15 +421,17 @@ def flash_partials(
 
     Same arguments and result as :func:`flash_partials_reference`.  CPU
     tensors take that plain version (copied into ``out``); CUDA tensors
-    launch the kernel.  ``compute_dtype`` and ``block_k`` as in
+    launch the kernel.  ``compute_dtype``, ``block_k`` and the ids as in
     :func:`flash_fwd`."""
     band = dict(scale=scale, causal_offset=causal_offset, window_lo=window_lo,
                 softclamp_value=softclamp_value)
     if int8_compute(compute_dtype):
+        check_int8_segments("flash_partials", q_seg)
         from .cuda_flash_q8 import flash_partials_q8
 
         return flash_partials_q8(q, k, v, kv_mask, carry=carry, out=out,
                                  block_k=block_k, **band)
+    band.update(q_seg=q_seg, kv_seg=kv_seg)
     if q.device.type == "cpu":
         result = flash_partials_reference(q, k, v, kv_mask, carry=carry, **band)
         if out is None:
@@ -387,6 +451,7 @@ def _launch_bwd(entry, outs, do, q, k, v, lse, delta, kv_mask, band) -> None:
     _check_kernel_args(
         entry, q, k, v, kv_mask, (do, tuple(q.shape), q.dtype),
         (lse, (b, h, nq), torch.float32), (delta, (b, h, nq), torch.float32),
+        segs=(band["q_seg"], band["kv_seg"]),
     )
     from ._build import flash_bwd_library
 
@@ -403,7 +468,7 @@ def _launch_bwd(entry, outs, do, q, k, v, lse, delta, kv_mask, band) -> None:
             float(band["scale"]),
             *_band_args(band["causal_offset"], band["window_lo"],
                         band["softclamp_value"]),
-            ctypes.c_void_p(stream),
+            *_seg_ptrs(band), ctypes.c_void_p(stream),
         )
     _check_launch(rc, entry, q, k)
 
@@ -421,21 +486,24 @@ def flash_bwd_dkv(
     causal_offset: int | None = None,
     window_lo: int | None = None,
     softclamp_value: float | None = None,
+    q_seg: torch.Tensor | None = None,
+    kv_seg: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The dk/dv pass: float32 ``(dk, dv)``, each ``(b, hk, nk, d)``.
 
     Arguments as :func:`flash_bwd_reference`, whose dk and dv a CPU tensor
     takes; a CUDA tensor launches the kernel.  ``do`` has q's dtype."""
     band = dict(scale=scale, causal_offset=causal_offset, window_lo=window_lo,
-                softclamp_value=softclamp_value)
+                softclamp_value=softclamp_value, q_seg=q_seg, kv_seg=kv_seg)
     if q.device.type == "cpu":
         _, dk, dv = flash_bwd_reference(do, q, k, v, lse, delta, kv_mask, **band)
         return dk, dv
     dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     _launch_bwd("flash_bwd_dkv", (dk, dv), do, q, k, v, lse, delta, kv_mask, band)
-    global dkv_launch_count
+    global dkv_launch_count, seg_dkv_launch_count
     dkv_launch_count += 1
+    seg_dkv_launch_count += q_seg is not None
     return dk, dv
 
 
@@ -452,19 +520,22 @@ def flash_bwd_dq(
     causal_offset: int | None = None,
     window_lo: int | None = None,
     softclamp_value: float | None = None,
+    q_seg: torch.Tensor | None = None,
+    kv_seg: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The dq pass: float32 ``dq (b, h, nq, d)``.
 
     Arguments as :func:`flash_bwd_reference`, whose dq a CPU tensor takes; a
     CUDA tensor launches the kernel.  ``do`` has q's dtype."""
     band = dict(scale=scale, causal_offset=causal_offset, window_lo=window_lo,
-                softclamp_value=softclamp_value)
+                softclamp_value=softclamp_value, q_seg=q_seg, kv_seg=kv_seg)
     if q.device.type == "cpu":
         return flash_bwd_reference(do, q, k, v, lse, delta, kv_mask, **band)[0]
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     _launch_bwd("flash_bwd_dq", (dq,), do, q, k, v, lse, delta, kv_mask, band)
-    global dq_launch_count
+    global dq_launch_count, seg_dq_launch_count
     dq_launch_count += 1
+    seg_dq_launch_count += q_seg is not None
     return dq
 
 
@@ -491,34 +562,36 @@ def flash_bwd(
 
 class _CudaFlashAttention(torch.autograd.Function):
     """Port of the ``_pallas_flash_core`` custom_vjp: the forward saves
-    ``(q, k, v, kv_mask, out, lse)``; the backward recomputes p from lse.
+    ``(q, k, v, kv_mask, q_seg, kv_seg, out, lse)``; the backward
+    recomputes p from lse.
     With ``compute_dtype="int8"`` the forward is the int8 sweep and the
     backward the same float kernels, from the exact ``(q, k, v)`` and the
     int8 forward's ``(out, lse)``, as in the JAX package (:2258-2275)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_mask, scale, causal_offset, window_lo,
-                softclamp_value, compute_dtype):
+    def forward(ctx, q, k, v, kv_mask, q_seg, kv_seg, scale, causal_offset,
+                window_lo, softclamp_value, compute_dtype):
         out, lse = flash_fwd(
             q, k, v, kv_mask, scale=scale, causal_offset=causal_offset,
             window_lo=window_lo, softclamp_value=softclamp_value,
-            compute_dtype=compute_dtype,
+            compute_dtype=compute_dtype, q_seg=q_seg, kv_seg=kv_seg,
         )
-        ctx.save_for_backward(q, k, v, kv_mask, out, lse)
+        ctx.save_for_backward(q, k, v, kv_mask, q_seg, kv_seg, out, lse)
         ctx.band = dict(scale=scale, causal_offset=causal_offset,
                         window_lo=window_lo, softclamp_value=softclamp_value)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, kv_mask, out, lse = ctx.saved_tensors
+        q, k, v, kv_mask, q_seg, kv_seg, out, lse = ctx.saved_tensors
         # outside the kernels, as the JAX backward computes it (:2266)
         delta = (do.float() * out.float()).sum(-1)
         dq, dk, dv = flash_bwd(
-            do.to(q.dtype).contiguous(), q, k, v, lse, delta, kv_mask, **ctx.band
+            do.to(q.dtype).contiguous(), q, k, v, lse, delta, kv_mask,
+            q_seg=q_seg, kv_seg=kv_seg, **ctx.band
         )
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
-                None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None)
 
 
 def cuda_flash_attention(
@@ -532,17 +605,21 @@ def cuda_flash_attention(
     softclamp_value: float | None = None,
     scale: float | None = None,
     compute_dtype: str | None = None,
+    segment_ids=None,
 ) -> torch.Tensor:
     """Exact flash attention on the CUDA kernels (GQA-aware), differentiable.
 
     Same contract as ``ops.flash.flash_attention``: ``causal`` is
     end-aligned (``causal_offset = nk - nq``) and drops ``mask``;
-    ``window`` keeps the last ``window`` keys of each query.
-    ``compute_dtype="int8"`` runs the forward's QK^T and PV on int8
-    operands (``pallas_flash_attention(compute_dtype="int8")``); the
-    backward stays on the float kernels."""
+    ``window`` keeps the last ``window`` keys of each query;
+    ``segment_ids`` (a ``(b, n)`` tensor or a ``(q_ids, kv_ids)`` pair)
+    packs documents.  ``compute_dtype="int8"`` runs the forward's QK^T and
+    PV on int8 operands (``pallas_flash_attention(compute_dtype="int8")``);
+    the backward stays on the float kernels."""
     check_attention_args("cuda_flash_attention", q, k, v, mask)
-    int8_compute(compute_dtype, "cuda_flash_attention")
+    q_seg, kv_seg = normalize_segment_ids(segment_ids, q, k, "cuda_flash_attention")
+    if int8_compute(compute_dtype, "cuda_flash_attention"):
+        check_int8_segments("cuda_flash_attention", q_seg)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if window is not None and not causal:
@@ -554,8 +631,8 @@ def cuda_flash_attention(
     causal_offset = k.shape[2] - q.shape[2] if causal else None
     window_lo = causal_offset - (window - 1) if window is not None else None
     return _CudaFlashAttention.apply(
-        q.contiguous(), k.contiguous(), v.contiguous(), mask, scale,
-        causal_offset, window_lo, softclamp_value, compute_dtype,
+        q.contiguous(), k.contiguous(), v.contiguous(), mask, q_seg, kv_seg,
+        scale, causal_offset, window_lo, softclamp_value, compute_dtype,
     )
 
 

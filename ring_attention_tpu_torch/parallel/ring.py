@@ -18,6 +18,15 @@ Masking is one band of index offsets per hop (``_hop_offsets``): attend iff
 - striped causal: ``hi = 0`` if ``origin <= rank`` else ``-1``;
 - a lookback window adds the lower bound ``lo``.
 
+Packed sequences (``segment_ids``, one ``(b, n)`` id tensor in the layout of
+``q``): the queries keep their shard's ids and the kv ids ride the ring with
+k and v; a hop whose kv ids share no document id range with the queries'
+is skipped (JAX ``_hop_has_work``'s ``segments_overlap`` term), in the
+forward and the backward alike.  Each rank's id range is read to the host
+once per call (``_seg_ranges``), so the skip needs no sync per hop.
+``doc_skip_count`` and ``doc_skip_bwd_count`` count the (rank, hop) pairs
+skipped that way, whose band had work.
+
 Three compute paths:
 
 - ``impl="torch"`` follows the JAX scanned XLA path (``_ring_fwd_impl``
@@ -61,7 +70,9 @@ import warnings
 
 import torch
 
+from ..ops.attention import normalize_segment_ids
 from ..ops.cuda_flash import (
+    check_int8_segments,
     cuda_flash_attention,
     flash_bwd,
     flash_fwd,
@@ -90,11 +101,20 @@ UNPORTED = {
     "counter_rotate": "the ring variants, ROADMAP.md Port queue item 7",
     "hop_compression": "the ring variants, ROADMAP.md Port queue item 7",
     "dkv_dtype": "the ring variants, ROADMAP.md Port queue item 7",
-    "segment_ids": "packed sequences with the mask algebra, ROADMAP.md Port queue item 7",
 }
 # The fused ring's int8 feed (JAX ``fused_ring_local(kv_quantized=)``).
 UNPORTED_FUSED_INT8 = ("the fused ring's int8 feed (QuantizedBlockKV, ROADMAP.md "
                        "Queue 2 K4), ROADMAP.md Port queue item 7e")
+# The fused ring's segment ids (JAX ``fused_ring_local(q_segment_ids=,
+# kv_segment_ids=)``).
+UNPORTED_FUSED_SEGMENTS = ("the fused ring's segment ids (ROADMAP.md Queue 2 K3b), "
+                           "ROADMAP.md Port queue item 7b")
+
+# (rank, hop) pairs whose band had work but whose kv ids shared no document
+# with the queries, skipped since the last reset (the caller may set them
+# to 0): forward, all impls, and backward.
+doc_skip_count = 0
+doc_skip_bwd_count = 0
 
 
 def _rotate(ring: Ring, payloads: list, shift: int = 1) -> list:
@@ -105,13 +125,57 @@ def _rotate(ring: Ring, payloads: list, shift: int = 1) -> list:
     return ring.rotate(payloads, shift)
 
 
-def _payloads(k, v, kv_mask) -> list:
-    """Each held rank's circulating payload ``(k, v[, kv_mask])``: a mask
-    that is None never enters the rotation.  The ring has one
+def _payloads(k, v, kv_mask, segs) -> list:
+    """Each held rank's circulating payload ``(k, v[, kv_mask][, kv_seg])``:
+    a mask or ids that are None never enter the rotation.  The ring has one
     unidirectional stream (shift 1, the whole shard): the JAX package's
     bidirectional half-streams are not ported."""
-    return [(kx, vx) if kv_mask is None else (kx, vx, mx)
-            for kx, vx, mx in zip(k, v, kv_mask or [None] * len(k))]
+    none = [None] * len(k)
+    return [tuple(x for x in parts if x is not None)
+            for parts in zip(k, v, kv_mask or none, segs or none)]
+
+
+def _unpack(payload, masked: bool) -> tuple:
+    """``(k, v, kv_mask, kv_seg)`` of a payload, None where absent."""
+    k, v, *rest = payload
+    mask = rest.pop(0) if masked else None
+    return k, v, mask, (rest[0] if rest else None)
+
+
+def _seg_ranges(ring: Ring, segs: list | None) -> list | None:
+    """``(min, max)`` of every ring rank's document ids, in rank order (one
+    gather of two ints per rank and one host read per call), or None
+    without ids."""
+    if segs is None:
+        return None
+    local = [(torch.stack([s.min(), s.max()])[None],) for s in segs]
+    (gathered,) = _gather(ring, local, dim=0)[0]
+    return [tuple(r) for r in gathered.tolist()]
+
+
+def _docs_meet(ranges, rank: int, i: int) -> bool:
+    """Whether rank's queries and the kv ids of hop ``i`` (origin ``rank -
+    i``) may share a document: their id ranges overlap (JAX
+    ``segments_overlap``).  True without ids."""
+    if ranges is None:
+        return True
+    (lo_q, hi_q), (lo_k, hi_k) = ranges[rank], ranges[(rank - i) % len(ranges)]
+    return lo_q <= hi_k and lo_k <= hi_q
+
+
+def _hop_works(ranges, rank, i, hi, lo, n_local, backward=False) -> bool:
+    """The hop's work test: the band's (:func:`_hop_has_work`) and the
+    documents' (:func:`_docs_meet`); a hop the ids alone skip is counted."""
+    if not _hop_has_work(hi, lo, n_local, n_local):
+        return False
+    if _docs_meet(ranges, rank, i):
+        return True
+    global doc_skip_count, doc_skip_bwd_count
+    if backward:
+        doc_skip_bwd_count += 1
+    else:
+        doc_skip_count += 1
+    return False
 
 
 def _offsets_at_hop(rank, i, n_local, causal, striped, window, ring_size):
@@ -201,19 +265,21 @@ def _fit_bucket(bucket_size: int | None, nk: int) -> int | None:
     return b
 
 
-def _span_ops(q, hk, scale, bucket_size, softclamp_value):
+def _span_ops(q, hk, scale, bucket_size, softclamp_value, q_seg=None):
     """Per-hop ``(init, attend, final)`` of the ``impl="torch"`` path for
-    one rank's queries ``q``; the carry is a grouped ``FlashCarry``."""
+    one rank's queries ``q`` (and their ids ``q_seg``); the carry is a
+    grouped ``FlashCarry``."""
     b, h, n_local, d = q.shape
 
     def init():
         return init_carry(b, hk, h // hk, n_local, d, device=q.device)
 
-    def attend(carry, k, v, kv_mask, hi, lo):
+    def attend(carry, k, v, kv_mask, hi, lo, kv_seg=None):
         return attend_blocks(
             q, k, v, carry, scale=scale, bucket_size=bucket_size,
             causal_offset=hi, window_lo=lo, kv_mask=kv_mask,
-            softclamp_value=softclamp_value,
+            softclamp_value=softclamp_value, q_segment_ids=q_seg,
+            kv_segment_ids=kv_seg,
         )
 
     def final(carry):
@@ -224,39 +290,44 @@ def _span_ops(q, hk, scale, bucket_size, softclamp_value):
 
 
 def _span_bwd(impl, do, q, k, v, lse, delta, kv_mask, hi, lo, scale,
-              bucket_size, softclamp_value):
+              bucket_size, softclamp_value, q_seg=None, kv_seg=None):
     """Per-hop backward: float32 ``(dq (b, h, ..), dk (b, hk, ..), dv)``."""
     if impl == "cuda":
         return flash_bwd(do, q, k, v, lse, delta, kv_mask, scale=scale,
                          causal_offset=hi, window_lo=lo,
-                         softclamp_value=softclamp_value)
+                         softclamp_value=softclamp_value, q_seg=q_seg,
+                         kv_seg=kv_seg)
     return flash_backward_blocks(
         do, q, k, v, lse, delta, scale=scale, bucket_size=bucket_size,
         causal_offset=hi, window_lo=lo, kv_mask=kv_mask,
-        softclamp_value=softclamp_value,
+        softclamp_value=softclamp_value, q_segment_ids=q_seg,
+        kv_segment_ids=kv_seg,
     )
 
 
-def _ring_fwd_cuda(qs, ks, vs, masks, ring, cfg):
-    """Forward of every held rank on the CUDA kernel's ring modes."""
+def _ring_fwd_cuda(qs, ks, vs, masks, segs, ranges, ring, cfg):
+    """Forward of every held rank on the CUDA kernel's ring modes.  Hop 0
+    holds the own shard, whose band and ids always meet: it seeds, and a
+    hop skipped later leaves the carry for the next hop with work."""
     n_local = qs[0].shape[2]
-    payloads = _payloads(ks, vs, masks)
+    payloads = _payloads(ks, vs, masks, segs)
     passes, geo = cfg["passes"], _geometry(cfg, n_local, ring.world)
     carries = [None] * len(qs)
     results = [None] * len(qs)
     for i in range(passes):
         full = _hop_is_full(i, **geo)
         for j, rank in enumerate(ring.ranks):
-            q, (kx, vx, *mx) = qs[j], payloads[j]
+            q = qs[j]
+            kx, vx, mask, kv_seg = _unpack(payloads[j], masks is not None)
             hi, lo = _offsets_at_hop(rank, i, **geo)
-            has_work = _hop_has_work(hi, lo, n_local, n_local)
+            has_work = i == 0 or _hop_works(ranges, rank, i, hi, lo, n_local)
             if full:  # every rank with work sees the whole span
                 hi, lo = None, None
             band = dict(scale=cfg["scale"], causal_offset=hi, window_lo=lo,
                         softclamp_value=cfg["softclamp_value"],
                         compute_dtype=cfg["compute_dtype"],
-                        block_k=cfg["bucket_size"])
-            mask = mx[0] if mx else None
+                        block_k=cfg["bucket_size"],
+                        q_seg=None if segs is None else segs[j], kv_seg=kv_seg)
             if i == passes - 1:
                 if carries[j] is None:  # one pass: a plain fused sweep
                     results[j] = flash_fwd(q, kx, vx, mask, **band)
@@ -283,7 +354,7 @@ def _gather(ring: Ring, payloads: list, dim: int) -> list:
     return ring.all_gather(payloads, dim)
 
 
-def _ring_fwd_fused(qs, ks, vs, masks, ring, cfg):
+def _ring_fwd_fused(qs, ks, vs, masks, segs, ranges, ring, cfg):
     """Forward of every held rank on a fused ring kernel; ``(out, lse)`` in
     the flat layout of ``impl="cuda"``.  The remote tier when there is no
     key mask and one launch can hold the whole ring (as JAX takes it where
@@ -323,29 +394,29 @@ def _ring_fwd_remote(qs, ks, vs, ring, cfg):
                              softclamp_value=cfg["softclamp_value"])
 
 
-def _ring_fwd_torch(qs, ks, vs, masks, ring, cfg):
+def _ring_fwd_torch(qs, ks, vs, masks, segs, ranges, ring, cfg):
     """Forward of every held rank on the blockwise PyTorch flash."""
     n_local = qs[0].shape[2]
     hk = ks[0].shape[1]
-    payloads = _payloads(ks, vs, masks)
+    payloads = _payloads(ks, vs, masks, segs)
     geo = _geometry(cfg, n_local, ring.world)
     ops = [_span_ops(q, hk, cfg["scale"], cfg["bucket_size"],
-                     cfg["softclamp_value"]) for q in qs]
+                     cfg["softclamp_value"], None if segs is None else segs[j])
+           for j, q in enumerate(qs)]
     carries = [init() for init, _, _ in ops]
     for i in range(cfg["passes"]):
         for j, rank in enumerate(ring.ranks):
-            kx, vx, *mx = payloads[j]
+            kx, vx, mask, kv_seg = _unpack(payloads[j], masks is not None)
             hi, lo = _offsets_at_hop(rank, i, **geo)
-            if _hop_has_work(hi, lo, n_local, n_local):
-                carries[j] = ops[j][1](carries[j], kx, vx,
-                                       mx[0] if mx else None, hi, lo)
+            if _hop_works(ranges, rank, i, hi, lo, n_local):
+                carries[j] = ops[j][1](carries[j], kx, vx, mask, hi, lo, kv_seg)
         if i < cfg["passes"] - 1:
             payloads = _rotate(ring, payloads)
     results = [final(c) for (_, _, final), c in zip(ops, carries)]
     return [r[0] for r in results], [r[1] for r in results]
 
 
-def _ring_bwd(dos, qs, ks, vs, masks, outs, lses, ring, cfg):
+def _ring_bwd(dos, qs, ks, vs, masks, segs, ranges, outs, lses, ring, cfg):
     """Backward of every held rank: ``(dqs, dks, dvs)`` in float32."""
     # the fused forward keeps the scan-path backward of the kernels, as the
     # JAX _ring_vjp_bwd maps "fused" to "pallas"
@@ -359,7 +430,7 @@ def _ring_bwd(dos, qs, ks, vs, masks, outs, lses, ring, cfg):
     else:
         deltas = [(_group_q(do, hk).float() * _group_q(o, hk).float()).sum(-1)
                   for do, o in zip(dos, outs)]
-    payloads = _payloads(ks, vs, masks)
+    payloads = _payloads(ks, vs, masks, segs)
     dqs = [torch.zeros(q.shape, dtype=torch.float32, device=q.device) for q in qs]
     dkvs = [(torch.zeros(k.shape, dtype=torch.float32, device=k.device),
              torch.zeros(k.shape, dtype=torch.float32, device=k.device))
@@ -367,16 +438,16 @@ def _ring_bwd(dos, qs, ks, vs, masks, outs, lses, ring, cfg):
     for i in range(passes):
         full = impl == "cuda" and _hop_is_full(i, **geo)
         for j, rank in enumerate(ring.ranks):
-            kx, vx, *mx = payloads[j]
+            kx, vx, mask, kv_seg = _unpack(payloads[j], masks is not None)
             hi, lo = _offsets_at_hop(rank, i, **geo)
-            if not _hop_has_work(hi, lo, n_local, n_local):
+            if not _hop_works(ranges, rank, i, hi, lo, n_local, backward=True):
                 continue
             if full:
                 hi, lo = None, None
             dq_i, dk_i, dv_i = _span_bwd(
-                impl, dos[j], qs[j], kx, vx, lses[j], deltas[j],
-                mx[0] if mx else None, hi, lo, cfg["scale"],
-                cfg["bucket_size"], cfg["softclamp_value"],
+                impl, dos[j], qs[j], kx, vx, lses[j], deltas[j], mask, hi, lo,
+                cfg["scale"], cfg["bucket_size"], cfg["softclamp_value"],
+                None if segs is None else segs[j], kv_seg,
             )
             dqs[j] += dq_i
             dkvs[j][0].add_(dk_i)
@@ -412,26 +483,27 @@ class _RingFlashAttention(torch.autograd.Function):
     ``_ring_flash_attention_core`` custom_vjp."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_mask, ring, cfg):
+    def forward(ctx, q, k, v, kv_mask, seg, ring, cfg):
         count = len(ring.ranks)
         qs, ks, vs = (_shards(x, count, 2) for x in (q, k, v))
-        masks = _shards(kv_mask, count, 1)
+        masks, segs = _shards(kv_mask, count, 1), _shards(seg, count, 1)
+        ranges = _seg_ranges(ring, segs)
         fwd = {"torch": _ring_fwd_torch, "cuda": _ring_fwd_cuda,
                "fused": _ring_fwd_fused}[cfg["impl"]]
-        outs, lses = fwd(qs, ks, vs, masks, ring, cfg)
-        ctx.shards = (qs, ks, vs, masks, outs, lses)
+        outs, lses = fwd(qs, ks, vs, masks, segs, ranges, ring, cfg)
+        ctx.shards = (qs, ks, vs, masks, segs, ranges, outs, lses)
         ctx.ring, ctx.cfg = ring, cfg
         return torch.cat(outs, dim=2)
 
     @staticmethod
     def backward(ctx, do):
-        qs, ks, vs, masks, outs, lses = ctx.shards
+        qs, ks, vs, masks, segs, ranges, outs, lses = ctx.shards
         dos = _shards(do.to(qs[0].dtype), len(qs), 2)
-        dqs, dks, dvs = _ring_bwd(dos, qs, ks, vs, masks, outs, lses,
-                                  ctx.ring, ctx.cfg)
+        dqs, dks, dvs = _ring_bwd(dos, qs, ks, vs, masks, segs, ranges, outs,
+                                  lses, ctx.ring, ctx.cfg)
         return (torch.cat(dqs, dim=2).to(qs[0].dtype),
                 torch.cat(dks, dim=2).to(ks[0].dtype),
-                torch.cat(dvs, dim=2).to(vs[0].dtype), None, None, None)
+                torch.cat(dvs, dim=2).to(vs[0].dtype), None, None, None, None)
 
 
 def ring_flash_attention(
@@ -482,20 +554,27 @@ def ring_flash_attention(
         tier; the backward is ``"cuda"``'s).  On CPU tensors the kernel
         wrappers run their plain versions.
 
+      segment_ids: packed sequences, a ``(b, n)`` integer tensor of document
+        ids in the layout of ``q`` (``PAD_SEGMENT_ID`` marks padding): a
+        query attends only keys of its document.  The kv ids rotate with k
+        and v; a hop whose ids share no document with the queries' is
+        skipped.  ``impl="torch"`` and ``"cuda"``.
       compute_dtype: ``"int8"`` runs each hop's forward on int8 operands
         (``impl="cuda"`` only, as the JAX ring needs the Pallas kernels), q
         and k quantized per row and v per block of ``bucket_size`` keys
         fitted to the hop; the backward stays on the float kernels.
 
-    ``bidirectional``, ``dkv_dtype``, ``segment_ids``, ``counter_rotate``,
-    ``hop_compression`` and ``compute_dtype="int8"`` with ``impl="fused"``
+    ``bidirectional``, ``dkv_dtype``, ``counter_rotate``,
+    ``hop_compression``, and ``compute_dtype="int8"`` or ``segment_ids``
+    with ``impl="fused"``, and ``segment_ids`` with ``compute_dtype="int8"``
     are not ported yet and raise ``NotImplementedError`` naming their
     ROADMAP item; ``counter_rotate`` with ``impl="fused"`` is a
     ``ValueError``, as in the JAX package (the alternating schedule has no
     fused form).
 
     Cross-attention (unequal q and kv shard lengths) bypasses the ring: each
-    rank attends its local KV shard only, as in the JAX package.
+    rank attends its local KV shard only, as in the JAX package (and takes
+    no segment ids).
 
     Returns ``(b, h, n, d)`` in ``q.dtype``, in the layout of ``q``.
     """
@@ -506,7 +585,7 @@ def ring_flash_attention(
             'form (pass impl="cuda" with counter_rotate)'
         )
     for name, value in (("bidirectional", bidirectional),
-                        ("dkv_dtype", dkv_dtype), ("segment_ids", segment_ids),
+                        ("dkv_dtype", dkv_dtype),
                         ("counter_rotate", counter_rotate),
                         ("hop_compression", hop_compression)):
         if value is not None and value is not False:
@@ -530,12 +609,29 @@ def ring_flash_attention(
         )
     count = len(ring.ranks)
     check_attention_args("ring_flash_attention", q, k, v, kv_mask, shards=count)
+    seg, _ = normalize_segment_ids(
+        None if segment_ids is None else (segment_ids, segment_ids), q, q,
+        "ring_flash_attention",
+    )
+    if seg is not None and impl == "fused":
+        raise NotImplementedError(
+            'ring_flash_attention: segment_ids with impl="fused" are not ported '
+            f"yet; they arrive with {UNPORTED_FUSED_SEGMENTS}"
+        )
+    if int8:
+        check_int8_segments("ring_flash_attention", seg)
     if window is not None and not causal:
         raise ValueError("ring_flash_attention: lookback windows require causal attention")
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.shape[2] != k.shape[2]:
         # cross-attention: each rank attends its local KV shard only
+        if seg is not None:
+            raise ValueError(
+                "ring_flash_attention: segment_ids need equal q/kv shard lengths "
+                "(packed self-attention); the cross-attention fallback does not "
+                "define a kv-side packing"
+            )
         local = flash_attention if impl == "torch" else cuda_flash_attention
         kw = dict(causal=causal, window=window, softclamp_value=softclamp_value,
                   scale=scale)
@@ -556,4 +652,4 @@ def ring_flash_attention(
         passes=min(max_ring_passes or ring.world, ring.world), window=window,
         softclamp_value=softclamp_value, scale=scale, compute_dtype=compute_dtype,
     )
-    return _RingFlashAttention.apply(q, k, v, kv_mask, ring, cfg)
+    return _RingFlashAttention.apply(q, k, v, kv_mask, seg, ring, cfg)

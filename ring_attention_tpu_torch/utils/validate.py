@@ -85,6 +85,26 @@ def check_attention_args(
             )
 
 
+def check_segment_ids(fn: str, q, k, q_seg, kv_seg) -> None:
+    """Validate packed-sequence segment ids against a q/k pair.
+
+    Contract: ``q_seg: (b, nq)`` and ``kv_seg: (b, nk)`` integer document
+    ids (real ids >= 0; -1 marks padding)."""
+    b, _, nq, _ = q.shape
+    nk = k.shape[2]
+    for name, seg, n in (("q", q_seg, nq), ("kv", kv_seg, nk)):
+        if getattr(seg, "ndim", None) != 2 or tuple(seg.shape) != (b, n):
+            raise ValueError(
+                f"{fn}: {name} segment_ids must be (batch, n) = ({b}, {n}), "
+                f"got shape {_shape(seg)} — a single (b, n) array needs "
+                f"nq == nk; pass a (q_ids, kv_ids) pair otherwise"
+            )
+        if not _is_integer(seg.dtype):
+            raise ValueError(
+                f"{fn}: {name} segment_ids must be integers, got {seg.dtype}"
+            )
+
+
 def check_model_input(fn: str, x, dim: int) -> None:
     """Validate a module call ``x: (b, n, dim)``."""
     if getattr(x, "ndim", None) != 3 or x.shape[-1] != dim:

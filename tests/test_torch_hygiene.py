@@ -115,10 +115,17 @@ def test_decode_on_a_mesh_raises(entry):
 
 
 def test_segment_ids_raise():
-    model = RingTransformer(**SMALL, device="cpu")
+    """Packed sequences are ported on the local path and the scan-path
+    ring; the fused ring's ids (K3b) and the int8 sweep's (K3c) are not."""
     tokens = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item"):
-        model(tokens, segment_ids=tokens)
+    fused = RingTransformer(**SMALL, device="cpu", impl="fused",
+                            mesh=create_mesh(ring_size=2))
+    int8 = RingTransformer(**SMALL, device="cpu", compute_dtype="int8")
+    for model, key in ((fused, "K3b"), (int8, "K3c")):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item"):
+            model(tokens, segment_ids=tokens)
+        with pytest.raises(NotImplementedError, match=key):
+            model(tokens, segment_ids=tokens)
 
 
 def test_unknown_impl_is_a_value_error():

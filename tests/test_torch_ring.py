@@ -333,10 +333,16 @@ def test_cuda_ring_launch_schedule_on_cpu(monkeypatch):
 def test_ring_unported_options_raise():
     x = torch.zeros((1, 2, 8, 16))
     for name, value in (("bidirectional", True), ("counter_rotate", True),
-                        ("hop_compression", "int8"), ("dkv_dtype", "bfloat16"),
-                        ("segment_ids", x[:, 0, :, 0])):
+                        ("hop_compression", "int8"), ("dkv_dtype", "bfloat16")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item"):
             ring_flash_attention(x, x, x, None, VirtualRing(2), **{name: value})
+    # segment ids are ported on the scan path; the fused ring's and the
+    # int8 sweep's are not
+    seg = torch.zeros((1, 8), dtype=torch.int32)
+    for impl, compute_dtype in (("fused", None), ("cuda", "int8")):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item 7b"):
+            ring_flash_attention(x, x, x, None, VirtualRing(2), impl=impl,
+                                 compute_dtype=compute_dtype, segment_ids=seg)
     # the fused ring is ported; its int8 feed is not
     with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item 7e"):
         ring_flash_attention(x, x, x, None, VirtualRing(2), impl="fused",

@@ -4,7 +4,8 @@ Each process holds one rank of a ``DistributedRing`` (``create_mesh`` over
 the initialized process group: one ring of 4, and a data 2 x ring 2 mesh)
 and runs ``ring_flash_attention`` forward and backward on its shard of the
 same seeded inputs (``impl="fused"`` gathers k, v and the key mask with
-``DistributedRing.all_gather``).  Every shard of the output and of dq, dk and dv must
+``DistributedRing.all_gather``; a packed case rotates the kv document ids
+with k and v and skips the hops they share no document with).  Every shard of the output and of dq, dk and dv must
 equal, bit for bit, the ``VirtualRing`` run of the same ranks in this
 process: the same arithmetic in the same order, only the transport differs.
 The processes rendezvous through a ``FileStore`` under the test's temporary
@@ -39,6 +40,8 @@ CASES = {
                                        impl="fused")),
     "striped_gqa_fused": (4, 1, dict(causal=True, striped=True, impl="fused")),
     "data2_ring2_mask_fused": (2, 2, dict(impl="fused", masked=True)),
+    # packed documents: ranks 2 and 3 skip the hop whose keys are rank 0's
+    "packed_cuda": (4, 1, dict(causal=True, impl="cuda", packed=True)),
 }
 
 
@@ -47,23 +50,26 @@ def _inputs(seed=0, b=2, h=4, hk=2, n=64, d=16):
     q, do = (rng.standard_normal((b, h, n, d)).astype(np.float32) for _ in range(2))
     k, v = (rng.standard_normal((b, hk, n, d)).astype(np.float32) for _ in range(2))
     mask = rng.random((b, n)) > 0.3
-    return q, k, v, mask, do
+    seg = np.repeat(np.int32([0, 1, 2]), [20, 11, n - 31])[None].repeat(b, 0)
+    return q, k, v, mask, seg, do
 
 
-def _run(q, k, v, mask, do, ring, kw):
+def _run(q, k, v, mask, seg, do, ring, kw):
     """Output and gradients of one ring call on these (local) shards."""
     kw = dict(kw)
     masked = kw.pop("masked", False)
+    packed = kw.pop("packed", False)
     x = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
     out = ring_flash_attention(*x, torch.from_numpy(mask) if masked else None,
-                               ring, **kw)
+                               ring, segment_ids=torch.from_numpy(seg) if packed else None,
+                               **kw)
     out.backward(torch.from_numpy(do))
     return [out.detach().numpy()] + [a.grad.numpy() for a in x]
 
 
 def _shard(arrays, data_rank, data, seq_rank, ring_size):
     """This process's block of the global arrays: its batch rows and its
-    sequence shard (axis 2 of q/k/v/do, axis 1 of the mask)."""
+    sequence shard (axis 2 of q/k/v/do, axis 1 of the mask and the ids)."""
     out = []
     for a in arrays:
         b, axis = a.shape[0] // data, 2 if a.ndim == 4 else 1
@@ -118,13 +124,13 @@ def distributed_results(tmp_path_factory):
 @pytest.mark.parametrize("name", list(CASES))
 def test_distributed_ring_equals_virtual_ring(distributed_results, name):
     ring_size, data, kw = CASES[name]
-    q, k, v, mask, do = _inputs()
+    q, k, v, mask, seg, do = _inputs()
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
         for data_rank in range(data):
             rows = slice(data_rank * q.shape[0] // data, (data_rank + 1) * q.shape[0] // data)
-            virtual = _run(q[rows], k[rows], v[rows], mask[rows], do[rows],
+            virtual = _run(q[rows], k[rows], v[rows], mask[rows], seg[rows], do[rows],
                            VirtualRing(ring_size), kw)
             for seq_rank in range(ring_size):
                 rank = data_rank * ring_size + seq_rank

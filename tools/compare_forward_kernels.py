@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Compare the port's forward kernels between two source trees on one GPU.
+"""Compare the port's flash kernels between two source trees on one GPU.
 
-Builds ``csrc/flash_fwd.cu`` (B1) and ``csrc/flash_ring.cu`` (B7) of this
+Builds ``csrc/flash_fwd.cu`` (B1), ``csrc/flash_bwd.cu`` (B2 and B3),
+``csrc/flash_ring.cu`` (B7) and ``csrc/flash_ring_remote.cu`` (B8) of this
 checkout and of a base checkout (for example the parent commit, unpacked
 with ``git archive``), checks that both trees' kernels give bit-identical
 outputs on a set of cases, and times them in turns (base, head, head,
@@ -9,12 +10,16 @@ base) with CUDA events:
 
     python3 tools/compare_forward_kernels.py BASE_DIR
 
-A kernel whose source the base tree lacks is built and timed for this
-checkout alone.  Libraries land in ``build/compare/`` (ignored by git).
-Prints the card's name and power limit, each build's ptxas register
-count, each case's check, each timing and, as its last line, one JSON
-object with the timings.  Exits non-zero when a build fails or an output
-differs.
+Only the kernels both trees have in common are compared: each tree's B1,
+B2 and B3 are called with that tree's own C signature (a tree whose entry
+points take document ids gets null ids, its unsegmented instantiation),
+and B8 through this checkout's wrapper (``ops/cuda_ring_remote.py``) on
+each tree's library, whose C signature must be the same.  A kernel whose
+source the base tree lacks is built and timed for this checkout alone.
+Libraries land in ``build/compare/`` (ignored by git).  Prints the card's
+name and power limit, each build's ptxas registers and spills per kernel,
+each case's check, each timing and, as its last line, one JSON object with
+the timings.  Exits non-zero when a build fails or an output differs.
 """
 
 from __future__ import annotations
@@ -30,7 +35,12 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
 OUT_DIR = HERE / "build" / "compare"
-SOURCES = ("flash_fwd", "flash_ring")
+SOURCES = ("flash_fwd", "flash_bwd", "flash_ring", "flash_ring_remote")
+
+
+def takes_ids(csrc: Path, name: str) -> bool:
+    """Whether a tree's C entry points of ``name`` take document ids."""
+    return "q_seg" in (csrc / f"{name}.cu").read_text()
 
 
 def build(tree: str, csrc: Path, name: str) -> tuple[Path, list[str]]:
@@ -44,8 +54,26 @@ def build(tree: str, csrc: Path, name: str) -> tuple[Path, list[str]]:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed for {tree}/{name}.cu:\n{proc.stdout}{proc.stderr}")
-    log = (proc.stdout + proc.stderr).splitlines()
-    return lib, [line.split(":", 1)[1].strip() for line in log if "registers" in line]
+    usage, kernel, frame = [], "?", ""
+    for line in (proc.stdout + proc.stderr).splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif "Function properties for" in line:
+            frame = ""
+        elif "stack frame" in line:
+            frame = line.strip()
+        elif "registers" in line:
+            usage.append(f"{_short(kernel)}: {line.split(':', 1)[1].strip()}"
+                         + (f"; {frame}" if frame else ""))
+    return lib, usage
+
+
+def _short(mangled: str) -> str:
+    """``name<args>`` of a mangled kernel name (chip_smoke's reading)."""
+    sys.path.insert(0, str(HERE))
+    from chip_smoke import _kernel_name
+
+    return _kernel_name(mangled, with_args=True)
 
 
 def time_ms(fn, iters: int = 5) -> float:
@@ -69,14 +97,17 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def fwd_launcher(lib_path: Path):
+def fwd_launcher(lib_path: Path, ids: bool):
     """``run(q, k, v, mask, causal, hi, windowed, lo, softclamp, carry)``:
-    one B1 launch, fused (carry None) or resumed into partials."""
+    one B1 launch, fused (carry None) or resumed into partials; ``ids``:
+    the entry point takes (null) document ids before the stream."""
     import torch
 
     lib = ctypes.CDLL(str(lib_path))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_fwd.argtypes = [ptr] * 12 + [i32] * 7 + [f32] + [i32] * 4 + [f32, ptr]
+    no_ids = (None, None) if ids else ()
+    lib.flash_fwd.argtypes = ([ptr] * 12 + [i32] * 7 + [f32] + [i32] * 4 + [f32]
+                              + [ptr] * len(no_ids) + [ptr])
 
     def run(q, k, v, mask, causal, hi, windowed, lo, softclamp, carry=None):
         b, h, nq, d = q.shape
@@ -93,10 +124,69 @@ def fwd_launcher(lib_path: Path):
             _ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(out), _ptr(lse),
             *(_ptr(x) for x in (carry or (None, None, None))), *(_ptr(x) for x in parts),
             b, h, hk, nq, nk, d, int(q.dtype == torch.bfloat16), 0.125,
-            int(causal), hi, int(windowed), lo, softclamp, stream)
+            int(causal), hi, int(windowed), lo, softclamp, *no_ids, stream)
         if rc:
             raise RuntimeError(f"flash_fwd launch failed: {rc}")
         return (out, lse) if carry is None else parts
+
+    return run
+
+
+def bwd_launcher(lib_path: Path, ids: bool):
+    """``run(do, q, k, v, lse, delta, mask, causal, hi, windowed, lo,
+    softclamp)``: one B2 launch then one B3 launch, ``(dq, dk, dv)``;
+    ``ids`` as in :func:`fwd_launcher`."""
+    import torch
+
+    lib = ctypes.CDLL(str(lib_path))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    no_ids = (None, None) if ids else ()
+    tail = [i32] * 6 + [i32, f32] + [i32] * 4 + [f32] + [ptr] * len(no_ids) + [ptr]
+    lib.flash_bwd_dkv.argtypes = [ptr] * 9 + tail
+    lib.flash_bwd_dq.argtypes = [ptr] * 8 + tail
+
+    def run(do, q, k, v, lse, delta, mask, causal, hi, windowed, lo, softclamp,
+            passes=("dkv", "dq")):
+        b, h, nq, d = q.shape
+        hk, nk = k.shape[1], k.shape[2]
+        dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        dk, dv = (torch.empty(k.shape, dtype=torch.float32, device=k.device)
+                  for _ in range(2))
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        inputs = [_ptr(x) for x in (q, k, v, do, lse, delta, mask)]
+        shape = (b, h, hk, nq, nk, d, int(q.dtype == torch.bfloat16), 0.125,
+                 int(causal), hi, int(windowed), lo, softclamp, *no_ids, stream)
+        if "dkv" in passes and lib.flash_bwd_dkv(*inputs, _ptr(dk), _ptr(dv), *shape):
+            raise RuntimeError("flash_bwd_dkv launch failed")
+        if "dq" in passes and lib.flash_bwd_dq(*inputs, _ptr(dq), *shape):
+            raise RuntimeError("flash_bwd_dq launch failed")
+        return dq, dk, dv
+
+    return run
+
+
+def remote_runner(lib_path: Path):
+    """``run(qs, ks, vs, tables, softclamp)``: one B8 launch through this
+    checkout's wrapper on the library at ``lib_path`` (the C signature this
+    checkout declares)."""
+    from ring_attention_tpu_torch.ops import _build
+    from ring_attention_tpu_torch.ops import cuda_ring_remote as crr
+
+    real_build = _build.build
+    _build.build = lambda name: _build.BuildResult(lib_path, 0.0, "")
+    try:
+        lib = _build.flash_ring_remote_library.__wrapped__()
+    finally:
+        _build.build = real_build
+
+    def run(qs, ks, vs, tables, softclamp):
+        loader = _build.flash_ring_remote_library
+        _build.flash_ring_remote_library = lambda: lib
+        try:
+            return crr.fused_ring_remote(qs, ks, vs, tables=tables, n_local=qs[0].shape[2],
+                                         scale=0.125, softclamp_value=softclamp or None)
+        finally:
+            _build.flash_ring_remote_library = loader
 
     return run
 
@@ -141,13 +231,22 @@ def main() -> int:
              "head": HERE / "ring_attention_tpu_torch" / "csrc"}
     jobs = [(tree, csrc, name) for tree, csrc in trees.items() for name in SOURCES
             if (csrc / f"{name}.cu").is_file()]
+    same_remote = all(
+        (csrc / "flash_ring_remote.cu").is_file()
+        and "int flash_ring_remote(" + (csrc / "flash_ring_remote.cu").read_text()
+        .split("int flash_ring_remote(", 1)[1].split(")", 1)[0]
+        == "int flash_ring_remote(" + (trees["head"] / "flash_ring_remote.cu").read_text()
+        .split("int flash_ring_remote(", 1)[1].split(")", 1)[0]
+        for csrc in trees.values())
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         built = dict(zip([(t, n) for t, _, n in jobs], pool.map(lambda j: build(*j), jobs)))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip())
     for (tree, name), (_, regs) in built.items():
-        print(f"{tree} {name}: " + " | ".join(regs))
+        print(f"{tree} {name}:")
+        for line in regs:
+            print(f"  {line}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -160,10 +259,15 @@ def main() -> int:
         return m.to(torch.uint8)
 
     ok = True
-    fwd = {tree: fwd_launcher(built[(tree, "flash_fwd")][0])
-           for tree in trees if (tree, "flash_fwd") in built}
+    fwd = {tree: fwd_launcher(built[(tree, "flash_fwd")][0], takes_ids(csrc, "flash_fwd"))
+           for tree, csrc in trees.items() if (tree, "flash_fwd") in built}
+    bwd = {tree: bwd_launcher(built[(tree, "flash_bwd")][0], takes_ids(csrc, "flash_bwd"))
+           for tree, csrc in trees.items() if (tree, "flash_bwd") in built}
     ring = {tree: ring_launcher(built[(tree, "flash_ring")][0])
             for tree in trees if (tree, "flash_ring") in built}
+    remote = {tree: remote_runner(built[(tree, "flash_ring_remote")][0])
+              for tree in trees if (tree, "flash_ring_remote") in built
+              and (tree == "head" or same_remote)}
 
     # B1 cases: (b, h, hk, nq, nk, causal, hi, windowed, lo, softclamp, masked, carry)
     fwd_cases = {
@@ -191,6 +295,16 @@ def main() -> int:
         same = all(bool((x == y).all()) for x, y in zip(outs[0], outs[-1]))
         ok = ok and same
         print(f"B1 {name}: trees bit-identical {same}")
+        if carry or nq < 64:
+            continue
+        do = rand(b, h, nq, 64, dtype=dtype)
+        out, lse = fwd["head"](q, k, v, m, causal, hi, windowed, lo, clamp)
+        delta = (do.float() * out.float()).sum(-1)
+        grads = [fn(do, q, k, v, lse, delta, m, causal, hi, windowed, lo, clamp)
+                 for fn in bwd.values()]
+        same = all(bool((x == y).all()) for x, y in zip(grads[0], grads[-1]))
+        ok = ok and same
+        print(f"B2/B3 {name}: trees bit-identical {same}")
 
     n = 4096
     for layout, rank, dtype in (("contiguous", 3, torch.bfloat16),
@@ -205,6 +319,20 @@ def main() -> int:
         ok = ok and same
         print(f"B7 {layout} rank {rank}, h8 hk2, mask, {dtype}: trees bit-identical {same}")
 
+    for layout, n_local, dtype, clamp in (("contiguous", 4096, torch.bfloat16, 0.0),
+                                          ("striped", 4096, torch.bfloat16, 50.0),
+                                          ("contiguous", 1000, torch.float32, 0.0)):
+        qs = [rand(1, 8, n_local, 64, dtype=dtype) for _ in range(4)]
+        ks, vs = ([rand(1, 2, n_local, 64, dtype=dtype) for _ in range(4)] for _ in range(2))
+        tables = [pring._fused_tables(r, 4, n_local, True, layout == "striped", None, 4)
+                  for r in range(4)]
+        outs = [fn(qs, ks, vs, tables, clamp) for fn in remote.values()]
+        same = all(bool((x == y).all()) for part in range(2)
+                   for x, y in zip(outs[0][part], outs[-1][part]))
+        ok = ok and same
+        print(f"B8 causal ring of 4, {layout}, n_local {n_local}, h8 hk2, softclamp {clamp}, "
+              f"{dtype}: trees bit-identical {same}")
+
     # timings, in turns: base, head, head, base
     n = 65536
     q, k, v = rand(1, 8, n, 64), rand(1, 8, n, 64), rand(1, 8, n, 64)
@@ -214,6 +342,13 @@ def main() -> int:
     k_all, v_all = rand(1, 8, 4 * nl, 64), rand(1, 8, 4 * nl, 64)
     q_r = rand(1, 8, nl, 64)
     rank3 = pring._fused_tables(3, 4, nl, True, False, None, 4, device="cuda")
+    do = rand(1, 8, n, 64)
+    out, lse = fwd["head"](q, k, v, None, 1, 0, 0, 0, 0.0)
+    delta = (do.float() * out.float()).sum(-1)
+    ring_qs = [rand(1, 8, nl, 64) for _ in range(4)]
+    ring_ks, ring_vs = ([rand(1, 8, nl, 64) for _ in range(4)] for _ in range(2))
+    ring_tables = {striped: [pring._fused_tables(r, 4, nl, True, striped, None, 4)
+                             for r in range(4)] for striped in (False, True)}
     one_hop = {causal: [torch.tensor([x], dtype=torch.int32, device="cuda")
                         for x in (0, 0 if causal else n, -n, 1)] for causal in (True, False)}
     runs = {
@@ -227,6 +362,16 @@ def main() -> int:
             ring, lambda fn: fn(q, k, v, None, one_hop[False], 0.0)),
         "B7 rank 3 of a contiguous causal ring of 4, n_local 16384": (
             ring, lambda fn: fn(q_r, k_all, v_all, None, rank3, 0.0)),
+        "B2 dk/dv causal (1,8,65536,64)": (
+            bwd, lambda fn: fn(do, q, k, v, lse, delta, None, 1, 0, 0, 0, 0.0,
+                               passes=("dkv",))),
+        "B3 dq causal (1,8,65536,64)": (
+            bwd, lambda fn: fn(do, q, k, v, lse, delta, None, 1, 0, 0, 0, 0.0,
+                               passes=("dq",))),
+        "B8 whole causal ring of 4, contiguous, n_local 16384": (
+            remote, lambda fn: fn(ring_qs, ring_ks, ring_vs, ring_tables[False], 0.0)),
+        "B8 whole causal ring of 4, striped, n_local 16384": (
+            remote, lambda fn: fn(ring_qs, ring_ks, ring_vs, ring_tables[True], 0.0)),
     }
     result = {"card": smi.stdout.strip(), "ms": {}}
     for label, (fns, call) in runs.items():
