@@ -10,14 +10,22 @@ Phases (any failure raises and the script exits non-zero, printing no
 result line):
 
 1. The card's name and power limit; every CUDA kernel of the package is
-   built from ``csrc/`` (one nvcc per source, all started together).
+   built from ``csrc/`` (one nvcc per source, all started together); the
+   ptxas report of each flash kernel, and neither bf16 dk/dv
+   instantiation may spill.
 2. Each kernel against its plain PyTorch version on the card, in bf16 and
    f32, at the shapes of its path and of the cases its port must cover
    (causal, offset, band-empty rows, window, softclamp, key mask with an
    all-False row, GQA):
-   2. the forward (and folded-row decode) kernel;
-   2b. the dk/dv and dq backward kernels, also on the 65,536-token causal
-       backward in 1,024-row and 1,024-key slices;
+   2. the forward kernel; the split-KV decode kernel (csrc/flash_decode.cu)
+       fused and as partials, at the wrapper's split count and at one
+       range, on DECODE_CASES (ragged valid prefixes, a request with no
+       valid key, nk not a multiple of the 64-key tile, softclamp, MQA,
+       nq 2), each call launching the decode kernel and never flash_fwd;
+   2b. the dk/dv and dq backward kernels, also on BWD_EDGE_CASES (key
+       counts of 128k + 1, + 64 and + 127, band edges inside a 128-key
+       block) and on the 65,536-token causal backward in 1,024-row and
+       1,024-key slices;
    2c. the forward kernel's ring modes (seed partials, resumed partials
        into new tensors and in place, the fused write from a carry) on
        every forward case, a 3-hop striped chain with a band-empty row, the
@@ -79,8 +87,10 @@ result line):
    dim 512, 8 heads of 64, depth 2, ff_mult 4, rotary, causal, bf16) with
    weights from a seeded generator: logits for one 65,536-token request,
    then ``generate`` for 4 requests of 2,048-token prompts (128 new tokens,
-   max_len 4096, greedy).  A float32 copy of the model (seq 256) on the
-   card is held to the same weights on the CPU, forward and decode.
+   max_len 4096, greedy), which must launch the decode kernel once per
+   layer and decode step and nothing else (the prompt runs the blockwise
+   PyTorch prefill).  A float32 copy of the model (seq 256) on the card is
+   held to the same weights on the CPU, forward and decode.
 3b. The training path: the same model takes 4 ``make_train_step`` steps
    with ``torch.optim.Adam(lr=1e-3)`` on one batch of 65,536 tokens (65,537
    ids); every loss must be finite, the last below the first, and each
@@ -130,7 +140,12 @@ result line):
    beside its bound (the larger of its bytes over 3.35 TB/s and its
    operations over the peak rate of their type), its plain version and
    one PyTorch library call computing the same function (a yardstick the
-   package never calls); the model's forward tokens/s and decode ms/step.
+   package never calls); the decode kernel at b4 h8 hk2 nk32,768, b4 h8
+   hk8 nk4,096 and b1 h8 hk8 nk1,048,576 on the device alone (replayed
+   from a CUDA graph of 20 calls: its ``ms``), per call in a stream of 20
+   and as one synchronized call (both bound by the host's launch work at
+   small caches), SDPA likewise; the model's forward tokens/s and decode
+   ms/step at 4 requests of ~2,048 and of ~32,768 cached tokens.
 4b. The same for the backward kernels (the library call is the backward
    of ``scaled_dot_product_attention``), and the train step: ms per step
    (host clock around a synchronized step, median after warm-up), tokens/s,
@@ -172,7 +187,7 @@ result line):
    the same-document in-band pairs count) and SDPA with the packing's
    dense boolean block-diagonal causal ``attn_mask`` (its backward for
    B2/B3; null where it does not fit on the card).
-5. The kernels line, one JSON object with seven kernels; the forward
+5. The kernels line, one JSON object with eight kernels; the forward
    kernels' entries list their ring modes; the per-shape rows of
    flash_fwd, flash_bwd_dkv and flash_bwd_dq end with phase 4f's, each
    with the segmented launches of phase 3f.
@@ -235,8 +250,8 @@ RING_SCHEDULE = {False: (4, 5, 1, 10, 10), True: (4, 8, 4, 16, 16)}
 BENCH_MODEL = dict(num_tokens=256, dim=512, depth=2, causal=True, heads=8,
                    dim_head=64, bucket_size=2048, rotary=True, ff_mult=4)
 SEED = 0
-KERNEL_SOURCES = ("flash_fwd", "flash_bwd", "flash_fwd_q8", "flash_decode_q8",
-                  "flash_ring", "flash_ring_remote")
+KERNEL_SOURCES = ("flash_fwd", "flash_bwd", "flash_decode", "flash_fwd_q8",
+                  "flash_decode_q8", "flash_ring", "flash_ring_remote")
 
 # Phase-2d tolerances of the int8 kernels against their plain versions,
 # which quantize q, k, v and p exactly as the kernels do.  B4: the output's
@@ -274,6 +289,18 @@ KERNEL_CASES = {
     "softclamp 50": (1, 8, 8, 4096, 4096, 0, None, 50.0, False),
     "kv_mask, one all-False row": (2, 8, 8, 2048, 2048, None, None, None, True),
     "GQA h32 hk4 (1,32,2048,64)": (1, 32, 4, 2048, 2048, 0, None, None, False),
+}
+
+
+# Phase-2b cases beside KERNEL_CASES, in its format: the dk/dv kernel takes
+# 128 keys a block and runs the keep test only on query tiles that meet the
+# band's edge, the ragged end or a key mask.
+BWD_EDGE_CASES = {
+    "nk 1025 (128k+1), causal offset 25": (1, 8, 2, 1000, 1025, 25, None, None, False),
+    "nk 1088 (128k+64), key mask": (2, 8, 8, 777, 1088, None, None, None, True),
+    "nk 1151 (128k+127), window, softclamp": (1, 8, 4, 1200, 1151, -49, -300, 30.0, False),
+    "causal offset 100 (edge mid-block)": (1, 8, 8, 2048, 2148, 100, None, None, False),
+    "causal offset -37, window 500": (1, 8, 8, 1500, 1500, -37, -537, None, False),
 }
 
 
@@ -383,13 +410,20 @@ def phase_build(port_dir: Path) -> None:
     # the stack and spills of every instantiation of the kernels that share
     # csrc/flash_tile.cuh or take document ids (the segmented ones are
     # <64,1>; the unsegmented ones must keep their registers and spills)
-    for name in ("flash_fwd", "flash_bwd", "flash_ring", "flash_ring_remote"):
+    # the bf16 dk/dv kernel (both instantiations) must not spill
+    dkv_reports = 0
+    for name in ("flash_fwd", "flash_bwd", "flash_decode", "flash_ring", "flash_ring_remote"):
         function = "?"
         for line in results[name].log.splitlines():
             if "Function properties for" in line:
                 function = _kernel_name(line.split()[-1], with_args=True)
             elif "stack frame" in line and "_kernel" in function:
                 log(f"  ptxas {function}: {line.strip()}")
+                if function.startswith("flash_bwd_dkv_bf16_kernel"):
+                    dkv_reports += 1
+                    check(" 0 bytes spill stores, 0 bytes spill loads" in line,
+                          f"{function} spills: {line.strip()}")
+    check(dkv_reports == 2, f"ptxas reported {dkv_reports} bf16 dk/dv instantiations, not 2")
     # slot memory is rewritten by other SMs during the remote tier's launch:
     # none of its loads may take the non-coherent read-only path; beside it,
     # the local memory the ring kernels touch, in all and in their hot loop
@@ -459,6 +493,34 @@ def _case_inputs(gen, case, dtype):
     return q, k, v, mask, kw
 
 
+# Phase-2 decode cases (b 4): name: (h, hk, nq, nk, softclamp, key mask).
+# "ragged": a valid prefix of random length per request; "all masked": the
+# same with request 0 attending no key (it averages V over all nk keys).
+DECODE_CASES = {
+    "b4 h8 hk2 nk32768": (8, 2, 1, 32768, None, "ragged"),
+    "b4 h8 hk8 nk4096": (8, 8, 1, 4096, None, "ragged"),
+    "b4 h8 hk2 nk5000 all masked": (8, 2, 1, 5000, None, "all masked"),
+    "b4 h8 hk2 nq2 nk4097 softclamp": (8, 2, 2, 4097, 30.0, "ragged"),
+    "b4 mqa h8 hk1 nk3001": (8, 1, 1, 3001, None, "ragged"),
+}
+
+
+def _decode_inputs(gen, case, dtype):
+    """q, k, v, the key mask and the softclamp of a decode case."""
+    import torch
+
+    h, hk, nq, nk, clamp, mask_kind = case
+    b = 4
+    q = _rand(gen, (b, h, nq, 64), dtype)
+    k = _rand(gen, (b, hk, nk, 64), dtype)
+    v = _rand(gen, (b, hk, nk, 64), dtype)
+    lengths = torch.randint(1, nk + 1, (b,), generator=gen, device="cuda")
+    mask = torch.arange(nk, device="cuda")[None, :] < lengths[:, None]
+    if mask_kind == "all masked":
+        mask[0] = False
+    return q, k, v, mask, clamp
+
+
 def _compare(name, dtype, out, ref_out, lse, ref_lse, errors, rel_tol=None):
     """Elementwise out (OUT_TOL) and lse (LSE_TOL) against the plain
     version, and with ``rel_tol`` also ||out - plain|| / ||plain||."""
@@ -483,16 +545,19 @@ def _compare(name, dtype, out, ref_out, lse, ref_lse, errors, rel_tol=None):
     check(bool(torch.isfinite(out.float()).all()), f"{name} {dtype}: non-finite output")
 
 
-def phase_kernel_vs_plain() -> float:
-    """Every case of the forward kernel against its plain version; returns
-    the largest |out - plain| seen."""
+def phase_kernel_vs_plain() -> tuple[float, float]:
+    """Every case of the forward kernel and of the decode kernel against
+    their plain versions; returns the largest |out - plain| of each."""
     import torch
 
     from ring_attention_tpu_torch.ops import cuda_flash as cf
+    from ring_attention_tpu_torch.ops.partials import FlashPartials
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errors: list[float] = []
-    log("phase 2: flash_fwd kernel vs flash_fwd_reference on the card")
+    dec_errors: list[float] = []
+    log("phase 2: flash_fwd kernel vs flash_fwd_reference, flash_decode kernel vs "
+        "flash_decode_reference, on the card")
     for dtype in (torch.bfloat16, torch.float32):
         for name, case in KERNEL_CASES.items():
             q, k, v, mask, kw = _case_inputs(gen, case, dtype)
@@ -502,22 +567,35 @@ def phase_kernel_vs_plain() -> float:
             _compare(name, dtype, out, ref_out, lse, ref_lse, errors)
             torch.cuda.synchronize()
 
-        # folded-row decode with a ragged valid prefix per request: the
-        # case named for the port (h 8, hk 2, nk 32768) and the serving
-        # path's own (h = hk = 8 against a 4096-slot cache)
-        for h, hk, nk in ((8, 2, 32768), (8, 8, 4096)):
-            b = 4
-            q = _rand(gen, (b, h, 1, 64), dtype)
-            k = _rand(gen, (b, hk, nk, 64), dtype)
-            v = _rand(gen, (b, hk, nk, 64), dtype)
-            lengths = torch.randint(1, nk + 1, (b,), generator=gen, device="cuda")
-            mask = torch.arange(nk, device="cuda")[None, :] < lengths[:, None]
-            out, lse = cf.cuda_flash_decode(q, k, v, mask)
-            torch.cuda.synchronize()
-            folded = q.reshape(b, hk, h // hk, 64)
-            ref_out, ref_lse = cf.flash_fwd_reference(folded, k, v, mask, scale=0.125)
-            _compare(f"decode b4 h{h} hk{hk} nk{nk}", dtype, out,
-                     ref_out.reshape(b, h, 1, 64), lse, ref_lse.reshape(b, h, 1), errors)
+        # the split-KV decode (csrc/flash_decode.cu) against its plain
+        # version, split the same way: the wrapper's own split count and a
+        # single range, fused and as partials
+        for name, case in DECODE_CASES.items():
+            q, k, v, mask, clamp = _decode_inputs(gen, case, dtype)
+            b, h, nq = q.shape[:3]
+            hk, nk = k.shape[1:3]
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            own = cf.decode_splits(b * hk, -(-(h // hk * nq) // 16), nk, sms)
+            for splits in sorted({own, 1}):
+                kw = dict(softclamp_value=clamp, splits=splits)
+                cf.decode_launch_count = cf.launch_count = 0
+                out, lse = cf.cuda_flash_decode(q, k, v, mask, **kw)
+                parts = cf.cuda_flash_decode(q, k, v, mask, fused=False, **kw)
+                torch.cuda.synchronize()
+                check((cf.decode_launch_count, cf.launch_count) == (2, 0),
+                      f"decode {name}: launched flash_decode {cf.decode_launch_count} and "
+                      f"flash_fwd {cf.launch_count} times, expected 2 and 0")
+                ref_out, ref_lse = cf.flash_decode_reference(q, k, v, mask, **kw)
+                _compare(f"decode {name} splits {splits}", dtype, out, ref_out, lse, ref_lse,
+                         dec_errors)
+                ref = cf.flash_decode_reference(q, k, v, mask, fused=False, **kw)
+                _compare_partials(f"decode {name} splits {splits} partials", dtype,
+                                  FlashPartials(*parts), FlashPartials(*ref), dec_errors)
+                if case[-1] == "all masked":  # request 0 has no valid key
+                    mean_v = v[0].float().mean(dim=1).repeat_interleave(h // hk, dim=0)
+                    err = (out[0, :, 0].float() - mean_v).abs().max().item()
+                    check(err <= OUT_TOL[str(dtype)][0],
+                          f"decode {name}: the all-masked request is not the mean of V ({err})")
             torch.cuda.synchronize()
 
     # the serving forward's own shape: one 65,536-token causal sweep, held
@@ -535,7 +613,7 @@ def phase_kernel_vs_plain() -> float:
                  out[:, :, r0:r0 + 1024], ref_out, lse[:, :, r0:r0 + 1024],
                  ref_lse, errors)
     torch.cuda.synchronize()
-    return max(errors)
+    return max(errors), max(dec_errors)
 
 
 def _clone(parts):
@@ -1095,6 +1173,21 @@ def phase_bwd_kernel_vs_plain() -> dict:
             del ref
             torch.cuda.synchronize()
 
+        # key counts one past, half past and one short of whole 128-key
+        # blocks, and causal offsets that put the band's edge inside a block
+        for name, case in BWD_EDGE_CASES.items():
+            q, k, v, mask, kw = _case_inputs(gen, case, dtype)
+            do = _rand(gen, q.shape, dtype)
+            out, lse = cf.flash_fwd(q, k, v, mask, **kw)
+            delta = (do.float() * out.float()).sum(-1)
+            dk, dv = cf.flash_bwd_dkv(do, q, k, v, lse, delta, mask, **kw)
+            dq = cf.flash_bwd_dq(do, q, k, v, lse, delta, mask, **kw)
+            torch.cuda.synchronize()
+            ref = cf.flash_bwd_reference(do, q, k, v, lse, delta, mask, **kw)
+            _compare_bwd(name, dtype, (dq, dk, dv), ref, errors)
+            del ref
+            torch.cuda.synchronize()
+
     # the training path's own shape, held in slices: the plain version takes
     # lse and delta as inputs, so a block of query rows (dq) or of keys
     # (dk, dv) is checked with the band shifted to the slice
@@ -1167,21 +1260,26 @@ def phase_serving_path() -> dict:
         log(f"  forward 1 x 65536 tokens: {fwd_s:.3f} s (first call), "
             f"flash_fwd launches {fwd_launches}")
 
-        cf.launch_count = 0
+        steps = 128
+        _reset_counts()
         start = time.perf_counter()
-        new = model.generate(prompts, max_len=4096, num_steps=128)
+        new = model.generate(prompts, max_len=4096, num_steps=steps)
         torch.cuda.synchronize()
         gen_s = time.perf_counter() - start
-        gen_launches = cf.launch_count
-        check(gen_launches > 0, "generate never launched flash_fwd")
-        check(tuple(new.shape) == (4, 128), f"generate shape {tuple(new.shape)}")
+        counts = _read_counts()
+        # the prompt runs the blockwise PyTorch prefill; each later token
+        # runs the split-KV decode once per layer, and nothing else
+        expected = _counts(flash_decode=BENCH_MODEL["depth"] * (steps - 1))
+        check(counts == expected, f"generate launched {counts}, expected {expected}")
+        check(tuple(new.shape) == (4, steps), f"generate shape {tuple(new.shape)}")
         check(bool(((new >= 0) & (new < vocab)).all()), "generated ids out of range")
-        log(f"  generate 4 x (2048 prompt + 128 new): {gen_s:.3f} s (first call), "
-            f"flash_fwd launches {gen_launches}")
+        log(f"  generate 4 x (2048 prompt + {steps} new): {gen_s:.3f} s (first call), "
+            f"flash_decode launches {counts['flash_decode']}, flash_fwd {counts['flash_fwd']}")
 
-    launches = fwd_launches + gen_launches
+    launches = fwd_launches
     _hold_f32_model_to_cpu()
-    return {"launches": launches, "model": model, "tokens": tokens, "prompts": prompts}
+    return {"launches": launches, "decode_launches": counts["flash_decode"], "model": model,
+            "tokens": tokens, "prompts": prompts}
 
 
 def _hold_f32_model_to_cpu() -> None:
@@ -1302,37 +1400,74 @@ def _causal_timing(name, n, with_plain):
     return row
 
 
-def _decode_timing(name, h, hk, nk):
+def _streamed_ms(fn, calls: int = 20) -> float:
+    """Device ms per call in a stream of ``calls`` back-to-back calls: a
+    single call of a decode-sized kernel is host-bound (time_ms of one
+    synchronized call is reported beside it)."""
+    return time_ms(lambda: [fn() for _ in range(calls)]) / calls
+
+
+def _graph_ms(fn, calls: int = 20) -> float:
+    """Device ms per call of ``fn``, replayed from one CUDA graph of
+    ``calls`` calls: the kernels' own time, without the host's launch work
+    (which bounds a decode-sized call in a stream)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return time_ms(graph.replay) / calls
+
+
+def _decode_timing(name, b, h, hk, nk):
+    """The split-KV decode beside its bound, its plain version and SDPA on
+    the same inputs: each on the device alone (CUDA graph), per call in a
+    stream of 20 and as one synchronized call."""
     import torch
     import torch.nn.functional as F
 
     from ring_attention_tpu_torch.ops import cuda_flash as cf
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    b = 4
     q = _rand(gen, (b, h, 1, 64), torch.bfloat16)
     k = _rand(gen, (b, hk, nk, 64), torch.bfloat16)
     v = _rand(gen, (b, hk, nk, 64), torch.bfloat16)
     mask = torch.ones((b, nk), dtype=torch.bool, device="cuda")
     out, lse = cf.cuda_flash_decode(q, k, v, mask)
-    folded = q.reshape(b, hk, h // hk, 64)
     ops = 4 * 64 * b * h * nk
     b_ms, b_by = bound_ms(ops, nbytes(q, k, v, mask, out, lse), torch.bfloat16)
+
+    def decode():
+        return cf.cuda_flash_decode(q, k, v, mask)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask[:, None, None, :],
+                                              enable_gqa=h != hk)
+
     row = {
         "shape": f"decode b{b} h{h} hk{hk} nk{nk} bf16",
-        "ms": time_ms(lambda: cf.cuda_flash_decode(q, k, v, mask)),
-        "plain_ms": time_ms(
-            lambda: cf.flash_fwd_reference(folded, k, v, mask, scale=0.125)
-        ),
+        "ms": _graph_ms(decode),
+        "streamed_ms": _streamed_ms(decode),
+        "sync_call_ms": time_ms(decode, iters=50),
+        "plain_ms": time_ms(lambda: cf.flash_decode_reference(q, k, v, mask), iters=3),
         "bound_ms": b_ms,
         "bound_by": b_by,
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask[:, None, None, :], enable_gqa=h != hk
-        )),
+        "library_ms": _graph_ms(sdpa),
+        "library_streamed_ms": _streamed_ms(sdpa),
+        "library_sync_ms": time_ms(sdpa, iters=50),
     }
-    log(f"  {name}: kernel {row['ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-        f"plain {row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, "
-        f"{nbytes(k, v) / row['ms'] / 1e6:.1f} GB/s of cache")
+    log(f"  {name}: kernel {row['ms']:.4f} ms a call on the device (CUDA graph of 20), "
+        f"{row['streamed_ms']:.4f} ms per call in a stream of 20, {row['sync_call_ms']:.4f} ms "
+        f"a synchronized call; bound {b_ms:.4f} ms ({b_by}), {b_ms / row['ms']:.1%} of it; "
+        f"plain {row['plain_ms']:.4f} ms; sdpa {row['library_ms']:.4f} / "
+        f"{row['library_streamed_ms']:.4f} / {row['library_sync_ms']:.4f} ms (device, "
+        f"streamed, synchronized); {nbytes(k, v) / row['ms'] / 1e6:.1f} GB/s of cache")
     return row
 
 
@@ -1436,21 +1571,14 @@ def phase_train_timings(training: dict) -> dict[str, list[dict]]:
     return rows
 
 
-def phase_timings(serving: dict) -> list[dict]:
+def _decode_step_ms(model, prompts, max_len) -> float:
+    """The model's decode step (median of 10 after warm-up, CUDA events) for
+    the requests of ``prompts`` after their prefill, the cache growing by a
+    token a step."""
     import torch
 
-    log("phase 4: timings (CUDA events, median of 10 after warm-up)")
-    rows = [
-        _causal_timing("flash_fwd causal 4096", 4096, with_plain=True),
-        _causal_timing("flash_fwd causal 65536 (serving forward)", 65536, with_plain=False),
-        _causal_timing("flash_fwd causal 262144", 262144, with_plain=False),
-        _decode_timing("flash_fwd decode hk2 nk32768", 8, 2, 32768),
-        _decode_timing("flash_fwd decode hk8 nk4096 (serving decode)", 8, 8, 4096),
-    ]
-    model, tokens, prompts = serving["model"], serving["tokens"], serving["prompts"]
     with torch.inference_mode():
-        fwd_ms = time_ms(lambda: model(tokens))
-        cache = model.init_cache(4, 4096)
+        cache = model.init_cache(prompts.shape[0], max_len)
         logits, cache = model.prefill(prompts, cache)
         tok = logits.argmax(-1)
         pos = [prompts.shape[1]]
@@ -1459,13 +1587,41 @@ def phase_timings(serving: dict) -> list[dict]:
             model.decode_step(tok, cache, pos[0])
             pos[0] += 1
 
-        step_ms = time_ms(step)
+        return time_ms(step)
+
+
+def phase_timings(serving: dict) -> tuple[list[dict], list[dict]]:
+    """Phase 4; returns the forward kernel's rows and the decode kernel's."""
+    import torch
+
+    log("phase 4: timings (CUDA events, median of 10 after warm-up)")
+    rows = [
+        _causal_timing("flash_fwd causal 4096", 4096, with_plain=True),
+        _causal_timing("flash_fwd causal 65536 (serving forward)", 65536, with_plain=False),
+        _causal_timing("flash_fwd causal 262144", 262144, with_plain=False),
+    ]
+    decode_rows = [
+        _decode_timing("flash_decode b4 h8 hk2 nk32768", 4, 8, 2, 32768),
+        _decode_timing("flash_decode b4 h8 hk8 nk4096 (serving decode)", 4, 8, 8, 4096),
+        _decode_timing("flash_decode b1 h8 hk8 nk1048576", 1, 8, 8, 1 << 20),
+    ]
+    torch.cuda.empty_cache()
+    model, tokens, prompts = serving["model"], serving["tokens"], serving["prompts"]
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: model(tokens))
+    step_ms = _decode_step_ms(model, prompts, 4096)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    long_prompts = torch.randint(0, BENCH_MODEL["num_tokens"], (4, 32768), generator=gen,
+                                 device="cuda")
+    long_ms = _decode_step_ms(model, long_prompts, 32768 + 64)
     serving["fwd_ms"] = fwd_ms
     log(f"  model forward 1 x 65536: {fwd_ms:.3f} ms, "
         f"{65536 / fwd_ms * 1e3:.0f} tokens/s")
     log(f"  model decode step, 4 requests at ~2048-2060 cached tokens: "
         f"{step_ms:.3f} ms/step ({4 / step_ms * 1e3:.0f} tokens/s)")
-    return rows
+    log(f"  model decode step, 4 requests at ~32768-32780 cached tokens: "
+        f"{long_ms:.3f} ms/step ({4 / long_ms * 1e3:.0f} tokens/s)")
+    return rows, decode_rows
 
 # name: (module of ring_attention_tpu_torch.ops, launch counter)
 COUNTERS = {"flash_fwd": ("cuda_flash", "launch_count"),
@@ -1481,6 +1637,7 @@ COUNTERS = {"flash_fwd": ("cuda_flash", "launch_count"),
             "q8_seed": ("cuda_flash_q8", "seed_launch_count"),
             "q8_resume": ("cuda_flash_q8", "resume_launch_count"),
             "q8_fused_carry": ("cuda_flash_q8", "fused_carry_launch_count"),
+            "flash_decode": ("cuda_flash", "decode_launch_count"),
             "flash_decode_q8": ("cuda_flash_q8", "decode_launch_count"),
             "flash_ring": ("cuda_ring", "launch_count"),
             "flash_ring_remote": ("cuda_ring_remote", "launch_count")}
@@ -2451,30 +2608,25 @@ def _q8_decode_row(h, hk, nk) -> dict:
     out, lse = q8.flash_decode_q8(q, kv, mask)
     ops = 4 * 64 * b * h * nk
     b_ms, b_by = bound_ms(ops, nbytes(q, *kv, mask, out, lse), torch.float32)
-    def streamed(fn, calls=20):
-        # per call in a stream of back-to-back calls: a single call of a
-        # decode-sized kernel is host-bound (timed as sync_call_ms)
-        return time_ms(lambda: [fn() for _ in range(calls)]) / calls
-
     def decode():
         return q8.flash_decode_q8(q, kv, mask)
 
     row = {
         "shape": f"decode b{b} h{h} hk{hk} nk{nk} int8 cache",
-        "ms": streamed(decode),
+        "ms": _streamed_ms(decode),
         "sync_call_ms": time_ms(decode, iters=50),
         "plain_ms": time_ms(lambda: q8.flash_decode_q8_reference(q, kv, mask)),
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": None,  # no PyTorch call attends over an int8 cache
-        "bf16_kernel_ms": streamed(lambda: cf.cuda_flash_decode(q, k, v, mask)),
-        "bf16_sdpa_ms": streamed(lambda: F.scaled_dot_product_attention(
+        "bf16_kernel_ms": _streamed_ms(lambda: cf.cuda_flash_decode(q, k, v, mask)),
+        "bf16_sdpa_ms": _streamed_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask[:, None, None, :], enable_gqa=h != hk)),
     }
     log(f"  flash_decode_q8 b{b} h{h} hk{hk} nk{nk}: kernel {row['ms']:.4f} ms per call in "
         f"a stream of 20 ({row['sync_call_ms']:.4f} ms a single synchronized call), bound "
         f"{b_ms:.4f} ms ({b_by}), plain {row['plain_ms']:.4f} ms; bf16 cache, streamed: "
-        f"flash_fwd decode {row['bf16_kernel_ms']:.4f} ms, sdpa {row['bf16_sdpa_ms']:.4f} "
+        f"flash_decode {row['bf16_kernel_ms']:.4f} ms, sdpa {row['bf16_sdpa_ms']:.4f} "
         f"ms; {nbytes(*kv) / row['ms'] / 1e6:.1f} GB/s of cache")
     return row
 
@@ -3051,7 +3203,7 @@ def main() -> int:
 
     start = time.perf_counter()
     phase_build(port_dir)
-    max_err = phase_kernel_vs_plain()
+    max_err, decode_err = phase_kernel_vs_plain()
     mode_err = phase_ring_modes_vs_plain()
     fused_err = phase_fused_ring_vs_plain()
     remote_err = phase_fused_remote_vs_plain()
@@ -3064,7 +3216,7 @@ def main() -> int:
     fused = phase_ring_path(serving, training, impl="fused")
     q8_path = phase_q8_path(serving, training)
     packed = phase_packed_path(serving, training)
-    rows = phase_timings(serving)
+    rows, decode_rows = phase_timings(serving)
     bwd_rows = phase_train_timings(training)
     mode_rows = phase_ring_timings(ring, serving, training, rows)
     q8_rows = phase_q8_timings(q8_path, serving, training)
@@ -3082,6 +3234,8 @@ def main() -> int:
          max(max_err, *mode_err.values(), *(seg_err[m] for m in
                                             ("fused", "seed", "resume", "fused_carry"))),
          rows + seg_rows["flash_fwd"]),
+        ("flash_decode", "flash_decode.cu", f"{flash}:1174",
+         serving["decode_launches"], decode_err, decode_rows),
         ("flash_bwd_dkv", "flash_bwd.cu", f"{flash}:2108",
          training["launches"]["flash_bwd_dkv"] + ring_launches["flash_bwd_dkv"]
          + fused_launches["flash_bwd_dkv"] + q8_launches["flash_bwd_dkv"]
@@ -3118,7 +3272,9 @@ def main() -> int:
             "bound_ms": headline["bound_ms"],
             "bound_by": headline["bound_by"],
             "library_ms": headline["library_ms"],
-            **{key: headline[key] for key in ("bf16_kernel_ms", "bf16_sdpa_ms",
+            **{key: headline[key] for key in ("streamed_ms", "sync_call_ms",
+                                              "library_streamed_ms", "library_sync_ms",
+                                              "bf16_kernel_ms", "bf16_sdpa_ms",
                                               "hop_chain_ms", "local_tier_ms")
                if key in headline},
             "pass": True,
@@ -3133,7 +3289,7 @@ def main() -> int:
          "per_shape": mode_rows[mode]}
         for mode in ("seed", "resume", "fused_carry")
     ]
-    kernels[3]["modes"] = [
+    next(x for x in kernels if x["name"] == "flash_fwd_q8")["modes"] = [
         {"mode": mode, "launches": q8_launches[f"q8_{mode}"], "max_abs_err": q8_err[mode],
          **{key: q8_rows["modes"][mode][key] for key in
             ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -114,6 +114,23 @@ def flash_bwd_library() -> ctypes.CDLL:
 
 
 @functools.cache
+def flash_decode_library() -> ctypes.CDLL:
+    """The built ``flash_decode`` library with its C signature declared."""
+    lib = ctypes.CDLL(str(build("flash_decode").path))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_decode.argtypes = [
+        ptr, ptr, ptr, ptr,  # q, k, v, kv_mask
+        ptr, ptr,  # out, lse (both null: partials)
+        ptr, ptr, ptr,  # partials acc, m, l (all null: out + lse)
+        ptr, ptr,  # scratch, counters
+        i32, i32, i32, i32, i32, i32,  # B, Hk, R, Nk, D, S
+        i32, f32, f32, ptr,  # is_bf16, scale, softclamp, stream
+    ]
+    lib.flash_decode.restype = i32
+    return lib
+
+
+@functools.cache
 def flash_fwd_q8_library() -> ctypes.CDLL:
     """The built ``flash_fwd_q8`` library with its C signature declared."""
     lib = ctypes.CDLL(str(build("flash_fwd_q8").path))

@@ -1,5 +1,5 @@
-"""Flash attention on the hand-written CUDA kernels ``csrc/flash_fwd.cu``
-and ``csrc/flash_bwd.cu``.
+"""Flash attention on the hand-written CUDA kernels ``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu`` and ``csrc/flash_decode.cu``.
 
 Host side of the ports of ``ring_attention_tpu/ops/pallas_flash.py``: the
 forward sweep ``_flash_fwd_call`` (:869-1193) in its three modes and the
@@ -15,8 +15,11 @@ two passes of ``pallas_flash_backward`` (dk/dv and dq):
 - ``cuda_flash_attention`` mirrors ``pallas_flash_attention`` (:2281) with
   its custom gradient (``_pallas_flash_core``, :2213-2278): the forward
   keeps ``(out, lse)`` and the backward runs both passes from them.
-- ``cuda_flash_decode`` mirrors ``pallas_flash_decode`` (:1340): the GQA
-  group folds onto query rows so each cache byte is read once per kv head.
+- ``cuda_flash_decode`` mirrors ``pallas_flash_decode`` (:1340), fused
+  or as partials: the GQA group folds onto query rows so each cache byte is
+  read once per kv head, and the keys split into ranges that the split-KV
+  decode kernel sweeps in parallel and merges; ``flash_decode_reference``
+  is its plain version, split and merged the same way.
 - ``compute_dtype="int8"`` on ``flash_fwd``, ``flash_partials`` and
   ``cuda_flash_attention`` runs the sweep's int8 mode instead, the
   separate kernel of ``cuda_flash_q8.py``; the backward stays here.
@@ -32,7 +35,8 @@ two passes of ``pallas_flash_backward`` (dk/dv and dq):
 ``seed_launch_count``, ``resume_launch_count`` and
 ``fused_carry_launch_count`` count its ring modes (partials from no carry,
 partials from a carry, out + lse from a carry); ``dkv_launch_count`` and
-``dq_launch_count`` count the backward kernels; ``seg_launch_count``,
+``dq_launch_count`` count the backward kernels; ``decode_launch_count``
+counts the decode kernel; ``seg_launch_count``,
 ``seg_dkv_launch_count`` and ``seg_dq_launch_count`` count again those of
 the three launches that took document ids.  Plain-version calls do not
 count, so a run can show that its main path went through the kernels.
@@ -41,6 +45,7 @@ count, so a run can show that its main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -58,6 +63,7 @@ resume_launch_count = 0  # flash_fwd writing partials from a carry
 fused_carry_launch_count = 0  # flash_fwd writing out + lse from a carry
 dkv_launch_count = 0  # flash_bwd_dkv
 dq_launch_count = 0  # flash_bwd_dq
+decode_launch_count = 0  # flash_decode
 # The same launches, counted again when they ran the segmented instantiation.
 seg_launch_count = 0  # flash_fwd, every mode
 seg_dkv_launch_count = 0  # flash_bwd_dkv
@@ -636,6 +642,118 @@ def cuda_flash_attention(
     )
 
 
+# Keys per stage of csrc/flash_decode.cu (a decode range is a whole number
+# of them) and folded query rows per block.
+DECODE_TILE = 64
+DECODE_ROWS = 16
+
+
+def decode_split_size(nk: int, splits: int) -> int:
+    """Keys per range when ``nk`` keys split into ``splits`` ranges, as the
+    decode kernel cuts them: ``ceil(nk / splits)`` rounded up to whole
+    tiles, so the last ranges may be short or empty."""
+    per = -(-nk // splits)
+    return -(-per // DECODE_TILE) * DECODE_TILE
+
+
+def decode_splits(heads: int, row_groups: int, nk: int, sms: int) -> int:
+    """How many ranges the decode kernel splits each kv head's keys into:
+    about two blocks (``heads * row_groups`` per range) for each of the
+    card's ``sms`` multiprocessors, in one wave (more ranges cost more in
+    the merge than they add in parallel reads); at least two tiles a
+    range, and no empty range."""
+    tiles = -(-nk // DECODE_TILE)
+    want = max(1, min(2 * sms // (heads * row_groups), tiles // 2))
+    return -(-nk // decode_split_size(nk, want))
+
+
+# The decode kernel's workspace, one per (device, stream): an f32 scratch
+# for the ranges' partials and int32 counters that each launch leaves at
+# zero.  Launches that share one are ordered, as on one stream; reusing it
+# spares a decode, which is host-bound at small caches, two allocations.
+_DECODE_WORKSPACE: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _decode_workspace(dev: torch.device, stream: int, n_scratch: int,
+                      n_counters: int) -> tuple[torch.Tensor, torch.Tensor]:
+    key = (dev.index, stream)
+    ws = _DECODE_WORKSPACE.get(key)
+    if ws is None or ws[0].numel() < n_scratch or ws[1].numel() < n_counters:
+        ws = (torch.empty((max(n_scratch, 1 << 16),), dtype=torch.float32, device=dev),
+              torch.zeros((max(n_counters, 1024),), dtype=torch.int32, device=dev))
+        _DECODE_WORKSPACE[key] = ws
+    return ws
+
+
+@functools.cache
+def _sm_count(index: int | None) -> int:
+    """Multiprocessors of CUDA device ``index`` (None: the current one)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _decode_fold(fn, q, k, v, kv_mask):
+    """``(b, h, hk, nq, nk, d)`` of a decode, checked."""
+    check_attention_args(fn, q, k, v, kv_mask)
+    b, h, nq, d = q.shape
+    return b, h, k.shape[1], nq, k.shape[2], d
+
+
+def flash_decode_reference(
+    q: torch.Tensor,  # (b, h, nq, d)
+    k: torch.Tensor,  # (b, hk, nk, d)
+    v: torch.Tensor,  # (b, hk, nk, d)
+    kv_mask: torch.Tensor | None = None,  # (b, nk) True = attend
+    *,
+    scale: float | None = None,
+    softclamp_value: float | None = None,
+    splits: int = 1,
+    fused: bool = True,
+):
+    """Plain PyTorch version of the decode kernel: the head group folded
+    onto query rows, f32 scores ``(q . k) * scale``, softclamp, the key mask
+    with the finite ``MASK_VALUE``; each of ``splits`` key ranges
+    (:func:`decode_split_size`) gives its own ``(acc, m, l)`` with ``m``
+    starting at ``MASK_VALUE``, and the ranges merge in order as the
+    kernel's last block merges them.
+
+    Returns, as ``pallas_flash_decode``: ``fused=True`` ``(out (b, h, nq,
+    d) in q.dtype, lse (b, h, nq) f32)``; ``fused=False`` f32 partials
+    ``(acc (b, hk, g, nq, d), m, l (b, hk, g, nq))``."""
+    b, h, hk, nq, nk, d = _decode_fold("flash_decode", q, k, v, kv_mask)
+    g = h // hk
+    if scale is None:
+        scale = d**-0.5
+    s = torch.einsum("bhid,bhjd->bhij", q.reshape(b, hk, g * nq, d).float(),
+                     k.float()) * scale
+    if softclamp_value is not None:
+        s = softclamp(s, softclamp_value)
+    if kv_mask is not None:
+        s = torch.where(kv_mask[:, None, None, :], s, MASK_VALUE)
+    per = decode_split_size(nk, splits)
+    m = torch.full(s.shape[:-1], MASK_VALUE, dtype=torch.float32, device=q.device)
+    parts = []
+    for lo in range(0, splits * per, per):
+        span = s[..., min(lo, nk):min(lo + per, nk)]
+        m_i = torch.maximum(m, span.amax(dim=-1)) if span.shape[-1] else m
+        p = torch.exp(span - m_i[..., None])
+        parts.append((m_i, p.sum(dim=-1), torch.einsum(
+            "bhij,bhjd->bhid", p, v[:, :, min(lo, nk):min(lo + per, nk)].float())))
+    mx = m
+    for m_i, _, _ in parts:
+        mx = torch.maximum(mx, m_i)
+    l = torch.zeros_like(mx)
+    acc = torch.zeros((b, hk, g * nq, d), dtype=torch.float32, device=q.device)
+    for m_i, l_i, acc_i in parts:
+        w = torch.exp(m_i - mx)
+        l = l_i * w + l
+        acc = acc_i * w[..., None] + acc
+    if not fused:
+        return (acc.reshape(b, hk, g, nq, d), mx.reshape(b, hk, g, nq),
+                l.reshape(b, hk, g, nq))
+    out, lse = finalize_partials(FlashPartials(acc, mx, l))
+    return out.reshape(b, h, nq, d).to(q.dtype), lse.reshape(b, h, nq)
+
+
 def cuda_flash_decode(
     q: torch.Tensor,  # (b, h, nq, d), nq tiny (typically 1)
     k: torch.Tensor,  # (b, hk, nk, d)
@@ -644,20 +762,66 @@ def cuda_flash_decode(
     *,
     scale: float | None = None,
     softclamp_value: float | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    fused: bool = True,
+    splits: int | None = None,
+):
     """Decode attention with the cache read once per kv head.
 
     The head group folds onto query rows, ``(b, h, nq, d) -> (b, hk,
-    g*nq, d)``, and one non-causal sweep runs over the masked cache.
-    Returns ``(out (b, h, nq, d) in q.dtype, lse (b, h, nq) f32)``."""
-    check_attention_args("cuda_flash_decode", q, k, v, kv_mask)
-    b, h, nq, d = q.shape
-    hk = k.shape[1]
+    g*nq, d)``, and the keys split into ``splits`` ranges (None: the
+    wrapper's choice, :func:`decode_splits` on the card, one range on the
+    CPU) that the decode kernel sweeps in parallel and merges.  Same
+    result as :func:`flash_decode_reference`, which CPU tensors take; CUDA
+    tensors launch the kernel."""
+    b, h, hk, nq, nk, d = _decode_fold("cuda_flash_decode", q, k, v, kv_mask)
+    g = h // hk
     if scale is None:
         scale = d**-0.5
-    folded = q.reshape(b, hk, (h // hk) * nq, d)
-    out, lse = flash_fwd(
-        folded.contiguous(), k.contiguous(), v.contiguous(), kv_mask, scale=scale,
-        softclamp_value=softclamp_value,
-    )
-    return out.reshape(b, h, nq, d), lse.reshape(b, h, nq)
+    if splits is not None and splits < 1:
+        raise ValueError(f"cuda_flash_decode: splits must be >= 1, got {splits}")
+    if q.device.type == "cpu":
+        return flash_decode_reference(q, k, v, kv_mask, scale=scale,
+                                      softclamp_value=softclamp_value,
+                                      splits=splits or 1, fused=fused)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode: no kernel for device {q.device}")
+    rows = g * nq
+    folded = q.reshape(b, hk, rows, d).contiguous()
+    k, v = k.contiguous(), v.contiguous()
+    _check_kernel_args("flash_decode", folded, k, v, kv_mask)
+    dev = q.device
+    groups = -(-rows // DECODE_ROWS)
+    if splits is None:
+        splits = decode_splits(b * hk, groups, nk, _sm_count(dev.index))
+    from ._build import flash_decode_library
+
+    lib = flash_decode_library()
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    scratch, counters = _decode_workspace(dev, stream, b * hk * splits * rows * (d + 2),
+                                          b * hk * groups)
+    if fused:
+        result = (torch.empty((b, h, nq, d), dtype=q.dtype, device=dev),
+                  torch.empty((b, h, nq), dtype=torch.float32, device=dev))
+        ptrs = (result[0].data_ptr(), result[1].data_ptr(), None, None, None)
+    else:
+        result = (torch.empty((b, hk, g, nq, d), dtype=torch.float32, device=dev),
+                  torch.empty((b, hk, g, nq), dtype=torch.float32, device=dev),
+                  torch.empty((b, hk, g, nq), dtype=torch.float32, device=dev))
+        ptrs = (None, None, *(x.data_ptr() for x in result))
+    mask_u8 = None
+    if kv_mask is not None:  # a bool tensor is read as its bytes, not copied
+        mask_u8 = (kv_mask.contiguous().view(torch.uint8) if kv_mask.dtype == torch.bool
+                   else kv_mask.to(torch.uint8).contiguous())
+    args = (folded.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask_u8 is None else mask_u8.data_ptr(), *ptrs, scratch.data_ptr(),
+            counters.data_ptr(), b, hk, rows, nk, d, splits, int(q.dtype == torch.bfloat16),
+            float(scale), float(softclamp_value or 0.0), ctypes.c_void_p(stream))
+    if dev.index == torch.cuda.current_device():
+        rc = lib.flash_decode(*args)
+    else:
+        with torch.cuda.device(dev):
+            rc = lib.flash_decode(*args)
+    _check_launch(rc, "flash_decode", q, k)
+    global decode_launch_count
+    decode_launch_count += 1
+    return result

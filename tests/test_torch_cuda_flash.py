@@ -2,8 +2,8 @@
 forward kernel run in interpret mode (the backward's parity is in
 ``test_torch_flash_bwd.py``).
 
-On the CPU ``flash_fwd`` (and through it ``cuda_flash_attention`` and
-``cuda_flash_decode``) runs the kernel's plain version; the JAX side runs
+On the CPU ``flash_fwd`` (and through it ``cuda_flash_attention``) and
+``cuda_flash_decode`` run their kernels' plain versions; the JAX side runs
 the TPU kernel itself, ``_flash_fwd_call(fused=True)``, in the Pallas
 interpreter, as the JAX suite's own tests do.  Out and lse are both held,
 including a key mask with an all-False row and folded-row decode.
