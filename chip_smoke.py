@@ -11,24 +11,31 @@ result line):
 
 1. The card's name and power limit; every CUDA kernel of the package is
    built from ``csrc/`` (one nvcc per source, all started together); the
-   ptxas report of each flash kernel, and neither bf16 dk/dv
-   instantiation may spill.
+   ptxas report of each flash kernel, and no bf16 instantiation of the
+   wgmma kernels (B1's sweep, B2's dk/dv, B3's dq) may spill; their
+   registers and their WARPGROUP.DEPBAR counts (SASS) are printed.
 2. Each kernel against its plain PyTorch version on the card, in bf16 and
    f32, at the shapes of its path and of the cases its port must cover
    (causal, offset, band-empty rows, window, softclamp, key mask with an
    all-False row, GQA):
-   2. the forward kernel; the split-KV decode kernel (csrc/flash_decode.cu)
+   2. the forward kernel, also on FWD_EDGE_CASES (query counts of 128k +
+       1, + 64 and + 127, band edges inside a 128-row block and a 64-key
+       tile, a key mask that leaves one 64-row warpgroup of a block no live
+       key while the other keeps its keys); the split-KV decode kernel
+       (csrc/flash_decode.cu)
        fused and as partials, at the wrapper's split count and at one
        range, on DECODE_CASES (ragged valid prefixes, a request with no
        valid key, nk not a multiple of the 64-key tile, softclamp, MQA,
        nq 2), each call launching the decode kernel and never flash_fwd;
    2b. the dk/dv and dq backward kernels, also on BWD_EDGE_CASES (key
        counts of 128k + 1, + 64 and + 127, band edges inside a 128-key
-       block) and on the 65,536-token causal backward in 1,024-row and
+       block) and FWD_EDGE_CASES (dq's 128-row blocks) and on the
+       65,536-token causal backward in 1,024-row and
        1,024-key slices;
    2c. the forward kernel's ring modes (seed partials, resumed partials
        into new tensors and in place, the fused write from a carry) on
-       every forward case, a 3-hop striped chain with a band-empty row, the
+       every forward case and FWD_EDGE_CASES, a 3-hop striped chain with a
+       band-empty row, the
        4-hop chains that phase 3c launches (n_local 16,384: contiguous
        rank 3, striped ranks 0-2) and the 4-hop chain of ring rank 3 at
        262,144 tokens (n_local 65,536), the long chains in 1,024-row
@@ -60,8 +67,11 @@ result line):
        other under the grant protocol) in bf16 and f32: rings of 2, 4 and
        8, contiguous and striped, a window with 3 passes, GQA h8/hk2,
        softclamp 50; every rank against its plain version (OUT_TOL,
-       LSE_TOL, RING_REL_TOL) and against B7 over the gathered span and the
-       ``impl="cuda"`` hop chain, max|diff| == 0 on out and lse; the
+       LSE_TOL, RING_REL_TOL), against B7 over the gathered span (max|diff|
+       == 0 on out and lse) and against the ``impl="cuda"`` hop chain of
+       B1 (within OUT_TOL, LSE_TOL and RING_REL_TOL, bit identity printed:
+       B1's wgmma sweep sums in another order than B7's and B8's tile
+       body); the
        fused model's launch (4 ranks x n_local 16,384, h8 hk8 bf16, both
        layouts) the same, and against the plain chain in 1,024-row slices;
        then the stress: 50 launches of the causal ring of 4, each bit for
@@ -113,8 +123,9 @@ result line):
    decode once per layer and step, the ring modes per RING_SCHEDULE.
 3e. The fused ring path: the same model with ``mesh=create_mesh(ring_size=4),
    impl="fused"``, contiguous and striped, as in 3c: logits held to the
-   local model's and, bit for bit, to the scan-path ring model's (the same
-   seeded weights), 4 Adam steps, the float32 copy held to the CPU.  Each
+   local model's and to the scan-path ring model's (the same seeded
+   weights; within RING_LOGITS_REL_TOL, bit identity printed), 4 Adam
+   steps, the float32 copy held to the CPU.  Each
    unmasked forward launches the remote-tier kernel once per layer (2) and
    nothing of the local tier or the forward kernel; each step's backward
    launches the backward kernels per RING_SCHEDULE.  A non-causal copy of
@@ -304,6 +315,31 @@ BWD_EDGE_CASES = {
 }
 
 
+# The bf16 kernels on wgmma and their instantiations (kSeg; B1 also the soft
+# clamp), none of which may spill: B1's sweep, B2's dk/dv and B3's dq.
+WGMMA_KERNELS = {"flash_fwd_bf16_kernel": 4, "flash_bwd_dkv_bf16_kernel": 2,
+                 "flash_bwd_dq_bf16_kernel": 2}
+
+
+# Phase-2 and 2c cases beside KERNEL_CASES, in its format: the bf16 forward
+# kernel takes 128 query rows a block in two warpgroups of 64, each with its
+# own tile range, and runs the keep test only on tiles that meet the band's
+# edge, the ragged end or a key mask.  Query counts of 128k + 1, + 64 and +
+# 127; band edges inside a block and inside a 64-key tile; and masked =
+# "half": keys 0..62 masked, so that under causal offset -1 rows 0..63 (the
+# first warpgroup of the first block, whose row 0 sees no key, so that it
+# visits every tile as the plain version's dense rows do) have no live key
+# while rows 64..127 of the same block do.
+FWD_EDGE_CASES = {
+    "nq 1025 (128k+1), causal": (1, 8, 2, 1025, 1025, 0, None, None, False),
+    "nq 1088 (128k+64), causal offset 64": (1, 8, 8, 1088, 1152, 64, None, None, False),
+    "nq 1151 (128k+127), window, softclamp": (1, 8, 4, 1151, 1151, 0, -300, 30.0, False),
+    "causal offset 96 (edge mid-block)": (1, 8, 8, 2048, 2144, 96, None, None, False),
+    "window -200 (lower edge mid-block)": (1, 8, 8, 2048, 2048, 0, -200, None, False),
+    "key mask empties one warpgroup": (2, 8, 8, 1024, 1024, -1, None, None, "half"),
+}
+
+
 def log(*parts) -> None:
     print(*parts, flush=True)
 
@@ -409,9 +445,10 @@ def phase_build(port_dir: Path) -> None:
     log(f"phase 1 build: {time.perf_counter() - start:.1f} s wall")
     # the stack and spills of every instantiation of the kernels that share
     # csrc/flash_tile.cuh or take document ids (the segmented ones are
-    # <64,1>; the unsegmented ones must keep their registers and spills)
-    # the bf16 dk/dv kernel (both instantiations) must not spill
-    dkv_reports = 0
+    # <64,1> or, in the wgmma kernels, <1> and B1's <1,clamp>; the
+    # unsegmented ones must keep their registers and spills); no bf16
+    # instantiation of the wgmma kernels (B1, B2 dk/dv, B3 dq) may spill
+    wgmma_reports = {name: 0 for name in WGMMA_KERNELS}
     for name in ("flash_fwd", "flash_bwd", "flash_decode", "flash_ring", "flash_ring_remote"):
         function = "?"
         for line in results[name].log.splitlines():
@@ -419,11 +456,22 @@ def phase_build(port_dir: Path) -> None:
                 function = _kernel_name(line.split()[-1], with_args=True)
             elif "stack frame" in line and "_kernel" in function:
                 log(f"  ptxas {function}: {line.strip()}")
-                if function.startswith("flash_bwd_dkv_bf16_kernel"):
-                    dkv_reports += 1
+                kernel = function.split("<")[0]
+                if kernel in wgmma_reports:
+                    wgmma_reports[kernel] += 1
                     check(" 0 bytes spill stores, 0 bytes spill loads" in line,
                           f"{function} spills: {line.strip()}")
-    check(dkv_reports == 2, f"ptxas reported {dkv_reports} bf16 dk/dv instantiations, not 2")
+    check(wgmma_reports == WGMMA_KERNELS,
+          f"ptxas reported {wgmma_reports} bf16 wgmma instantiations, not {WGMMA_KERNELS}")
+    # registers of each wgmma kernel, and the WARPGROUP.DEPBAR waits in its
+    # SASS (one per wgmma wait in the source; ptxas adds one before every
+    # wgmma it serializes)
+    for name in ("flash_fwd", "flash_bwd"):
+        usage = {line.split(":")[0]: line for line in _ptxas_usage(results[name].log)}
+        for kernel, row in _sass_report(results[name].path).items():
+            if kernel.split("<")[0] in WGMMA_KERNELS:
+                log(f"  SASS {kernel}: {row['hgmma']} HGMMA, {row['depbar']} WARPGROUP.DEPBAR; "
+                    f"ptxas {usage.get(kernel, '?').split(': ', 1)[-1]}")
     # slot memory is rewritten by other SMs during the remote tier's launch:
     # none of its loads may take the non-coherent read-only path; beside it,
     # the local memory the ring kernels touch, in all and in their hot loop
@@ -462,7 +510,8 @@ def _sass_report(lib: Path) -> dict[str, dict]:
                  if (b := re.search(r"BRA\s+0x([0-9a-f]+)", t)) and int(b.group(1), 16) < a]
         hot = [(lo, hi) for lo, hi in loops if count("HMMA", lo, hi)]
         inner = min(hot, key=lambda x: x[1] - x[0]) if hot else None
-        report[_kernel_name(lines[0].strip())] = {
+        report[_kernel_name(lines[0].strip(), with_args=True)] = {
+            "hgmma": count("HGMMA"), "depbar": count(r"WARPGROUP\.DEPBAR"),
             "loads": count("LDG"), "constant": count(r"LDG.*CONSTANT"),
             "ldl": count("LDL"), "stl": count("STL"),
             "hot": None if inner is None else f"LDL {count('LDL', *inner)}, STL "
@@ -478,7 +527,8 @@ def _rand(gen, shape, dtype):
 
 
 def _case_inputs(gen, case, dtype):
-    """q, k, v, the key mask (its last row all False) and the band of a case."""
+    """q, k, v, the key mask (its last row all False; FWD_EDGE_CASES' "half"
+    masks keys 0..62 of every row) and the band of a case."""
     import torch
 
     b, h, hk, nq, nk, hi, lo, clamp, masked = case
@@ -486,7 +536,10 @@ def _case_inputs(gen, case, dtype):
     k = _rand(gen, (b, hk, nk, 64), dtype)
     v = _rand(gen, (b, hk, nk, 64), dtype)
     mask = None
-    if masked:
+    if masked == "half":  # FWD_EDGE_CASES
+        mask = torch.ones((b, nk), dtype=torch.bool, device="cuda")
+        mask[:, :63] = False
+    elif masked:
         mask = torch.rand((b, nk), generator=gen, device="cuda") > 0.3
         mask[-1] = False
     kw = dict(scale=0.125, causal_offset=hi, window_lo=lo, softclamp_value=clamp)
@@ -559,7 +612,7 @@ def phase_kernel_vs_plain() -> tuple[float, float]:
     log("phase 2: flash_fwd kernel vs flash_fwd_reference, flash_decode kernel vs "
         "flash_decode_reference, on the card")
     for dtype in (torch.bfloat16, torch.float32):
-        for name, case in KERNEL_CASES.items():
+        for name, case in {**KERNEL_CASES, **FWD_EDGE_CASES}.items():
             q, k, v, mask, kw = _case_inputs(gen, case, dtype)
             out, lse = cf.flash_fwd(q, k, v, mask, **kw)
             torch.cuda.synchronize()
@@ -712,7 +765,7 @@ def phase_ring_modes_vs_plain() -> dict:
     log("phase 2c: flash_fwd ring modes (seed partials, resume, fused from a "
         "carry) vs their plain versions")
     for dtype in (torch.bfloat16, torch.float32):
-        for name, case in KERNEL_CASES.items():
+        for name, case in {**KERNEL_CASES, **FWD_EDGE_CASES}.items():
             q, k, v, mask, kw = _case_inputs(gen, case, dtype)
             # the carry of a first span with real content: unmasked, in full
             carry = cf.flash_partials_reference(
@@ -1019,6 +1072,19 @@ def _hold_identical(name, dtype, got, ref, what) -> None:
     check(same and out_err == 0 and lse_err == 0, f"{name} {dtype}: remote tier vs {what}")
 
 
+def _hold_to_chain(name, dtype, got, chain) -> None:
+    """Every rank's out and lse of ``got`` (B8) against the forward kernel's
+    hop chain (B1) within the bounds that hold each to its plain version
+    (OUT_TOL, LSE_TOL, RING_REL_TOL), printing whether they are also
+    bit-identical: B1's wgmma sweep sums in another order than the mma.sync
+    tile body that B7 and B8 share."""
+    same = all(bool((a == b).all()) for a, b in zip(got[0] + got[1], chain[0] + chain[1]))
+    for rank, (out, lse, ref_out, ref_lse) in enumerate(zip(*got, *chain)):
+        _compare(f"{name} r{rank} vs hop chain", dtype, out, ref_out, lse, ref_lse, [],
+                 rel_tol=RING_REL_TOL[str(dtype)])
+    log(f"  {name:<44} {str(dtype):<15} vs the hop chain: bit-identical {same}")
+
+
 def _raises(fn, exc_type) -> str | None:
     """The message of the ``exc_type`` that ``fn`` raises, or None."""
     try:
@@ -1096,8 +1162,7 @@ def phase_fused_remote_vs_plain() -> float:
             del ref_outs, ref_lses
             _hold_identical(name, dtype, (outs, lses),
                             _local_tier(qs, ks, vs, kw["tables"], clamp), "B7")
-            _hold_identical(name, dtype, (outs, lses),
-                            _chain_ring(qs, ks, vs, ring_kw, clamp), "the hop chain")
+            _hold_to_chain(name, dtype, (outs, lses), _chain_ring(qs, ks, vs, ring_kw, clamp))
 
     # the launch the fused model makes: a causal ring of 4 x 16,384, h8 hk8
     # bf16, both layouts; each rank also against the plain chain in slices
@@ -1111,9 +1176,8 @@ def phase_fused_remote_vs_plain() -> float:
         name = f"{layout} causal ring of 4 x {n}"
         _hold_identical(name, torch.bfloat16, (outs, lses), _local_tier(qs, ks, vs, tables),
                         "B7")
-        _hold_identical(name, torch.bfloat16, (outs, lses),
-                        _chain_ring(qs, ks, vs, dict(causal=True, striped=striped)),
-                        "the hop chain")
+        _hold_to_chain(name, torch.bfloat16, (outs, lses),
+                       _chain_ring(qs, ks, vs, dict(causal=True, striped=striped)))
         k_all, v_all = torch.cat(ks, dim=2), torch.cat(vs, dim=2)
         for rank, table in enumerate(tables):
             spans, bands = _chain_schedule(k_all, v_all, dict(zip(TABLE_NAMES, table)), n)
@@ -1174,8 +1238,9 @@ def phase_bwd_kernel_vs_plain() -> dict:
             torch.cuda.synchronize()
 
         # key counts one past, half past and one short of whole 128-key
-        # blocks, and causal offsets that put the band's edge inside a block
-        for name, case in BWD_EDGE_CASES.items():
+        # blocks, and causal offsets that put the band's edge inside a block;
+        # then the forward's edge cases, whose 128-row blocks are those of dq
+        for name, case in {**BWD_EDGE_CASES, **FWD_EDGE_CASES}.items():
             q, k, v, mask, kw = _case_inputs(gen, case, dtype)
             do = _rand(gen, q.shape, dtype)
             out, lse = cf.flash_fwd(q, k, v, mask, **kw)
@@ -1690,7 +1755,10 @@ def _fused_counts(striped: bool, backward: bool) -> dict[str, int]:
 
 def _hold_fused_ring_model(model, tokens, local, striped, logits, launches) -> None:
     """Phase 3e beside the logits: the scan-path ring model with the same
-    seeded weights gives bit-identical logits; and a request that the model
+    seeded weights gives the same logits within RING_LOGITS_REL_TOL (its
+    hops run B1, whose wgmma sweep sums in another order than the remote
+    tier's mma.sync tile body; whether they are bit-identical is printed);
+    and a request that the model
     pads and masks takes the local tier (B7 once per rank and layer), its
     logits held to the local model's.  That request goes to a non-causal
     copy of the model: 65,535 tokens do not divide over 4 ranks, so the
@@ -1704,11 +1772,17 @@ def _hold_fused_ring_model(model, tokens, local, striped, logits, launches) -> N
     mesh = create_mesh(ring_size=RING_SIZE)
     scan = _model(torch.bfloat16, "cuda", mesh=mesh, striped=striped, impl="cuda")
     with torch.inference_mode():
-        same = bool(torch.equal(scan(tokens), logits))
+        scan_logits = scan(tokens)
     del scan
+    same = bool(torch.equal(scan_logits, logits))
+    rel = ((logits.float() - scan_logits.float()).norm()
+           / scan_logits.float().norm()).item()
+    del scan_logits
     log(f"  {layout} forward 1 x 65536 vs the scan-path ring model (impl='cuda', the "
-        f"same weights): logits bit-identical {same}")
-    check(same, f"{layout}: the remote-tier model's logits differ from the scan ring's")
+        f"same weights): ||fused - scan|| / ||scan|| {rel:.3e} (tol {RING_LOGITS_REL_TOL}), "
+        f"logits bit-identical {same}")
+    check(rel <= RING_LOGITS_REL_TOL,
+          f"{layout}: the remote-tier model's logits differ from the scan ring's")
     short = tokens[:, :-1]
     masked_model = _model(torch.bfloat16, "cuda", mesh=mesh, striped=striped, impl="fused",
                           causal=False)
@@ -2019,8 +2093,11 @@ def _one_span_row(n, causal) -> None:
     """One span of n keys (causal, or unbanded) two ways: the forward
     kernel's fused sweep and the fused ring kernel with a one-hop table of
     the same band, which compute the same function over the same tiles
-    (outputs checked bit-identical); timed in turns B1, B7, B7, B1, to
-    show whether B7's speed is the hop walk or the kernel itself."""
+    (outputs held within OUT_TOL, LSE_TOL and RING_REL_TOL of each other,
+    the bounds each is held to against its plain version, and whether they
+    are bit-identical printed: B1's wgmma sweep sums in another order than
+    B7's mma.sync tile body); timed in turns B1, B7, B7, B1, to show
+    whether B7's speed is the hop walk or the kernel itself."""
     import torch
 
     from ring_attention_tpu_torch.ops import cuda_flash as cf
@@ -2038,15 +2115,18 @@ def _one_span_row(n, causal) -> None:
     def b7():
         return cr.fused_ring_local(q, k, v, n_local=n, scale=0.125, **tables)
 
-    same = all(bool((x == y).all()) for x, y in zip(b1(), b7()))
-    check(same, f"one span {n} causal={causal}: B7 and B1 differ")
+    (out1, lse1), (out7, lse7) = b1(), b7()
+    same = bool((out1 == out7).all() and (lse1 == lse7).all())
+    _compare(f"one span {n} causal={causal}: B7 vs B1", torch.bfloat16, out7, out1, lse7,
+             lse1, [], rel_tol=RING_REL_TOL["torch.bfloat16"])
+    del out1, lse1, out7, lse7
     b1_ms = [time_ms(b1, iters=5)]
     b7_ms = [time_ms(b7, iters=5), time_ms(b7, iters=5)]
     b1_ms.append(time_ms(b1, iters=5))
     ops = 4 * 64 * 8 * band_pairs(n, n, 0 if causal else None, None)
     b1_mean, b7_mean = statistics.mean(b1_ms), statistics.mean(b7_ms)
     log(f"  one {'causal' if causal else 'unbanded'} span (1,8,{n},64) bf16, outputs "
-        f"bit-identical: flash_fwd {b1_mean:.3f} ms (runs {[round(x, 3) for x in b1_ms]}, "
+        f"bit-identical {same}: flash_fwd {b1_mean:.3f} ms (runs {[round(x, 3) for x in b1_ms]}, "
         f"{ops / b1_mean / 1e9:.1f} TFLOP/s), flash_ring one hop {b7_mean:.3f} ms (runs "
         f"{[round(x, 3) for x in b7_ms]}, {ops / b7_mean / 1e9:.1f} TFLOP/s), ring / fwd "
         f"{b7_mean / b1_mean:.4f}")

@@ -58,18 +58,35 @@
 //     test, the same code instantiated without it (the Band form of
 //     flash_tile.cuh).  A kSeg step whose rows all hold one document and
 //     the block's keys another keeps no pair: p = ds = 0 with no test.
-//   * dq (and dk/dv in f32): one thread block per (64-row query tile, b*h)
-//     or (64-key tile, b*hk), looping over the tiles that meet the band;
-//     heaviest causal rows first.
+//   * dq in bf16, redesigned for Hopper on the same plan: one block of 256
+//     threads per (128-row query block, b*h), heaviest causal rows first.
+//     Two warpgroups own 64 rows each; the block's Q and dO stay resident
+//     in shared memory (128-byte swizzled) and each thread's rows' lse and
+//     delta in registers.  The 64-key K and V tiles, with their key-mask
+//     bytes and (kSeg) key ids, arrive by cp.async through a ring of 4
+//     stages per warpgroup, two tiles ahead of the products (wgmma.cuh's KV
+//     stage).
+//     s = q K^T and dp = do V^T run on wgmma m64n64k16 with both operands
+//     in shared memory; p = exp2(s scale log2 e - lse log2 e) and ds = p (dp
+//     - delta) are formed in the accumulator registers, ds rounded to bf16
+//     as the A fragments of dq += ds K (K read down its rows, MN-major),
+//     which runs on into the next tile's products.  dq accumulates in f32
+//     registers that only the tensor cores write, and is written once; a
+//     row with no key gets zero.  Each warpgroup walks the tiles its own
+//     rows meet through a ring of its own, on a named barrier of its own
+//     128 threads, so that the two run out of step (B1's plan).
+//     The keep test runs only as in dk/dv: at the band's edges, the ragged
+//     ends, under a key mask and, kSeg, unless the warpgroup's rows and the
+//     tile's keys all hold one document; a kSeg tile whose keys all hold
+//     another document than the warpgroup's rows takes ds = 0 with no test.
+//   * f32: one thread block per (64-key tile, b*hk) for dk/dv and per
+//     (64-row query tile, b*h) for dq, looping over the tiles that meet the
+//     band, heaviest causal rows first; 64 threads, one key (dk/dv) or one
+//     query row (dq) per thread, plain FMA on CUDA cores, so the card can
+//     be held tightly to the CPU;
 //   * each block computes its own tile range from (lo, hi): the counterpart
 //     of the TPU compact band grid and its scalar-prefetched tables.  Tiles
 //     outside the band hold only p = 0 and are skipped exactly.
-//   * dq in bf16: 4 warps, each owns 16 query rows.  All products run on
-//     mma.sync.m16n8k16 (bf16 in, f32 accumulate); scores, p and ds stay in
-//     registers, and an accumulator fragment becomes the A fragment of the
-//     next product without touching shared memory.
-//   * f32: 64 threads, one key (dk/dv) or one query row (dq) per thread,
-//     plain FMA on CUDA cores, so the card can be held tightly to the CPU;
 //   * packed sequences (q_seg, kv_seg int32 document ids, a kernel argument
 //     of their own) run a second instantiation of each kernel (kSeg): each
 //     thread's fixed-side ids in registers, the other side's ids in shared
@@ -77,12 +94,14 @@
 //     delta for dk/dv, the keys' beside K and V for dq).  The same tiles are
 //     visited as without ids, and the unsegmented kernels compile as
 //     before.
-// Not yet: TMA and warp specialisation in dk/dv; dq (B3) as dk/dv is now.
+// Not yet: TMA and warp specialisation.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -195,103 +214,8 @@ __device__ __forceinline__ void grad_pair(const Params& p, bool keep,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync
+// bf16: tensor cores through wgmma (wgmma.cuh)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Two floats as bf16x2; the first lands in the low half (lower index).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(uint16_t lo, uint16_t hi) {
-  return (uint32_t)lo | ((uint32_t)hi << 16);
-}
-
-// rows [row0, row0 + 64) of a (n, D) bf16 matrix into shared memory with a
-// row stride of D + 8 elements; rows past n are zero.
-template <int D>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               int row0, int n) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  constexpr int kStride = D + 8;
-  for (int i = threadIdx.x; i < 64 * kChunks; i += blockDim.x) {
-    const int r = i / kChunks, c = i % kChunks;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * kStride + c * 8) = val;
-  }
-}
-
-// A fragments (16 rows x D) of this warp's rows of a tile in shared memory.
-template <int D>
-__device__ __forceinline__ void load_a_frags(uint32_t (*frag)[4],
-                                             const __nv_bfloat16* tile,
-                                             int warp, int g, int t) {
-  constexpr int kStride = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* base = tile + (warp * 16 + g) * kStride + kk * 16 + t * 2;
-    frag[kk][0] = *reinterpret_cast<const uint32_t*>(base);
-    frag[kk][1] = *reinterpret_cast<const uint32_t*>(base + 8 * kStride);
-    frag[kk][2] = *reinterpret_cast<const uint32_t*>(base + 8);
-    frag[kk][3] = *reinterpret_cast<const uint32_t*>(base + 8 * kStride + 8);
-  }
-}
-
-// c[j] += A . X^T over D, for the 8 groups of 8 rows of X (a 64 x D tile in
-// shared memory): the B operand reads X row-major, i.e. X^T column-major.
-template <int D>
-__device__ __forceinline__ void mma_abt(float (*c)[4], const uint32_t (*a)[4],
-                                        const __nv_bfloat16* x, int g, int t) {
-  constexpr int kStride = D + 8;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const __nv_bfloat16* xb = x + (j * 8 + g) * kStride + kk * 16 + t * 2;
-      const uint32_t bf[2] = {*reinterpret_cast<const uint32_t*>(xb),
-                              *reinterpret_cast<const uint32_t*>(xb + 8)};
-      mma_16816(c[j], a[kk], bf);
-    }
-  }
-}
-
-// acc[nd] += P . X over 64 rows of X (a 64 x D tile in shared memory), where
-// P is 16 x 64 held as the accumulator fragments `pc` of an earlier product,
-// rounded to bf16 here.
-template <int D>
-__device__ __forceinline__ void mma_px(float (*acc)[4], const float (*pc)[4],
-                                       const __nv_bfloat16* x, int g, int t) {
-  constexpr int kStride = D + 8;
-  const uint16_t* raw = reinterpret_cast<const uint16_t*>(x);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t a[4] = {pack_bf16(pc[2 * kk][0], pc[2 * kk][1]),
-                           pack_bf16(pc[2 * kk][2], pc[2 * kk][3]),
-                           pack_bf16(pc[2 * kk + 1][0], pc[2 * kk + 1][1]),
-                           pack_bf16(pc[2 * kk + 1][2], pc[2 * kk + 1][3])};
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      const uint16_t* xb = raw + (kk * 16 + t * 2) * kStride + nd * 8 + g;
-      const uint32_t bf[2] = {pack_raw(xb[0], xb[kStride]),
-                              pack_raw(xb[8 * kStride], xb[9 * kStride])};
-      mma_16816(acc[nd], a, bf);
-    }
-  }
-}
 
 // Writes a 16 x D f32 accumulator (rows row_a and row_a + 8) to out rows.
 template <int D>
@@ -328,138 +252,6 @@ constexpr int kStageBytes = 2 * kTileBytes + 3 * kBlockM * 4 + 256;  // 17,408
 constexpr int kKVBytes = 2 * kDkvKeys * 128;
 constexpr int kDkvSmem = kDkvStages * kStageBytes + kKVBytes + 1024;  // + alignment slack
 static_assert(kStageBytes % 1024 == 0, "stages keep the swizzle atoms aligned");
-
-// Byte offset of 16-byte chunk `c` of row `r` in a swizzled tile.
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
-}
-
-__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, int bytes, bool valid) {
-  if (bytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-                 "r"(valid ? 16 : 0)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-                 "r"(valid ? 4 : 0)
-                 : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Orders this thread's landed cp.async writes before the tensor cores'
-// (async proxy) reads of them.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Rows [row0, row0 + rows) of a (n, 64) bf16 matrix into a swizzled tile at
-// shared address `dst`; rows past n are zero-filled.
-__device__ __forceinline__ void load_swizzled(uint32_t dst, const __nv_bfloat16* src, int row0,
-                                              int rows, int n) {
-  for (int i = threadIdx.x; i < rows * 8; i += kDkvThreads) {
-    const int r = i / 8, c = i % 8;
-    const bool valid = row0 + r < n;
-    cp_async(dst + swz(r, c), src + (valid ? (size_t)(row0 + r) * 64 + c * 8 : 0), 16, valid);
-  }
-}
-
-// wgmma: Hopper's warpgroup products, B from a swizzled tile in shared
-// memory, A from another (K-major) or from registers (mma.sync's A
-// fragment layout, a warp per 16 rows)
-
-// The descriptor of a 128-byte-swizzled tile at shared address `addr`:
-// 1,024 bytes between groups of 8 rows (and between groups of 64 columns,
-// which a 64-wide tile never crosses).
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Pins registers that an asynchronous product reads or writes until here.
-__device__ __forceinline__ void reg_fence(float (&d)[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
-}
-__device__ __forceinline__ void reg_fence(uint32_t (&a)[4][4]) {  // A fragments
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[j][e])::"memory");
-}
-
-// The 64 x 64 f32 products of a warpgroup, d a warp's 16 rows in mma
-// fragment layout.  d = or += A . B^T, A and B 64 x 16 blocks of tiles (their
-// rows, K-major) at desc_a and desc_b.
-__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t desc_a, uint64_t desc_b,
-                                         int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
-        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
-        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
-        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
-        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
-        "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
-// d = or += a . B, a the warp's 16 x 16 A fragment (registers), B the 16 x
-// 64 block of a tile at desc: 16 of its rows, read down their columns
-// (MN-major).
-__device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4],
-                                         uint64_t desc, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
-        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
-        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
-        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
-        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
-        "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
-}
-
-// P (16 x 64 per warp, the accumulator fragments of an earlier product)
-// rounded to bf16 as the A fragments of the four 16-row blocks of K.
-__device__ __forceinline__ void pack_a_frags(uint32_t (&a)[4][4], const float (&pc)[8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = pack_bf16(pc[2 * kk][0], pc[2 * kk][1]);
-    a[kk][1] = pack_bf16(pc[2 * kk][2], pc[2 * kk][3]);
-    a[kk][2] = pack_bf16(pc[2 * kk + 1][0], pc[2 * kk + 1][1]);
-    a[kk][3] = pack_bf16(pc[2 * kk + 1][2], pc[2 * kk + 1][3]);
-  }
-}
-
-// 2^x on the special-function unit, denormal results flushed to zero.
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // One query tile's p (into s) and ds (into dp) for this thread's keys
 // key_a and key_a + 8 (fragment halves e >> 1) and the tile's rows
@@ -548,9 +340,11 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   // of each are the A operands of the first two products (A fragments held
   // in registers across steps gave wrong dk and dv past the first step)
   const uint32_t kv = base + kDkvStages * kStageBytes;
-  load_swizzled(kv, static_cast<const __nv_bfloat16*>(p.k) + kv_off, c0, kDkvKeys, p.Nk);
-  load_swizzled(kv + kDkvKeys * 128, static_cast<const __nv_bfloat16*>(p.v) + kv_off, c0,
-                kDkvKeys, p.Nk);
+  load_swizzled<kDkvThreads>(kv, static_cast<const __nv_bfloat16*>(p.k) + kv_off, c0,
+                             kDkvKeys, p.Nk, threadIdx.x);
+  load_swizzled<kDkvThreads>(kv + kDkvKeys * 128,
+                             static_cast<const __nv_bfloat16*>(p.v) + kv_off, c0, kDkvKeys,
+                             p.Nk, threadIdx.x);
   cp_async_commit();
   const uint32_t k_wg = kv + (warp / 4) * 64 * 128, v_wg = k_wg + kDkvKeys * 128;
 
@@ -563,10 +357,11 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
       const uint32_t st = base + (step % kDkvStages) * kStageBytes;
       const size_t bh = (size_t)b * p.H + kh * group + step / n_tiles;
       const int r0 = (t_begin + step % n_tiles) * kBlockM;
-      load_swizzled(st, static_cast<const __nv_bfloat16*>(p.q) + bh * p.Nq * 64, r0, kBlockM,
-                    p.Nq);
-      load_swizzled(st + kTileBytes, static_cast<const __nv_bfloat16*>(p.dout) + bh * p.Nq * 64,
-                    r0, kBlockM, p.Nq);
+      load_swizzled<kDkvThreads>(st, static_cast<const __nv_bfloat16*>(p.q) + bh * p.Nq * 64,
+                                 r0, kBlockM, p.Nq, threadIdx.x);
+      load_swizzled<kDkvThreads>(st + kTileBytes,
+                                 static_cast<const __nv_bfloat16*>(p.dout) + bh * p.Nq * 64, r0,
+                                 kBlockM, p.Nq, threadIdx.x);
       const int i = threadIdx.x % kBlockM, which = threadIdx.x / kBlockM;
       const bool valid = r0 + i < p.Nq;
       const size_t at = valid ? bh * p.Nq + r0 + i : 0;
@@ -681,86 +476,237 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   store_rows_f32<64>(p.dk + kv_off, dk, key_a, p.Nk, t);
 }
 
-template <int D, bool kSeg>
-__global__ void __launch_bounds__(128)
-    flash_bwd_dq_bf16_kernel(const Params p, const Segs sg) {
-  constexpr int kStride = D + 8;
-  __shared__ __align__(16) __nv_bfloat16 Ks[kBlockN * kStride];
-  __shared__ __align__(16) __nv_bfloat16 Vs[kBlockN * kStride];
-  __shared__ int Kid[kSeg ? kBlockN : 1];  // document ids of the tile's keys
+// ---------------------------------------------------------------------------
+// bf16 dq: 128 query rows a block, the K/V tiles through a cp.async ring
+// ---------------------------------------------------------------------------
 
-  const int r0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;  // heaviest first
+constexpr int kDqRows = 128;  // query rows per block: two warpgroups of 64
+constexpr int kDqThreads = 256;
+constexpr int kDqAhead = 2;  // steps whose K/V tiles load ahead of the products
+// stages in a warpgroup's ring: the step's, those ahead and the previous
+// step's, which its dq product may still read
+constexpr int kDqStages = kDqAhead + 2;
+constexpr int kDqRingBytes = kDqStages * kKvStageBytes;
+// The two warpgroups' rings (wgmma.cuh's KV stage), then the block's Q and
+// dO tiles (128 rows each, swizzled), resident.
+constexpr int kDqSmem = 2 * kDqRingBytes + 2 * kDqRows * 128 + 1024;  // + slack
+
+// One key tile's ds (into dp, from s = q.k and dp = do.v) for this thread's
+// rows row_a and row_a + 8 (fragment halves e >> 1) and the tile's keys
+// j * 8 + 2t + (e & 1).  kEdge: the keep test of every pair (the band, the
+// rows and keys past the end, the key mask bytes mb and, kSeg, the key ids
+// kid against the rows' qs); without it every pair is kept, p = exp(s -
+// lse) with no select.  lse2 is lse * log2(e).
+template <bool kEdge, bool kSeg, bool kClamp>
+__device__ __forceinline__ void dq_grads(const Params& p, int hi, int lo, const float (&s)[8][4],
+                                         float (&dp)[8][4], const float (&lse2)[2],
+                                         const float (&delta)[2], const uint8_t* mb,
+                                         const int* kid, int c0, int row_a, const int (&qs)[2]) {
+  const int t = threadIdx.x % 4;
+  const float scale2 = p.scale * kLog2e;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1, key = j * 8 + 2 * t + (e & 1);  // key in the tile
+      float pr, factor = p.scale;
+      if constexpr (kClamp) {
+        const float th = tanhf(s[j][e] * p.scale / p.softclamp);
+        pr = exp2_ftz(p.softclamp * th * kLog2e - lse2[r]);
+        factor *= 1.f - th * th;
+      } else {
+        pr = exp2_ftz(fmaf(s[j][e], scale2, -lse2[r]));
+      }
+      if constexpr (kEdge) {
+        const int row = row_a + 8 * r, off = c0 + key - row;
+        bool keep = off <= hi && off >= lo && row < p.Nq && c0 + key < p.Nk &&
+                    (mb == nullptr || mb[key] != 0);
+        if constexpr (kSeg) keep = keep && kid[key] == qs[r];
+        pr = keep ? pr : 0.f;
+      }
+      dp[j][e] = pr * (dp[j][e] - delta[r]) * factor;
+    }
+  }
+}
+
+// dq_grads with the soft clamp chosen once per step, not per score.
+template <bool kEdge, bool kSeg>
+__device__ __forceinline__ void dq_grads_step(const Params& p, int hi, int lo,
+                                              const float (&s)[8][4], float (&dp)[8][4],
+                                              const float (&lse2)[2], const float (&delta)[2],
+                                              const uint8_t* mb, const int* kid, int c0,
+                                              int row_a, const int (&qs)[2]) {
+  if (p.softclamp > 0.f)
+    dq_grads<kEdge, kSeg, true>(p, hi, lo, s, dp, lse2, delta, mb, kid, c0, row_a, qs);
+  else
+    dq_grads<kEdge, kSeg, false>(p, hi, lo, s, dp, lse2, delta, mb, kid, c0, row_a, qs);
+}
+
+// The key tiles that a warpgroup's 64 rows from rw on meet; none when they
+// all lie past Nq.
+__device__ __forceinline__ void wg_key_tiles(const Params& p, int rw, int* t_begin,
+                                             int* t_end) {
+  *t_begin = *t_end = 0;
+  if (rw < p.Nq) key_tiles(p, rw, kBlockM, kBlockN, t_begin, t_end);
+}
+
+template <bool kSeg>
+__global__ void __launch_bounds__(kDqThreads, 1)
+    flash_bwd_dq_bf16_kernel(const Params p, const Segs sg) {
+  extern __shared__ unsigned char dq_smem[];
+  // stages start on a 1,024-byte boundary: the swizzle reads address bits
+  const uint32_t base = ((uint32_t)__cvta_generic_to_shared(dq_smem) + 1023u) & ~1023u;
+  unsigned char* base_ptr = dq_smem + (base - (uint32_t)__cvta_generic_to_shared(dq_smem));
+
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * kDqRows;  // heaviest first
   const size_t bh = blockIdx.y;
   const int b = (int)(bh / p.H), h = (int)(bh % p.H);
   const int kh = h / (p.H / p.Hk);
-  const size_t kv_off = ((size_t)b * p.Hk + kh) * p.Nk * D;
+  const size_t kv_off = ((size_t)b * p.Hk + kh) * p.Nk * 64;
   const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) + kv_off;
   const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) + kv_off;
   const uint8_t* kvm = p.kv_mask ? p.kv_mask + (size_t)b * p.Nk : nullptr;
+  const int* kseg = kSeg ? sg.kv + (size_t)b * p.Nk : nullptr;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int row_a = r0 + warp * 16 + g;  // row of fragment halves 0, 1
+  const int rw = r0 + (warp / 4) * 64;         // this warpgroup's first row
+  const int row_a = rw + (warp % 4) * 16 + g;  // row of fragment halves 0, 1
 
-  float lse_r[2], delta_r[2];
-  int qs_r[2] = {0, 0};  // document ids of rows row_a and row_a + 8
-  const int* kseg = kSeg ? sg.kv + (size_t)b * p.Nk : nullptr;
+  // the rows' lse (in log2 units), delta and (kSeg) ids, in registers
+  float lse2[2], delta_r[2];
+  int qs_r[2] = {0, 0};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row_a + 8 * r;
-    lse_r[r] = row < p.Nq ? p.lse[bh * p.Nq + row] : 0.f;
+    lse2[r] = row < p.Nq ? p.lse[bh * p.Nq + row] * kLog2e : 0.f;
     delta_r[r] = row < p.Nq ? p.delta[bh * p.Nq + row] : 0.f;
     if constexpr (kSeg) qs_r[r] = seg_at(sg.q + (size_t)b * p.Nq, row, p.Nq);
   }
 
-  // this warp's 16 rows of q and do as A fragments, staged through Ks / Vs
-  load_tile_bf16<D>(Ks, static_cast<const __nv_bfloat16*>(p.q) + bh * p.Nq * D,
-                    r0, p.Nq);
-  load_tile_bf16<D>(Vs, static_cast<const __nv_bfloat16*>(p.dout) + bh * p.Nq * D,
-                    r0, p.Nq);
-  __syncthreads();
-  uint32_t qf[D / 16][4], df[D / 16][4];
-  load_a_frags<D>(qf, Ks, warp, g, t);
-  load_a_frags<D>(df, Vs, warp, g, t);
+  // each warpgroup walks its own key tiles through its own ring, synchronized
+  // by a barrier of its own 128 threads, so that the two run out of step
+  // (as B1's warpgroups do)
+  const int wg = warp / 4, tid = threadIdx.x % 128;
+  const uint32_t ring = base + wg * kDqRingBytes;
+  const unsigned char* ring_ptr = base_ptr + wg * kDqRingBytes;
+  // this warpgroup's 64 rows of Q and dO, resident behind the rings: the A
+  // operands of the first two products
+  const uint32_t q_wg = base + 2 * kDqRingBytes + wg * 64 * 128, do_wg = q_wg + kDqRows * 128;
+  load_swizzled<128>(q_wg, static_cast<const __nv_bfloat16*>(p.q) + bh * p.Nq * 64, rw, 64,
+                     p.Nq, tid);
+  load_swizzled<128>(do_wg, static_cast<const __nv_bfloat16*>(p.dout) + bh * p.Nq * 64, rw, 64,
+                     p.Nq, tid);
+  cp_async_commit();
 
-  float dq[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) dq[nd][0] = dq[nd][1] = dq[nd][2] = dq[nd][3] = 0.f;
-
+  // the key tiles this warpgroup's rows meet
   int t_begin, t_end;
-  key_tiles(p, r0, kBlockM, kBlockN, &t_begin, &t_end);
-  for (int tile = t_begin; tile < t_end; ++tile) {
-    const int c0 = tile * kBlockN;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile_bf16<D>(Ks, k, c0, p.Nk);
-    load_tile_bf16<D>(Vs, v, c0, p.Nk);
-    if constexpr (kSeg) {
-      for (int i = threadIdx.x; i < kBlockN; i += blockDim.x) Kid[i] = seg_at(kseg, c0 + i, p.Nk);
-    }
-    __syncthreads();
+  wg_key_tiles(p, rw, &t_begin, &t_end);
+  const int n_steps = t_end - t_begin;
+  auto issue = [&](int step) {
+    if (step < n_steps)
+      load_kv_stage<128>(ring + (step % kDqStages) * kKvStageBytes, k, v, kvm, kseg,
+                         (t_begin + step) * kBlockN, p.Nk, tid);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < kDqAhead; ++s) issue(s);
 
-    // s = q k^T and dp = do v^T: 16 query rows x 64 keys per warp
-    float s[8][4], dp[8][4];
-    mma_abt<D>(s, qf, Ks, g, t);
-    mma_abt<D>(dp, df, Vs, g, t);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int col = c0 + j * 8 + t * 2 + (e & 1);
-        float pr, ds;
-        grad_pair(p,
-                  kSeg ? kept_seg(p, kvm, row_a + 8 * r, col, qs_r[r],
-                                  Kid[j * 8 + t * 2 + (e & 1)])
-                       : kept(p, kvm, row_a + 8 * r, col),
-                  s[j][e], dp[j][e], lse_r[r], delta_r[r], &pr, &ds);
-        s[j][e] = ds;
-      }
-    }
-    mma_px<D>(dq, s, Ks, g, t);  // dq += bf16(ds) k
+  // a tile runs the keep test only where a pair of it may be dropped: at
+  // the band's edges, the ragged ends, under a key mask, and (kSeg) unless
+  // the warpgroup's rows and the tile's keys all hold one document
+  const int hi = p.causal ? p.hi : p.Nk;
+  const int lo = p.causal && p.windowed ? p.lo : -p.Nq;
+  int q_doc = 0;
+  bool q_one_doc = false;  // every row of the warpgroup before Nq in one document
+  if constexpr (kSeg) {
+    const int* qseg = sg.q + (size_t)b * p.Nq;
+    q_doc = seg_at(qseg, rw, p.Nq);
+    q_one_doc = __all_sync(0xffffffffu,
+                           (rw + lane >= p.Nq || qseg[rw + lane] == q_doc) &&
+                               (rw + lane + 32 >= p.Nq || qseg[rw + lane + 32] == q_doc));
   }
-  store_rows_f32<D>(p.dq + bh * p.Nq * D, dq, row_a, p.Nq, t);
+  const bool open = kvm == nullptr && rw + 64 <= p.Nq && (!kSeg || q_one_doc);
+
+  // dq: only the tensor cores write it until the store (the first product
+  // overwrites), as dk and dv in the dk/dv pass
+  float dq[8][4];
+  // the A fragments of a step's dq product, read by the tensor cores until
+  // the next step's wait
+  uint32_t da[4][4];
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<kDqAhead - 1>();
+    fence_proxy_async();  // the landed tile, to the tensor cores' reads
+    // the step's tile has landed for the whole warpgroup (named barrier
+    // 1 + wg of 128 threads)
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    issue(step + kDqAhead);  // into the slot of step - 2, whose products are done
+    const uint32_t st = ring + (step % kDqStages) * kKvStageBytes;
+    const unsigned char* stp = ring_ptr + (step % kDqStages) * kKvStageBytes;
+    const int c0 = (t_begin + step) * kBlockN;
+
+    // s = q k^T and dp = do v^T: each warpgroup's 64 rows x 64 keys
+    float s[8][4], dp[8][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss(s, gmma_desc(q_wg + kk * 32), gmma_desc(st + kk * 32), kk);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss(dp, gmma_desc(do_wg + kk * 32), gmma_desc(st + kKvTileBytes + kk * 32), kk);
+    wgmma_commit();
+    // meanwhile: does the tile need the keep test?
+    const int* kid = reinterpret_cast<const int*>(stp + kKvIdsOff);
+    bool interior = open && c0 + kBlockN <= p.Nk && c0 + kBlockN - 1 - rw <= hi &&
+                    c0 - (rw + 63) >= lo;
+    bool dropped = false;  // no pair kept: every key of another document
+    if constexpr (kSeg) {
+      const int k_doc = kid[0];
+      const bool k_one_doc =
+          __all_sync(0xffffffffu, (c0 + lane >= p.Nk || kid[lane] == k_doc) &&
+                                      (c0 + lane + 32 >= p.Nk || kid[lane + 32] == k_doc));
+      interior = interior && k_one_doc && k_doc == q_doc;
+      dropped = q_one_doc && k_one_doc && k_doc != q_doc;
+    }
+    wgmma_wait();  // this step's s and dp, the previous step's dq
+    reg_fence(s);
+    reg_fence(dp);
+    reg_fence(dq);
+    reg_fence(da);
+    if (dropped) {
+      // ds = 0 exactly, as the keep test would give (dp is finite): computed,
+      // not written as a constant, which made ptxas serialize every wgmma
+      // of the loop (C7513)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[j][e] *= 0.f;
+    } else {
+      const uint8_t* mb = kvm ? kv_mask_bytes(stp, kvm, c0) : nullptr;
+      if (interior)
+        dq_grads_step<false, false>(p, hi, lo, s, dp, lse2, delta_r, mb, kid, c0, row_a, qs_r);
+      else
+        dq_grads_step<true, kSeg>(p, hi, lo, s, dp, lse2, delta_r, mb, kid, c0, row_a, qs_r);
+    }
+    pack_a_frags(da, dp);
+
+    // dq += bf16(ds) k, B read down the K tile's rows; it runs on into the
+    // next step
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(dq, da[kk], gmma_desc(st + kk * 2048), step > 0 || kk > 0);
+    wgmma_commit();
+  }
+  wgmma_wait();
+  reg_fence(dq);
+  reg_fence(da);
+  cp_async_wait<0>();
+  if (n_steps == 0) {  // no key meets these rows
+#pragma unroll
+    for (int nd = 0; nd < 8; ++nd) dq[nd][0] = dq[nd][1] = dq[nd][2] = dq[nd][3] = 0.f;
+  }
+  store_rows_f32<64>(p.dq + bh * p.Nq * 64, dq, row_a, p.Nq, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -1025,13 +971,18 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const Segs sg{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg)};
   p.dq = static_cast<float*>(dq);
-  const dim3 grid((Nq + kBlockM - 1) / kBlockM, B * H);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16 && q_seg != nullptr)
-    flash_bwd_dq_bf16_kernel<64, true><<<grid, 128, 0, s>>>(p, sg);
-  else if (is_bf16)
-    flash_bwd_dq_bf16_kernel<64, false><<<grid, 128, 0, s>>>(p, sg);
-  else if (q_seg != nullptr)
+  if (is_bf16) {
+    const auto kernel = q_seg != nullptr ? flash_bwd_dq_bf16_kernel<true>
+                                         : flash_bwd_dq_bf16_kernel<false>;
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<dim3((Nq + kDqRows - 1) / kDqRows, B * H), kDqThreads, kDqSmem, s>>>(p, sg);
+    return (int)cudaGetLastError();
+  }
+  const dim3 grid((Nq + kBlockM - 1) / kBlockM, B * H);
+  if (q_seg != nullptr)
     flash_bwd_dq_f32_kernel<64, true><<<grid, kBlockM, 0, s>>>(p, sg);
   else
     flash_bwd_dq_f32_kernel<64, false><<<grid, kBlockM, 0, s>>>(p, sg);

@@ -41,7 +41,7 @@
 // in registers saves that and the per-hop launches, not more.
 //
 // Design (right and simple first; the tile body is flash_tile.cuh's, shared
-// with flash_fwd.cu):
+// with flash_ring_remote.cu):
 //   * one thread block per (64-row Q tile, b*h) of the rank; blocks run
 //     heaviest causal rows first.  The block loops over hops and, in each
 //     live hop, over the 64-key tiles of the origin's block in the gathered

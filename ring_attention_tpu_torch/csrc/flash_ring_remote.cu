@@ -85,8 +85,8 @@
 //     __grid_constant__ Params.  Held in registers and inlined, they
 //     spilled the tile body's state (268 bytes of stack);
 //   * the soft clamp is a template flag (hop_band);
-//   * bf16: 4 warps, mma.sync.m16n8k16, __launch_bounds__(128, 4) as B1
-//     and B7; f32: 64 threads, one query row each, plain FMA;
+//   * bf16: 4 warps, mma.sync.m16n8k16, __launch_bounds__(128, 4) as B7;
+//     f32: 64 threads, one query row each, plain FMA;
 //   * copies: each block moves a contiguous 1/nc of a slot, 16 bytes a
 //     thread, four loads in flight;
 //   * every offset into slots, spills and outputs is 64-bit.

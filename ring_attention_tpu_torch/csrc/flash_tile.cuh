@@ -1,13 +1,17 @@
-// Device code shared by the forward flash kernels (flash_fwd.cu, B1, and
-// flash_ring.cu, B7): the constants, the band (its tile range and its
-// score), the mma.sync helpers and the body of one 64-key KV tile in bf16
-// (tensor cores) and f32 (CUDA-core FMA).  Every function is
-// __forceinline__, so each kernel keeps its own __global__, its own Params
-// and its own register budget; a fix to the tile loop is made here once for
-// both.  Packed sequences (per-token document ids) are a template flag of
-// the tile body, kSeg: false, the default, compiles the body as it was.
+// Device code shared by the forward flash kernels: the constants, the band
+// (its tile range and its score), the mma.sync helpers and the body of one
+// 64-key KV tile in bf16 (tensor cores) and f32 (CUDA-core FMA).  The fused
+// ring's kernels, flash_ring.cu (B7) and flash_ring_remote.cu (B8), run both
+// tile bodies; the forward sweep, flash_fwd.cu (B1), runs the f32 body and
+// takes the constants, the band and the bf16 output write from here, while
+// its bf16 sweep is a kernel of its own on wgmma (wgmma.cuh).  Every
+// function is __forceinline__, so each kernel keeps its own __global__, its
+// own Params and its own register budget; a fix to the tile loop is made
+// here once for all of them.  Packed sequences (per-token document ids) are
+// a template flag of the tile body, kSeg: false, the default, compiles the
+// body as it was.
 //
-// Layouts, as both kernels use them:
+// Layouts, as the kernels use them:
 //   * bf16: 4 warps, each owns 16 query rows.  The online-softmax state is
 //     in mma fragment layout: o[nd][2r + c] is row (r ? row_a + 8 : row_a),
 //     column nd * 8 + 2t + c (g = lane / 4, t = lane % 4); m_r[r] is the same

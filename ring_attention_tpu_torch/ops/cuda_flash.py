@@ -31,6 +31,15 @@ two passes of ``pallas_flash_backward`` (dk/dv and dq):
   ids, as the TPU kernel skips none on runtime ids).  The int8 sweep takes
   no ids yet.
 
+On the card the bf16 forward sweep and both bf16 backward passes run on
+Hopper's warpgroup products (wgmma) over 128-byte-swizzled tiles streamed
+by cp.async (``csrc/wgmma.cuh``): the sweep and dq take 128 query rows a
+block in two warpgroups of 64, dk/dv 128 keys.  Their sums run in another
+order than the plain versions', so the card holds them to the plain
+versions within the bounds that ``chip_smoke.py`` states; the f32
+instantiations run on CUDA cores and follow the plain versions to float32
+rounding.
+
 ``launch_count`` counts every launch of the forward kernel;
 ``seed_launch_count``, ``resume_launch_count`` and
 ``fused_carry_launch_count`` count its ring modes (partials from no carry,

@@ -6,7 +6,9 @@ On the CPU ``flash_fwd`` (and through it ``cuda_flash_attention``) and
 ``cuda_flash_decode`` run their kernels' plain versions; the JAX side runs
 the TPU kernel itself, ``_flash_fwd_call(fused=True)``, in the Pallas
 interpreter, as the JAX suite's own tests do.  Out and lse are both held,
-including a key mask with an all-False row and folded-row decode.
+including a key mask with an all-False row and folded-row decode, and at
+the bf16 kernel's block edges (ragged 128-row blocks, band edges inside a
+block, a key mask that leaves one 64-row half of a block no live key).
 Tolerance: float32 on both sides, 2e-5 absolute (summation order); the
 lse of an all-masked row is ``MASK_VALUE + log(nk)``, which rounds to
 ``MASK_VALUE`` in float32 on both sides.
@@ -14,6 +16,8 @@ lse of an all-masked row is ``MASK_VALUE + log(nk)``, which rounds to
 The kernel itself (CUDA tensors) is held to the same plain version on the
 GPU by ``chip_smoke.py``.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -44,34 +48,63 @@ def _close(out, ref):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
 
 
-# (offset, window_lo, softclamp, kv_mask, nq): offset None = non-causal
+def half_block_mask(b, nk):
+    """A key mask that leaves causal rows 0..63 (the first 64-row half of
+    the kernel's first 128-row block) no live key in their band while rows
+    64..127 keep theirs: keys 0..63 masked, the rest kept."""
+    mask = np.ones((b, nk), dtype=bool)
+    mask[:, :64] = False
+    return mask
+
+
+# (offset, window_lo, softclamp, kv_mask, nq[, nk]): offset None = non-causal,
+# nk 128 unless given; kv_mask "half" is half_block_mask
 SWEEPS = {
     "causal": (0, None, None, False, 128),
     "causal_offset": (64, None, None, False, 64),
     "window": (0, -23, None, False, 128),
     "softclamp": (0, None, 3.0, False, 128),
     "kv_mask_all_false_row": (None, None, None, True, 64),
+    # the bf16 kernel's 128-row blocks of two 64-row halves and its 64-key
+    # tiles: ragged last blocks, band edges inside a block and inside a
+    # tile, and a key mask that empties one half of a block
+    "ragged_nq129": (0, None, None, False, 129, 129),
+    "ragged_nq192_offset": (64, None, None, False, 192, 256),
+    "ragged_nq255_window_softclamp": (0, -70, 3.0, False, 255, 255),
+    "causal_edge_mid_block": (96, None, None, False, 256, 352),
+    "window_edge_mid_block": (0, -100, None, False, 256, 256),
+    "kv_mask_empties_half_block": (0, None, None, "half", 128, 128),
 }
 
 
-@pytest.mark.parametrize("name", list(SWEEPS))
-def test_flash_fwd_out_and_lse_match_pallas(name):
-    offset, lo, clamp, masked, nq = SWEEPS[name]
-    q, k, v, mask = make_inputs(0, nq=nq)
-    scale = q.shape[-1] ** -0.5
-    kw = dict(scale=scale, causal_offset=offset, window_lo=lo,
+@functools.cache
+def _sweep(name):
+    """The inputs of a sweep and the Pallas kernel's (out, lse) on them,
+    computed once."""
+    offset, lo, clamp, masked, nq, *nk = SWEEPS[name]
+    q, k, v, mask = make_inputs(0, nq=nq, nk=nk[0] if nk else 128)
+    if masked == "half":
+        mask = half_block_mask(q.shape[0], k.shape[2])
+    kw = dict(scale=q.shape[-1] ** -0.5, causal_offset=offset, window_lo=lo,
               softclamp_value=clamp)
     ref_out, ref_lse = pallas_flash_fused(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
         jnp.asarray(mask) if masked else None, interpret=True, **kw,
     )
+    return (q, k, v, mask if masked else None, kw, np.asarray(ref_out),
+            np.asarray(ref_lse))
+
+
+@pytest.mark.parametrize("name", list(SWEEPS))
+def test_flash_fwd_out_and_lse_match_pallas(name):
+    q, k, v, mask, kw, ref_out, ref_lse = _sweep(name)
     out, lse = cuda_flash.flash_fwd(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
-        torch.from_numpy(mask) if masked else None, **kw,
+        None if mask is None else torch.from_numpy(mask), **kw,
     )
     _close(out, ref_out)
     _close(lse, ref_lse)
-    if masked:  # the all-False row averages V over every key
+    if SWEEPS[name][3] is True:  # the all-False row averages V over every key
         mean_v = v[-1].mean(axis=1)  # (hk, d)
         g = q.shape[1] // k.shape[1]
         expect = np.repeat(mean_v, g, axis=0)[:, None, :]

@@ -8,7 +8,9 @@ own tests do.  The blockwise path's ``flash_backward_blocks`` and the
 custom gradient of ``ops/flash.py::flash_attention`` are held to their JAX
 counterparts.  Cases: causal, offset ``nq < nk``, window, softclamp, a key
 mask with an all-False row, GQA ``hk < h``, and causal ``nq > nk`` (rows
-with no key in their band).
+with no key in their band); and the bf16 dq kernel's block edges (ragged
+128-row blocks, band edges inside a block, a key mask that leaves one
+64-row half of a block no key).
 Tolerance: float32 on both sides, 5e-5 absolute on gradients up to ~20
 in size (sums over up to 128 keys or 128 rows in another order; the
 largest error seen is 1.5e-5); the all-False row's lse is
@@ -17,6 +19,8 @@ largest error seen is 1.5e-5); the all-False row's lse is
 The kernels themselves (CUDA tensors) are held to the same plain version
 on the GPU by ``chip_smoke.py``.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -57,7 +61,10 @@ def _t(*arrays):
     return [torch.from_numpy(np.array(a)) for a in arrays]
 
 
-# (offset, window_lo, softclamp, kv_mask, nq, h, hk): offset None = non-causal
+# (offset, window_lo, softclamp, kv_mask, nq, h, hk[, nk]): offset None =
+# non-causal, nk 128 unless given; kv_mask "half" masks keys 0..63, which
+# leaves causal rows 0..63 (one 64-row half of the dq kernel's first
+# 128-row block) no key
 SWEEPS = {
     "causal": (0, None, None, False, 128, 4, 2),
     "causal_offset": (64, None, None, False, 64, 4, 2),
@@ -65,15 +72,26 @@ SWEEPS = {
     "softclamp": (0, None, 3.0, False, 128, 4, 2),
     "kv_mask_all_false_row": (None, None, None, True, 64, 4, 2),
     "gqa_h8_hk1": (0, None, None, False, 128, 8, 1),
+    # the bf16 dq kernel's 128-row blocks and 64-key tiles: ragged last
+    # blocks, band edges inside a block and inside a tile
+    "ragged_nq129": (0, None, None, False, 129, 2, 1, 129),
+    "ragged_nq192_offset": (64, None, None, False, 192, 2, 1, 256),
+    "ragged_nq255_window_softclamp": (0, -70, 3.0, False, 255, 2, 1, 255),
+    "causal_edge_mid_block": (96, None, None, False, 256, 2, 1, 352),
+    "window_edge_mid_block": (0, -100, None, False, 256, 2, 1, 256),
+    "kv_mask_empties_half_block": (0, None, None, "half", 128, 2, 1, 128),
 }
 
 
-@pytest.mark.parametrize("name", list(SWEEPS))
-def test_flash_bwd_reference_matches_pallas(name):
-    """The kernels' plain version against both TPU backward kernels on the
-    same (do, q, k, v, lse, delta); lse comes from the TPU forward."""
-    offset, lo, clamp, masked, nq, h, hk = SWEEPS[name]
-    q, k, v, do, mask = make_inputs(0, h=h, hk=hk, nq=nq)
+@functools.cache
+def _sweep(name):
+    """The inputs of a sweep, lse and delta from the Pallas forward, and
+    the Pallas backward kernels' (dq, dk, dv), computed once."""
+    offset, lo, clamp, masked, nq, h, hk, *nk = SWEEPS[name]
+    q, k, v, do, mask = make_inputs(0, h=h, hk=hk, nq=nq, nk=nk[0] if nk else 128)
+    if masked == "half":
+        mask = np.ones_like(mask)
+        mask[:, :64] = False
     kw = dict(scale=q.shape[-1] ** -0.5, causal_offset=offset, window_lo=lo,
               softclamp_value=clamp)
     jmask = jnp.asarray(mask) if masked else None
@@ -84,17 +102,21 @@ def test_flash_bwd_reference_matches_pallas(name):
         jnp.asarray(do), jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), lse,
         jnp.asarray(delta), jmask, interpret=True, **kw,
     )
-    got = cuda_flash.flash_bwd(
-        *_t(do, q, k, v, np.asarray(lse), delta),
-        torch.from_numpy(mask) if masked else None, **kw,
-    )
+    return ((do, q, k, v, np.asarray(lse), delta), mask if masked else None, kw,
+            tuple(np.asarray(r) for r in ref))
+
+
+@pytest.mark.parametrize("name", list(SWEEPS))
+def test_flash_bwd_reference_matches_pallas(name):
+    """The kernels' plain version against both TPU backward kernels on the
+    same (do, q, k, v, lse, delta); lse comes from the TPU forward."""
+    inputs, mask, kw, ref = _sweep(name)
+    tmask = None if mask is None else torch.from_numpy(mask)
+    got = cuda_flash.flash_bwd(*_t(*inputs), tmask, **kw)
     for x, r in zip(got, ref):
         _close(x, r)
     # the per-kernel wrappers give the same gradients on the CPU
-    dk, dv = cuda_flash.flash_bwd_dkv(
-        *_t(do, q, k, v, np.asarray(lse), delta),
-        torch.from_numpy(mask) if masked else None, **kw,
-    )
+    dk, dv = cuda_flash.flash_bwd_dkv(*_t(*inputs), tmask, **kw)
     np.testing.assert_array_equal(dk.numpy(), got[1].numpy())
     np.testing.assert_array_equal(dv.numpy(), got[2].numpy())
 

@@ -112,37 +112,65 @@ def _np(shape, rng):
     return rng.standard_normal(shape).astype(np.float32)
 
 
-@pytest.mark.parametrize("softclamp", [None, 3.0])
-def test_partials_chain_equals_pallas(softclamp):
-    """Seed (diagonal), resume with a band-empty row 0 (striped hi = -1),
-    fused from a carry under a key mask; GQA h4/hk2."""
+# (softclamp, n, the seed's band (causal offset, window_lo), the resume's
+# causal offset, the Pallas blocks): the first two are the original cases;
+# the rest put the seed and resume at the bf16 forward kernel's edges
+# (ragged 128-row blocks, band edges inside a block and inside a 64-key
+# tile), on the Pallas kernels' own blocks (32 does not divide 129 or 255)
+CHAIN_CASES = {
+    "None": (None, 64, (0, None), -1, 32),
+    "3.0": (3.0, 64, (0, None), -1, 32),
+    "ragged_nq129": (None, 129, (0, None), -1, None),
+    "ragged_nq192": (None, 192, (0, None), -1, 32),
+    "ragged_nq255_softclamp": (3.0, 255, (0, None), -1, None),
+    "causal_edge_mid_block": (None, 192, (96, None), -20, 32),
+    "window_edge_mid_block": (None, 192, (0, -70), -1, 32),
+}
+
+
+@functools.cache
+def _pallas_chain(name):
+    """The inputs of a chain case and the Pallas kernels' seed and resumed
+    partials and fused output on them, computed once."""
+    softclamp, n, (hi0, lo0), hi1, block = CHAIN_CASES[name]
     rng = np.random.default_rng(1)
-    b, h, hk, n, d = 2, 4, 2, 64, 16
+    b, h, hk, d = 2, 4, 2, 16
     q = _np((b, h, n, d), rng)
     spans = [(_np((b, hk, n, d), rng), _np((b, hk, n, d), rng)) for _ in range(3)]
     mask = rng.random((b, n)) > 0.3
     kw = dict(scale=d ** -0.5, softclamp_value=softclamp)
-    pkw = dict(kw, block_q=32, block_k=32, interpret=True)
-    t = torch.from_numpy
+    pkw = dict(kw, block_q=block, block_k=block, interpret=True)
     jnp_ = jnp.asarray
+    seed = jpf.pallas_flash_partials(jnp_(q), jnp_(spans[0][0]), jnp_(spans[0][1]),
+                                     causal_offset=hi0, window_lo=lo0, **pkw)
+    resume = jpf.pallas_flash_partials(jnp_(q), jnp_(spans[1][0]), jnp_(spans[1][1]),
+                                       causal_offset=hi1, carry=seed, **pkw)
+    fused = jpf.pallas_flash_fused(jnp_(q), jnp_(spans[2][0]), jnp_(spans[2][1]),
+                                   jnp_(mask), carry=resume, **pkw)
+    as_np = lambda xs: tuple(np.asarray(x) for x in xs)  # noqa: E731
+    return (q, spans, mask, kw, (hi0, lo0), hi1,
+            (as_np(seed), as_np(resume), as_np(fused)))
+
+
+@pytest.mark.parametrize("case", list(CHAIN_CASES))
+def test_partials_chain_equals_pallas(case):
+    """Seed (diagonal), resume with a band-empty row 0 (striped hi = -1),
+    fused from a carry under a key mask; GQA h4/hk2."""
+    q, spans, mask, kw, (hi0, lo0), hi1, (ref_seed, ref_resume, ref_fused) = (
+        _pallas_chain(case))
+    t = torch.from_numpy
 
     got = cf.flash_partials(t(q), t(spans[0][0]), t(spans[0][1]),
-                            causal_offset=0, **kw)
-    ref = jpf.pallas_flash_partials(jnp_(q), jnp_(spans[0][0]), jnp_(spans[0][1]),
-                                    causal_offset=0, **pkw)
-    _assert_partials(got, ref)
+                            causal_offset=hi0, window_lo=lo0, **kw)
+    _assert_partials(got, ref_seed)
 
     got = cf.flash_partials(t(q), t(spans[1][0]), t(spans[1][1]),
-                            causal_offset=-1, carry=got, **kw)
-    ref = jpf.pallas_flash_partials(jnp_(q), jnp_(spans[1][0]), jnp_(spans[1][1]),
-                                    causal_offset=-1, carry=ref, **pkw)
-    _assert_partials(got, ref)
+                            causal_offset=hi1, carry=got, **kw)
+    _assert_partials(got, ref_resume)
 
     out, lse = cf.flash_fwd(t(q), t(spans[2][0]), t(spans[2][1]), t(mask),
                             carry=got, **kw)
-    jout, jlse = jpf.pallas_flash_fused(jnp_(q), jnp_(spans[2][0]),
-                                        jnp_(spans[2][1]), jnp_(mask),
-                                        carry=ref, **pkw)
+    jout, jlse = ref_fused
     np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=ATOL)
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=ATOL, rtol=1e-6)
 

@@ -10,10 +10,14 @@ them in turns (base, head, head, base) with CUDA events:
 
     python3 tools/compare_forward_kernels.py BASE_DIR
 
-B1, B3, B7 and B8 must give bit-identical outputs.  B2 (dk/dv) is held by
-its norm-relative distance from the base tree's, within the bound that
-``chip_smoke.py`` holds it to its plain version (BWD_REL_TOL): a redesign
-of its products sums in another order.  Only the kernels both trees have
+B7 and B8 and the float32 instantiations of B1 and B3 must give
+bit-identical outputs.  The bf16 B1, B2 (dk/dv) and B3 (dq) are held by
+their norm-relative distance from the base tree's, within the bounds that
+``chip_smoke.py`` holds them to their plain versions (RING_REL_TOL for
+B1's output, with LSE_TOL on its lse; BWD_REL_TOL for the gradients): a
+redesign of their products sums in another order.  B1 is timed in each
+mode (fused, seed partials, resume, fused from a carry) and packed (also
+as one document), B2 and B3 unpacked and packed.  Only the kernels both trees have
 in common are compared: each tree's B1, B2 and B3 are called with that
 tree's own C signature (a tree whose entry points take document ids gets
 null ids, its unsegmented instantiation, except in the packed timing), and
@@ -105,36 +109,42 @@ def _ptr(t):
 
 
 def fwd_launcher(lib_path: Path, ids: bool):
-    """``run(q, k, v, mask, causal, hi, windowed, lo, softclamp, carry)``:
-    one B1 launch, fused (carry None) or resumed into partials; ``ids``:
-    the entry point takes (null) document ids before the stream."""
+    """``run(q, k, v, mask, causal, hi, windowed, lo, softclamp, carry,
+    partials, segs)``: one B1 launch, ``(out, lse)`` (partials False) or f32
+    partials ``(acc, m, l)``, from no carry or from ``carry``; ``ids``: the
+    entry point takes document ids (``segs``, null by default) before the
+    stream."""
     import torch
 
     lib = ctypes.CDLL(str(lib_path))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    no_ids = (None, None) if ids else ()
     lib.flash_fwd.argtypes = ([ptr] * 12 + [i32] * 7 + [f32] + [i32] * 4 + [f32]
-                              + [ptr] * len(no_ids) + [ptr])
+                              + [ptr] * (2 if ids else 0) + [ptr])
 
-    def run(q, k, v, mask, causal, hi, windowed, lo, softclamp, carry=None):
+    def run(q, k, v, mask, causal, hi, windowed, lo, softclamp, carry=None, partials=None,
+            segs=(None, None)):
         b, h, nq, d = q.shape
         hk, nk = k.shape[1], k.shape[2]
+        partials = carry is not None if partials is None else partials
         out = lse = None
         parts = (None, None, None)
-        if carry is None:
+        if partials:
+            parts = (torch.empty((b, h, nq, d), device=q.device),
+                     torch.empty((b, h, nq), device=q.device),
+                     torch.empty((b, h, nq), device=q.device))
+        else:
             out = torch.empty_like(q)
             lse = torch.empty((b, h, nq), device=q.device)
-        else:
-            parts = tuple(torch.empty_like(x) for x in carry)
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         rc = lib.flash_fwd(
             _ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(out), _ptr(lse),
             *(_ptr(x) for x in (carry or (None, None, None))), *(_ptr(x) for x in parts),
             b, h, hk, nq, nk, d, int(q.dtype == torch.bfloat16), 0.125,
-            int(causal), hi, int(windowed), lo, softclamp, *no_ids, stream)
+            int(causal), hi, int(windowed), lo, softclamp,
+            *(tuple(_ptr(x) for x in segs) if ids else ()), stream)
         if rc:
             raise RuntimeError(f"flash_fwd launch failed: {rc}")
-        return (out, lse) if carry is None else parts
+        return parts if partials else (out, lse)
 
     return run
 
@@ -293,6 +303,16 @@ def main() -> int:
               for tree in trees if (tree, "flash_ring_remote") in built
               and (tree == "head" or same_remote)}
 
+    def held(label, dtype, got, ref):
+        """float32: bit-identical; bf16: within the plain-version bounds."""
+        if dtype == torch.float32:
+            same = all(bool((x == y).all()) for x, y in zip(got, ref))
+            print(f"{label}: trees bit-identical {same}")
+            return same
+        rels = [((x.float() - y.float()).norm() / y.float().norm().clamp_min(1e-30)).item()
+                for x, y in zip(got, ref)]
+        return rels
+
     # B1 cases: (b, h, hk, nq, nk, causal, hi, windowed, lo, softclamp, masked, carry)
     fwd_cases = {
         "causal 4096": (1, 8, 8, 4096, 4096, 1, 0, 0, 0, 0.0, False, False),
@@ -302,10 +322,17 @@ def main() -> int:
             2, 8, 8, 3000, 3000, 1, -100, 1, -700, 30.0, True, False),
         "band-empty rows (hi -5000)": (1, 8, 8, 4096, 4096, 1, -5000, 0, 0, 0.0, False, False),
         "decode 32 folded rows, nk 5000, mask": (4, 2, 2, 32, 5000, 0, 0, 0, 0, 0.0, True, False),
+        "nq 1025 (128k+1), causal offset 96": (1, 8, 2, 1025, 1121, 1, 96, 0, 0, 0.0, False, False),
+        "nq 1151 (128k+127), window -200, resume": (
+            1, 8, 8, 1151, 1151, 1, 0, 1, -200, 0.0, False, True),
+        "resume causal hi -1, mask": (2, 8, 8, 2048, 2048, 1, -1, 0, 0, 0.0, True, True),
         "window -700..-100 ragged 3000, mask, softclamp, f32": (
             2, 8, 8, 3000, 3000, 1, -100, 1, -700, 30.0, True, False),
         "resume causal hi -1, f32": (1, 8, 8, 2048, 2048, 1, -1, 0, 0, 0.0, False, True),
     }
+    from chip_smoke import LSE_TOL, RING_REL_TOL
+    from ring_attention_tpu_torch.ops.partials import FlashPartials, finalize_partials
+
     for name, (b, h, hk, nq, nk, causal, hi, windowed, lo, clamp, masked, carry) in fwd_cases.items():
         dtype = torch.float32 if "f32" in name else torch.bfloat16
         q = rand(b, h, nq, 64, dtype=dtype)
@@ -315,10 +342,24 @@ def main() -> int:
         if carry:
             c = (rand(b, h, nq, 64, dtype=torch.float32), rand(b, h, nq, dtype=torch.float32),
                  rand(b, h, nq, dtype=torch.float32).abs() + 1.0)
-        outs = [fn(q, k, v, m, causal, hi, windowed, lo, clamp, c) for fn in fwd.values()]
-        same = all(bool((x == y).all()) for x, y in zip(outs[0], outs[-1]))
-        ok = ok and same
-        print(f"B1 {name}: trees bit-identical {same}")
+        # fused (from the carry when there is one), then partials
+        for mode, partials in (("fused+carry" if carry else "fused", False),
+                               ("resume" if carry else "seed", True)):
+            outs = [fn(q, k, v, m, causal, hi, windowed, lo, clamp, c, partials)
+                    for fn in fwd.values()]
+            if partials:  # held through what they stand for: out and lse
+                outs = [tuple(finalize_partials(FlashPartials(*x))) if dtype != torch.float32
+                        else x for x in outs]
+            got = held(f"B1 {name} {mode}", dtype, outs[-1], outs[0])
+            if dtype == torch.float32:
+                ok = ok and got
+                continue
+            lse_err = (outs[-1][1] - outs[0][1]).abs().max().item()
+            close = got[0] <= RING_REL_TOL[str(dtype)] and lse_err <= LSE_TOL[str(dtype)][0]
+            ok = ok and close
+            print(f"B1 {name} {mode}: ||head - base|| / ||base|| {got[0]:.2e} (tol "
+                  f"{RING_REL_TOL[str(dtype)]}), max|lse diff| {lse_err:.2e} (tol "
+                  f"{LSE_TOL[str(dtype)][0]}) {close}")
         if carry or nq < 64:
             continue
         do = rand(b, h, nq, 64, dtype=dtype)
@@ -326,13 +367,15 @@ def main() -> int:
         delta = (do.float() * out.float()).sum(-1)
         grads = [fn(do, q, k, v, lse, delta, m, causal, hi, windowed, lo, clamp)
                  for fn in bwd.values()]
-        same = bool((grads[0][0] == grads[-1][0]).all())
-        rels = [((x - y).norm() / y.norm().clamp_min(1e-30)).item()
-                for x, y in zip(grads[-1][1:], grads[0][1:])]
+        rels = held(f"B3 {name}", dtype, grads[-1][:1], grads[0][:1])
+        if dtype == torch.float32:
+            rels = [0.0 if rels else float("inf")]
+        rels += [((x - y).norm() / y.norm().clamp_min(1e-30)).item()
+                 for x, y in zip(grads[-1][1:], grads[0][1:])]
         close = all(r <= BWD_REL_TOL[str(dtype)] for r in rels)
-        ok = ok and same and close
-        print(f"B3 {name}: trees bit-identical {same}; B2 ||head - base|| / ||base|| dk "
-              f"{rels[0]:.2e}, dv {rels[1]:.2e} (tol {BWD_REL_TOL[str(dtype)]}) {close}")
+        ok = ok and close
+        print(f"B3/B2 {name}: ||head - base|| / ||base|| dq {rels[0]:.2e}, dk {rels[1]:.2e}, "
+              f"dv {rels[2]:.2e} (tol {BWD_REL_TOL[str(dtype)]}) {close}")
 
     n = 4096
     for layout, rank, dtype in (("contiguous", 3, torch.bfloat16),
@@ -378,6 +421,7 @@ def main() -> int:
     ring_tables = {striped: [pring._fused_tables(r, 4, nl, True, striped, None, 4)
                              for r in range(4)] for striped in (False, True)}
     ids = packed_ids(n)
+    one_doc = torch.zeros_like(ids)  # the segmented instantiation's own cost
     # the decode: b 4, one query row a head, every cache slot valid
     dec = {}
     for h_, hk_, nk_ in ((8, 2, 32768), (8, 8, 4096)):
@@ -407,8 +451,16 @@ def main() -> int:
     runs = {
         "B1 fused causal (1,8,65536,64)": (fwd, lambda fn: fn(q, k, v, None, 1, 0, 0, 0, 0.0)),
         "B1 fused unbanded (1,8,65536,64)": (fwd, lambda fn: fn(q, k, v, None, 0, 0, 0, 0, 0.0)),
+        "B1 seed causal (1,8,65536,64)": (
+            fwd, lambda fn: fn(q, k, v, None, 1, 0, 0, 0, 0.0, None, True)),
         "B1 resume causal (1,8,65536,64)": (
             fwd, lambda fn: fn(q, k, v, None, 1, 0, 0, 0, 0.0, carry)),
+        "B1 fused+carry causal (1,8,65536,64)": (
+            fwd, lambda fn: fn(q, k, v, None, 1, 0, 0, 0, 0.0, carry, False)),
+        "B1 fused packed causal (1,8,65536,64)": (
+            fwd, lambda fn: fn(q, k, v, None, 1, 0, 0, 0, 0.0, segs=(ids, ids))),
+        "B1 fused packed causal (1,8,65536,64), one document": (
+            fwd, lambda fn: fn(q, k, v, None, 1, 0, 0, 0, 0.0, segs=(one_doc, one_doc))),
         "B7 one causal hop (1,8,65536,64)": (
             ring, lambda fn: fn(q, k, v, None, one_hop[True], 0.0)),
         "B7 one unbanded hop (1,8,65536,64)": (
@@ -427,6 +479,9 @@ def main() -> int:
         "B3 dq causal (1,8,65536,64)": (
             bwd, lambda fn: fn(do, q, k, v, lse, delta, None, 1, 0, 0, 0, 0.0,
                                passes=("dq",))),
+        "B3 dq packed causal (1,8,65536,64)": (
+            bwd, lambda fn: fn(do, q, k, v, lse, delta, None, 1, 0, 0, 0, 0.0,
+                               passes=("dq",), segs=(ids, ids))),
         "B8 whole causal ring of 4, contiguous, n_local 16384": (
             remote, lambda fn: fn(ring_qs, ring_ks, ring_vs, ring_tables[False], 0.0)),
         "B8 whole causal ring of 4, striped, n_local 16384": (
