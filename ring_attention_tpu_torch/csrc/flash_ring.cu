@@ -23,41 +23,46 @@
 // It is the port's hop chain (parallel/ring.py::_ring_fwd_cuda on
 // csrc/flash_fwd.cu: seed partials, resumes, fused write from the carry)
 // in one launch, and it visits exactly the chain's (hop, tile) set: a hop
-// whose works flag is 0 is skipped, and within a hop a block takes the
-// forward kernel's tile range (band_tiles in flash_tile.cuh) from
-// the hop's band.  A block holding a row with an empty band visits every
-// tile of that hop, so a row that sees no live key in the whole walk (an
-// all-False key-mask row, a band edge) averages V over the same keys as
-// the chain.  At each hop's end the bf16 kernel sums l over a row's 4
-// threads and seeds one of them with it, as a resumed launch of the chain
-// does, so the sums run in the chain's order.
+// whose works flag is 0 is skipped, and within a hop each warpgroup takes
+// the forward kernel's tile range for its 64 rows (band_tiles in
+// flash_tile.cuh) from the hop's band.  A warpgroup holding a row with an
+// empty band visits every tile of that hop, so a row that sees no live key
+// in the whole walk (an all-False key-mask row, a band edge) averages V
+// over the same keys as the chain.
 //
 // What bounds it on an H100: rank 3 of a causal ring of 4 at 262,144
 // tokens (N 65,536, h 8, d 64) does 3.08e13 operations on 0.27 GB of
 // inputs: far above the card's ~295 bf16 operations per byte, so it is
 // bound by tensor-core operations (31.1 ms at 989 TFLOP/s).  The hop chain
 // it replaces also reads and writes the f32 carry (D + 2 floats a row) at
-// every hop boundary, 0.1 ms of its 379 ms at 3.35 TB/s; keeping the carry
-// in registers saves that and the per-hop launches, not more.
+// every hop boundary, 0.1 ms at 3.35 TB/s, and launches once a hop;
+// keeping the carry in registers saves that, not more: the chain's B1 and
+// this kernel run the same sweep.
 //
-// Design (right and simple first; the tile body is flash_tile.cuh's, shared
-// with flash_ring_remote.cu):
-//   * one thread block per (64-row Q tile, b*h) of the rank; blocks run
-//     heaviest causal rows first.  The block loops over hops and, in each
-//     live hop, over the 64-key tiles of the origin's block in the gathered
-//     span;
-//   * bf16: 4 warps, mma.sync.m16n8k16 (bf16 in, f32 accumulate), score
-//     tile, p and the output accumulator in registers; p is rounded to
-//     bf16 for the PV product;
-//   * f32: 64 threads, one query row each, plain FMA (exact f32);
+// Design:
+//   * bf16: B1's sweep (flash_sweep.cuh, the bf16 kernel of flash_fwd.cu):
+//     one block of 256 threads per (128-row Q tile, b*h) of the rank,
+//     heaviest causal rows first, __launch_bounds__(256, 1) and B1's
+//     dynamic shared memory (kFwdSmem).  Each warpgroup keeps its 64 rows
+//     of Q resident and walks the live hops, each over the origin's block
+//     of the gathered span: its tiles through its own cp.async ring, S = Q
+//     K^T and P V on wgmma, the online softmax in the log2 domain.  At a
+//     hop's end the walk drains its last P V; before the next live hop the
+//     state goes through sweep_hop_boundary, in registers, which does what
+//     the chain's launch does at its end and the next at its start (l
+//     summed over a row's 4 threads and thread 0 seeded with it, m to
+//     natural units and back with the same multiplies), so the output is
+//     the chain's bit for bit.  The soft clamp is a template switch, as in
+//     B1;
+//   * f32: 64 threads, one query row each, plain FMA (exact f32), through
+//     flash_tile.cuh's f32 tile body, as B1's f32 kernel;
 //   * the hop tables are four int32 device arrays read by every thread;
 //   * offsets into the gathered span are 64-bit: at 262,144 tokens, hk 8
 //     and d 64 one batch row of k_all holds 1.3e8 elements.
-// The bf16 kernel keeps flash_fwd.cu's __launch_bounds__(128, 4): four
-// blocks an SM fit only at 128 registers or fewer.
-// Not yet: cp.async/TMA double buffering, wgmma, warp specialisation.
+// Not yet: the int8 feed and segment ids; TMA and warp specialisation, as
+// in B1.
 
-#include "flash_tile.cuh"
+#include "flash_sweep.cuh"
 
 namespace {
 
@@ -83,71 +88,58 @@ __device__ __forceinline__ Band hop_band(const Params& p, int hop, const uint8_t
   return Band{p.his[hop], p.los[hop], p.N, kvm, p.scale, p.softclamp};
 }
 
-template <int D>
-__global__ void __launch_bounds__(128, 4)
+template <bool kClamp>
+__global__ void __launch_bounds__(kFwdThreads, 1)
     flash_ring_bf16_kernel(const Params p) {
-  constexpr int kStride = D + 8;  // staggers shared-memory banks
-  __shared__ __align__(16) __nv_bfloat16 Qs[kBlockM * kStride];
-  __shared__ __align__(16) __nv_bfloat16 Ks[kBlockN * kStride];
-  __shared__ __align__(16) __nv_bfloat16 Vs[kBlockN * kStride];
+  extern __shared__ unsigned char ring_smem[];
+  // stages start on a 1,024-byte boundary: the swizzle reads address bits
+  const uint32_t base = ((uint32_t)__cvta_generic_to_shared(ring_smem) + 1023u) & ~1023u;
+  const unsigned char* base_ptr =
+      ring_smem + (base - (uint32_t)__cvta_generic_to_shared(ring_smem));
 
-  const int r0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * kFwdRows;  // heaviest first
   const int bh = blockIdx.y;
   const int b = bh / p.H, h = bh % p.H;
   const int kh = h / (p.H / p.Hk);
-  const __nv_bfloat16* q =
-      static_cast<const __nv_bfloat16*>(p.q) + (size_t)bh * p.N * D;
-  const size_t kv_off = ((size_t)b * p.Hk + kh) * (size_t)p.Ntot * D;
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) + (size_t)bh * p.N * 64;
+  const size_t kv_off = ((size_t)b * p.Hk + kh) * (size_t)p.Ntot * 64;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // mma group id and thread in group
-  const int row_a = r0 + warp * 16 + g;  // local row of fragment halves 0, 1
-  const int row_b = row_a + 8;           // and of halves 2, 3
-
-  // the online-softmax state in fragment layout (flash_tile.cuh)
-  float o[D / 8][4];
-  float m_r[2] = {kMaskValue, kMaskValue};
-  float l_r[2] = {0.f, 0.f};
+  const SweepWg w = sweep_wg(base, base_ptr, r0);
+  const float mask2 = __fmul_rn(kMaskValue, kLog2e);
+  const int no_ids[2] = {0, 0};
+  // the online-softmax state, empty: the chain's seed launch
+  float o[8][4], m2[2], l[2];
 #pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
+  for (int r = 0; r < 2; ++r)
+    sweep_load_row(nullptr, nullptr, nullptr, 0, false, r, mask2, o, m2, l);
+  sweep_load_q(w, q, p.N);
 
-  load_tile_bf16<D>(Qs, q, r0, p.N);
-  __syncthreads();
-  uint32_t qf[D / 16][4];
-  load_q_frags<D>(Qs, qf);
-
+  bool first = true;
   for (int hop = 0; hop < p.hops; ++hop) {
     if (p.works[hop] == 0) continue;  // the chain launches nothing here
+    // between two live hops: the chain's store and the next launch's load
+    if (!first) sweep_hop_boundary(m2, l, mask2);
+    first = false;
     const size_t span = (size_t)p.origins[hop] * p.N;  // the origin's first key
-    const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) + kv_off + span * D;
-    const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) + kv_off + span * D;
-    const uint8_t* kvm =
-        p.kv_mask ? p.kv_mask + (size_t)b * p.Ntot + span : nullptr;
+    const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) + kv_off + span * 64;
+    const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) + kv_off + span * 64;
+    const uint8_t* kvm = p.kv_mask ? p.kv_mask + (size_t)b * p.Ntot + span : nullptr;
     const Band bd = hop_band(p, hop, kvm);
     int t_begin, t_end;
-    band_tiles(bd, p.N, r0, &t_begin, &t_end);
-    for (int tile = t_begin; tile < t_end; ++tile)
-      bf16_tile<D>(Ks, Vs, k, v, bd, tile * kBlockN, qf, o, m_r, l_r, row_a);
-
-    // the hop's end: a launch of the chain sums l over the row's 4 threads
-    // and the next one seeds thread 0 with it
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
-      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
-      if (t != 0) l_r[r] = 0.f;
-    }
+    wg_band_tiles(bd, p.N, w.rw, &t_begin, &t_end);
+    const SweepRange rg{bd, k, v, nullptr, t_begin, t_end - t_begin};
+    sweep_issue_ahead(rg, w);
+    SWEEP_WALK(false, kClamp, rg, w, kvm == nullptr, false, 0, no_ids, mask2, o, m2, l);
+    sweep_wg_sync(w);  // the ring is free for the next hop's tiles
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    // only thread 0 of the row holds its sum now: adding the zeros is exact
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
-    const int row = r == 0 ? row_a : row_b;
+    sweep_sum_row(l[r]);
+    const int row = w.row_a + 8 * r;
     if (row >= p.N) continue;
-    store_out_bf16<D>(static_cast<__nv_bfloat16*>(p.out), p.lse,
-                      (size_t)bh * p.N + row, o, r, m_r[r], l_r[r]);
+    store_out_bf16<64>(static_cast<__nv_bfloat16*>(p.out), p.lse, (size_t)bh * p.N + row, o,
+                       r, sweep_m_nat(m2[r], mask2), l[r]);
   }
 }
 
@@ -222,11 +214,16 @@ extern "C" int flash_ring(const void* q, const void* k_all, const void* v_all,
   p.hops = hops;
   p.scale = scale;
   p.softclamp = softclamp;
-  const dim3 grid((N + kBlockM - 1) / kBlockM, B * H);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    flash_ring_bf16_kernel<64><<<grid, 128, 0, s>>>(p);
-  else
-    flash_ring_f32_kernel<64><<<grid, kBlockM, 0, s>>>(p);
+  if (is_bf16) {
+    const auto kernel =
+        softclamp > 0.f ? flash_ring_bf16_kernel<true> : flash_ring_bf16_kernel<false>;
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<dim3((N + kFwdRows - 1) / kFwdRows, B * H), kFwdThreads, kFwdSmem, s>>>(p);
+  } else {
+    flash_ring_f32_kernel<64><<<dim3((N + kBlockM - 1) / kBlockM, B * H), kBlockM, 0, s>>>(p);
+  }
   return (int)cudaGetLastError();
 }

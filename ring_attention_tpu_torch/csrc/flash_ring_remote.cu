@@ -55,15 +55,17 @@
 // (the pattern of cooperative groups' grid sync).  Each spin is bounded
 // by clock64() and ends in __trap(): a protocol fault fails the launch
 // instead of hanging it.  Slot memory is rewritten by other SMs between
-// hops, so it is read with plain loads after the acquire (which drops the
-// SM's L1 lines), never through the read-only path: no slot pointer is
+// hops, so it is read after the acquire only through L2 (the bf16 stages
+// by cp.async.cg) or with plain loads (f32, after the acquire has dropped
+// the SM's L1 lines), never through the read-only path: no slot pointer is
 // const __restrict__ and none goes through __ldg.
 //
-// Within a hop a block folds a query tile exactly as flash_ring.cu does
-// (the tile body and band of flash_tile.cuh, a hop whose works flag is 0
-// skipped, l summed over a row's 4 threads at the hop's end), and the f32
-// spill is exact, so the result is bit-identical to B7 and to the hop
-// chain.
+// Within a hop the bf16 kernel runs B1's sweep (flash_sweep.cuh) on each of
+// its query items, and its f32 spill holds the carry in B1's format (m in
+// natural units, l summed over a row's 4 threads): a store and the next
+// hop's load are the B1 chain's partials write and resume, so the result
+// is bit-identical to B7 (which does the same in registers) and to the hop
+// chain.  The f32 kernel folds its tiles as B7's f32 kernel does.
 //
 // What bounds it on an H100: the causal ring of 4 at n_local 16,384 (h 8,
 // d 64) does 4.4e12 operations over all ranks on 0.13 GB of inputs, far
@@ -72,27 +74,34 @@
 // and the spill 2 x 33.5 MB per rank and hop, ~0.2 ms at 3.35 TB/s beside
 // tens of ms of compute; a push overlaps the receiver's previous hop.
 //
-// Design (right and simple first):
+// Design:
 //   * persistent blocks: block c of a rank's nc walks a fixed list of the
-//     rank's (b*h, 64-row query tile) tiles, hop by hop: rounds of nc
-//     tiles, heaviest causal rows first, taken forward and backward in
-//     turn (a snake, which evens the blocks' sums on a causal hop); the
-//     carry of a tile lives in the spill between hops;
-//   * registers: the tile body is inlined, as in B7; the block's place in
-//     the walk (rank, block index, first and last hop with work) sits in
-//     shared memory and is read where used, and the protocol's steps
-//     (seed, push, waits, grant) are __noinline__ calls on a
-//     __grid_constant__ Params.  Held in registers and inlined, they
-//     spilled the tile body's state (268 bytes of stack);
+//     rank's query items (bf16: (b*h, 128-row) items, one per warpgroup
+//     pair; f32: (b*h, 64-row) tiles), hop by hop: rounds of nc items,
+//     heaviest causal rows first, taken forward and backward in turn (a
+//     snake, which evens the blocks' sums on a causal hop); the carry of an
+//     item lives in the spill between hops, written and read back by the
+//     same threads;
+//   * bf16: B1's block, 256 threads in two warpgroups that walk their 64
+//     rows of an item independently, each through its own cp.async ring of
+//     B1's dynamic shared memory (kFwdSmem), S = Q K^T and P V on wgmma;
+//     __launch_bounds__(256, 1), so one block holds an SM (the occupancy
+//     query and the cooperative launch pass that shared memory), and a
+//     block that waits on a grant idles its SM;
+//   * registers: the block's place in the walk (rank, block index, first
+//     and last hop with work) sits in shared memory and is read where
+//     used, and the protocol's steps (seed, push, waits, grant) are
+//     __noinline__ calls on a __grid_constant__ Params: held in registers
+//     and inlined, they spilled the tile body's state;
 //   * the soft clamp is a template flag (hop_band);
-//   * bf16: 4 warps, mma.sync.m16n8k16, __launch_bounds__(128, 4) as B7;
-//     f32: 64 threads, one query row each, plain FMA;
+//   * f32: 64 threads, one query row each, plain FMA;
 //   * copies: each block moves a contiguous 1/nc of a slot, 16 bytes a
 //     thread, four loads in flight;
 //   * every offset into slots, spills and outputs is 64-bit.
-// Not yet: cp.async/TMA, wgmma, peer-mapped slots across GPUs.
+// Not yet: TMA, peer-mapped slots across GPUs, a hop coupling other than
+// the grant (a third slot, pushes by blocks of their own).
 
-#include "flash_tile.cuh"
+#include "flash_sweep.cuh"
 
 namespace {
 
@@ -295,18 +304,16 @@ __device__ __forceinline__ Band hop_band(const Params& p, int r, int hop) {
   return Band{p.his[at], p.los[at], p.N, nullptr, p.scale, kClamp ? p.softclamp : 0.f};
 }
 
-// bf16: rows [r0, r0 + 64) folded over the band's KV tiles of slot k / v.
-template <int D>
-__device__ __forceinline__ void walk_hop(__nv_bfloat16* Ks, __nv_bfloat16* Vs,
-                                         const __nv_bfloat16* k, const __nv_bfloat16* v,
-                                         const Band& bd, int n, int r0,
-                                         const uint32_t (&qf)[D / 16][4],
-                                         float (&o)[D / 8][4], float (&m_r)[2],
-                                         float (&l_r)[2], int row_a) {
-  int t_begin, t_end;
-  band_tiles(bd, n, r0, &t_begin, &t_end);
-  for (int tile = t_begin; tile < t_end; ++tile)
-    bf16_tile<D>(Ks, Vs, k, v, bd, tile * kBlockN, qf, o, m_r, l_r, row_a);
+// bf16: one warpgroup's 64 rows folded over the band's KV tiles of the
+// slot (rg.k, rg.v): B1's sweep (flash_sweep.cuh), the first tiles issued,
+// then the walk; the slot's tiles reach the stages by cp.async.cg, through
+// L2 only, after the landed wait's acquire.
+template <int D, bool kClamp>
+__device__ __forceinline__ void walk_hop(const SweepRange& rg, const SweepWg& w, float mask2,
+                                         float (&o)[8][4], float (&m2)[2], float (&l)[2]) {
+  const int no_ids[2] = {0, 0};
+  sweep_issue_ahead(rg, w);
+  SWEEP_WALK(false, kClamp, rg, w, true, false, 0, no_ids, mask2, o, m2, l);
 }
 
 // f32: this thread's row folded over the band's KV tiles of slot k / v.
@@ -321,50 +328,32 @@ __device__ __forceinline__ void walk_hop(float* Ks, float* Vs, const float* k,
     f32_tile<D>(Ks, Vs, k, v, bd, tile * kBlockN, qv, acc, m, l, row);
 }
 
-// bf16 fragments of rows row_a and row_a + 8 of the tile (base: the spill
-// row of row 0 of batch-head bh, (r * B * H + bh) * N).  After a hop's end
-// only thread 0 of a row holds l (the others hold 0), m is the same on
-// the row's 4 threads: thread 0 writes both, and on the way back the
-// others take m and a zero l.  Rows past N are never stored.
-template <int D>
+// bf16: this thread's fragments of rows row_a and row_a + 8 in B1's carry
+// format (flash_sweep.cuh), at spill row base + row (base: the spill row of
+// row 0 of batch-head bh, (r * B * H + bh) * N): acc in f32, m in natural
+// units, l the row's whole sum, written by thread 0 of the row.  So a store
+// and the next hop's load are the B1 chain's partials write and resume.
+// Rows past N are never stored.
 __device__ __forceinline__ void store_carry(const Params& p, size_t base, int row_a,
-                                            const float (&o)[D / 8][4], const float (&m_r)[2],
-                                            const float (&l_r)[2]) {
-  const int t = threadIdx.x % 4;
+                                            float mask2, const float (&o)[8][4],
+                                            const float (&m2)[2], float (&l)[2]) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
+    sweep_sum_row(l[r]);
     const int row = row_a + 8 * r;
     if (row >= p.N) continue;
-    float* acc = p.acc + (base + row) * D;
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd)
-      *reinterpret_cast<float2*>(acc + nd * 8 + t * 2) =
-          make_float2(o[nd][2 * r], o[nd][2 * r + 1]);
-    if (t == 0) {
-      p.m[base + row] = m_r[r];
-      p.l[base + row] = l_r[r];
-    }
+    sweep_store_row(p.acc, p.m, p.l, base + row, r, o, sweep_m_nat(m2[r], mask2), l[r]);
   }
 }
 
-template <int D>
-__device__ __forceinline__ void load_carry(const Params& p, size_t base, int row_a,
-                                           float (&o)[D / 8][4], float (&m_r)[2],
-                                           float (&l_r)[2]) {
-  const int t = threadIdx.x % 4;
+// bf16: the carry that store_carry wrote (`resume`), or the empty state.
+__device__ __forceinline__ void load_carry(const Params& p, size_t base, int row_a, bool resume,
+                                           float mask2, float (&o)[8][4], float (&m2)[2],
+                                           float (&l)[2]) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row_a + 8 * r;
-    if (row >= p.N) continue;  // keeps the initial state
-    const float* acc = p.acc + (base + row) * D;
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      const float2 x = *reinterpret_cast<const float2*>(acc + nd * 8 + t * 2);
-      o[nd][2 * r] = x.x;
-      o[nd][2 * r + 1] = x.y;
-    }
-    m_r[r] = p.m[base + row];
-    l_r[r] = t == 0 ? p.l[base + row] : 0.f;
+    sweep_load_row(p.acc, p.m, p.l, base + row, resume && row < p.N, r, mask2, o, m2, l);
   }
 }
 
@@ -436,66 +425,63 @@ __device__ __forceinline__ Rank rank_of(const volatile WalkState& ws) {
   return Rank{ws.r, ws.c, ws.nc, ws.senders};
 }
 
-// One query tile of one hop, bf16: the carry from the spill (the empty
-// state on the rank's first hop with work), the hop's KV tiles of the slot
-// folded in, then the carry back, or out and lse on the rank's last hop
-// with work.
-template <int D, bool kClamp>
-__device__ __forceinline__ void fold_tile_bf16(const Params& p, const volatile WalkState& ws,
-                                               int hop, int tile, __nv_bfloat16* Qs,
-                                               __nv_bfloat16* Ks, __nv_bfloat16* Vs) {
+// Item `item` of a rank's B * H * ceil(N / 128) bf16 query items (128 rows,
+// one block's two warpgroups): its batch-head and first row, heaviest
+// causal rows first, head-minor as tile_coords.
+__device__ __forceinline__ void item_coords(const Params& p, int item, int* bh, int* r0) {
+  const int bh_count = p.B * p.H, q_items = (p.N + kFwdRows - 1) / kFwdRows;
+  *bh = item % bh_count;
+  *r0 = (q_items - 1 - item / bh_count) * kFwdRows;
+}
+
+// One query item of one hop, bf16, for this thread's warpgroup (its 64 rows
+// of the item): the carry from the spill (the empty state on the rank's
+// first hop with work), the hop's KV tiles of the slot folded in, then the
+// carry back, or out and lse on the rank's last hop with work.  The two
+// warpgroups of the block run their halves independently.
+template <bool kClamp>
+__device__ __forceinline__ void fold_item_bf16(const Params& p, const volatile WalkState& ws,
+                                               int hop, int item) {
+  extern __shared__ unsigned char remote_smem[];  // kFwdSmem bytes
+  // stages start on a 1,024-byte boundary: the swizzle reads address bits
+  const uint32_t base = ((uint32_t)__cvta_generic_to_shared(remote_smem) + 1023u) & ~1023u;
   int bh, r0;
-  tile_coords(p, tile, &bh, &r0);
-  const int lane = threadIdx.x % 32, t = lane % 4;
-  const int row_a = r0 + (threadIdx.x / 32) * 16 + lane / 4;  // rows row_a, row_a + 8
-
-  __syncthreads();  // every warp is done with the previous tile's Qs
-  load_tile_bf16<D>(Qs, static_cast<const __nv_bfloat16*>(p.q[ws.r]) + (size_t)bh * p.N * D,
-                    r0, p.N);
-  __syncthreads();
-  uint32_t qf[D / 16][4];
-  load_q_frags<D>(Qs, qf);
-  float o[D / 8][4];
-  float m_r[2] = {kMaskValue, kMaskValue};
-  float l_r[2] = {0.f, 0.f};
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
-  if (hop != ws.first)
-    load_carry<D>(p, ((size_t)ws.r * p.B * p.H + bh) * p.N, row_a, o, m_r, l_r);
-
+  item_coords(p, item, &bh, &r0);
+  const SweepWg w = sweep_wg(
+      base, remote_smem + (base - (uint32_t)__cvta_generic_to_shared(remote_smem)), r0);
+  const float mask2 = __fmul_rn(kMaskValue, kLog2e);
+  const int r = ws.r;
+  sweep_load_q(w, static_cast<const __nv_bfloat16*>(p.q[r]) + (size_t)bh * p.N * 64, p.N);
+  const size_t spill = ((size_t)r * p.B * p.H + bh) * p.N;
+  float o[8][4], m2[2], l[2];
+  load_carry(p, spill, w.row_a, hop != ws.first, mask2, o, m2, l);
   {
     const int kh = (bh % p.H) / (p.H / p.Hk);
-    const __nv_bfloat16* k = slot_ptr<__nv_bfloat16, D>(p, ws.r, hop & 1) +
-                             ((size_t)(bh / p.H) * p.Hk + kh) * (size_t)p.N * D;
-    walk_hop<D>(Ks, Vs, k, k + part_elems<D>(p), hop_band<kClamp>(p, ws.r, hop), p.N, r0, qf,
-                o, m_r, l_r, row_a);
+    const __nv_bfloat16* k = slot_ptr<__nv_bfloat16, 64>(p, r, hop & 1) +
+                             ((size_t)(bh / p.H) * p.Hk + kh) * (size_t)p.N * 64;
+    const Band bd = hop_band<kClamp>(p, r, hop);
+    int t_begin, t_end;
+    wg_band_tiles(bd, p.N, w.rw, &t_begin, &t_end);
+    walk_hop<64, kClamp>(
+        SweepRange{bd, k, k + part_elems<64>(p), nullptr, t_begin, t_end - t_begin}, w, mask2, o,
+        m2, l);
   }
-
-  // the hop's end: sum l over the row's 4 threads and keep it on thread 0,
-  // as a resumed launch of the chain is seeded
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 1);
-    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 2);
-    if (t != 0) l_r[h] = 0.f;
-  }
+  sweep_wg_sync(w);  // the ring and the Q tile are free for the next item
   if (hop != ws.last) {
-    store_carry<D>(p, ((size_t)ws.r * p.B * p.H + bh) * p.N, row_a, o, m_r, l_r);
+    store_carry(p, spill, w.row_a, mask2, o, m2, l);
     return;
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    // only thread 0 of the row holds its sum: adding the zeros is exact
-    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 1);
-    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 2);
-    const int row = row_a + 8 * h;
+    sweep_sum_row(l[h]);
+    const int row = w.row_a + 8 * h;
     if (row < p.N)
-      store_out_bf16<D>(static_cast<__nv_bfloat16*>(p.out[ws.r]), p.lse[ws.r],
-                        (size_t)bh * p.N + row, o, h, m_r[h], l_r[h]);
+      store_out_bf16<64>(static_cast<__nv_bfloat16*>(p.out[r]), p.lse[r], (size_t)bh * p.N + row,
+                         o, h, sweep_m_nat(m2[h], mask2), l[h]);
   }
 }
 
-// One query tile of one hop, f32: as fold_tile_bf16, one row per thread.
+// One query tile of one hop, f32: as fold_item_bf16, one row per thread.
 template <int D, bool kClamp>
 __device__ __forceinline__ void fold_tile_f32(const Params& p, const volatile WalkState& ws,
                                               int hop, int tile, float* Ks, float* Vs) {
@@ -531,10 +517,10 @@ __device__ __forceinline__ void fold_tile_f32(const Params& p, const volatile Wa
 template <typename T, int D, bool kClamp>
 __device__ __forceinline__ void ring_walk(const Params& p) {
   constexpr bool is_bf16 = sizeof(T) == 2;
-  constexpr int kStride = is_bf16 ? D + 8 : D;  // bf16 staggers shared-memory banks
-  __shared__ __align__(16) T Qs[is_bf16 ? kBlockM * kStride : 1];
-  __shared__ __align__(16) T Ks[kBlockN * kStride];
-  __shared__ __align__(16) T Vs[kBlockN * kStride];
+  // f32: the tile body's K and V tiles; bf16: the two warpgroups' rings and
+  // Q tiles in dynamic shared memory (kFwdSmem, flash_sweep.cuh)
+  __shared__ __align__(16) T Ks[is_bf16 ? 1 : kBlockN * D];
+  __shared__ __align__(16) T Vs[is_bf16 ? 1 : kBlockN * D];
   __shared__ WalkState state;
   volatile WalkState& ws = state;
   if (threadIdx.x == 0) {
@@ -549,7 +535,8 @@ __device__ __forceinline__ void ring_walk(const Params& p) {
     ws.last = last;
   }
   __syncthreads();
-  const int tiles = p.B * p.H * ((p.N + kBlockM - 1) / kBlockM);
+  constexpr int kRows = is_bf16 ? kFwdRows : kBlockM;  // bf16: 128-row items
+  const int tiles = p.B * p.H * ((p.N + kRows - 1) / kRows);
 
   seed_slot<T, D>(p, rank_of(ws));
   wait_landed(p, rank_of(ws), 0);
@@ -561,7 +548,7 @@ __device__ __forceinline__ void ring_walk(const Params& p) {
     if (p.works[ws.r * p.hops + hop]) {
       for (int j = 0, tile; (tile = snake_tile(j, ws.c, ws.nc)) < tiles; ++j) {
         if constexpr (is_bf16)
-          fold_tile_bf16<D, kClamp>(p, ws, hop, tile, Qs, Ks, Vs);
+          fold_item_bf16<kClamp>(p, ws, hop, tile);
         else
           fold_tile_f32<D, kClamp>(p, ws, hop, tile, Ks, Vs);
       }
@@ -571,11 +558,11 @@ __device__ __forceinline__ void ring_walk(const Params& p) {
   }
 }
 
-// The bf16 kernel keeps flash_ring.cu's __launch_bounds__(128, 4): four
-// blocks an SM fit only at 128 registers or fewer.  kClamp: the launch has
-// a soft clamp.
+// The bf16 kernel runs B1's block (flash_sweep.cuh): 256 threads, one
+// block an SM (B1's dynamic shared memory, kFwdSmem).  kClamp: the launch
+// has a soft clamp.
 template <int D, bool kClamp>
-__global__ void __launch_bounds__(128, 4)
+__global__ void __launch_bounds__(kFwdThreads, 1)
     flash_ring_remote_bf16_kernel(const __grid_constant__ Params p) {
   ring_walk<__nv_bfloat16, D, kClamp>(p);
 }
@@ -586,14 +573,19 @@ __global__ void __launch_bounds__(kBlockM)
   ring_walk<float, D, kClamp>(p);
 }
 
-// The kernel of a launch, and its block size.
-const void* kernel_of(int is_bf16, int clamp, int* threads) {
-  *threads = is_bf16 ? 128 : kBlockM;
-  if (is_bf16)
-    return clamp ? (const void*)flash_ring_remote_bf16_kernel<64, true>
-                 : (const void*)flash_ring_remote_bf16_kernel<64, false>;
-  return clamp ? (const void*)flash_ring_remote_f32_kernel<64, true>
-               : (const void*)flash_ring_remote_f32_kernel<64, false>;
+// The kernel of a launch, its block size and its dynamic shared memory,
+// which the kernel is allowed (cudaFuncSetAttribute) before it returns.
+cudaError_t kernel_of(int is_bf16, int clamp, const void** kernel, int* threads, int* smem) {
+  *threads = is_bf16 ? kFwdThreads : kBlockM;
+  *smem = is_bf16 ? kFwdSmem : 0;
+  if (!is_bf16) {
+    *kernel = clamp ? (const void*)flash_ring_remote_f32_kernel<64, true>
+                    : (const void*)flash_ring_remote_f32_kernel<64, false>;
+    return cudaSuccess;
+  }
+  *kernel = clamp ? (const void*)flash_ring_remote_bf16_kernel<64, true>
+                  : (const void*)flash_ring_remote_bf16_kernel<64, false>;
+  return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
 }
 
 }  // namespace
@@ -602,13 +594,14 @@ const void* kernel_of(int is_bf16, int clamp, int* threads) {
 // clamp) that fit on the current device at once (0 when it cannot launch
 // cooperatively); returns a cudaError_t.
 extern "C" int flash_ring_remote_capacity(int is_bf16, int clamp, int* blocks) {
-  int dev = 0, sms = 0, coop = 0, per_sm = 0, threads = 0;
-  const void* kernel = kernel_of(is_bf16, clamp, &threads);
-  cudaError_t e = cudaGetDevice(&dev);
+  int dev = 0, sms = 0, coop = 0, per_sm = 0, threads = 0, smem = 0;
+  const void* kernel = nullptr;
+  cudaError_t e = kernel_of(is_bf16, clamp, &kernel, &threads, &smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (e != cudaSuccess) return (int)e;
   *blocks = coop ? per_sm * sms : 0;
   return 0;
@@ -674,10 +667,12 @@ extern "C" int flash_ring_remote(const void* const* q, const void* const* k,
   p.scale = scale;
   p.softclamp = softclamp;
   void* args[] = {&p};
-  int threads = 0;
-  const void* kernel = kernel_of(is_bf16, clamp, &threads);
+  int threads = 0, smem = 0;
+  const void* kernel = nullptr;
+  const cudaError_t set = kernel_of(is_bf16, clamp, &kernel, &threads, &smem);
+  if (set != cudaSuccess) return (int)set;
   const cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(p.cta_start[W]), dim3(threads),
-                                                    args, 0, static_cast<cudaStream_t>(stream));
+                                                    args, smem, static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();
   return (int)(e != cudaSuccess ? e : last);
 }

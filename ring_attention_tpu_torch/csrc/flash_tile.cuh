@@ -1,23 +1,20 @@
 // Device code shared by the forward flash kernels: the constants, the band
-// (its tile range and its score), the mma.sync helpers and the body of one
-// 64-key KV tile in bf16 (tensor cores) and f32 (CUDA-core FMA).  The fused
-// ring's kernels, flash_ring.cu (B7) and flash_ring_remote.cu (B8), run both
-// tile bodies; the forward sweep, flash_fwd.cu (B1), runs the f32 body and
-// takes the constants, the band and the bf16 output write from here, while
-// its bf16 sweep is a kernel of its own on wgmma (wgmma.cuh).  Every
-// function is __forceinline__, so each kernel keeps its own __global__, its
-// own Params and its own register budget; a fix to the tile loop is made
-// here once for all of them.  Packed sequences (per-token document ids) are
-// a template flag of the tile body, kSeg: false, the default, compiles the
-// body as it was.
+// (its tile range and its score), the bf16 output write of the wgmma sweep
+// (flash_sweep.cuh) and the body of one 64-key KV tile in f32 (CUDA-core
+// FMA).  The forward sweep, flash_fwd.cu (B1), and the fused ring's
+// kernels, flash_ring.cu (B7) and flash_ring_remote.cu (B8), run the f32
+// body in their f32 instantiations and take the band and the bf16 output
+// write from here; their bf16 sweep is flash_sweep.cuh's, on wgmma
+// (wgmma.cuh).  Every function is __forceinline__, so each kernel keeps its
+// own __global__, its own Params and its own register budget; a fix to the
+// tile loop is made here once for all of them.  Packed sequences (per-token
+// document ids) are a template flag of the f32 tile body, kSeg: false, the
+// default, compiles the body as it was.
 //
 // Layouts, as the kernels use them:
-//   * bf16: 4 warps, each owns 16 query rows.  The online-softmax state is
-//     in mma fragment layout: o[nd][2r + c] is row (r ? row_a + 8 : row_a),
-//     column nd * 8 + 2t + c (g = lane / 4, t = lane % 4); m_r[r] is the same
-//     on a row's 4 threads and l_r[r] is this thread's share of the row sum.
-//     p is rounded to bf16 for the PV product, as the TPU kernel does
-//     (p.astype(v.dtype)), while l sums the f32 p;
+//   * bf16 output: the online-softmax state in wgmma's fragment layout
+//     (wgmma.cuh): o[nd][2r + c] is row (r ? row_a + 8 : row_a), column nd *
+//     8 + 2t + c (g = lane / 4, t = lane % 4);
 //   * f32: one query row per thread, qv and acc in registers, keys folded 16
 //     at a time per online-softmax update.
 
@@ -104,154 +101,13 @@ __device__ __forceinline__ float band_score(const Band& bd, int row, int col, fl
 __device__ __forceinline__ float exp_nat(float x) { return exp2f(x * kLog2e); }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync
+// bf16: the output write of the wgmma sweep (flash_sweep.cuh)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // Two floats as bf16x2; the first lands in the low half (lower index).
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(uint16_t lo, uint16_t hi) {
-  return (uint32_t)lo | ((uint32_t)hi << 16);
-}
-
-// rows [row0, row0 + 64) of a (n, D) bf16 matrix into shared memory with a
-// row stride of D + 8 elements (staggers the banks); rows past n are zero.
-template <int D>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               int row0, int n) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  constexpr int kStride = D + 8;
-  for (int i = threadIdx.x; i < kBlockM * kChunks; i += blockDim.x) {
-    const int r = i / kChunks, c = i % kChunks;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * kStride + c * 8) = val;
-  }
-}
-
-// The A fragments of this warp's 16 query rows, from the Q tile in shared
-// memory.
-template <int D>
-__device__ __forceinline__ void load_q_frags(const __nv_bfloat16* Qs,
-                                             uint32_t (&qf)[D / 16][4]) {
-  constexpr int kStride = D + 8;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* base = Qs + (warp * 16 + g) * kStride + kk * 16 + t * 2;
-    qf[kk][0] = *reinterpret_cast<const uint32_t*>(base);
-    qf[kk][1] = *reinterpret_cast<const uint32_t*>(base + 8 * kStride);
-    qf[kk][2] = *reinterpret_cast<const uint32_t*>(base + 8);
-    qf[kk][3] = *reinterpret_cast<const uint32_t*>(base + 8 * kStride + 8);
-  }
-}
-
-// One KV tile of the bf16 forward: keys [c0, c0 + 64) of k and v (bd.nk
-// rows) into Ks and Vs, s = q k^T, the online-softmax update of (o, m_r,
-// l_r) and o += p v, for this warp's rows row_a and row_a + 8; with kSeg,
-// only the keys of each row's document (st) count.
-template <int D, bool kSeg = false>
-__device__ __forceinline__ void bf16_tile(__nv_bfloat16* Ks, __nv_bfloat16* Vs,
-                                          const __nv_bfloat16* k,
-                                          const __nv_bfloat16* v, const Band& bd,
-                                          int c0, const uint32_t (&qf)[D / 16][4],
-                                          float (&o)[D / 8][4], float (&m_r)[2],
-                                          float (&l_r)[2], int row_a,
-                                          const SegTile& st = SegTile{}) {
-  constexpr int kStride = D + 8;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // mma group id and thread in group
-  const int row_b = row_a + 8;
-  __syncthreads();  // every warp is done with the previous K/V tile
-  load_tile_bf16<D>(Ks, k, c0, bd.nk);
-  load_tile_bf16<D>(Vs, v, c0, bd.nk);
-  if constexpr (kSeg) load_seg_tile(st, c0, bd.nk);
-  __syncthreads();
-
-  // s = q k^T: 8 fragments of 16 rows x 8 keys
-  float s[kBlockN / 8][4];
-#pragma unroll
-  for (int j = 0; j < kBlockN / 8; ++j) {
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const __nv_bfloat16* kb = Ks + (j * 8 + g) * kStride + kk * 16 + t * 2;
-      const uint32_t bf[2] = {*reinterpret_cast<const uint32_t*>(kb),
-                              *reinterpret_cast<const uint32_t*>(kb + 8)};
-      mma_16816(s[j], qf[kk], bf);
-    }
-  }
-
-  float mx[2] = {m_r[0], m_r[1]};
-#pragma unroll
-  for (int j = 0; j < kBlockN / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = e < 2 ? row_a : row_b;
-      const int col = c0 + j * 8 + t * 2 + (e & 1);
-      // kSeg: the ids from shared memory, key by key (held in registers
-      // through the products, or folded into a bit mask there, they
-      // spilled at the 128-register cap and ran slower)
-      s[j][e] = band_score<kSeg>(
-          bd, row, col, s[j][e],
-          !kSeg || st.ids[kBlockM + j * 8 + t * 2 + (e & 1)] ==
-                       st.ids[threadIdx.x / 32 * 16 + g + 8 * (e >> 1)]);
-      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {  // a row's 64 scores sit on 4 threads
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    const float alpha = exp_nat(m_r[r] - mx[r]);
-    m_r[r] = mx[r];
-    l_r[r] *= alpha;
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      o[nd][2 * r] *= alpha;
-      o[nd][2 * r + 1] *= alpha;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < kBlockN / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      s[j][e] = exp_nat(s[j][e] - m_r[e >> 1]);
-      l_r[e >> 1] += s[j][e];
-    }
-  }
-
-  // o += p v: the score fragments of two key groups form one A fragment
-  const uint16_t* Vraw = reinterpret_cast<const uint16_t*>(Vs);
-#pragma unroll
-  for (int kk = 0; kk < kBlockN / 16; ++kk) {
-    const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                           pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                           pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                           pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      const uint16_t* vb = Vraw + (kk * 16 + t * 2) * kStride + nd * 8 + g;
-      const uint32_t bf[2] = {pack_raw(vb[0], vb[kStride]),
-                              pack_raw(vb[8 * kStride], vb[9 * kStride])};
-      mma_16816(o[nd], a, bf);
-    }
-  }
 }
 
 // out[idx] = o / l in bf16 for row half r of the fragments and lse[idx] =

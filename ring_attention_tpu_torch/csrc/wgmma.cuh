@@ -1,11 +1,13 @@
 // Hopper building blocks shared by the flash kernels that run on wgmma:
-// B1's bf16 sweep (flash_fwd.cu) and the bf16 dk/dv (B2) and dq (B3)
-// passes (flash_bwd.cu).  cp.async into 128-byte-swizzled tiles, the
-// shared-memory matrix descriptor of such a tile, the warpgroup products
-// (m64n64k16, bf16 in, f32 accumulate) with A from shared memory or from
-// registers, and the KV-tile stage that B1 and B3 stream through their
-// cp.async rings.  Every function is __forceinline__; names stay clear of
-// flash_tile.cuh's, which flash_fwd.cu also includes.
+// B1's bf16 sweep (flash_sweep.cuh, which the forward kernel flash_fwd.cu
+// and the fused ring's flash_ring.cu and flash_ring_remote.cu run) and the
+// bf16 dk/dv (B2) and dq (B3) passes (flash_bwd.cu).  cp.async into
+// 128-byte-swizzled tiles, the shared-memory matrix descriptor of such a
+// tile, the warpgroup products (m64n64k16, bf16 in, f32 accumulate) with A
+// from shared memory or from registers, and the KV-tile stage that the
+// sweep and B3 stream through their cp.async rings.  Every function is
+// __forceinline__; names stay clear of flash_tile.cuh's, which the sweep
+// also includes.
 //
 // Tiles are 64 columns of bf16 (128 bytes a row); 16-byte chunk c of row r
 // sits at chunk c ^ (r % 8), so the tensor cores read them without bank

@@ -13,7 +13,11 @@ its work flag.
 
 - ``fused_ring_local`` is the kernel wrapper: a CUDA tensor launches the
   kernel (or raises), a CPU tensor runs ``fused_ring_local_plain``.
-  Nothing else selects between the two.
+  Nothing else selects between the two.  The C entry point shapes the
+  launch: bf16 runs the forward kernel's sweep (``csrc/flash_sweep.cuh``),
+  a block of 256 threads per 128 query rows and batch-head with B1's
+  dynamic shared memory, so that its output is the ``impl="cuda"`` hop
+  chain's bit for bit; f32 a block of 64 threads per 64 rows.
 - ``fused_ring_local_plain`` is its plain version: the port's hop chain
   over slices of the gathered span, on the plain versions of
   ``ops/cuda_flash.py`` (seed partials, resumes, the fused write from the
@@ -21,7 +25,7 @@ its work flag.
 - ``fitted_blocks`` is the JAX launch's block fit (``pallas_ring.py:105``),
   the quantization block an int8 feed of this launch will need; it stays
   out of the package's exports until that feed is ported.  The float
-  kernel's 64-row tiles do not change its result.
+  kernels' 64- and 128-row blocks do not change its result.
 
 The int8 feed (``kv_quantized``) and segment ids of the JAX launch are not
 ported yet: ROADMAP.md Queue 2 K4 (Port queue item 7e) and K3 (7b).

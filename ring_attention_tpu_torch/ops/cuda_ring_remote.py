@@ -7,7 +7,8 @@ own KV shard, and the shards travel around the ring inside the kernel, one
 hop at a time, through a double-buffered slot pair per rank.  A push into
 the right neighbour's other slot waits for that neighbour's grant (it has
 finished reading the slot), and the online-softmax state ``(acc, m, l)``
-of every query tile carries across the hops in an f32 spill.
+of every query item carries across the hops in an f32 spill, in the
+format of the forward kernel's partials (B1's hop chain, bit for bit).
 
 On one card the ranks of a :class:`~..parallel.collectives.VirtualRing`
 are the block groups of ONE cooperative launch, all resident at once:
@@ -50,7 +51,10 @@ launch_count = 0
 
 # Ranks one launch holds (csrc/flash_ring_remote.cu kMaxRanks).
 MAX_RANKS = 16
-_TILE = 64  # query rows and keys per tile (flash_tile.cuh kBlockM, kBlockN)
+_TILE = 64  # keys per KV tile, and query rows per warpgroup (flash_tile.cuh)
+# Query rows of one block's item: bf16, B1's block of two 64-row warpgroups
+# (csrc/flash_sweep.cuh kFwdRows); f32, one 64-row tile (kBlockM).
+_ITEM_ROWS = {True: 128, False: 64}
 
 # One row per copy / flag site group of flash_ring_remote.cu, in the
 # kernel's program order within a hop.  The model check
@@ -222,23 +226,29 @@ def fused_ring_remote_plain(
     return [out for out, _ in carries], [lse for _, lse in carries]
 
 
-def _tile_visits(hi: int, lo: int, n: int) -> torch.Tensor:
-    """KV tiles the kernel visits for each 64-row query tile of a shard of
-    ``n``, by first row (``band_tiles`` in ``csrc/flash_tile.cuh``: a query
-    tile whose band is empty takes every tile)."""
+def _tile_visits(hi: int, lo: int, n: int, rows: int = 128) -> torch.Tensor:
+    """KV tiles each query item of ``rows`` rows (by first row) of a shard
+    of ``n`` takes the kernel: the larger count of its 64-row warpgroups,
+    which walk their tiles side by side (``band_tiles`` in
+    ``csrc/flash_tile.cuh``: a warpgroup whose band is empty takes every
+    tile, one whose rows all lie past ``n`` none).  ``rows`` 64: the f32
+    kernel's one-warpgroup tiles."""
     r0 = torch.arange(0, n, _TILE, dtype=torch.int64)
     r_last = torch.clamp(r0 + _TILE, max=n) - 1
     every = -(-n // _TILE)
     empty = (r0 + hi < 0) | (r_last + lo > n - 1) | (lo > hi)
     j_min = torch.clamp(r0 + lo, min=0)
     j_max = torch.clamp(r_last + hi, max=n - 1)
-    return torch.where(empty, every, j_max // _TILE - j_min // _TILE + 1)
+    per_wg = torch.where(empty, every, j_max // _TILE - j_min // _TILE + 1)
+    per_item = rows // _TILE
+    per_wg = torch.nn.functional.pad(per_wg, (0, -len(per_wg) % per_item))
+    return per_wg.view(-1, per_item).amax(1)
 
 
 def _block_time(visits: torch.Tensor, bh: int, blocks: int) -> int:
     """The largest KV-tile count any of ``blocks`` blocks walks for one hop:
-    the kernel's tile list (heaviest rows first, head-minor: each query
-    tile's count ``bh`` times) dealt in rounds of ``blocks``, forward and
+    the kernel's item list (heaviest rows first, head-minor: each query
+    item's count ``bh`` times) dealt in rounds of ``blocks``, forward and
     backward in turn (``snake_tile``)."""
     weights = visits.flip(0).repeat_interleave(bh)
     rounds = -(-len(weights) // blocks)
@@ -267,12 +277,13 @@ def _makespan(hop_time) -> float:
 
 
 class _SplitModel:
-    """Per rank, hop and block count, the hop's time (:func:`_block_time`),
-    memoized; and the modelled launch of a split."""
+    """Per rank, hop and block count, the hop's time (:func:`_block_time`
+    over items of ``rows`` query rows), memoized; and the modelled launch
+    of a split."""
 
-    def __init__(self, schedules, n_local: int, bh: int):
+    def __init__(self, schedules, n_local: int, bh: int, rows: int = 128):
         self.bh, self.memo = bh, {}
-        self.visits = [[_tile_visits(hi, lo, n_local) if w else None
+        self.visits = [[_tile_visits(hi, lo, n_local, rows) if w else None
                         for hi, lo, w in zip(*schedule)] for schedule in schedules]
 
     def hop_time(self, r: int, i: int, blocks: int) -> int:
@@ -311,8 +322,9 @@ def _descend(model: _SplitModel, split: list[int]) -> tuple[float, list[int]]:
 
 
 @functools.lru_cache(maxsize=64)
-def _balanced_split(schedules: tuple, n_local: int, bh: int, blocks: int) -> tuple[int, ...]:
-    model = _SplitModel(schedules, n_local, bh)
+def _balanced_split(schedules: tuple, n_local: int, bh: int, blocks: int,
+                    rows: int) -> tuple[int, ...]:
+    model = _SplitModel(schedules, n_local, bh, rows)
     world = len(schedules)
     totals = [sum(int(v.sum()) for v in hops if v is not None) for hops in model.visits]
     starts = []
@@ -331,15 +343,18 @@ def _schedule_key(tables) -> tuple:
     return tuple(tuple(map(tuple, schedule)) for schedule in _schedules(tables, len(tables)))
 
 
-def modelled_time(tables, n_local: int, bh: int, split) -> float:
+def modelled_time(tables, n_local: int, bh: int, split, rows: int = 128) -> float:
     """The launch's modelled time (KV tiles a block walks, along the
-    protocol's critical path) for blocks ``split`` per rank."""
-    return _SplitModel(_schedule_key(tables), n_local, bh).makespan(split)
+    protocol's critical path) for blocks ``split`` per rank, each block
+    walking items of ``rows`` query rows (bf16 128, f32 64)."""
+    return _SplitModel(_schedule_key(tables), n_local, bh, rows).makespan(split)
 
 
-def balanced_split(tables, n_local: int, bh: int, blocks: int) -> list[int]:
+def balanced_split(tables, n_local: int, bh: int, blocks: int,
+                   rows: int = 128) -> list[int]:
     """Blocks per rank for a grid of ``blocks`` (at most the card holds at
-    once), at least one each, for ``bh`` batch-heads.  The grant couples
+    once), at least one each, for ``bh`` batch-heads and items of ``rows``
+    query rows (bf16 128, f32 64).  The grant couples
     neighbours hop by hop (a rank's push of hop ``i`` waits until its right
     neighbour has finished hop ``i - 1``), so a split in proportion to each
     rank's total work is not the fastest: on a contiguous causal ring of 4
@@ -349,13 +364,23 @@ def balanced_split(tables, n_local: int, bh: int, blocks: int) -> list[int]:
     shorten the modelled launch (:func:`modelled_time`); the shorter
     result is taken."""
     return list(_balanced_split(_schedule_key(tables), n_local, bh,
-                                max(blocks, len(tables))))
+                                max(blocks, len(tables)), rows))
+
+
+def _grid_blocks(capacity: int, world: int, bh: int, n_local: int, is_bf16: bool) -> int:
+    """Blocks of the default grid: every block the card holds at once
+    (bf16: one an SM, B1's shared memory), but no more than the ring's
+    query items (``world * bh`` times the items of a shard); a block left
+    without an item would still push and grant."""
+    return min(capacity, world * bh * -(-n_local // _ITEM_ROWS[is_bf16]))
 
 
 @functools.cache
 def _capacity(device_index: int, is_bf16: bool, clamp: bool) -> int:
     """Blocks of the cooperative launch (one kernel per dtype, with or
-    without a soft clamp) that fit on the card at once."""
+    without a soft clamp) that fit on the card at once: the kernel's
+    occupancy at its block size and dynamic shared memory, times the SMs
+    (bf16: one block an SM)."""
     from ._build import flash_ring_remote_library
 
     lib = flash_ring_remote_library()
@@ -384,8 +409,8 @@ def _launch(qs, ks, vs, tables, scale, softclamp_value, split):
     is_bf16 = q0.dtype == torch.bfloat16
     capacity = _capacity(q0.device.index, is_bf16, bool(softclamp_value))
     if split is None:
-        tiles = world * b * h * -(-n // _TILE)
-        split = balanced_split(tables, n, b * h, min(capacity, tiles))
+        split = balanced_split(tables, n, b * h, _grid_blocks(capacity, world, b * h, n, is_bf16),
+                               _ITEM_ROWS[is_bf16])
     split = [int(x) for x in split]
     if len(split) != world or min(split) < 1:
         raise ValueError(f"fused_ring_remote: cta_split {split} needs one count >= 1 "
@@ -454,8 +479,9 @@ def fused_ring_remote(
         and the optional soft clamp.
       compute_dtype: None; ``"int8"`` (the JAX int8 wire) is not ported.
       cta_split: blocks per rank of the one launch (testing: starve a rank
-        to force skew); by default :func:`balanced_split` over every block
-        the card holds at once.  Ignored on the CPU.
+        to force skew); by default :func:`balanced_split` over
+        :func:`_grid_blocks` (every block the card holds at once, at most
+        one per query item).  Ignored on the CPU.
 
     Returns per-rank lists ``(outs (b, h, n_local, d) in q's dtype, lses
     (b, h, n_local) f32)``.  CPU tensors run

@@ -22,6 +22,7 @@ The same numpy inputs go through the JAX package and the port:
   every row's ``fn`` a ``__device__`` function of the CUDA source.
 """
 
+import contextlib
 import functools
 import re
 from functools import partial
@@ -273,35 +274,123 @@ def test_ring_of_one_moves_nothing(monkeypatch):
 
 
 def test_balanced_split():
-    """Blocks per rank minimize the modelled launch: on a contiguous causal
-    ring of 4 (work 0.5 : 1.5 : 2.5 : 3.5) the grant couples the ranks hop
-    by hop, so the split in proportion to total work is slower than an
-    even one, and the balanced split beats both."""
+    """Blocks per rank minimize the modelled launch of the card's 132 blocks
+    (one an SM) over 128-row items: on a contiguous causal ring of 4 (work
+    0.5 : 1.5 : 2.5 : 3.5) the grant couples the ranks hop by hop, so the
+    split in proportion to total work is slower than an even one, and the
+    balanced split beats both."""
     tables = _tables(4, 16384)
-    split = cuda_ring_remote.balanced_split(tables, 16384, 8, 528)
+    split = cuda_ring_remote.balanced_split(tables, 16384, 8, 132)
     span = partial(cuda_ring_remote.modelled_time, tables, 16384, 8)
-    assert sum(split) == 528
-    assert span(split) < span([132] * 4) < span([33, 99, 165, 231])
+    assert sum(split) == 132
+    assert span(split) < span([33] * 4) < span([8, 25, 41, 58])
     striped = _tables(4, 16384, striped=True)
-    striped_split = cuda_ring_remote.balanced_split(striped, 16384, 8, 528)
-    assert sum(striped_split) == 528
+    striped_split = cuda_ring_remote.balanced_split(striped, 16384, 8, 132)
+    assert sum(striped_split) == 132
     assert (cuda_ring_remote.modelled_time(striped, 16384, 8, striped_split)
-            <= cuda_ring_remote.modelled_time(striped, 16384, 8, [132] * 4))
+            <= cuda_ring_remote.modelled_time(striped, 16384, 8, [33] * 4))
     # every rank keeps a block, whatever its share
     assert cuda_ring_remote.balanced_split(tables, 16384, 8, 4) == [1, 1, 1, 1]
+    # the f32 kernel's 64-row tiles are modelled as such
+    assert (cuda_ring_remote.modelled_time(tables, 16384, 8, [33] * 4, rows=64)
+            > span([33] * 4))
+
+
+def _band_tiles_brute(hi, lo, n, r0):
+    """The KV tiles a 64-row warpgroup from r0 visits, counted key by key:
+    those holding a key of some row's band, or every tile when a row's band
+    is empty (csrc/flash_tile.cuh band_tiles); none past n."""
+    rows = range(r0, min(r0 + 64, n))
+    if not rows:
+        return 0
+    tiles = set()
+    for i in rows:
+        keys = range(max(0, i + lo), min(n - 1, i + hi) + 1)
+        if not keys:
+            return -(-n // 64)
+        tiles.update(j // 64 for j in keys)
+    return len(tiles)
 
 
 def test_tile_visits_and_block_time():
-    """The host's count of the kernel's walk: KV tiles per query tile
-    (``band_tiles``), and the largest block's share of a hop under the
-    kernel's tile order."""
-    visits = cuda_ring_remote._tile_visits
-    assert visits(0, -256, 256).tolist() == [1, 2, 3, 4]
-    assert visits(256, -256, 256).tolist() == [4] * 4
-    assert visits(-256, -256, 256).tolist() == [4] * 4  # empty band: every tile
-    # tiles 4,4,3,3,2,2,1,1 dealt to 3 blocks: [4,4,3], then [3,2,2] backward,
-    # then [1,1]: the blocks walk 4+2+1, 4+2+1 and 3+3
-    assert cuda_ring_remote._block_time(visits(0, -256, 256), 2, 3) == 7
+    """The host's count of the kernel's walk: KV tiles per 128-row query
+    item, the larger of its two warpgroups' ``band_tiles`` sets (brute
+    force, key by key, on a shard of whole items and a ragged one), and the
+    largest block's share of a hop under the kernel's item order
+    (``item_coords``, ``snake_tile``)."""
+    for n, hi, lo in [(n, hi, lo) for n in (256, 300)
+                      for hi, lo in ((n, -n), (0, -n), (0, -100), (-1, -n), (-5 * n, -n),
+                                     (n, 3 * n), (70, 10), (-64, -200))]:
+        expected = [max(_band_tiles_brute(hi, lo, n, r0), _band_tiles_brute(hi, lo, n, r0 + 64))
+                    for r0 in range(0, n, 128)]
+        assert cuda_ring_remote._tile_visits(hi, lo, n).tolist() == expected, (hi, lo)
+        tiles64 = [_band_tiles_brute(hi, lo, n, r0) for r0 in range(0, n, 64)]
+        assert cuda_ring_remote._tile_visits(hi, lo, n, rows=64).tolist() == tiles64, (hi, lo)
+    # items 2, 4, 6, 8 (heaviest last) over 2 heads dealt to 3 blocks:
+    # [8, 8, 6], then [6, 4, 4] backward, then [2, 2]: the blocks walk
+    # 8 + 4 + 2, 8 + 4 + 2 and 6 + 6
+    visits = cuda_ring_remote._tile_visits(0, -512, 512)
+    assert visits.tolist() == [2, 4, 6, 8]
+    assert cuda_ring_remote._block_time(visits, 2, 3) == 14
+    # the kernel's walk, item by item, for other block counts
+    for bh, blocks in ((8, 5), (3, 7), (1, 4)):
+        items, q_items = bh * len(visits), len(visits)
+        per_block = []
+        for c in range(blocks):
+            j, walked = 0, 0
+            while (item := j * blocks + (blocks - 1 - c if j % 2 else c)) < items:
+                walked += int(visits[q_items - 1 - item // bh])
+                j += 1
+            per_block.append(walked)
+        assert cuda_ring_remote._block_time(visits, bh, blocks) == max(per_block)
+
+
+def test_grid_blocks_and_capacity(monkeypatch):
+    """The default grid: every block the card holds at once (the occupancy
+    query at the kernel's block size and dynamic shared memory: one bf16
+    block an SM), but no more than the ring's query items, 128 rows each in
+    bf16 and 64 in f32."""
+    grid = cuda_ring_remote._grid_blocks
+    assert grid(132, 4, 8, 16384, True) == 132
+    assert grid(132, 4, 1, 1000, True) == 4 * 8  # 8 items of 128 rows a rank
+    assert grid(132, 4, 1, 1000, False) == 4 * 16  # 16 tiles of 64 rows
+    assert grid(528, 2, 1, 1, True) == 2
+
+    class Lib:
+        calls = []
+
+        def flash_ring_remote_capacity(self, is_bf16, clamp, blocks):
+            self.calls.append((is_bf16, clamp))
+            blocks._obj.value = {1: 132, 0: 4 * 132}[is_bf16]
+            return 0
+
+    monkeypatch.setattr(_build, "flash_ring_remote_library", lambda: Lib())
+    monkeypatch.setattr(cuda_ring_remote.torch.cuda, "device",
+                        lambda index: contextlib.nullcontext())
+    capacity = cuda_ring_remote._capacity.__wrapped__
+    assert capacity(0, True, False) == 132 and capacity(0, False, True) == 528
+    assert Lib.calls == [(1, 0), (0, 1)]
+    Lib.flash_ring_remote_capacity = lambda self, b, c, blocks: 2  # a CUDA error
+    with pytest.raises(RuntimeError, match="occupancy query failed: CUDA error 2"):
+        capacity(0, True, False)
+    Lib.flash_ring_remote_capacity = lambda self, b, c, blocks: 0  # no cooperative launch
+    with pytest.raises(RuntimeError, match="cannot launch cooperatively"):
+        capacity(0, True, False)
+
+
+def test_kernel_sizes_its_cooperative_grid_with_its_shared_memory():
+    """The occupancy query and the cooperative launch both take the
+    dynamic shared memory the kernel is allowed: with 0 bytes the query
+    would count blocks that cannot be resident at once."""
+    source = SOURCE.read_text()
+    assert re.search(r"cudaOccupancyMaxActiveBlocksPerMultiprocessor\(&per_sm, kernel, "
+                     r"threads, smem\)", source)
+    launch = source.split("cudaLaunchCooperativeKernel(", 1)[1].split(";", 1)[0]
+    assert re.search(r"args,\s*smem,", launch), launch
+    setter = source.split("cudaError_t kernel_of(", 1)[1].split("\n}\n", 1)[0]
+    assert "*smem = is_bf16 ? kFwdSmem : 0;" in setter
+    assert "cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem)" \
+        in setter
 
 
 # ---------------------------------------------------------------------------

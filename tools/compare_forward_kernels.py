@@ -10,19 +10,25 @@ them in turns (base, head, head, base) with CUDA events:
 
     python3 tools/compare_forward_kernels.py BASE_DIR
 
-B7 and B8 and the float32 instantiations of B1 and B3 must give
-bit-identical outputs.  The bf16 B1, B2 (dk/dv) and B3 (dq) are held by
-their norm-relative distance from the base tree's, within the bounds that
-``chip_smoke.py`` holds them to their plain versions (RING_REL_TOL for
-B1's output, with LSE_TOL on its lse; BWD_REL_TOL for the gradients): a
-redesign of their products sums in another order.  B1 is timed in each
-mode (fused, seed partials, resume, fused from a carry) and packed (also
-as one document), B2 and B3 unpacked and packed.  Only the kernels both trees have
-in common are compared: each tree's B1, B2 and B3 are called with that
-tree's own C signature (a tree whose entry points take document ids gets
-null ids, its unsegmented instantiation, except in the packed timing), and
-B8 through this checkout's wrapper (``ops/cuda_ring_remote.py``) on each
-tree's library, whose C signature must be the same.  The decode is timed
+B1 in every mode (fused, seed partials, resume, fused from a carry; also
+packed, its segmented instantiation) and the float32 instantiations of
+B3, B7 and B8 must give bit-identical outputs in the two trees, and every
+instantiation of B1 and the float32 ones of B7 and B8 must keep their
+ptxas registers and spills.  The bf16 B7 and B8 of this checkout must
+equal this checkout's B1 hop chain bit for bit (seed partials, resumes,
+the fused write from the carry over the same hops and bands): they walk
+B1's sweep hop by hop.  B2 (dk/dv) and the bf16 B3 (dq) are held by their
+norm-relative distance from the base tree's, within the bounds that
+``chip_smoke.py`` holds them to their plain versions (BWD_REL_TOL).  B1
+is timed in each mode and packed (also as one document), B2 and B3
+unpacked and packed, B7 on ring rank 3's schedules and B8 on whole rings.
+Only the kernels both trees have in common are compared: each tree's B1,
+B2 and B3 are called with that tree's own C signature (a tree whose entry
+points take document ids gets null ids, its unsegmented instantiation,
+except in the packed runs), and B8 through this checkout's wrapper
+(``ops/cuda_ring_remote.py``) on each tree's library, whose C signature
+must be the same, with each tree's own block split (its items of 128 or
+64 query rows, over the blocks its kernel fits on the card).  The decode is timed
 as the base tree's folded-row B1 launch (where its ``cuda_flash_decode``
 went) against this checkout's decode kernel, per call in a stream of 20.
 A kernel whose source the base tree lacks is built and timed for this
@@ -183,16 +189,34 @@ def bwd_launcher(lib_path: Path, ids: bool):
     return run
 
 
-def remote_runner(lib_path: Path):
+def remote_runner(lib_path: Path, rows: int):
     """``run(qs, ks, vs, tables, softclamp)``: one B8 launch through this
     checkout's wrapper on the library at ``lib_path`` (the C signature this
-    checkout declares)."""
+    checkout declares), with the block split of that library's kernel:
+    balanced over items of ``rows`` query rows and the blocks it fits on
+    the card at once."""
+    import torch
+
     from ring_attention_tpu_torch.ops import cuda_ring_remote as crr
 
+    splits: dict = {}
+
     def run(qs, ks, vs, tables, softclamp):
-        return _with_library("flash_ring_remote", lib_path, lambda: crr.fused_ring_remote(
-            qs, ks, vs, tables=tables, n_local=qs[0].shape[2], scale=0.125,
-            softclamp_value=softclamp or None))
+        b, h, n, _ = qs[0].shape
+        is_bf16 = qs[0].dtype == torch.bfloat16
+
+        def launch():
+            key = (id(tables), is_bf16, bool(softclamp))
+            if key not in splits:
+                capacity = crr._capacity(qs[0].device.index, is_bf16, bool(softclamp))
+                items = len(qs) * b * h * -(-n // (rows if is_bf16 else 64))
+                splits[key] = crr.balanced_split(tables, n, b * h, min(capacity, items),
+                                                 rows if is_bf16 else 64)
+            return crr.fused_ring_remote(qs, ks, vs, tables=tables, n_local=n, scale=0.125,
+                                         softclamp_value=softclamp or None,
+                                         cta_split=splits[key])
+
+        return _with_library("flash_ring_remote", lib_path, launch)
 
     return run
 
@@ -216,10 +240,14 @@ def _with_library(name: str, lib_path: Path, call):
             _build.build = real_build
     loader = getattr(_build, attr)
     setattr(_build, attr, lambda: _LIBS[key])
+    from ring_attention_tpu_torch.ops import cuda_ring_remote as crr
+
+    crr._capacity.cache_clear()  # the occupancy of this library's kernel
     try:
         return call()
     finally:
         setattr(_build, attr, loader)
+        crr._capacity.cache_clear()
 
 
 
@@ -245,6 +273,47 @@ def ring_launcher(lib_path: Path):
         return out, lse
 
     return run
+
+
+def b1_chain(run, q, k_all, v_all, mask, tables, softclamp):
+    """The hop chain of B1 launches that one fused-ring launch over the
+    gathered span stands for: seed partials, resumes and the fused write
+    from the carry over the hops with work, each with its table band and
+    its origin's block of k, v and the key mask; ``(out, lse)``."""
+    n = q.shape[2]
+    origins, his, los, works = (t.tolist() for t in tables)
+    live = [(o, hi, lo) for o, hi, lo, w in zip(origins, his, los, works) if w]
+    carry = None
+    for i, (o, hi, lo) in enumerate(live):
+        rows = slice(o * n, (o + 1) * n)
+        hop_mask = None if mask is None else mask[:, rows].contiguous()
+        carry = run(q, k_all[:, :, rows].contiguous(), v_all[:, :, rows].contiguous(), hop_mask,
+                    1, hi, 1, lo, softclamp, carry, i < len(live) - 1)
+    return carry
+
+
+def same_registers(built, trees) -> bool:
+    """Every instantiation of B1 and the float32 ones of B7 and B8: the same
+    ptxas registers, stack frame and spills in both trees (not the static
+    shared memory, which a module with dynamic shared memory rounds up)."""
+    import re
+
+    def kept(line):
+        return (re.search(r"Used \d+ registers", line).group(),
+                re.search(r"\d+ bytes stack frame.*", line).group())
+
+    ok = True
+    for name, prefix in (("flash_fwd", "flash_fwd_"), ("flash_ring", "flash_ring_f32"),
+                         ("flash_ring_remote", "flash_ring_remote_f32")):
+        if not all((tree, name) in built for tree in trees):
+            continue
+        usage = [{line.split(":")[0]: kept(line) for line in built[(tree, name)][1]
+                  if line.startswith(prefix)} for tree in trees]
+        same = usage[0] == usage[-1] and bool(usage[0])
+        ok = ok and same
+        print(f"{name} {prefix}*: ptxas the same in both trees {same}"
+              + ("" if same else f": base {usage[0]}, head {usage[-1]}"))
+    return ok
 
 
 def main() -> int:
@@ -292,19 +361,21 @@ def main() -> int:
         m[-1] = False  # a batch row whose keys are all masked
         return m.to(torch.uint8)
 
-    ok = True
     fwd = {tree: fwd_launcher(built[(tree, "flash_fwd")][0], takes_ids(csrc, "flash_fwd"))
            for tree, csrc in trees.items() if (tree, "flash_fwd") in built}
     bwd = {tree: bwd_launcher(built[(tree, "flash_bwd")][0], takes_ids(csrc, "flash_bwd"))
            for tree, csrc in trees.items() if (tree, "flash_bwd") in built}
     ring = {tree: ring_launcher(built[(tree, "flash_ring")][0])
             for tree in trees if (tree, "flash_ring") in built}
-    remote = {tree: remote_runner(built[(tree, "flash_ring_remote")][0])
-              for tree in trees if (tree, "flash_ring_remote") in built
+    remote = {tree: remote_runner(built[(tree, "flash_ring_remote")][0],
+                                  128 if "flash_sweep.cuh" in
+                                  (csrc / "flash_ring_remote.cu").read_text() else 64)
+              for tree, csrc in trees.items() if (tree, "flash_ring_remote") in built
               and (tree == "head" or same_remote)}
+    ok = same_registers(built, tuple(trees))
 
     def held(label, dtype, got, ref):
-        """float32: bit-identical; bf16: within the plain-version bounds."""
+        """float32: bit-identical; bf16: the norm-relative distances."""
         if dtype == torch.float32:
             same = all(bool((x == y).all()) for x, y in zip(got, ref))
             print(f"{label}: trees bit-identical {same}")
@@ -312,6 +383,11 @@ def main() -> int:
         rels = [((x.float() - y.float()).norm() / y.float().norm().clamp_min(1e-30)).item()
                 for x, y in zip(got, ref)]
         return rels
+
+    def identical(label, got, ref) -> bool:
+        same = all(bool((x == y).all()) for x, y in zip(got, ref))
+        print(f"{label}: bit-identical {same}")
+        return same
 
     # B1 cases: (b, h, hk, nq, nk, causal, hi, windowed, lo, softclamp, masked, carry)
     fwd_cases = {
@@ -330,9 +406,7 @@ def main() -> int:
             2, 8, 8, 3000, 3000, 1, -100, 1, -700, 30.0, True, False),
         "resume causal hi -1, f32": (1, 8, 8, 2048, 2048, 1, -1, 0, 0, 0.0, False, True),
     }
-    from chip_smoke import LSE_TOL, RING_REL_TOL
-    from ring_attention_tpu_torch.ops.partials import FlashPartials, finalize_partials
-
+    both_take_ids = all(takes_ids(csrc, "flash_fwd") for csrc in trees.values())
     for name, (b, h, hk, nq, nk, causal, hi, windowed, lo, clamp, masked, carry) in fwd_cases.items():
         dtype = torch.float32 if "f32" in name else torch.bfloat16
         q = rand(b, h, nq, 64, dtype=dtype)
@@ -342,24 +416,20 @@ def main() -> int:
         if carry:
             c = (rand(b, h, nq, 64, dtype=torch.float32), rand(b, h, nq, dtype=torch.float32),
                  rand(b, h, nq, dtype=torch.float32).abs() + 1.0)
+        # packed as documents whose boundaries fall inside tiles, where both
+        # trees take ids: the segmented instantiation
+        segs = [(None, None)]
+        if nq == nk and both_take_ids:
+            ids = (torch.arange(nq, device="cuda") // 700).to(torch.int32).expand(b, nq)
+            segs.append((ids.contiguous(), ids.contiguous()))
         # fused (from the carry when there is one), then partials
-        for mode, partials in (("fused+carry" if carry else "fused", False),
-                               ("resume" if carry else "seed", True)):
-            outs = [fn(q, k, v, m, causal, hi, windowed, lo, clamp, c, partials)
-                    for fn in fwd.values()]
-            if partials:  # held through what they stand for: out and lse
-                outs = [tuple(finalize_partials(FlashPartials(*x))) if dtype != torch.float32
-                        else x for x in outs]
-            got = held(f"B1 {name} {mode}", dtype, outs[-1], outs[0])
-            if dtype == torch.float32:
-                ok = ok and got
-                continue
-            lse_err = (outs[-1][1] - outs[0][1]).abs().max().item()
-            close = got[0] <= RING_REL_TOL[str(dtype)] and lse_err <= LSE_TOL[str(dtype)][0]
-            ok = ok and close
-            print(f"B1 {name} {mode}: ||head - base|| / ||base|| {got[0]:.2e} (tol "
-                  f"{RING_REL_TOL[str(dtype)]}), max|lse diff| {lse_err:.2e} (tol "
-                  f"{LSE_TOL[str(dtype)][0]}) {close}")
+        for seg in segs:
+            for mode, partials in (("fused+carry" if carry else "fused", False),
+                                   ("resume" if carry else "seed", True)):
+                outs = [fn(q, k, v, m, causal, hi, windowed, lo, clamp, c, partials, segs=seg)
+                        for fn in fwd.values()]
+                ok = identical(f"B1 {name} {mode}" + (", packed" if seg[0] is not None else ""),
+                               outs[-1], outs[0]) and ok
         if carry or nq < 64:
             continue
         do = rand(b, h, nq, 64, dtype=dtype)
@@ -377,32 +447,51 @@ def main() -> int:
         print(f"B3/B2 {name}: ||head - base|| / ||base|| dq {rels[0]:.2e}, dk {rels[1]:.2e}, "
               f"dv {rels[2]:.2e} (tol {BWD_REL_TOL[str(dtype)]}) {close}")
 
-    n = 4096
-    for layout, rank, dtype in (("contiguous", 3, torch.bfloat16),
-                                ("striped", 1, torch.bfloat16), ("striped", 2, torch.float32)):
+    # B7: bf16 against this checkout's B1 chain, f32 against the base tree
+    for layout, rank, n, window, dtype, clamp in (
+            ("contiguous", 3, 4096, None, torch.bfloat16, 0.0),
+            ("striped", 1, 4096, None, torch.bfloat16, 30.0),
+            ("contiguous", 2, 1000, 1500, torch.bfloat16, 0.0),
+            ("striped", 2, 4096, None, torch.float32, 0.0)):
         q = rand(2, 8, n, 64, dtype=dtype)
         k_all, v_all = rand(2, 2, 4 * n, 64, dtype=dtype), rand(2, 2, 4 * n, 64, dtype=dtype)
-        tables = pring._fused_tables(rank, 4, n, True, layout == "striped", None, 4,
+        tables = pring._fused_tables(rank, 4, n, True, layout == "striped", window, 4,
                                      device="cuda")
         m = mask(2, 4 * n)
-        outs = [fn(q, k_all, v_all, m, tables, 0.0) for fn in ring.values()]
-        same = all(bool((x == y).all()) for x, y in zip(outs[0], outs[-1]))
-        ok = ok and same
-        print(f"B7 {layout} rank {rank}, h8 hk2, mask, {dtype}: trees bit-identical {same}")
+        label = (f"B7 {layout} rank {rank}, n_local {n}, window {window}, h8 hk2, mask, "
+                 f"softclamp {clamp}, {dtype}")
+        if dtype == torch.float32:
+            outs = [fn(q, k_all, v_all, m, tables, clamp) for fn in ring.values()]
+            ok = identical(f"{label}, the two trees", outs[-1], outs[0]) and ok
+        else:
+            ok = identical(f"{label}, vs the B1 hop chain",
+                           ring["head"](q, k_all, v_all, m, tables, clamp),
+                           b1_chain(fwd["head"], q, k_all, v_all, m, tables, clamp)) and ok
 
+    # B8: bf16 against this checkout's B1 chain, rank by rank, f32 against
+    # the base tree
     for layout, n_local, dtype, clamp in (("contiguous", 4096, torch.bfloat16, 0.0),
                                           ("striped", 4096, torch.bfloat16, 50.0),
+                                          ("contiguous", 1000, torch.bfloat16, 0.0),
                                           ("contiguous", 1000, torch.float32, 0.0)):
         qs = [rand(1, 8, n_local, 64, dtype=dtype) for _ in range(4)]
         ks, vs = ([rand(1, 2, n_local, 64, dtype=dtype) for _ in range(4)] for _ in range(2))
         tables = [pring._fused_tables(r, 4, n_local, True, layout == "striped", None, 4)
                   for r in range(4)]
-        outs = [fn(qs, ks, vs, tables, clamp) for fn in remote.values()]
-        same = all(bool((x == y).all()) for part in range(2)
-                   for x, y in zip(outs[0][part], outs[-1][part]))
-        ok = ok and same
-        print(f"B8 causal ring of 4, {layout}, n_local {n_local}, h8 hk2, softclamp {clamp}, "
-              f"{dtype}: trees bit-identical {same}")
+        label = (f"B8 causal ring of 4, {layout}, n_local {n_local}, h8 hk2, softclamp "
+                 f"{clamp}, {dtype}")
+        if dtype == torch.float32:
+            outs = [fn(qs, ks, vs, tables, clamp) for fn in remote.values()]
+            ok = identical(f"{label}, the two trees", outs[-1][0] + outs[-1][1],
+                           outs[0][0] + outs[0][1]) and ok
+            continue
+        outs, lses = remote["head"](qs, ks, vs, tables, clamp)
+        k_all, v_all = torch.cat(ks, dim=2), torch.cat(vs, dim=2)
+        chains = [b1_chain(fwd["head"], q, k_all, v_all, None,
+                           [t.cuda() for t in table], clamp)
+                  for q, table in zip(qs, tables)]
+        ok = identical(f"{label}, vs the B1 hop chain", outs + lses,
+                       [c[0] for c in chains] + [c[1] for c in chains]) and ok
 
     # timings, in turns: base, head, head, base
     n = 65536
@@ -412,7 +501,14 @@ def main() -> int:
     nl = 16384
     k_all, v_all = rand(1, 8, 4 * nl, 64), rand(1, 8, 4 * nl, 64)
     q_r = rand(1, 8, nl, 64)
-    rank3 = pring._fused_tables(3, 4, nl, True, False, None, 4, device="cuda")
+    rank3 = {striped: pring._fused_tables(3, 4, nl, True, striped, None, 4, device="cuda")
+             for striped in (False, True)}
+    # ring rank 3 at 262,144 tokens: 4 x 65,536 (q and the spans of the
+    # causal sweep above, gathered)
+    k_262k, v_262k = torch.cat([k] * 4, dim=2), torch.cat([v] * 4, dim=2)
+    rank3_262k = pring._fused_tables(3, 4, n, True, False, None, 4, device="cuda")
+    ring_262k = ([q] * 4, [k] * 4, [v] * 4,
+                 [pring._fused_tables(r, 4, n, True, False, None, 4) for r in range(4)])
     do = rand(1, 8, n, 64)
     out, lse = fwd["head"](q, k, v, None, 1, 0, 0, 0, 0.0)
     delta = (do.float() * out.float()).sum(-1)
@@ -466,7 +562,11 @@ def main() -> int:
         "B7 one unbanded hop (1,8,65536,64)": (
             ring, lambda fn: fn(q, k, v, None, one_hop[False], 0.0)),
         "B7 rank 3 of a contiguous causal ring of 4, n_local 16384": (
-            ring, lambda fn: fn(q_r, k_all, v_all, None, rank3, 0.0)),
+            ring, lambda fn: fn(q_r, k_all, v_all, None, rank3[False], 0.0)),
+        "B7 rank 3 of a striped causal ring of 4, n_local 16384": (
+            ring, lambda fn: fn(q_r, k_all, v_all, None, rank3[True], 0.0)),
+        "B7 rank 3 of a contiguous causal ring of 4, n_local 65536": (
+            ring, lambda fn: fn(q, k_262k, v_262k, None, rank3_262k, 0.0), 1, 3),
         "B2 dk/dv causal (1,8,65536,64)": (
             bwd, lambda fn: fn(do, q, k, v, lse, delta, None, 1, 0, 0, 0, 0.0,
                                passes=("dkv",))),
@@ -486,14 +586,17 @@ def main() -> int:
             remote, lambda fn: fn(ring_qs, ring_ks, ring_vs, ring_tables[False], 0.0)),
         "B8 whole causal ring of 4, striped, n_local 16384": (
             remote, lambda fn: fn(ring_qs, ring_ks, ring_vs, ring_tables[True], 0.0)),
+        "B8 whole causal ring of 4, contiguous, n_local 65536": (
+            remote, lambda fn: fn(*ring_262k, 0.0), 1, 3),
     }
     result = {"card": smi.stdout.strip(), "ms": {}}
     for label, (fns, call, *calls) in runs.items():
         per = calls[0] if calls else 1
+        iters = calls[1] if len(calls) > 1 else 5
         order = [t for t in ("base", "head", "head", "base") if t in fns]
         times: dict[str, list[float]] = {t: [] for t in fns}
         for tree in order:
-            times[tree].append(time_ms(lambda: call(fns[tree])) / per)
+            times[tree].append(time_ms(lambda: call(fns[tree]), iters) / per)
         means = {t: statistics.mean(ts) for t, ts in times.items()}
         ratio = means["head"] / means["base"] if "base" in means else None
         result["ms"][label] = {**means, "head_over_base": ratio}
