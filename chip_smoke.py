@@ -14,7 +14,10 @@ result line):
    ptxas report of each flash kernel, and no bf16 instantiation of the
    wgmma kernels (B1's sweep, B2's dk/dv, B3's dq, the fused ring's B7 and
    B8) may spill; their registers and their WARPGROUP.DEPBAR counts (SASS)
-   are printed.
+   are printed.  No instantiation of the int8 kernels (B4, B6) may spill;
+   B4's SASS must run int8 wgmma (IGMMA) and no mma.sync (IMMA), and each
+   of its loops that runs the products is printed with its instruction
+   count and its conversions (I2F, I2FP, F2I, FRND) and MUFU.RCP.
 2. Each kernel against its plain PyTorch version on the card, in bf16 and
    f32, at the shapes of its path and of the cases its port must cover
    (causal, offset, band-empty rows, window, softclamp, key mask with an
@@ -42,14 +45,17 @@ result line):
        262,144 tokens (n_local 65,536), the long chains in 1,024-row
        slices; outputs are held elementwise and by their norm-relative
        error (RING_REL_TOL).
-   2d. the int8 kernels: the int8 forward (csrc/flash_fwd_q8.cu) in every
+   2d. the int8 kernels: B4's tile layout and descriptors probed against
+       ``torch._int_mm``; the int8 forward (csrc/flash_fwd_q8.cu) in every
        mode (fused, seed, resume into new tensors and in place, fused from
-       a carry) on every forward case and at a ring hop's quantization
-       block, a case where every key carries its own value, the
+       a carry) on every forward case and FWD_EDGE_CASES, at a ring hop's
+       quantization block, a block of 96 keys and blocks of 32 (below one
+       tile), a case where every key carries its own value, one block of
+       262,144 keys whose int32 P V sum would pass 2^31 unfolded, the
        65,536-token causal launch in 1,024-row slices and two 4 x 16,384
-       int8 hop chains; the int8 decode (csrc/flash_decode_q8.cu) fused,
-       with softclamp and as partials on the decode shapes; each held by
-       its norm-relative error and its lse (Q8_REL_TOL, Q8_LSE_TOL).
+       int8 hop chains; the int8 decode (csrc/flash_decode_q8.cu) fused, with
+       softclamp and as partials on the decode shapes; each held by its
+       norm-relative error and its lse (Q8_REL_TOL, Q8_LSE_TOL).
    2e. the fused ring kernel (csrc/flash_ring.cu) in bf16 and f32 against
        its plain version (OUT_TOL and RING_REL_TOL) for every rank of a
        ring of 4, with contiguous and striped tables, a lookback window
@@ -172,13 +178,15 @@ result line):
    beside SDPA per span merged in PyTorch; the ring models' forward and
    train step (ms, tokens/s, peak memory) beside the local model's.
 4d. The int8 kernels: the int8 forward at causal 4,096 and 65,536 (the
-   kernel on quantized operands and the wrapper with its quantization),
-   its ring modes on a 65,536-row span, the int8 decode at b4 h8 hk8
-   nk4,096 and b4 h8 hk2 nk32,768 (per call in a stream of 20 calls, and
-   one synchronized call), each beside its bound at the int8 or byte rate,
-   its plain version and the bf16 kernel and SDPA on the same inputs (no
-   PyTorch call computes int8 attention); the int8 model's forward
-   tokens/s (and the int8 ring models'), decode ms/step and train step.
+   kernel on quantized operands and the wrapper with its quantization)
+   beside B1 on the same inputs, its ring modes on a 65,536-row span, the
+   int8 decode at b4 h8 hk8 nk4,096 and b4 h8 hk2 nk32,768 on the device
+   alone (CUDA graph of 20 calls; also per call in a stream of 20 and one
+   synchronized call) beside B5 and SDPA on a bf16 cache of the same
+   shape, each beside its bound at the int8 or byte rate and its plain
+   version (no PyTorch call computes int8 attention); the int8 model's
+   forward tokens/s (and the int8 ring models'), decode ms/step and train
+   step.
 4e. The fused ring: the kernel on ring rank 3's schedule at n_local 16,384
    (the fused model's launches, contiguous and striped), 4,096 and 65,536
    (262,144 tokens) beside its bound, the forward kernel's hop chain on
@@ -324,6 +332,10 @@ BWD_EDGE_CASES = {
 WGMMA_KERNELS = {"flash_fwd_bf16_kernel": 4, "flash_bwd_dkv_bf16_kernel": 2,
                  "flash_bwd_dq_bf16_kernel": 2, "flash_ring_bf16_kernel": 2,
                  "flash_ring_remote_bf16_kernel": 2}
+# The int8 kernels and their instantiations, none of which may spill: B4's
+# sweep (the soft clamp) and B6's decode (rows a block: 1, 2, 4, 8, 16).
+Q8_FWD_KERNELS = {"flash_fwd_q8_kernel": 2}
+Q8_DECODE_KERNELS = {"decode_q8_kernel": 5}
 # The fused ring's bf16 kernels: their hot loop runs wgmma (HGMMA), no
 # mma.sync (HMMA).
 RING_WGMMA_KERNELS = ("flash_ring_bf16_kernel", "flash_ring_remote_bf16_kernel")
@@ -506,11 +518,43 @@ def phase_build(port_dir: Path) -> None:
                 if kernel.split("<")[0] in RING_WGMMA_KERNELS:
                     check(row["ldgsts"] > 0 and row["bypass"] == row["ldgsts"],
                           f"{kernel}: stage copies that may read a slot through L1")
+    _q8_build_report(results)
+
+
+def _q8_build_report(results) -> None:
+    """Phase 1 for the int8 kernels: the stack and spills of every B4 and B6
+    instantiation (none may spill), and B4's SASS: int8 wgmma (IGMMA) and no
+    mma.sync (IMMA), with the conversion instructions (I2F, I2FP, F2I,
+    FRND) and MUFU.RCP in each loop that runs its products (the per-score
+    conversions take the full-rate integer and FMA pipes instead)."""
+    for name, kernels in (("flash_fwd_q8", Q8_FWD_KERNELS), ("flash_decode_q8", Q8_DECODE_KERNELS)):
+        function, seen = "?", 0
+        for line in results[name].log.splitlines():
+            if "Function properties for" in line:
+                function = _kernel_name(line.split()[-1], with_args=True)
+            elif "stack frame" in line and function.split("<")[0] in kernels:
+                seen += 1
+                log(f"  ptxas {function}: {line.strip()}")
+                check(" 0 bytes spill stores, 0 bytes spill loads" in line,
+                      f"{function} spills: {line.strip()}")
+        check(seen == sum(kernels.values()),
+              f"ptxas reported {seen} instantiations of {name}, not {sum(kernels.values())}")
+    report = _sass_report(results["flash_fwd_q8"].path)
+    for kernel, row in report.items():
+        if kernel.split("<")[0] not in Q8_FWD_KERNELS:
+            continue
+        log(f"  SASS {kernel}: {row['igmma']} IGMMA, {row['imma']} IMMA, "
+            f"{row['depbar']} WARPGROUP.DEPBAR; loops with products: "
+            + "; ".join(f"{n} instructions, " + ", ".join(f"{k} {v}" for k, v in c.items())
+                        for n, c in row["product_loops"]))
+        check(row["igmma"] > 0 and row["imma"] == 0, f"{kernel}: not on int8 wgmma alone")
 
 
 def _sass_report(lib: Path) -> dict[str, dict]:
     """Per kernel of a built library (``cuobjdump -sass``): its wgmma
-    (HGMMA) and mma.sync (HMMA) instructions and WARPGROUP.DEPBAR waits,
+    (HGMMA; IGMMA in int8) and mma.sync (HMMA; IMMA) instructions and
+    WARPGROUP.DEPBAR waits, the instruction count and conversions of each
+    loop that holds an IGMMA,
     its global loads, those through the non-coherent read-only path, its
     cp.async copies (LDGSTS) and those that bypass L1, its local loads and
     stores, and the local loads, stores, HGMMA and HMMA inside its innermost
@@ -534,12 +578,19 @@ def _sass_report(lib: Path) -> dict[str, dict]:
         loops = [(int(b.group(1), 16), a) for a, t in ops
                  if (b := re.search(r"BRA\s+0x([0-9a-f]+)", t)) and int(b.group(1), 16) < a]
         hot = [(lo, hi) for lo, hi in loops if count(r"HG?MMA", lo, hi)]
+        product_loops = [
+            (count(".", lo, hi), {key: count(pattern, lo, hi) for key, pattern in (
+                ("IGMMA", "IGMMA"), ("I2F", r"I2F\b|I2F\."), ("I2FP", "I2FP"),
+                ("F2I", r"F2I\b|F2I\."), ("FRND", "FRND"), ("MUFU.RCP", r"MUFU\.RCP"),
+                ("MUFU.EX2", r"MUFU\.EX2"))})
+            for lo, hi in sorted(set(loops)) if count("IGMMA", lo, hi)]
         inner = min(hot, key=lambda x: x[1] - x[0]) if hot else None
         hot_counts = None if inner is None else {
             key: count(pattern, *inner) for key, pattern in
             (("ldl", "LDL"), ("stl", "STL"), ("hgmma", "HGMMA"), ("hmma", "HMMA"))}
         report[_kernel_name(lines[0].strip(), with_args=True)] = {
             "hgmma": count("HGMMA"), "hmma": count("HMMA"),
+            "igmma": count("IGMMA"), "imma": count(r"IMMA"), "product_loops": product_loops,
             "depbar": count(r"WARPGROUP\.DEPBAR"),
             "loads": count("LDG"), "constant": count(r"LDG.*CONSTANT"),
             "ldgsts": count("LDGSTS"), "bypass": count(r"LDGSTS.*BYPASS"),
@@ -2356,6 +2407,31 @@ def _q8_modes_vs_plain(name, dtype, q, k, v, mask, kw, carry, errors) -> None:
                 errors["fused_carry"])
 
 
+def _q8_probe(gen) -> None:
+    """B4's tile layout and descriptors (the 64-byte swizzle) against
+    ``torch._int_mm``: A . B^T of two random int8 64 x 64 tiles by one
+    warpgroup's int8 wgmma, A from shared memory and from registers."""
+    import ctypes
+
+    import torch
+
+    from ring_attention_tpu_torch.ops import _build
+
+    lib = _build.flash_fwd_q8_library()
+    a, b = (torch.randint(-127, 128, (64, 64), generator=gen, device="cuda",
+                          dtype=torch.int32).to(torch.int8) for _ in range(2))
+    ref = torch._int_mm(a, b.t().contiguous())
+    got = [torch.zeros_like(ref) for _ in range(2)]
+    rc = lib.flash_q8_probe(a.data_ptr(), b.data_ptr(), got[0].data_ptr(), got[1].data_ptr(),
+                            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    torch.cuda.synchronize()
+    check(rc == 0, f"flash_q8_probe launch failed: {rc}")
+    same = [bool(torch.equal(x, ref)) for x in got]
+    log(f"  int8 wgmma probe vs torch._int_mm: A in shared memory {same[0]}, A in registers "
+        f"{same[1]}")
+    check(all(same), "the int8 wgmma tile layout disagrees with torch._int_mm")
+
+
 def phase_q8_kernels_vs_plain() -> dict:
     """B4 in every mode and B6 fused and partials against their plain
     versions on the card; returns the largest |out - plain| by mode."""
@@ -2370,21 +2446,27 @@ def phase_q8_kernels_vs_plain() -> dict:
                                       ("fused", "seed", "resume", "fused_carry", "decode")}
     log("phase 2d: flash_fwd_q8 (every mode) and flash_decode_q8 (fused, partials) "
         "vs their plain versions")
+    _q8_probe(gen)
     for dtype in (torch.bfloat16, torch.float32):
-        for name, case in KERNEL_CASES.items():
+        # the forward cases and B1's edge cases (B4 takes 128 rows a block
+        # in two warpgroups of 64 too, each with its own visit set)
+        for name, case in {**KERNEL_CASES, **FWD_EDGE_CASES}.items():
             q, k, v, mask, kw = _case_inputs(gen, case, dtype)
             carry = cf.flash_partials_reference(
                 q, _rand(gen, k.shape, dtype), _rand(gen, v.shape, dtype), scale=0.125)
             _q8_modes_vs_plain(name, dtype, q, k, v, mask, kw, carry, errors)
             del carry
-        # quantization blocks of a ring hop (the bucket, 2048 of 4096 keys)
-        # and of a short, unaligned span (96 keys, one block of 96)
+        # quantization blocks of a ring hop (the bucket, 2048 of 4096 keys),
+        # of a short, unaligned span (96 keys, one block of 96) and below one
+        # 64-key tile (blocks of 32)
         for name, shape, bk in (("hop span bk2048 (1,8,2048,4096)", (1, 8, 2048, 4096), 2048),
-                                ("ragged bk96 (1,4,80,96) causal", (1, 4, 80, 96), None)):
+                                ("ragged bk96 (1,4,80,96) causal", (1, 4, 80, 96), None),
+                                ("bk32 (1,4,80,96) causal", (1, 4, 80, 96), 32)):
             b, h, nq, nk = shape
             q = _rand(gen, (b, h, nq, 64), dtype)
             k, v = (_rand(gen, (b, h, nk, 64), dtype) for _ in range(2))
-            kw = dict(scale=0.125, causal_offset=None if bk else nk - nq, block_k=bk)
+            kw = dict(scale=0.125, causal_offset=nk - nq if "causal" in name else None,
+                      block_k=bk)
             carry = cf.flash_partials_reference(q, _rand(gen, k.shape, dtype),
                                                 _rand(gen, v.shape, dtype), scale=0.125)
             _q8_modes_vs_plain(name, dtype, q, k, v, None, kw, carry, errors)
@@ -2402,6 +2484,22 @@ def phase_q8_kernels_vs_plain() -> dict:
                                                      block_k=64)
         _compare_q8("distinct value per key", dtype, out, ref_out, lse, ref_lse,
                     errors["fused"])
+        # one block of 262,144 keys whose p8 . v8 sum on one channel reaches
+        # 262,144 * 127 * 127 > 2^31: zero queries score every key alike
+        # (p8 = 127) and v's channel 0 is constant (v8 = 127); the int32 sum
+        # must be folded before it wraps
+        n = 262144
+        q = torch.zeros((1, 1, 64, 64), device="cuda", dtype=dtype)
+        k = _rand(gen, (1, 1, n, 64), dtype)
+        v = torch.zeros((1, 1, n, 64), device="cuda", dtype=dtype)
+        v[..., 0] = 1.0
+        kw = dict(scale=0.125, block_k=n)
+        out, lse = q8.flash_fwd_q8(q, k, v, **kw)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = q8.flash_fwd_q8_reference(q, k, v, **kw)
+        _compare_q8("one block of 262144 keys (int32 fold)", dtype, out, ref_out, lse, ref_lse,
+                    errors["fused"])
+        del q, k, v
 
         # B6 on the decode shapes of phase 2, ragged valid prefixes
         for h, hk, nk in ((8, 2, 32768), (8, 8, 4096)):
@@ -2630,8 +2728,9 @@ def _q8_causal_rows(n, with_plain) -> dict:
     }
     log(f"  flash_fwd_q8 causal {n}: kernel {row['ms']:.4f} ms (wrapper with quantization "
         f"{row['wrapper_ms']:.4f} ms), bound {b_ms:.4f} ms ({b_by}), plain {row['plain_ms']} "
-        f"ms; bf16 comparison: flash_fwd {row['bf16_kernel_ms']:.4f} ms, sdpa "
-        f"{row['bf16_sdpa_ms']:.4f} ms; {ops / row['ms'] / 1e9:.1f} TOP/s")
+        f"ms; bf16 comparison: flash_fwd (B1) {row['bf16_kernel_ms']:.4f} ms (B4 / B1 "
+        f"{row['ms'] / row['bf16_kernel_ms']:.3f}), sdpa {row['bf16_sdpa_ms']:.4f} ms; "
+        f"{ops / row['ms'] / 1e9:.1f} TOP/s")
     return row
 
 
@@ -2680,8 +2779,10 @@ def _q8_mode_rows(n) -> dict[str, dict]:
 
 
 def _q8_decode_row(h, hk, nk) -> dict:
-    """B6 at b4 against its plain version and B1's folded decode on a bf16
-    cache of the same size."""
+    """B6 at b4 beside its bound, its plain version, and B5 and SDPA on a
+    bf16 cache of the same shape: each on the device alone (CUDA graph of
+    20 calls: ``ms``), B6 also per call in a stream of 20 and as one
+    synchronized call."""
     import torch
     import torch.nn.functional as F
 
@@ -2697,26 +2798,33 @@ def _q8_decode_row(h, hk, nk) -> dict:
     out, lse = q8.flash_decode_q8(q, kv, mask)
     ops = 4 * 64 * b * h * nk
     b_ms, b_by = bound_ms(ops, nbytes(q, *kv, mask, out, lse), torch.float32)
+
     def decode():
         return q8.flash_decode_q8(q, kv, mask)
 
+    def bf16_decode():
+        return cf.cuda_flash_decode(q, k, v, mask)
+
     row = {
         "shape": f"decode b{b} h{h} hk{hk} nk{nk} int8 cache",
-        "ms": _streamed_ms(decode),
+        "ms": _graph_ms(decode),
+        "streamed_ms": _streamed_ms(decode),
         "sync_call_ms": time_ms(decode, iters=50),
         "plain_ms": time_ms(lambda: q8.flash_decode_q8_reference(q, kv, mask)),
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": None,  # no PyTorch call attends over an int8 cache
-        "bf16_kernel_ms": _streamed_ms(lambda: cf.cuda_flash_decode(q, k, v, mask)),
-        "bf16_sdpa_ms": _streamed_ms(lambda: F.scaled_dot_product_attention(
+        "bf16_kernel_ms": _graph_ms(bf16_decode),
+        "bf16_sdpa_ms": _graph_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask[:, None, None, :], enable_gqa=h != hk)),
     }
-    log(f"  flash_decode_q8 b{b} h{h} hk{hk} nk{nk}: kernel {row['ms']:.4f} ms per call in "
-        f"a stream of 20 ({row['sync_call_ms']:.4f} ms a single synchronized call), bound "
-        f"{b_ms:.4f} ms ({b_by}), plain {row['plain_ms']:.4f} ms; bf16 cache, streamed: "
-        f"flash_decode {row['bf16_kernel_ms']:.4f} ms, sdpa {row['bf16_sdpa_ms']:.4f} "
-        f"ms; {nbytes(*kv) / row['ms'] / 1e6:.1f} GB/s of cache")
+    log(f"  flash_decode_q8 b{b} h{h} hk{hk} nk{nk}: kernel {row['ms']:.4f} ms a call on the "
+        f"device (CUDA graph of 20), {row['streamed_ms']:.4f} ms per call in a stream of 20, "
+        f"{row['sync_call_ms']:.4f} ms a synchronized call; bound {b_ms:.4f} ms ({b_by}), "
+        f"{b_ms / row['ms']:.1%} of it; plain {row['plain_ms']:.4f} ms; bf16 cache on the "
+        f"device: flash_decode (B5) {row['bf16_kernel_ms']:.4f} ms (B6 / B5 "
+        f"{row['ms'] / row['bf16_kernel_ms']:.3f}), sdpa {row['bf16_sdpa_ms']:.4f} ms; "
+        f"{nbytes(*kv) / row['ms'] / 1e6:.1f} GB/s of cache")
     return row
 
 

@@ -136,7 +136,7 @@ def flash_fwd_q8_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build("flash_fwd_q8").path))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_fwd_q8.argtypes = [
-        ptr, ptr, ptr,  # q8, k8, v8
+        ptr, ptr, ptr,  # q8, k8, v8 as V^T per block (cuda_flash_q8.v_block_layout)
         ptr, ptr, ptr,  # q, k (per row) and v (per block) scales
         ptr, ptr, ptr,  # kv_mask, out, lse
         ptr, ptr, ptr,  # carry acc, m, l (all null: no carry)
@@ -147,6 +147,8 @@ def flash_fwd_q8_library() -> ctypes.CDLL:
         f32, ptr,  # softclamp, stream
     ]
     lib.flash_fwd_q8.restype = i32
+    lib.flash_q8_probe.argtypes = [ptr, ptr, ptr, ptr, ptr]  # a, b, c_ss, c_rs, stream
+    lib.flash_q8_probe.restype = i32
     return lib
 
 
@@ -159,8 +161,8 @@ def flash_decode_q8_library() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr, ptr,  # q, k8, k scales, v8, v scales, kv_mask
         ptr, ptr,  # out, lse (both null: partials)
         ptr, ptr, ptr,  # partials acc, m, l (all null: out + lse)
-        ptr,  # scratch
-        i32, i32, i32, i32, i32, i32,  # B, Hk, R, Nk, D, P
+        ptr, ptr,  # scratch, counters
+        i32, i32, i32, i32, i32, i32, i32,  # B, Hk, R, Nk, D, S, rows per block
         i32, f32, f32, ptr,  # q_bf16, scale, softclamp, stream
     ]
     lib.flash_decode_q8.restype = i32

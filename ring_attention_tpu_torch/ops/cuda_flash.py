@@ -670,9 +670,12 @@ def decode_splits(heads: int, row_groups: int, nk: int, sms: int) -> int:
     about two blocks (``heads * row_groups`` per range) for each of the
     card's ``sms`` multiprocessors, in one wave (more ranges cost more in
     the merge than they add in parallel reads); at least two tiles a
-    range, and no empty range."""
+    range, and no empty range.  Plain integer arithmetic, so that ``nk``
+    may also be an integer array (each element's choice)."""
     tiles = -(-nk // DECODE_TILE)
-    want = max(1, min(2 * sms // (heads * row_groups), tiles // 2))
+    cap = max(1, 2 * sms // (heads * row_groups))
+    want = cap + (tiles // 2 - cap) * (tiles // 2 < cap)  # min(cap, tiles // 2)
+    want = want + (1 - want) * (want < 1)  # at least 1
     return -(-nk // decode_split_size(nk, want))
 
 

@@ -47,8 +47,11 @@ from .cuda_flash import (
     _band_args,
     _check_kernel_args,
     _check_launch,
+    _decode_workspace,
     _keep,
     _partials_rows,
+    _sm_count,
+    decode_splits,
 )
 from .partials import FlashPartials, finalize_partials, init_partials
 from .quant import dequantize_rows, quantize_blocks, quantize_p, quantize_rows
@@ -152,15 +155,47 @@ def flash_fwd_q8_reference(
 # ---------------------------------------------------------------------------
 
 
+# Keys per tile of csrc/flash_fwd_q8.cu: the kernel's V^T pads each
+# quantization block to whole tiles.
+KEY_TILE = 64
+
+
+def pv_chunk_keys(device=None) -> torch.Tensor:
+    """The key (0..31) behind each contraction index of a 32-key chunk of
+    the int8 kernel's P V product: index ``16h + 4t + i`` (h < 2, t < 4,
+    i < 4) holds key ``16h + 8 (i // 2) + 2t + i % 2``, the keys that the
+    score accumulator leaves thread t of a quad, in the order in which the
+    product's register A operand takes them."""
+    c = torch.arange(32, device=device)
+    h, t, i = c // 16, c % 16 // 4, c % 4
+    return 16 * h + 8 * (i // 2) + 2 * t + i % 2
+
+
+def v_block_layout(v8: torch.Tensor, block: int) -> torch.Tensor:
+    """``v8 (b, hk, nk, d)`` int8 as the int8 forward kernel reads it: per
+    quantization block of ``block`` keys, V^T (a row per column of d, the
+    block's keys along it), zero-padded to whole 64-key tiles, each 32-key
+    chunk's keys in the order of :func:`pv_chunk_keys`.  Returns ``(b, hk,
+    nk // block, d, bp)`` int8, ``bp`` = ``block`` rounded up to 64.  Plain
+    PyTorch, on v8's device."""
+    b, hk, nk, d = v8.shape
+    bp = -(-block // KEY_TILE) * KEY_TILE
+    pos = torch.arange(bp, device=v8.device)
+    keys = pos // 32 * 32 + pv_chunk_keys(v8.device)[pos % 32]
+    blocks = v8.reshape(b, hk, nk // block, block, d)[:, :, :, keys.clamp(max=block - 1)]
+    blocks = blocks.masked_fill((keys >= block)[:, None], 0)
+    return blocks.transpose(-1, -2).contiguous()
+
+
 class Int8Operands(NamedTuple):
     """q, k, v quantized for the int8 forward kernel: q and k per row, v per
-    block of ``block`` keys."""
+    block of ``block`` keys, in the kernel's V^T layout (:func:`v_block_layout`)."""
 
     q8: torch.Tensor  # (b, h, nq, d) int8
     q_scale: torch.Tensor  # (b, h, nq) f32
     k8: torch.Tensor  # (b, hk, nk, d) int8
     k_scale: torch.Tensor  # (b, hk, nk) f32
-    v8: torch.Tensor  # (b, hk, nk, d) int8
+    v8t: torch.Tensor  # (b, hk, nk // block, d, block rounded up to 64) int8
     v_scale: torch.Tensor  # (b, hk, nk // block) f32
     block: int
 
@@ -169,7 +204,9 @@ def quantize_operands(q, k, v, block_k: int | None = None) -> Int8Operands:
     """The wrapper's quantization before the launch (plain PyTorch, on the
     tensors' device)."""
     bk = q8_block(k.shape[2], block_k)
-    return Int8Operands(*quantize_rows(q), *quantize_rows(k), *quantize_blocks(v, bk), bk)
+    v8, v_scale = quantize_blocks(v, bk)
+    return Int8Operands(*quantize_rows(q), *quantize_rows(k), v_block_layout(v8, bk),
+                        v_scale, bk)
 
 
 def launch_fwd_q8(ops: Int8Operands, kv_mask, band, out_dtype, carry=None,
@@ -183,16 +220,18 @@ def launch_fwd_q8(ops: Int8Operands, kv_mask, band, out_dtype, carry=None,
         raise ValueError(f"flash_fwd_q8: no kernel for device {q8.device}")
     b, h, nq, d = q8.shape
     _, hk, nk, _ = ops.k8.shape
+    if nk % ops.block:
+        raise ValueError(f"flash_fwd_q8: block {ops.block} must divide {nk} keys")
+    padded = -(-ops.block // KEY_TILE) * KEY_TILE
     rows = ((ops.q_scale, (b, h, nq), torch.float32),
             (ops.k_scale, (b, hk, nk), torch.float32),
+            (ops.v8t, (b, hk, nk // ops.block, d, padded), torch.int8),
             (ops.v_scale, (b, hk, nk // ops.block), torch.float32))
     for parts in (carry, out):
         if parts is not None:
             rows += _partials_rows(parts, b, h, nq, d)
-    _check_kernel_args("flash_fwd_q8", q8, ops.k8, ops.v8, kv_mask, *rows,
+    _check_kernel_args("flash_fwd_q8", q8, ops.k8, ops.v8t, kv_mask, *rows,
                        dtypes=(torch.int8,))
-    if nk % ops.block:
-        raise ValueError(f"flash_fwd_q8: block {ops.block} must divide {nk} keys")
     if out_dtype not in SUPPORTED_DTYPES:
         raise ValueError(f"flash_fwd_q8: output dtype {out_dtype} unsupported")
     from ._build import flash_fwd_q8_library
@@ -218,7 +257,7 @@ def launch_fwd_q8(ops: Int8Operands, kv_mask, band, out_dtype, carry=None,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.flash_fwd_q8(
-            q8.data_ptr(), ops.k8.data_ptr(), ops.v8.data_ptr(),
+            q8.data_ptr(), ops.k8.data_ptr(), ops.v8t.data_ptr(),
             ops.q_scale.data_ptr(), ops.k_scale.data_ptr(), ops.v_scale.data_ptr(),
             None if mask_u8 is None else mask_u8.data_ptr(),
             *fused_ptrs, *carry_ptrs, *partial_ptrs,
@@ -391,17 +430,10 @@ def flash_decode_q8_reference(
     return out.reshape(b, h, nq, d).to(q.dtype), lse.reshape(b, h, nq)
 
 
-# Warps per block of the decode kernel; each warp sweeps one part of the keys.
-DECODE_WARPS = 4
-
-
-def decode_parts(heads: int, nk: int, sms: int) -> int:
-    """How many parts the decode kernel splits each kv head's keys into
-    (one warp each, merged by a second pass): enough blocks for two waves
-    of the card's ``sms`` multiprocessors, at least 32 keys a part, a whole
-    number of blocks."""
-    blocks = max(1, min(-(-2 * sms // heads), -(-nk // (32 * DECODE_WARPS))))
-    return blocks * DECODE_WARPS
+def decode_q8_rows(rows: int) -> int:
+    """Folded rows a block of the int8 decode kernel takes (its template
+    argument): the power of two at or above ``rows``, at most 16."""
+    return min(16, 1 << max(0, rows - 1).bit_length())
 
 
 def flash_decode_q8(
@@ -414,7 +446,10 @@ def flash_decode_q8(
     fused: bool = True,
 ):
     """Decode attention over an int8 cache, each cache byte read once per
-    kv head (the GQA group folds onto query rows).
+    kv head (the GQA group folds onto query rows), in one launch: the keys
+    split into ranges swept in parallel and merged by the last block of a
+    kv head to finish, as :func:`cuda_flash.cuda_flash_decode` splits a
+    bf16 cache.
 
     Same arguments and result as :func:`flash_decode_q8_reference`.  CPU
     tensors take that plain version; CUDA tensors launch the kernel."""
@@ -449,10 +484,16 @@ def flash_decode_q8(
 
     lib = flash_decode_q8_library()
     dev = q.device
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    parts = decode_parts(b * hk, nk, sms)
-    scratch = torch.empty((b * hk * parts * rows * (d + 2),), dtype=torch.float32,
-                          device=dev)
+    per_block = decode_q8_rows(rows)
+    groups = -(-rows // per_block)
+    # about four blocks an SM (decode_splits aims at two of the bf16 decode's
+    # heavier ones): a range's block is lighter here, and more of them in
+    # flight hide the latency of its tiles
+    splits = decode_splits(b * hk, groups, nk, 2 * _sm_count(dev.index))
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    scratch, counters = _decode_workspace(dev, stream, b * hk * splits * rows * (d + 2),
+                                          b * hk * groups)
+    folded = q.reshape(b, hk, rows, d)
     if fused:
         result = (torch.empty((b, h, nq, d), dtype=q.dtype, device=dev),
                   torch.empty((b, h, nq), dtype=torch.float32, device=dev))
@@ -462,17 +503,21 @@ def flash_decode_q8(
                   torch.empty((b, hk, g, nq), dtype=torch.float32, device=dev),
                   torch.empty((b, hk, g, nq), dtype=torch.float32, device=dev))
         ptrs = (None, None, *(x.data_ptr() for x in result))
-    mask_u8 = None if kv_mask is None else kv_mask.to(torch.uint8).contiguous()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.flash_decode_q8(
-            q.data_ptr(), kv.k_q.data_ptr(), kv.k_scale.data_ptr(),
+    mask_u8 = None
+    if kv_mask is not None:  # a bool tensor is read as its bytes, not copied
+        mask_u8 = (kv_mask.contiguous().view(torch.uint8) if kv_mask.dtype == torch.bool
+                   else kv_mask.to(torch.uint8).contiguous())
+    args = (folded.data_ptr(), kv.k_q.data_ptr(), kv.k_scale.data_ptr(),
             kv.v_q.data_ptr(), kv.v_scale.data_ptr(),
-            None if mask_u8 is None else mask_u8.data_ptr(),
-            *ptrs, scratch.data_ptr(),
-            b, hk, rows, nk, d, parts, int(q.dtype == torch.bfloat16),
-            float(scale), float(softclamp_value or 0.0), ctypes.c_void_p(stream),
-        )
+            None if mask_u8 is None else mask_u8.data_ptr(), *ptrs, scratch.data_ptr(),
+            counters.data_ptr(), b, hk, rows, nk, d, splits, per_block,
+            int(q.dtype == torch.bfloat16), float(scale), float(softclamp_value or 0.0),
+            ctypes.c_void_p(stream))
+    if dev.index == torch.cuda.current_device():
+        rc = lib.flash_decode_q8(*args)
+    else:
+        with torch.cuda.device(dev):
+            rc = lib.flash_decode_q8(*args)
     _check_launch(rc, "flash_decode_q8", q, kv.k_q)
     global decode_launch_count
     decode_launch_count += 1

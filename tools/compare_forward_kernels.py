@@ -2,11 +2,13 @@
 """Compare the port's flash kernels between two source trees on one GPU.
 
 Builds ``csrc/flash_fwd.cu`` (B1), ``csrc/flash_bwd.cu`` (B2 and B3),
-``csrc/flash_decode.cu`` (the split-KV decode), ``csrc/flash_ring.cu`` (B7)
-and ``csrc/flash_ring_remote.cu`` (B8) of this checkout and of a base
-checkout (for example the parent commit, unpacked with ``git archive``),
-checks both trees' kernels against each other on a set of cases, and times
-them in turns (base, head, head, base) with CUDA events:
+``csrc/flash_decode.cu`` (B5, the split-KV decode), ``csrc/flash_fwd_q8.cu``
+(B4, the int8 forward), ``csrc/flash_decode_q8.cu`` (B6, the int8 decode),
+``csrc/flash_ring.cu`` (B7) and ``csrc/flash_ring_remote.cu`` (B8) of this
+checkout and of a base checkout (for example the parent commit, unpacked
+with ``git archive``), checks both trees' kernels against each other on a
+set of cases, and times them in turns (base, head, head, base) with CUDA
+events:
 
     python3 tools/compare_forward_kernels.py BASE_DIR
 
@@ -14,29 +16,38 @@ B1 in every mode (fused, seed partials, resume, fused from a carry; also
 packed, its segmented instantiation) and the float32 instantiations of
 B3, B7 and B8 must give bit-identical outputs in the two trees, and every
 instantiation of B1 and the float32 ones of B7 and B8 must keep their
-ptxas registers and spills.  The bf16 B7 and B8 of this checkout must
-equal this checkout's B1 hop chain bit for bit (seed partials, resumes,
-the fused write from the carry over the same hops and bands): they walk
-B1's sweep hop by hop.  B2 (dk/dv) and the bf16 B3 (dq) are held by their
-norm-relative distance from the base tree's, within the bounds that
-``chip_smoke.py`` holds them to their plain versions (BWD_REL_TOL).  B1
-is timed in each mode and packed (also as one document), B2 and B3
-unpacked and packed, B7 on ring rank 3's schedules and B8 on whole rings.
-Only the kernels both trees have in common are compared: each tree's B1,
-B2 and B3 are called with that tree's own C signature (a tree whose entry
-points take document ids gets null ids, its unsegmented instantiation,
-except in the packed runs), and B8 through this checkout's wrapper
-(``ops/cuda_ring_remote.py``) on each tree's library, whose C signature
-must be the same, with each tree's own block split (its items of 128 or
-64 query rows, over the blocks its kernel fits on the card).  The decode is timed
-as the base tree's folded-row B1 launch (where its ``cuda_flash_decode``
-went) against this checkout's decode kernel, per call in a stream of 20.
-A kernel whose source the base tree lacks is built and timed for this
-checkout alone.  Libraries land in ``build/compare/`` (ignored by git).
-Prints the card's name and power limit, each build's ptxas registers and
-spills per kernel, each case's check, each timing and, as its last line,
-one JSON object with the timings.  Exits non-zero when a build fails or an
-output differs.
+ptxas registers and spills.  A kernel whose source file and the shared
+headers (``csrc/*.cuh``) are byte for byte the same in both trees must
+give bit-identical outputs and keep every instantiation's registers: B2,
+B3 and B5 then, besides B1, B7 and B8.  The bf16 B7 and B8 of this
+checkout must equal this checkout's B1 hop chain bit for bit (seed
+partials, resumes, the fused write from the carry over the same hops and
+bands): they walk B1's sweep hop by hop.  Otherwise B2 (dk/dv) and the
+bf16 B3 (dq) are held by their norm-relative distance from the base
+tree's, within the bounds that ``chip_smoke.py`` holds them to their
+plain versions (BWD_REL_TOL), B4 within Q8_REL_TOL and Q8_LSE_TOL in every
+mode, and B6 within DECODE_Q8_REL_TOL and DECODE_Q8_LSE_TOL, fused and as
+partials.  B1 is timed in each mode and packed (also as one document),
+B2 and B3 unpacked and packed, B4 in each mode at 65,536, B5 and B6 on the
+device alone (replayed from a CUDA graph of 20 calls), B7 on ring rank
+3's schedules and B8 on whole rings.  Only the kernels both trees have in
+common are compared: each tree's B1, B2 and B3 are called with that
+tree's own C signature (a tree whose entry points take document ids gets
+null ids, its unsegmented instantiation, except in the packed runs); each
+tree's B4 with its own layout of v (V^T per block, ``cuda_flash_q8.
+v_block_layout``, where its source reads it so; else v8 as quantized);
+each tree's B6 with its own C signature (the split-KV one with counters
+through this checkout's wrapper, the one with parts and a merge kernel
+with its own scratch); B5 and B8 through this checkout's wrappers
+(``ops/cuda_flash.py``, ``ops/cuda_ring_remote.py``) on each tree's
+library, whose C signature must be the same, B8 with each tree's own
+block split (its items of 128 or 64 query rows, over the blocks its
+kernel fits on the card).  A kernel whose source the base tree lacks is
+built and timed for this checkout alone.  Libraries land in
+``build/compare/`` (ignored by git).  Prints the card's name and power
+limit, each build's ptxas registers and spills per kernel, each case's
+check, each timing and, as its last line, one JSON object with the
+timings.  Exits non-zero when a build fails or an output differs.
 """
 
 from __future__ import annotations
@@ -52,7 +63,8 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
 OUT_DIR = HERE / "build" / "compare"
-SOURCES = ("flash_fwd", "flash_bwd", "flash_decode", "flash_ring", "flash_ring_remote")
+SOURCES = ("flash_fwd", "flash_bwd", "flash_decode", "flash_fwd_q8", "flash_decode_q8",
+           "flash_ring", "flash_ring_remote")
 
 
 def takes_ids(csrc: Path, name: str) -> bool:
@@ -292,10 +304,122 @@ def b1_chain(run, q, k_all, v_all, mask, tables, softclamp):
     return carry
 
 
+def unchanged(trees: dict, name: str) -> bool:
+    """Whether ``csrc/<name>.cu`` and every shared header are byte for byte
+    the same in both trees (so its outputs and registers must be)."""
+    base, head = trees["base"], trees["head"]
+
+    def files(csrc: Path) -> dict[str, bytes]:
+        return {f.name: f.read_bytes() for f in sorted(csrc.glob("*.cuh"))
+                } | {name: (csrc / f"{name}.cu").read_bytes()}
+
+    return (base / f"{name}.cu").is_file() and files(base) == files(head)
+
+
+def q8_fwd_launcher(lib_path: Path, blocked_v: bool):
+    """``run(ops, mask, causal, hi, windowed, lo, softclamp, carry, partials,
+    out_dtype)``: one B4 launch on quantized operands (``ops``: a dict of
+    q8, qs, k8, ks, v8, v8t, vs, block), ``(out, lse)`` or f32 partials;
+    ``blocked_v``: the tree's kernel reads V^T per block (v8t), else v8."""
+    import torch
+
+    lib = ctypes.CDLL(str(lib_path))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_fwd_q8.argtypes = [ptr] * 15 + [i32] * 7 + [i32, f32] + [i32] * 4 + [f32, ptr]
+
+    def run(ops, mask, causal, hi, windowed, lo, softclamp, carry=None, partials=False,
+            out_dtype=torch.bfloat16):
+        b, h, nq, d = ops["q8"].shape
+        hk, nk = ops["k8"].shape[1], ops["k8"].shape[2]
+        dev = ops["q8"].device
+        out = lse = None
+        parts = (None, None, None)
+        if partials:
+            parts = (torch.empty((b, h, nq, d), device=dev), torch.empty((b, h, nq), device=dev),
+                     torch.empty((b, h, nq), device=dev))
+        else:
+            out = torch.empty((b, h, nq, d), dtype=out_dtype, device=dev)
+            lse = torch.empty((b, h, nq), device=dev)
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        rc = lib.flash_fwd_q8(
+            _ptr(ops["q8"]), _ptr(ops["k8"]), _ptr(ops["v8t" if blocked_v else "v8"]),
+            _ptr(ops["qs"]), _ptr(ops["ks"]), _ptr(ops["vs"]), _ptr(mask), _ptr(out), _ptr(lse),
+            *(_ptr(x) for x in (carry or (None, None, None))), *(_ptr(x) for x in parts),
+            b, h, hk, nq, nk, d, ops["block"], int(out_dtype == torch.bfloat16), 0.125,
+            int(causal), hi, int(windowed), lo, softclamp, stream)
+        if rc:
+            raise RuntimeError(f"flash_fwd_q8 launch failed: {rc}")
+        return parts if partials else (out, lse)
+
+    return run
+
+
+def q8_operands(q, k, v, block_k=None) -> dict:
+    """q, k, v quantized as the int8 forward's wrapper does, with v both as
+    quantized (v8) and as V^T per block (v8t)."""
+    from ring_attention_tpu_torch.ops import cuda_flash_q8 as q8
+    from ring_attention_tpu_torch.ops.quant import quantize_blocks, quantize_rows
+
+    bk = q8.q8_block(k.shape[2], block_k)
+    (q8_, qs), (k8, ks) = quantize_rows(q), quantize_rows(k)
+    v8, vs = quantize_blocks(v, bk)
+    return {"q8": q8_, "qs": qs, "k8": k8, "ks": ks, "v8": v8,
+            "v8t": q8.v_block_layout(v8, bk), "vs": vs, "block": bk}
+
+
+def q8_decode_runner(lib_path: Path, split_kv: bool):
+    """``run(q, kv, mask, fused)``: one B6 call, ``(out, lse)`` or the
+    partials ``(acc, m, l)``.  ``split_kv``: the tree's entry point is the
+    split-KV one (counters, rows a block), called through this checkout's
+    wrapper; else the one with parts and a merge kernel, called here as its
+    own wrapper called it (a new scratch each call)."""
+    import torch
+
+    if split_kv:
+        from ring_attention_tpu_torch.ops import cuda_flash_q8 as q8
+
+        def run(q, kv, mask, fused=True):
+            return _with_library("flash_decode_q8", lib_path,
+                                 lambda: q8.flash_decode_q8(q, kv, mask, fused=fused))
+
+        return run
+    lib = ctypes.CDLL(str(lib_path))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_decode_q8.argtypes = [ptr] * 12 + [i32] * 7 + [f32, f32, ptr]
+
+    def run(q, kv, mask, fused=True):
+        b, h, nq, d = q.shape
+        hk, nk = kv.k_q.shape[1], kv.k_q.shape[2]
+        rows = h // hk * nq
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        parts = max(1, min(-(-2 * sms // (b * hk)), -(-nk // 128))) * 4
+        scratch = torch.empty((b * hk * parts * rows * (d + 2),), device=q.device)
+        if fused:
+            res = (torch.empty_like(q), torch.empty((b, h, nq), device=q.device))
+            ptrs = (_ptr(res[0]), _ptr(res[1]), None, None, None)
+        else:
+            res = (torch.empty((b, hk, h // hk, nq, d), device=q.device),
+                   torch.empty((b, hk, h // hk, nq), device=q.device),
+                   torch.empty((b, hk, h // hk, nq), device=q.device))
+            ptrs = (None, None, *(_ptr(x) for x in res))
+        rc = lib.flash_decode_q8(
+            _ptr(q), _ptr(kv.k_q), _ptr(kv.k_scale), _ptr(kv.v_q), _ptr(kv.v_scale),
+            _ptr(None if mask is None else mask.to(torch.uint8)), *ptrs, _ptr(scratch),
+            b, hk, rows, nk, d, parts, int(q.dtype == torch.bfloat16), d ** -0.5, 0.0,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if rc:
+            raise RuntimeError(f"flash_decode_q8 launch failed: {rc}")
+        return res
+
+    return run
+
+
 def same_registers(built, trees) -> bool:
-    """Every instantiation of B1 and the float32 ones of B7 and B8: the same
-    ptxas registers, stack frame and spills in both trees (not the static
-    shared memory, which a module with dynamic shared memory rounds up)."""
+    """Every instantiation of B1, the float32 ones of B7 and B8, and every
+    one of a kernel whose source and headers are unchanged (:func:
+    `unchanged`): the same ptxas registers, stack frame and spills in both
+    trees (not the static shared memory, which a module with dynamic shared
+    memory rounds up)."""
     import re
 
     def kept(line):
@@ -303,15 +427,18 @@ def same_registers(built, trees) -> bool:
                 re.search(r"\d+ bytes stack frame.*", line).group())
 
     ok = True
-    for name, prefix in (("flash_fwd", "flash_fwd_"), ("flash_ring", "flash_ring_f32"),
-                         ("flash_ring_remote", "flash_ring_remote_f32")):
+    pinned = [("flash_fwd", "flash_fwd_"), ("flash_ring", "flash_ring_f32"),
+              ("flash_ring_remote", "flash_ring_remote_f32")]
+    pinned += [(name, "") for name in SOURCES if name != "flash_fwd" and unchanged(trees, name)]
+    for name, prefix in pinned:
         if not all((tree, name) in built for tree in trees):
             continue
         usage = [{line.split(":")[0]: kept(line) for line in built[(tree, name)][1]
-                  if line.startswith(prefix)} for tree in trees]
+                  if line.startswith(prefix) and re.search(r"Used \d+ registers", line)}
+                 for tree in trees]
         same = usage[0] == usage[-1] and bool(usage[0])
         ok = ok and same
-        print(f"{name} {prefix}*: ptxas the same in both trees {same}"
+        print(f"{name} {prefix or 'every kernel'}*: ptxas the same in both trees {same}"
               + ("" if same else f": base {usage[0]}, head {usage[-1]}"))
     return ok
 
@@ -326,7 +453,17 @@ def main() -> int:
         print("compare_forward_kernels: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(HERE))
-    from chip_smoke import BWD_REL_TOL, packed_ids
+    from chip_smoke import (
+        BWD_REL_TOL,
+        DECODE_Q8_LSE_TOL,
+        DECODE_Q8_REL_TOL,
+        Q8_LSE_TOL,
+        Q8_REL_TOL,
+        _graph_ms,
+        packed_ids,
+    )
+    from ring_attention_tpu_torch.ops import cuda_flash_q8 as q8
+    from ring_attention_tpu_torch.ops.partials import FlashPartials, finalize_partials
     from ring_attention_tpu_torch.ops import cuda_flash as cf
     from ring_attention_tpu_torch.parallel import ring as pring
 
@@ -372,7 +509,7 @@ def main() -> int:
                                   (csrc / "flash_ring_remote.cu").read_text() else 64)
               for tree, csrc in trees.items() if (tree, "flash_ring_remote") in built
               and (tree == "head" or same_remote)}
-    ok = same_registers(built, tuple(trees))
+    ok = same_registers(built, trees)
 
     def held(label, dtype, got, ref):
         """float32: bit-identical; bf16: the norm-relative distances."""
@@ -407,6 +544,7 @@ def main() -> int:
         "resume causal hi -1, f32": (1, 8, 8, 2048, 2048, 1, -1, 0, 0, 0.0, False, True),
     }
     both_take_ids = all(takes_ids(csrc, "flash_fwd") for csrc in trees.values())
+    bwd_unchanged = len(bwd) == 2 and unchanged(trees, "flash_bwd")
     for name, (b, h, hk, nq, nk, causal, hi, windowed, lo, clamp, masked, carry) in fwd_cases.items():
         dtype = torch.float32 if "f32" in name else torch.bfloat16
         q = rand(b, h, nq, 64, dtype=dtype)
@@ -437,6 +575,9 @@ def main() -> int:
         delta = (do.float() * out.float()).sum(-1)
         grads = [fn(do, q, k, v, lse, delta, m, causal, hi, windowed, lo, clamp)
                  for fn in bwd.values()]
+        if bwd_unchanged:  # the same source: the same bits
+            ok = identical(f"B3/B2 {name} dq, dk, dv", grads[-1], grads[0]) and ok
+            continue
         rels = held(f"B3 {name}", dtype, grads[-1][:1], grads[0][:1])
         if dtype == torch.float32:
             rels = [0.0 if rels else float("inf")]
@@ -493,6 +634,95 @@ def main() -> int:
         ok = identical(f"{label}, vs the B1 hop chain", outs + lses,
                        [c[0] for c in chains] + [c[1] for c in chains]) and ok
 
+    # B4: each tree on its own layout of v, every mode, held to the base
+    # tree's within chip_smoke's int8 bounds (bit for bit when unchanged)
+    q8_fwd = {tree: q8_fwd_launcher(built[(tree, "flash_fwd_q8")][0],
+                                    "v_block_layout" in (csrc / "flash_fwd_q8.cu").read_text())
+              for tree, csrc in trees.items() if (tree, "flash_fwd_q8") in built}
+
+    def near(label, got, ref, rel_tol, lse_tol, same):
+        """Bit identity when the source is unchanged (same), else the
+        norm-relative distance of out and max|lse diff| (partials
+        finalized)."""
+        if same:
+            return identical(label, got, ref)
+        if len(got) == 3:
+            got, ref = (finalize_partials(FlashPartials(*x)) for x in (got, ref))
+        rel = ((got[0].float() - ref[0].float()).norm()
+               / ref[0].float().norm().clamp_min(1e-30)).item()
+        lse = (got[1] - ref[1]).abs().max().item()
+        close = rel <= rel_tol and lse <= lse_tol
+        print(f"{label}: ||head - base|| / ||base|| {rel:.2e} (tol {rel_tol}), max|lse diff| "
+              f"{lse:.2e} (tol {lse_tol}) {close}")
+        return close
+
+    # (b, h, hk, nq, nk, causal, hi, windowed, lo, softclamp, masked, block_k, f32 out)
+    q8_cases = {
+        "causal 4096": (1, 8, 8, 4096, 4096, 1, 0, 0, 0, 0.0, False, None, False),
+        "causal offset nq 2048 nk 4096, GQA h8 hk2": (1, 8, 2, 2048, 4096, 1, 2048, 0, 0, 0.0,
+                                                      False, None, False),
+        "window -700..-100 ragged 3000, mask, softclamp": (2, 8, 8, 3000, 3000, 1, -100, 1, -700,
+                                                           30.0, True, 1000, False),
+        "hop span bk2048 (1,8,2048,4096), f32 out": (1, 8, 8, 2048, 4096, 0, 0, 0, 0, 0.0,
+                                                     False, 2048, True),
+        "bk96 ragged (1,4,80,96) causal": (1, 4, 4, 80, 96, 1, 16, 0, 0, 0.0, False, None, False),
+        "bk32 (1,4,80,96) causal": (1, 4, 4, 80, 96, 1, 16, 0, 0, 0.0, False, 32, False),
+    }
+    for name, (b, h, hk, nq, nk, causal, hi, windowed, lo, clamp, masked, bk, f32_out) in (
+            q8_cases.items() if len(q8_fwd) == 2 else ()):
+        out_dtype = torch.float32 if f32_out else torch.bfloat16
+        q = rand(b, h, nq, 64, dtype=out_dtype)
+        ops = q8_operands(q, rand(b, hk, nk, 64, dtype=out_dtype),
+                          rand(b, hk, nk, 64, dtype=out_dtype), bk)
+        m = mask(b, nk) if masked else None
+        carry = (rand(b, h, nq, 64, dtype=torch.float32), rand(b, h, nq, dtype=torch.float32),
+                 rand(b, h, nq, dtype=torch.float32).abs() + 1.0)
+        for mode, c, partials in (("fused", None, False), ("seed", None, True),
+                                  ("resume", carry, True), ("fused+carry", carry, False)):
+            outs = [fn(ops, m, causal, hi, windowed, lo, clamp, c, partials, out_dtype)
+                    for fn in q8_fwd.values()]
+            ok = near(f"B4 {name} {mode}", outs[-1], outs[0], Q8_REL_TOL[str(out_dtype)],
+                      Q8_LSE_TOL, unchanged(trees, "flash_fwd_q8")) and ok
+
+    # B6: each tree's entry point, fused and partials, held to the base
+    # tree's within chip_smoke's decode bounds
+    q8_dec = {tree: q8_decode_runner(built[(tree, "flash_decode_q8")][0],
+                                     "counters" in (csrc / "flash_decode_q8.cu").read_text())
+              for tree, csrc in trees.items() if (tree, "flash_decode_q8") in built}
+    for b, h, hk, nq, nk, dtype in ((4, 8, 2, 1, 32768, torch.bfloat16),
+                                    (4, 8, 8, 1, 4096, torch.bfloat16),
+                                    (2, 8, 1, 2, 5000, torch.float32)):
+        if len(q8_dec) < 2:
+            break
+        q = rand(b, h, nq, 64, dtype=dtype)
+        kv = q8.quantize_kv_cache(rand(b, hk, nk, 64, dtype=dtype), rand(b, hk, nk, 64, dtype=dtype))
+        m = mask(b, nk).bool()
+        m[-1] = True  # every request attends to some key
+        for fused in (True, False):
+            outs = [fn(q, kv, m, fused) for fn in q8_dec.values()]
+            if not fused:  # (b, hk, g, nq) partials as (b, h, nq) rows
+                outs = [tuple(x.flatten(1, 2) for x in o) for o in outs]
+            label = f"B6 b{b} h{h} hk{hk} nq{nq} nk{nk} {dtype} {'fused' if fused else 'partials'}"
+            ok = near(label, outs[-1], outs[0], DECODE_Q8_REL_TOL[str(dtype)], DECODE_Q8_LSE_TOL,
+                      unchanged(trees, "flash_decode_q8")) and ok
+
+    # B5: its source is this PR's or not; each tree's library through this
+    # checkout's wrapper (one C signature)
+    dec_lib = {tree: built[(tree, "flash_decode")][0] for tree in trees
+               if (tree, "flash_decode") in built}
+    if len(dec_lib) == 2:
+        q = rand(4, 8, 1, 64)
+        k_, v_ = rand(4, 2, 32768, 64), rand(4, 2, 32768, 64)
+        m = mask(4, 32768).bool()
+        m[-1] = True
+        outs = [_with_library("flash_decode", lib, lambda: cf.cuda_flash_decode(q, k_, v_, m))
+                for lib in dec_lib.values()]
+        if unchanged(trees, "flash_decode"):
+            ok = identical("B5 b4 h8 hk2 nk32768, mask", outs[-1], outs[0]) and ok
+        else:
+            rel = ((outs[-1][0].float() - outs[0][0].float()).norm() / outs[0][0].float().norm()).item()
+            print(f"B5 b4 h8 hk2 nk32768, mask: ||head - base|| / ||base|| {rel:.2e}")
+
     # timings, in turns: base, head, head, base
     n = 65536
     q, k, v = rand(1, 8, n, 64), rand(1, 8, n, 64), rand(1, 8, n, 64)
@@ -525,22 +755,14 @@ def main() -> int:
         dk_, dv_ = rand(4, hk_, nk_, 64), rand(4, hk_, nk_, 64)
         dec[(h_, hk_, nk_)] = (dq_, dk_, dv_, torch.ones((4, nk_), dtype=torch.bool,
                                                         device="cuda"))
-    decode = {}
-    if "base" in fwd:
-        def folded(fn):
-            def run(q_, k_, v_, m_):
-                b_, h_, _, _ = q_.shape
-                hk_ = k_.shape[1]
-                return fn(q_.reshape(b_, hk_, h_ // hk_, 64), k_, v_, m_.to(torch.uint8),
-                          0, 0, 0, 0, 0.0)
-            return run
-        decode["base"] = folded(fwd["base"])
-    decode_lib = built[("head", "flash_decode")][0]
-    decode["head"] = lambda q_, k_, v_, m_: _with_library(
-        "flash_decode", decode_lib, lambda: cf.cuda_flash_decode(q_, k_, v_, m_))
-
-    def streamed(fn, calls=20):  # timed per call
-        return lambda f: [fn(f) for _ in range(calls)], calls
+    # B5 through this checkout's wrapper on each tree's library, B6 through
+    # each tree's entry point
+    decode = {tree: (lambda q_, k_, v_, m_, lib=lib: _with_library(
+        "flash_decode", lib, lambda: cf.cuda_flash_decode(q_, k_, v_, m_)))
+        for tree, lib in dec_lib.items()}
+    dec_q8 = {key: q8.quantize_kv_cache(args[1], args[2]) for key, args in dec.items()}
+    # B4 on the causal sweep (block 1,024) and its modes (block 2,048)
+    q8_ops = {bk: q8_operands(q, k, v, bk) for bk in (None, 2048)}
 
     one_hop = {causal: [torch.tensor([x], dtype=torch.int32, device="cuda")
                         for x in (0, 0 if causal else n, -n, 1)] for causal in (True, False)}
@@ -573,9 +795,20 @@ def main() -> int:
         "B2 dk/dv packed causal (1,8,65536,64)": (
             bwd, lambda fn: fn(do, q, k, v, lse, delta, None, 1, 0, 0, 0, 0.0,
                                passes=("dkv",), segs=(ids, ids))),
-        **{f"decode b4 h{h_} hk{hk_} nk{nk_}, per call in a stream of 20": (
-            decode, *streamed(lambda fn, a=args: fn(*a)))
+        **{f"B5 decode b4 h{h_} hk{hk_} nk{nk_}, on the device (CUDA graph of 20)": (
+            decode, lambda fn, a=args: fn(*a), "graph")
            for (h_, hk_, nk_), args in dec.items()},
+        **{f"B6 decode b4 h{h_} hk{hk_} nk{nk_}, on the device (CUDA graph of 20)": (
+            q8_dec, lambda fn, a=args, kv_=dec_q8[key]: fn(a[0], kv_, a[3]), "graph")
+           for key, args in dec.items() for h_, hk_, nk_ in (key,)},
+        "B4 fused causal (1,8,65536,64), block 1024": (
+            q8_fwd, lambda fn: fn(q8_ops[None], None, 1, 0, 0, 0, 0.0)),
+        "B4 seed causal (1,8,65536,64), block 2048": (
+            q8_fwd, lambda fn: fn(q8_ops[2048], None, 1, 0, 0, 0, 0.0, None, True)),
+        "B4 resume (1,8,65536,64) x 65536 keys, block 2048": (
+            q8_fwd, lambda fn: fn(q8_ops[2048], None, 0, 0, 0, 0, 0.0, carry, True)),
+        "B4 fused+carry (1,8,65536,64) x 65536 keys, block 2048": (
+            q8_fwd, lambda fn: fn(q8_ops[2048], None, 0, 0, 0, 0, 0.0, carry, False)),
         "B3 dq causal (1,8,65536,64)": (
             bwd, lambda fn: fn(do, q, k, v, lse, delta, None, 1, 0, 0, 0, 0.0,
                                passes=("dq",))),
@@ -590,13 +823,15 @@ def main() -> int:
             remote, lambda fn: fn(*ring_262k, 0.0), 1, 3),
     }
     result = {"card": smi.stdout.strip(), "ms": {}}
-    for label, (fns, call, *calls) in runs.items():
-        per = calls[0] if calls else 1
-        iters = calls[1] if len(calls) > 1 else 5
+    for label, (fns, call, *opts) in runs.items():
+        graph = opts == ["graph"]  # replayed from a CUDA graph of 20 calls
+        per = opts[0] if opts and not graph else 1
+        iters = opts[1] if len(opts) > 1 else 5
         order = [t for t in ("base", "head", "head", "base") if t in fns]
         times: dict[str, list[float]] = {t: [] for t in fns}
         for tree in order:
-            times[tree].append(time_ms(lambda: call(fns[tree]), iters) / per)
+            times[tree].append(_graph_ms(lambda: call(fns[tree])) if graph
+                               else time_ms(lambda: call(fns[tree]), iters) / per)
         means = {t: statistics.mean(ts) for t, ts in times.items()}
         ratio = means["head"] / means["base"] if "base" in means else None
         result["ms"][label] = {**means, "head_over_base": ratio}
