@@ -102,6 +102,15 @@ result line):
        the resumed hops' keys hold the same documents with their
        boundaries moved; then phase 3f's 65,536-token launch, forward and
        backward, in 1,024-row and 1,024-key slices.
+   2h. the shapes zig-zag and tree decoding give the kernels: B1, B2 and
+       B3 on the first and the last query chunk against the whole gathered
+       span (the zig-zag model's 8,192 rows of 65,536 keys, in 1,024-row
+       and 1,024-key slices; config 3's 2,048 of 32,768 and 512 of 8,192 in
+       f32, whole), the keys past a chunk's band written and zero in dk and
+       dv; B5 and B6 partials on each rank's 262,144-key shard of config
+       5's cache, full and with valid prefixes of 100 and 300,000 keys,
+       where a shard with no valid key must keep m at exactly MASK_VALUE
+       with l > 0 and a finite acc.
 3. The serving path through the entry points a user calls: RingTransformer
    at the full width of the repository's benchmark model (vocab 256,
    dim 512, 8 heads of 64, depth 2, ff_mult 4, rotary, causal, bf16) with
@@ -154,7 +163,34 @@ result line):
    model at seq 256 on the card held to the CPU, logits and gradients,
    locally and on both ring layouts.  Then the packed forward and step
    beside the unpacked ones of the same models, in turns.
-   In phases 3 to 3f every launch counter is set to 0 just before each
+3g. The zig-zag path: the same model with ``sequence_parallel="zigzag",
+   mesh=create_mesh(ring_size=4)`` on 1 x 65,536 tokens: logits held to
+   the local model's (RING_LOGITS_REL_TOL), one step's gradients to the
+   local model's (ZIGZAG_BF16_GRAD_REL_TOL), 4 Adam steps; 8 B1 launches
+   (fused mode) per forward and 8 B2 and 8 B3 per step's backward, per
+   layer.  A float32 copy on the card held to the float32 local model at
+   1 x 4,096 (logits MODEL_ATOL, gradients GRAD_REL_TOL) and to the CPU at
+   seq 256.
+3h. ``zigzag_attention`` at BASELINE.json config 3 (causal, 32,768 tokens,
+   a virtual ring of 8, 8 heads of 64, bf16): output and dq, dk, dv held
+   to ``cuda_flash_attention`` on the canonical sequence (OUT_TOL and
+   RING_REL_TOL, BWD_REL_TOL); 16 launches of each of B1, B2, B3.
+3i. ``tree_attn_decode`` at BASELINE.json config 5 (b1 h8 hk8 d64, a
+   1,048,576-token cache over a virtual ring of 4): held to one fused B5
+   launch over the whole cache, and on the int8 cache (B6 partials) to one
+   fused B6 launch; the valid prefixes of 2h, the 100-key one also held to
+   the plain decode of those keys alone; 4 launches of B5 and of B6 each.
+3j. The serving path on the ring of 4: ``generate`` for 4 prompts of 2,048
+   tokens and 128 new ones (cache 4,096), plain, with
+   ``quantize_cache=True`` and with ``impl="fused"``: the prompt runs the
+   scan ring (RING_SCHEDULE's forward modes; the fused model: the remote
+   tier, B8, once per layer, whose greedy tokens must equal the plain
+   model's), each decode step B5 (B6) once per rank and layer.  The
+   float32 models on the card against the float32 local model: greedy
+   tokens equal (plain), the prefill's and each teacher-forced step's
+   logits within MODEL_ATOL (with ``quantize_cache``, norm-relative
+   Q8_MODEL_REL_TOL).
+   In phases 3 to 3j every launch counter is set to 0 just before each
    run and read just after; a kernel that never launched fails the run.
 4. Timings with CUDA events (median of 10 runs after warm-up): each kernel
    beside its bound (the larger of its bytes over 3.35 TB/s and its
@@ -209,6 +245,13 @@ result line):
    the same-document in-band pairs count) and SDPA with the packing's
    dense boolean block-diagonal causal ``attn_mask`` (its backward for
    B2/B3; null where it does not fit on the card).
+4g. Zig-zag and decoding on a mesh: the zig-zag model's forward and step
+   beside the contiguous and striped scan ring models (in turns); config 3
+   forward and forward + backward beside ``cuda_flash_attention`` (in
+   turns); config 5's tree decode (on the device, CUDA graph of 20, and
+   synchronized) beside its four partials launches alone and one fused B5
+   launch, the same on the int8 cache with B6; the decode step of the
+   ring models at ~32,768 cached tokens beside the local ones.
 5. The kernels line, one JSON object with eight kernels; the forward
    kernels' entries list their ring modes; the per-shape rows of
    flash_fwd, flash_bwd_dkv and flash_bwd_dq end with phase 4f's, each
@@ -2439,7 +2482,6 @@ def phase_q8_kernels_vs_plain() -> dict:
 
     from ring_attention_tpu_torch.ops import cuda_flash as cf
     from ring_attention_tpu_torch.ops import cuda_flash_q8 as q8
-    from ring_attention_tpu_torch.ops.partials import FlashPartials, finalize_partials
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
     errors: dict[str, list[float]] = {m: [] for m in
@@ -2521,8 +2563,7 @@ def phase_q8_kernels_vs_plain() -> dict:
             torch.cuda.synchronize()
             ref = q8.flash_decode_q8_reference(q, kv, mask, fused=False)
             (out, lse), (ref_out, ref_lse) = (
-                finalize_partials(FlashPartials(*(x.flatten(1, 2) for x in parts)))
-                for parts in ((acc, m, l), ref))
+                _finalize_decode_partials(parts) for parts in ((acc, m, l), ref))
             _compare_q8(f"decode_q8 b4 h{h} hk{hk} nk{nk} partials", dtype, out, ref_out,
                         lse, ref_lse, errors["decode"], DECODE_Q8_REL_TOL[str(dtype)],
                         DECODE_Q8_LSE_TOL)
@@ -3380,6 +3421,636 @@ def phase_segmented_timings(packed: dict) -> dict[str, list[dict]]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Zig-zag and decoding on a mesh (phases 2h, 3g-3j, 4g)
+# ---------------------------------------------------------------------------
+
+# The zig-zag model runs the bench model on a virtual ring of 4 at 1 x 65,536
+# tokens: 8 chunks of 8,192, each against the whole gathered span.
+ZIGZAG_SEQ = 65536
+# BASELINE.json config 3: causal zig-zag at 32,768 tokens on a ring of 8,
+# 8 heads of 64, bf16.
+CONFIG3_SEQ, CONFIG3_RING = 32768, 8
+# BASELINE.json config 5: tree decode b1 h8 hk8 d64, a 1,048,576-token cache
+# over a ring of 4 (shards of 262,144).
+CONFIG5_SEQ = 1 << 20
+# The empty-rank case: valid cache prefixes of 100 keys (fewer than rank 0's
+# shard: ranks 1-3 hold none) and 300,000 (rank 1 in part, ranks 2-3 none).
+EMPTY_RANK_PREFIXES = (100, 300000)
+# The serving path on a ring of 4: 4 prompts of 2,048, 128 new tokens, a
+# cache of 4,096 (shards of 1,024: the prompts fill ranks 0 and 1).
+SERVE_PROMPT, SERVE_NEW, SERVE_MAX_LEN = 2048, 128, 4096
+# Phase-3g bf16 zig-zag vs local gradients, largest ||diff|| / ||local|| over
+# the parameters: the same bf16 model whose attention sums each query chunk
+# against the gathered span in other tiles than the one causal sweep, and
+# whose dk/dv sum over the 8 chunks, through two layers and back.
+ZIGZAG_BF16_GRAD_REL_TOL = 2e-2
+
+
+def _zigzag_chunk_vs_plain(name, dtype, chunk, span, start, gen, errors, dense) -> None:
+    """B1, B2 and B3 on one zig-zag query chunk (global rows ``start`` ..
+    ``start + chunk``) against the whole gathered span, as
+    ``parallel/zigzag.py`` launches them, against their plain versions
+    (``dense``: whole; else in 1,024-row and 1,024-key slices, the band
+    shifted to the slice).  The keys past the chunk's last row meet no
+    query: their dk and dv must be written, and zero."""
+    import torch
+
+    from ring_attention_tpu_torch.ops import cuda_flash as cf
+
+    q, do = (_rand(gen, (1, 8, chunk, 64), dtype) for _ in range(2))
+    k, v = (_rand(gen, (1, 8, span, 64), dtype) for _ in range(2))
+    kw = dict(scale=0.125, causal_offset=start)
+    out, lse = cf.flash_fwd(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1)
+    dk, dv = cf.flash_bwd_dkv(do, q, k, v, lse, delta, **kw)
+    dq = cf.flash_bwd_dq(do, q, k, v, lse, delta, **kw)
+    torch.cuda.synchronize()
+    end = start + chunk
+    if end < span:
+        zero = bool((dk[:, :, end:] == 0).all()) and bool((dv[:, :, end:] == 0).all())
+        log(f"  {name}: dk/dv of the {span - end} keys past the chunk all zero: {zero}")
+        check(zero, f"{name}: dk/dv past the band are not zero")
+    rel_tol = RING_REL_TOL[str(dtype)]
+    if dense:
+        ref_out, ref_lse = cf.flash_fwd_reference(q, k, v, **kw)
+        _compare(name, dtype, out, ref_out, lse, ref_lse, errors["fwd"], rel_tol=rel_tol)
+        ref = cf.flash_bwd_reference(do, q, k, v, lse, delta, **kw)
+        _compare_bwd(name, dtype, (dq, dk, dv), ref, errors["bwd"])
+        return
+    w = 1024
+    for r0 in (0, chunk // 2, chunk - w):
+        rows = slice(r0, r0 + w)
+        qs, dos = q[:, :, rows].contiguous(), do[:, :, rows].contiguous()
+        band = dict(scale=0.125, causal_offset=start + r0)
+        ref_out, ref_lse = cf.flash_fwd_reference(qs, k, v, **band)
+        _compare(f"{name} rows {r0}+", dtype, out[:, :, rows], ref_out, lse[:, :, rows],
+                 ref_lse, errors["fwd"], rel_tol=rel_tol)
+        del ref_out, ref_lse
+        ref = cf.flash_bwd_reference(dos, qs, k, v, lse[:, :, rows].contiguous(),
+                                     delta[:, :, rows].contiguous(), **band)
+        _compare_bwd(f"{name} dq rows {r0}+", dtype, (dq[:, :, rows], None, None), ref,
+                     errors["bwd"])
+        del ref
+    for c0 in sorted({0, max(0, end - w), span - w}):
+        keys = slice(c0, c0 + w)
+        ref = cf.flash_bwd_reference(do, q, k[:, :, keys].contiguous(),
+                                     v[:, :, keys].contiguous(), lse, delta,
+                                     scale=0.125, causal_offset=start - c0)
+        _compare_bwd(f"{name} dk/dv keys {c0}+", dtype, (None, dk[:, :, keys], dv[:, :, keys]),
+                     ref, errors["bwd"])
+        del ref
+    torch.cuda.synchronize()
+
+
+def _empty_shard_partials(name, parts) -> None:
+    """A shard with no valid key keeps m at the finite MASK_VALUE with l > 0
+    and a finite acc, so that exp(m - m_global) removes it in the merge."""
+    import torch
+
+    from ring_attention_tpu_torch.ops.attention import MASK_VALUE
+
+    acc, m, l = parts
+    ok = (bool((m == MASK_VALUE).all()) and bool((l > 0).all())
+          and bool(torch.isfinite(acc).all()) and bool(torch.isfinite(l).all()))
+    log(f"  {name}: m == MASK_VALUE everywhere {bool((m == MASK_VALUE).all())}, "
+        f"min l {l.min().item():.1f}, acc finite {bool(torch.isfinite(acc).all())}")
+    check(ok, f"{name}: an empty shard's partials are not (finite acc, MASK_VALUE, l > 0)")
+
+
+def _finalize_decode_partials(parts):
+    """``(out, lse)`` of decode partials ``(acc (b, hk, g, nq, d), m, l)``."""
+    from ring_attention_tpu_torch.ops.partials import FlashPartials, finalize_partials
+
+    return finalize_partials(FlashPartials(*(x.flatten(1, 2) for x in parts)))
+
+
+def phase_mesh_kernels_vs_plain() -> dict:
+    """Phase 2h: the kernels at the shapes zig-zag and tree decoding give
+    them, against their plain versions; returns the largest errors."""
+    import torch
+
+    from ring_attention_tpu_torch.ops import cuda_flash as cf
+    from ring_attention_tpu_torch.ops import cuda_flash_q8 as q8
+    from ring_attention_tpu_torch.ops.partials import FlashPartials
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    errors = {"fwd": [], "bwd": {}, "decode": [], "decode_q8": []}
+    log("phase 2h: flash_fwd, flash_bwd_dkv and flash_bwd_dq on zig-zag chunks against the "
+        "whole gathered span, flash_decode and flash_decode_q8 partials on each rank's cache "
+        "shard, vs their plain versions")
+    # the zig-zag model's chunks (ring 4 at 65,536: chunks of 8,192), the first
+    # and the last, in slices; config 3's (ring 8 at 32,768: chunks of 2,048)
+    # and a small ring-8 span in f32, whole
+    model_chunk = ZIGZAG_SEQ // (2 * RING_SIZE)
+    for which, start in (("first", 0), ("last", (2 * RING_SIZE - 1) * model_chunk)):
+        _zigzag_chunk_vs_plain(f"zigzag {which} chunk 8192 of 65536", torch.bfloat16,
+                               model_chunk, ZIGZAG_SEQ, start, gen, errors, dense=False)
+    config3_chunk = CONFIG3_SEQ // (2 * CONFIG3_RING)
+    for which, start in (("first", 0), ("last", (2 * CONFIG3_RING - 1) * config3_chunk)):
+        _zigzag_chunk_vs_plain(f"zigzag {which} chunk 2048 of 32768", torch.bfloat16,
+                               config3_chunk, CONFIG3_SEQ, start, gen, errors, dense=True)
+        _zigzag_chunk_vs_plain(f"zigzag {which} chunk 512 of 8192", torch.float32, 512, 8192,
+                               0 if which == "first" else 15 * 512, gen, errors, dense=True)
+
+    # tree decoding's partials at config 5: each rank's shard of a
+    # 1,048,576-token cache, full and with valid prefixes that leave ranks
+    # without a valid key
+    n, ring = CONFIG5_SEQ, RING_SIZE
+    n_local = n // ring
+    q = _rand(gen, (1, 8, 1, 64), torch.bfloat16)
+    k, v = (_rand(gen, (1, 8, n, 64), torch.bfloat16) for _ in range(2))
+    kv8 = q8.quantize_kv_cache(k, v)
+    for valid in (n,) + EMPTY_RANK_PREFIXES:
+        mask = (torch.arange(n, device="cuda") < valid)[None]
+        for r in range(ring):
+            cut = slice(r * n_local, (r + 1) * n_local)
+            shard = [x[:, :, cut].contiguous() for x in (k, v)]
+            mask_r = mask[:, cut].contiguous()
+            parts = cf.cuda_flash_decode(q, *shard, mask_r, fused=False)
+            torch.cuda.synchronize()
+            ref = cf.flash_decode_reference(q, *shard, mask_r, fused=False)
+            label = f"decode partials valid {valid} rank {r}"
+            _compare_partials(label, torch.bfloat16, FlashPartials(*parts),
+                              FlashPartials(*ref), errors["decode"])
+            kv_r = q8.QuantizedKV(*(x[:, :, cut].contiguous() for x in kv8))
+            parts8 = q8.flash_decode_q8(q, kv_r, mask_r, fused=False)
+            torch.cuda.synchronize()
+            ref8 = q8.flash_decode_q8_reference(q, kv_r, mask_r, fused=False)
+            (out, lse), (ref_out, ref_lse) = (
+                _finalize_decode_partials(p) for p in (parts8, ref8))
+            _compare_q8(f"decode_q8 partials valid {valid} rank {r}", torch.bfloat16, out,
+                        ref_out, lse, ref_lse, errors["decode_q8"],
+                        DECODE_Q8_REL_TOL["torch.bfloat16"], DECODE_Q8_LSE_TOL)
+            if valid <= r * n_local:
+                _empty_shard_partials(f"empty rank {r} (valid {valid}) flash_decode", parts)
+                _empty_shard_partials(f"empty rank {r} (valid {valid}) flash_decode_q8",
+                                      parts8)
+            del parts, ref, parts8, ref8
+    torch.cuda.synchronize()
+    return {"fwd": max(errors["fwd"]),
+            **{label: max(errs) for label, errs in errors["bwd"].items()},
+            "decode": max(errors["decode"]), "decode_q8": max(errors["decode_q8"])}
+
+
+def _param_grads(model, tokens) -> list:
+    """One loss and backward: every parameter's gradient (f32), then cleared."""
+    model.zero_grad(set_to_none=True)
+    model(tokens, return_loss=True).backward()
+    grads = [p.grad.detach().clone() for p in model.parameters()]
+    model.zero_grad(set_to_none=True)
+    return grads
+
+
+def _grad_rel(got, ref) -> float:
+    return max((g.float() - r.float()).norm().item() / max(r.float().norm().item(), 1e-30)
+               for g, r in zip(got, ref))
+
+
+def _zigzag_counts(backward: bool) -> dict[str, int]:
+    """Launches of one forward (and backward) of the zig-zag model on the
+    ring of 4: per layer B1 once per query chunk (2 a rank, fused mode), and
+    B2 and B3 once per chunk."""
+    chunks = 2 * RING_SIZE * BENCH_MODEL["depth"]
+    return _counts(flash_fwd=chunks, flash_bwd_dkv=chunks if backward else 0,
+                   flash_bwd_dq=chunks if backward else 0)
+
+
+def phase_zigzag_path(serving: dict, training: dict) -> dict:
+    """Phase 3g: the zig-zag model at full width on a virtual ring of 4."""
+    import torch
+
+    from ring_attention_tpu_torch import make_train_step
+    from ring_attention_tpu_torch.parallel import create_mesh
+
+    log(f"phase 3g: RingTransformer(sequence_parallel='zigzag', mesh=create_mesh(ring_size="
+        f"{RING_SIZE})) on a virtual ring, bench model at full width, bf16, 1 x {ZIGZAG_SEQ}")
+    tokens, local = serving["tokens"], serving["model"]
+    launches = {name: 0 for name in COUNTERS}
+    model = _model(torch.bfloat16, "cuda", mesh=create_mesh(ring_size=RING_SIZE),
+                   sequence_parallel="zigzag")
+    with torch.inference_mode():
+        ref = local(tokens).float()
+        _reset_counts()
+        start = time.perf_counter()
+        logits = model(tokens)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        counts = _read_counts()
+    check(counts == _zigzag_counts(False), f"zigzag forward launched {counts}")
+    for name, c in counts.items():
+        launches[name] += c
+    check(bool(torch.isfinite(logits.float()).all()), "zigzag: non-finite logits")
+    rel = ((logits.float() - ref).norm() / ref.norm()).item()
+    log(f"  forward: {seconds:.3f} s (first call), launches {counts}; logits vs the local "
+        f"model ||diff|| / ||local|| {rel:.3e} (tol rel {RING_LOGITS_REL_TOL})")
+    check(rel <= RING_LOGITS_REL_TOL, "zigzag logits disagree with the local model")
+    del logits, ref
+
+    # one step's gradients against the local model with the same weights
+    model.train()
+    local.train()
+    _reset_counts()
+    grads = _param_grads(model, training["tokens"])
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    check(counts == _zigzag_counts(True), f"zigzag backward launched {counts}")
+    for name, c in counts.items():
+        launches[name] += c
+    ref_grads = _param_grads(local, training["tokens"])
+    local.eval()
+    grad_rel = _grad_rel(grads, ref_grads)
+    del grads, ref_grads
+    log(f"  one step's gradients vs the local model's: largest ||diff|| / ||local|| over "
+        f"the parameters {grad_rel:.3e} (bf16; tol {ZIGZAG_BF16_GRAD_REL_TOL})")
+    check(grad_rel <= ZIGZAG_BF16_GRAD_REL_TOL, "zigzag gradients disagree with the local model")
+
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    step = make_train_step(lambda t: model(t, return_loss=True), opt)
+    losses = []
+    for i in range(TRAIN_STEPS):
+        _reset_counts()
+        start = time.perf_counter()
+        loss = float(step(training["tokens"]))
+        seconds = time.perf_counter() - start
+        counts = _read_counts()
+        log(f"  step {i}: loss {loss:.6f}, {seconds:.3f} s, launches {counts}")
+        check(counts == _zigzag_counts(True), f"zigzag step {i} launched {counts}")
+        check(math.isfinite(loss), f"zigzag step {i}: loss {loss}")
+        losses.append(loss)
+        for name, c in counts.items():
+            launches[name] += c
+    check(losses[-1] < losses[0], f"zigzag: loss did not fall: {losses}")
+    _hold_f32_zigzag_to_local()
+    return {"launches": launches, "model": model, "step": step}
+
+
+def _hold_f32_zigzag_to_local() -> None:
+    """The float32 zig-zag model on the card against the float32 local
+    model on the card (logits and one step's gradients, 1 x 4,096 tokens)
+    and against itself on the CPU (seq 256)."""
+    import torch
+
+    from ring_attention_tpu_torch.parallel import create_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(SEED + 21)
+    tokens = torch.randint(0, BENCH_MODEL["num_tokens"], (1, 4097), generator=gen).cuda()
+    zz = _model(None, "cuda", mesh=create_mesh(ring_size=RING_SIZE),
+                sequence_parallel="zigzag").train()
+    local = _model(None, "cuda").train()
+    with torch.no_grad():
+        logits_err = (zz(tokens[:, :-1]) - local(tokens[:, :-1])).abs().max().item()
+    grad_rel = _grad_rel(_param_grads(zz, tokens), _param_grads(local, tokens))
+    cpu = copy.deepcopy(zz).to("cpu")
+    small = tokens[:, :257].cpu()
+    with torch.no_grad():
+        cpu_err = (zz(small[:, :-1].cuda()).cpu() - cpu(small[:, :-1])).abs().max().item()
+    cpu_rel = _grad_rel([g.cpu() for g in _param_grads(zz, small.cuda())],
+                        _param_grads(cpu, small))
+    log(f"  f32 zigzag vs f32 local model on the card, 1 x 4096: logits max|diff| "
+        f"{logits_err:.3e} (tol {MODEL_ATOL}), gradients largest ||diff|| / ||local|| "
+        f"{grad_rel:.3e} (tol {GRAD_REL_TOL}); vs itself on the CPU at seq 256: logits "
+        f"{cpu_err:.3e}, gradients {cpu_rel:.3e}")
+    check(max(logits_err, cpu_err) <= MODEL_ATOL and max(grad_rel, cpu_rel) <= GRAD_REL_TOL,
+          "f32 zigzag model disagrees with the local model or the CPU")
+    del zz, local, cpu
+
+
+def phase_zigzag_config3() -> dict:
+    """Phase 3h: ``zigzag_attention`` at BASELINE.json config 3 against
+    ``cuda_flash_attention`` on the canonical sequence: output and
+    gradients, and the launches."""
+    import torch
+
+    from ring_attention_tpu_torch.ops.cuda_flash import cuda_flash_attention
+    from ring_attention_tpu_torch.parallel import (
+        VirtualRing,
+        zigzag_attention,
+        zigzag_permute,
+        zigzag_unpermute,
+    )
+
+    n, ring = CONFIG3_SEQ, CONFIG3_RING
+    log(f"phase 3h: zigzag_attention at BASELINE.json config 3: causal, {n} tokens, a "
+        f"virtual ring of {ring}, 8 heads of 64, bf16, against cuda_flash_attention")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    q, k, v, do = (_rand(gen, (1, 8, n, 64), torch.bfloat16) for _ in range(4))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref = cuda_flash_attention(*leaves, causal=True)
+    ref.backward(do)
+    ref_grads = [x.grad for x in leaves]
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    ring_ = VirtualRing(ring)
+    _reset_counts()
+    out = zigzag_attention(*(zigzag_permute(x, ring, axis=2) for x in leaves), ring_,
+                           impl="cuda")
+    out = zigzag_unpermute(out, ring, axis=2)
+    out.backward(do)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    chunks = 2 * ring
+    expected = _counts(flash_fwd=chunks, flash_bwd_dkv=chunks, flash_bwd_dq=chunks)
+    log(f"  launches {counts}")
+    check(counts == expected, f"config 3 launched {counts}, expected {expected}")
+    errors = {"fwd": []}
+    bwd_errors: dict[str, list[float]] = {}
+    atol, rtol = OUT_TOL["torch.bfloat16"]
+    diff = (out.detach().float() - ref.detach().float())
+    rel = (diff.norm() / ref.detach().float().norm()).item()
+    ok = bool((diff.abs() <= atol + rtol * ref.detach().float().abs()).all())
+    errors["fwd"].append(diff.abs().max().item())
+    log(f"  output vs cuda_flash_attention: max|diff| {diff.abs().max().item():.3e} (tol "
+        f"{atol}+{rtol}*|ref|), ||diff|| / ||ref|| {rel:.3e} "
+        f"(tol {RING_REL_TOL['torch.bfloat16']})")
+    check(ok and rel <= RING_REL_TOL["torch.bfloat16"], "config 3 output disagrees")
+    _compare_bwd("config 3 gradients vs cuda_flash_attention", torch.bfloat16,
+                 [x.grad for x in leaves], ref_grads, bwd_errors)
+    return {"launches": counts, "fwd_err": errors["fwd"][0],
+            **{label: max(e) for label, e in bwd_errors.items()}}
+
+
+def phase_tree_decode_config5() -> dict:
+    """Phase 3i: ``tree_attn_decode`` at BASELINE.json config 5 against one
+    fused decode launch over the whole cache (B5; B6 on the int8 cache),
+    and the empty-rank case."""
+    import torch
+
+    from ring_attention_tpu_torch.ops import cuda_flash as cf
+    from ring_attention_tpu_torch.ops import cuda_flash_q8 as q8
+    from ring_attention_tpu_torch.parallel import VirtualRing, tree_attn_decode
+
+    n = CONFIG5_SEQ
+    log(f"phase 3i: tree_attn_decode at BASELINE.json config 5: b1 h8 hk8 d64, a {n}-token "
+        f"cache over a virtual ring of {RING_SIZE}, bf16, against one fused launch over the "
+        f"whole cache")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    q = _rand(gen, (1, 8, 1, 64), torch.bfloat16)
+    # the cache as the model keeps it on a mesh, one tensor a rank's shard,
+    # and the whole cache that the one fused launch reads
+    n_local = n // RING_SIZE
+    k_shards, v_shards = ([_rand(gen, (1, 8, n_local, 64), torch.bfloat16)
+                           for _ in range(RING_SIZE)] for _ in range(2))
+    kv8_shards = [q8.quantize_kv_cache(a, b) for a, b in zip(k_shards, v_shards)]
+    k, v = torch.cat(k_shards, dim=2), torch.cat(v_shards, dim=2)
+    kv8 = q8.QuantizedKV(*(torch.cat(x, dim=2) for x in zip(*kv8_shards)))
+    ring = VirtualRing(RING_SIZE)
+    launches = {name: 0 for name in COUNTERS}
+    errs = {"decode": [], "decode_q8": []}
+    rel_tol = RING_REL_TOL["torch.bfloat16"]
+    for valid in (n,) + EMPTY_RANK_PREFIXES:
+        mask = (torch.arange(n, device="cuda") < valid)[None]
+        fused, _ = cf.cuda_flash_decode(q, k, v, mask)
+        fused8, _ = q8.flash_decode_q8(q, kv8, mask)
+        masks = list(mask.chunk(RING_SIZE, dim=1))
+        _reset_counts()
+        tree = tree_attn_decode(q, k_shards, v_shards, masks, ring=ring, impl="cuda")
+        tree8 = tree_attn_decode(q, None, None, masks, ring=ring, kv_quantized=kv8_shards)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        expected = _counts(flash_decode=RING_SIZE, flash_decode_q8=RING_SIZE)
+        check(counts == expected, f"tree decode launched {counts}, expected {expected}")
+        for name, c in counts.items():
+            launches[name] += c
+        for label, got, ref, key in (("flash_decode", tree, fused, "decode"),
+                                     ("flash_decode_q8", tree8, fused8, "decode_q8")):
+            diff = got.float() - ref.float()
+            rel = (diff.norm() / ref.float().norm()).item()
+            errs[key].append(diff.abs().max().item())
+            tol = rel_tol if key == "decode" else DECODE_Q8_REL_TOL["torch.bfloat16"]
+            log(f"  valid {valid}: tree ({RING_SIZE} {label} partials, merged) vs one fused "
+                f"{label}: max|diff| {diff.abs().max().item():.3e}, ||diff|| / ||fused|| "
+                f"{rel:.3e} (tol {tol})")
+            check(bool(torch.isfinite(got.float()).all()) and rel <= tol,
+                  f"tree decode ({label}, valid {valid}) disagrees with the fused launch")
+        if valid < n // RING_SIZE:  # every key on rank 0: the plain decode of the prefix
+            ref, _ = cf.flash_decode_reference(q, k[:, :, :valid], v[:, :, :valid])
+            err = (tree.float() - ref.float()).abs().max().item()
+            log(f"  valid {valid}: tree vs the plain decode of the {valid} valid keys alone: "
+                f"max|diff| {err:.3e} (tol {OUT_TOL['torch.bfloat16'][0]})")
+            check(err <= OUT_TOL["torch.bfloat16"][0], "empty-rank tree decode is wrong")
+    return {"launches": launches, "q": q, "k": k, "v": v, "kv8": kv8, "k_shards": k_shards,
+            "v_shards": v_shards, "kv8_shards": kv8_shards, "decode_err": max(errs["decode"]), "decode_q8_err": max(errs["decode_q8"])}
+
+
+def phase_mesh_serving() -> dict:
+    """Phase 3j: the serving path on a virtual ring of 4: prefill (the ring
+    over the prompt), decode (tree attention over the ring-sharded cache)
+    and generate, plain and with ``quantize_cache=True``; the f32 models
+    held to the local model's."""
+    import torch
+
+    from ring_attention_tpu_torch.parallel import create_mesh
+
+    depth, steps = BENCH_MODEL["depth"], SERVE_NEW
+    log(f"phase 3j: RingTransformer(mesh=create_mesh(ring_size={RING_SIZE})) serving, bench "
+        f"model at full width: generate 4 x ({SERVE_PROMPT} prompt + {steps} new), cache "
+        f"{SERVE_MAX_LEN}, plain, quantize_cache=True and impl='fused'")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    prompts = torch.randint(0, BENCH_MODEL["num_tokens"], (4, SERVE_PROMPT), generator=gen,
+                            device="cuda")
+    seed, resume, fused_carry, *_ = (x * depth for x in RING_SCHEDULE[False])
+    launches = {name: 0 for name in COUNTERS}
+    models, tokens = {}, {}
+    for label, kw in (("plain", {}), ("quantize_cache=True", dict(quantize_cache=True)),
+                      ("impl='fused'", dict(impl="fused"))):
+        model = _model(torch.bfloat16, "cuda", mesh=create_mesh(ring_size=RING_SIZE), **kw)
+        decode = "flash_decode_q8" if kw.get("quantize_cache") else "flash_decode"
+        # the prompt runs the scan ring's modes, or with impl="fused" the
+        # remote tier once per layer
+        prefill = (dict(flash_ring_remote=depth) if kw.get("impl") == "fused" else
+                   dict(flash_fwd=seed + resume + fused_carry, seed=seed, resume=resume,
+                        fused_carry=fused_carry))
+        expected = _counts(**prefill, **{decode: RING_SIZE * depth * (steps - 1)})
+        with torch.inference_mode():
+            _reset_counts()
+            start = time.perf_counter()
+            new = model.generate(prompts, max_len=SERVE_MAX_LEN, num_steps=steps)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            counts = _read_counts()
+        log(f"  {label}: generate {seconds:.3f} s (first call), launches {counts}")
+        check(counts == expected, f"mesh generate ({label}) launched {counts}, expected "
+              f"{expected}")
+        check(tuple(new.shape) == (4, steps) and bool(((new >= 0) & (new < 256)).all()),
+              f"mesh generate ({label}): ids {tuple(new.shape)} out of range")
+        for name, c in counts.items():
+            launches[name] += c
+        models[label], tokens[label] = model, new
+    # the remote tier's prefill is the hop chain's bit for bit, so the
+    # greedy tokens are the same
+    same = bool(torch.equal(tokens["impl='fused'"], tokens["plain"]))
+    log(f"  impl='fused' greedy tokens equal the scan ring model's: {same}")
+    check(same, "the fused ring model's generate differs from the scan ring model's")
+    _hold_f32_mesh_serving(prompts)
+    return {"launches": launches, "models": models, "prompts": prompts}
+
+
+def _hold_f32_mesh_serving(prompts) -> None:
+    """The float32 model on the ring of 4 against the float32 local model,
+    both on the card: greedy tokens equal, and the logits of the prefill
+    and of each teacher-forced decode step (plain: MODEL_ATOL; with
+    ``quantize_cache``, norm-relative Q8_MODEL_REL_TOL: a last-bit
+    difference may move an int8 cache entry by one step)."""
+    import torch
+
+    from ring_attention_tpu_torch.parallel import create_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for quantized in (False, True):
+        mesh_model = _model(None, "cuda", mesh=create_mesh(ring_size=RING_SIZE),
+                            quantize_cache=quantized)
+        local = _model(None, "cuda", quantize_cache=quantized)
+        with torch.inference_mode():
+            want = local.generate(prompts, max_len=SERVE_MAX_LEN, num_steps=SERVE_NEW)
+            got = mesh_model.generate(prompts, max_len=SERVE_MAX_LEN, num_steps=SERVE_NEW)
+            caches = [m.init_cache(4, SERVE_MAX_LEN) for m in (mesh_model, local)]
+            logits = [m.prefill(prompts, c)[0] for m, c in zip((mesh_model, local), caches)]
+            errs, rels = [], []
+            for i in range(SERVE_NEW):
+                diff = logits[0] - logits[1]
+                errs.append(diff.abs().max().item())
+                rels.append((diff.norm() / logits[1].norm()).item())
+                if i == SERVE_NEW - 1:
+                    break
+                pos = SERVE_PROMPT + i
+                logits = [m.decode_step(want[:, i], c, pos)[0]
+                          for m, c in zip((mesh_model, local), caches)]
+        same = bool(torch.equal(got, want))
+        label = "quantize_cache=True" if quantized else "plain"
+        log(f"  f32 {label} on the ring vs local, 4 x ({SERVE_PROMPT} + {SERVE_NEW}): greedy "
+            f"tokens equal {same}; prefill and {SERVE_NEW - 1} teacher-forced steps: logits "
+            f"max|diff| {max(errs):.3e}, largest ||diff|| / ||local|| {max(rels):.3e} (tol "
+            f"{'rel ' + str(Q8_MODEL_REL_TOL) if quantized else MODEL_ATOL})")
+        ok = max(rels) <= Q8_MODEL_REL_TOL if quantized else max(errs) <= MODEL_ATOL
+        check(ok and (same or quantized), f"f32 {label} ring serving disagrees with local")
+        del mesh_model, local, caches
+
+
+def phase_mesh_timings(zigzag: dict, ring: dict, serving: dict, training: dict,
+                       tree: dict, mesh_serving: dict) -> None:
+    """Phase 4g: the zig-zag model beside the scan ring models, config 3
+    beside cuda_flash_attention, config 5's tree decode beside one fused
+    B5 launch, and the decode step on the ring beside the local one."""
+    import torch
+
+    from ring_attention_tpu_torch.ops import cuda_flash as cf
+    from ring_attention_tpu_torch.ops import cuda_flash_q8 as q8
+    from ring_attention_tpu_torch.ops.cuda_flash import cuda_flash_attention
+    from ring_attention_tpu_torch.parallel import (
+        VirtualRing,
+        tree_attn_decode,
+        zigzag_attention,
+        zigzag_permute,
+    )
+
+    log("phase 4g: zig-zag and decoding on a mesh (CUDA events, median after warm-up)")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    log(f"  card: {smi.stdout.strip()}")
+    tokens = serving["tokens"]
+    models = {"contiguous ring": ring["models"]["contiguous"],
+              "striped ring": ring["models"]["striped"],
+              "zigzag": (zigzag["model"], zigzag["step"])}
+    times: dict[str, dict[str, list[float]]] = {name: {"fwd": [], "step": []} for name in models}
+    order = list(models) + list(models)[::-1]  # in turns
+    for name in order:
+        model, step = models[name]
+        model.eval()
+        with torch.inference_mode():
+            times[name]["fwd"].append(time_ms(lambda: model(tokens)))
+        model.train()
+        times[name]["step"].append(_train_step_timing(step, training["tokens"])[0])
+    for name in models:
+        fwd, stp = statistics.mean(times[name]["fwd"]), statistics.mean(times[name]["step"])
+        log(f"  {name} model (ring of {RING_SIZE}, 1 x 65536): forward {fwd:.3f} ms "
+            f"({65536 / fwd * 1e3:.0f} tokens/s), train step {stp:.3f} ms "
+            f"({65536 / stp * 1e3:.0f} tokens/s); each the mean of two turns "
+            f"{[round(x, 3) for x in times[name]['fwd']]} / "
+            f"{[round(x, 3) for x in times[name]['step']]}")
+
+    # config 3: zig-zag (forward, forward + backward) beside the one-sweep call
+    n, rs = CONFIG3_SEQ, CONFIG3_RING
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    q, k, v, do = (_rand(gen, (1, 8, n, 64), torch.bfloat16) for _ in range(4))
+    vring = VirtualRing(rs)
+    qz, kz, vz, doz = (zigzag_permute(x, rs, axis=2) for x in (q, k, v, do))
+
+    def zz(backward):
+        leaves = [x.detach().requires_grad_(backward) for x in (qz, kz, vz)]
+        out = zigzag_attention(*leaves, vring, impl="cuda")
+        if backward:
+            out.backward(doz)
+
+    def one(backward):
+        leaves = [x.detach().requires_grad_(backward) for x in (q, k, v)]
+        out = cuda_flash_attention(*leaves, causal=True)
+        if backward:
+            out.backward(do)
+
+    for backward in (False, True):
+        with torch.inference_mode(not backward):
+            t_one1 = time_ms(lambda: one(backward), iters=5)
+            t_zz1 = time_ms(lambda: zz(backward), iters=5)
+            t_zz2 = time_ms(lambda: zz(backward), iters=5)
+            t_one2 = time_ms(lambda: one(backward), iters=5)
+        what = "forward + backward" if backward else "forward"
+        log(f"  config 3 {what}: zigzag_attention (ring of {rs}, 16 chunks) "
+            f"{(t_zz1 + t_zz2) / 2:.3f} ms, cuda_flash_attention (one causal sweep) "
+            f"{(t_one1 + t_one2) / 2:.3f} ms, in turns (one, zz, zz, one: "
+            f"{t_one1:.3f}, {t_zz1:.3f}, {t_zz2:.3f}, {t_one2:.3f})")
+
+    # config 5: the tree decode beside one fused launch over the whole cache
+    q, k, v, kv8 = tree["q"], tree["k"], tree["v"], tree["kv8"]
+    k_shards, v_shards, kv8_shards = tree["k_shards"], tree["v_shards"], tree["kv8_shards"]
+    n = k.shape[2]
+    mask = torch.ones((1, n), dtype=torch.bool, device="cuda")
+    masks = list(mask.chunk(RING_SIZE, dim=1))
+    vring = VirtualRing(RING_SIZE)
+    calls = {
+        "tree_attn_decode (B5 partials per rank, merged)":
+            lambda: tree_attn_decode(q, k_shards, v_shards, masks, ring=vring, impl="cuda"),
+        "the 4 B5 partials launches alone":
+            lambda: [cf.cuda_flash_decode(q, *s, fused=False)
+                     for s in zip(k_shards, v_shards, masks)],
+        "one fused B5 launch over the whole cache":
+            lambda: cf.cuda_flash_decode(q, k, v, mask),
+        "tree_attn_decode, int8 cache (B6 partials per rank, merged)":
+            lambda: tree_attn_decode(q, None, None, masks, ring=vring,
+                                     kv_quantized=kv8_shards),
+        "the 4 B6 partials launches alone":
+            lambda: [q8.flash_decode_q8(q, s, m, fused=False)
+                     for s, m in zip(kv8_shards, masks)],
+        "one fused B6 launch over the whole int8 cache":
+            lambda: q8.flash_decode_q8(q, kv8, mask),
+    }
+    b_ms, _ = bound_ms(4 * 64 * 8 * n, nbytes(q, k, v, mask), torch.bfloat16)
+    for name, fn in calls.items():
+        graph = _graph_ms(fn)
+        sync = time_ms(fn, iters=20)
+        log(f"  config 5, {name}: {graph:.4f} ms on the device (CUDA graph of 20), "
+            f"{sync:.4f} ms a synchronized call; bf16 cache bound {b_ms:.4f} ms")
+
+    # the model's decode step on the ring beside the local one, 4 requests at
+    # ~32,768 cached tokens
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    long_prompts = torch.randint(0, BENCH_MODEL["num_tokens"], (4, 32768), generator=gen,
+                                 device="cuda")
+    max_len = 32768 + 64
+    for label in ("plain", "quantize_cache=True"):
+        model, quantized = mesh_serving["models"][label], label != "plain"
+        mesh_ms = _decode_step_ms(model, long_prompts, max_len)
+        local_ms = _decode_step_ms(serving["model"] if not quantized else
+                                   _model(torch.bfloat16, "cuda", quantize_cache=True),
+                                   long_prompts, max_len)
+        log(f"  decode step, 4 requests at ~32768-32780 cached tokens ({label}): on the ring "
+            f"of {RING_SIZE} {mesh_ms:.3f} ms/step, local {local_ms:.3f} ms/step")
+
+
 def main() -> int:
     import torch
 
@@ -3407,18 +4078,29 @@ def main() -> int:
     bwd_err = phase_bwd_kernel_vs_plain()
     q8_err = phase_q8_kernels_vs_plain()
     seg_err = phase_segmented_vs_plain()
+    mesh_err = phase_mesh_kernels_vs_plain()
     serving = phase_serving_path()
     training = phase_training_path()
     ring = phase_ring_path(serving, training)
     fused = phase_ring_path(serving, training, impl="fused")
     q8_path = phase_q8_path(serving, training)
     packed = phase_packed_path(serving, training)
+    zigzag = phase_zigzag_path(serving, training)
+    config3 = phase_zigzag_config3()
+    tree = phase_tree_decode_config5()
+    mesh_serving = phase_mesh_serving()
     rows, decode_rows = phase_timings(serving)
     bwd_rows = phase_train_timings(training)
     mode_rows = phase_ring_timings(ring, serving, training, rows)
     q8_rows = phase_q8_timings(q8_path, serving, training)
     fused_rows = phase_fused_ring_timings(fused, ring, serving, training)
     seg_rows = phase_segmented_timings(packed)
+    phase_mesh_timings(zigzag, ring, serving, training, tree, mesh_serving)
+    # the main paths' launches of this slice: the zig-zag model, config 3,
+    # config 5's tree decode and the serving path on the ring
+    mesh_launches = {name: zigzag["launches"][name] + config3["launches"][name]
+                     + tree["launches"][name] + mesh_serving["launches"][name]
+                     for name in COUNTERS}
     ring_launches = ring["launches"]
     packed_launches = packed["launches"]
     fused_launches = fused["launches"]
@@ -3427,31 +4109,37 @@ def main() -> int:
     entries = [
         ("flash_fwd", "flash_fwd.cu", f"{flash}:1174",
          serving["launches"] + training["launches"]["flash_fwd"]
-         + ring_launches["flash_fwd"] + packed_launches["flash_fwd"],
-         max(max_err, *mode_err.values(), *(seg_err[m] for m in
-                                            ("fused", "seed", "resume", "fused_carry"))),
+         + ring_launches["flash_fwd"] + packed_launches["flash_fwd"]
+         + mesh_launches["flash_fwd"],
+         max(max_err, *mode_err.values(), mesh_err["fwd"], config3["fwd_err"],
+             *(seg_err[m] for m in ("fused", "seed", "resume", "fused_carry"))),
          rows + seg_rows["flash_fwd"]),
         ("flash_decode", "flash_decode.cu", f"{flash}:1174",
-         serving["decode_launches"], decode_err, decode_rows),
+         serving["decode_launches"] + mesh_launches["flash_decode"],
+         max(decode_err, mesh_err["decode"]), decode_rows),
         ("flash_bwd_dkv", "flash_bwd.cu", f"{flash}:2108",
          training["launches"]["flash_bwd_dkv"] + ring_launches["flash_bwd_dkv"]
          + fused_launches["flash_bwd_dkv"] + q8_launches["flash_bwd_dkv"]
-         + packed_launches["flash_bwd_dkv"],
-         max(bwd_err["dk"], bwd_err["dv"], seg_err["dk"], seg_err["dv"]),
+         + packed_launches["flash_bwd_dkv"] + mesh_launches["flash_bwd_dkv"],
+         max(bwd_err["dk"], bwd_err["dv"], seg_err["dk"], seg_err["dv"], mesh_err["dk"],
+             mesh_err["dv"], config3["dk"], config3["dv"]),
          bwd_rows["flash_bwd_dkv"] + seg_rows["flash_bwd_dkv"]),
         ("flash_bwd_dq", "flash_bwd.cu", f"{flash}:2186",
          training["launches"]["flash_bwd_dq"] + ring_launches["flash_bwd_dq"]
          + fused_launches["flash_bwd_dq"] + q8_launches["flash_bwd_dq"]
-         + packed_launches["flash_bwd_dq"],
-         max(bwd_err["dq"], seg_err["dq"]), bwd_rows["flash_bwd_dq"] + seg_rows["flash_bwd_dq"]),
+         + packed_launches["flash_bwd_dq"] + mesh_launches["flash_bwd_dq"],
+         max(bwd_err["dq"], seg_err["dq"], mesh_err["dq"], config3["dq"]),
+         bwd_rows["flash_bwd_dq"] + seg_rows["flash_bwd_dq"]),
         ("flash_fwd_q8", "flash_fwd_q8.cu", f"{flash}:1174", q8_launches["flash_fwd_q8"],
          max(q8_err[m] for m in ("fused", "seed", "resume", "fused_carry")), q8_rows["fwd"]),
         ("flash_decode_q8", "flash_decode_q8.cu", f"{flash}:1585",
-         q8_launches["flash_decode_q8"], q8_err["decode"], q8_rows["decode"]),
+         q8_launches["flash_decode_q8"] + mesh_launches["flash_decode_q8"],
+         max(q8_err["decode"], mesh_err["decode_q8"]), q8_rows["decode"]),
         ("flash_ring", "flash_ring.cu", f"{pallas_ring}:341", fused_launches["flash_ring"],
          fused_err, fused_rows),
         ("flash_ring_remote", "flash_ring_remote.cu", f"{pallas_ring}:866",
-         fused_launches["flash_ring_remote"], remote_err, fused["remote_rows"]),
+         fused_launches["flash_ring_remote"] + mesh_launches["flash_ring_remote"],
+         remote_err, fused["remote_rows"]),
     ]
     kernels = []
     for name, source, replaces, launches, err, per_shape in entries:
@@ -3479,7 +4167,8 @@ def main() -> int:
         })
     # the forward kernel's ring modes, each with its own launches and numbers
     kernels[0]["modes"] = [
-        {"mode": mode, "launches": ring_launches[mode] + packed_launches[mode],
+        {"mode": mode, "launches": ring_launches[mode] + packed_launches[mode]
+         + mesh_launches[mode],
          "max_abs_err": max(mode_err[mode], seg_err[mode]),
          **{key: mode_rows[mode][0][key] for key in
             ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},

@@ -17,7 +17,11 @@ each other inside it; otherwise one launch of ``csrc/flash_ring.cu`` per
 ring rank over the all-gathered KV; the backward on the dk/dv and dq
 kernels), and packed sequences (``segment_ids=``: per-token document
 ids through the forward and backward kernels, locally and on the scan-path
-ring).  Entry
+ring), and zig-zag context parallelism (``sequence_parallel="zigzag"``,
+``zigzag_attention``: K and V gathered over the ring, each rank's two query
+chunks on the forward and backward kernels) and decoding on a mesh
+(``prefill``/``decode_step``/``generate`` with a ring-sharded cache, the
+ranks' decode-kernel partials merged by ``tree_attn_decode``).  Entry
 points run on the CUDA device unless the caller passes ``device="cpu"``;
 on CPU tensors every kernel wrapper runs its plain PyTorch version.  The
 package imports torch only.
@@ -78,6 +82,11 @@ from .parallel import (
     VirtualRing,
     create_mesh,
     ring_flash_attention,
+    tree_attn_decode,
+    zigzag_attention,
+    zigzag_permute,
+    zigzag_positions,
+    zigzag_unpermute,
 )
 from .utils.train import StepStats, init_step_stats, make_train_step
 from .weights import export_jax_params, init_random_params, load_jax_params
@@ -144,4 +153,9 @@ __all__ = [
     "rotate_half",
     "segments_overlap",
     "softclamp",
+    "tree_attn_decode",
+    "zigzag_attention",
+    "zigzag_permute",
+    "zigzag_positions",
+    "zigzag_unpermute",
 ]

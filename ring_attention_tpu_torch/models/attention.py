@@ -34,17 +34,22 @@ ported yet, and a mesh of more than one rank raises).
 
 On a mesh whose sequence world is above one the forward runs
 ``parallel/ring.py::ring_flash_attention`` with each rank's rotary
-positions; with ``auto_shard`` the layer pads, stripes and unpermutes
-around it.  ``forward(segment_ids=)`` packs documents into one row: a
+positions, or with ``sequence_parallel="zigzag"``
+``parallel/zigzag.py::zigzag_attention`` (causal only, no lookback, no
+int8 compute; ``"fused"`` runs as ``"cuda"``); with ``auto_shard`` the
+layer pads, permutes (striped or zig-zag) and unpermutes around it.  ``forward(segment_ids=)`` packs documents into one row: a
 query attends only keys of its own document, locally and on the
 ``"torch"``/``"cuda"`` ring (padding takes ``PAD_SEGMENT_ID``); rotary
 positions stay global, as in the JAX layer (rotary is relative).  The
 fused ring and the int8 sweep take no ids yet and raise.  The ring runs
 on a mesh whose ring this process holds whole (a ``VirtualRing``: one
-GPU, or the CPU).  ``prefill`` attends with
-``ops/flash.py`` under either value, as the JAX package's does.  Features
-not ported yet raise ``NotImplementedError`` naming the ROADMAP item that
-brings them.
+GPU, or the CPU).  Locally ``prefill`` attends with ``ops/flash.py``
+under every ``impl``, as the JAX package's does; on a mesh it runs the
+ring over the prompt in the contiguous layout (``_ring_prefill_attend``)
+and ``decode_step`` keeps the cache sharded contiguously over the ranks,
+one tensor per rank's shard that the kernels read in place, merging each rank's partials by tree attention
+(``parallel/tree_decode.py``).  Features not ported yet raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -65,7 +70,14 @@ from ..ops.cuda_flash_q8 import (
 from ..ops.flash import flash_attention
 from ..ops.rotary import apply_rotary, ring_positions, rotary_freqs
 from ..parallel.mesh import seq_world
-from ..parallel.ring import UNPORTED_FUSED_INT8, _fit_bucket, ring_flash_attention
+from ..parallel.ring import (
+    UNPORTED_FUSED_INT8,
+    _fit_bucket,
+    _fit_divisor,
+    ring_flash_attention,
+)
+from ..parallel.tree_decode import tree_attn_decode
+from ..parallel.zigzag import zigzag_attention, zigzag_positions
 from ..parallel.sharding import (
     layout_for,
     layout_permute,
@@ -87,7 +99,6 @@ UNPORTED = {
     "ring_counter_rotate": "the ring variants, ROADMAP.md Port queue item 7",
     "ring_hop_compression": "the ring variants, ROADMAP.md Port queue item 7",
     "ring_dkv_dtype": "the ring variants, ROADMAP.md Port queue item 7",
-    "decode": "tree-attention decoding on a mesh, ROADMAP.md Port queue item 7",
     "multiprocess": "the model over a multi-process mesh, ROADMAP.md Port queue item 6",
 }
 IMPLS = ("cuda", "torch", "fused")
@@ -141,6 +152,26 @@ def check_mesh(fn: str, mesh, sequence_parallel: str) -> None:
         raise unported(fn, "multiprocess")
 
 
+def check_zigzag(fn: str, sequence_parallel: str, causal: bool, lookbacks,
+                 compute_dtype, mesh) -> None:
+    """Zig-zag balances causal work over a gathered span: causal only, no
+    lookback window, and no int8 compute on a mesh (the JAX layer's checks,
+    its asserts made one-line errors)."""
+    if sequence_parallel != "zigzag":
+        return
+    if not causal:
+        raise ValueError(f'{fn}: sequence_parallel="zigzag" is causal only')
+    if any(lb is not None for lb in lookbacks):
+        raise ValueError(
+            f'{fn}: sequence_parallel="zigzag" takes no max_lookback_seq_len'
+        )
+    if compute_dtype == "int8" and seq_world(mesh) > 1:
+        raise ValueError(
+            f'{fn}: compute_dtype="int8" supports the "ring" strategy (and the '
+            f'local path); got sequence_parallel="zigzag"'
+        )
+
+
 def check_impl(fn: str, impl: str) -> None:
     if impl in UNPORTED_IMPLS:
         raise NotImplementedError(
@@ -149,6 +180,12 @@ def check_impl(fn: str, impl: str) -> None:
         )
     if impl not in IMPLS:
         raise ValueError(f"{fn}: impl must be one of {IMPLS}, got {impl!r}")
+
+
+def _shard_slots(entry, quantized: bool) -> int:
+    """The slots of one cache entry: a tensor ``(b, hk, slots, dh)`` or,
+    quantized, a ``(values, scales)`` tuple."""
+    return (entry[0] if quantized else entry).shape[2]
 
 
 class RingAttention(nn.Module):
@@ -198,6 +235,8 @@ class RingAttention(nn.Module):
         check_impl("RingAttention", impl)
         check_mesh("RingAttention", mesh, sequence_parallel)
         check_compute_dtype("RingAttention", compute_dtype, impl)
+        check_zigzag("RingAttention", sequence_parallel, causal,
+                     (max_lookback_seq_len,), compute_dtype, mesh)
         check_fused_int8("RingAttention", compute_dtype, impl, mesh)
         kv_heads = kv_heads or heads
         if heads % kv_heads:
@@ -217,6 +256,7 @@ class RingAttention(nn.Module):
         self.impl = impl
         self.mesh = mesh
         self.striped = striped
+        self.sequence_parallel = sequence_parallel
         self.auto_shard = auto_shard
         self.quantize_cache = quantize_cache
         self.compute_dtype = compute_dtype
@@ -262,23 +302,27 @@ class RingAttention(nn.Module):
         (True = attend), ignored when the layer is causal; ``segment_ids:
         (b, n)`` integer document ids of packed sequences."""
         check_model_input("RingAttention", x, self.dim)
-        ring = seq_world(self.mesh) > 1
+        world = seq_world(self.mesh)
+        ring = world > 1
         n_orig = x.shape[1]
-        scheme, factor = layout_for("ring", self.striped, seq_world(self.mesh))
+        scheme, factor = layout_for(self.sequence_parallel, self.striped, world)
         if ring and self.auto_shard:
-            x, mask, n_orig = pad_seq_and_mask(x, mask, seq_world(self.mesh))
+            pad_mult = 2 * world if scheme == "zigzag" else world
+            x, mask, n_orig = pad_seq_and_mask(x, mask, pad_mult)
             x = layout_permute(x, scheme, factor)
             if mask is not None:
                 mask = layout_permute(mask, scheme, factor)
             if segment_ids is not None:
                 # pad slots are a document of their own, attending nothing real
-                segment_ids, _ = pad_to_multiple(segment_ids, seq_world(self.mesh),
+                segment_ids, _ = pad_to_multiple(segment_ids, pad_mult,
                                                  value=PAD_SEGMENT_ID)
                 segment_ids = layout_permute(segment_ids, scheme, factor)
         q, k, v = self._project_qkv(x)
         if self.causal:
             mask = None
-        attend = self._ring_attend if ring else self._local_attend
+        attend = self._local_attend
+        if ring:
+            attend = self._zigzag_attend if scheme == "zigzag" else self._ring_attend
         out = self._merge_heads(attend(q, k, v, mask, segment_ids))
         if ring and self.auto_shard:
             out = layout_unpermute(out, scheme, factor)[:, :n_orig]
@@ -321,6 +365,29 @@ class RingAttention(nn.Module):
             segment_ids=segment_ids, compute_dtype=self.compute_dtype,
         )
 
+    def _zigzag_attend(self, q, k, v, mask, segment_ids=None):
+        """Zig-zag over the mesh's ring: each held rank's rotary positions
+        from its two chunks (JAX ``_zigzag_attend``, :530-556).  ``mask`` is
+        None: the layer is causal."""
+        ring = self.mesh.ring
+        world = seq_world(self.mesh)
+        n = q.shape[2]
+        if n % (2 * world):
+            raise ValueError(
+                f"RingAttention: sequence {n} must divide over {2 * world} "
+                "(zigzag); use auto_shard=True to pad"
+            )
+        n_local = n // world
+        if self.rotary:
+            pos = torch.cat([zigzag_positions(n_local, rank, world, device=q.device)
+                             for rank in ring.ranks])
+            q, k = self._rotate(q, k, pos)
+        return zigzag_attention(
+            q, k, v, ring, bucket_size=self.bucket_size,
+            softclamp_value=self.softclamp_value, impl=self._kernel_impl,
+            segment_ids=segment_ids,
+        )
+
     def _local_attend(self, q, k, v, mask, segment_ids=None):
         n = q.shape[2]
         q, k = self._rotate(q, k, torch.arange(n, device=q.device))
@@ -344,7 +411,8 @@ class RingAttention(nn.Module):
     def decode_step(
         self,
         x: torch.Tensor,  # (b, 1, dim): the new token's activation
-        cache_k,  # (b, hk, size, dh); (values, scales) with quantize_cache
+        cache_k,  # (b, hk, size, dh); (values, scales) with quantize_cache;
+        # on a mesh, a list of such entries, one per rank's shard
         cache_v,
         pos: int,  # position the new token occupies
     ):
@@ -356,18 +424,21 @@ class RingAttention(nn.Module):
         ``max_lookback_seq_len`` when the layer has a window.  Under
         ``quantize_cache`` each cache entry is an ``(int8 values (b, hk,
         size, dh), f32 scales (b, hk, size))`` tuple and the new row is
-        quantized as it is written.  Returns ``(out (b, 1, dim), cache_k,
+        quantized as it is written.  On a mesh the cache is a list of
+        such entries, one per rank's shard, sharded contiguously over the
+        ring: it holds absolute positions (:meth:`_ring_decode`).  Returns ``(out (b, 1, dim), cache_k,
         cache_v)``."""
-        if seq_world(self.mesh) > 1:
-            raise unported("RingAttention.decode_step", "decode")
         pos = int(pos)
         q, k, v = self._project_qkv(x)
         q, k = self._rotate(q, k, torch.tensor([pos], device=x.device))
+        if seq_world(self.mesh) > 1:
+            out = self._ring_decode(q, k, v, cache_k, cache_v, pos)
+            return self._merge_heads(out), cache_k, cache_v
+        size = _shard_slots(cache_k, self.quantize_cache)
+        self._write(cache_k, cache_v, k, v, pos % size)
+        kv_mask = self._buffer_mask(size, pos, x.shape[0], x.device)
         if self.quantize_cache:
-            size = cache_k[0].shape[2]
-            self._quantized_write(cache_k, cache_v, k, v, pos % size)
             kv = QuantizedKV(*cache_k, *cache_v)
-            kv_mask = self._buffer_mask(size, pos, x.shape[0], x.device)
             if self._kernel_impl == "cuda":
                 out, _ = flash_decode_q8(q, kv, kv_mask,
                                          softclamp_value=self.softclamp_value)
@@ -375,13 +446,7 @@ class RingAttention(nn.Module):
                 k_deq, v_deq = dequantize_kv_cache(kv, q.dtype)
                 out = default_attention(q, k_deq, v_deq, kv_mask,
                                         softclamp_value=self.softclamp_value)
-            return self._merge_heads(out), cache_k, cache_v
-        size = cache_k.shape[2]
-        slot = pos % size
-        cache_k[:, :, slot:slot + 1] = k.to(cache_k.dtype)
-        cache_v[:, :, slot:slot + 1] = v.to(cache_v.dtype)
-        kv_mask = self._buffer_mask(size, pos, x.shape[0], x.device)
-        if self._kernel_impl == "cuda":
+        elif self._kernel_impl == "cuda":
             # one sweep, each cache byte read once per kv head
             out, _ = cuda_flash_decode(
                 q, cache_k, cache_v, kv_mask, softclamp_value=self.softclamp_value
@@ -391,6 +456,65 @@ class RingAttention(nn.Module):
                 q, cache_k, cache_v, kv_mask, softclamp_value=self.softclamp_value
             )
         return self._merge_heads(out), cache_k, cache_v
+
+    def _ring_decode(self, q, k, v, cache_k, cache_v, pos: int) -> torch.Tensor:
+        """Decode against a cache sharded contiguously over the ring (JAX
+        ``_ring_decode``, :928-999): rank ``pos // n_local`` owns the new
+        row and writes it at its local slot ``pos % n_local``; every rank
+        attends its shard under the absolute-position mask
+        (:meth:`_decode_mask`) and the shards' partials merge by tree
+        attention.  ``cache_k``, ``cache_v``: one shard per rank this
+        process holds, in rank order (every rank's on a ``VirtualRing``),
+        each a ``(b, hk, n_local, dh)`` tensor or, with ``quantize_cache``,
+        a ``(values, scales)`` tuple.  Returns ``(b, h, 1, dh)``."""
+        ring = self.mesh.ring
+        world = seq_world(self.mesh)
+        n_local = _shard_slots(cache_k[0], self.quantize_cache)
+        if pos >= n_local * world:
+            raise ValueError(
+                f"decode_step: position {pos} is past the ring-sharded cache of "
+                f"{n_local * world} slots (it holds absolute positions)"
+            )
+        owner = pos // n_local
+        if owner in ring.ranks:
+            j = ring.ranks.index(owner)
+            self._write(cache_k[j], cache_v[j], k, v, pos % n_local)
+        # the held ranks are consecutive (every rank, or one)
+        idx = ring.ranks[0] * n_local + torch.arange(
+            len(ring.ranks) * n_local, device=q.device).view(len(ring.ranks), n_local)
+        masks = list(self._decode_mask(idx, pos, q.shape[0]))
+        if self.quantize_cache:
+            # impl="torch" dequantizes inside tree_attn_decode
+            return tree_attn_decode(
+                q, None, None, masks, ring=ring, softclamp_value=self.softclamp_value,
+                impl=self._kernel_impl,
+                kv_quantized=[QuantizedKV(*ck, *cv) for ck, cv in zip(cache_k, cache_v)],
+            )
+        return tree_attn_decode(
+            q, cache_k, cache_v, masks, ring=ring,
+            softclamp_value=self.softclamp_value, impl=self._kernel_impl,
+        )
+
+    def _decode_mask(self, idx: torch.Tensor, pos: int, batch: int) -> torch.Tensor:
+        """Valid-slot masks ``(ranks, batch, n_local)`` of a ring-sharded
+        cache, one contiguous tensor (each rank's mask a contiguous slice of
+        it, which the decode kernels read in place): ``idx (ranks,
+        n_local)`` are the slots' absolute positions; valid are ``[0,
+        pos]``, windowed to the last ``max_lookback_seq_len`` when set."""
+        keep = idx <= pos
+        if self.max_lookback_seq_len is not None:
+            keep = keep & (idx > pos - self.max_lookback_seq_len)
+        return keep[:, None, :].expand(idx.shape[0], batch, idx.shape[1]).contiguous()
+
+    def _write(self, cache_k, cache_v, k, v, slot: int) -> None:
+        """Write K/V rows ``(b, hk, n, dh)`` at slots ``[slot, slot + n)`` of
+        a cache entry, in place, quantized under ``quantize_cache``."""
+        if self.quantize_cache:
+            self._quantized_write(cache_k, cache_v, k, v, slot)
+        else:
+            n = k.shape[2]
+            cache_k[:, :, slot:slot + n] = k.to(cache_k.dtype)
+            cache_v[:, :, slot:slot + n] = v.to(cache_v.dtype)
 
     @staticmethod
     def _quantized_write(cache_k, cache_v, k, v, slot: int) -> None:
@@ -421,7 +545,8 @@ class RingAttention(nn.Module):
     def prefill(
         self,
         x: torch.Tensor,  # (b, n, dim): the whole prompt
-        cache_k,  # (b, hk, size, dh); (values, scales) with quantize_cache
+        cache_k,  # (b, hk, size, dh); (values, scales) with quantize_cache;
+        # on a mesh, a list of such entries, one per rank's shard
         cache_v,
     ):
         """One causal pass over the prompt, writing cache slots in place.
@@ -429,14 +554,29 @@ class RingAttention(nn.Module):
         The written K/V carry rotary exactly as ``decode_step`` writes them,
         so decoding continues from position ``n``.  Attention runs on the
         blockwise PyTorch path (``ops/flash.py``) on the exact K/V whatever
-        ``impl`` and ``compute_dtype`` are, as in the JAX package; under
-        ``quantize_cache`` only the cache is quantized.  Returns ``(out (b,
-        n, dim), cache_k, cache_v)``."""
-        if seq_world(self.mesh) > 1:
-            raise unported("RingAttention.prefill", "decode")
+        ``impl`` and ``compute_dtype`` are, as in the JAX package; on a mesh
+        it runs the ring over the prompt (:meth:`_ring_prefill_attend`).
+        Under ``quantize_cache`` only the cache is quantized.  Returns
+        ``(out (b, n, dim), cache_k, cache_v)``."""
         n = x.shape[1]
-        size = (cache_k[0] if self.quantize_cache else cache_k).shape[2]
         lookback = self.max_lookback_seq_len
+        if seq_world(self.mesh) > 1:
+            n_local = _shard_slots(cache_k[0], self.quantize_cache)
+            if n > n_local * len(cache_k):
+                raise ValueError(
+                    f"prefill: prompt ({n}) longer than the ring-sharded cache "
+                    f"({n_local * len(cache_k)}), which holds absolute positions"
+                )
+            q, k, v = self._project_qkv(x)
+            q, k = self._rotate(q, k, torch.arange(n, device=x.device))
+            out = self._ring_prefill_attend(q, k, v)
+            # rank r's shard holds positions [r * n_local, (r + 1) * n_local)
+            for j, r in enumerate(self.mesh.ring.ranks):
+                rows = slice(r * n_local, min(n, (r + 1) * n_local))
+                if rows.start < rows.stop:
+                    self._write(cache_k[j], cache_v[j], k[:, :, rows], v[:, :, rows], 0)
+            return self._merge_heads(out), cache_k, cache_v
+        size = _shard_slots(cache_k, self.quantize_cache)
         if n > size and (lookback is None or size < lookback):
             raise ValueError(
                 f"prefill: prompt ({n}) longer than the cache ({size}) "
@@ -452,14 +592,32 @@ class RingAttention(nn.Module):
         if n > size:
             # keep the last `size` rows in ring-buffer slot order:
             # cache[s] = row at position p ≡ s (mod size)
-            k_rows = torch.roll(k[:, :, n - size:], n % size, dims=2)
-            v_rows = torch.roll(v[:, :, n - size:], n % size, dims=2)
-        else:
-            k_rows, v_rows = k, v
-        if self.quantize_cache:
-            self._quantized_write(cache_k, cache_v, k_rows, v_rows, 0)
-        else:
-            rows = k_rows.shape[2]
-            cache_k[:, :, :rows] = k_rows.to(cache_k.dtype)
-            cache_v[:, :, :rows] = v_rows.to(cache_v.dtype)
+            k = torch.roll(k[:, :, n - size:], n % size, dims=2)
+            v = torch.roll(v[:, :, n - size:], n % size, dims=2)
+        self._write(cache_k, cache_v, k, v, 0)
         return self._merge_heads(out), cache_k, cache_v
+
+    def _ring_prefill_attend(self, q, k, v) -> torch.Tensor:
+        """The ring over the prompt in the contiguous (cache) layout, whatever
+        ``striped`` and ``sequence_parallel`` say (JAX
+        ``_ring_prefill_attend``, :872-927).  Rotary is applied; the prompt
+        is right-padded to the ring, which causal masking hides (the pad
+        sits after every real query), and the pad rows are sliced off.
+        Runs ``impl`` as it stands (``"fused"`` takes the fused ring) and
+        never int8 compute."""
+        world = seq_world(self.mesh)
+        n = q.shape[2]
+        pad = (-n) % world
+        if pad:
+            q, k, v = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (q, k, v))
+        n_local = (n + pad) // world
+        bucket = _fit_divisor(self.bucket_size, n_local)
+        window = self.max_lookback_seq_len
+        max_ring_passes = None
+        if window is not None:
+            max_ring_passes = math.ceil((window - 1) / n_local) + 1
+        out = ring_flash_attention(
+            q, k, v, None, self.mesh.ring, True, False, bucket, max_ring_passes,
+            window, self.softclamp_value, None, self.impl,
+        )
+        return out[:, :, :n]

@@ -11,10 +11,15 @@ int8 serving knobs ``quantize_cache`` and ``compute_dtype="int8"`` of
 ``mesh`` the model shards once at its top (pad, stripe when ``striped``)
 and every layer runs the ring on that layout, hop by hop under
 ``impl="cuda"`` or fused under ``"fused"`` (one launch for the whole
-ring, or one per rank when padding added a key mask); the parameters are
-the same as without a mesh.  ``forward(segment_ids=)`` trains and scores
-packed documents (the ids are padded with ``PAD_SEGMENT_ID`` and permuted
-with the tokens on a mesh).  Decoding on a mesh is not ported yet.
+ring, or one per rank when padding added a key mask), or with
+``sequence_parallel="zigzag"`` pads to ``2 * W`` and runs zig-zag
+attention (``parallel/zigzag.py``); the parameters are the same as
+without a mesh.  ``forward(segment_ids=)`` trains and scores packed
+documents (the ids are padded with ``PAD_SEGMENT_ID`` and permuted with
+the tokens on a mesh).  Decoding on a mesh keeps the cache sharded
+contiguously over the ring: ``prefill`` runs the ring over the prompt and
+``decode_step`` merges the ranks' partials by tree attention
+(``parallel/tree_decode.py``).
 """
 
 from __future__ import annotations
@@ -32,8 +37,8 @@ from .attention import (
     check_fused_int8,
     check_impl,
     check_mesh,
+    check_zigzag,
     reject_unported,
-    unported,
 )
 from .layers import Dense, Embed, FeedForward, RMSNorm, resolve_device
 
@@ -130,7 +135,6 @@ class RingTransformer(nn.Module):
         check_impl("RingTransformer", impl)
         check_mesh("RingTransformer", mesh, sequence_parallel)
         check_compute_dtype("RingTransformer", compute_dtype, impl)
-        check_fused_int8("RingTransformer", compute_dtype, impl, mesh)
         lookbacks = max_lookback_seq_len
         if not isinstance(lookbacks, tuple):
             lookbacks = (lookbacks,) * depth
@@ -139,6 +143,9 @@ class RingTransformer(nn.Module):
                 f"RingTransformer: max_lookback_seq_len tuple has "
                 f"{len(lookbacks)} entries for depth {depth}"
             )
+        check_zigzag("RingTransformer", sequence_parallel, causal, lookbacks,
+                     compute_dtype, mesh)
+        check_fused_int8("RingTransformer", compute_dtype, impl, mesh)
         device = resolve_device(device)
         self.kv_heads = kv_heads or heads
         self.dim_head = dim_head
@@ -148,6 +155,7 @@ class RingTransformer(nn.Module):
         self.mesh = mesh
         self.quantize_cache = quantize_cache
         self.striped = striped and seq_world(mesh) > 1
+        self.sequence_parallel = sequence_parallel
         self.embed = Embed(num_tokens, dim, dtype=dtype, device=device)
         self.attn_layers = nn.ModuleList(
             RingAttention(
@@ -155,7 +163,8 @@ class RingTransformer(nn.Module):
                 causal=causal, bucket_size=bucket_size, rotary=rotary,
                 softclamp_value=softclamp_value, max_lookback_seq_len=lookback,
                 impl=impl, dtype=dtype, device=device, mesh=mesh,
-                striped=self.striped, auto_shard=False,  # sharded once at the top
+                striped=self.striped, sequence_parallel=sequence_parallel,
+                auto_shard=False,  # sharded once at the top
                 quantize_cache=quantize_cache, compute_dtype=compute_dtype,
             )
             for lookback in lookbacks
@@ -203,9 +212,10 @@ class RingTransformer(nn.Module):
                 segment_ids = segment_ids[:, :-1]
         world = seq_world(self.mesh)
         n_orig = tokens.shape[1]
-        scheme, factor = layout_for("ring", self.striped, world)
+        scheme, factor = layout_for(self.sequence_parallel, self.striped, world)
+        pad_mult = 2 * world if scheme == "zigzag" else world
         if world > 1:
-            tokens, _ = pad_to_multiple(tokens, world)
+            tokens, _ = pad_to_multiple(tokens, pad_mult)
             if tokens.shape[1] != n_orig and mask is None and not self.causal:
                 # real tokens must not attend to the pad slots; causal needs
                 # no mask (the pad sits after every real query)
@@ -213,11 +223,12 @@ class RingTransformer(nn.Module):
                 mask = mask[None, :].expand(tokens.shape[0], -1)
             tokens = layout_permute(tokens, scheme, factor)
             if mask is not None:
-                mask, _ = pad_to_multiple(mask, world, value=False)
+                mask, _ = pad_to_multiple(mask, pad_mult, value=False)
                 mask = layout_permute(mask, scheme, factor)
             if segment_ids is not None:
                 # pad slots are a document of their own, attending nothing real
-                segment_ids, _ = pad_to_multiple(segment_ids, world, value=PAD_SEGMENT_ID)
+                segment_ids, _ = pad_to_multiple(segment_ids, pad_mult,
+                                                 value=PAD_SEGMENT_ID)
                 segment_ids = layout_permute(segment_ids, scheme, factor)
         x = self.embed(tokens)
         for attn, ff in zip(self.attn_layers, self.ff_layers):
@@ -245,10 +256,18 @@ class RingTransformer(nn.Module):
         ``(batch, kv_heads, max_len, dim_head)`` entry per layer, in the
         model dtype (float32 when it is None); with ``quantize_cache`` each
         entry is an ``(int8 values, f32 scales (batch, kv_heads, max_len))``
-        tuple."""
-        if seq_world(self.mesh) > 1:
-            raise unported("RingTransformer.init_cache", "decode")
-        shape = (batch, self.kv_heads, max_len, self.dim_head)
+        tuple.  On a mesh the cache is sharded contiguously over the ring
+        and ``max_len`` must divide over it: each layer's entry is a list of
+        one such entry per rank (the model runs on a virtual ring), rank
+        ``r``'s of ``max_len / W`` slots holding positions ``[r * max_len /
+        W, (r + 1) * max_len / W)``."""
+        world = seq_world(self.mesh)
+        if max_len % world:
+            raise ValueError(
+                f"init_cache: max_len {max_len} must divide over the ring of "
+                f"{world} (the cache is sharded contiguously)"
+            )
+        shape = (batch, self.kv_heads, max_len // world, self.dim_head)
         dtype = self.dtype or torch.float32
         device = self._device()
 
@@ -258,9 +277,12 @@ class RingTransformer(nn.Module):
                         torch.zeros(shape[:3], dtype=torch.float32, device=device))
             return torch.zeros(shape, dtype=dtype, device=device)
 
+        def layer():
+            return entry() if world == 1 else [entry() for _ in range(world)]
+
         depth = len(self.attn_layers)
-        return {"k": [entry() for _ in range(depth)],
-                "v": [entry() for _ in range(depth)]}
+        return {"k": [layer() for _ in range(depth)],
+                "v": [layer() for _ in range(depth)]}
 
     def decode_step(
         self,
@@ -271,8 +293,6 @@ class RingTransformer(nn.Module):
         """Next-token logits ``(b, vocab)`` given the token at ``pos`` and a
         cache holding positions ``[0, pos)``; the cache is updated in place
         and returned."""
-        if seq_world(self.mesh) > 1:
-            raise unported("RingTransformer.decode_step", "decode")
         x = self.embed(token.to(self._device())[:, None])
         for i, (attn, ff) in enumerate(zip(self.attn_layers, self.ff_layers)):
             a, _, _ = attn.decode_step(x, cache["k"][i], cache["v"][i], pos)
@@ -287,8 +307,6 @@ class RingTransformer(nn.Module):
     ) -> tuple[torch.Tensor, dict[str, list]]:
         """One causal pass over the prompt, filling cache positions
         ``[0, n)`` in place.  Returns ``(last_logits (b, vocab), cache)``."""
-        if seq_world(self.mesh) > 1:
-            raise unported("RingTransformer.prefill", "decode")
         x = self.embed(tokens.to(self._device()))
         for i, (attn, ff) in enumerate(zip(self.attn_layers, self.ff_layers)):
             a, _, _ = attn.prefill(x, cache["k"][i], cache["v"][i])
@@ -315,8 +333,6 @@ class RingTransformer(nn.Module):
         categorical sampling at that temperature, truncated to the ``top_k``
         most probable tokens and/or the ``top_p`` nucleus, drawn from
         ``generator`` (which must then be given, on the model's device)."""
-        if seq_world(self.mesh) > 1:
-            raise unported("RingTransformer.generate", "decode")
         b, n = prompt.shape
         if n < 1 or num_steps < 1:
             raise ValueError("generate: needs a non-empty prompt and num_steps >= 1")

@@ -1,4 +1,5 @@
-"""Sequence parallelism: the ring, its transport, the mesh and the layouts."""
+"""Sequence parallelism: the ring, its transport, the mesh and the layouts,
+zig-zag context parallelism and tree-attention decoding."""
 
 from .collectives import DistributedRing, Ring, VirtualRing
 from .mesh import Mesh, create_mesh, data_world, seq_world, validate_seq_len
@@ -12,8 +13,17 @@ from .sharding import (
     stripe_permute,
     stripe_unpermute,
 )
+from .tree_decode import tree_attn_decode
+from .zigzag import (
+    GATHERED_KV_BUDGET_BYTES,
+    zigzag_attention,
+    zigzag_permute,
+    zigzag_positions,
+    zigzag_unpermute,
+)
 
 __all__ = [
+    "GATHERED_KV_BUDGET_BYTES",
     "DistributedRing",
     "Mesh",
     "Ring",
@@ -29,5 +39,10 @@ __all__ = [
     "seq_world",
     "stripe_permute",
     "stripe_unpermute",
+    "tree_attn_decode",
     "validate_seq_len",
+    "zigzag_attention",
+    "zigzag_permute",
+    "zigzag_positions",
+    "zigzag_unpermute",
 ]

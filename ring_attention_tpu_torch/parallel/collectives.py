@@ -12,14 +12,24 @@ behind a small :class:`Ring` interface with two implementations:
   ``torch.distributed.batch_isend_irecv`` (gloo on the CPU, NCCL across
   GPUs), within a process group.
 
-Beside the rotation the seam has one collective, ``all_gather``: each held
-rank's view of the rank-major concatenation of every rank's payload (the
-JAX ``lax.all_gather(..., tiled=True)`` of the fused ring's local tier,
-``ring_attention_tpu/parallel/ring.py::_gather_seq``), and one property,
-``colocated``: whether one kernel launch can address every rank, so that
-the fused ring's remote tier can pass KV between the ranks inside it (the
-port's counterpart of ``pallas_ring.neighbor_mesh_coords`` not returning
-None).
+Beside the rotation the seam has two collectives and one property:
+
+- ``all_gather``: each held rank's view of the rank-major concatenation of
+  every rank's payload (the JAX ``lax.all_gather(..., tiled=True)`` of the
+  fused ring's local tier, ``ring_attention_tpu/parallel/ring.py::
+  _gather_seq``, and of zig-zag, ``parallel/zigzag.py``).  It carries
+  gradients, as ``lax.all_gather`` transposes to a reduce-scatter: on a
+  ``VirtualRing`` through ``torch.cat``, on a ``DistributedRing`` through
+  an autograd function whose backward sums the gathered gradient over the
+  ranks (gloo has no reduce-scatter: an all-reduce, then each rank keeps
+  its own slice);
+- ``all_reduce(op)``: the elementwise ``"max"`` or ``"sum"`` of every
+  rank's payload (``lax.pmax`` / ``lax.psum`` of tree decoding,
+  ``parallel/tree_decode.py``), for each held rank;
+- ``colocated``: whether one kernel launch can address every rank, so
+  that the fused ring's remote tier can pass KV between the ranks inside
+  it (the port's counterpart of ``pallas_ring.neighbor_mesh_coords`` not
+  returning None).
 
 A ring function handles a *list of payloads*, one per rank this process
 holds (``ring.ranks``, in order); each payload is a tuple of tensors that
@@ -61,7 +71,23 @@ class Ring(abc.ABC):
     def all_gather(self, payloads: list[Payload], dim: int) -> list[Payload]:
         """Concatenate every rank's payload, tensor by tensor, along
         ``dim`` in rank order, and return that concatenation for each held
-        rank in order (the fused ring's one collective)."""
+        rank in order, differentiably (the fused ring's and zig-zag's
+        gather)."""
+
+    @abc.abstractmethod
+    def all_reduce(self, payloads: list[Payload], op: str) -> list[Payload]:
+        """Reduce every rank's payload, tensor by tensor and elementwise,
+        with ``op`` (``"max"`` or ``"sum"``), and return the result for each
+        held rank in order (tree decoding's merge and the gather's
+        backward)."""
+
+
+REDUCE_OPS = ("max", "sum")
+
+
+def _check_op(fn: str, op: str) -> None:
+    if op not in REDUCE_OPS:
+        raise ValueError(f"{fn}: op must be one of {REDUCE_OPS}, got {op!r}")
 
 
 class VirtualRing(Ring):
@@ -96,6 +122,24 @@ class VirtualRing(Ring):
             )
         gathered = tuple(torch.cat(parts, dim=dim) for parts in zip(*payloads))
         return [gathered] * self.world
+
+    def all_reduce(self, payloads: list[Payload], op: str) -> list[Payload]:
+        """The ranks' tensors folded in rank order, one result shared by
+        every rank."""
+        _check_op("VirtualRing.all_reduce", op)
+        if len(payloads) != self.world:
+            raise ValueError(
+                f"VirtualRing.all_reduce: {len(payloads)} payloads for a ring "
+                f"of {self.world}"
+            )
+        fold = torch.maximum if op == "max" else torch.add
+        reduced = []
+        for parts in zip(*payloads):
+            acc = parts[0]
+            for x in parts[1:]:
+                acc = fold(acc, x)
+            reduced.append(acc)
+        return [tuple(reduced)] * self.world
 
     def __repr__(self) -> str:
         return f"VirtualRing(world={self.world})"
@@ -141,9 +185,8 @@ class DistributedRing(Ring):
 
     def all_gather(self, payloads: list[Payload], dim: int) -> list[Payload]:
         """``torch.distributed.all_gather`` within the group, tensor by
-        tensor (a bool tensor travels as uint8)."""
-        import torch.distributed as dist
-
+        tensor (a bool tensor travels as uint8); a tensor that requires
+        grad gathers through :class:`_GatherWithGrad`."""
         if len(payloads) != 1:
             raise ValueError(
                 f"DistributedRing.all_gather: one payload per process, got "
@@ -151,13 +194,57 @@ class DistributedRing(Ring):
             )
         gathered = []
         for x in payloads[0]:
-            sent = x.contiguous()
-            if sent.dtype == torch.bool:
-                sent = sent.to(torch.uint8)
-            parts = [torch.empty_like(sent) for _ in range(self.world)]
-            dist.all_gather(parts, sent, group=self.group)
-            gathered.append(torch.cat(parts, dim=dim).to(x.dtype))
+            if x.requires_grad:
+                gathered.append(_GatherWithGrad.apply(x, dim, self))
+            else:
+                gathered.append(self._gather(x, dim))
         return [tuple(gathered)]
+
+    def _gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        import torch.distributed as dist
+
+        sent = x.contiguous()
+        if sent.dtype == torch.bool:
+            sent = sent.to(torch.uint8)
+        parts = [torch.empty_like(sent) for _ in range(self.world)]
+        dist.all_gather(parts, sent, group=self.group)
+        return torch.cat(parts, dim=dim).to(x.dtype)
+
+    def all_reduce(self, payloads: list[Payload], op: str) -> list[Payload]:
+        """``torch.distributed.all_reduce`` within the group, tensor by
+        tensor, on copies (the payload is left as it was)."""
+        import torch.distributed as dist
+
+        _check_op("DistributedRing.all_reduce", op)
+        if len(payloads) != 1:
+            raise ValueError(
+                f"DistributedRing.all_reduce: one payload per process, got "
+                f"{len(payloads)}"
+            )
+        reduce_op = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
+        reduced = []
+        for x in payloads[0]:
+            y = x.detach().clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(y, op=reduce_op, group=self.group)
+            reduced.append(y)
+        return [tuple(reduced)]
 
     def __repr__(self) -> str:
         return f"DistributedRing(world={self.world}, rank={self.rank})"
+
+
+class _GatherWithGrad(torch.autograd.Function):
+    """``DistributedRing`` all-gather whose backward is the reduce-scatter
+    (the transpose of ``lax.all_gather``): the gathered gradient summed over
+    the ranks, of which each keeps its own slice along ``dim``."""
+
+    @staticmethod
+    def forward(ctx, x, dim, ring):
+        ctx.dim, ctx.ring, ctx.size = dim, ring, x.shape[dim]
+        return ring._gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (total,) = ctx.ring.all_reduce([(grad,)], "sum")[0]
+        mine = total.narrow(ctx.dim, ctx.ring.rank * ctx.size, ctx.size)
+        return mine.contiguous(), None, None

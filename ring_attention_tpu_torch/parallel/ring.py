@@ -246,16 +246,23 @@ def _fused_tables(rank, passes, n_local, causal, striped, window, ring_size,
     return tuple(torch.tensor(list(zip(*rows)), dtype=torch.int32, device=device))
 
 
-def _fit_bucket(bucket_size: int | None, nk: int) -> int | None:
-    """Largest divisor of ``nk`` that is <= ``bucket_size``; warns when it
-    falls to half or less.  The one copy of the bucket fit: the ring fits
-    once per call, the attention layer once per shard length."""
+def _fit_divisor(bucket_size: int | None, nk: int) -> int | None:
+    """Largest divisor of ``nk`` that is <= ``bucket_size`` (None stays
+    None): the one copy of the bucket fit."""
     if bucket_size is None or nk == 0:
         return bucket_size
     b = min(bucket_size, nk)
     while nk % b:
         b -= 1
-    if b * 2 <= bucket_size:
+    return b
+
+
+def _fit_bucket(bucket_size: int | None, nk: int) -> int | None:
+    """:func:`_fit_divisor`, warning when the fit falls to half or less:
+    the ring fits once per call, the attention layer once per shard
+    length.  Zig-zag and the ring prefill fit silently, as JAX does."""
+    b = _fit_divisor(bucket_size, nk)
+    if b is not None and b * 2 <= bucket_size:
         warnings.warn(
             f"ring flash bucket refitted from {bucket_size} to {b} to divide "
             f"the {nk}-token KV stream; tiny buckets mean many small steps — "

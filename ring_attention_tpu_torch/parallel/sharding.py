@@ -1,15 +1,17 @@
-"""Sequence layout transforms: padding and striping.
+"""Sequence layout transforms: padding, striping and the zig-zag layout.
 
 Port of ``ring_attention_tpu/parallel/sharding.py:23-148``.  Striping
 (Striped Attention, arXiv 2311.09431) gives ring rank ``r`` of ``W`` the
 tokens ``{i * W + r}``, so every hop of a causal ring has equal work; at
-token granularity, as the JAX package stripes.  The layouts are pure index
-permutations of a global ``(batch, seq, ...)`` tensor; sharding the result
-contiguously over the ring gives each rank its tokens.
+token granularity, as the JAX package stripes.  The zig-zag layout
+(``parallel/zigzag.py``) gives rank ``r`` the chunks ``(r, 2W-1-r)`` of
+``2W``.  The layouts are pure index permutations of a global ``(batch,
+seq, ...)`` tensor; sharding the result contiguously over the ring gives
+each rank its tokens.
 
-Only the ring's schemes are ported: ``"contiguous"`` and ``"striped"``.
-Zig-zag, Ulysses and the hybrid factoring raise ``NotImplementedError``
-naming their ROADMAP item.
+The schemes ``"contiguous"``, ``"striped"`` and ``"zigzag"`` are ported;
+Ulysses and the hybrid factoring raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -17,8 +19,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .zigzag import zigzag_permute, zigzag_unpermute
+
 UNPORTED_SCHEMES = {
-    "zigzag": "the zig-zag strategy, ROADMAP.md Port queue item 7",
     "ulysses": "the Ulysses strategy, ROADMAP.md Port queue item 7",
     "hybrid": "the hybrid Ulysses x Ring strategy, ROADMAP.md Port queue item 7",
 }
@@ -88,10 +91,12 @@ def layout_for(sequence_parallel: str, striped: bool, seq_world: int) -> tuple[s
     derivation the attention layer and the transformer both consult."""
     if sequence_parallel in UNPORTED_SCHEMES:
         raise _unported(sequence_parallel)
-    if sequence_parallel != "ring":
+    if sequence_parallel not in ("ring", "zigzag"):
         raise ValueError(f"unknown sequence_parallel {sequence_parallel!r}")
     if seq_world <= 1:
         return "contiguous", 1
+    if sequence_parallel == "zigzag":
+        return "zigzag", seq_world
     return ("striped" if striped else "contiguous"), seq_world
 
 
@@ -101,6 +106,8 @@ def layout_permute(x: torch.Tensor, scheme: str, factor: int) -> torch.Tensor:
         return x
     if scheme == "striped":
         return stripe_permute(x, factor)
+    if scheme == "zigzag":
+        return zigzag_permute(x, factor)
     if scheme in UNPORTED_SCHEMES:
         raise _unported(scheme)
     raise ValueError(f"unknown sequence layout scheme {scheme!r}")
@@ -112,6 +119,8 @@ def layout_unpermute(x: torch.Tensor, scheme: str, factor: int) -> torch.Tensor:
         return x
     if scheme == "striped":
         return stripe_unpermute(x, factor)
+    if scheme == "zigzag":
+        return zigzag_unpermute(x, factor)
     if scheme in UNPORTED_SCHEMES:
         raise _unported(scheme)
     raise ValueError(f"unknown sequence layout scheme {scheme!r}")

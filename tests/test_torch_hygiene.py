@@ -6,9 +6,10 @@
   test process imports JAX for the parity tests.)
 - Building a model with the default device raises when there is no CUDA
   device, instead of carrying on on the CPU.
-- Every feature the port leaves out (model settings, decoding on a mesh
-  and ``make_train_step`` options) raises ``NotImplementedError`` naming
-  the ROADMAP item that brings it.
+- Every feature the port leaves out (model settings and
+  ``make_train_step`` options) raises ``NotImplementedError`` naming the
+  ROADMAP item that brings it; decoding on a mesh raises a one-line
+  ``ValueError`` for an input it cannot take.
 """
 
 import ast
@@ -65,7 +66,9 @@ UNPORTED_SETTINGS = {
     "ring_counter_rotate": dict(ring_counter_rotate=True),
     "ring_hop_compression": dict(ring_hop_compression="int8"),
     "ring_dkv_dtype": dict(ring_dkv_dtype="bfloat16"),
-    "sequence_parallel_zigzag": dict(sequence_parallel="zigzag"),
+    # zig-zag is ported; Ulysses and the hybrid factoring are not (item 7d)
+    "sequence_parallel_zigzag": dict(sequence_parallel="ulysses"),
+    "sequence_parallel_hybrid": dict(sequence_parallel="hybrid"),
     "mask": dict(mask="a mask expression"),
     "windowed_cache": dict(windowed_cache=True),
     "ff_chunk_size": dict(ff_chunk_size=64),
@@ -100,17 +103,33 @@ def test_invalid_int8_settings_raise(name):
         RingAttention(32, heads=2, dim_head=16, device="cpu", **INVALID_INT8_SETTINGS[name])
 
 
-@pytest.mark.parametrize("entry", ["init_cache", "prefill", "decode_step", "generate"])
+# decoding on a mesh is ported (a ring-sharded cache, tree-attention merge);
+# each entry raises a one-line error for an input it cannot take, and the
+# windowed cache stays unported (item 7c)
+DECODE_ON_A_MESH_ERRORS = {
+    "init_cache": (ValueError, "init_cache: max_len 9 must divide over the ring"),
+    "prefill": (ValueError, r"prefill: prompt \(8\) longer than the ring-sharded cache"),
+    "decode_step": (ValueError, "decode_step: position 8 is past the ring-sharded cache"),
+    "generate": (ValueError, "generate: cache of 8 too small"),
+    "windowed_cache": (NotImplementedError, "ROADMAP.md Port queue item 7"),
+}
+
+
+@pytest.mark.parametrize("entry", list(DECODE_ON_A_MESH_ERRORS))
 def test_decode_on_a_mesh_raises(entry):
-    model = RingTransformer(**SMALL, device="cpu", mesh=create_mesh(ring_size=2))
+    mesh = create_mesh(ring_size=2)
+    model = RingTransformer(**SMALL, device="cpu", mesh=mesh)
     tokens = torch.zeros((1, 8), dtype=torch.long)
     calls = {
-        "init_cache": lambda: model.init_cache(1, 8),
-        "prefill": lambda: model.prefill(tokens, {}),
-        "decode_step": lambda: model.decode_step(tokens[:, 0], {}, 0),
-        "generate": lambda: model.generate(tokens, max_len=16, num_steps=2),
+        "init_cache": lambda: model.init_cache(1, 9),
+        "prefill": lambda: model.prefill(tokens, model.init_cache(1, 4)),
+        "decode_step": lambda: model.decode_step(tokens[:, 0], model.init_cache(1, 8), 8),
+        "generate": lambda: model.generate(tokens, max_len=8, num_steps=2),
+        "windowed_cache": lambda: RingTransformer(**SMALL, device="cpu", mesh=mesh,
+                                                  windowed_cache=True),
     }
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item 7"):
+    error, message = DECODE_ON_A_MESH_ERRORS[entry]
+    with pytest.raises(error, match=message):
         calls[entry]()
 
 

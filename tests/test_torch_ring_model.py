@@ -182,6 +182,9 @@ class _OneOfTwo(Ring):
     def all_gather(self, payloads, dim):
         raise AssertionError("never reached")
 
+    def all_reduce(self, payloads, op):
+        raise AssertionError("never reached")
+
 
 def test_model_on_a_multiprocess_mesh_raises():
     mesh = Mesh(data=1, seq=2, ring=_OneOfTwo())
