@@ -111,7 +111,22 @@ result line):
        5's cache, full and with valid prefixes of 100 and 300,000 keys,
        where a shard with no valid key must keep m at exactly MASK_VALUE
        with l > 0 and a finite acc.
-3. The serving path through the entry points a user calls: RingTransformer
+   2i. declared packings: the forward kernel (fused, seed, resume into new
+       tensors and in place, fused from a carry) and both backward kernels
+       with ``doc_starts`` against their plain versions (the layout as
+       runtime ids), bf16 and f32, on packings aligned to 128 tokens (every
+       pass takes its doc-tile table and drops the tiles of other
+       documents), aligned to 64 (the bf16 dk/dv pass takes runtime ids) and
+       misaligned (every pass takes runtime ids), causal, windowed, soft
+       clamped and GQA, each launch counted as the one it must be; phase
+       3k's 65,536-token launch in 1,024-row and 1,024-key slices; then the
+       fused ring kernel with ids (its segmented instantiation) against its
+       plain version for every rank of a ring of 4 (contiguous, striped,
+       GQA with softclamp) and each whole ring against the ``impl="cuda"``
+       ring bit for bit, and the fused mask model's launches (4 x 16,384)
+       against the segmented B1 hop chain bit for bit; with the JAX
+       launch's tables (the hops whose ids share no document visited) the
+       difference is printed. through the entry points a user calls: RingTransformer
    at the full width of the repository's benchmark model (vocab 256,
    dim 512, 8 heads of 64, depth 2, ff_mult 4, rotary, causal, bf16) with
    weights from a seeded generator: logits for one 65,536-token request,
@@ -190,7 +205,19 @@ result line):
    tokens equal (plain), the prefill's and each teacher-forced step's
    logits within MODEL_ATOL (with ``quantize_cache``, norm-relative
    Q8_MODEL_REL_TOL).
-   In phases 3 to 3j every launch counter is set to 0 just before each
+3k. The declared packing: the same model with ``mask=Causal() &
+   DocumentMask(starts)``, phase 3f's documents with their lengths rounded
+   to 128 tokens: the forward (one doc-table launch of the forward kernel
+   per layer, nothing segmented) held to the same weights with the layout
+   as runtime ``segment_ids``, two train steps (each pass's doc-table
+   launch per layer); the f32 mask model at seq 256 on the card held to
+   the CPU, locally and on the fused ring; the fused ring of 4 with ids
+   (the mask's, contiguous; ``segment_ids=``, striped): B7 with ids once
+   per rank and layer, never B8, logits bit-identical to the scan ring's,
+   the hops the ids skip counted, one step's segmented backward; then the
+   local forward and step with doc tables, with runtime ids and unpacked,
+   in turns.
+   In phases 3 to 3k every launch counter is set to 0 just before each
    run and read just after; a kernel that never launched fails the run.
 4. Timings with CUDA events (median of 10 runs after warm-up): each kernel
    beside its bound (the larger of its bytes over 3.35 TB/s and its
@@ -252,10 +279,19 @@ result line):
    synchronized) beside its four partials launches alone and one fused B5
    launch, the same on the int8 cache with B6; the decode step of the
    ring models at ~32,768 cached tokens beside the local ones.
+4h. Declared packings: the three kernels with doc tables on aligned
+   packings of causal (1, 8, n, 64) bf16 at 4,096 (with the plain versions)
+   and 65,536 beside their bound (same-document in-band pairs), the same
+   layout as runtime ids on the segmented kernels (in turns) and SDPA with
+   the dense mask; B7 with ids at n_local 16,384 (rank 3, contiguous)
+   beside the unsegmented B7 and the segmented B1 chain on the same spans
+   (in turns), its bound, plain version and SDPA with the dense mask over
+   the gathered span.
 5. The kernels line, one JSON object with eight kernels; the forward
    kernels' entries list their ring modes; the per-shape rows of
    flash_fwd, flash_bwd_dkv and flash_bwd_dq end with phase 4f's, each
-   with the segmented launches of phase 3f.
+   with the segmented launches of phase 3f, and phase 4h's, each with the
+   doc-table launches of phase 3k; flash_ring's with 4h's row with ids.
 6. The last line: ``{"ok": true, "device": {...}}``.
 
 It exits non-zero when ``torch.cuda.is_available()`` is false and when the
@@ -369,11 +405,12 @@ BWD_EDGE_CASES = {
 }
 
 
-# The bf16 kernels on wgmma and their instantiations (kSeg; B1, B7 and B8
-# the soft clamp), none of which may spill: B1's sweep, B2's dk/dv, B3's dq
+# The bf16 kernels on wgmma and their instantiations (B1, B2, B3 and B7 kSeg;
+# B1, B2 and B3 kDocs, the doc-tile tables; B1, B7 and B8 the soft clamp),
+# none of which may spill: B1's sweep, B2's dk/dv, B3's dq
 # and the fused ring's B7 and B8, which walk B1's sweep hop by hop.
-WGMMA_KERNELS = {"flash_fwd_bf16_kernel": 4, "flash_bwd_dkv_bf16_kernel": 2,
-                 "flash_bwd_dq_bf16_kernel": 2, "flash_ring_bf16_kernel": 2,
+WGMMA_KERNELS = {"flash_fwd_bf16_kernel": 6, "flash_bwd_dkv_bf16_kernel": 3,
+                 "flash_bwd_dq_bf16_kernel": 3, "flash_ring_bf16_kernel": 4,
                  "flash_ring_remote_bf16_kernel": 2}
 # The int8 kernels and their instantiations, none of which may spill: B4's
 # sweep (the soft clamp) and B6's decode (rows a block: 1, 2, 4, 8, 16).
@@ -1810,6 +1847,9 @@ COUNTERS = {"flash_fwd": ("cuda_flash", "launch_count"),
             "seg_flash_fwd": ("cuda_flash", "seg_launch_count"),
             "seg_flash_bwd_dkv": ("cuda_flash", "seg_dkv_launch_count"),
             "seg_flash_bwd_dq": ("cuda_flash", "seg_dq_launch_count"),
+            "doc_flash_fwd": ("cuda_flash", "doc_launch_count"),
+            "doc_flash_bwd_dkv": ("cuda_flash", "doc_dkv_launch_count"),
+            "doc_flash_bwd_dq": ("cuda_flash", "doc_dq_launch_count"),
             "flash_fwd_q8": ("cuda_flash_q8", "fwd_launch_count"),
             "q8_seed": ("cuda_flash_q8", "seed_launch_count"),
             "q8_resume": ("cuda_flash_q8", "resume_launch_count"),
@@ -1817,6 +1857,7 @@ COUNTERS = {"flash_fwd": ("cuda_flash", "launch_count"),
             "flash_decode": ("cuda_flash", "decode_launch_count"),
             "flash_decode_q8": ("cuda_flash_q8", "decode_launch_count"),
             "flash_ring": ("cuda_ring", "launch_count"),
+            "seg_flash_ring": ("cuda_ring", "seg_launch_count"),
             "flash_ring_remote": ("cuda_ring_remote", "launch_count")}
 
 
@@ -4051,6 +4092,682 @@ def phase_mesh_timings(zigzag: dict, ring: dict, serving: dict, training: dict,
             f"of {RING_SIZE} {mesh_ms:.3f} ms/step, local {local_ms:.3f} ms/step")
 
 
+# ---------------------------------------------------------------------------
+# Declared packings: B1, B2 and B3 with doc tables, B7 with ids (phases 2i,
+# 3k, 4h)
+# ---------------------------------------------------------------------------
+
+# Phases 2i, 3k and 4h declare phase 3f's packings (packed_ids) with each
+# document's length rounded to a multiple of DOC_ALIGN tokens, at least one
+# (the largest block of the port's passes: the bf16 dk/dv pass's 128 keys),
+# so that every pass drops the tiles of other documents.
+DOC_ALIGN = 128
+# Phase 2i: name: (the KERNEL_CASES entry, the packing): "aligned" to
+# DOC_ALIGN (every pass takes its doc-tile table), "64" (aligned to 64 with
+# a start that 128 does not divide: the bf16 dk/dv pass takes runtime ids,
+# the other passes their tables), "misaligned" (phase 2g's documents: every
+# pass takes runtime ids).
+DOC_CASES = {
+    "aligned causal (1,8,4096,64)": ("causal (1,8,4096,64)", "aligned"),
+    "aligned window 1024": ("window 1024", "aligned"),
+    "aligned softclamp 50": ("softclamp 50", "aligned"),
+    "aligned GQA h32 hk4": ("GQA h32 hk4 (1,32,2048,64)", "aligned"),
+    "64-aligned causal": ("causal (1,8,4096,64)", "64"),
+    "misaligned causal": ("causal (1,8,4096,64)", "misaligned"),
+}
+# Phase 2i's fused ring cases with ids, every rank of a ring of 4 (n_local
+# 1,024): name: (h, hk, striped, softclamp).
+RING_ID_CASES = {
+    "contiguous": (8, 8, False, None),
+    "striped": (8, 8, True, None),
+    "GQA h8 hk2 striped softclamp 50": (8, 2, True, 50.0),
+}
+
+
+def aligned_starts(n: int, len_range=PACK_LEN_RANGE, align: int = DOC_ALIGN) -> tuple:
+    """Start offsets of ``packed_ids(n, len_range=...)``'s documents with
+    each length rounded to a multiple of ``align`` (at least one); the last
+    document ends at the row's end."""
+    starts, pos = [], 0
+    for length in doc_lengths(packed_ids(n, len_range=len_range)):
+        if pos >= n:
+            break
+        starts.append(pos)
+        pos += max(align, round(length / align) * align)
+    return tuple(starts)
+
+
+def _starts_of(ids) -> tuple:
+    """The start offsets of a ``(1, n)`` packing's documents."""
+    lengths = doc_lengths(ids)
+    return tuple(int(sum(lengths[:i])) for i in range(len(lengths)))
+
+
+def _doc_packing(kind: str, n: int) -> tuple:
+    if kind == "aligned":
+        return aligned_starts(n, SHORT_LEN_RANGE)
+    if kind == "64":
+        starts = aligned_starts(n, SHORT_LEN_RANGE, 64)
+        check(any(s % 128 for s in starts), f"the 64-aligned packing {starts} aligns to 128")
+        return starts
+    return _starts_of(packed_ids(n, len_range=SHORT_LEN_RANGE))
+
+
+def _doc_ids(starts, n, b=1):
+    from ring_attention_tpu_torch.ops.attention import doc_runtime_ids
+
+    return doc_runtime_ids(starts, n, b, "cuda")
+
+
+def _ranges(ids, n_local):
+    """Each ring rank's (min, max) id, as parallel/ring.py reads them."""
+    shards = ids[0].reshape(-1, n_local)
+    return list(zip(shards.min(1).values.tolist(), shards.max(1).values.tolist()))
+
+
+def _id_tables(rank, n_local, ranges, striped=False, skip_docs=True):
+    """The fused ring's tables of ``rank`` on the card, the hops whose ids
+    share no document cleared as parallel/ring.py clears them (or, with
+    ``skip_docs`` False, left as the JAX launch's tables leave them)."""
+    from ring_attention_tpu_torch.parallel import ring as pring
+
+    tables = pring._fused_tables(rank, RING_SIZE, n_local, True, striped, None, RING_SIZE,
+                                 device="cuda", ranges=ranges if skip_docs else None)
+    return dict(zip(("origins", "his", "los", "works"), tables))
+
+
+def _doc_counts(kind: str, dtype) -> dict[str, int]:
+    """The launches one forward and both backward passes of a phase-2i case
+    make: each pass its doc-tile table where the packing aligns to its
+    blocks, runtime ids where it does not."""
+    import torch
+
+    bf16 = dtype == torch.bfloat16
+    docs = {"aligned": (1, 1, 1), "64": (1, 0 if bf16 else 1, 1),
+            "misaligned": (0, 0, 0)}[kind]
+    names = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+    counts = {name: 1 for name in names}
+    for name, doc in zip(names, docs):
+        counts[f"{'doc' if doc else 'seg'}_{name}"] = 1
+    return _counts(**counts)
+
+
+def phase_doc_tables_vs_plain() -> dict[str, float]:
+    """B1 (every mode), B2 and B3 with a declared packing against their
+    plain versions (the layout as runtime ids), bf16 and f32, on aligned,
+    64-aligned and misaligned packings and a window; phase 3k's 65,536-token
+    packing forward and backward in slices; then B7 with ids against its
+    plain version and against the segmented B1 hop chain.  Returns the
+    largest |kernel - plain| of each."""
+    import torch
+
+    from ring_attention_tpu_torch.ops import cuda_flash as cf
+    from ring_attention_tpu_torch.ops import cuda_ring as cr
+    from ring_attention_tpu_torch.parallel import VirtualRing, ring_flash_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    errors: dict[str, list[float]] = {m: [] for m in ("fused", "seed", "resume",
+                                                      "fused_carry", "ring")}
+    bwd_errors: dict[str, list[float]] = {}
+    log(f"phase 2i: flash_fwd (every mode), flash_bwd_dkv and flash_bwd_dq with doc_starts "
+        f"vs their plain versions (the layout as ids): documents log-uniform on "
+        f"{SHORT_LEN_RANGE} tokens, rounded to {DOC_ALIGN} (or 64), or as drawn; then the "
+        f"65,536-token packing of phase 3k in slices, then flash_ring with ids")
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, (case, kind) in DOC_CASES.items():
+            q, k, v, mask, kw = _case_inputs(gen, KERNEL_CASES[case], dtype)
+            b, n = q.shape[0], q.shape[2]
+            starts = _doc_packing(kind, n)
+            ids = _doc_ids(starts, n, b)
+            if dtype == torch.bfloat16:
+                log(f"  {name}: starts {starts}")
+            seg = dict(q_seg=ids, kv_seg=ids)
+            _reset_counts()
+            out, lse = cf.flash_fwd(q, k, v, mask, **kw, doc_starts=starts)
+            do = _rand(gen, q.shape, dtype)
+            delta = (do.float() * out.float()).sum(-1)
+            dk, dv = cf.flash_bwd_dkv(do, q, k, v, lse, delta, mask, **kw, doc_starts=starts)
+            dq = cf.flash_bwd_dq(do, q, k, v, lse, delta, mask, **kw, doc_starts=starts)
+            torch.cuda.synchronize()
+            counts = _read_counts()
+            check(counts == _doc_counts(kind, dtype),
+                  f"{name} {dtype}: launches {counts}, expected {_doc_counts(kind, dtype)}")
+            ref_out, ref_lse = cf.flash_fwd_reference(q, k, v, mask, **kw, **seg)
+            _compare(f"{name} docs", dtype, out, ref_out, lse, ref_lse, errors["fused"])
+            ref = cf.flash_bwd_reference(do, q, k, v, lse, delta, mask, **kw, **seg)
+            _compare_bwd(f"{name} docs", dtype, (dq, dk, dv), ref, bwd_errors)
+            del ref
+
+            # the ring modes with the table: the seed on this span, then two
+            # more spans of keys in the same layout, resumed and fused from
+            # the carry (the layout holds for any keys at those positions)
+            hop = dict(kw, doc_starts=starts)
+            spans = [(_rand(gen, k.shape, dtype), _rand(gen, k.shape, dtype)) for _ in range(2)]
+            seed = cf.flash_partials(q, k, v, mask, **hop)
+            torch.cuda.synchronize()
+            ref_seed = cf.flash_partials_reference(q, k, v, mask, **kw, **seg)
+            _compare_partials(f"{name} docs seed", dtype, seed, ref_seed, errors["seed"])
+            (k2, v2), (k3, v3) = spans
+            resumed = cf.flash_partials(q, k2, v2, carry=seed, **hop)
+            carry = _clone(seed)
+            cf.flash_partials(q, k2, v2, carry=carry, out=carry, **hop)
+            torch.cuda.synchronize()
+            ref_resumed = cf.flash_partials_reference(q, k2, v2, carry=ref_seed, **kw, **seg)
+            for label, got in (("resume new tensors", resumed), ("resume in place", carry)):
+                _compare_partials(f"{name} docs {label}", dtype, got, ref_resumed,
+                                  errors["resume"])
+            out, lse = cf.flash_fwd(q, k3, v3, carry=resumed, **hop)
+            torch.cuda.synchronize()
+            ref_out, ref_lse = cf.flash_fwd_reference(q, k3, v3, carry=ref_resumed, **kw,
+                                                      **seg)
+            _compare(f"{name} docs fused-carry", dtype, out, ref_out, lse, ref_lse,
+                     errors["fused_carry"], rel_tol=RING_REL_TOL[str(dtype)])
+            torch.cuda.synchronize()
+
+    # phase 3k's launch: one 65,536-token causal sweep with its table and
+    # its backward, in 1,024-row and 1,024-key slices as phase 2g
+    n, w = 65536, 1024
+    starts = aligned_starts(n)
+    ids = _doc_ids(starts, n)
+    q, k, v, do = (_rand(gen, (1, 8, n, 64), torch.bfloat16) for _ in range(4))
+    kw = dict(scale=0.125, causal_offset=0, doc_starts=starts)
+    out, lse = cf.flash_fwd(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1)
+    dk, dv = cf.flash_bwd_dkv(do, q, k, v, lse, delta, **kw)
+    dq = cf.flash_bwd_dq(do, q, k, v, lse, delta, **kw)
+    torch.cuda.synchronize()
+    for r0 in (0, n // 2, n - w):
+        rows = slice(r0, r0 + w)
+        sliced = dict(scale=0.125, causal_offset=r0, q_seg=ids[:, rows].contiguous(),
+                      kv_seg=ids)
+        ref_out, ref_lse = cf.flash_fwd_reference(q[:, :, rows].contiguous(), k, v, **sliced)
+        _compare(f"docs causal 65536 rows {r0}+", torch.bfloat16, out[:, :, rows],
+                 ref_out, lse[:, :, rows], ref_lse, errors["fused"])
+        ref = cf.flash_bwd_reference(
+            do[:, :, rows].contiguous(), q[:, :, rows].contiguous(), k, v,
+            lse[:, :, rows].contiguous(), delta[:, :, rows].contiguous(), **sliced)
+        _compare_bwd(f"docs causal 65536 dq rows {r0}+", torch.bfloat16,
+                     (dq[:, :, rows], None, None), ref, bwd_errors)
+        keys = slice(r0, r0 + w)
+        ref = cf.flash_bwd_reference(
+            do, q, k[:, :, keys].contiguous(), v[:, :, keys].contiguous(), lse, delta,
+            scale=0.125, causal_offset=-r0, q_seg=ids, kv_seg=ids[:, keys].contiguous())
+        _compare_bwd(f"docs causal 65536 dk/dv keys {r0}+", torch.bfloat16,
+                     (None, dk[:, :, keys], dv[:, :, keys]), ref, bwd_errors)
+        del ref
+    del q, k, v, do, out, lse, delta, dk, dv, dq
+    torch.cuda.empty_cache()
+
+    # B7 with ids: every rank of a ring of 4 against its plain version, and
+    # each whole ring against the impl="cuda" ring (the segmented B1 chain)
+    n = 1024
+    chain_errors = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, (h, hk, striped, clamp) in RING_ID_CASES.items():
+            q = _rand(gen, (1, h, RING_SIZE * n, 64), dtype)
+            k, v = (_rand(gen, (1, hk, RING_SIZE * n, 64), dtype) for _ in range(2))
+            ids = _doc_ids(_starts_of(packed_ids(RING_SIZE * n, 0, SHORT_LEN_RANGE)),
+                           RING_SIZE * n)
+            ranges = _ranges(ids, n)
+            for rank in range(RING_SIZE):
+                rows = slice(rank * n, (rank + 1) * n)
+                kw = dict(n_local=n, scale=0.125, softclamp_value=clamp,
+                          q_seg=ids[:, rows].contiguous(), kv_seg=ids,
+                          **_id_tables(rank, n, ranges, striped))
+                out, lse = cr.fused_ring_local(q[:, :, rows].contiguous(), k, v, **kw)
+                torch.cuda.synchronize()
+                ref_out, ref_lse = cr.fused_ring_local_plain(q[:, :, rows].contiguous(), k, v,
+                                                             **kw)
+                _compare(f"flash_ring ids {name} rank {rank}", dtype, out, ref_out, lse,
+                         ref_lse, errors["ring"], rel_tol=RING_REL_TOL[str(dtype)])
+            with torch.no_grad():
+                ring = dict(causal=True, striped=striped, softclamp_value=clamp, scale=0.125,
+                            segment_ids=ids)
+                chain = ring_flash_attention(q, k, v, None, VirtualRing(RING_SIZE),
+                                             impl="cuda", **ring)
+                fused = ring_flash_attention(q, k, v, None, VirtualRing(RING_SIZE),
+                                             impl="fused", **ring)
+            torch.cuda.synchronize()
+            chain_errors.append(_compare_to_chain(f"ids {name}, ring of 4", dtype, fused,
+                                                  chain))
+
+    # the fused mask model's launches (phase 3k): 4 x 16,384 of the aligned
+    # 65,536-token packing, bf16 h8; every rank against the segmented B1
+    # chain (the impl="cuda" ring's hops) bit for bit; then rank 3 with the
+    # JAX launch's tables, whose doc-disjoint hops B7 visits (all scores
+    # masked) where the chain skips them: the difference is printed, not held
+    n = 16384
+    ids = _doc_ids(aligned_starts(RING_SIZE * n), RING_SIZE * n)
+    ranges = _ranges(ids, n)
+    q = _rand(gen, (1, 8, RING_SIZE * n, 64), torch.bfloat16)
+    k, v = (_rand(gen, q.shape, torch.bfloat16) for _ in range(2))
+    with torch.no_grad():
+        chain = ring_flash_attention(q, k, v, None, VirtualRing(RING_SIZE), causal=True,
+                                     scale=0.125, impl="cuda", segment_ids=ids)
+    for rank in range(RING_SIZE):
+        rows = slice(rank * n, (rank + 1) * n)
+        kw = dict(n_local=n, scale=0.125, q_seg=ids[:, rows].contiguous(), kv_seg=ids)
+        out, _ = cr.fused_ring_local(q[:, :, rows].contiguous(), k, v,
+                                     **_id_tables(rank, n, ranges), **kw)
+        torch.cuda.synchronize()
+        chain_errors.append(_compare_to_chain(f"ids 4 x {n} rank {rank}", torch.bfloat16,
+                                              out, chain[:, :, rows]))
+        if rank == RING_SIZE - 1:
+            all_hops, _ = cr.fused_ring_local(q[:, :, rows].contiguous(), k, v,
+                                              **_id_tables(rank, n, ranges, skip_docs=False),
+                                              **kw)
+            torch.cuda.synchronize()
+            diff = (all_hops.float() - chain[:, :, rows].float()).abs().max().item()
+            log(f"  rank {rank} with the doc-disjoint hops visited (JAX's tables, "
+                f"{sum(_id_tables(rank, n, ranges, skip_docs=False)['works'].tolist())} hops "
+                f"against {sum(_id_tables(rank, n, ranges)['works'].tolist())}): max|diff| from "
+                f"the chain {diff:.3e}, bit-identical {bool(torch.equal(all_hops, chain[:, :, rows]))}")
+    log(f"  largest |flash_ring with ids - segmented hop chain| over phase 2i: "
+        f"{max(chain_errors):.3e}")
+    del q, k, v, chain
+    torch.cuda.empty_cache()
+    result = {mode: max(errs) for mode, errs in errors.items()}
+    result.update({label: max(errs) for label, errs in bwd_errors.items()})
+    return result
+
+
+def _doc_model_counts(backward: bool) -> dict[str, int]:
+    """Launches of one forward (and backward) of the local model under a
+    declared packing that aligns: each pass once per layer, each with its
+    doc-tile table, none segmented."""
+    depth = BENCH_MODEL["depth"]
+    kw = dict(flash_fwd=depth, doc_flash_fwd=depth)
+    if backward:
+        kw.update(flash_bwd_dkv=depth, doc_flash_bwd_dkv=depth, flash_bwd_dq=depth,
+                  doc_flash_bwd_dq=depth)
+    return _counts(**kw)
+
+
+def _fused_id_counts(skips: int, striped: bool, backward: bool) -> dict[str, int]:
+    """Launches of one forward (and backward) of the fused ring model with
+    ids: B7 with ids once per rank and layer (never B8), and the segmented
+    backward kernels per hop with work, less the hops the ids skip."""
+    depth = BENCH_MODEL["depth"]
+    *_, dkv, dq = RING_SCHEDULE[striped]
+    kw = dict(flash_ring=RING_SIZE * depth, seg_flash_ring=RING_SIZE * depth)
+    if backward:
+        kw.update(flash_bwd_dkv=(dkv - skips) * depth, seg_flash_bwd_dkv=(dkv - skips) * depth,
+                  flash_bwd_dq=(dq - skips) * depth, seg_flash_bwd_dq=(dq - skips) * depth)
+    return _counts(**kw)
+
+
+def _hold_doc_f32() -> None:
+    """The float32 model under ``mask=Causal() & DocumentMask((0, 128))`` at
+    seq 256 on the card (its doc-tile tables) against the CPU (the layout
+    as ids), logits and one step's gradients, locally and on the fused ring
+    of 4 (B7 with ids)."""
+    import torch
+
+    from ring_attention_tpu_torch.masks import Causal, DocumentMask
+    from ring_attention_tpu_torch.parallel import create_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(SEED + 31)
+    small = torch.randint(0, BENCH_MODEL["num_tokens"], (2, 257), generator=gen)
+    mask = Causal() & DocumentMask((0, 128))
+    for name, ring in (("local", {}),
+                       ("fused ring", dict(mesh=create_mesh(ring_size=RING_SIZE), impl="fused"))):
+        gpu = _model(None, "cuda", causal=False, mask=mask, **ring)
+        cpu = copy.deepcopy(gpu).to("cpu")
+        with torch.no_grad():
+            logits_err = (gpu(small[:, :256].cuda()).cpu() - cpu(small[:, :256])).abs().max().item()
+        losses = []
+        for m, dev in ((gpu, "cuda"), (cpu, "cpu")):
+            loss = m(small.to(dev), return_loss=True)
+            loss.backward()
+            losses.append(loss.item())
+        grad_err = max(((pg.grad.cpu() - pc.grad).norm() / pc.grad.norm()).item()
+                       for pg, pc in zip(gpu.parameters(), cpu.parameters()))
+        log(f"  f32 mask model seq 256 ({name}), card vs CPU: logits max|diff| "
+            f"{logits_err:.3e} (tol {MODEL_ATOL}), loss {losses[0]:.7f} vs {losses[1]:.7f}, "
+            f"worst gradient ||card - cpu|| / ||cpu|| {grad_err:.3e} (tol {GRAD_REL_TOL})")
+        check(logits_err <= MODEL_ATOL and grad_err <= GRAD_REL_TOL,
+              f"f32 mask model ({name}) on the card disagrees with the CPU")
+
+
+def phase_doc_mask_path(serving: dict, training: dict) -> dict:
+    """Phase 3k: the bench model with ``mask=Causal() &
+    DocumentMask(starts)`` (phase 3f's documents, lengths rounded to
+    DOC_ALIGN) at full width, forward and train steps on its doc-tile
+    tables, held to the same model with the layout as runtime ``segment_ids``
+    (bit for bit expected: the dropped tiles' scores are all masked); the
+    f32 copy against the CPU; the fused ring of 4 with ids (the mask's and
+    ``segment_ids=``), held to the scan ring; then the packed forward and
+    step with doc tables beside runtime ids and the unpacked row, in turns."""
+    import torch
+
+    from ring_attention_tpu_torch import make_train_step
+    from ring_attention_tpu_torch.masks import Causal, DocumentMask
+    from ring_attention_tpu_torch.parallel import create_mesh
+    from ring_attention_tpu_torch.parallel import ring as pring
+
+    tokens, step_tokens = serving["tokens"], training["tokens"]
+    n = tokens.shape[1]
+    starts = aligned_starts(n)
+    ids = _doc_ids(starts, n)
+    mask = Causal() & DocumentMask(starts)
+    depth = BENCH_MODEL["depth"]
+    log(f"phase 3k: RingTransformer(mask=Causal() & DocumentMask(starts)), bench model at "
+        f"full width, bf16, 1 x {n} tokens in {len(starts)} documents of lengths "
+        f"{doc_lengths(ids)} (phase 3f's rounded to {DOC_ALIGN})")
+    launches = {name: 0 for name in COUNTERS}
+
+    def add(counts):
+        for name, x in counts.items():
+            launches[name] += x
+
+    model = _model(torch.bfloat16, "cuda", causal=False, mask=mask)
+    with torch.inference_mode():
+        _reset_counts()
+        logits = model(tokens)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        check(counts == _doc_model_counts(False),
+              f"mask model forward launched {counts}, expected {_doc_model_counts(False)}")
+        add(counts)
+        ids_logits = serving["model"](tokens, segment_ids=ids)
+    check(bool(torch.isfinite(logits.float()).all()) and tuple(logits.shape) == (1, n, 256),
+          "mask model forward: logits")
+    diff = logits.float() - ids_logits.float()
+    rel = (diff.norm() / ids_logits.float().norm()).item()
+    same = bool(torch.equal(logits, ids_logits))
+    log(f"  forward: launches {counts}; logits vs the runtime-ids model (segment_ids, the "
+        f"segmented kernels): max|diff| {diff.abs().max().item():.3e}, ||diff|| / ||ids|| "
+        f"{rel:.3e} (tol rel {RING_LOGITS_REL_TOL}), bit-identical {same}")
+    check(rel <= RING_LOGITS_REL_TOL, "mask model logits disagree with the runtime-ids model")
+    del logits, ids_logits, diff
+
+    model.train()
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    doc_step = make_train_step(lambda t: model(t, return_loss=True), opt)
+    losses = []
+    for i in range(2):
+        _reset_counts()
+        loss = float(doc_step(step_tokens))
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        check(counts == _doc_model_counts(True) and math.isfinite(loss),
+              f"mask model step {i}: loss {loss}, launches {counts}")
+        add(counts)
+        losses.append(loss)
+    log(f"  train steps: losses {[round(x, 6) for x in losses]}, launches {counts} a step")
+    _hold_doc_f32()
+
+    # the fused ring with ids: the mask's layout (contiguous) and segment_ids
+    # (striped), each held to the scan ring model with the same weights
+    for striped, declared in ((False, True), (True, False)):
+        layout = "striped" if striped else "contiguous"
+        kw = dict(mesh=create_mesh(ring_size=RING_SIZE), striped=striped)
+        if declared:
+            kw.update(causal=False, mask=mask)
+        seg = None if declared else ids
+        fused = _model(torch.bfloat16, "cuda", impl="fused", **kw)
+        scan = _model(torch.bfloat16, "cuda", impl="cuda", **kw)
+        skips = _expected_doc_skips(ids, striped)
+        with torch.inference_mode():
+            _reset_counts()
+            pring.doc_skip_count = 0
+            fused_logits = fused(tokens, segment_ids=seg)
+            torch.cuda.synchronize()
+            counts, skipped = _read_counts(), pring.doc_skip_count
+            scan_logits = scan(tokens, segment_ids=seg)
+        check(counts == _fused_id_counts(skips, striped, False) and skipped == skips * depth,
+              f"{layout} fused forward with ids launched {counts}, {skipped} hops skipped; "
+              f"expected {_fused_id_counts(skips, striped, False)}, {skips * depth} skipped")
+        add(counts)
+        same = bool(torch.equal(fused_logits, scan_logits))
+        rel = ((fused_logits.float() - scan_logits.float()).norm()
+               / scan_logits.float().norm()).item()
+        log(f"  fused ring of {RING_SIZE}, {layout}, ids from "
+            f"{'the mask' if declared else 'segment_ids='}: launches {counts}, {skips} of the "
+            f"hops with band work skipped per layer; logits vs the scan ring model "
+            f"||diff|| / ||scan|| {rel:.3e}, bit-identical {same}")
+        check(same, f"{layout} fused ring with ids: logits differ from the scan ring's")
+        del fused_logits, scan_logits, scan
+        fused.train()
+        opt = torch.optim.Adam(fused.parameters(), lr=1e-3)
+        step = make_train_step(lambda t, m=fused, s=seg: m(
+            t, return_loss=True,
+            segment_ids=None if s is None else torch.cat([s, s[:, -1:]], dim=1)), opt)
+        _reset_counts()
+        pring.doc_skip_count = pring.doc_skip_bwd_count = 0
+        loss = float(step(step_tokens))
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        check(counts == _fused_id_counts(skips, striped, True) and math.isfinite(loss),
+              f"{layout} fused ring step with ids: loss {loss}, launches {counts}")
+        add(counts)
+        log(f"  fused ring of {RING_SIZE}, {layout}, train step: loss {loss:.6f}, launches "
+            f"{counts}")
+        del fused, step, opt
+
+    log("  packed with doc tables vs runtime ids vs unpacked, the same tokens (CUDA events "
+        "for the forward, host clock around synchronized steps; in turns: unpacked, docs, "
+        "ids, ids, docs, unpacked)")
+    plain = _model(torch.bfloat16, "cuda").train()
+    opt = torch.optim.Adam(plain.parameters(), lr=1e-3)
+    step_ids = torch.cat([ids, ids[:, -1:]], dim=1)
+    runs = {"unpacked": (plain, None, make_train_step(
+                lambda t: plain(t, return_loss=True), opt)),
+            "docs": (model, None, doc_step),
+            "ids": (plain, ids, make_train_step(
+                lambda t: plain(t, return_loss=True, segment_ids=step_ids), opt))}
+    fwd = {kind: [] for kind in runs}
+    step_ms = {kind: [] for kind in runs}
+    order = ("unpacked", "docs", "ids", "ids", "docs", "unpacked")
+    for kind in order:
+        m, seg, _ = runs[kind]
+        m.eval()
+        with torch.inference_mode():
+            fwd[kind].append(time_ms(lambda: m(tokens, segment_ids=seg), iters=5))
+        m.train()
+    for kind in order:
+        step_ms[kind].append(_train_step_timing(runs[kind][2], step_tokens)[0])
+    timings = {kind: (statistics.mean(fwd[kind]), statistics.mean(step_ms[kind]))
+               for kind in runs}
+    uf, us = timings["unpacked"]
+    for kind, (f, s) in timings.items():
+        log(f"  local {kind}: forward 1 x {n} {f:.3f} ms ({f / uf:.3f} x unpacked; runs "
+            f"{[round(x, 3) for x in fwd[kind]]}), train step {s:.3f} ms ({s / us:.3f} x; "
+            f"runs {[round(x, 3) for x in step_ms[kind]]})")
+    del runs, model, plain, opt, doc_step
+    torch.cuda.empty_cache()
+    return {"launches": launches, "timings": timings, "starts": starts}
+
+
+def _seg_spans(k_all, v_all, kv_seg, tables, n):
+    """The hops with work of one B7 launch with ids, in order: each one's
+    contiguous (k, v, kv ids) block of the gathered span and its causal
+    offset (None where its band covers the whole block)."""
+    live = [(o, hi) for o, hi, w in zip(tables["origins"].tolist(), tables["his"].tolist(),
+                                        tables["works"].tolist()) if w]
+    return [tuple(x[..., o * n:(o + 1) * n, :].contiguous() for x in (k_all, v_all))
+            + (kv_seg[:, o * n:(o + 1) * n].contiguous(), None if hi >= n - 1 else hi)
+            for o, hi in live]
+
+
+def _seg_chain(q, q_seg, spans):
+    """The segmented B1 hop chain that one B7 launch with ids stands for
+    (``spans`` from :func:`_seg_spans`): seed, resumes in place, the fused
+    write from the carry."""
+    from ring_attention_tpu_torch.ops import cuda_flash as cf
+
+    carry = None
+    for i, (k, v, kv_seg, hi) in enumerate(spans):
+        kw = dict(scale=0.125, causal_offset=hi, q_seg=q_seg, kv_seg=kv_seg)
+        if i == len(spans) - 1:
+            return cf.flash_fwd(q, k, v, carry=carry, **kw)
+        carry = cf.flash_partials(q, k, v, carry=carry, out=carry, **kw)
+
+
+def _doc_ring_row(n: int, launches: int) -> dict:
+    """B7 with ids on ring rank 3's schedule of a contiguous causal ring of 4
+    (n_local ``n``; phase 3k's aligned packing over the 4n tokens) beside
+    the unsegmented B7 on the same spans, the segmented B1 chain (in turns:
+    unsegmented, ids, chain, chain, ids, unsegmented), its bound (the
+    same-document in-band pairs of its live hops), its plain version and
+    SDPA with the dense mask of the same pairs over the gathered span."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from ring_attention_tpu_torch.ops import cuda_ring as cr
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    starts = aligned_starts(RING_SIZE * n)
+    ids = _doc_ids(starts, RING_SIZE * n)
+    rank = RING_SIZE - 1
+    rows = slice(rank * n, (rank + 1) * n)
+    q = _rand(gen, (1, 8, n, 64), torch.bfloat16)
+    k_all, v_all = (_rand(gen, (1, 8, RING_SIZE * n, 64), torch.bfloat16) for _ in range(2))
+    q_seg = ids[:, rows].contiguous()
+    tables = _id_tables(rank, n, _ranges(ids, n))
+    plain_tables = _fused_tables(rank, n, causal=True)
+    # same-document causal pairs of this rank's rows (every key at or before
+    # each row is in a hop with work)
+    ends = list(starts[1:]) + [RING_SIZE * n]
+    pairs = 0
+    for s, e in zip(starts, ends):
+        r = np.arange(max(s, rank * n), min(e, (rank + 1) * n))
+        pairs += int((r - s + 1).sum())
+    ops = 4 * 64 * 8 * pairs
+    moved = nbytes(q, k_all, v_all, q_seg, ids) + nbytes(q) + 4 * 8 * n
+    b_ms, b_by = bound_ms(ops, moved, torch.bfloat16)
+
+    def with_ids():
+        return cr.fused_ring_local(q, k_all, v_all, n_local=n, scale=0.125, q_seg=q_seg,
+                                   kv_seg=ids, **tables)
+
+    def without():
+        return cr.fused_ring_local(q, k_all, v_all, n_local=n, scale=0.125, **plain_tables)
+
+    spans = _seg_spans(k_all, v_all, ids, tables, n)
+
+    def chain():
+        return _seg_chain(q, q_seg, spans)
+
+    same = bool(torch.equal(with_ids()[0], chain()[0]))
+    times = {"without": [], "ids": [], "chain": []}
+    for kind in ("without", "ids", "chain", "chain", "ids", "without"):
+        times[kind].append(time_ms({"without": without, "ids": with_ids, "chain": chain}[kind]))
+    ms, without_ms, chain_ms = (statistics.mean(times[k]) for k in ("ids", "without", "chain"))
+    keep = (ids[0, rows][:, None] == ids[0][None, :]) & (
+        torch.arange(RING_SIZE * n, device="cuda")[None, :]
+        <= torch.arange(rank * n, (rank + 1) * n, device="cuda")[:, None])
+    qg, kg, vg = q, k_all, v_all
+    library_ms = _sdpa_masked(lambda: F.scaled_dot_product_attention(
+        qg, kg, vg, attn_mask=keep, scale=0.125))
+    del keep
+    torch.cuda.empty_cache()
+    plain_ms = time_ms(lambda: cr.fused_ring_local_plain(
+        q, k_all, v_all, n_local=n, scale=0.125, q_seg=q_seg, kv_seg=ids, **tables), iters=2)
+    live = sum(tables["works"].tolist())
+    log(f"  flash_ring with ids, rank 3 of a contiguous causal ring of 4, 4 x {n} "
+        f"({len(starts)} documents, {live} of 4 hops with work): kernel {ms:.3f} ms (runs "
+        f"{[round(x, 3) for x in times['ids']]}), bound {b_ms:.3f} ms ({b_by}, same-document "
+        f"pairs), {ops / ms / 1e9:.1f} TFLOP/s; without ids on the same spans (every causal "
+        f"tile of the 4 hops) {without_ms:.3f} ms; the segmented flash_fwd chain {chain_ms:.3f} "
+        f"ms (output bit-identical {same}); plain {plain_ms:.3f} ms; SDPA with the dense mask "
+        f"over the gathered span {library_ms} ms")
+    check(same, "flash_ring with ids differs from the segmented chain")
+    return {"shape": f"ids, rank 3 of contiguous causal ring 4, 4 x (1,8,{n},64) bf16, "
+                     f"{len(starts)} documents", "launches": launches, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms, "unsegmented_kernel_ms": without_ms,
+            "hop_chain_ms": chain_ms}
+
+
+def phase_doc_timings(doc: dict) -> dict[str, list[dict]]:
+    """Phase 4h: B1, B2 and B3 with doc tables on aligned packings of causal
+    (1, 8, n, 64) bf16 at 4,096 (with the plain versions) and 65,536 beside
+    their bound (same-document in-band pairs), the segmented kernels on the
+    same packing as runtime ids (in turns: ids, docs, docs, ids) and SDPA
+    with the packing's dense mask; then B7 with ids at n_local 16,384.
+    Returns each kernel's rows, each carrying phase 3k's launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from ring_attention_tpu_torch.ops import cuda_flash as cf
+
+    log("phase 4h: doc tables and B7's ids (CUDA events)")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 33)
+    rows: dict[str, list[dict]] = {"flash_fwd": [], "flash_bwd_dkv": [], "flash_bwd_dq": []}
+    launches = doc["launches"]
+    for n in (4096, 65536):
+        len_range = SHORT_LEN_RANGE if n == 4096 else PACK_LEN_RANGE
+        starts = aligned_starts(n, len_range)
+        ids = _doc_ids(starts, n)
+        q, k, v, do = (_rand(gen, (1, 8, n, 64), torch.bfloat16) for _ in range(4))
+        docs = dict(scale=0.125, causal_offset=0, doc_starts=starts)
+        seg = dict(scale=0.125, causal_offset=0, q_seg=ids, kv_seg=ids)
+        out, lse = cf.flash_fwd(q, k, v, **docs)
+        delta = (do.float() * out.float()).sum(-1)
+        pairs = 8 * same_doc_pairs(ids)
+        shape = (f"docs causal (1,8,{n},64) bf16, {len(starts)} documents (lengths "
+                 f"log-uniform on {len_range}, rounded to {DOC_ALIGN})")
+        mask = _sdpa_packed_mask(ids)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+
+        fwd_lib = _sdpa_masked(sdpa)
+        bwd_lib = None
+        if fwd_lib is not None:
+            try:
+                ref = sdpa()
+                bwd_lib = _sdpa_masked(lambda: torch.autograd.grad(
+                    ref, (qg, kg, vg), do, retain_graph=True))
+                del ref
+            except torch.cuda.OutOfMemoryError:
+                torch.cuda.empty_cache()
+        del mask
+        with_plain = n == 4096
+        args = (do, q, k, v, lse, delta)
+        bwd_plain = (time_ms(lambda: cf.flash_bwd_reference(*args, **seg), iters=3)
+                     if with_plain else None)
+        f32_grad = 4 * n * 64 * 8
+        for name, fn, products, moved, plain, library in (
+            ("flash_fwd", cf.flash_fwd, 2, nbytes(q, k, v, out, lse),
+             (time_ms(lambda: cf.flash_fwd_reference(q, k, v, **seg), iters=3)
+              if with_plain else None), fwd_lib),
+            ("flash_bwd_dkv", cf.flash_bwd_dkv, 4, nbytes(*args) + 2 * f32_grad, bwd_plain,
+             bwd_lib),
+            ("flash_bwd_dq", cf.flash_bwd_dq, 3, nbytes(*args) + f32_grad, bwd_plain, bwd_lib),
+        ):
+            inputs = (q, k, v) if name == "flash_fwd" else args
+            ops = 2 * products * 64 * pairs
+            b_ms, b_by = bound_ms(ops, moved, torch.bfloat16)
+            iters = 10 if n < 65536 else 5
+            times = {"ids": [], "docs": []}
+            for kind in ("ids", "docs", "docs", "ids"):
+                kw = docs if kind == "docs" else seg
+                times[kind].append(time_ms(lambda: fn(*inputs, **kw), iters=iters))
+            ms, ids_ms = statistics.mean(times["docs"]), statistics.mean(times["ids"])
+            rows[name].append({"shape": shape, "launches": launches[f"doc_{name}"], "ms": ms,
+                               "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                               "library_ms": library, "ids_kernel_ms": ids_ms})
+            log(f"  {name} {shape}: doc tables {ms:.4f} ms (runs "
+                f"{[round(x, 4) for x in times['docs']]}), the same layout as runtime ids "
+                f"{ids_ms:.4f} ms (runs {[round(x, 4) for x in times['ids']]}), ids / docs "
+                f"{ids_ms / ms:.3f}; bound {b_ms:.4f} ms ({b_by}, same-document pairs), "
+                f"plain {plain} ms{' (all three gradients)' if plain and name != 'flash_fwd' else ''}, "
+                f"sdpa with the dense mask{' backward' if name != 'flash_fwd' else ''} "
+                f"{library} ms, {ops / ms / 1e9:.1f} TFLOP/s")
+        del q, k, v, do, out, lse, delta, qg, kg, vg
+        torch.cuda.empty_cache()
+    for kind, (f, s) in doc["timings"].items():
+        log(f"  local model {kind}: forward {f:.3f} ms, train step {s:.3f} ms (phase 3k)")
+    ring_row = _doc_ring_row(16384, launches["seg_flash_ring"])
+    return {**rows, "flash_ring": [ring_row]}
+
+
 def main() -> int:
     import torch
 
@@ -4079,6 +4796,7 @@ def main() -> int:
     q8_err = phase_q8_kernels_vs_plain()
     seg_err = phase_segmented_vs_plain()
     mesh_err = phase_mesh_kernels_vs_plain()
+    doc_err = phase_doc_tables_vs_plain()
     serving = phase_serving_path()
     training = phase_training_path()
     ring = phase_ring_path(serving, training)
@@ -4089,6 +4807,7 @@ def main() -> int:
     config3 = phase_zigzag_config3()
     tree = phase_tree_decode_config5()
     mesh_serving = phase_mesh_serving()
+    doc = phase_doc_mask_path(serving, training)
     rows, decode_rows = phase_timings(serving)
     bwd_rows = phase_train_timings(training)
     mode_rows = phase_ring_timings(ring, serving, training, rows)
@@ -4096,6 +4815,7 @@ def main() -> int:
     fused_rows = phase_fused_ring_timings(fused, ring, serving, training)
     seg_rows = phase_segmented_timings(packed)
     phase_mesh_timings(zigzag, ring, serving, training, tree, mesh_serving)
+    doc_rows = phase_doc_timings(doc)
     # the main paths' launches of this slice: the zig-zag model, config 3,
     # config 5's tree decode and the serving path on the ring
     mesh_launches = {name: zigzag["launches"][name] + config3["launches"][name]
@@ -4103,6 +4823,7 @@ def main() -> int:
                      for name in COUNTERS}
     ring_launches = ring["launches"]
     packed_launches = packed["launches"]
+    doc_launches = doc["launches"]
     fused_launches = fused["launches"]
     q8_launches = q8_path["launches"]
     flash, pallas_ring = "ring_attention_tpu/ops/pallas_flash.py", "ring_attention_tpu/ops/pallas_ring.py"
@@ -4110,33 +4831,37 @@ def main() -> int:
         ("flash_fwd", "flash_fwd.cu", f"{flash}:1174",
          serving["launches"] + training["launches"]["flash_fwd"]
          + ring_launches["flash_fwd"] + packed_launches["flash_fwd"]
-         + mesh_launches["flash_fwd"],
+         + mesh_launches["flash_fwd"] + doc_launches["flash_fwd"],
          max(max_err, *mode_err.values(), mesh_err["fwd"], config3["fwd_err"],
-             *(seg_err[m] for m in ("fused", "seed", "resume", "fused_carry"))),
-         rows + seg_rows["flash_fwd"]),
+             *(seg_err[m] for m in ("fused", "seed", "resume", "fused_carry")),
+             *(doc_err[m] for m in ("fused", "seed", "resume", "fused_carry"))),
+         rows + seg_rows["flash_fwd"] + doc_rows["flash_fwd"]),
         ("flash_decode", "flash_decode.cu", f"{flash}:1174",
          serving["decode_launches"] + mesh_launches["flash_decode"],
          max(decode_err, mesh_err["decode"]), decode_rows),
         ("flash_bwd_dkv", "flash_bwd.cu", f"{flash}:2108",
          training["launches"]["flash_bwd_dkv"] + ring_launches["flash_bwd_dkv"]
          + fused_launches["flash_bwd_dkv"] + q8_launches["flash_bwd_dkv"]
-         + packed_launches["flash_bwd_dkv"] + mesh_launches["flash_bwd_dkv"],
+         + packed_launches["flash_bwd_dkv"] + mesh_launches["flash_bwd_dkv"]
+         + doc_launches["flash_bwd_dkv"],
          max(bwd_err["dk"], bwd_err["dv"], seg_err["dk"], seg_err["dv"], mesh_err["dk"],
-             mesh_err["dv"], config3["dk"], config3["dv"]),
-         bwd_rows["flash_bwd_dkv"] + seg_rows["flash_bwd_dkv"]),
+             mesh_err["dv"], config3["dk"], config3["dv"], doc_err["dk"], doc_err["dv"]),
+         bwd_rows["flash_bwd_dkv"] + seg_rows["flash_bwd_dkv"] + doc_rows["flash_bwd_dkv"]),
         ("flash_bwd_dq", "flash_bwd.cu", f"{flash}:2186",
          training["launches"]["flash_bwd_dq"] + ring_launches["flash_bwd_dq"]
          + fused_launches["flash_bwd_dq"] + q8_launches["flash_bwd_dq"]
-         + packed_launches["flash_bwd_dq"] + mesh_launches["flash_bwd_dq"],
-         max(bwd_err["dq"], seg_err["dq"], mesh_err["dq"], config3["dq"]),
-         bwd_rows["flash_bwd_dq"] + seg_rows["flash_bwd_dq"]),
+         + packed_launches["flash_bwd_dq"] + mesh_launches["flash_bwd_dq"]
+         + doc_launches["flash_bwd_dq"],
+         max(bwd_err["dq"], seg_err["dq"], mesh_err["dq"], config3["dq"], doc_err["dq"]),
+         bwd_rows["flash_bwd_dq"] + seg_rows["flash_bwd_dq"] + doc_rows["flash_bwd_dq"]),
         ("flash_fwd_q8", "flash_fwd_q8.cu", f"{flash}:1174", q8_launches["flash_fwd_q8"],
          max(q8_err[m] for m in ("fused", "seed", "resume", "fused_carry")), q8_rows["fwd"]),
         ("flash_decode_q8", "flash_decode_q8.cu", f"{flash}:1585",
          q8_launches["flash_decode_q8"] + mesh_launches["flash_decode_q8"],
          max(q8_err["decode"], mesh_err["decode_q8"]), q8_rows["decode"]),
-        ("flash_ring", "flash_ring.cu", f"{pallas_ring}:341", fused_launches["flash_ring"],
-         fused_err, fused_rows),
+        ("flash_ring", "flash_ring.cu", f"{pallas_ring}:341",
+         fused_launches["flash_ring"] + doc_launches["flash_ring"],
+         max(fused_err, doc_err["ring"]), fused_rows + doc_rows["flash_ring"]),
         ("flash_ring_remote", "flash_ring_remote.cu", f"{pallas_ring}:866",
          fused_launches["flash_ring_remote"] + mesh_launches["flash_ring_remote"],
          remote_err, fused["remote_rows"]),
@@ -4160,7 +4885,8 @@ def main() -> int:
             **{key: headline[key] for key in ("streamed_ms", "sync_call_ms",
                                               "library_streamed_ms", "library_sync_ms",
                                               "bf16_kernel_ms", "bf16_sdpa_ms",
-                                              "hop_chain_ms", "local_tier_ms")
+                                              "hop_chain_ms", "local_tier_ms",
+                                              "ids_kernel_ms", "unsegmented_kernel_ms")
                if key in headline},
             "pass": True,
             "per_shape": per_shape,

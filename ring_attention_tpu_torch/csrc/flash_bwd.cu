@@ -7,7 +7,8 @@
 //   * flash_bwd_dq: the dq pass, pl.pallas_call at :2186 (_bwd_dq_kernel
 //     :1774, _dq_tile :1808);
 // both with the runtime segment ids of _bwd_parse_refs (:1649) and
-// _tile_keep (:240).
+// _tile_keep (:240), and the doc_starts tile tables of each pass (:1966-2009,
+// _band_tables :578).
 //
 // What they compute, for q, do (B, H, Nq, D) and k, v (B, Hk, Nk, D),
 // contiguous, lse and delta (B, H, Nq) float32 (delta = rowsum(do * out)):
@@ -93,7 +94,16 @@
 //     memory beside the tile they belong to (the query rows' beside lse and
 //     delta for dk/dv, the keys' beside K and V for dq).  The same tiles are
 //     visited as without ids, and the unsegmented kernels compile as
-//     before.
+//     before;
+//   * a declared packing aligned to a pass's own blocks (doc_starts; every
+//     start a multiple of the block and of the tile: 128 keys for the bf16
+//     dk/dv pass, 64 otherwise) runs a third instantiation of that pass
+//     (kDocs): a small int32 table gives each block (a bf16 dk/dv block of
+//     128 keys, a bf16 dq warpgroup of 64 rows, an f32 block) the tiles of
+//     the other side that its document holds, which clip the band's range
+//     (doc_clip, wgmma.cuh), and the unsegmented tile body runs on them.  A
+//     pass whose blocks the packing does not align takes runtime ids
+//     (kSeg), as the TPU backward does per pass.
 // Not yet: TMA and warp specialisation.
 
 #include <cuda_bf16.h>
@@ -130,10 +140,12 @@ struct Params {
 
 // Packed sequences: (B, Nq) and (B, Nk) int32 document ids, a kernel
 // argument of their own (Params stays as the unsegmented kernels had it),
-// read by the kSeg instantiations only.
+// read by the kSeg instantiations only; a declared packing's doc-tile table,
+// (blocks, 2) int32, read by the kDocs instantiations only.
 struct Segs {
   const int* q;
   const int* kv;
+  const int* tiles;
 };
 
 // [t_begin, t_end) query tiles of `bm` rows holding a row that attends a
@@ -309,7 +321,7 @@ __device__ __forceinline__ void dkv_grads_step(const Params& p, int hi, int lo,
     dkv_grads<kEdge, kSeg, false>(p, hi, lo, s, dp, Ls, Ls + kBlockM, Ss, r0, key_a, km, ks);
 }
 
-template <bool kSeg>
+template <bool kSeg, bool kDocs>
 __global__ void __launch_bounds__(kDkvThreads, 1)
     flash_bwd_dkv_bf16_kernel(const Params p, const Segs sg) {
   extern __shared__ unsigned char dkv_smem[];
@@ -351,6 +363,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   // the query tiles of every head of the group, in one sequence
   int t_begin, t_end;
   query_tiles(p, c0, kBlockM, kDkvKeys, &t_begin, &t_end);
+  if constexpr (kDocs) doc_clip(sg.tiles, c0 / kDkvKeys, &t_begin, &t_end);
   const int n_tiles = t_end - t_begin, n_steps = group * n_tiles;
   auto issue = [&](int step) {
     if (step < n_steps) {
@@ -550,7 +563,7 @@ __device__ __forceinline__ void wg_key_tiles(const Params& p, int rw, int* t_beg
   if (rw < p.Nq) key_tiles(p, rw, kBlockM, kBlockN, t_begin, t_end);
 }
 
-template <bool kSeg>
+template <bool kSeg, bool kDocs>
 __global__ void __launch_bounds__(kDqThreads, 1)
     flash_bwd_dq_bf16_kernel(const Params p, const Segs sg) {
   extern __shared__ unsigned char dq_smem[];
@@ -602,6 +615,9 @@ __global__ void __launch_bounds__(kDqThreads, 1)
   // the key tiles this warpgroup's rows meet
   int t_begin, t_end;
   wg_key_tiles(p, rw, &t_begin, &t_end);
+  if constexpr (kDocs) {
+    if (rw < p.Nq) doc_clip(sg.tiles, rw / 64, &t_begin, &t_end);
+  }
   const int n_steps = t_end - t_begin;
   auto issue = [&](int step) {
     if (step < n_steps)
@@ -715,7 +731,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
 
 // One key per thread: its K and V rows sit in shared memory with a padded
 // stride (conflict-free), query rows are read by every thread (broadcast).
-template <int D, bool kSeg>
+template <int D, bool kSeg, bool kDocs>
 __global__ void __launch_bounds__(kBlockN)
     flash_bwd_dkv_f32_kernel(const Params p, const Segs sg) {
   constexpr int kKV = D + 1;
@@ -753,6 +769,7 @@ __global__ void __launch_bounds__(kBlockN)
 
   int t_begin, t_end;
   query_tiles(p, c0, kRowsF32, kBlockN, &t_begin, &t_end);
+  if constexpr (kDocs) doc_clip(sg.tiles, c0 / kBlockN, &t_begin, &t_end);
   for (int hq = 0; hq < group; ++hq) {
     const size_t bh = (size_t)b * p.H + kh * group + hq;
     const float* q = static_cast<const float*>(p.q) + bh * p.Nq * D;
@@ -806,7 +823,7 @@ __global__ void __launch_bounds__(kBlockN)
 
 // One query row per thread: its q and do rows sit in shared memory with a
 // padded stride, key rows are read by every thread (broadcast).
-template <int D, bool kSeg>
+template <int D, bool kSeg, bool kDocs>
 __global__ void __launch_bounds__(kBlockM)
     flash_bwd_dq_f32_kernel(const Params p, const Segs sg) {
   constexpr int kRow = D + 1;
@@ -847,6 +864,7 @@ __global__ void __launch_bounds__(kBlockM)
 
   int t_begin, t_end;
   key_tiles(p, r0, kBlockM, kKeysF32, &t_begin, &t_end);
+  if constexpr (kDocs) doc_clip(sg.tiles, r0 / kBlockM, &t_begin, &t_end);
   for (int tile = t_begin; tile < t_end; ++tile) {
     const int c0 = tile * kKeysF32;
     __syncthreads();
@@ -920,7 +938,8 @@ int fill_params(Params* p, const void* q, const void* k, const void* v,
 // and returns cudaGetLastError() (0 = launched).  They allocate nothing: the
 // caller passes contiguous tensors and preallocated float32 outputs.
 // (q_seg, kv_seg), both set, runs the segmented kernels; both null, the
-// unsegmented ones.
+// unsegmented ones.  doc_tiles, a declared packing's doc-tile table for the
+// pass's own blocks, runs the kDocs kernels; it goes with no ids.
 
 // dk, dv: (B, Hk, Nk, D) float32, fully written (zero where no row attends).
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -929,19 +948,22 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              void* dv, int B, int H, int Hk, int Nq, int Nk,
                              int D, int is_bf16, float scale, int causal,
                              int hi, int windowed, int lo, float softclamp,
-                             const void* q_seg, const void* kv_seg, void* stream) {
+                             const void* q_seg, const void* kv_seg,
+                             const void* doc_tiles, void* stream) {
   Params p;
   if (!fill_params(&p, q, k, v, dout, lse, delta, kv_mask, B, H, Hk, Nq, Nk,
                    D, scale, causal, hi, windowed, lo, softclamp) ||
-      (q_seg == nullptr) != (kv_seg == nullptr))
+      (q_seg == nullptr) != (kv_seg == nullptr) || (q_seg != nullptr && doc_tiles != nullptr))
     return (int)cudaErrorInvalidValue;
-  const Segs sg{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg)};
+  const Segs sg{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg),
+                static_cast<const int*>(doc_tiles)};
   p.dk = static_cast<float*>(dk);
   p.dv = static_cast<float*>(dv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    const auto kernel = q_seg != nullptr ? flash_bwd_dkv_bf16_kernel<true>
-                                         : flash_bwd_dkv_bf16_kernel<false>;
+    const auto kernel = q_seg != nullptr       ? flash_bwd_dkv_bf16_kernel<true, false>
+                        : doc_tiles != nullptr ? flash_bwd_dkv_bf16_kernel<false, true>
+                                               : flash_bwd_dkv_bf16_kernel<false, false>;
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem);
     if (err != cudaSuccess) return (int)err;
@@ -950,9 +972,11 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   }
   const dim3 grid((Nk + kBlockN - 1) / kBlockN, B * Hk);
   if (q_seg != nullptr)
-    flash_bwd_dkv_f32_kernel<64, true><<<grid, kBlockN, 0, s>>>(p, sg);
+    flash_bwd_dkv_f32_kernel<64, true, false><<<grid, kBlockN, 0, s>>>(p, sg);
+  else if (doc_tiles != nullptr)
+    flash_bwd_dkv_f32_kernel<64, false, true><<<grid, kBlockN, 0, s>>>(p, sg);
   else
-    flash_bwd_dkv_f32_kernel<64, false><<<grid, kBlockN, 0, s>>>(p, sg);
+    flash_bwd_dkv_f32_kernel<64, false, false><<<grid, kBlockN, 0, s>>>(p, sg);
   return (int)cudaGetLastError();
 }
 
@@ -963,18 +987,21 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             int B, int H, int Hk, int Nq, int Nk, int D,
                             int is_bf16, float scale, int causal, int hi,
                             int windowed, int lo, float softclamp,
-                            const void* q_seg, const void* kv_seg, void* stream) {
+                            const void* q_seg, const void* kv_seg,
+                            const void* doc_tiles, void* stream) {
   Params p;
   if (!fill_params(&p, q, k, v, dout, lse, delta, kv_mask, B, H, Hk, Nq, Nk,
                    D, scale, causal, hi, windowed, lo, softclamp) ||
-      (q_seg == nullptr) != (kv_seg == nullptr))
+      (q_seg == nullptr) != (kv_seg == nullptr) || (q_seg != nullptr && doc_tiles != nullptr))
     return (int)cudaErrorInvalidValue;
-  const Segs sg{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg)};
+  const Segs sg{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg),
+                static_cast<const int*>(doc_tiles)};
   p.dq = static_cast<float*>(dq);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    const auto kernel = q_seg != nullptr ? flash_bwd_dq_bf16_kernel<true>
-                                         : flash_bwd_dq_bf16_kernel<false>;
+    const auto kernel = q_seg != nullptr       ? flash_bwd_dq_bf16_kernel<true, false>
+                        : doc_tiles != nullptr ? flash_bwd_dq_bf16_kernel<false, true>
+                                               : flash_bwd_dq_bf16_kernel<false, false>;
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
     if (err != cudaSuccess) return (int)err;
@@ -983,8 +1010,10 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   }
   const dim3 grid((Nq + kBlockM - 1) / kBlockM, B * H);
   if (q_seg != nullptr)
-    flash_bwd_dq_f32_kernel<64, true><<<grid, kBlockM, 0, s>>>(p, sg);
+    flash_bwd_dq_f32_kernel<64, true, false><<<grid, kBlockM, 0, s>>>(p, sg);
+  else if (doc_tiles != nullptr)
+    flash_bwd_dq_f32_kernel<64, false, true><<<grid, kBlockM, 0, s>>>(p, sg);
   else
-    flash_bwd_dq_f32_kernel<64, false><<<grid, kBlockM, 0, s>>>(p, sg);
+    flash_bwd_dq_f32_kernel<64, false, false><<<grid, kBlockM, 0, s>>>(p, sg);
   return (int)cudaGetLastError();
 }

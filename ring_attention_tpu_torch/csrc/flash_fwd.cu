@@ -3,8 +3,8 @@
 // Replaces: ring_attention_tpu/ops/pallas_flash.py::_flash_fwd_call (the
 // pl.pallas_call at :1174; kernel bodies _fwd_kernel :669, _fwd_tile :823,
 // _online_update :776, _fwd_write :645, _tile_keep :240, with its runtime
-// segment ids qseg_ref/kseg_ref) in its three modes, one kernel whose
-// pointers say which:
+// segment ids qseg_ref/kseg_ref and its doc_starts tile tables) in its three
+// modes, one kernel whose pointers say which:
 //   * fused: normalized `out` in q's dtype plus `lse` in float32;
 //   * partials: the raw online-softmax state (acc, m, l) in float32, the
 //     mergeable state of one ring hop (`_fwd_write` with fused=False);
@@ -94,7 +94,16 @@
 //     registers and each tile's key ids in its stage.  It visits the same
 //     tiles as the unsegmented kernel (no tile is skipped on ids, as the TPU
 //     kernel skips none on runtime ids), and the unsegmented kernels compile
-//     as before.
+//     as before;
+//   * a declared packing whose documents start on 64-row boundaries
+//     (doc_starts, the TPU kernel's compact tile tables of _band_tables
+//     :578) runs a third instantiation (kDocs): every 64 rows then lie in
+//     one document, and a small int32 table gives each 64-row block (a bf16
+//     warpgroup, an f32 block) the key tiles of its document, which clip
+//     the band's range (doc_clip, wgmma.cuh).  Every tile of another
+//     document is dropped, not masked; the tiles kept hold keys of the
+//     rows' own document only, so the kernel takes no ids and runs the
+//     unsegmented tile body.
 // Not yet: TMA and warp specialisation (a producer warp, ping-pong of the
 // two warpgroups' softmax and products).
 
@@ -128,10 +137,12 @@ struct RingIO {
 };
 
 // Packed sequences: (B, Nq) and (B, Nk) int32 document ids, read by the
-// kSeg instantiations only.
+// kSeg instantiations only; a declared packing's doc-tile table, (ceil(Nq /
+// 64), 2) int32, read by the kDocs instantiations only.
 struct Segs {
   const int* q;
   const int* kv;
+  const int* tiles;
 };
 
 // The launch's band in flash_tile.cuh's form: a side that causal or windowed
@@ -146,7 +157,7 @@ __device__ __forceinline__ Band launch_band(const Params& p, const uint8_t* kvm)
 // ring of its own (flash_sweep.cuh)
 // ---------------------------------------------------------------------------
 
-template <bool kSeg, bool kClamp>
+template <bool kSeg, bool kClamp, bool kDocs>
 __global__ void __launch_bounds__(kFwdThreads, 1)
     flash_fwd_bf16_kernel(const Params p, const RingIO io, const Segs sg) {
   extern __shared__ unsigned char fwd_smem[];
@@ -190,6 +201,9 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   const Band bd = launch_band(p, kvm);
   int t_begin, t_end;
   wg_band_tiles(bd, p.Nq, w.rw, &t_begin, &t_end);
+  if constexpr (kDocs) {
+    if (w.rw < p.Nq) doc_clip(sg.tiles, w.rw / 64, &t_begin, &t_end);
+  }
   const SweepRange rg{bd, k, v, kseg, t_begin, t_end - t_begin};
   sweep_issue_ahead(rg, w);
 
@@ -225,7 +239,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   }
 }
 
-template <int D, bool kSeg>
+template <int D, bool kSeg, bool kDocs>
 __global__ void __launch_bounds__(kBlockM)
     flash_fwd_f32_kernel(const Params p, const RingIO io, const Segs sg) {
   __shared__ __align__(16) float Ks[kBlockN * D];
@@ -262,6 +276,7 @@ __global__ void __launch_bounds__(kBlockM)
   const Band bd = launch_band(p, kvm);
   int t_begin, t_end;
   band_tiles(bd, p.Nq, r0, &t_begin, &t_end);
+  if constexpr (kDocs) doc_clip(sg.tiles, r0 / kBlockM, &t_begin, &t_end);
   for (int tile = t_begin; tile < t_end; ++tile)
     f32_tile<D, kSeg>(Ks, Vs, k, v, bd, tile * kBlockN, qv, acc, m, l, row, st);
 
@@ -286,7 +301,8 @@ __global__ void __launch_bounds__(kBlockM)
 // pointers: (out, lse) or (p_acc, p_m, p_l) is written, and (c_acc, c_m,
 // c_l), when given, is resumed; each triple is all null or all set.
 // (q_seg, kv_seg), both set, runs the segmented kernel; both null, the
-// unsegmented one.
+// unsegmented one.  doc_tiles, a declared packing's doc-tile table on the
+// device, runs the kDocs kernel; it goes with no ids.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* kv_mask, void* out, void* lse,
                          const void* c_acc, const void* c_m, const void* c_l,
@@ -294,8 +310,9 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          int Hk, int Nq, int Nk, int D, int is_bf16, float scale,
                          int causal, int hi, int windowed, int lo,
                          float softclamp, const void* q_seg, const void* kv_seg,
-                         void* stream) {
-  if (D != 64 || H % Hk != 0 || Nq <= 0 || Nk <= 0 || (q_seg == nullptr) != (kv_seg == nullptr))
+                         const void* doc_tiles, void* stream) {
+  if (D != 64 || H % Hk != 0 || Nq <= 0 || Nk <= 0 || (q_seg == nullptr) != (kv_seg == nullptr) ||
+      (q_seg != nullptr && doc_tiles != nullptr))
     return (int)cudaErrorInvalidValue;
   const bool carry = c_acc != nullptr;
   const bool partials = p_acc != nullptr;
@@ -324,15 +341,19 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   const RingIO io{static_cast<const float*>(c_acc), static_cast<const float*>(c_m),
                   static_cast<const float*>(c_l), static_cast<float*>(p_acc),
                   static_cast<float*>(p_m), static_cast<float*>(p_l)};
-  const Segs sg{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg)};
+  const Segs sg{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg),
+                static_cast<const int*>(doc_tiles)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     const bool clamp = softclamp > 0.f;
     const auto kernel = q_seg != nullptr
-                            ? (clamp ? flash_fwd_bf16_kernel<true, true>
-                                     : flash_fwd_bf16_kernel<true, false>)
-                            : (clamp ? flash_fwd_bf16_kernel<false, true>
-                                     : flash_fwd_bf16_kernel<false, false>);
+                            ? (clamp ? flash_fwd_bf16_kernel<true, true, false>
+                                     : flash_fwd_bf16_kernel<true, false, false>)
+                        : doc_tiles != nullptr
+                            ? (clamp ? flash_fwd_bf16_kernel<false, true, true>
+                                     : flash_fwd_bf16_kernel<false, false, true>)
+                            : (clamp ? flash_fwd_bf16_kernel<false, true, false>
+                                     : flash_fwd_bf16_kernel<false, false, false>);
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
     if (err != cudaSuccess) return (int)err;
@@ -341,8 +362,10 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   }
   const dim3 grid((Nq + kBlockM - 1) / kBlockM, B * H);
   if (q_seg != nullptr)
-    flash_fwd_f32_kernel<64, true><<<grid, kBlockM, 0, s>>>(p, io, sg);
+    flash_fwd_f32_kernel<64, true, false><<<grid, kBlockM, 0, s>>>(p, io, sg);
+  else if (doc_tiles != nullptr)
+    flash_fwd_f32_kernel<64, false, true><<<grid, kBlockM, 0, s>>>(p, io, sg);
   else
-    flash_fwd_f32_kernel<64, false><<<grid, kBlockM, 0, s>>>(p, io, sg);
+    flash_fwd_f32_kernel<64, false, false><<<grid, kBlockM, 0, s>>>(p, io, sg);
   return (int)cudaGetLastError();
 }

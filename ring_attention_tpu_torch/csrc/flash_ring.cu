@@ -2,8 +2,8 @@
 //
 // Replaces: ring_attention_tpu/ops/pallas_ring.py::fused_ring_local (the
 // pl.pallas_call at :341; kernel body _fused_local_kernel :116) for float
-// operands.  Its int8 feed (kv_quantized) and segment ids are not ported
-// here.
+// operands, with its segment ids (q_segment_ids, kv_segment_ids :213, the
+// keep test :304-309).  Its int8 feed (kv_quantized) is not ported here.
 //
 // What it computes, for q (B, H, N, D) of one ring rank and the gathered
 // k_all, v_all (B, Hk, Ntot, D), rank-major (rank o's block is rows
@@ -12,7 +12,8 @@
 //   origins[hop] in local coordinates j in [0, N):
 //     s    = scale * q . k, then softclamp c * tanh(s / c) when c > 0;
 //     keep = los[hop] <= j - i <= his[hop] && (kv_mask == null ||
-//            kv_mask[b, origins[hop] * N + j]);
+//            kv_mask[b, origins[hop] * N + j]) && (q_seg == null ||
+//            q_seg[b, i] == kv_seg[b, origins[hop] * N + j]);
 //     masked scores take the FINITE mask value -0.5 * f32 max;
 //   the online-softmax state (acc, m, l) in f32 carries across the hops
 //   in registers, and the block writes out = acc / max(l, 1e-10) in q's
@@ -56,11 +57,18 @@
 //     B1;
 //   * f32: 64 threads, one query row each, plain FMA (exact f32), through
 //     flash_tile.cuh's f32 tile body, as B1's f32 kernel;
+//   * packed sequences (q_seg (B, N) of the rank's rows, kv_seg (B, Ntot)
+//     gathered with k and v) run a second instantiation of each kernel
+//     (kSeg), B1's segmented sweep walked hop by hop: each thread's rows'
+//     ids in registers, each tile's key ids in its stage beside the key
+//     mask (bf16), or in shared memory (f32); the unsegmented kernels
+//     compile as before.  A hop whose ids share no document with the rows
+//     is skipped by the host, which clears its works flag as the scan ring
+//     skips it, so that the visit set stays the segmented chain's;
 //   * the hop tables are four int32 device arrays read by every thread;
 //   * offsets into the gathered span are 64-bit: at 262,144 tokens, hk 8
 //     and d 64 one batch row of k_all holds 1.3e8 elements.
-// Not yet: the int8 feed and segment ids; TMA and warp specialisation, as
-// in B1.
+// Not yet: the int8 feed; TMA and warp specialisation, as in B1.
 
 #include "flash_sweep.cuh"
 
@@ -82,15 +90,22 @@ struct Params {
   float softclamp;  // 0 = off
 };
 
+// Packed sequences: (B, N) int32 document ids of the rank's rows and (B,
+// Ntot) of the gathered keys, read by the kSeg instantiations only.
+struct Segs {
+  const int* q;
+  const int* kv;
+};
+
 // Hop `hop`'s band in flash_tile.cuh's form, in the hop's local coordinates;
 // kvm points at the hop's block of the key mask.
 __device__ __forceinline__ Band hop_band(const Params& p, int hop, const uint8_t* kvm) {
   return Band{p.his[hop], p.los[hop], p.N, kvm, p.scale, p.softclamp};
 }
 
-template <bool kClamp>
+template <bool kSeg, bool kClamp>
 __global__ void __launch_bounds__(kFwdThreads, 1)
-    flash_ring_bf16_kernel(const Params p) {
+    flash_ring_bf16_kernel(const Params p, const Segs sg) {
   extern __shared__ unsigned char ring_smem[];
   // stages start on a 1,024-byte boundary: the swizzle reads address bits
   const uint32_t base = ((uint32_t)__cvta_generic_to_shared(ring_smem) + 1023u) & ~1023u;
@@ -106,13 +121,29 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
 
   const SweepWg w = sweep_wg(base, base_ptr, r0);
   const float mask2 = __fmul_rn(kMaskValue, kLog2e);
-  const int no_ids[2] = {0, 0};
-  // the online-softmax state, empty: the chain's seed launch
+  // the online-softmax state, empty: the chain's seed launch; (kSeg) the
+  // ids of this thread's rows
   float o[8][4], m2[2], l[2];
+  int qs_r[2] = {0, 0};
 #pragma unroll
-  for (int r = 0; r < 2; ++r)
+  for (int r = 0; r < 2; ++r) {
     sweep_load_row(nullptr, nullptr, nullptr, 0, false, r, mask2, o, m2, l);
+    const int row = w.row_a + 8 * r;
+    if constexpr (kSeg) qs_r[r] = row < p.N ? sg.q[(size_t)b * p.N + row] : 0;
+  }
   sweep_load_q(w, q, p.N);
+  // (kSeg) whether every row of the warpgroup before N holds one document,
+  // q_doc, as B1's segmented sweep takes it
+  int q_doc = 0;
+  bool q_one_doc = false;
+  if constexpr (kSeg) {
+    const int* qseg = sg.q + (size_t)b * p.N;
+    q_doc = w.rw < p.N ? qseg[w.rw] : 0;
+    const int lane = threadIdx.x % 32;
+    q_one_doc = __all_sync(0xffffffffu,
+                           (w.rw + lane >= p.N || qseg[w.rw + lane] == q_doc) &&
+                               (w.rw + lane + 32 >= p.N || qseg[w.rw + lane + 32] == q_doc));
+  }
 
   bool first = true;
   for (int hop = 0; hop < p.hops; ++hop) {
@@ -124,12 +155,14 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) + kv_off + span * 64;
     const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) + kv_off + span * 64;
     const uint8_t* kvm = p.kv_mask ? p.kv_mask + (size_t)b * p.Ntot + span : nullptr;
+    const int* kseg = kSeg ? sg.kv + (size_t)b * p.Ntot + span : nullptr;
     const Band bd = hop_band(p, hop, kvm);
     int t_begin, t_end;
     wg_band_tiles(bd, p.N, w.rw, &t_begin, &t_end);
-    const SweepRange rg{bd, k, v, nullptr, t_begin, t_end - t_begin};
+    const SweepRange rg{bd, k, v, kseg, t_begin, t_end - t_begin};
     sweep_issue_ahead(rg, w);
-    SWEEP_WALK(false, kClamp, rg, w, kvm == nullptr, false, 0, no_ids, mask2, o, m2, l);
+    SWEEP_WALK(kSeg, kClamp, rg, w, kvm == nullptr && (!kSeg || q_one_doc), q_one_doc, q_doc,
+               qs_r, mask2, o, m2, l);
     sweep_wg_sync(w);  // the ring is free for the next hop's tiles
   }
 
@@ -143,11 +176,12 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   }
 }
 
-template <int D>
+template <int D, bool kSeg>
 __global__ void __launch_bounds__(kBlockM)
-    flash_ring_f32_kernel(const Params p) {
+    flash_ring_f32_kernel(const Params p, const Segs sg) {
   __shared__ __align__(16) float Ks[kBlockN * D];
   __shared__ __align__(16) float Vs[kBlockN * D];
+  __shared__ int Ids[kSeg ? kBlockM + kBlockN : 1];  // SegTile's
 
   const int r0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;
   const int bh = blockIdx.y;
@@ -156,6 +190,7 @@ __global__ void __launch_bounds__(kBlockM)
   const float* q = static_cast<const float*>(p.q) + (size_t)bh * p.N * D;
   const size_t kv_off = ((size_t)b * p.Hk + kh) * (size_t)p.Ntot * D;
   const int row = r0 + threadIdx.x;
+  if constexpr (kSeg) Ids[threadIdx.x] = row < p.N ? sg.q[(size_t)b * p.N + row] : 0;
 
   float qv[D], acc[D];
   load_q_row_f32<D>(q, row, p.N, qv, acc);
@@ -169,10 +204,11 @@ __global__ void __launch_bounds__(kBlockM)
     const uint8_t* kvm =
         p.kv_mask ? p.kv_mask + (size_t)b * p.Ntot + span : nullptr;
     const Band bd = hop_band(p, hop, kvm);
+    const SegTile st{kSeg ? sg.kv + (size_t)b * p.Ntot + span : nullptr, kSeg ? Ids : nullptr};
     int t_begin, t_end;
     band_tiles(bd, p.N, r0, &t_begin, &t_end);
     for (int tile = t_begin; tile < t_end; ++tile)
-      f32_tile<D>(Ks, Vs, k, v, bd, tile * kBlockN, qv, acc, m, l, row);
+      f32_tile<D, kSeg>(Ks, Vs, k, v, bd, tile * kBlockN, qv, acc, m, l, row, st);
   }
 
   if (row >= p.N) return;
@@ -185,15 +221,19 @@ __global__ void __launch_bounds__(kBlockM)
 // returns cudaGetLastError() (0 = launched).  Allocates nothing: the caller
 // passes contiguous tensors, the four int32 hop tables on the device and
 // the preallocated out and lse.  Every origin must lie in [0, Ntot / N).
+// (q_seg, kv_seg), both set, runs the segmented kernel; both null, the
+// unsegmented one.
 extern "C" int flash_ring(const void* q, const void* k_all, const void* v_all,
                           const void* kv_mask, const void* origins,
                           const void* his, const void* los, const void* works,
                           int hops, void* out, void* lse, int B, int H, int Hk,
                           int N, int Ntot, int D, int is_bf16, float scale,
-                          float softclamp, void* stream) {
+                          float softclamp, const void* q_seg, const void* kv_seg,
+                          void* stream) {
   if (D != 64 || Hk <= 0 || H % Hk != 0 || N <= 0 || Ntot % N != 0 ||
       hops <= 0 || origins == nullptr || his == nullptr || los == nullptr ||
-      works == nullptr || out == nullptr || lse == nullptr)
+      works == nullptr || out == nullptr || lse == nullptr ||
+      (q_seg == nullptr) != (kv_seg == nullptr))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -214,16 +254,24 @@ extern "C" int flash_ring(const void* q, const void* k_all, const void* v_all,
   p.hops = hops;
   p.scale = scale;
   p.softclamp = softclamp;
+  const Segs sg{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    const auto kernel =
-        softclamp > 0.f ? flash_ring_bf16_kernel<true> : flash_ring_bf16_kernel<false>;
+    const bool clamp = softclamp > 0.f;
+    const auto kernel = q_seg != nullptr ? (clamp ? flash_ring_bf16_kernel<true, true>
+                                                  : flash_ring_bf16_kernel<true, false>)
+                                         : (clamp ? flash_ring_bf16_kernel<false, true>
+                                                  : flash_ring_bf16_kernel<false, false>);
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<dim3((N + kFwdRows - 1) / kFwdRows, B * H), kFwdThreads, kFwdSmem, s>>>(p);
+    kernel<<<dim3((N + kFwdRows - 1) / kFwdRows, B * H), kFwdThreads, kFwdSmem, s>>>(p, sg);
   } else {
-    flash_ring_f32_kernel<64><<<dim3((N + kBlockM - 1) / kBlockM, B * H), kBlockM, 0, s>>>(p);
+    const dim3 grid((N + kBlockM - 1) / kBlockM, B * H);
+    if (q_seg != nullptr)
+      flash_ring_f32_kernel<64, true><<<grid, kBlockM, 0, s>>>(p, sg);
+    else
+      flash_ring_f32_kernel<64, false><<<grid, kBlockM, 0, s>>>(p, sg);
   }
   return (int)cudaGetLastError();
 }

@@ -211,4 +211,20 @@ __device__ __forceinline__ const uint8_t* kv_mask_bytes(const unsigned char* stp
   return stp + kKvMaskOff + (reinterpret_cast<uintptr_t>(kvm + c0) & 3);
 }
 
+// ---------------------------------------------------------------------------
+// A declared document packing, shared by B1, B2 and B3
+// ---------------------------------------------------------------------------
+
+// The tile range [*t_begin, *t_end) that the band gives block `blk`,
+// intersected with row `blk` of a doc-tile table: (blocks, 2) int32, the
+// [begin, end) tiles of the other side that the block visits under a
+// block-aligned packing (ops/cuda_flash.py::doc_tile_ranges).  Each block
+// then lies in one document and every tile it drops holds only keys (or
+// rows) of other documents.
+__device__ __forceinline__ void doc_clip(const int* doc_tiles, int blk, int* t_begin,
+                                         int* t_end) {
+  *t_begin = max(*t_begin, doc_tiles[2 * blk]);
+  *t_end = max(*t_begin, min(*t_end, doc_tiles[2 * blk + 1]));
+}
+
 }  // namespace

@@ -40,8 +40,15 @@ int8 compute; ``"fused"`` runs as ``"cuda"``); with ``auto_shard`` the
 layer pads, permutes (striped or zig-zag) and unpermutes around it.  ``forward(segment_ids=)`` packs documents into one row: a
 query attends only keys of its own document, locally and on the
 ``"torch"``/``"cuda"`` ring (padding takes ``PAD_SEGMENT_ID``); rotary
-positions stay global, as in the JAX layer (rotary is relative).  The
-fused ring and the int8 sweep take no ids yet and raise.  The ring runs
+positions stay global, as in the JAX layer (rotary is relative).
+``mask=`` takes a mask expression (``masks.py``, JAX ``mask=``) in place of
+``causal``/``max_lookback_seq_len``: ``Causal() & DocumentMask(starts)``
+declares a packing, which the local path keeps for the kernels' doc-tile
+tables (``doc_starts``; certified first, ``masks.require_certified``) and
+every ring realizes as runtime ids in the ring's layout (without a
+certificate: the ring strategies' certificates are not ported), and
+``... & Segments()`` asks for ``segment_ids``.  The int8 sweep takes no ids
+nor packing yet and raises.  The ring runs
 on a mesh whose ring this process holds whole (a ``VirtualRing``: one
 GPU, or the CPU).  Locally ``prefill`` attends with ``ops/flash.py``
 under every ``impl``, as the JAX package's does; on a mesh it runs the
@@ -59,8 +66,19 @@ import math
 import torch
 from torch import nn
 
-from ..ops.attention import PAD_SEGMENT_ID, default_attention
-from ..ops.cuda_flash import cuda_flash_attention, cuda_flash_decode, int8_compute
+from .. import masks as mask_algebra
+from ..ops.attention import (
+    PAD_SEGMENT_ID,
+    check_doc_starts,
+    default_attention,
+    doc_runtime_ids,
+)
+from ..ops.cuda_flash import (
+    UNPORTED_INT8_SEGMENTS,
+    cuda_flash_attention,
+    cuda_flash_decode,
+    int8_compute,
+)
 from ..ops.cuda_flash_q8 import (
     QuantizedKV,
     dequantize_kv_cache,
@@ -90,7 +108,6 @@ from .layers import Dense, RMSNorm, resolve_device
 
 # Where each feature that is not ported yet will come from (ROADMAP.md).
 UNPORTED = {
-    "mask": "the mask algebra, ROADMAP.md Port queue item 7",
     "windowed_cache": "the memory knobs, ROADMAP.md Port queue item 7",
     "ff_chunk_size": "the memory knobs, ROADMAP.md Port queue item 7",
     "loss_chunk_size": "the memory knobs, ROADMAP.md Port queue item 7",
@@ -120,6 +137,40 @@ def unported(fn: str, name: str) -> NotImplementedError:
     return NotImplementedError(
         f"{fn}: {name} is not ported yet; it arrives with {UNPORTED[name]}"
     )
+
+
+def mask_form(fn: str, mask, causal: bool, lookback) -> mask_algebra.KernelForm | None:
+    """A layer's mask expression resolved onto the kernel knobs (JAX
+    ``RingAttention._mask_form``), or None without one.  It replaces
+    ``causal=True`` and ``max_lookback_seq_len``, so passing either beside
+    it raises, as in the JAX layer; a mask beyond the kernel surface raises
+    ``masks.MaskLoweringError``."""
+    if mask is None:
+        return None
+    if not isinstance(mask, mask_algebra.Mask):
+        raise TypeError(f"{fn}: mask= takes a masks.Mask expression, got {type(mask).__name__}")
+    if causal:
+        raise ValueError(
+            f"{fn}: mask= replaces causal=True (causal=True is sugar for "
+            "mask=Causal()); set only one"
+        )
+    if lookback is not None:
+        raise ValueError(
+            f"{fn}: mask= replaces max_lookback_seq_len — compose "
+            "SlidingWindow(w) into the mask instead"
+        )
+    return mask_algebra.kernel_form(mask)
+
+
+def check_packed_int8(fn: str, form, compute_dtype) -> None:
+    """A mask that packs documents (a ``DocumentMask`` or ``Segments()``)
+    cannot run the int8 sweep yet, which takes no ids nor tables."""
+    if form is not None and compute_dtype == "int8" and (
+            form.doc_starts is not None or form.needs_segment_ids):
+        raise NotImplementedError(
+            f'{fn}: mask= with a document packing and compute_dtype="int8" is not '
+            f"ported yet; it arrives with {UNPORTED_INT8_SEGMENTS}"
+        )
 
 
 def check_compute_dtype(fn: str, compute_dtype, impl: str) -> None:
@@ -196,7 +247,11 @@ class RingAttention(nn.Module):
     compute dtype (parameters stay float32).  ``mesh`` runs the ring over
     the mesh's sequence ranks, in the ``striped`` layout when set;
     ``auto_shard`` takes ``x`` in the natural order and pads and permutes
-    it for the ring (without it ``x`` arrives in the ring's layout)."""
+    it for the ring (without it ``x`` arrives in the ring's layout).
+    ``mask`` (a ``masks.Mask``) replaces ``causal`` and
+    ``max_lookback_seq_len``: its kernel form sets ``self.causal`` and
+    ``self.max_lookback_seq_len``, and ``self.doc_starts`` to a declared
+    packing."""
 
     def __init__(
         self,
@@ -227,11 +282,15 @@ class RingAttention(nn.Module):
         ring_dkv_dtype: str | None = None,
     ):
         super().__init__()
-        reject_unported("RingAttention", mask=mask,
+        reject_unported("RingAttention",
                         ring_bidirectional=ring_bidirectional,
                         ring_counter_rotate=ring_counter_rotate,
                         ring_hop_compression=ring_hop_compression,
                         ring_dkv_dtype=ring_dkv_dtype)
+        form = mask_form("RingAttention", mask, causal, max_lookback_seq_len)
+        if form is not None:
+            causal, max_lookback_seq_len = form.causal, form.window
+        check_packed_int8("RingAttention", form, compute_dtype)
         check_impl("RingAttention", impl)
         check_mesh("RingAttention", mesh, sequence_parallel)
         check_compute_dtype("RingAttention", compute_dtype, impl)
@@ -260,6 +319,9 @@ class RingAttention(nn.Module):
         self.auto_shard = auto_shard
         self.quantize_cache = quantize_cache
         self.compute_dtype = compute_dtype
+        self.mask = mask
+        self.doc_starts = None if form is None else form.doc_starts
+        self.needs_segment_ids = form is not None and form.needs_segment_ids
         self.prenorm = RMSNorm(dim, device=device)
         self.to_qkv = Dense(dim, (heads + 2 * kv_heads) * dim_head,
                             dtype=dtype, device=device)
@@ -306,6 +368,25 @@ class RingAttention(nn.Module):
         ring = world > 1
         n_orig = x.shape[1]
         scheme, factor = layout_for(self.sequence_parallel, self.striped, world)
+        if self.needs_segment_ids and segment_ids is None:
+            raise ValueError(
+                "RingAttention: the mask includes Segments() — pass the runtime "
+                "segment_ids array"
+            )
+        if self.doc_starts is not None:
+            if segment_ids is not None:
+                raise ValueError(
+                    "RingAttention: the mask declares a DocumentMask layout AND "
+                    "segment_ids were passed — declare one packing"
+                )
+            if ring:
+                # the ring realizes the declared layout as runtime ids, in its
+                # layout: auto_shard pads and permutes them below; otherwise x
+                # came padded at its end and permuted, and so do they
+                starts = check_doc_starts(self.doc_starts, n_orig, n_orig)
+                segment_ids = doc_runtime_ids(starts, n_orig, x.shape[0], x.device)
+                if not self.auto_shard:
+                    segment_ids = layout_permute(segment_ids, scheme, factor)
         if ring and self.auto_shard:
             pad_mult = 2 * world if scheme == "zigzag" else world
             x, mask, n_orig = pad_seq_and_mask(x, mask, pad_mult)
@@ -389,19 +470,26 @@ class RingAttention(nn.Module):
         )
 
     def _local_attend(self, q, k, v, mask, segment_ids=None):
+        """One sweep; a declared packing goes to the kernels as
+        ``doc_starts`` (their doc-tile tables, certified first) and to the
+        PyTorch path as runtime ids."""
         n = q.shape[2]
         q, k = self._rotate(q, k, torch.arange(n, device=q.device))
+        if self.mask is not None:
+            mask_algebra.require_certified(self.mask, n)
         if self._kernel_impl == "cuda":
             return cuda_flash_attention(
                 q, k, v, mask, causal=self.causal,
                 window=self.max_lookback_seq_len,
                 softclamp_value=self.softclamp_value,
                 compute_dtype=self.compute_dtype, segment_ids=segment_ids,
+                doc_starts=self.doc_starts,
             )
         return flash_attention(
             q, k, v, mask, causal=self.causal, bucket_size=self.bucket_size,
             window=self.max_lookback_seq_len,
             softclamp_value=self.softclamp_value, segment_ids=segment_ids,
+            doc_starts=self.doc_starts,
         )
 
     # ------------------------------------------------------------------

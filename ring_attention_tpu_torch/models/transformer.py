@@ -16,7 +16,11 @@ ring, or one per rank when padding added a key mask), or with
 attention (``parallel/zigzag.py``); the parameters are the same as
 without a mesh.  ``forward(segment_ids=)`` trains and scores packed
 documents (the ids are padded with ``PAD_SEGMENT_ID`` and permuted with
-the tokens on a mesh).  Decoding on a mesh keeps the cache sharded
+the tokens on a mesh); ``mask=`` takes a mask expression (``masks.py``),
+one for every layer or a tuple with one per layer, in place of ``causal``
+and ``max_lookback_seq_len`` (``Causal() & DocumentMask(starts)`` declares
+a packing: its loss, as the JAX model's, keeps every label).  Decoding on
+a mesh keeps the cache sharded
 contiguously over the ring: ``prefill`` runs the ring over the prompt and
 ``decode_step`` merges the ranks' partials by tree attention
 (``parallel/tree_decode.py``).
@@ -38,6 +42,7 @@ from .attention import (
     check_impl,
     check_mesh,
     check_zigzag,
+    mask_form,
     reject_unported,
 )
 from .layers import Dense, Embed, FeedForward, RMSNorm, resolve_device
@@ -83,7 +88,9 @@ class RingTransformer(nn.Module):
     """Causal LM ``tokens (b, n) -> logits (b, n, num_tokens)`` (or loss).
 
     Arguments mirror the JAX ``RingTransformer`` fields;
-    ``max_lookback_seq_len`` takes an int or a per-layer tuple; ``mesh``
+    ``max_lookback_seq_len`` takes an int or a per-layer tuple, ``mask``
+    one ``masks.Mask`` or a per-layer tuple (None entries follow ``causal``
+    and ``max_lookback_seq_len``); ``mesh``
     (``parallel/mesh.py::create_mesh``) runs every layer's attention on the
     ring, in the ``striped`` layout when set.  Built on CUDA unless
     ``device`` names another device."""
@@ -124,7 +131,7 @@ class RingTransformer(nn.Module):
     ):
         super().__init__()
         reject_unported(
-            "RingTransformer", mask=mask,
+            "RingTransformer",
             windowed_cache=windowed_cache, ff_chunk_size=ff_chunk_size,
             loss_chunk_size=loss_chunk_size, remat=remat,
             ring_bidirectional=ring_bidirectional,
@@ -143,7 +150,17 @@ class RingTransformer(nn.Module):
                 f"RingTransformer: max_lookback_seq_len tuple has "
                 f"{len(lookbacks)} entries for depth {depth}"
             )
-        check_zigzag("RingTransformer", sequence_parallel, causal, lookbacks,
+        masks = mask if isinstance(mask, tuple) else (mask,) * depth
+        if len(masks) != depth:
+            raise ValueError(
+                f"RingTransformer: mask tuple has {len(masks)} entries for depth "
+                f"{depth} (one mask per layer, or a single mask for all layers)"
+            )
+        forms = [mask_form("RingTransformer", m, causal, lb)
+                 for m, lb in zip(masks, lookbacks)]
+        check_zigzag("RingTransformer", sequence_parallel,
+                     all(causal if f is None else f.causal for f in forms),
+                     tuple(lb if f is None else f.window for f, lb in zip(forms, lookbacks)),
                      compute_dtype, mesh)
         check_fused_int8("RingTransformer", compute_dtype, impl, mesh)
         device = resolve_device(device)
@@ -151,7 +168,6 @@ class RingTransformer(nn.Module):
         self.dim_head = dim_head
         self.ignore_index = ignore_index
         self.dtype = dtype
-        self.causal = causal
         self.mesh = mesh
         self.quantize_cache = quantize_cache
         self.striped = striped and seq_world(mesh) > 1
@@ -165,9 +181,10 @@ class RingTransformer(nn.Module):
                 impl=impl, dtype=dtype, device=device, mesh=mesh,
                 striped=self.striped, sequence_parallel=sequence_parallel,
                 auto_shard=False,  # sharded once at the top
-                quantize_cache=quantize_cache, compute_dtype=compute_dtype,
+                mask=layer_mask, quantize_cache=quantize_cache,
+                compute_dtype=compute_dtype,
             )
-            for lookback in lookbacks
+            for lookback, layer_mask in zip(lookbacks, masks)
         )
         self.ff_layers = nn.ModuleList(
             FeedForward(dim, ff_mult, dtype=dtype, device=device)
@@ -178,6 +195,12 @@ class RingTransformer(nn.Module):
 
     def _device(self) -> torch.device:
         return self.embed.weight.device
+
+    def _eff_causal(self) -> bool:
+        """Whether every layer's attention is causal (``causal=True`` or a
+        mask whose kernel form is causal): the property the pad-mask
+        synthesis relies on (JAX ``RingTransformer._eff_causal``)."""
+        return all(layer.causal for layer in self.attn_layers)
 
     def forward(
         self,
@@ -216,7 +239,7 @@ class RingTransformer(nn.Module):
         pad_mult = 2 * world if scheme == "zigzag" else world
         if world > 1:
             tokens, _ = pad_to_multiple(tokens, pad_mult)
-            if tokens.shape[1] != n_orig and mask is None and not self.causal:
+            if tokens.shape[1] != n_orig and mask is None and not self._eff_causal():
                 # real tokens must not attend to the pad slots; causal needs
                 # no mask (the pad sits after every real query)
                 mask = torch.arange(tokens.shape[1], device=tokens.device) < n_orig

@@ -88,7 +88,8 @@ def flash_fwd_library() -> ctypes.CDLL:
         i32, i32, i32, i32, i32, i32,  # B, H, Hk, Nq, Nk, D
         i32, f32,  # is_bf16, scale
         i32, i32, i32, i32,  # causal, hi, windowed, lo
-        f32, ptr, ptr, ptr,  # softclamp, q_seg, kv_seg (both null: none), stream
+        f32, ptr, ptr,  # softclamp, q_seg, kv_seg (both null: none)
+        ptr, ptr,  # doc_tiles (null: none), stream
     ]
     lib.flash_fwd.restype = i32
     return lib
@@ -104,7 +105,8 @@ def flash_bwd_library() -> ctypes.CDLL:
         i32, i32, i32, i32, i32, i32,  # B, H, Hk, Nq, Nk, D
         i32, f32,  # is_bf16, scale
         i32, i32, i32, i32,  # causal, hi, windowed, lo
-        f32, ptr, ptr, ptr,  # softclamp, q_seg, kv_seg (both null: none), stream
+        f32, ptr, ptr,  # softclamp, q_seg, kv_seg (both null: none)
+        ptr, ptr,  # doc_tiles (null: none), stream
     ]
     lib.flash_bwd_dkv.argtypes = inputs + [ptr, ptr] + shape  # dk, dv
     lib.flash_bwd_dkv.restype = i32
@@ -179,7 +181,8 @@ def flash_ring_library() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, i32,  # origins, his, los, works (int32), hops
         ptr, ptr,  # out, lse
         i32, i32, i32, i32, i32, i32,  # B, H, Hk, N, Ntot, D
-        i32, f32, f32, ptr,  # is_bf16, scale, softclamp, stream
+        i32, f32, f32,  # is_bf16, scale, softclamp
+        ptr, ptr, ptr,  # q_seg, kv_seg (both null: none), stream
     ]
     lib.flash_ring.restype = i32
     return lib

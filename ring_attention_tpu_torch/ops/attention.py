@@ -54,6 +54,48 @@ def normalize_segment_ids(segment_ids, q, k, fn: str = "attention"):
     return (q_seg.to(torch.int32).contiguous(), kv_seg.to(torch.int32).contiguous())
 
 
+def check_doc_starts(doc_starts, nq: int, nk: int) -> tuple[int, ...]:
+    """Validate a declared packing layout: sorted unique int document start
+    offsets beginning at 0, shared by queries and keys (``nq == nk``), as
+    ``pallas_flash._check_doc_starts`` (:381) with its messages."""
+    if nq != nk:
+        raise ValueError(
+            f"doc_starts declares one packing layout for q AND kv, which "
+            f"needs nq == nk, got ({nq}, {nk})"
+        )
+    ds = tuple(int(s) for s in doc_starts)
+    if not ds or ds[0] != 0 or list(ds) != sorted(set(ds)) or ds[-1] >= nk:
+        raise ValueError(
+            f"doc_starts must be sorted unique offsets starting at 0 and "
+            f"< {nk}, got {doc_starts!r}"
+        )
+    return ds
+
+
+def doc_runtime_ids(doc_starts, n: int, batch: int,
+                    device: torch.device | str = "cpu") -> torch.Tensor:
+    """``(batch, n)`` int32 document ids realizing a declared layout
+    (``pallas_flash._doc_runtime_ids``, :416): the runtime-ids form of a
+    layout that a pass's blocks do not align, and of the paths with no
+    tables."""
+    starts = torch.tensor(doc_starts, dtype=torch.int64, device=device)
+    ids = torch.searchsorted(starts, torch.arange(n, device=device), right=True) - 1
+    return ids.to(torch.int32)[None, :].expand(batch, n).contiguous()
+
+
+def doc_segment_ids(fn: str, segment_ids, doc_starts, q, k):
+    """``segment_ids`` of a call, or a declared packing ``doc_starts`` (the
+    sorted start offsets of the documents of every row, ``nq == nk``)
+    realized as ``(b, n)`` runtime ids: a path with no tile tables masks the
+    documents with ids, never drops them.  Both given raise."""
+    if doc_starts is None:
+        return segment_ids
+    if segment_ids is not None:
+        raise ValueError(f"{fn}: doc_starts and segment_ids both declare the packing; pass one")
+    starts = check_doc_starts(doc_starts, q.shape[2], k.shape[2])
+    return doc_runtime_ids(starts, q.shape[2], q.shape[0], q.device)
+
+
 def segments_overlap(q_seg: torch.Tensor, kv_seg: torch.Tensor) -> bool:
     """Conservative "any shared document?" test of two id blocks: disjoint
     id ranges share no document whatever their order, so skipping on a
@@ -78,6 +120,7 @@ def default_attention(
     causal: bool = False,
     softclamp_value: float | None = None,
     segment_ids=None,
+    doc_starts: tuple[int, ...] | None = None,
 ) -> torch.Tensor:
     """Exact dense attention.
 
@@ -92,6 +135,8 @@ def default_attention(
       segment_ids: packed-sequence document ids (see
         :func:`normalize_segment_ids`); composes with every other mask:
         cross-document logits are masked out.
+      doc_starts: a declared packing instead of ``segment_ids`` (see
+        :func:`doc_segment_ids`), masked as those ids.
 
     Returns:
       ``(b, h, nq, d)`` attention output in ``q.dtype``.
@@ -100,6 +145,7 @@ def default_attention(
     b, h, nq, d = q.shape
     _, hk, nk, _ = k.shape
     g = h // hk
+    segment_ids = doc_segment_ids("default_attention", segment_ids, doc_starts, q, k)
     q_seg, kv_seg = normalize_segment_ids(segment_ids, q, k, "default_attention")
 
     scale = d**-0.5

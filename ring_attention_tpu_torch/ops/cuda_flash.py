@@ -30,6 +30,17 @@ two passes of ``pallas_flash_backward`` (dk/dv and dq):
   visits the same tiles as the unsegmented one (no tile is skipped on
   ids, as the TPU kernel skips none on runtime ids).  The int8 sweep takes
   no ids yet.
+- ``doc_starts`` (a declared packing, ``pallas_flash_attention(doc_starts=)``
+  and the per-pass tables of ``pallas_flash_backward``, :1966-2009): the
+  sorted start offsets of the documents, one layout for queries and keys.
+  On a causal band whose documents start on a pass's own blocks
+  (``DOC_BLOCKS``), that pass drops every tile of another document: one
+  host function, :func:`doc_tile_ranges`, gives each block the tiles it
+  visits, a small int32 table that the kernel's third instantiation
+  (kDocs) takes instead of ids.  Otherwise the pass realizes the layout as
+  runtime ids (the segmented instantiation, counted as such).  The layout
+  is part of the function, never dropped: on CPU tensors the plain
+  versions take it as ids.
 
 On the card the bf16 forward sweep and both bf16 backward passes run on
 Hopper's warpgroup products (wgmma) over 128-byte-swizzled tiles streamed
@@ -47,18 +58,28 @@ partials from a carry, out + lse from a carry); ``dkv_launch_count`` and
 ``dq_launch_count`` count the backward kernels; ``decode_launch_count``
 counts the decode kernel; ``seg_launch_count``,
 ``seg_dkv_launch_count`` and ``seg_dq_launch_count`` count again those of
-the three launches that took document ids.  Plain-version calls do not
-count, so a run can show that its main path went through the kernels.
+the three launches that took document ids; ``doc_launch_count``,
+``doc_dkv_launch_count`` and ``doc_dq_launch_count`` those that took a
+declared packing's doc-tile table.  Plain-version calls do not count, so a
+run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
 
+import bisect
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
-from .attention import MASK_VALUE, normalize_segment_ids, softclamp
+from .attention import (
+    MASK_VALUE,
+    check_doc_starts,
+    doc_runtime_ids,
+    normalize_segment_ids,
+    softclamp,
+)
 from .partials import FlashPartials, finalize_partials, init_partials
 from ..utils.validate import check_attention_args
 
@@ -77,6 +98,10 @@ decode_launch_count = 0  # flash_decode
 seg_launch_count = 0  # flash_fwd, every mode
 seg_dkv_launch_count = 0  # flash_bwd_dkv
 seg_dq_launch_count = 0  # flash_bwd_dq
+# And again when they took a declared packing's doc-tile table.
+doc_launch_count = 0  # flash_fwd, every mode
+doc_dkv_launch_count = 0  # flash_bwd_dkv
+doc_dq_launch_count = 0  # flash_bwd_dq
 
 # B4's segment ids (ROADMAP.md Queue 2 K3c).
 UNPORTED_INT8_SEGMENTS = ("segment ids in the int8 sweep (ROADMAP.md Queue 2 K3c), "
@@ -286,11 +311,10 @@ def _partials_rows(parts: FlashPartials, b, h, nq, d) -> tuple:
 
 
 def _seg_ptrs(band) -> tuple:
-    """The ``(q_seg, kv_seg)`` pointers the C entry points take (both null:
-    the unsegmented instantiation)."""
-    if band["q_seg"] is None:
-        return None, None
-    return band["q_seg"].data_ptr(), band["kv_seg"].data_ptr()
+    """The ``(q_seg, kv_seg, doc_tiles)`` pointers the C entry points take
+    (all null: the unsegmented instantiation without a doc-tile table)."""
+    return tuple(None if band[key] is None else band[key].data_ptr()
+                 for key in ("q_seg", "kv_seg", "doc_tiles"))
 
 
 def check_int8_segments(fn: str, q_seg) -> None:
@@ -312,6 +336,144 @@ def int8_compute(compute_dtype, fn: str = "flash_fwd") -> bool:
             '(model-dtype matmuls) and "int8" (quantized QK^T/PV)'
         )
     return compute_dtype == "int8"
+
+
+# ---------------------------------------------------------------------------
+# A declared document packing (doc_starts): the TPU kernels' compact tile
+# tables (pallas_flash.py :381-470, :578-637), at the CUDA kernels' blocks
+# ---------------------------------------------------------------------------
+
+# The blocks of each pass's doc-tile table, by (pass, bf16): the positions
+# one block holds (query rows, or keys in the k-major dk/dv pass), the
+# positions of one tile of the other side, and whether the blocks are query
+# rows.  A packing whose starts are multiples of both aligns with the pass:
+# each block and each tile then lies in one document.
+DOC_BLOCKS = {
+    ("fwd", True): (64, 64, True),  # B1: a warpgroup's 64 rows, 64-key tiles
+    ("fwd", False): (64, 64, True),  # B1 f32: a block of 64 rows
+    ("dq", True): (64, 64, True),  # B3: a warpgroup's 64 rows
+    ("dq", False): (64, 16, True),  # B3 f32: 64 rows, steps of 16 keys
+    ("dkv", True): (128, 64, False),  # B2: a block of 128 keys, 64-row tiles
+    ("dkv", False): (64, 16, False),  # B2 f32: 64 keys, steps of 16 rows
+}
+
+
+def docs_block_aligned(doc_starts, *block_sizes) -> bool:
+    """True when every document boundary lands on every block boundary: the
+    precondition for dropping cross-document tiles from a pass."""
+    return all(s % b == 0 for s in doc_starts for b in block_sizes)
+
+
+def doc_block_span(doc_starts, pos: int, block: int, n_blocks: int,
+                   total: int) -> tuple[int, int]:
+    """Inclusive block-index range of the document containing token ``pos``
+    (``pallas_flash._doc_block_span``, :406; block-aligned layouts)."""
+    d = bisect.bisect_right(doc_starts, pos) - 1
+    start = doc_starts[d]
+    end = doc_starts[d + 1] if d + 1 < len(doc_starts) else total
+    return start // block, min((end - 1) // block, n_blocks - 1)
+
+
+def band_tile_count(n: int, block: int, tile: int, outer_is_q: bool,
+                    causal_offset: int | None = None, window_lo: int | None = None,
+                    doc_starts=None) -> int:
+    """How many (block, tile) pairs a pass visits, in closed form per block
+    (``pallas_flash._band_tile_count``, :425-470, at the CUDA kernels'
+    blocks over an ``(n, n)`` span): the band's active range of each outer
+    block, intersected with its document's span under an aligned
+    ``doc_starts``.  A block with no tile counts 0: the CUDA kernels write
+    such a block's output without a dummy tile."""
+    n_outer, n_inner = -(-n // block), -(-n // tile)
+    hi = causal_offset
+    lo = window_lo if hi is not None else None
+    count = 0
+    for o in range(n_outer):
+        first = o * block
+        if outer_is_q:
+            # active kt: kt*tile <= first+block-1+hi; windowed: kt*tile+tile-1 >= first+lo
+            i_hi = n_inner - 1 if hi is None else min((first + block - 1 + hi) // tile,
+                                                      n_inner - 1)
+            i_lo = max(-(-(first + lo - tile + 1) // tile), 0) if lo is not None else 0
+        else:
+            # active qt: first <= qt*tile+tile-1+hi; windowed: first+block-1 >= qt*tile+lo
+            i_lo = 0 if hi is None else max(-(-(first - hi - tile + 1) // tile), 0)
+            i_hi = (min((first + block - 1 - lo) // tile, n_inner - 1) if lo is not None
+                    else n_inner - 1)
+        if doc_starts is not None:
+            d_lo, d_hi = doc_block_span(doc_starts, first, tile, n_inner, n)
+            i_lo, i_hi = max(i_lo, d_lo), min(i_hi, d_hi)
+        count += max(i_hi - i_lo + 1, 0)
+    return count
+
+
+def doc_tile_ranges(n: int, block: int, tile: int, outer_is_q: bool,
+                    causal_offset: int | None = None, window_lo: int | None = None,
+                    doc_starts=None) -> np.ndarray:
+    """The tiles a pass's kernel visits over an ``(n, n)`` span: ``(ceil(n /
+    block), 2)`` int32, row ``o`` the ``[begin, end)`` tiles of ``tile``
+    positions of the other side that block ``o`` of ``block`` positions
+    meets in the band ``window_lo <= j - i <= causal_offset`` (each bound
+    when given) and, with an aligned ``doc_starts``, in its own document.
+
+    The one source of the doc-tile tables: the kernel wrappers launch with
+    its rows (the kernel clips its own band range to them, ``doc_clip``)
+    and ``masks.certify`` proves them against the mask's oracle."""
+    first = np.arange(0, n, block, dtype=np.int64)
+    last = np.minimum(first + block, n) - 1
+    hi = causal_offset
+    lo = window_lo if hi is not None else None
+    if outer_is_q:  # rows [first, last] meet keys [lo_pos, hi_pos]
+        lo_pos = np.maximum(first + lo, 0) if lo is not None else np.zeros_like(first)
+        hi_pos = np.minimum(last + hi, n - 1) if hi is not None else np.full_like(first, n - 1)
+    else:  # keys [first, last] meet rows [lo_pos, hi_pos]
+        lo_pos = np.maximum(first - hi, 0) if hi is not None else np.zeros_like(first)
+        hi_pos = np.minimum(last - lo, n - 1) if lo is not None else np.full_like(first, n - 1)
+    begin = lo_pos // tile
+    end = np.where(lo_pos <= hi_pos, hi_pos // tile + 1, begin)
+    if doc_starts is not None:
+        starts = np.asarray(doc_starts, dtype=np.int64)
+        doc = np.searchsorted(starts, first, side="right") - 1
+        ends = np.append(starts[1:], n)
+        begin = np.maximum(begin, starts[doc] // tile)
+        end = np.maximum(begin, np.minimum(end, -(-ends[doc] // tile)))
+    return np.stack([begin, end], axis=1).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def _doc_table(doc_starts: tuple, pass_: str, bf16: bool, n: int, causal_offset: int,
+               window_lo: int | None, device: str) -> torch.Tensor | None:
+    """The doc-tile table of one pass on ``device``, or None when the
+    layout does not align with the pass's blocks (runtime ids then)."""
+    block, tile, outer_is_q = DOC_BLOCKS[(pass_, bf16)]
+    if not docs_block_aligned(doc_starts, block, tile):
+        return None
+    table = doc_tile_ranges(n, block, tile, outer_is_q, causal_offset, window_lo, doc_starts)
+    return torch.from_numpy(table).to(device)
+
+
+def declared_packing(fn: str, pass_: str, doc_starts, q, k, q_seg, kv_seg,
+                     causal_offset, window_lo):
+    """``(q_seg, kv_seg, doc_tiles)`` of one pass under a declared layout:
+    on a CUDA tensor with a causal band and a layout aligned to the pass's
+    blocks, its doc-tile table and no ids (the tables carry the whole
+    document mask, as the TPU tables do); otherwise the layout as runtime
+    ids.  Without a layout, the ids as given."""
+    if doc_starts is None:
+        return q_seg, kv_seg, None
+    if q_seg is not None:
+        raise ValueError(
+            f"{fn}: doc_starts and document ids both declare the packing; pass one"
+        )
+    starts = check_doc_starts(doc_starts, q.shape[2], k.shape[2])
+    tiles = None
+    if q.device.type == "cuda" and causal_offset is not None:
+        tiles = _doc_table(starts, pass_, q.dtype == torch.bfloat16, q.shape[2],
+                           int(causal_offset),
+                           None if window_lo is None else int(window_lo), str(q.device))
+    if tiles is not None:
+        return None, None, tiles
+    ids = doc_runtime_ids(starts, q.shape[2], q.shape[0], q.device)
+    return ids, ids, None
 
 
 def _launch_fwd(q, k, v, kv_mask, band, carry, partials, out=None):
@@ -362,9 +524,10 @@ def _launch_fwd(q, k, v, kv_mask, band, carry, partials, out=None):
         )
     _check_launch(rc, "flash_fwd", q, k)
     global launch_count, seed_launch_count, resume_launch_count
-    global fused_carry_launch_count, seg_launch_count
+    global fused_carry_launch_count, seg_launch_count, doc_launch_count
     launch_count += 1
     seg_launch_count += band["q_seg"] is not None
+    doc_launch_count += band["doc_tiles"] is not None
     if partials and carry is None:
         seed_launch_count += 1
     elif partials:
@@ -389,26 +552,32 @@ def flash_fwd(
     block_k: int | None = None,
     q_seg: torch.Tensor | None = None,
     kv_seg: torch.Tensor | None = None,
+    doc_starts: tuple[int, ...] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One forward flash sweep: ``(out in q.dtype, lse f32)``, resuming
     ``carry`` when given (a ring's last hop) and leaving it unchanged.
 
     Same arguments and result as :func:`flash_fwd_reference`.  CPU tensors
     take that plain version; CUDA tensors launch the kernel (its segmented
-    instantiation when ids are given).  ``compute_dtype="int8"`` runs the
-    int8 sweep instead (``cuda_flash_q8.flash_fwd_q8``, quantized per block
-    of ``block_k`` keys); the float sweep does not depend on ``block_k``."""
+    instantiation when ids are given; with ``doc_starts``, a declared
+    packing instead of ids, the instantiation that drops the tiles of other
+    documents where the layout aligns, :func:`declared_packing`).
+    ``compute_dtype="int8"`` runs the int8 sweep instead
+    (``cuda_flash_q8.flash_fwd_q8``, quantized per block of ``block_k``
+    keys); the float sweep does not depend on ``block_k``."""
     band = dict(scale=scale, causal_offset=causal_offset, window_lo=window_lo,
                 softclamp_value=softclamp_value)
     if int8_compute(compute_dtype):
-        check_int8_segments("flash_fwd", q_seg)
+        check_int8_segments("flash_fwd", q_seg if doc_starts is None else doc_starts)
         from .cuda_flash_q8 import flash_fwd_q8
 
         return flash_fwd_q8(q, k, v, kv_mask, carry=carry, block_k=block_k, **band)
+    q_seg, kv_seg, tiles = declared_packing("flash_fwd", "fwd", doc_starts, q, k, q_seg,
+                                            kv_seg, causal_offset, window_lo)
     band.update(q_seg=q_seg, kv_seg=kv_seg)
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, kv_mask, carry=carry, **band)
-    return _launch_fwd(q, k, v, kv_mask, band, carry, partials=False)
+    return _launch_fwd(q, k, v, kv_mask, dict(band, doc_tiles=tiles), carry, partials=False)
 
 
 def flash_partials(
@@ -427,6 +596,7 @@ def flash_partials(
     block_k: int | None = None,
     q_seg: torch.Tensor | None = None,
     kv_seg: torch.Tensor | None = None,
+    doc_starts: tuple[int, ...] | None = None,
 ) -> FlashPartials:
     """One forward flash sweep returning f32 partials ``(acc, m, l)``,
     seeded from no carry or resuming ``carry`` (a ring's first and middle
@@ -436,16 +606,18 @@ def flash_partials(
 
     Same arguments and result as :func:`flash_partials_reference`.  CPU
     tensors take that plain version (copied into ``out``); CUDA tensors
-    launch the kernel.  ``compute_dtype``, ``block_k`` and the ids as in
-    :func:`flash_fwd`."""
+    launch the kernel.  ``compute_dtype``, ``block_k``, the ids and
+    ``doc_starts`` as in :func:`flash_fwd`."""
     band = dict(scale=scale, causal_offset=causal_offset, window_lo=window_lo,
                 softclamp_value=softclamp_value)
     if int8_compute(compute_dtype):
-        check_int8_segments("flash_partials", q_seg)
+        check_int8_segments("flash_partials", q_seg if doc_starts is None else doc_starts)
         from .cuda_flash_q8 import flash_partials_q8
 
         return flash_partials_q8(q, k, v, kv_mask, carry=carry, out=out,
                                  block_k=block_k, **band)
+    q_seg, kv_seg, tiles = declared_packing("flash_partials", "fwd", doc_starts, q, k,
+                                            q_seg, kv_seg, causal_offset, window_lo)
     band.update(q_seg=q_seg, kv_seg=kv_seg)
     if q.device.type == "cpu":
         result = flash_partials_reference(q, k, v, kv_mask, carry=carry, **band)
@@ -454,7 +626,8 @@ def flash_partials(
         for dst, src in zip(out, result):
             dst.copy_(src)
         return out
-    return _launch_fwd(q, k, v, kv_mask, band, carry, partials=True, out=out)
+    return _launch_fwd(q, k, v, kv_mask, dict(band, doc_tiles=tiles), carry, partials=True,
+                       out=out)
 
 
 def _launch_bwd(entry, outs, do, q, k, v, lse, delta, kv_mask, band) -> None:
@@ -503,11 +676,16 @@ def flash_bwd_dkv(
     softclamp_value: float | None = None,
     q_seg: torch.Tensor | None = None,
     kv_seg: torch.Tensor | None = None,
+    doc_starts: tuple[int, ...] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The dk/dv pass: float32 ``(dk, dv)``, each ``(b, hk, nk, d)``.
 
     Arguments as :func:`flash_bwd_reference`, whose dk and dv a CPU tensor
-    takes; a CUDA tensor launches the kernel.  ``do`` has q's dtype."""
+    takes; a CUDA tensor launches the kernel.  ``do`` has q's dtype.
+    ``doc_starts`` as in :func:`flash_fwd`, aligned or not to this pass's
+    own blocks."""
+    q_seg, kv_seg, tiles = declared_packing("flash_bwd_dkv", "dkv", doc_starts, q, k,
+                                            q_seg, kv_seg, causal_offset, window_lo)
     band = dict(scale=scale, causal_offset=causal_offset, window_lo=window_lo,
                 softclamp_value=softclamp_value, q_seg=q_seg, kv_seg=kv_seg)
     if q.device.type == "cpu":
@@ -515,10 +693,12 @@ def flash_bwd_dkv(
         return dk, dv
     dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=k.device)
-    _launch_bwd("flash_bwd_dkv", (dk, dv), do, q, k, v, lse, delta, kv_mask, band)
-    global dkv_launch_count, seg_dkv_launch_count
+    _launch_bwd("flash_bwd_dkv", (dk, dv), do, q, k, v, lse, delta, kv_mask,
+                dict(band, doc_tiles=tiles))
+    global dkv_launch_count, seg_dkv_launch_count, doc_dkv_launch_count
     dkv_launch_count += 1
     seg_dkv_launch_count += q_seg is not None
+    doc_dkv_launch_count += tiles is not None
     return dk, dv
 
 
@@ -537,20 +717,26 @@ def flash_bwd_dq(
     softclamp_value: float | None = None,
     q_seg: torch.Tensor | None = None,
     kv_seg: torch.Tensor | None = None,
+    doc_starts: tuple[int, ...] | None = None,
 ) -> torch.Tensor:
     """The dq pass: float32 ``dq (b, h, nq, d)``.
 
     Arguments as :func:`flash_bwd_reference`, whose dq a CPU tensor takes; a
-    CUDA tensor launches the kernel.  ``do`` has q's dtype."""
+    CUDA tensor launches the kernel.  ``do`` has q's dtype.  ``doc_starts``
+    as in :func:`flash_bwd_dkv`."""
+    q_seg, kv_seg, tiles = declared_packing("flash_bwd_dq", "dq", doc_starts, q, k,
+                                            q_seg, kv_seg, causal_offset, window_lo)
     band = dict(scale=scale, causal_offset=causal_offset, window_lo=window_lo,
                 softclamp_value=softclamp_value, q_seg=q_seg, kv_seg=kv_seg)
     if q.device.type == "cpu":
         return flash_bwd_reference(do, q, k, v, lse, delta, kv_mask, **band)[0]
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    _launch_bwd("flash_bwd_dq", (dq,), do, q, k, v, lse, delta, kv_mask, band)
-    global dq_launch_count, seg_dq_launch_count
+    _launch_bwd("flash_bwd_dq", (dq,), do, q, k, v, lse, delta, kv_mask,
+                dict(band, doc_tiles=tiles))
+    global dq_launch_count, seg_dq_launch_count, doc_dq_launch_count
     dq_launch_count += 1
     seg_dq_launch_count += q_seg is not None
+    doc_dq_launch_count += tiles is not None
     return dq
 
 
@@ -566,10 +752,15 @@ def flash_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Both backward passes: float32 ``(dq, dk, dv)``.
 
-    Same arguments and result as :func:`flash_bwd_reference`.  CPU tensors
-    take that plain version; CUDA tensors launch the dk/dv kernel, then the
-    dq kernel."""
+    Same arguments and result as :func:`flash_bwd_reference` (and
+    ``doc_starts``, per pass as :func:`flash_bwd_dkv` and
+    :func:`flash_bwd_dq` take it).  CPU tensors take that plain version;
+    CUDA tensors launch the dk/dv kernel, then the dq kernel."""
     if q.device.type == "cpu":
+        band = dict(band)
+        band["q_seg"], band["kv_seg"], _ = declared_packing(
+            "flash_bwd", "dq", band.pop("doc_starts", None), q, k, band.get("q_seg"),
+            band.get("kv_seg"), band.get("causal_offset"), band.get("window_lo"))
         return flash_bwd_reference(do, q, k, v, lse, delta, kv_mask, **band)
     dk, dv = flash_bwd_dkv(do, q, k, v, lse, delta, kv_mask, **band)
     return flash_bwd_dq(do, q, k, v, lse, delta, kv_mask, **band), dk, dv
@@ -577,23 +768,26 @@ def flash_bwd(
 
 class _CudaFlashAttention(torch.autograd.Function):
     """Port of the ``_pallas_flash_core`` custom_vjp: the forward saves
-    ``(q, k, v, kv_mask, q_seg, kv_seg, out, lse)``; the backward
-    recomputes p from lse.
+    ``(q, k, v, kv_mask, q_seg, kv_seg, out, lse)`` (and a declared
+    packing's ``doc_starts``, which each pass resolves for its own blocks);
+    the backward recomputes p from lse.
     With ``compute_dtype="int8"`` the forward is the int8 sweep and the
     backward the same float kernels, from the exact ``(q, k, v)`` and the
     int8 forward's ``(out, lse)``, as in the JAX package (:2258-2275)."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, q_seg, kv_seg, scale, causal_offset,
-                window_lo, softclamp_value, compute_dtype):
+                window_lo, softclamp_value, compute_dtype, doc_starts=None):
         out, lse = flash_fwd(
             q, k, v, kv_mask, scale=scale, causal_offset=causal_offset,
             window_lo=window_lo, softclamp_value=softclamp_value,
             compute_dtype=compute_dtype, q_seg=q_seg, kv_seg=kv_seg,
+            doc_starts=doc_starts,
         )
         ctx.save_for_backward(q, k, v, kv_mask, q_seg, kv_seg, out, lse)
         ctx.band = dict(scale=scale, causal_offset=causal_offset,
-                        window_lo=window_lo, softclamp_value=softclamp_value)
+                        window_lo=window_lo, softclamp_value=softclamp_value,
+                        doc_starts=doc_starts)
         return out
 
     @staticmethod
@@ -606,7 +800,7 @@ class _CudaFlashAttention(torch.autograd.Function):
             q_seg=q_seg, kv_seg=kv_seg, **ctx.band
         )
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
-                None, None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None, None)
 
 
 def cuda_flash_attention(
@@ -621,6 +815,7 @@ def cuda_flash_attention(
     scale: float | None = None,
     compute_dtype: str | None = None,
     segment_ids=None,
+    doc_starts: tuple[int, ...] | None = None,
 ) -> torch.Tensor:
     """Exact flash attention on the CUDA kernels (GQA-aware), differentiable.
 
@@ -628,13 +823,18 @@ def cuda_flash_attention(
     end-aligned (``causal_offset = nk - nq``) and drops ``mask``;
     ``window`` keeps the last ``window`` keys of each query;
     ``segment_ids`` (a ``(b, n)`` tensor or a ``(q_ids, kv_ids)`` pair)
-    packs documents.  ``compute_dtype="int8"`` runs the forward's QK^T and
-    PV on int8 operands (``pallas_flash_attention(compute_dtype="int8")``);
-    the backward stays on the float kernels."""
+    packs documents.  ``doc_starts`` declares a packing instead
+    (``pallas_flash_attention(doc_starts=)``): the sorted start offsets of
+    the documents of every row, ``nq == nk``; under ``causal`` each pass
+    whose blocks the layout aligns drops the tiles of other documents, and
+    the others take it as runtime ids.  ``compute_dtype="int8"`` runs the
+    forward's QK^T and PV on int8 operands
+    (``pallas_flash_attention(compute_dtype="int8")``); the backward stays
+    on the float kernels."""
     check_attention_args("cuda_flash_attention", q, k, v, mask)
     q_seg, kv_seg = normalize_segment_ids(segment_ids, q, k, "cuda_flash_attention")
     if int8_compute(compute_dtype, "cuda_flash_attention"):
-        check_int8_segments("cuda_flash_attention", q_seg)
+        check_int8_segments("cuda_flash_attention", q_seg if doc_starts is None else doc_starts)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if window is not None and not causal:
@@ -647,7 +847,7 @@ def cuda_flash_attention(
     window_lo = causal_offset - (window - 1) if window is not None else None
     return _CudaFlashAttention.apply(
         q.contiguous(), k.contiguous(), v.contiguous(), mask, q_seg, kv_seg,
-        scale, causal_offset, window_lo, softclamp_value, compute_dtype,
+        scale, causal_offset, window_lo, softclamp_value, compute_dtype, doc_starts,
     )
 
 

@@ -22,15 +22,20 @@ its work flag.
   over slices of the gathered span, on the plain versions of
   ``ops/cuda_flash.py`` (seed partials, resumes, the fused write from the
   carry; hops whose work flag is 0 are skipped).
+- ``q_seg``/``kv_seg`` (packed sequences, the JAX launch's
+  ``q_segment_ids``/``kv_segment_ids``): int32 ``(b, n_local)`` ids of the
+  rank's rows and ``(b, n_total)`` of the gathered keys, in the span's
+  order; a pair attends only within one document.  They run the kernel's
+  segmented instantiation, B1's segmented sweep hop by hop.
 - ``fitted_blocks`` is the JAX launch's block fit (``pallas_ring.py:105``),
   the quantization block an int8 feed of this launch will need; it stays
   out of the package's exports until that feed is ported.  The float
   kernels' 64- and 128-row blocks do not change its result.
 
-The int8 feed (``kv_quantized``) and segment ids of the JAX launch are not
-ported yet: ROADMAP.md Queue 2 K4 (Port queue item 7e) and K3 (7b).
-``launch_count`` counts the kernel's launches; plain-version calls do not
-count.
+The int8 feed (``kv_quantized``) of the JAX launch is not ported yet:
+ROADMAP.md Queue 2 K4 (Port queue item 7e).
+``launch_count`` counts the kernel's launches and ``seg_launch_count``
+again those that took ids; plain-version calls do not count.
 """
 
 from __future__ import annotations
@@ -48,8 +53,9 @@ from .cuda_flash import (
 from .cuda_flash_q8 import q8_block
 from .partials import finalize_partials, init_partials
 
-# Kernel launches since the last reset; the caller may set it to 0.
+# Kernel launches since the last reset; the caller may set them to 0.
 launch_count = 0
+seg_launch_count = 0  # those of the segmented instantiation
 
 
 def fitted_blocks(n_local: int, block_q: int | None = None,
@@ -75,6 +81,20 @@ def _check_tables(origins, his, los, works, device) -> int:
     if hops < 1:
         raise ValueError("fused_ring_local: the hop tables are empty")
     return hops
+
+
+def _check_ids(q, k_all, q_seg, kv_seg) -> None:
+    """The ids go together: int32 ``(b, n_local)`` and ``(b, n_total)``."""
+    if (q_seg is None) != (kv_seg is None):
+        raise ValueError("fused_ring_local: q_seg and kv_seg go together")
+    if q_seg is None:
+        return
+    for name, ids, n in (("q_seg", q_seg, q.shape[2]), ("kv_seg", kv_seg, k_all.shape[2])):
+        if tuple(ids.shape) != (q.shape[0], n) or ids.dtype != torch.int32:
+            raise ValueError(
+                f"fused_ring_local: {name} must be int32 of shape ({q.shape[0]}, {n}), "
+                f"got {ids.dtype} {tuple(ids.shape)}"
+            )
 
 
 def _check_span(q, k_all, v_all, kv_mask, n_local) -> None:
@@ -118,6 +138,8 @@ def fused_ring_local_plain(
     n_local: int,
     scale: float,
     softclamp_value: float | None = None,
+    q_seg: torch.Tensor | None = None,
+    kv_seg: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`fused_ring_local`: the hop chain of
     ``parallel/ring.py`` over the origins' blocks of the gathered span.
@@ -128,6 +150,7 @@ def fused_ring_local_plain(
     ``flash_partials_reference`` computes them.  Returns ``(out (b, h,
     n_local, d) in q.dtype, lse (b, h, n_local) f32)``."""
     _check_span(q, k_all, v_all, kv_mask, n_local)
+    _check_ids(q, k_all, q_seg, kv_seg)
     schedule = [(o, hi, lo) for o, hi, lo, w in
                 zip(origins.tolist(), his.tolist(), los.tolist(), works.tolist()) if w]
     carry = None
@@ -135,7 +158,8 @@ def fused_ring_local_plain(
         rows = slice(o * n_local, (o + 1) * n_local)
         carry = fold_hop(q, k_all[:, :, rows], v_all[:, :, rows],
                          None if kv_mask is None else kv_mask[:, rows], hi, lo, carry,
-                         i == len(schedule) - 1, scale, softclamp_value)
+                         i == len(schedule) - 1, scale, softclamp_value,
+                         q_seg, None if kv_seg is None else kv_seg[:, rows])
     if carry is None:  # no hop with work: the empty state, normalized, as the
         # kernel writes it (never on a ring's schedule, whose own hop has work)
         out, lse = finalize_partials(init_partials(*q.shape, device=q.device))
@@ -143,22 +167,28 @@ def fused_ring_local_plain(
     return carry
 
 
-def fold_hop(q, k, v, kv_mask, hi, lo, carry, last, scale, softclamp_value):
+def fold_hop(q, k, v, kv_mask, hi, lo, carry, last, scale, softclamp_value,
+             q_seg=None, kv_seg=None):
     """One hop of the plain hop chain: ``(k, v)`` folded into ``carry``
-    (None on the first hop with work) under the band ``lo <= j - i <= hi``;
-    the new f32 partials, or on the ``last`` hop ``(out, lse)``."""
+    (None on the first hop with work) under the band ``lo <= j - i <= hi``
+    (and the ids, when given); the new f32 partials, or on the ``last`` hop
+    ``(out, lse)``."""
     kw = dict(scale=scale, causal_offset=hi, window_lo=lo,
-              softclamp_value=softclamp_value, carry=carry)
+              softclamp_value=softclamp_value, carry=carry, q_seg=q_seg, kv_seg=kv_seg)
     if last:
         return flash_fwd_reference(q, k, v, kv_mask, **kw)
     return flash_partials_reference(q, k, v, kv_mask, **kw)
 
 
-def _launch(q, k_all, v_all, kv_mask, tables, scale, softclamp_value):
+def _launch(q, k_all, v_all, kv_mask, tables, scale, softclamp_value, q_seg=None,
+            kv_seg=None):
     if q.device.type != "cuda":
         raise ValueError(f"fused_ring_local: no kernel for device {q.device}")
     hops = _check_tables(*tables, q.device)
     _check_kernel_args("fused_ring_local", q, k_all, v_all, kv_mask)
+    for ids in (q_seg, kv_seg):
+        if ids is not None and (ids.device != q.device or not ids.is_contiguous()):
+            raise ValueError("fused_ring_local: the ids must be contiguous, on q's device")
     if any(not t.is_contiguous() for t in tables):
         raise ValueError("fused_ring_local: the hop tables must be contiguous")
     from ._build import flash_ring_library
@@ -177,11 +207,14 @@ def _launch(q, k_all, v_all, kv_mask, tables, scale, softclamp_value):
             *(t.data_ptr() for t in tables), hops,
             out.data_ptr(), lse.data_ptr(),
             b, h, hk, n, n_total, d, int(q.dtype == torch.bfloat16),
-            float(scale), float(softclamp_value or 0.0), ctypes.c_void_p(stream),
+            float(scale), float(softclamp_value or 0.0),
+            None if q_seg is None else q_seg.data_ptr(),
+            None if kv_seg is None else kv_seg.data_ptr(), ctypes.c_void_p(stream),
         )
     _check_launch(rc, "fused_ring_local", q, k_all)
-    global launch_count
+    global launch_count, seg_launch_count
     launch_count += 1
+    seg_launch_count += q_seg is not None
     return out, lse
 
 
@@ -198,6 +231,8 @@ def fused_ring_local(
     n_local: int,
     scale: float,
     softclamp_value: float | None = None,
+    q_seg: torch.Tensor | None = None,
+    kv_seg: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The fused ring forward of one rank over a gathered KV span.
 
@@ -210,6 +245,9 @@ def fused_ring_local(
         (``parallel/ring.py::_fused_tables``), on q's device.
       n_local, scale, softclamp_value: the rank's shard length, the score
         scale and the optional soft clamp.
+      q_seg, kv_seg: optional int32 document ids, ``(b, n_local)`` of the
+        rank's rows and ``(b, n_total)`` of the gathered keys (packed
+        sequences; the segmented instantiation).
 
     Returns ``(out (b, h, n_local, d) in q.dtype, lse (b, h, n_local)
     f32)``, lse = m + log l.  A CPU tensor runs
@@ -219,8 +257,9 @@ def fused_ring_local(
         return fused_ring_local_plain(
             q, k_all, v_all, kv_mask, origins=origins, his=his, los=los,
             works=works, n_local=n_local, scale=scale,
-            softclamp_value=softclamp_value,
+            softclamp_value=softclamp_value, q_seg=q_seg, kv_seg=kv_seg,
         )
     _check_span(q, k_all, v_all, kv_mask, n_local)
+    _check_ids(q, k_all, q_seg, kv_seg)
     return _launch(q, k_all, v_all, kv_mask, (origins, his, los, works), scale,
-                   softclamp_value)
+                   softclamp_value, q_seg, kv_seg)

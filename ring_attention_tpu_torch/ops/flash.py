@@ -28,6 +28,7 @@ from .attention import (
     EPSILON,
     MASK_VALUE,
     PAD_SEGMENT_ID,
+    doc_segment_ids,
     normalize_segment_ids,
     softclamp,
 )
@@ -310,6 +311,7 @@ def flash_attention(
     softclamp_value: float | None = None,
     scale: float | None = None,
     segment_ids=None,
+    doc_starts: tuple[int, ...] | None = None,
 ) -> torch.Tensor:
     """Single-device exact flash attention (GQA-aware), differentiable.
 
@@ -323,8 +325,12 @@ def flash_attention(
     ``segment_ids`` enables packed-sequence attention: a ``(b, n)`` tensor
     of per-token document ids (or a ``(q_ids, kv_ids)`` pair), masking
     cross-document logits to exactly zero weight and skipping KV buckets
-    that share no document with the queries."""
+    that share no document with the queries.  ``doc_starts`` declares the
+    packing instead (the sorted start offsets of the documents of every
+    row, ``nq == nk``), realized here as those runtime ids, as the JAX
+    ``attention`` realizes it for its XLA path."""
     check_attention_args("flash_attention", q, k, v, mask)
+    segment_ids = doc_segment_ids("flash_attention", segment_ids, doc_starts, q, k)
     q_seg, kv_seg = normalize_segment_ids(segment_ids, q, k, "flash_attention")
     if scale is None:
         scale = q.shape[-1] ** -0.5

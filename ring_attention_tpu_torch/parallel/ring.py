@@ -43,16 +43,17 @@ Three compute paths:
 - ``impl="fused"`` follows ``_ring_fwd_fused`` (:661-762), which has two
   tiers, chosen statically from the configuration as JAX chooses them:
   - the remote tier (TPU kernel B8, ``ops/cuda_ring_remote.py``) when no
-    key mask is given, the ring has more than one rank and its ranks can
-    be addressed inside one launch (``Ring.colocated``: a
-    ``VirtualRing``): ONE launch for the whole ring, in which every rank
+    key mask and no segment ids are given, the ring has more than one rank
+    and its ranks can be addressed inside one launch (``Ring.colocated``:
+    a ``VirtualRing``): ONE launch for the whole ring, in which every rank
     keeps only its own KV and passes it to its right neighbour hop by hop
     under the grant protocol;
-  - otherwise the local tier (a masked ring, a ``DistributedRing``): one
-    all-gather of k, v and the key mask through the ring
-    (``Ring.all_gather``), then ONE launch of the fused ring kernel
-    (``ops/cuda_ring.py``, TPU kernel B7) per held rank over the gathered
-    span.
+  - otherwise the local tier (a masked or packed ring, a
+    ``DistributedRing``): one all-gather of k, v, the key mask and the kv
+    ids through the ring (``Ring.all_gather``), then ONE launch of the
+    fused ring kernel (``ops/cuda_ring.py``, TPU kernel B7) per held rank
+    over the gathered span; a hop whose ids share no document with the
+    rank's is cleared from its tables, as the scan ring skips it.
   Both walk each rank's hop tables (``_fused_tables``) with the
   online-softmax state on chip.  Its backward is the ``impl="cuda"``
   ring's, as the JAX ``_ring_vjp_bwd`` maps ``"fused"`` to ``"pallas"``.
@@ -105,10 +106,6 @@ UNPORTED = {
 # The fused ring's int8 feed (JAX ``fused_ring_local(kv_quantized=)``).
 UNPORTED_FUSED_INT8 = ("the fused ring's int8 feed (QuantizedBlockKV, ROADMAP.md "
                        "Queue 2 K4), ROADMAP.md Port queue item 7e")
-# The fused ring's segment ids (JAX ``fused_ring_local(q_segment_ids=,
-# kv_segment_ids=)``).
-UNPORTED_FUSED_SEGMENTS = ("the fused ring's segment ids (ROADMAP.md Queue 2 K3b), "
-                           "ROADMAP.md Port queue item 7b")
 
 # (rank, hop) pairs whose band had work but whose kv ids shared no document
 # with the queries, skipped since the last reset (the caller may set them
@@ -228,13 +225,17 @@ def _hop_has_work(hi: int | None, lo: int | None, n_q: int, n_k: int) -> bool:
 
 
 def _fused_tables(rank, passes, n_local, causal, striped, window, ring_size,
-                  device=None) -> tuple[torch.Tensor, ...]:
+                  device=None, ranges=None) -> tuple[torch.Tensor, ...]:
     """Per-hop ``(origins, his, los, works)`` int32 tables of the fused ring
     kernel for ``rank`` (JAX ``_fused_tables``, :623): hop ``i`` reads
     origin ``(rank - i) % ring_size``, its band from :func:`_hop_offsets`
     and its work flag from :func:`_hop_has_work`, the scan path's own
     helpers; an unbanded ``None`` becomes the sentinel ``hi = n_local`` /
-    ``lo = -n_local``.  One host-to-device copy, on ``device``."""
+    ``lo = -n_local``.  With the ranks' id ``ranges`` the work flag is the
+    scan ring's :func:`_hop_works`, which also clears (and counts) a hop
+    whose ids share no document with the rank's, so that the kernel visits
+    the segmented hop chain's hops.  One host-to-device copy, on
+    ``device``."""
     rows = []
     for i in range(passes):
         origin = (rank - i) % ring_size
@@ -242,7 +243,7 @@ def _fused_tables(rank, passes, n_local, causal, striped, window, ring_size,
                               ring_size)
         rows.append((origin, n_local if hi is None else hi,
                      -n_local if lo is None else lo,
-                     int(_hop_has_work(hi, lo, n_local, n_local))))
+                     int(_hop_works(ranges, rank, i, hi, lo, n_local))))
     return tuple(torch.tensor(list(zip(*rows)), dtype=torch.int32, device=device))
 
 
@@ -364,25 +365,28 @@ def _gather(ring: Ring, payloads: list, dim: int) -> list:
 def _ring_fwd_fused(qs, ks, vs, masks, segs, ranges, ring, cfg):
     """Forward of every held rank on a fused ring kernel; ``(out, lse)`` in
     the flat layout of ``impl="cuda"``.  The remote tier when there is no
-    key mask and one launch can hold the whole ring (as JAX takes it where
-    ``neighbor_mesh_coords`` resolves), else the local tier: one all-gather
-    of k, v and the key mask, then one launch per held rank over the
-    gathered span."""
-    if masks is None and ring.world > 1 and ring.colocated:
+    key mask, no ids and one launch can hold the whole ring (as JAX takes
+    it where ``neighbor_mesh_coords`` resolves and ``segment_ids is None``,
+    :706-711), else the local tier: one all-gather of k, v, the key mask
+    and the kv ids, then one launch per held rank over the gathered span."""
+    if masks is None and segs is None and ring.world > 1 and ring.colocated:
         return _ring_fwd_remote(qs, ks, vs, ring, cfg)
     n_local = qs[0].shape[2]
     geo = _geometry(cfg, n_local, ring.world)
     kvs = _gather(ring, list(zip(ks, vs)), dim=2)
-    mask_all = ([None] * len(qs) if masks is None
+    none = [None] * len(qs)
+    mask_all = (none if masks is None
                 else [m for (m,) in _gather(ring, [(m,) for m in masks], dim=1)])
+    seg_all = none if segs is None else [s for (s,) in _gather(ring, [(s,) for s in segs], dim=1)]
     outs, lses = [], []
     for j, rank in enumerate(ring.ranks):
         origins, his, los, works = _fused_tables(rank, cfg["passes"], **geo,
-                                                 device=qs[j].device)
+                                                 device=qs[j].device, ranges=ranges)
         out, lse = fused_ring_local(
             qs[j], *kvs[j], mask_all[j], origins=origins, his=his, los=los,
             works=works, n_local=n_local, scale=cfg["scale"],
             softclamp_value=cfg["softclamp_value"],
+            q_seg=None if segs is None else segs[j], kv_seg=seg_all[j],
         )
         outs.append(out)
         lses.append(lse)
@@ -564,18 +568,17 @@ def ring_flash_attention(
       segment_ids: packed sequences, a ``(b, n)`` integer tensor of document
         ids in the layout of ``q`` (``PAD_SEGMENT_ID`` marks padding): a
         query attends only keys of its document.  The kv ids rotate with k
-        and v; a hop whose ids share no document with the queries' is
-        skipped.  ``impl="torch"`` and ``"cuda"``.
+        and v (``impl="fused"``: are gathered with them, and B7 takes them);
+        a hop whose ids share no document with the queries' is skipped.
       compute_dtype: ``"int8"`` runs each hop's forward on int8 operands
         (``impl="cuda"`` only, as the JAX ring needs the Pallas kernels), q
         and k quantized per row and v per block of ``bucket_size`` keys
         fitted to the hop; the backward stays on the float kernels.
 
     ``bidirectional``, ``dkv_dtype``, ``counter_rotate``,
-    ``hop_compression``, and ``compute_dtype="int8"`` or ``segment_ids``
-    with ``impl="fused"``, and ``segment_ids`` with ``compute_dtype="int8"``
-    are not ported yet and raise ``NotImplementedError`` naming their
-    ROADMAP item; ``counter_rotate`` with ``impl="fused"`` is a
+    ``hop_compression``, ``compute_dtype="int8"`` with ``impl="fused"``,
+    and ``segment_ids`` with ``compute_dtype="int8"`` are not ported yet
+    and raise ``NotImplementedError`` naming their ROADMAP item; ``counter_rotate`` with ``impl="fused"`` is a
     ``ValueError``, as in the JAX package (the alternating schedule has no
     fused form).
 
@@ -620,11 +623,6 @@ def ring_flash_attention(
         None if segment_ids is None else (segment_ids, segment_ids), q, q,
         "ring_flash_attention",
     )
-    if seg is not None and impl == "fused":
-        raise NotImplementedError(
-            'ring_flash_attention: segment_ids with impl="fused" are not ported '
-            f"yet; they arrive with {UNPORTED_FUSED_SEGMENTS}"
-        )
     if int8:
         check_int8_segments("ring_flash_attention", seg)
     if window is not None and not causal:

@@ -1,8 +1,9 @@
 """Hygiene of the torch port: it stands alone and never quietly falls back.
 
-- An AST scan of every module of ``ring_attention_tpu_torch`` and of
-  ``chip_smoke.py`` finds no import of ``jax``, ``flax`` or
-  ``ring_attention_tpu``.  (A ``sys.modules`` check could not tell: the
+- An AST scan of every module of ``ring_attention_tpu_torch`` (the mask
+  algebra, ``masks.py``, among them: numpy and the standard library only
+  at module level) and of ``chip_smoke.py`` finds no import of ``jax``,
+  ``flax`` or ``ring_attention_tpu``.  (A ``sys.modules`` check could not tell: the
   test process imports JAX for the parity tests.)
 - Building a model with the default device raises when there is no CUDA
   device, instead of carrying on on the CPU.
@@ -20,6 +21,7 @@ import torch
 
 import ring_attention_tpu_torch
 from ring_attention_tpu_torch import RingAttention, RingTransformer, make_train_step
+from ring_attention_tpu_torch.masks import Causal, DocumentMask
 from ring_attention_tpu_torch.parallel import create_mesh
 
 REPO = Path(__file__).resolve().parents[1]
@@ -50,6 +52,20 @@ def test_port_imports_no_jax(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+def test_masks_module_is_numpy_only():
+    """The mask algebra imports numpy and the standard library only, at
+    module level as anywhere (its certificate reaches the kernel wrappers'
+    tables (``doc_tile_ranges``) inside a function)."""
+    path = PORT / "masks.py"
+    assert path in _port_sources()
+    tree = ast.parse(path.read_text())
+    top = {alias.name.split(".")[0] for node in tree.body if isinstance(node, ast.Import)
+           for alias in node.names}
+    top |= {node.module.split(".")[0] for node in tree.body
+            if isinstance(node, ast.ImportFrom) and node.level == 0}
+    assert top <= {"__future__", "bisect", "dataclasses", "re", "numpy"}, top
+
+
 def test_default_device_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -69,7 +85,9 @@ UNPORTED_SETTINGS = {
     # zig-zag is ported; Ulysses and the hybrid factoring are not (item 7d)
     "sequence_parallel_zigzag": dict(sequence_parallel="ulysses"),
     "sequence_parallel_hybrid": dict(sequence_parallel="hybrid"),
-    "mask": dict(mask="a mask expression"),
+    # the mask algebra and declared packings are ported; a packing on the
+    # int8 sweep is not (ROADMAP.md Queue 2 K3c)
+    "mask": dict(causal=False, mask=Causal() & DocumentMask((0, 8)), compute_dtype="int8"),
     "windowed_cache": dict(windowed_cache=True),
     "ff_chunk_size": dict(ff_chunk_size=64),
     "loss_chunk_size": dict(loss_chunk_size=64),
@@ -83,8 +101,11 @@ UNPORTED_SETTINGS = {
 
 @pytest.mark.parametrize("name", list(UNPORTED_SETTINGS))
 def test_unported_features_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item"):
-        RingTransformer(**SMALL, device="cpu", **UNPORTED_SETTINGS[name])
+    settings = {**SMALL, "device": "cpu", **UNPORTED_SETTINGS[name]}
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item") as err:
+        RingTransformer(**settings)
+    if name == "mask":
+        assert "K3c" in str(err.value)
 
 
 # the int8 knobs are ported; the settings they cannot take raise as the JAX
@@ -134,17 +155,21 @@ def test_decode_on_a_mesh_raises(entry):
 
 
 def test_segment_ids_raise():
-    """Packed sequences are ported on the local path and the scan-path
-    ring; the fused ring's ids (K3b) and the int8 sweep's (K3c) are not."""
+    """Packed sequences are ported on the local path, the scan-path ring
+    and the fused ring (its ids, K3b: the same logits as the scan ring);
+    the int8 sweep's ids (K3c) are not, and raise."""
     tokens = torch.zeros((1, 8), dtype=torch.long)
     fused = RingTransformer(**SMALL, device="cpu", impl="fused",
                             mesh=create_mesh(ring_size=2))
+    scan = RingTransformer(**SMALL, device="cpu", impl="cuda", mesh=create_mesh(ring_size=2))
+    scan.load_state_dict(fused.state_dict())
+    with torch.no_grad():
+        assert torch.equal(fused(tokens, segment_ids=tokens), scan(tokens, segment_ids=tokens))
     int8 = RingTransformer(**SMALL, device="cpu", compute_dtype="int8")
-    for model, key in ((fused, "K3b"), (int8, "K3c")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item"):
-            model(tokens, segment_ids=tokens)
-        with pytest.raises(NotImplementedError, match=key):
-            model(tokens, segment_ids=tokens)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item"):
+        int8(tokens, segment_ids=tokens)
+    with pytest.raises(NotImplementedError, match="K3c"):
+        int8(tokens, segment_ids=tokens)
 
 
 def test_unknown_impl_is_a_value_error():

@@ -364,13 +364,13 @@ def test_ring_unported_options_raise():
                         ("hop_compression", "int8"), ("dkv_dtype", "bfloat16")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item"):
             ring_flash_attention(x, x, x, None, VirtualRing(2), **{name: value})
-    # segment ids are ported on the scan path; the fused ring's and the
-    # int8 sweep's are not
+    # segment ids are ported on the scan path and the fused ring; the int8
+    # sweep's are not (its ids, with or without the fused ring's int8 feed)
     seg = torch.zeros((1, 8), dtype=torch.int32)
-    for impl, compute_dtype in (("fused", None), ("cuda", "int8")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item 7b"):
+    for impl, item in (("cuda", "7b"), ("fused", "7e")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Port queue item {item}"):
             ring_flash_attention(x, x, x, None, VirtualRing(2), impl=impl,
-                                 compute_dtype=compute_dtype, segment_ids=seg)
+                                 compute_dtype="int8", segment_ids=seg)
     # the fused ring is ported; its int8 feed is not
     with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item 7e"):
         ring_flash_attention(x, x, x, None, VirtualRing(2), impl="fused",

@@ -4,8 +4,9 @@ Each process holds one rank of a ``DistributedRing`` (``create_mesh`` over
 the initialized process group: one ring of 4, and a data 2 x ring 2 mesh)
 and runs ``ring_flash_attention`` forward and backward on its shard of the
 same seeded inputs (``impl="fused"`` gathers k, v and the key mask with
-``DistributedRing.all_gather``; a packed case rotates the kv document ids
-with k and v and skips the hops they share no document with).  Every shard of the output and of dq, dk and dv must
+``DistributedRing.all_gather``, and the kv document ids in its packed
+case; the scan ring's packed case rotates the ids with k and v and skips
+the hops they share no document with).  Every shard of the output and of dq, dk and dv must
 equal, bit for bit, the ``VirtualRing`` run of the same ranks in this
 process: the same arithmetic in the same order, only the transport differs.
 The same processes run the collectives of tree decoding and zig-zag:
@@ -60,6 +61,8 @@ CASES = {
     "data2_ring2_mask_fused": (2, 2, dict(impl="fused", masked=True)),
     # packed documents: ranks 2 and 3 skip the hop whose keys are rank 0's
     "packed_cuda": (4, 1, dict(causal=True, impl="cuda", packed=True)),
+    # the fused ring with ids: the kv ids gathered with k and v (B7's ids)
+    "packed_fused": (4, 1, dict(causal=True, impl="fused", packed=True)),
 }
 
 

@@ -485,9 +485,12 @@ def test_ring_cuda_skipped_hops_keep_the_launch_schedule(monkeypatch):
 
 
 def test_fused_ring_takes_no_ids_yet():
+    """The fused ring takes ids (B7's segmented instantiation); what it still
+    refuses with them is its int8 feed (ROADMAP.md Queue 2 K4)."""
     q, k, v, _ = make_qkv(0)
-    with pytest.raises(NotImplementedError, match="K3b"):
+    with pytest.raises(NotImplementedError, match="K4"):
         ring_flash_attention(*_t(q, k, v), None, VirtualRing(2), impl="fused",
+                             compute_dtype="int8",
                              segment_ids=torch.zeros((2, 64), dtype=torch.int32))
 
 

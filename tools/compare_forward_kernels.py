@@ -72,6 +72,12 @@ def takes_ids(csrc: Path, name: str) -> bool:
     return "q_seg" in (csrc / f"{name}.cu").read_text()
 
 
+def takes_docs(csrc: Path, name: str) -> bool:
+    """Whether a tree's C entry points of ``name`` take a doc-tile table
+    (null here: every launch compared runs without one) after the ids."""
+    return "doc_tiles" in (csrc / f"{name}.cu").read_text()
+
+
 def build(tree: str, csrc: Path, name: str) -> tuple[Path, list[str]]:
     from ring_attention_tpu_torch.ops import _build
 
@@ -126,18 +132,18 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def fwd_launcher(lib_path: Path, ids: bool):
+def fwd_launcher(lib_path: Path, ids: bool, docs: bool = False):
     """``run(q, k, v, mask, causal, hi, windowed, lo, softclamp, carry,
     partials, segs)``: one B1 launch, ``(out, lse)`` (partials False) or f32
     partials ``(acc, m, l)``, from no carry or from ``carry``; ``ids``: the
     entry point takes document ids (``segs``, null by default) before the
-    stream."""
+    stream; ``docs``: and a doc-tile table after them (always null here)."""
     import torch
 
     lib = ctypes.CDLL(str(lib_path))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_fwd.argtypes = ([ptr] * 12 + [i32] * 7 + [f32] + [i32] * 4 + [f32]
-                              + [ptr] * (2 if ids else 0) + [ptr])
+                              + [ptr] * (2 if ids else 0) + [ptr] * docs + [ptr])
 
     def run(q, k, v, mask, causal, hi, windowed, lo, softclamp, carry=None, partials=None,
             segs=(None, None)):
@@ -159,7 +165,7 @@ def fwd_launcher(lib_path: Path, ids: bool):
             *(_ptr(x) for x in (carry or (None, None, None))), *(_ptr(x) for x in parts),
             b, h, hk, nq, nk, d, int(q.dtype == torch.bfloat16), 0.125,
             int(causal), hi, int(windowed), lo, softclamp,
-            *(tuple(_ptr(x) for x in segs) if ids else ()), stream)
+            *(tuple(_ptr(x) for x in segs) if ids else ()), *(None,) * docs, stream)
         if rc:
             raise RuntimeError(f"flash_fwd launch failed: {rc}")
         return parts if partials else (out, lse)
@@ -167,16 +173,17 @@ def fwd_launcher(lib_path: Path, ids: bool):
     return run
 
 
-def bwd_launcher(lib_path: Path, ids: bool):
+def bwd_launcher(lib_path: Path, ids: bool, docs: bool = False):
     """``run(do, q, k, v, lse, delta, mask, causal, hi, windowed, lo,
     softclamp)``: one B2 launch then one B3 launch, ``(dq, dk, dv)``;
-    ``ids`` as in :func:`fwd_launcher`."""
+    ``ids`` and ``docs`` as in :func:`fwd_launcher`."""
     import torch
 
     lib = ctypes.CDLL(str(lib_path))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ids_arg = ids
-    tail = [i32] * 6 + [i32, f32] + [i32] * 4 + [f32] + [ptr] * (2 if ids else 0) + [ptr]
+    tail = ([i32] * 6 + [i32, f32] + [i32] * 4 + [f32] + [ptr] * (2 if ids else 0)
+            + [ptr] * docs + [ptr])
     lib.flash_bwd_dkv.argtypes = [ptr] * 9 + tail
     lib.flash_bwd_dq.argtypes = [ptr] * 8 + tail
 
@@ -191,7 +198,8 @@ def bwd_launcher(lib_path: Path, ids: bool):
         inputs = [_ptr(x) for x in (q, k, v, do, lse, delta, mask)]
         ids = tuple(_ptr(x) for x in segs) if ids_arg else ()
         shape = (b, h, hk, nq, nk, d, int(q.dtype == torch.bfloat16), 0.125,
-                 int(causal), hi, int(windowed), lo, softclamp, *ids, stream)
+                 int(causal), hi, int(windowed), lo, softclamp, *ids, *(None,) * docs,
+                 stream)
         if "dkv" in passes and lib.flash_bwd_dkv(*inputs, _ptr(dk), _ptr(dv), *shape):
             raise RuntimeError("flash_bwd_dkv launch failed")
         if "dq" in passes and lib.flash_bwd_dq(*inputs, _ptr(dq), *shape):
@@ -263,13 +271,16 @@ def _with_library(name: str, lib_path: Path, call):
 
 
 
-def ring_launcher(lib_path: Path):
-    """``run(q, k_all, v_all, mask, tables, softclamp)``: one B7 launch."""
+def ring_launcher(lib_path: Path, ids: bool = False):
+    """``run(q, k_all, v_all, mask, tables, softclamp)``: one B7 launch;
+    ``ids``: the entry point takes document ids (null here) before the
+    stream."""
     import torch
 
     lib = ctypes.CDLL(str(lib_path))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_ring.argtypes = [ptr] * 8 + [i32, ptr, ptr] + [i32] * 7 + [f32, f32, ptr]
+    lib.flash_ring.argtypes = ([ptr] * 8 + [i32, ptr, ptr] + [i32] * 7 + [f32, f32]
+                               + [ptr] * (2 if ids else 0) + [ptr])
 
     def run(q, k_all, v_all, mask, tables, softclamp):
         b, h, n, d = q.shape
@@ -279,7 +290,8 @@ def ring_launcher(lib_path: Path):
         rc = lib.flash_ring(
             _ptr(q), _ptr(k_all), _ptr(v_all), _ptr(mask), *(_ptr(t) for t in tables),
             tables[0].shape[0], _ptr(out), _ptr(lse), b, h, k_all.shape[1], n,
-            k_all.shape[2], d, int(q.dtype == torch.bfloat16), 0.125, softclamp, stream)
+            k_all.shape[2], d, int(q.dtype == torch.bfloat16), 0.125, softclamp,
+            *(None,) * (2 if ids else 0), stream)
         if rc:
             raise RuntimeError(f"flash_ring launch failed: {rc}")
         return out, lse
@@ -498,12 +510,14 @@ def main() -> int:
         m[-1] = False  # a batch row whose keys are all masked
         return m.to(torch.uint8)
 
-    fwd = {tree: fwd_launcher(built[(tree, "flash_fwd")][0], takes_ids(csrc, "flash_fwd"))
+    fwd = {tree: fwd_launcher(built[(tree, "flash_fwd")][0], takes_ids(csrc, "flash_fwd"),
+                              takes_docs(csrc, "flash_fwd"))
            for tree, csrc in trees.items() if (tree, "flash_fwd") in built}
-    bwd = {tree: bwd_launcher(built[(tree, "flash_bwd")][0], takes_ids(csrc, "flash_bwd"))
+    bwd = {tree: bwd_launcher(built[(tree, "flash_bwd")][0], takes_ids(csrc, "flash_bwd"),
+                              takes_docs(csrc, "flash_bwd"))
            for tree, csrc in trees.items() if (tree, "flash_bwd") in built}
-    ring = {tree: ring_launcher(built[(tree, "flash_ring")][0])
-            for tree in trees if (tree, "flash_ring") in built}
+    ring = {tree: ring_launcher(built[(tree, "flash_ring")][0], takes_ids(csrc, "flash_ring"))
+            for tree, csrc in trees.items() if (tree, "flash_ring") in built}
     remote = {tree: remote_runner(built[(tree, "flash_ring_remote")][0],
                                   128 if "flash_sweep.cuh" in
                                   (csrc / "flash_ring_remote.cu").read_text() else 64)
