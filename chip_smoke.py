@@ -413,9 +413,12 @@ WGMMA_KERNELS = {"flash_fwd_bf16_kernel": 6, "flash_bwd_dkv_bf16_kernel": 3,
                  "flash_bwd_dq_bf16_kernel": 3, "flash_ring_bf16_kernel": 4,
                  "flash_ring_remote_bf16_kernel": 2}
 # The int8 kernels and their instantiations, none of which may spill: B4's
-# sweep (the soft clamp) and B6's decode (rows a block: 1, 2, 4, 8, 16).
-Q8_FWD_KERNELS = {"flash_fwd_q8_kernel": 2}
+# sweep (the soft clamp, times none, kSeg and kDocs), B6's decode (rows a
+# block: 1, 2, 4, 8, 16), and B4's sweep in B7 (the soft clamp times kSeg)
+# and B8 (the soft clamp).
+Q8_FWD_KERNELS = {"flash_fwd_q8_kernel": 6}
 Q8_DECODE_KERNELS = {"decode_q8_kernel": 5}
+Q8_RING_KERNELS = {"flash_ring_q8_kernel": 4, "flash_ring_remote_q8_kernel": 2}
 # The fused ring's bf16 kernels: their hot loop runs wgmma (HGMMA), no
 # mma.sync (HMMA).
 RING_WGMMA_KERNELS = ("flash_ring_bf16_kernel", "flash_ring_remote_bf16_kernel")
@@ -491,23 +494,30 @@ def nbytes(*tensors) -> int:
 
 
 def _kernel_name(mangled: str, with_args: bool = False) -> str:
-    """The ``..._kernel`` identifier inside an Itanium-mangled name, found by
-    its length prefix (which may follow other digits); with ``with_args``,
-    followed by its integer and bool template arguments (``<64,1>``: the
-    segmented instantiation of a flash kernel)."""
+    """The ``..._kernel`` identifier that an Itanium-mangled name ends its
+    (possibly nested) name with, read component by component from the start,
+    so that no digit inside a component (the path hash of an anonymous
+    namespace) is taken for a length; with ``with_args``, followed by its
+    integer and bool template arguments (``<64,1>``: the segmented
+    instantiation of a flash kernel). Any other name comes back as it is."""
     import re
 
-    for run in re.finditer(r"\d+", mangled):
-        digits = run.group()
-        for i in range(len(digits)):
-            name = mangled[run.end():run.end() + int(digits[i:])]
-            if name.endswith("_kernel") and name.isidentifier():
-                rest = mangled[run.end() + len(name):]
-                args = re.match(r"I((?:L[a-z]\d+E)+)E", rest)
-                if with_args and args:
-                    name += "<" + ",".join(re.findall(r"L[a-z](\d+)E", args.group(1))) + ">"
-                return name
-    return mangled
+    head = re.match(r"_ZL?(N?)", mangled)
+    if head is None:
+        return mangled
+    pos, name = head.end(), ""
+    while (length := re.match(r"\d+", mangled[pos:])) is not None:
+        start = pos + length.end()
+        pos = start + int(length.group())
+        name = mangled[start:pos]
+        if not head.group(1):
+            break
+    if not (name.endswith("_kernel") and name.isidentifier()):
+        return mangled
+    args = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[pos:])
+    if with_args and args:
+        name += "<" + ",".join(re.findall(r"L[a-z](\d+)E", args.group(1))) + ">"
+    return name
 
 
 def _ptxas_usage(log_text: str) -> list[str]:
@@ -607,7 +617,9 @@ def _q8_build_report(results) -> None:
     mma.sync (IMMA), with the conversion instructions (I2F, I2FP, F2I,
     FRND) and MUFU.RCP in each loop that runs its products (the per-score
     conversions take the full-rate integer and FMA pipes instead)."""
-    for name, kernels in (("flash_fwd_q8", Q8_FWD_KERNELS), ("flash_decode_q8", Q8_DECODE_KERNELS)):
+    for name, kernels in (("flash_fwd_q8", Q8_FWD_KERNELS), ("flash_decode_q8", Q8_DECODE_KERNELS),
+                          ("flash_ring", {"flash_ring_q8_kernel": 4}),
+                          ("flash_ring_remote", {"flash_ring_remote_q8_kernel": 2})):
         function, seen = "?", 0
         for line in results[name].log.splitlines():
             if "Function properties for" in line:
@@ -619,15 +631,17 @@ def _q8_build_report(results) -> None:
                       f"{function} spills: {line.strip()}")
         check(seen == sum(kernels.values()),
               f"ptxas reported {seen} instantiations of {name}, not {sum(kernels.values())}")
-    report = _sass_report(results["flash_fwd_q8"].path)
-    for kernel, row in report.items():
-        if kernel.split("<")[0] not in Q8_FWD_KERNELS:
-            continue
-        log(f"  SASS {kernel}: {row['igmma']} IGMMA, {row['imma']} IMMA, "
-            f"{row['depbar']} WARPGROUP.DEPBAR; loops with products: "
-            + "; ".join(f"{n} instructions, " + ", ".join(f"{k} {v}" for k, v in c.items())
-                        for n, c in row["product_loops"]))
-        check(row["igmma"] > 0 and row["imma"] == 0, f"{kernel}: not on int8 wgmma alone")
+    for name in ("flash_fwd_q8", "flash_ring", "flash_ring_remote"):
+        usage = {line.split(":")[0]: line for line in _ptxas_usage(results[name].log)}
+        for kernel, row in _sass_report(results[name].path).items():
+            if kernel.split("<")[0] not in {**Q8_FWD_KERNELS, **Q8_RING_KERNELS}:
+                continue
+            log(f"  SASS {kernel}: {row['igmma']} IGMMA, {row['imma']} IMMA, "
+                f"{row['depbar']} WARPGROUP.DEPBAR; ptxas "
+                f"{usage.get(kernel, '?').split(': ', 1)[-1]}; loops with products: "
+                + "; ".join(f"{n} instructions, " + ", ".join(f"{k} {v}" for k, v in c.items())
+                            for n, c in row["product_loops"]))
+            check(row["igmma"] > 0 and row["imma"] == 0, f"{kernel}: not on int8 wgmma alone")
 
 
 def _sass_report(lib: Path) -> dict[str, dict]:
@@ -1218,7 +1232,7 @@ def _chain_ring(qs, ks, vs, ring_kw, clamp=None):
                striped=ring_kw.get("striped", False), bucket_size=None,
                passes=min(ring_kw.get("max_ring_passes") or ring_size, ring_size),
                window=ring_kw.get("window"), softclamp_value=clamp, scale=0.125,
-               compute_dtype=None)
+               compute_dtype=None, hop_compression=None)
     return pring._ring_fwd_cuda(qs, ks, vs, None, None, None, VirtualRing(ring_size), cfg)
 
 
@@ -1858,7 +1872,14 @@ COUNTERS = {"flash_fwd": ("cuda_flash", "launch_count"),
             "flash_decode_q8": ("cuda_flash_q8", "decode_launch_count"),
             "flash_ring": ("cuda_ring", "launch_count"),
             "seg_flash_ring": ("cuda_ring", "seg_launch_count"),
-            "flash_ring_remote": ("cuda_ring_remote", "launch_count")}
+            "flash_ring_remote": ("cuda_ring_remote", "launch_count"),
+            # the int8 ring's instantiations: B4 with ids, with a doc table,
+            # fed K/V quantized before; B7's and B8's int8 kernels
+            "seg_flash_fwd_q8": ("cuda_flash_q8", "seg_launch_count"),
+            "doc_flash_fwd_q8": ("cuda_flash_q8", "doc_launch_count"),
+            "feed_flash_fwd_q8": ("cuda_flash_q8", "feed_launch_count"),
+            "q8_flash_ring": ("cuda_ring", "q8_launch_count"),
+            "q8_flash_ring_remote": ("cuda_ring_remote", "q8_launch_count")}
 
 
 def _counter_module(name: str):
@@ -1888,10 +1909,12 @@ def _ring_counts(striped: bool, backward: bool, int8: bool = False) -> dict[str,
     modes on the int8 kernel."""
     seed, resume, fused, dkv, dq = (x * BENCH_MODEL["depth"] for x in RING_SCHEDULE[striped])
     prefix, fwd = ("q8_", "flash_fwd_q8") if int8 else ("", "flash_fwd")
+    # the int8 ring quantizes K/V once per stream: every hop's B4 is fed
+    feed = {"feed_flash_fwd_q8": seed + resume + fused} if int8 else {}
     return _counts(**{fwd: seed + resume + fused, f"{prefix}seed": seed,
                       f"{prefix}resume": resume, f"{prefix}fused_carry": fused,
                       "flash_bwd_dkv": dkv if backward else 0,
-                      "flash_bwd_dq": dq if backward else 0})
+                      "flash_bwd_dq": dq if backward else 0, **feed})
 
 
 def _fused_counts(striped: bool, backward: bool) -> dict[str, int]:
@@ -4768,6 +4791,630 @@ def phase_doc_timings(doc: dict) -> dict[str, list[dict]]:
     return {**rows, "flash_ring": [ring_row]}
 
 
+# ---------------------------------------------------------------------------
+# The int8 ring: B4's ids, doc tables and pre-quantized feed (K3c, K4), B7's
+# int8 feed and B8's int8 wire; hop_compression="int8" on the model
+# ---------------------------------------------------------------------------
+
+# Phase 2j: B4 with packed sequences on 4,096 (and 2,048) rows, every mode;
+# the misaligned packing is phase 2g's (boundaries inside tiles, a tail of
+# PAD_SEGMENT_ID), the aligned one starts every document on a 128-row block
+# (B4's kDocs instantiation takes it; runtime ids the misaligned one).
+Q8_SEG_CASES = ("causal (1,8,4096,64)", "window 1024", "softclamp 50",
+                "kv_mask, one all-False row", "GQA h32 hk4 (1,32,2048,64)")
+# Phase 2j and 4i: B7's and B8's int8 schedules, the whole ring of 4 at
+# these shard lengths (the timings' 262,144 is rank 3's schedule alone for
+# B7, and the whole ring for B8).
+INT8_RING_N = 4096
+INT8_TIMING_N = (16384, 262144)
+
+
+def _q8_packed_modes(name, dtype, q, k, v, kw, carry, packing, ids, errors, counter) -> None:
+    """B4 with a packing (``packing``: ids or ``doc_starts``) in every mode
+    against its plain version with the same layout as ids: fused, seed,
+    resume into new tensors and in place (bit-equal), fused from a carry;
+    each launch counted once by ``counter`` of ``cuda_flash_q8``."""
+    import torch
+
+    from ring_attention_tpu_torch.ops import cuda_flash_q8 as q8
+
+    ref_kw = dict(kw, q_seg=ids, kv_seg=ids)
+    before = getattr(q8, counter)
+    out, lse = q8.flash_fwd_q8(q, k, v, **packing, **kw)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = q8.flash_fwd_q8_reference(q, k, v, **ref_kw)
+    _compare_q8(f"{name} fused", dtype, out, ref_out, lse, ref_lse, errors)
+    got = q8.flash_partials_q8(q, k, v, **packing, **kw)
+    torch.cuda.synchronize()
+    _compare_q8_partials(f"{name} seed", dtype, got,
+                         q8.flash_partials_q8_reference(q, k, v, **ref_kw), errors)
+    kept = _clone(carry)
+    got = q8.flash_partials_q8(q, k, v, carry=carry, **packing, **kw)
+    torch.cuda.synchronize()
+    _compare_q8_partials(f"{name} resume", dtype, got,
+                         q8.flash_partials_q8_reference(q, k, v, carry=carry, **ref_kw), errors)
+    q8.flash_partials_q8(q, k, v, carry=kept, out=kept, **packing, **kw)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(kept, got)),
+          f"{name} {dtype}: the in-place resume differs from the resume")
+    out, lse = q8.flash_fwd_q8(q, k, v, carry=carry, **packing, **kw)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = q8.flash_fwd_q8_reference(q, k, v, carry=carry, **ref_kw)
+    _compare_q8(f"{name} fused+carry", dtype, out, ref_out, lse, ref_lse, errors)
+    check(getattr(q8, counter) - before == 5, f"{name}: {counter} counted "
+          f"{getattr(q8, counter) - before} of 5 launches")
+
+
+def _ring_shards(gen, n_local, dtype=None, h=8, hk=8):
+    import torch
+
+    dtype = dtype or torch.bfloat16
+    n = RING_SIZE * n_local
+    return (_rand(gen, (1, h, n, 64), dtype), _rand(gen, (1, hk, n, 64), dtype),
+            _rand(gen, (1, hk, n, 64), dtype))
+
+
+def _remote_q8_feeds(ks, vs, n_local):
+    """Each rank's K/V as the int8 wire carries it to B8: its
+    ``pack_kv(v_block=n_local)`` payload read as the feed (JAX ring.py:719)."""
+    from ring_attention_tpu_torch.ops import cuda_flash_q8 as q8
+    from ring_attention_tpu_torch.ops import quant
+
+    return [q8.kernel_kv(quant.payload_kernel_feed(quant.pack_kv(k, v, v_block=n_local),
+                                                   n_local)) for k, v in zip(ks, vs)]
+
+
+def _q8_remote_stress(gen) -> None:
+    """B8's int8 kernel: 50 launches of the causal ring of 4 with each block
+    split, every one bit for bit the first launch."""
+    import torch
+
+    from ring_attention_tpu_torch.ops import cuda_ring_remote as crr
+
+    n = 1024
+    qs, ks, vs = _remote_inputs(gen, RING_SIZE, 1, 8, 8, n, torch.bfloat16)
+    feeds = _remote_q8_feeds(ks, vs, n)
+    kw = dict(tables=_remote_tables(RING_SIZE, n, causal=True), n_local=n, scale=0.125,
+              compute_dtype="int8", kv_quantized=feeds)
+    capacity = crr._capacity(torch.cuda.current_device(), True, False, True)
+    split = crr.balanced_split(kw["tables"], n, 8,
+                               crr._grid_blocks(capacity, RING_SIZE, 8, n, True))
+    first_outs, first_lses = crr.fused_ring_remote(qs, None, None, **kw)
+    first = first_outs + first_lses
+    for label, cta_split in (("balanced", split), ("rank 0 on one block", [1] + split[1:]),
+                             ("rank 3 on one block", split[:3] + [1])):
+        same = 0
+        for _ in range(STRESS_LAUNCHES):
+            outs, lses = crr.fused_ring_remote(qs, None, None, **kw, cta_split=cta_split)
+            same += all(bool(torch.equal(a, b)) for a, b in zip(outs + lses, first))
+        log(f"  int8 stress, causal ring of 4 x {n}, blocks {cta_split} ({label}): {same} of "
+            f"{STRESS_LAUNCHES} launches bit-identical to the first")
+        check(same == STRESS_LAUNCHES, f"int8 stress ({label}): a launch differed")
+    too_big = split[:3] + [capacity + 1 - sum(split[:3])]
+    message = _raises(lambda: crr.fused_ring_remote(qs, None, None, **kw, cta_split=too_big),
+                      ValueError)
+    check(message is not None and "does not fit" in message,
+          "an int8 grid the card cannot hold at once did not raise")
+
+
+def phase_int8_ring_vs_plain() -> dict:
+    """Phase 2j: B4's segmented and doc-table instantiations in every mode,
+    its direct feed against its own quantization, B7's int8 instantiations
+    and B8's int8 kernel against their plain versions and, bit for bit, the
+    B4 hop chain fed the same feed; returns the largest |out - plain| by
+    instantiation."""
+    import torch
+
+    from ring_attention_tpu_torch.ops import cuda_flash as cf
+    from ring_attention_tpu_torch.ops import cuda_flash_q8 as q8
+    from ring_attention_tpu_torch.ops import cuda_ring as cr
+    from ring_attention_tpu_torch.ops import cuda_ring_remote as crr
+    from ring_attention_tpu_torch.ops.attention import doc_runtime_ids
+    from ring_attention_tpu_torch.parallel import VirtualRing, ring_flash_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    errors = {key: [] for key in ("seg", "docs", "feed", "ring_q8", "ring_q8_seg",
+                                  "remote_q8")}
+    log("phase 2j: the int8 ring's kernels vs their plain versions: flash_fwd_q8 with ids "
+        "(kSeg) and doc tables (kDocs) in every mode, fed a pre-quantized K/V; "
+        "flash_ring's int8 instantiations; flash_ring_remote's int8 wire")
+    for name in Q8_SEG_CASES:
+        case = KERNEL_CASES[name]
+        b, n = case[0], case[3]
+        for dtype in (torch.bfloat16, torch.float32) if name == Q8_SEG_CASES[0] else (
+                torch.bfloat16,):
+            q, k, v, mask, kw = _case_inputs(gen, case, dtype)
+            kw = dict(kw, block_k=1024)
+            carry = cf.flash_partials_reference(
+                q, _rand(gen, k.shape, dtype), _rand(gen, v.shape, dtype), scale=0.125)
+            ids = packed_ids(n, PACK_PAD_TAIL, SHORT_LEN_RANGE).expand(b, n).contiguous()
+            _q8_packed_modes(f"kSeg {name}", dtype, q, k, v, dict(kw, kv_mask=mask), carry,
+                             dict(q_seg=ids, kv_seg=ids), ids, errors["seg"],
+                             "seg_launch_count")
+            if kw["causal_offset"] is not None and mask is None:
+                starts = _doc_packing("aligned", n)
+                dids = doc_runtime_ids(starts, n, b, "cuda")
+                _q8_packed_modes(f"kDocs {name} ({len(starts)} docs)", dtype, q, k, v, kw,
+                                 carry, dict(doc_starts=starts), dids, errors["docs"],
+                                 "doc_launch_count")
+            del carry
+
+    # the direct feed: K/V quantized once, read by every mode, bit for bit
+    # the launches that quantize them in the wrapper
+    q, k, v = (_rand(gen, (1, 8, 4096, 64), torch.bfloat16) for _ in range(3))
+    kw = dict(scale=0.125, causal_offset=0, block_k=1024)
+    feed = q8.quantize_kv_feed(k, v, 1024)
+    before = q8.feed_launch_count
+    fused = (q8.flash_fwd_q8(q, k, v, **kw), q8.flash_fwd_q8(q, None, None, kv_quantized=feed,
+                                                             **kw))
+    parts = (q8.flash_partials_q8(q, k, v, **kw),
+             q8.flash_partials_q8(q, None, None, kv_quantized=feed, **kw))
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(*fused)) and all(
+        torch.equal(x, y) for x, y in zip(*parts))
+    log(f"  direct feed (1,8,4096,64) causal, block 1024: fused and partials bit-identical to "
+        f"the wrapper's own quantization {same}; feed launches {q8.feed_launch_count - before}")
+    check(same and q8.feed_launch_count - before == 2, "the direct feed differs")
+    errors["feed"].append(0.0)
+
+    # B7 int8 and B8 int8 over a ring of 4 x INT8_RING_N: per rank against
+    # the plain version, and whole rings bit for bit the scan ring fed the
+    # same feed (B8: the v_block=n_local payload, the chain's bucket n_local)
+    n_local = INT8_RING_N
+    Q, K, V = _ring_shards(gen, n_local)
+    ids = packed_ids(RING_SIZE * n_local, PACK_PAD_TAIL, SHORT_LEN_RANGE)
+    ring = VirtualRing(RING_SIZE)
+    block = 1024
+    feed_all = q8.quantize_kv_feed(K, V, block)
+    qs = [x.contiguous() for x in Q.chunk(RING_SIZE, 2)]
+    for striped in (False, True):
+        tables = _remote_tables(RING_SIZE, n_local, causal=True, striped=striped)
+        for seg in (None, ids):
+            label = ("striped" if striped else "contiguous") + (" ids" if seg is not None
+                                                                else "")
+            key = "ring_q8" if seg is None else "ring_q8_seg"
+            for rank in range(RING_SIZE):
+                t = dict(zip(TABLE_NAMES, (x.cuda() for x in tables[rank])))
+                sg = {} if seg is None else dict(
+                    q_seg=seg[:, rank * n_local:(rank + 1) * n_local].contiguous(), kv_seg=seg)
+                out, lse = cr.fused_ring_local(qs[rank], None, None, kv_quantized=feed_all,
+                                               block_k=block, n_local=n_local, scale=0.125,
+                                               **t, **sg)
+                torch.cuda.synchronize()
+                ref_out, ref_lse = cr.fused_ring_local_plain(
+                    qs[rank], None, None, kv_quantized=feed_all, block_k=block,
+                    n_local=n_local, scale=0.125, **t, **sg)
+                _compare_q8(f"flash_ring int8 {label} rank {rank}", torch.bfloat16, out,
+                            ref_out, lse, ref_lse, errors[key])
+            # the whole ring, fused (a key mask of all True: the local tier)
+            # against the scan ring, both fed per-stream feeds at the bucket
+            mask = torch.ones((1, RING_SIZE * n_local), dtype=torch.bool, device="cuda")
+            kw = dict(causal=True, striped=striped, bucket_size=block, compute_dtype="int8",
+                      hop_compression="int8", segment_ids=seg)
+            with torch.inference_mode():
+                before = cr.q8_launch_count
+                fused_out = ring_flash_attention(Q, K, V, mask, ring, impl="fused", **kw)
+                launched = cr.q8_launch_count - before
+                scan_out = ring_flash_attention(Q, K, V, mask, ring, impl="cuda", **kw)
+            same = bool(torch.equal(fused_out, scan_out))
+            log(f"  flash_ring int8 ring of 4 x {n_local} {label}: {launched} launches, "
+                f"bit-identical to the int8 hop chain {same}")
+            check(same and launched == RING_SIZE, f"flash_ring int8 {label}: differs from "
+                  "the hop chain")
+        # B8 int8: one launch for the ring, each rank's v_block=n_local feed
+        qs_, ks_, vs_ = (list(x.chunk(RING_SIZE, 2)) for x in (Q, K, V))
+        qs_, ks_, vs_ = ([x.contiguous() for x in xs] for xs in (qs_, ks_, vs_))
+        feeds = _remote_q8_feeds(ks_, vs_, n_local)
+        outs, lses = crr.fused_ring_remote(qs_, None, None, tables=tables, n_local=n_local,
+                                           scale=0.125, compute_dtype="int8",
+                                           kv_quantized=feeds)
+        torch.cuda.synchronize()
+        ref_outs, ref_lses = crr.fused_ring_remote_plain(
+            qs_, None, None, tables=tables, n_local=n_local, scale=0.125, kv_quantized=feeds)
+        layout = "striped" if striped else "contiguous"
+        for rank in range(RING_SIZE):
+            _compare_q8(f"flash_ring_remote int8 {layout} rank {rank}", torch.bfloat16,
+                        outs[rank], ref_outs[rank], lses[rank], ref_lses[rank],
+                        errors["remote_q8"])
+        with torch.inference_mode():
+            before = crr.q8_launch_count
+            remote_out = ring_flash_attention(Q, K, V, None, ring, causal=True, striped=striped,
+                                              bucket_size=block, impl="fused",
+                                              compute_dtype="int8", hop_compression="int8")
+            launched = crr.q8_launch_count - before
+            chain_out = ring_flash_attention(Q, K, V, None, ring, causal=True, striped=striped,
+                                             bucket_size=n_local, impl="cuda",
+                                             compute_dtype="int8", hop_compression="int8")
+        same = bool(torch.equal(remote_out, chain_out))
+        log(f"  flash_ring_remote int8 ring of 4 x {n_local} {layout}: {launched} launch, "
+            f"bit-identical to the int8 hop chain fed the v_block=n_local payload {same}")
+        check(same and launched == 1, f"flash_ring_remote int8 {layout}: differs from the "
+              "hop chain")
+    _q8_remote_stress(gen)
+    return {key: max(errs) for key, errs in errors.items()}
+
+
+# Phase 3l's forms of the bench model on the virtual ring of 4, all with
+# ring_hop_compression="int8": (impl, compute_dtype).
+INT8_RING_FORMS = {"wire": ("cuda", None), "q8": ("cuda", "int8"), "fused": ("fused", "int8")}
+
+
+def _int8_ring_model(form, dtype="bf16", **kw):
+    """The bench model on the virtual ring of 4 in one of INT8_RING_FORMS
+    (``dtype`` "bf16", or None: f32 parameters and compute)."""
+    import torch
+
+    from ring_attention_tpu_torch.parallel import create_mesh
+
+    impl, compute = INT8_RING_FORMS[form]
+    return _model(torch.bfloat16 if dtype == "bf16" else dtype, "cuda",
+                  mesh=create_mesh(ring_size=RING_SIZE), impl=impl, compute_dtype=compute,
+                  ring_hop_compression="int8", **kw)
+
+
+def _hold_f32_int8_ring_to_cpu() -> None:
+    """The f32 int8 ring models (seq 256, the scan ring and the fused ring)
+    on the card against the same weights on the CPU (plain versions), with
+    the CPU's own spread under last-bit weight noise beside it."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(SEED + 31)
+    tokens = torch.randint(0, BENCH_MODEL["num_tokens"], (2, 256), generator=gen)
+    for form in ("q8", "fused"):
+        gpu = _int8_ring_model(form, dtype=None, bucket_size=32)
+        cpu = copy.deepcopy(gpu).to("cpu")
+        with torch.inference_mode():
+            ref = cpu(tokens)
+            err = _rel_err(gpu(tokens.cuda()).cpu(), ref)
+            noisy = copy.deepcopy(cpu)
+            for w in noisy.parameters():
+                w.mul_(1 + 1.2e-7 * torch.randn(w.shape, generator=gen))
+            spread = _rel_err(noisy(tokens), ref)
+        log(f"  f32 int8 ring model ({form}) seq 256, card vs CPU: ||card - cpu|| / ||cpu|| "
+            f"{err:.3e} (tol {Q8_MODEL_REL_TOL}); on the CPU, weights x (1 + 1.2e-7 noise) "
+            f"move it {spread:.3e}")
+        check(err <= Q8_MODEL_REL_TOL, f"f32 int8 ring model ({form}) disagrees with the CPU")
+
+
+def phase_int8_ring_path(serving: dict, training: dict) -> dict:
+    """Phase 3l: the bench model at full width on the virtual ring of 4 with
+    ``ring_hop_compression="int8"``, in its forms (the wire alone over the
+    float kernels, the scan ring's B4 hops fed the payload, the fused ring's
+    B8 on the int8 wire and B7 when a key mask pads the request), then the
+    int8 model with ids and with ``mask=Causal() & DocumentMask(starts)``
+    locally and on the ring: a forward and a train step each, exact launch
+    counts, the K/V quantizations of a forward (one per rank and layer),
+    logits against the bf16 local model."""
+    import torch
+
+    from ring_attention_tpu_torch import make_train_step
+    from ring_attention_tpu_torch.masks import Causal, DocumentMask
+    from ring_attention_tpu_torch.ops import quant
+
+    depth = BENCH_MODEL["depth"]
+    tokens, step_tokens = serving["tokens"], training["tokens"]
+    n = tokens.shape[1]
+    log('phase 3l: the int8 ring, RingTransformer(ring_hop_compression="int8") on a virtual '
+        f"ring of {RING_SIZE}, bench model at full width, bf16, 1 x {n} tokens")
+    launches = {name: 0 for name in COUNTERS}
+    with torch.inference_mode():
+        ref = serving["model"](tokens).float()
+
+    def run(label, fn, expect=None, quantizations=None):
+        _reset_counts()
+        quant.kv_quantize_count = 0
+        start = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        counts, quantized = _read_counts(), quant.kv_quantize_count
+        log(f"  {label}: {seconds:.3f} s, launches {({k: x for k, x in counts.items() if x})}, "
+            f"K/V quantizations {quantized}")
+        if expect is not None:
+            check(counts == expect, f"{label} launched {counts}, expected {expect}")
+        if quantizations is not None:
+            check(quantized == quantizations,
+                  f"{label}: {quantized} K/V quantizations, expected {quantizations}")
+        for name, x in counts.items():
+            launches[name] += x
+        return result, counts
+
+    hops = RING_SIZE * depth  # one quantization per rank and layer
+    seed, resume, fused_c, dkv, dq = (x * depth for x in RING_SCHEDULE[False])
+    expect_fwd = {
+        "wire": _ring_counts(False, backward=False),
+        "q8": _counts(flash_fwd_q8=seed + resume + fused_c, q8_seed=seed, q8_resume=resume,
+                      q8_fused_carry=fused_c, feed_flash_fwd_q8=seed + resume + fused_c),
+        "fused": _counts(flash_ring_remote=depth, q8_flash_ring_remote=depth),
+    }
+    models, results = {}, {}
+    for form in INT8_RING_FORMS:
+        model = _int8_ring_model(form)
+        with torch.inference_mode():
+            logits, _ = run(f"{form} forward 1 x {n}", lambda: model(tokens), expect_fwd[form],
+                            hops)
+        rel = _rel_err(logits, ref)
+        log(f"    logits vs the bf16 local model: ||ring - local|| / ||local|| {rel:.3e} "
+            f"(tol {Q8_FWD_REL_L2})")
+        check(bool(torch.isfinite(logits.float()).all()) and rel <= Q8_FWD_REL_L2,
+              f"{form}: int8 ring logits disagree with the bf16 model")
+        results[form] = logits
+        model.train()
+        step = make_train_step(lambda t, m=model: m(t, return_loss=True),
+                               torch.optim.Adam(model.parameters(), lr=1e-3))
+        expect_step = dict(expect_fwd[form], flash_bwd_dkv=dkv, flash_bwd_dq=dq)
+        (loss, _) = run(f"{form} train step", lambda s=step: s(step_tokens), expect_step, hops)
+        loss = float(loss)
+        log(f"    loss {loss:.6f}")
+        check(math.isfinite(loss), f"{form}: loss {loss}")
+        models[form] = (model.eval(), step)
+    same = bool(torch.equal(results["q8"], results["fused"]))
+    # the fused ring's remote tier is the chain fed v_block=n_local payloads
+    chain = _int8_ring_model("q8", bucket_size=n // RING_SIZE)
+    with torch.inference_mode():
+        chain_logits = chain(tokens)
+    del chain
+    remote_same = bool(torch.equal(chain_logits, results["fused"]))
+    log(f"  fused (B8 int8) logits bit-identical to the scan int8 ring fed the "
+        f"v_block=n_local payload {remote_same}; to the scan ring at the bucket's block "
+        f"{same} (one v scale per rank span vs per 2,048 keys)")
+    check(remote_same, "the int8 remote tier's logits differ from the hop chain's")
+    del chain_logits
+    results = {}
+
+    # a padded request: 65,535 tokens on a non-causal copy take B7 int8
+    masked = _int8_ring_model("fused", causal=False)
+    with torch.inference_mode():
+        _, counts = run(f"fused non-causal forward 1 x {n - 1} (padded, masked)",
+                        lambda: masked(tokens[:, :-1]),
+                        _counts(flash_ring=hops, q8_flash_ring=hops), hops)
+    del masked
+
+    # packed documents: ids on the ring (B4 kSeg hop by hop, B7 int8 kSeg),
+    # the declared packing locally (B4 kDocs) and on the ring (runtime ids)
+    ids = packed_ids(n)
+    starts = aligned_starts(n)
+    fresh = {form: _int8_ring_model(form) for form in ("q8", "fused")}  # the seeded weights
+    for form, model in fresh.items():
+        with torch.inference_mode():
+            logits, counts = run(f"{form} forward with segment_ids ({len(doc_lengths(ids))} "
+                                 f"documents)", lambda m=model: m(tokens, segment_ids=ids),
+                                 quantizations=hops)
+        key = "seg_flash_fwd_q8" if form == "q8" else "seg_flash_ring"
+        check(counts[key] > 0 and counts[key] == counts["flash_fwd_q8" if form == "q8"
+                                                       else "q8_flash_ring"],
+              f"{form} with ids: {counts}")
+        results[form] = logits
+    same = bool(torch.equal(results["q8"], results["fused"]))
+    log(f"  fused int8 ring with ids (B7 int8 kSeg) bit-identical to the scan int8 ring "
+        f"{same}")
+    check(same, "the fused int8 ring with ids differs from the scan int8 ring")
+    step_ids = torch.cat([ids, ids[:, -1:]], dim=1)
+    model = fresh["q8"]
+    model.train()
+    seg_step = make_train_step(lambda t: model(t, return_loss=True, segment_ids=step_ids),
+                               torch.optim.Adam(model.parameters(), lr=1e-3))
+    loss, _ = run("q8 train step with segment_ids", lambda: seg_step(step_tokens),
+                  quantizations=hops)
+    check(math.isfinite(float(loss)), f"packed int8 step: loss {float(loss)}")
+    model.eval()
+    mask = Causal() & DocumentMask(starts)
+    local = _model(torch.bfloat16, "cuda", causal=False, mask=mask, compute_dtype="int8")
+    with torch.inference_mode():
+        local_logits, counts = run(
+            f"local int8 mask=Causal() & DocumentMask({len(starts)} documents)",
+            lambda: local(tokens), _counts(flash_fwd_q8=depth, doc_flash_fwd_q8=depth))
+        ring_mask = _int8_ring_model("q8", causal=False, mask=mask)
+        ring_logits, counts = run("q8 ring with the same mask", lambda: ring_mask(tokens),
+                                  quantizations=hops)
+    check(counts["seg_flash_fwd_q8"] == counts["flash_fwd_q8"] > 0,
+          f"the int8 ring's declared packing did not run as ids: {counts}")
+    rel = _rel_err(ring_logits, local_logits)
+    log(f"    the masked int8 ring vs the masked int8 local model: {rel:.3e} "
+        f"(tol {Q8_FWD_REL_L2})")
+    check(rel <= Q8_FWD_REL_L2, "the masked int8 ring disagrees with the local model")
+    local.train()
+    local_step = make_train_step(lambda t: local(t, return_loss=True),
+                                 torch.optim.Adam(local.parameters(), lr=1e-3))
+    loss, _ = run("local int8 mask train step", lambda: local_step(step_tokens),
+                  _counts(flash_fwd_q8=depth, doc_flash_fwd_q8=depth, flash_bwd_dkv=depth,
+                          flash_bwd_dq=depth, doc_flash_bwd_dkv=depth, doc_flash_bwd_dq=depth))
+    check(math.isfinite(float(loss)), f"local int8 mask step: loss {float(loss)}")
+    del local, ring_mask, local_logits, ring_logits, results, fresh, model
+    _hold_f32_int8_ring_to_cpu()
+    return {"launches": launches, "models": models, "ids": ids, "starts": starts}
+
+
+def _time_turns(fns: dict, iters: int = 10, warmup: int = 2) -> dict:
+    """Each function's median device time, taken in turns: the order, then
+    the order reversed (a, b, b, a); the faster of each function's two."""
+    times = {name: [] for name in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        times[name].append(time_ms(fns[name], iters=iters, warmup=warmup))
+    return {name: min(ts) for name, ts in times.items()}
+
+
+def phase_int8_ring_timings(int8_path: dict, serving: dict, training: dict) -> dict:
+    """Phase 4i: B4 with ids and doc tables on phase 3f's packing beside the
+    unsegmented B4 and B1's doc tables; B4's wrapper with and without the
+    feed beside its kernel; B7 int8 on rank 3's schedule beside the B4 hop
+    chain; B8 int8 beside four B7 int8 launches; the int8 ring model with
+    and without the wire.  Returns the kernels line's rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from ring_attention_tpu_torch import make_train_step
+    from ring_attention_tpu_torch.ops import cuda_flash as cf
+    from ring_attention_tpu_torch.ops import cuda_flash_q8 as q8
+    from ring_attention_tpu_torch.ops import cuda_ring as cr
+    from ring_attention_tpu_torch.ops import cuda_ring_remote as crr
+
+    log("phase 4i: the int8 ring's kernels and models (CUDA events, median after warm-up, "
+        "in turns)")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    log(f"  card: {smi.stdout.strip()}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    rows = {}
+    n = 65536
+    q, k, v = (_rand(gen, (1, 8, n, 64), torch.bfloat16) for _ in range(3))
+    ids, starts = int8_path["ids"], int8_path["starts"]
+    dids = _doc_ids(starts, n)
+    ops8 = q8.quantize_operands(q, k, v)
+    band = dict(scale=0.125, causal_offset=0, window_lo=None, softclamp_value=None)
+    table = cf._doc_table(starts, "fwd_q8", True, n, 0, None, str(q.device))
+    check(table is not None, f"phase 3f's aligned packing {starts} has no B4 doc table")
+    kw = dict(scale=0.125, causal_offset=0)
+    t = _time_turns({
+        "unsegmented": lambda: q8.launch_fwd_q8(ops8, None, band, torch.bfloat16),
+        "kSeg": lambda: q8.launch_fwd_q8(ops8, None, band, torch.bfloat16, q_seg=ids,
+                                         kv_seg=ids),
+        "kDocs": lambda: q8.launch_fwd_q8(ops8, None, band, torch.bfloat16, doc_tiles=table),
+        "b1_kDocs": lambda: cf.flash_fwd(q, k, v, doc_starts=starts, **kw),
+    })
+    sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+    moved = nbytes(*ops8[:6]) + nbytes(q)
+    for name, packing_ids in (("kSeg", ids), ("kDocs", dids)):
+        ops = 4 * 64 * 8 * same_doc_pairs(packing_ids)
+        b_ms, b_by = bound_ms(ops, moved + nbytes(packing_ids), torch.int8)
+        rows[name] = {"shape": f"causal (1,8,{n},64), {len(doc_lengths(packing_ids))} "
+                               f"documents, block 1024", "ms": t[name], "plain_ms": None,
+                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                      "unsegmented_kernel_ms": t["unsegmented"],
+                      "bf16_kdocs_ms": t["b1_kDocs"], "bf16_sdpa_ms": sdpa_ms}
+        log(f"  flash_fwd_q8 {name} causal {n}: {t[name]:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}); unsegmented B4 {t['unsegmented']:.4f} ms, B1 kDocs "
+            f"{t['b1_kDocs']:.4f} ms, bf16 sdpa (whole causal) {sdpa_ms:.4f} ms")
+    feed = q8.quantize_kv_feed(k, v)
+    t = _time_turns({
+        "kernel": lambda: q8.launch_fwd_q8(ops8, None, band, torch.bfloat16),
+        "wrapper": lambda: q8.flash_fwd_q8(q, k, v, **kw),
+        "wrapper_fed": lambda: q8.flash_fwd_q8(q, None, None, kv_quantized=feed, **kw),
+    })
+    ops = 4 * 64 * 8 * band_pairs(n, n, 0, None)
+    b_ms, b_by = bound_ms(ops, nbytes(*ops8[:6], q), torch.int8)
+    rows["feed"] = {"shape": f"causal (1,8,{n},64), fed K/V, block 1024",
+                    "ms": t["wrapper_fed"], "plain_ms": None, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": None, "kernel_ms": t["kernel"],
+                    "wrapper_ms": t["wrapper"]}
+    log(f"  flash_fwd_q8 causal {n}: kernel {t['kernel']:.4f} ms; wrapper quantizing q, k, v "
+        f"{t['wrapper']:.4f} ms ({t['wrapper'] - t['kernel']:.4f} ms around the kernel); "
+        f"wrapper fed K/V {t['wrapper_fed']:.4f} ms ({t['wrapper_fed'] - t['kernel']:.4f} ms)")
+    del q, k, v, ops8, feed
+
+    for n_local in INT8_TIMING_N:
+        block = 1024
+        Q, K, V = _ring_shards(gen, n_local)
+        feed_all = q8.quantize_kv_feed(K, V, block)
+        q3 = Q[:, :, 3 * n_local:].contiguous()
+        tables = _remote_tables(RING_SIZE, n_local, causal=True)
+        tab3 = dict(zip(TABLE_NAMES, (x.cuda() for x in tables[3])))
+
+        # each hop's origin's feed, contiguous, as the scan ring's streams hold it
+        hop_feeds = [q8.Int8KV(*(x.contiguous() for x in cr._feed_rows(feed_all, o, n_local)[:4]),
+                               block) for o in range(RING_SIZE)]
+
+        def chain(q3=q3, hop_feeds=hop_feeds, n_local=n_local):
+            carry = None
+            for hop in range(RING_SIZE):
+                fd = hop_feeds[3 - hop]
+                hi = n_local if hop else 0
+                if hop == RING_SIZE - 1:
+                    return q8.flash_fwd_q8(q3, None, None, kv_quantized=fd, block_k=block,
+                                           scale=0.125, causal_offset=hi, carry=carry)
+                carry = q8.flash_partials_q8(q3, None, None, kv_quantized=fd, block_k=block,
+                                             scale=0.125, causal_offset=hi, carry=carry,
+                                             out=carry)
+
+        def b7(q3=q3, feed_all=feed_all, n_local=n_local, tab3=tab3):
+            return cr.fused_ring_local(q3, None, None, kv_quantized=feed_all, block_k=block,
+                                       n_local=n_local, scale=0.125, **tab3)
+
+        same = all(torch.equal(x, y) for x, y in zip(chain(), b7()))
+        long = n_local > 65536  # seconds a launch: one timed run each, in turns
+        t = _time_turns({"chain": chain, "b7": b7}, iters=1 if long else 10,
+                        warmup=0 if long else 2)
+        pairs = n_local * (n_local + 1) // 2 + 3 * n_local * n_local
+        ops = 4 * 64 * 8 * pairs
+        b_ms, b_by = bound_ms(ops, nbytes(q3, *feed_all[:4]), torch.int8)
+        rows[f"ring_q8_{n_local}"] = {
+            "shape": f"rank 3 of a causal ring of 4, n_local {n_local}, (1,8), block {block}",
+            "ms": t["b7"], "plain_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "hop_chain_ms": t["chain"]}
+        log(f"  flash_ring int8 rank 3 n_local {n_local}: {t['b7']:.4f} ms, B4 hop chain "
+            f"{t['chain']:.4f} ms (B7 / chain {t['b7'] / t['chain']:.3f}), bit-identical "
+            f"{same}; bound {b_ms:.4f} ms ({b_by}); {ops / t['b7'] / 1e9:.1f} TOP/s")
+        check(same, f"flash_ring int8 n_local {n_local}: differs from the B4 chain")
+        del feed_all, q3, hop_feeds
+        qs, ks, vs = ([x.contiguous() for x in t_.chunk(RING_SIZE, 2)] for t_ in (Q, K, V))
+        del Q, K, V
+        feeds = _remote_q8_feeds(ks, vs, n_local)
+        gathered = q8.Int8KV(*(torch.cat([f[i] for f in feeds], dim=2) for i in range(4)),
+                             n_local)
+        tabs = [dict(zip(TABLE_NAMES, (x.cuda() for x in table))) for table in tables]
+
+        def b8(qs=qs, feeds=feeds, tables=tables, n_local=n_local):
+            return crr.fused_ring_remote(qs, None, None, tables=tables, n_local=n_local,
+                                         scale=0.125, compute_dtype="int8", kv_quantized=feeds)
+
+        def four_b7(qs=qs, gathered=gathered, tabs=tabs, n_local=n_local):
+            return [cr.fused_ring_local(q_, None, None, kv_quantized=gathered,
+                                        block_k=n_local, n_local=n_local, scale=0.125, **tab)
+                    for q_, tab in zip(qs, tabs)]
+
+        outs, _ = b8()
+        same = all(torch.equal(o, r[0]) for o, r in zip(outs, four_b7()))
+        t = _time_turns({"four_b7": four_b7, "b8": b8}, iters=1 if long else 10,
+                        warmup=0 if long else 2)
+        pairs = (RING_SIZE * n_local * n_local * (RING_SIZE - 1) // 2
+                 + RING_SIZE * n_local * (n_local + 1) // 2)
+        ops = 4 * 64 * 8 * pairs
+        b_ms, b_by = bound_ms(ops, nbytes(*qs, *(x for f in feeds for x in f[:4])), torch.int8)
+        rows[f"remote_q8_{n_local}"] = {
+            "shape": f"causal ring of 4, n_local {n_local}, (1,8), one v block per rank",
+            "ms": t["b8"], "plain_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "local_tier_ms": t["four_b7"]}
+        log(f"  flash_ring_remote int8 ring of 4 x {n_local}: {t['b8']:.4f} ms, four B7 int8 "
+            f"launches (the same feeds, gathered) {t['four_b7']:.4f} ms (B8 / 4 B7 "
+            f"{t['b8'] / t['four_b7']:.3f}), B8 bit-identical to them {same}; bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        check(same, f"flash_ring_remote int8 n_local {n_local}: differs from four B7 launches")
+        del qs, ks, vs, feeds, gathered
+
+    # the models: forward and train step, with and without the wire
+    tokens = serving["tokens"]
+    fwd = {}
+    for form, (model, step) in int8_path["models"].items():
+        with torch.inference_mode():
+            fwd[form] = time_ms(lambda m=model: m(tokens), iters=5)
+    q8_nowire = _model(torch.bfloat16, "cuda", mesh=int8_path["models"]["q8"][0].mesh,
+                       compute_dtype="int8")
+    with torch.inference_mode():
+        fwd["q8_no_wire"] = time_ms(lambda: q8_nowire(tokens), iters=5)
+    for form, ms in fwd.items():
+        log(f"  int8 ring model {form} forward 1 x {tokens.shape[1]}: {ms:.3f} ms, "
+            f"{tokens.shape[1] / ms * 1e3:.0f} tokens/s (bf16 local model "
+            f"{serving['fwd_ms']:.3f} ms)")
+    for form in ("q8",):
+        model, step = int8_path["models"][form]
+        model.train()
+        ms, _, peak, _ = _train_step_timing(step, training["tokens"])
+        log(f"  int8 ring model {form} train step 1 x {training['tokens'].shape[1]}: "
+            f"{ms:.3f} ms, peak {peak / 2**30:.3f} GiB")
+        model.eval()
+    q8_nowire.train()
+    nowire_ms, *_ = _train_step_timing(
+        make_train_step(lambda t_: q8_nowire(t_, return_loss=True),
+                        torch.optim.Adam(q8_nowire.parameters(), lr=1e-3)), training["tokens"])
+    log(f"  int8 ring model without the wire (compute_dtype='int8' alone) train step: "
+        f"{nowire_ms:.3f} ms")
+    del q8_nowire
+    rows["models"] = fwd
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -4797,6 +5444,7 @@ def main() -> int:
     seg_err = phase_segmented_vs_plain()
     mesh_err = phase_mesh_kernels_vs_plain()
     doc_err = phase_doc_tables_vs_plain()
+    int8_err = phase_int8_ring_vs_plain()
     serving = phase_serving_path()
     training = phase_training_path()
     ring = phase_ring_path(serving, training)
@@ -4808,6 +5456,7 @@ def main() -> int:
     tree = phase_tree_decode_config5()
     mesh_serving = phase_mesh_serving()
     doc = phase_doc_mask_path(serving, training)
+    int8_path = phase_int8_ring_path(serving, training)
     rows, decode_rows = phase_timings(serving)
     bwd_rows = phase_train_timings(training)
     mode_rows = phase_ring_timings(ring, serving, training, rows)
@@ -4816,6 +5465,7 @@ def main() -> int:
     seg_rows = phase_segmented_timings(packed)
     phase_mesh_timings(zigzag, ring, serving, training, tree, mesh_serving)
     doc_rows = phase_doc_timings(doc)
+    int8_rows = phase_int8_ring_timings(int8_path, serving, training)
     # the main paths' launches of this slice: the zig-zag model, config 3,
     # config 5's tree decode and the serving path on the ring
     mesh_launches = {name: zigzag["launches"][name] + config3["launches"][name]
@@ -4825,13 +5475,16 @@ def main() -> int:
     packed_launches = packed["launches"]
     doc_launches = doc["launches"]
     fused_launches = fused["launches"]
-    q8_launches = q8_path["launches"]
+    q8_launches = {name: q8_path["launches"][name] + int8_path["launches"][name]
+                   for name in COUNTERS}
+    int8_launches = int8_path["launches"]
     flash, pallas_ring = "ring_attention_tpu/ops/pallas_flash.py", "ring_attention_tpu/ops/pallas_ring.py"
     entries = [
         ("flash_fwd", "flash_fwd.cu", f"{flash}:1174",
          serving["launches"] + training["launches"]["flash_fwd"]
          + ring_launches["flash_fwd"] + packed_launches["flash_fwd"]
-         + mesh_launches["flash_fwd"] + doc_launches["flash_fwd"],
+         + mesh_launches["flash_fwd"] + doc_launches["flash_fwd"]
+         + int8_launches["flash_fwd"],
          max(max_err, *mode_err.values(), mesh_err["fwd"], config3["fwd_err"],
              *(seg_err[m] for m in ("fused", "seed", "resume", "fused_carry")),
              *(doc_err[m] for m in ("fused", "seed", "resume", "fused_carry"))),
@@ -4855,16 +5508,19 @@ def main() -> int:
          max(bwd_err["dq"], seg_err["dq"], mesh_err["dq"], config3["dq"], doc_err["dq"]),
          bwd_rows["flash_bwd_dq"] + seg_rows["flash_bwd_dq"] + doc_rows["flash_bwd_dq"]),
         ("flash_fwd_q8", "flash_fwd_q8.cu", f"{flash}:1174", q8_launches["flash_fwd_q8"],
-         max(q8_err[m] for m in ("fused", "seed", "resume", "fused_carry")), q8_rows["fwd"]),
+         max(*(q8_err[m] for m in ("fused", "seed", "resume", "fused_carry")),
+             int8_err["seg"], int8_err["docs"], int8_err["feed"]), q8_rows["fwd"]),
         ("flash_decode_q8", "flash_decode_q8.cu", f"{flash}:1585",
          q8_launches["flash_decode_q8"] + mesh_launches["flash_decode_q8"],
          max(q8_err["decode"], mesh_err["decode_q8"]), q8_rows["decode"]),
         ("flash_ring", "flash_ring.cu", f"{pallas_ring}:341",
-         fused_launches["flash_ring"] + doc_launches["flash_ring"],
-         max(fused_err, doc_err["ring"]), fused_rows + doc_rows["flash_ring"]),
+         fused_launches["flash_ring"] + doc_launches["flash_ring"] + int8_launches["flash_ring"],
+         max(fused_err, doc_err["ring"], int8_err["ring_q8"], int8_err["ring_q8_seg"]),
+         fused_rows + doc_rows["flash_ring"]),
         ("flash_ring_remote", "flash_ring_remote.cu", f"{pallas_ring}:866",
-         fused_launches["flash_ring_remote"] + mesh_launches["flash_ring_remote"],
-         remote_err, fused["remote_rows"]),
+         fused_launches["flash_ring_remote"] + mesh_launches["flash_ring_remote"]
+         + int8_launches["flash_ring_remote"],
+         max(remote_err, int8_err["remote_q8"]), fused["remote_rows"]),
     ]
     kernels = []
     for name, source, replaces, launches, err, per_shape in entries:
@@ -4908,6 +5564,33 @@ def main() -> int:
              "bf16_kernel_ms")}}
         for mode in ("seed", "resume", "fused_carry")
     ]
+    # the instantiations this slice added, each with its main-path launches
+    # and numbers: B4 with ids, with doc tables and fed; B7's and B8's int8
+    instantiations = {
+        "flash_fwd_q8": [("kSeg", "seg_flash_fwd_q8", int8_err["seg"], int8_rows["kSeg"]),
+                         ("kDocs", "doc_flash_fwd_q8", int8_err["docs"], int8_rows["kDocs"]),
+                         ("fed", "feed_flash_fwd_q8", int8_err["feed"], int8_rows["feed"])],
+        "flash_ring": [("int8", "q8_flash_ring", max(int8_err["ring_q8"],
+                                                     int8_err["ring_q8_seg"]),
+                        int8_rows[f"ring_q8_{INT8_TIMING_N[0]}"])],
+        "flash_ring_remote": [("int8", "q8_flash_ring_remote", int8_err["remote_q8"],
+                               int8_rows[f"remote_q8_{INT8_TIMING_N[0]}"])],
+    }
+    for kernel in kernels:
+        if kernel["name"] in instantiations:
+            kernel["instantiations"] = [
+                {"instantiation": label, "launches": q8_launches[counter],
+                 "max_abs_err": err,
+                 **{key: row[key] for key in ("shape", "ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")},
+                 **{key: row[key] for key in ("bf16_sdpa_ms", "hop_chain_ms", "local_tier_ms",
+                                              "unsegmented_kernel_ms", "bf16_kdocs_ms",
+                                              "kernel_ms", "wrapper_ms") if key in row}}
+                for label, counter, err, row in instantiations[kernel["name"]]]
+    for kernel in kernels:
+        for inst in kernel.get("instantiations", []):
+            check(inst["launches"] > 0, f"{kernel['name']} {inst['instantiation']}: not "
+                  "launched on the main path")
     log(f"total {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 // Replaces: ring_attention_tpu/ops/pallas_ring.py::fused_ring_local (the
 // pl.pallas_call at :341; kernel body _fused_local_kernel :116) for float
 // operands, with its segment ids (q_segment_ids, kv_segment_ids :213, the
-// keep test :304-309).  Its int8 feed (kv_quantized) is not ported here.
+// keep test :304-309), and with its int8 feed (kv_quantized :214,
+// :257-269; the int8 kernels at the end of this file).
 //
 // What it computes, for q (B, H, N, D) of one ring rank and the gathered
 // k_all, v_all (B, Hk, Ntot, D), rank-major (rank o's block is rows
@@ -68,9 +69,21 @@
 //   * the hop tables are four int32 device arrays read by every thread;
 //   * offsets into the gathered span are 64-bit: at 262,144 tokens, hk 8
 //     and d 64 one batch row of k_all holds 1.3e8 elements.
-// Not yet: the int8 feed; TMA and warp specialisation, as in B1.
+//   * int8 (flash_ring_q8, the JAX kv_quantized feed): q8 (B, H, N, D)
+//     with its row scales, and the gathered span as B4 reads it: k8 (B, Hk,
+//     Ntot, D) and its row scales, V^T per quantization block of Bk keys
+//     (B, Hk, Ntot / Bk, D, Bp) and the block scales, Bk dividing N, so
+//     that no block straddles two ranks.  B4's sweep (flash_sweep_q8.cuh)
+//     walked hop by hop over the origin's keys and blocks, B4's block of
+//     256 threads and its dynamic shared memory; between two live hops
+//     q8::hop_boundary does what the chain's partials store and the next
+//     launch's load do, so the output is the int8 hop chain's (B4 fed the
+//     same feed, impl="cuda") bit for bit.  With ids it runs B4's
+//     segmented sweep (kSeg), the keys' ids read from kv_seg.
+// Not yet: TMA and warp specialisation, as in B1.
 
 #include "flash_sweep.cuh"
+#include "flash_sweep_q8.cuh"
 
 namespace {
 
@@ -215,6 +228,88 @@ __global__ void __launch_bounds__(kBlockM)
   store_out_f32<D>(static_cast<float*>(p.out), p.lse, (size_t)bh * p.N + row, acc, m, l);
 }
 
+// The int8 kernels' inputs: q8 and its row scales qs; the gathered span's
+// k8 and row scales ks, V^T per block vt and block scales vs (Bk keys a
+// block, Bp = Bk rounded up to 64), in rank-major order.
+struct Q8Params {
+  const int8_t* q8;        // (B, H, N, D)
+  const float* qs;         // (B, H, N)
+  const int8_t* k8;        // (B, Hk, Ntot, D)
+  const float* ks;         // (B, Hk, Ntot)
+  const int8_t* vt;        // (B, Hk, Ntot / Bk, D, Bp)
+  const float* vs;         // (B, Hk, Ntot / Bk)
+  const uint8_t* kv_mask;  // (B, Ntot) or null
+  const int* origins;
+  const int* his;
+  const int* los;
+  const int* works;
+  void* out;  // (B, H, N, D) bf16 or f32
+  float* lse;
+  int B, H, Hk, N, Ntot, hops, Bk, Bp, out_bf16;
+  float scale;
+  float softclamp;  // 0 = off
+};
+
+template <bool kSeg, bool kClamp>
+__global__ void __launch_bounds__(q8::kThreads, 1)
+    flash_ring_q8_kernel(const Q8Params p, const Segs sg) {
+  extern __shared__ unsigned char ring_q8_smem[];
+  // stages start on a 1,024-byte boundary: the swizzle reads address bits
+  const uint32_t smem0 = (uint32_t)__cvta_generic_to_shared(ring_q8_smem);
+  const uint32_t base = (smem0 + 1023u) & ~1023u;
+
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * q8::kRows;  // heaviest first
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int kh = h / (p.H / p.Hk);
+  const size_t kv_head = (size_t)b * p.Hk + kh;
+  const int n_blk = p.Ntot / p.Bk;
+  const q8::Wg w = q8::wg_of(base, ring_q8_smem + (base - smem0), r0);
+
+  // the empty state (the chain's seed launch), the rows' scales and ids
+  float o[8][4], m_r[2], l_r[2], rs[2];
+  int qid[2] = {0, 0};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = w.row_a + r * 8;
+    const size_t idx = (size_t)bh * p.N + row;
+    q8::load_row(nullptr, nullptr, nullptr, 0, false, r, o, m_r, l_r);
+    rs[r] = row < p.N ? p.qs[idx] * p.scale : 0.f;
+    if constexpr (kSeg) qid[r] = row < p.N ? sg.q[(size_t)b * p.N + row] : 0;
+  }
+  q8::load_q(w, p.q8 + (size_t)bh * p.N * q8::kD, p.N);
+
+  bool first = true;
+  for (int hop = 0; hop < p.hops; ++hop) {
+    if (p.works[hop] == 0) continue;  // the chain launches nothing here
+    // between two live hops: the chain's store and the next launch's load
+    if (!first) q8::hop_boundary(l_r);
+    first = false;
+    const size_t span = (size_t)p.origins[hop] * p.N;  // the origin's first key
+    const size_t blk0 = span / p.Bk;                    // and its first block
+    // the hop's band: sentinels (his = N, los = -N) open a side
+    const q8::Span sp{p.k8 + (kv_head * p.Ntot + span) * q8::kD,
+                      p.vt + (kv_head * n_blk + blk0) * q8::kD * p.Bp,
+                      p.ks + kv_head * p.Ntot + span,
+                      p.vs + kv_head * n_blk + blk0,
+                      p.kv_mask ? p.kv_mask + (size_t)b * p.Ntot + span : nullptr,
+                      kSeg ? sg.kv + (size_t)b * p.Ntot + span : nullptr,
+                      p.N, p.N, p.Bk, p.Bp, 1, p.his[hop], 1, p.los[hop], p.softclamp};
+    int key_begin = 0, key_end = 0;
+    if (w.rw < p.N) q8::key_range(sp, w.rw, &key_begin, &key_end);
+    q8::sweep<kClamp, kSeg>(sp, w, key_begin, key_end, rs, qid, o, m_r, l_r);
+    q8::wg_sync(w);  // the ring is free for the next hop's tiles
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    q8::sum_row(l_r[r]);
+    const int row = w.row_a + 8 * r;
+    if (row >= p.N) continue;
+    q8::store_out(p.out, p.lse, p.out_bf16, (size_t)bh * p.N + row, r, o, m_r[r], l_r[r]);
+  }
+}
+
 }  // namespace
 
 // C entry point, bound with ctypes.  Enqueues one launch on `stream` and
@@ -273,5 +368,62 @@ extern "C" int flash_ring(const void* q, const void* k_all, const void* v_all,
     else
       flash_ring_f32_kernel<64, false><<<grid, kBlockM, 0, s>>>(p, sg);
   }
+  return (int)cudaGetLastError();
+}
+
+// The int8 entry point (the JAX kv_quantized feed), bound with ctypes:
+// enqueues one launch of the int8 kernel on `stream` and returns
+// cudaGetLastError() (0 = launched).  Allocates nothing: q8 and qs are q
+// quantized per row, k8, ks, vt, vs the gathered span's feed at block Bk
+// (Bk divides N), the hop tables and out and lse as for flash_ring.
+// (q_seg, kv_seg), both set, runs the segmented kernel.
+extern "C" int flash_ring_q8(const void* q8s, const void* qs, const void* k8, const void* ks,
+                             const void* vt, const void* vs, const void* kv_mask,
+                             const void* origins, const void* his, const void* los,
+                             const void* works, int hops, void* out, void* lse, int B, int H,
+                             int Hk, int N, int Ntot, int D, int Bk, int out_bf16, float scale,
+                             float softclamp, const void* q_seg, const void* kv_seg,
+                             void* stream) {
+  if (D != q8::kD || Hk <= 0 || H % Hk != 0 || N <= 0 || Ntot % N != 0 || Bk <= 0 ||
+      N % Bk != 0 || hops <= 0 || origins == nullptr || his == nullptr || los == nullptr ||
+      works == nullptr || out == nullptr || lse == nullptr ||
+      (q_seg == nullptr) != (kv_seg == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Q8Params p;
+  p.q8 = static_cast<const int8_t*>(q8s);
+  p.qs = static_cast<const float*>(qs);
+  p.k8 = static_cast<const int8_t*>(k8);
+  p.ks = static_cast<const float*>(ks);
+  p.vt = static_cast<const int8_t*>(vt);
+  p.vs = static_cast<const float*>(vs);
+  p.kv_mask = static_cast<const uint8_t*>(kv_mask);
+  p.origins = static_cast<const int*>(origins);
+  p.his = static_cast<const int*>(his);
+  p.los = static_cast<const int*>(los);
+  p.works = static_cast<const int*>(works);
+  p.out = out;
+  p.lse = static_cast<float*>(lse);
+  p.B = B;
+  p.H = H;
+  p.Hk = Hk;
+  p.N = N;
+  p.Ntot = Ntot;
+  p.hops = hops;
+  p.Bk = Bk;
+  p.Bp = (Bk + q8::kTileN - 1) / q8::kTileN * q8::kTileN;
+  p.out_bf16 = out_bf16;
+  p.scale = scale;
+  p.softclamp = softclamp;
+  const Segs sg{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg)};
+  const bool clamp = softclamp > 0.f;
+  const auto kernel = q_seg != nullptr ? (clamp ? flash_ring_q8_kernel<true, true>
+                                                : flash_ring_q8_kernel<true, false>)
+                                       : (clamp ? flash_ring_q8_kernel<false, true>
+                                                : flash_ring_q8_kernel<false, false>);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, q8::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((N + q8::kRows - 1) / q8::kRows, B * H), q8::kThreads, q8::kSmem,
+           static_cast<cudaStream_t>(stream)>>>(p, sg);
   return (int)cudaGetLastError();
 }

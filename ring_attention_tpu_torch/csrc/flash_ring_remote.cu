@@ -2,7 +2,8 @@
 //
 // Replaces: ring_attention_tpu/ops/pallas_ring.py::fused_ring_remote (the
 // pl.pallas_call at :866; kernel body _fused_remote_kernel :523) for float
-// operands.  Its int8 wire (payload=) is not ported here.
+// operands, and its int8 wire (payload=, :789-815) in a kernel of its own
+// (flash_ring_remote_q8, at the end of this file).
 //
 // What it computes, for every rank r of a ring of W, from q_r (B, H, N, D)
 // and the rank's own k_r, v_r (B, Hk, N, D) alone: for hop = 0 .. hops - 1
@@ -98,10 +99,22 @@
 //   * copies: each block moves a contiguous 1/nc of a slot, 16 bytes a
 //     thread, four loads in flight;
 //   * every offset into slots, spills and outputs is 64-bit.
+//   * int8 (the JAX payload=): each rank's K/V arrive as the int8 sweep's
+//     operands with one v block of N keys (pack_kv(v_block=N) read as the
+//     feed), packed by the wrapper into one blob (k8, then the k scales,
+//     V^T and the v scale, each at a 16-byte offset: cuda_flash_q8.
+//     feed_blob); a slot holds one blob, seeded and pushed as the float
+//     slots are, with the same protocol steps.  Each item's hop runs B4's
+//     sweep (flash_sweep_q8.cuh) over the slot's blob, B4's block of 256
+//     threads and its dynamic shared memory, and the spill holds B4's
+//     partials (l summed over a row's 4 threads): the launch is the int8
+//     hop chain fed the same payload, bit for bit.  q arrives quantized per
+//     row, once per rank.
 // Not yet: TMA, peer-mapped slots across GPUs, a hop coupling other than
 // the grant (a third slot, pushes by blocks of their own).
 
 #include "flash_sweep.cuh"
+#include "flash_sweep_q8.cuh"
 
 namespace {
 
@@ -129,6 +142,12 @@ struct Params {
   int W, B, H, Hk, N, hops;
   float scale;
   float softclamp;  // 0 = off
+  // The int8 kernel only: q holds q8, qs its row scales, k each rank's feed
+  // blob; a slot is one blob of slot_bytes, the k scales, V^T and the v
+  // scale at these offsets in it (k8 at 0); out in bf16 or f32.
+  const float* qs[kMaxRanks];
+  size_t slot_bytes, off_ks, off_vt, off_vs;
+  int out_bf16;
 };
 
 // This block's place in the ring.
@@ -573,6 +592,131 @@ __global__ void __launch_bounds__(kBlockM)
   ring_walk<float, D, kClamp>(p);
 }
 
+// ---------------------------------------------------------------------------
+// The int8 wire: slots of one feed blob, B4's sweep per hop
+// ---------------------------------------------------------------------------
+
+// Slot `s` of rank `r`: one blob.
+__device__ __forceinline__ int8_t* slot_q8(const Params& p, int r, int s) {
+  return static_cast<int8_t*>(p.slots) + ((size_t)r * 2 + s) * p.slot_bytes;
+}
+
+// Hop 0: this block's share of the rank's own blob into slot 0, then its
+// landed signal for hop 0.
+__device__ __noinline__ void seed_slot_q8(const Params& p, const Rank& rk) {
+  copy_share(slot_q8(p, rk.r, 0), p.k[rk.r], p.slot_bytes, rk.c, rk.nc);
+  signal_flag(&p.landed[rk.r * p.hops]);
+}
+
+// This block's share of slot hop % 2 into the right neighbour's slot
+// (hop + 1) % 2, then its landed signal there.
+__device__ __noinline__ void push_slot_q8(const Params& p, const Rank& rk, int hop) {
+  const int right = (rk.r + 1) % p.W;
+  copy_share(slot_q8(p, right, (hop + 1) & 1), slot_q8(p, rk.r, hop & 1), p.slot_bytes, rk.c,
+             rk.nc);
+  signal_flag(&p.landed[right * p.hops + hop + 1]);
+}
+
+// One query item of one hop, int8, for this thread's warpgroup (its 64 rows
+// of the item): the carry from the spill in B4's partials format (the empty
+// state on the rank's first hop with work), the hop's keys of the slot's
+// blob folded in by B4's sweep, then the carry back, or out and lse on the
+// rank's last hop with work.
+template <bool kClamp>
+__device__ __forceinline__ void fold_item_q8(const Params& p, const volatile WalkState& ws,
+                                             int hop, int item) {
+  extern __shared__ unsigned char remote_q8_smem[];  // q8::kSmem bytes
+  const uint32_t smem0 = (uint32_t)__cvta_generic_to_shared(remote_q8_smem);
+  const uint32_t base = (smem0 + 1023u) & ~1023u;
+  int bh, r0;
+  item_coords(p, item, &bh, &r0);  // 128-row items: q8::kRows == kFwdRows
+  const q8::Wg w = q8::wg_of(base, remote_q8_smem + (base - smem0), r0);
+  const int r = ws.r;
+  const size_t spill = ((size_t)r * p.B * p.H + bh) * p.N;
+  float o[8][4], m_r[2], l_r[2], rs[2];
+  const int no_ids[2] = {0, 0};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = w.row_a + 8 * h;
+    q8::load_row(p.acc, p.m, p.l, spill + row, hop != ws.first && row < p.N, h, o, m_r, l_r);
+    rs[h] = row < p.N ? p.qs[r][(size_t)bh * p.N + row] * p.scale : 0.f;
+  }
+  q8::load_q(w, static_cast<const int8_t*>(p.q[r]) + (size_t)bh * p.N * q8::kD, p.N);
+  {
+    const int kh = (bh % p.H) / (p.H / p.Hk);
+    const size_t kv_head = (size_t)(bh / p.H) * p.Hk + kh;
+    const int8_t* slot = slot_q8(p, r, hop & 1);
+    const int bp = (p.N + q8::kTileN - 1) / q8::kTileN * q8::kTileN;
+    const int at = r * p.hops + hop;
+    const q8::Span sp{slot + kv_head * p.N * q8::kD,
+                      slot + p.off_vt + kv_head * q8::kD * bp,
+                      reinterpret_cast<const float*>(slot + p.off_ks) + kv_head * p.N,
+                      reinterpret_cast<const float*>(slot + p.off_vs) + kv_head,
+                      nullptr, nullptr, p.N, p.N, p.N, bp, 1, p.his[at], 1, p.los[at],
+                      kClamp ? p.softclamp : 0.f};
+    int key_begin = 0, key_end = 0;
+    if (w.rw < p.N) q8::key_range(sp, w.rw, &key_begin, &key_end);
+    q8::sweep<kClamp, false>(sp, w, key_begin, key_end, rs, no_ids, o, m_r, l_r);
+  }
+  q8::wg_sync(w);  // the ring and the Q tile are free for the next item
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    q8::sum_row(l_r[h]);
+    const int row = w.row_a + 8 * h;
+    if (row >= p.N) continue;
+    if (hop != ws.last)
+      q8::store_row(p.acc, p.m, p.l, spill + row, h, o, m_r[h], l_r[h]);
+    else
+      q8::store_out(p.out[r], p.lse[r], p.out_bf16, (size_t)bh * p.N + row, h, o, m_r[h],
+                    l_r[h]);
+  }
+}
+
+// The int8 kernel: ring_walk's protocol over blob slots, B4's block (256
+// threads, one block an SM with B4's dynamic shared memory).
+template <bool kClamp>
+__global__ void __launch_bounds__(q8::kThreads, 1)
+    flash_ring_remote_q8_kernel(const __grid_constant__ Params p) {
+  __shared__ WalkState state;
+  volatile WalkState& ws = state;
+  if (threadIdx.x == 0) {
+    const Rank rk = rank_of(p);
+    int first, last;
+    work_span(p, rk, &first, &last);
+    ws.r = rk.r;
+    ws.c = rk.c;
+    ws.nc = rk.nc;
+    ws.senders = rk.senders;
+    ws.first = first;
+    ws.last = last;
+  }
+  __syncthreads();
+  const int items = p.B * p.H * ((p.N + q8::kRows - 1) / q8::kRows);
+
+  seed_slot_q8(p, rank_of(ws));
+  wait_landed(p, rank_of(ws), 0);
+  for (int hop = 0; hop < p.hops; ++hop) {
+    if (hop < p.hops - 1) {
+      if (hop > 0) wait_grant(p, rank_of(ws), hop);
+      push_slot_q8(p, rank_of(ws), hop);
+    }
+    if (p.works[ws.r * p.hops + hop]) {
+      for (int j = 0, item; (item = snake_tile(j, ws.c, ws.nc)) < items; ++j)
+        fold_item_q8<kClamp>(p, ws, hop, item);
+    }
+    if (hop < p.hops - 1) wait_landed(p, rank_of(ws), hop + 1);
+    send_grant(p, rank_of(ws), hop);
+  }
+}
+
+// The int8 kernel of a launch (with or without a soft clamp), allowed its
+// dynamic shared memory.
+cudaError_t kernel_q8_of(int clamp, const void** kernel) {
+  *kernel = clamp ? (const void*)flash_ring_remote_q8_kernel<true>
+                  : (const void*)flash_ring_remote_q8_kernel<false>;
+  return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, q8::kSmem);
+}
+
 // The kernel of a launch, its block size and its dynamic shared memory,
 // which the kernel is allowed (cudaFuncSetAttribute) before it returns.
 cudaError_t kernel_of(int is_bf16, int clamp, const void** kernel, int* threads, int* smem) {
@@ -673,6 +817,98 @@ extern "C" int flash_ring_remote(const void* const* q, const void* const* k,
   if (set != cudaSuccess) return (int)set;
   const cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(p.cta_start[W]), dim3(threads),
                                                     args, smem, static_cast<cudaStream_t>(stream));
+  const cudaError_t last = cudaGetLastError();
+  return (int)(e != cudaSuccess ? e : last);
+}
+
+// Blocks of the int8 cooperative launch (with or without a soft clamp)
+// that fit on the current device at once (0 when it cannot launch
+// cooperatively); returns a cudaError_t.
+extern "C" int flash_ring_remote_q8_capacity(int clamp, int* blocks) {
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  const void* kernel = nullptr;
+  cudaError_t e = kernel_q8_of(clamp, &kernel);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, q8::kThreads, q8::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  *blocks = coop ? per_sm * sms : 0;
+  return 0;
+}
+
+// The int8 entry point (the JAX payload=), bound with ctypes.  As
+// flash_ring_remote, with per-rank q8 and its row scales qs, and per rank
+// one feed blob of slot_bytes (k8 (B, Hk, N, D) at 0, the k scales (B, Hk,
+// N) f32 at off_ks, V^T (B, Hk, 1, D, Bp) at off_vt, the v scales (B, Hk,
+// 1) f32 at off_vs; one v block of N keys); slots is (W, 2, slot_bytes).
+extern "C" int flash_ring_remote_q8(const void* const* q8s, const void* const* qs,
+                                    const void* const* blobs, void* const* out,
+                                    void* const* lse, void* slots, void* acc, void* m, void* l,
+                                    const void* his, const void* los, const void* works,
+                                    void* flags, const int* cta_split, int W, int hops, int B,
+                                    int H, int Hk, int N, int D, long long slot_bytes,
+                                    long long off_ks, long long off_vt, long long off_vs,
+                                    int out_bf16, float scale, float softclamp, void* stream) {
+  if (D != q8::kD || W < 1 || W > kMaxRanks || hops < 1 || hops > W || B <= 0 || Hk <= 0 ||
+      H % Hk != 0 || N <= 0 || q8s == nullptr || qs == nullptr || blobs == nullptr ||
+      out == nullptr || lse == nullptr || slots == nullptr || acc == nullptr || m == nullptr ||
+      l == nullptr || his == nullptr || los == nullptr || works == nullptr ||
+      flags == nullptr || cta_split == nullptr || slot_bytes <= 0 || slot_bytes % 16 != 0 ||
+      off_ks % 16 != 0 || off_vt % 16 != 0 || off_vs % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  p.cta_start[0] = 0;
+  for (int r = 0; r < W; ++r) {
+    if (cta_split[r] < 1 || q8s[r] == nullptr || qs[r] == nullptr || blobs[r] == nullptr ||
+        out[r] == nullptr || lse[r] == nullptr)
+      return (int)cudaErrorInvalidValue;
+    p.q[r] = q8s[r];
+    p.qs[r] = static_cast<const float*>(qs[r]);
+    p.k[r] = blobs[r];
+    p.v[r] = nullptr;
+    p.out[r] = out[r];
+    p.lse[r] = static_cast<float*>(lse[r]);
+    p.cta_start[r + 1] = p.cta_start[r] + cta_split[r];
+  }
+  const int clamp = softclamp > 0.f;
+  int capacity = 0;
+  const int rc = flash_ring_remote_q8_capacity(clamp, &capacity);
+  if (rc != 0) return rc;
+  if (p.cta_start[W] > capacity) return (int)cudaErrorCooperativeLaunchTooLarge;
+  unsigned* f = static_cast<unsigned*>(flags);
+  p.slots = slots;
+  p.acc = static_cast<float*>(acc);
+  p.m = static_cast<float*>(m);
+  p.l = static_cast<float*>(l);
+  p.his = static_cast<const int*>(his);
+  p.los = static_cast<const int*>(los);
+  p.works = static_cast<const int*>(works);
+  p.landed = f;
+  p.grant = f + W * hops;
+  p.done = f + 2 * W * hops;
+  p.W = W;
+  p.B = B;
+  p.H = H;
+  p.Hk = Hk;
+  p.N = N;
+  p.part = 0;
+  p.hops = hops;
+  p.scale = scale;
+  p.softclamp = softclamp;
+  p.slot_bytes = (size_t)slot_bytes;
+  p.off_ks = (size_t)off_ks;
+  p.off_vt = (size_t)off_vt;
+  p.off_vs = (size_t)off_vs;
+  p.out_bf16 = out_bf16;
+  void* args[] = {&p};
+  const void* kernel = nullptr;
+  const cudaError_t set = kernel_q8_of(clamp, &kernel);
+  if (set != cudaSuccess) return (int)set;
+  const cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(p.cta_start[W]),
+                                                    dim3(q8::kThreads), args, q8::kSmem,
+                                                    static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();
   return (int)(e != cudaSuccess ? e : last);
 }

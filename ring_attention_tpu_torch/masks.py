@@ -680,7 +680,7 @@ def _pass_tiles(form: KernelForm, n: int, pass_: str, bf16: bool):
 
 
 def certify(mask: Mask, n: int, *, use_cache: bool = True) -> Certificate:
-    """Prove the tiles that B1, B2 and B3 visit for ``mask`` on one ``(n,
+    """Prove the tiles that B1, B2, B3 and B4 visit for ``mask`` on one ``(n,
     n)`` self-attention sweep sound, tight and complete.
 
     For each pass and block geometry (``ops/cuda_flash.py::DOC_BLOCKS``)
@@ -700,7 +700,8 @@ def certify(mask: Mask, n: int, *, use_cache: bool = True) -> Certificate:
     live = np.asarray(mask.oracle(np.arange(pn), np.arange(pn)), bool)
     violations: list[str] = []
     tiles = []
-    for pass_, bf16 in ((p, b) for p in ("fwd", "dq", "dkv") for b in (True, False)):
+    for pass_, bf16 in ((p, b) for p in ("fwd", "dq", "dkv", "fwd_q8")
+                       for b in (True, False)):
         name = f"{pass_} {'bf16' if bf16 else 'f32'}"
         table, block, tile, outer_is_q, docs, count = _pass_tiles(form, pn, pass_, bf16)
         # the live pairs of each (block, tile), the queries' side first

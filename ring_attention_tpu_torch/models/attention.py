@@ -28,9 +28,13 @@ decode cache as int8 values with one f32 scale per ``(head, token)`` row
 oracle on ``"torch"``), and ``compute_dtype="int8"`` runs the forward's QK^T
 and PV on int8 operands (the int8 CUDA sweep, local and on the ring; the
 backward stays on the float kernels).  ``compute_dtype="int8"`` needs
-``impl="cuda"`` or ``"fused"``, as the JAX one needs the Pallas kernels;
-under ``"fused"`` it runs locally only (the fused ring's int8 feed is not
-ported yet, and a mesh of more than one rank raises).
+``impl="cuda"`` or ``"fused"``, as the JAX one needs the Pallas kernels.
+``ring_hop_compression="int8"`` quantizes each rank's K/V once at ring
+entry and circulates the int8 bytes (``parallel/ring.py``); with
+``compute_dtype="int8"`` every hop's int8 sweep reads them with no
+dequantize/requantize round trip (the dequant-free ring), and under
+``"fused"`` the whole ring is one launch of the int8 remote tier where
+there is no key mask and no ids.
 
 On a mesh whose sequence world is above one the forward runs
 ``parallel/ring.py::ring_flash_attention`` with each rank's rotary
@@ -47,8 +51,9 @@ declares a packing, which the local path keeps for the kernels' doc-tile
 tables (``doc_starts``; certified first, ``masks.require_certified``) and
 every ring realizes as runtime ids in the ring's layout (without a
 certificate: the ring strategies' certificates are not ported), and
-``... & Segments()`` asks for ``segment_ids``.  The int8 sweep takes no ids
-nor packing yet and raises.  The ring runs
+``... & Segments()`` asks for ``segment_ids``; under ``compute_dtype="int8"``
+the int8 sweep takes both (its segmented and doc-table instantiations).
+The ring runs
 on a mesh whose ring this process holds whole (a ``VirtualRing``: one
 GPU, or the CPU).  Locally ``prefill`` attends with ``ops/flash.py``
 under every ``impl``, as the JAX package's does; on a mesh it runs the
@@ -74,7 +79,6 @@ from ..ops.attention import (
     doc_runtime_ids,
 )
 from ..ops.cuda_flash import (
-    UNPORTED_INT8_SEGMENTS,
     cuda_flash_attention,
     cuda_flash_decode,
     int8_compute,
@@ -89,7 +93,7 @@ from ..ops.flash import flash_attention
 from ..ops.rotary import apply_rotary, ring_positions, rotary_freqs
 from ..parallel.mesh import seq_world
 from ..parallel.ring import (
-    UNPORTED_FUSED_INT8,
+    HOP_COMPRESSIONS,
     _fit_bucket,
     _fit_divisor,
     ring_flash_attention,
@@ -114,7 +118,6 @@ UNPORTED = {
     "remat": "the memory knobs, ROADMAP.md Port queue item 7",
     "ring_bidirectional": "the ring variants, ROADMAP.md Port queue item 7",
     "ring_counter_rotate": "the ring variants, ROADMAP.md Port queue item 7",
-    "ring_hop_compression": "the ring variants, ROADMAP.md Port queue item 7",
     "ring_dkv_dtype": "the ring variants, ROADMAP.md Port queue item 7",
     "multiprocess": "the model over a multi-process mesh, ROADMAP.md Port queue item 6",
 }
@@ -162,17 +165,6 @@ def mask_form(fn: str, mask, causal: bool, lookback) -> mask_algebra.KernelForm 
     return mask_algebra.kernel_form(mask)
 
 
-def check_packed_int8(fn: str, form, compute_dtype) -> None:
-    """A mask that packs documents (a ``DocumentMask`` or ``Segments()``)
-    cannot run the int8 sweep yet, which takes no ids nor tables."""
-    if form is not None and compute_dtype == "int8" and (
-            form.doc_starts is not None or form.needs_segment_ids):
-        raise NotImplementedError(
-            f'{fn}: mask= with a document packing and compute_dtype="int8" is not '
-            f"ported yet; it arrives with {UNPORTED_INT8_SEGMENTS}"
-        )
-
-
 def check_compute_dtype(fn: str, compute_dtype, impl: str) -> None:
     """The int8-compute knob, validated as the JAX layer's
     ``_compute_dtype`` does: ``None`` or ``"int8"``, and ``"int8"`` only on
@@ -185,14 +177,12 @@ def check_compute_dtype(fn: str, compute_dtype, impl: str) -> None:
         )
 
 
-def check_fused_int8(fn: str, compute_dtype, impl: str, mesh) -> None:
-    """The fused ring takes no int8 feed yet: ``compute_dtype="int8"`` under
-    ``impl="fused"`` runs the local paths only, and a mesh of more than one
-    rank raises at construction."""
-    if impl == "fused" and compute_dtype == "int8" and seq_world(mesh) > 1:
-        raise NotImplementedError(
-            f'{fn}: compute_dtype="int8" on the fused ring (impl="fused" on a '
-            f"mesh) is not ported yet; it arrives with {UNPORTED_FUSED_INT8}"
+def check_hop_compression(fn: str, hop_compression) -> None:
+    """The ring's wire knob: None or ``"int8"``, as the JAX ring takes it."""
+    if hop_compression not in HOP_COMPRESSIONS:
+        raise ValueError(
+            f"{fn}: ring_hop_compression={hop_compression!r}; supported values "
+            'are None (model-dtype hops) and "int8" (per-token absmax quantized hops)'
         )
 
 
@@ -285,18 +275,16 @@ class RingAttention(nn.Module):
         reject_unported("RingAttention",
                         ring_bidirectional=ring_bidirectional,
                         ring_counter_rotate=ring_counter_rotate,
-                        ring_hop_compression=ring_hop_compression,
                         ring_dkv_dtype=ring_dkv_dtype)
+        check_hop_compression("RingAttention", ring_hop_compression)
         form = mask_form("RingAttention", mask, causal, max_lookback_seq_len)
         if form is not None:
             causal, max_lookback_seq_len = form.causal, form.window
-        check_packed_int8("RingAttention", form, compute_dtype)
         check_impl("RingAttention", impl)
         check_mesh("RingAttention", mesh, sequence_parallel)
         check_compute_dtype("RingAttention", compute_dtype, impl)
         check_zigzag("RingAttention", sequence_parallel, causal,
                      (max_lookback_seq_len,), compute_dtype, mesh)
-        check_fused_int8("RingAttention", compute_dtype, impl, mesh)
         kv_heads = kv_heads or heads
         if heads % kv_heads:
             raise ValueError(
@@ -319,6 +307,7 @@ class RingAttention(nn.Module):
         self.auto_shard = auto_shard
         self.quantize_cache = quantize_cache
         self.compute_dtype = compute_dtype
+        self.ring_hop_compression = ring_hop_compression
         self.mask = mask
         self.doc_starts = None if form is None else form.doc_starts
         self.needs_segment_ids = form is not None and form.needs_segment_ids
@@ -444,6 +433,7 @@ class RingAttention(nn.Module):
             q, k, v, mask, ring, self.causal, self.striped, bucket,
             max_ring_passes, window, self.softclamp_value, None, self.impl,
             segment_ids=segment_ids, compute_dtype=self.compute_dtype,
+            hop_compression=self.ring_hop_compression,
         )
 
     def _zigzag_attend(self, q, k, v, mask, segment_ids=None):
@@ -692,7 +682,7 @@ class RingAttention(nn.Module):
         is right-padded to the ring, which causal masking hides (the pad
         sits after every real query), and the pad rows are sliced off.
         Runs ``impl`` as it stands (``"fused"`` takes the fused ring) and
-        never int8 compute."""
+        ``ring_hop_compression``, as JAX does, and never int8 compute."""
         world = seq_world(self.mesh)
         n = q.shape[2]
         pad = (-n) % world
@@ -707,5 +697,6 @@ class RingAttention(nn.Module):
         out = ring_flash_attention(
             q, k, v, None, self.mesh.ring, True, False, bucket, max_ring_passes,
             window, self.softclamp_value, None, self.impl,
+            hop_compression=self.ring_hop_compression,
         )
         return out[:, :, :n]

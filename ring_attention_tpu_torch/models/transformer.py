@@ -6,8 +6,8 @@ and logits, the dense cross-entropy loss with label shift and
 ``ignore_index`` (differentiable into the float32 parameters; train with
 ``utils/train.py::make_train_step``), and incremental decoding
 (``init_cache`` / ``prefill`` / ``decode_step`` / ``generate``), with the
-int8 serving knobs ``quantize_cache`` and ``compute_dtype="int8"`` of
-``models/attention.py``.  On a
+int8 knobs ``quantize_cache``, ``compute_dtype="int8"`` and the ring's
+int8 wire ``ring_hop_compression="int8"`` of ``models/attention.py``.  On a
 ``mesh`` the model shards once at its top (pad, stripe when ``striped``)
 and every layer runs the ring on that layout, hop by hop under
 ``impl="cuda"`` or fused under ``"fused"`` (one launch for the whole
@@ -38,7 +38,7 @@ from ..parallel.sharding import layout_for, layout_permute, layout_unpermute, pa
 from .attention import (
     RingAttention,
     check_compute_dtype,
-    check_fused_int8,
+    check_hop_compression,
     check_impl,
     check_mesh,
     check_zigzag,
@@ -136,9 +136,9 @@ class RingTransformer(nn.Module):
             loss_chunk_size=loss_chunk_size, remat=remat,
             ring_bidirectional=ring_bidirectional,
             ring_counter_rotate=ring_counter_rotate,
-            ring_hop_compression=ring_hop_compression,
             ring_dkv_dtype=ring_dkv_dtype,
         )
+        check_hop_compression("RingTransformer", ring_hop_compression)
         check_impl("RingTransformer", impl)
         check_mesh("RingTransformer", mesh, sequence_parallel)
         check_compute_dtype("RingTransformer", compute_dtype, impl)
@@ -162,7 +162,6 @@ class RingTransformer(nn.Module):
                      all(causal if f is None else f.causal for f in forms),
                      tuple(lb if f is None else f.window for f, lb in zip(forms, lookbacks)),
                      compute_dtype, mesh)
-        check_fused_int8("RingTransformer", compute_dtype, impl, mesh)
         device = resolve_device(device)
         self.kv_heads = kv_heads or heads
         self.dim_head = dim_head
@@ -182,7 +181,7 @@ class RingTransformer(nn.Module):
                 striped=self.striped, sequence_parallel=sequence_parallel,
                 auto_shard=False,  # sharded once at the top
                 mask=layer_mask, quantize_cache=quantize_cache,
-                compute_dtype=compute_dtype,
+                compute_dtype=compute_dtype, ring_hop_compression=ring_hop_compression,
             )
             for lookback, layer_mask in zip(lookbacks, masks)
         )

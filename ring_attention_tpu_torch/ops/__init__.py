@@ -29,6 +29,7 @@ from .cuda_flash import (
     flash_partials_reference,
 )
 from .cuda_flash_q8 import (
+    Int8KV,
     QuantizedKV,
     dequantize_kv_cache,
     flash_decode_q8,
@@ -37,8 +38,10 @@ from .cuda_flash_q8 import (
     flash_fwd_q8_reference,
     flash_partials_q8,
     flash_partials_q8_reference,
+    kernel_kv,
     q8_block,
     quantize_kv_cache,
+    quantize_kv_feed,
 )
 from .cuda_ring import fused_ring_local, fused_ring_local_plain
 from .cuda_ring_remote import fused_ring_remote, fused_ring_remote_plain
@@ -53,11 +56,16 @@ from .flash import (
 from .partials import FlashPartials, finalize_partials, init_partials, merge_partials
 from .quant import (
     INT8_MAX,
+    QuantizedBlockKV,
     dequantize_blocks,
     dequantize_rows,
+    pack_kv,
+    payload_kernel_feed,
     quantize_blocks,
+    quantize_kv_blocks,
     quantize_p,
     quantize_rows,
+    unpack_kv,
 )
 from .rotary import apply_rotary, ring_positions, rotary_freqs, rotate_half
 from .. import masks as _masks
@@ -166,6 +174,8 @@ __all__ = [
     "PAD_SEGMENT_ID",
     "FlashCarry",
     "FlashPartials",
+    "Int8KV",
+    "QuantizedBlockKV",
     "QuantizedKV",
     "SegmentIds",
     "apply_rotary",
@@ -200,11 +210,16 @@ __all__ = [
     "fused_ring_remote_plain",
     "init_carry",
     "init_partials",
+    "kernel_kv",
     "merge_partials",
     "normalize_segment_ids",
+    "pack_kv",
+    "payload_kernel_feed",
     "q8_block",
     "quantize_blocks",
+    "quantize_kv_blocks",
     "quantize_kv_cache",
+    "quantize_kv_feed",
     "quantize_p",
     "quantize_rows",
     "ring_positions",
@@ -212,4 +227,5 @@ __all__ = [
     "rotate_half",
     "segments_overlap",
     "softclamp",
+    "unpack_kv",
 ]

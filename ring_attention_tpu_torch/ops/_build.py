@@ -146,7 +146,8 @@ def flash_fwd_q8_library() -> ctypes.CDLL:
         i32, i32, i32, i32, i32, i32, i32,  # B, H, Hk, Nq, Nk, D, Bk
         i32, f32,  # out_bf16, scale
         i32, i32, i32, i32,  # causal, hi, windowed, lo
-        f32, ptr,  # softclamp, stream
+        f32, ptr, ptr,  # softclamp, q_seg, kv_seg (both null: none)
+        ptr, ptr,  # doc_tiles (null: none), stream
     ]
     lib.flash_fwd_q8.restype = i32
     lib.flash_q8_probe.argtypes = [ptr, ptr, ptr, ptr, ptr]  # a, b, c_ss, c_rs, stream
@@ -189,6 +190,25 @@ def flash_ring_library() -> ctypes.CDLL:
 
 
 @functools.cache
+def flash_ring_q8_library() -> ctypes.CDLL:
+    """The built ``flash_ring`` library with its int8 C signature declared
+    (a loader of its own: an older build of the source has no int8 entry)."""
+    lib = ctypes.CDLL(str(build("flash_ring").path))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_ring_q8.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,  # q8, q scales, k8, k scales, V^T per block, v scales
+        ptr,  # kv_mask
+        ptr, ptr, ptr, ptr, i32,  # origins, his, los, works (int32), hops
+        ptr, ptr,  # out, lse
+        i32, i32, i32, i32, i32, i32, i32,  # B, H, Hk, N, Ntot, D, Bk
+        i32, f32, f32,  # out_bf16, scale, softclamp
+        ptr, ptr, ptr,  # q_seg, kv_seg (both null: none), stream
+    ]
+    lib.flash_ring_q8.restype = i32
+    return lib
+
+
+@functools.cache
 def flash_ring_remote_library() -> ctypes.CDLL:
     """The built ``flash_ring_remote`` library with its C signatures
     declared."""
@@ -206,4 +226,27 @@ def flash_ring_remote_library() -> ctypes.CDLL:
     lib.flash_ring_remote.restype = i32
     lib.flash_ring_remote_capacity.argtypes = [i32, i32, ctypes.POINTER(i32)]  # bf16, clamp
     lib.flash_ring_remote_capacity.restype = i32
+    return lib
+
+
+@functools.cache
+def flash_ring_remote_q8_library() -> ctypes.CDLL:
+    """The built ``flash_ring_remote`` library with its int8 C signatures
+    declared (a loader of its own: an older build has no int8 entries)."""
+    lib = ctypes.CDLL(str(build("flash_ring_remote").path))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ptrs = ctypes.POINTER(ctypes.c_void_p)
+    size = ctypes.c_longlong
+    lib.flash_ring_remote_q8.argtypes = [
+        ptrs, ptrs, ptrs, ptrs, ptrs,  # per-rank q8, q scales, feed blobs, out, lse
+        ptr, ptr, ptr, ptr,  # slots (W, 2, blob bytes), spill acc, m, l
+        ptr, ptr, ptr, ptr,  # his, los, works (W, hops) int32; flags
+        ctypes.POINTER(i32), i32, i32,  # cta_split, W, hops
+        i32, i32, i32, i32, i32,  # B, H, Hk, N, D
+        size, size, size, size,  # blob bytes; offsets of k scales, V^T, v scales
+        i32, f32, f32, ptr,  # out_bf16, scale, softclamp, stream
+    ]
+    lib.flash_ring_remote_q8.restype = i32
+    lib.flash_ring_remote_q8_capacity.argtypes = [i32, ctypes.POINTER(i32)]  # clamp
+    lib.flash_ring_remote_q8_capacity.restype = i32
     return lib

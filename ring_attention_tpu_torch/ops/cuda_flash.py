@@ -28,8 +28,8 @@ two passes of ``pallas_flash_backward`` (dk/dv and dq):
   ``(b, nq)`` and ``(b, nk)`` document ids; a pair attends only within one
   document.  They select the kernels' segmented instantiation, which
   visits the same tiles as the unsegmented one (no tile is skipped on
-  ids, as the TPU kernel skips none on runtime ids).  The int8 sweep takes
-  no ids yet.
+  ids, as the TPU kernel skips none on runtime ids); so does the int8
+  sweep's.
 - ``doc_starts`` (a declared packing, ``pallas_flash_attention(doc_starts=)``
   and the per-pass tables of ``pallas_flash_backward``, :1966-2009): the
   sorted start offsets of the documents, one layout for queries and keys.
@@ -102,10 +102,6 @@ seg_dq_launch_count = 0  # flash_bwd_dq
 doc_launch_count = 0  # flash_fwd, every mode
 doc_dkv_launch_count = 0  # flash_bwd_dkv
 doc_dq_launch_count = 0  # flash_bwd_dq
-
-# B4's segment ids (ROADMAP.md Queue 2 K3c).
-UNPORTED_INT8_SEGMENTS = ("segment ids in the int8 sweep (ROADMAP.md Queue 2 K3c), "
-                          "ROADMAP.md Port queue item 7b")
 
 
 def _keep(nq, nk, kv_mask, causal_offset, window_lo, device, q_seg=None,
@@ -317,15 +313,6 @@ def _seg_ptrs(band) -> tuple:
                  for key in ("q_seg", "kv_seg", "doc_tiles"))
 
 
-def check_int8_segments(fn: str, q_seg) -> None:
-    """The int8 sweep takes no document ids yet."""
-    if q_seg is not None:
-        raise NotImplementedError(
-            f'{fn}: segment ids with compute_dtype="int8" are not ported yet; '
-            f"they arrive with {UNPORTED_INT8_SEGMENTS}"
-        )
-
-
 def int8_compute(compute_dtype, fn: str = "flash_fwd") -> bool:
     """Whether ``compute_dtype`` asks for the int8 sweep; raises
     ``ValueError`` naming ``fn`` for a value other than None and ``"int8"``,
@@ -355,6 +342,11 @@ DOC_BLOCKS = {
     ("dq", False): (64, 16, True),  # B3 f32: 64 rows, steps of 16 keys
     ("dkv", True): (128, 64, False),  # B2: a block of 128 keys, 64-row tiles
     ("dkv", False): (64, 16, False),  # B2 f32: 64 keys, steps of 16 rows
+    # B4 (either output dtype): a warpgroup's 64 rows, 64-key tiles from each
+    # quantization block's start (a block of whole tiles keeps them on the
+    # table's grid: cuda_flash_q8.q8_packing)
+    ("fwd_q8", True): (64, 64, True),
+    ("fwd_q8", False): (64, 64, True),
 }
 
 
@@ -553,6 +545,7 @@ def flash_fwd(
     q_seg: torch.Tensor | None = None,
     kv_seg: torch.Tensor | None = None,
     doc_starts: tuple[int, ...] | None = None,
+    kv_quantized=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One forward flash sweep: ``(out in q.dtype, lse f32)``, resuming
     ``carry`` when given (a ring's last hop) and leaving it unchanged.
@@ -564,14 +557,16 @@ def flash_fwd(
     documents where the layout aligns, :func:`declared_packing`).
     ``compute_dtype="int8"`` runs the int8 sweep instead
     (``cuda_flash_q8.flash_fwd_q8``, quantized per block of ``block_k``
-    keys); the float sweep does not depend on ``block_k``."""
+    keys, or fed ``kv_quantized``, K/V quantized once before); the float
+    sweep does not depend on ``block_k``."""
     band = dict(scale=scale, causal_offset=causal_offset, window_lo=window_lo,
                 softclamp_value=softclamp_value)
     if int8_compute(compute_dtype):
-        check_int8_segments("flash_fwd", q_seg if doc_starts is None else doc_starts)
         from .cuda_flash_q8 import flash_fwd_q8
 
-        return flash_fwd_q8(q, k, v, kv_mask, carry=carry, block_k=block_k, **band)
+        return flash_fwd_q8(q, k, v, kv_mask, carry=carry, block_k=block_k,
+                            kv_quantized=kv_quantized, q_seg=q_seg, kv_seg=kv_seg,
+                            doc_starts=doc_starts, **band)
     q_seg, kv_seg, tiles = declared_packing("flash_fwd", "fwd", doc_starts, q, k, q_seg,
                                             kv_seg, causal_offset, window_lo)
     band.update(q_seg=q_seg, kv_seg=kv_seg)
@@ -597,6 +592,7 @@ def flash_partials(
     q_seg: torch.Tensor | None = None,
     kv_seg: torch.Tensor | None = None,
     doc_starts: tuple[int, ...] | None = None,
+    kv_quantized=None,
 ) -> FlashPartials:
     """One forward flash sweep returning f32 partials ``(acc, m, l)``,
     seeded from no carry or resuming ``carry`` (a ring's first and middle
@@ -606,16 +602,16 @@ def flash_partials(
 
     Same arguments and result as :func:`flash_partials_reference`.  CPU
     tensors take that plain version (copied into ``out``); CUDA tensors
-    launch the kernel.  ``compute_dtype``, ``block_k``, the ids and
-    ``doc_starts`` as in :func:`flash_fwd`."""
+    launch the kernel.  ``compute_dtype``, ``block_k``, the ids,
+    ``doc_starts`` and ``kv_quantized`` as in :func:`flash_fwd`."""
     band = dict(scale=scale, causal_offset=causal_offset, window_lo=window_lo,
                 softclamp_value=softclamp_value)
     if int8_compute(compute_dtype):
-        check_int8_segments("flash_partials", q_seg if doc_starts is None else doc_starts)
         from .cuda_flash_q8 import flash_partials_q8
 
-        return flash_partials_q8(q, k, v, kv_mask, carry=carry, out=out,
-                                 block_k=block_k, **band)
+        return flash_partials_q8(q, k, v, kv_mask, carry=carry, out=out, block_k=block_k,
+                                 kv_quantized=kv_quantized, q_seg=q_seg, kv_seg=kv_seg,
+                                 doc_starts=doc_starts, **band)
     q_seg, kv_seg, tiles = declared_packing("flash_partials", "fwd", doc_starts, q, k,
                                             q_seg, kv_seg, causal_offset, window_lo)
     band.update(q_seg=q_seg, kv_seg=kv_seg)
@@ -833,8 +829,7 @@ def cuda_flash_attention(
     on the float kernels."""
     check_attention_args("cuda_flash_attention", q, k, v, mask)
     q_seg, kv_seg = normalize_segment_ids(segment_ids, q, k, "cuda_flash_attention")
-    if int8_compute(compute_dtype, "cuda_flash_attention"):
-        check_int8_segments("cuda_flash_attention", q_seg if doc_starts is None else doc_starts)
+    int8_compute(compute_dtype, "cuda_flash_attention")
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if window is not None and not causal:

@@ -31,6 +31,31 @@ not count.  The int8 forward has no backward kernel of its own: as in the
 JAX package, the gradient runs the bf16/f32 dk/dv and dq kernels from the
 exact ``(q, k, v)`` and the int8 forward's ``(out, lse)``
 (``cuda_flash.py::_CudaFlashAttention``).
+
+Three inputs of the JAX launch ride the same sweep:
+
+- ``kv_quantized=`` (the JAX ``kv_quantized=QuantizedBlockKV``, :874,
+  :910-912): K/V already quantized, at the launch's fitted block, so that
+  only q is quantized per launch.  The kernel reads it in its own operand
+  form, :class:`Int8KV` (k per row, V^T per block), which a ring lays out
+  once per stream at ring entry (:func:`kernel_kv`; :func:`feed_blob` packs
+  it into one int8 tensor that a hop moves whole, :func:`blob_kv` views it
+  again).  Its block must equal the launch's :func:`q8_block`, or the call
+  raises, as ``pallas_ring.py:259-263`` does;
+- ``q_seg``/``kv_seg`` (``q_segment_ids``/``kv_segment_ids``): int32
+  document ids; the kernel's segmented instantiation tests them on every
+  score of the tiles it visits;
+- ``doc_tiles``: a declared packing's doc-tile table
+  (``cuda_flash.doc_tile_ranges`` at ``DOC_BLOCKS[("fwd_q8", ...)]``), the
+  kDocs instantiation, which clips each warpgroup's visit range to its
+  document's tiles and tests no id.  The v block scale still covers every
+  key of its block, other documents' keys included, as JAX quantizes
+  (``quantize_blocks`` over the whole span): nothing is requantized per
+  document.
+
+``seg_launch_count``, ``doc_launch_count`` and ``feed_launch_count`` count
+again the launches that took ids, a doc-tile table and a pre-quantized
+feed.
 """
 
 from __future__ import annotations
@@ -54,7 +79,13 @@ from .cuda_flash import (
     decode_splits,
 )
 from .partials import FlashPartials, finalize_partials, init_partials
-from .quant import dequantize_rows, quantize_blocks, quantize_p, quantize_rows
+from .quant import (
+    QuantizedBlockKV,
+    dequantize_rows,
+    quantize_kv_blocks,
+    quantize_p,
+    quantize_rows,
+)
 
 # The JAX launch's default key block (pallas_flash.py DEFAULT_BLOCK_K).
 DEFAULT_BLOCK_K = 1024
@@ -65,6 +96,11 @@ seed_launch_count = 0  # flash_fwd_q8 writing partials, no carry
 resume_launch_count = 0  # flash_fwd_q8 writing partials from a carry
 fused_carry_launch_count = 0  # flash_fwd_q8 writing out + lse from a carry
 decode_launch_count = 0  # flash_decode_q8
+# flash_fwd_q8 launches counted again: with ids, with a doc-tile table, and
+# with a pre-quantized K/V feed.
+seg_launch_count = 0
+doc_launch_count = 0
+feed_launch_count = 0
 
 
 def q8_block(nk: int, block_k: int | None = None) -> int:
@@ -95,20 +131,25 @@ def flash_partials_q8_reference(
     softclamp_value: float | None = None,
     carry: FlashPartials | None = None,
     block_k: int | None = None,
+    kv_quantized=None,
+    q_seg: torch.Tensor | None = None,
+    kv_seg: torch.Tensor | None = None,
 ) -> FlashPartials:
     """Plain PyTorch version of the int8 kernel's partials modes: the span
     folded into ``carry`` (``init_partials`` when None) one quantization
     block of :func:`q8_block` keys at a time, as the JAX kernel's grid
     steps do.  The integer products run in float64, where they are exact,
-    and round once to float32, as the kernel's int32 sums do.  The band
-    and key mask are those of ``cuda_flash.flash_partials_reference``."""
+    and round once to float32, as the kernel's int32 sums do.  The band,
+    key mask and ids are those of ``cuda_flash.flash_partials_reference``;
+    every key of the span is visited.  ``kv_quantized`` (an :class:`Int8KV`
+    or a ``QuantizedBlockKV``) replaces the quantization of k and v, which
+    may then be None."""
     b, h, nq, d = q.shape
-    _, hk, nk, _ = k.shape
+    bk, (k8, ks, v8, vs) = _kv_operands("flash_partials_q8", k, v, block_k, kv_quantized,
+                                        natural=True)
+    hk, nk = k8.shape[1], k8.shape[2]
     g = h // hk
-    bk = q8_block(nk, block_k)
     q8, qs = quantize_rows(q)
-    k8, ks = quantize_rows(k)
-    v8, vs = quantize_blocks(v, bk)
     if carry is None:
         carry = init_partials(b, h, nq, d, device=q.device)
     acc = carry.acc.reshape(b, hk, g, nq, d)
@@ -116,7 +157,7 @@ def flash_partials_q8_reference(
     l = carry.l.reshape(b, hk, g, nq)
     q8g = q8.reshape(b, hk, g, nq, d).double()
     row_scale = (qs * scale).reshape(b, hk, g, nq, 1)
-    keep = _keep(nq, nk, kv_mask, causal_offset, window_lo, q.device)
+    keep = _keep(nq, nk, kv_mask, causal_offset, window_lo, q.device, q_seg, kv_seg)
     for j in range(nk // bk):
         cols = slice(j * bk, (j + 1) * bk)
         dot = torch.einsum("bhgid,bhjd->bhgij", q8g, k8[:, :, cols].double()).float()
@@ -171,6 +212,14 @@ def pv_chunk_keys(device=None) -> torch.Tensor:
     return 16 * h + 8 * (i // 2) + 2 * t + i % 2
 
 
+def _tile_keys(block: int, device=None) -> torch.Tensor:
+    """The key of a block behind each position of its padded V^T rows
+    (``block`` or more: padding)."""
+    bp = -(-block // KEY_TILE) * KEY_TILE
+    pos = torch.arange(bp, device=device)
+    return pos // 32 * 32 + pv_chunk_keys(device)[pos % 32]
+
+
 def v_block_layout(v8: torch.Tensor, block: int) -> torch.Tensor:
     """``v8 (b, hk, nk, d)`` int8 as the int8 forward kernel reads it: per
     quantization block of ``block`` keys, V^T (a row per column of d, the
@@ -179,12 +228,123 @@ def v_block_layout(v8: torch.Tensor, block: int) -> torch.Tensor:
     nk // block, d, bp)`` int8, ``bp`` = ``block`` rounded up to 64.  Plain
     PyTorch, on v8's device."""
     b, hk, nk, d = v8.shape
-    bp = -(-block // KEY_TILE) * KEY_TILE
-    pos = torch.arange(bp, device=v8.device)
-    keys = pos // 32 * 32 + pv_chunk_keys(v8.device)[pos % 32]
+    keys = _tile_keys(block, v8.device)
     blocks = v8.reshape(b, hk, nk // block, block, d)[:, :, :, keys.clamp(max=block - 1)]
     blocks = blocks.masked_fill((keys >= block)[:, None], 0)
     return blocks.transpose(-1, -2).contiguous()
+
+
+def v_block_natural(v8t: torch.Tensor, block: int) -> torch.Tensor:
+    """The inverse of :func:`v_block_layout`: ``(b, hk, nk, d)`` int8."""
+    b, hk, n_blk, d, _ = v8t.shape
+    keys = _tile_keys(block, v8t.device)
+    pos = torch.nonzero(keys < block).flatten()
+    inv = torch.empty(block, dtype=torch.long, device=v8t.device)
+    inv[keys[pos]] = pos
+    return v8t.transpose(-1, -2)[:, :, :, inv].reshape(b, hk, n_blk * block, d)
+
+
+class Int8KV(NamedTuple):
+    """K/V in the int8 forward kernel's operand form: k per row, v per
+    block of ``block`` keys as V^T (:func:`v_block_layout`), each tensor
+    contiguous and 16-byte aligned.  The kernel's counterpart of a
+    ``QuantizedBlockKV``, laid out once (:func:`kernel_kv`)."""
+
+    k8: torch.Tensor  # (b, hk, nk, d) int8
+    k_scale: torch.Tensor  # (b, hk, nk) f32
+    v8t: torch.Tensor  # (b, hk, nk // block, d, block rounded up to 64) int8
+    v_scale: torch.Tensor  # (b, hk, nk // block) f32
+    block: int
+
+
+def kernel_kv(feed: QuantizedBlockKV | Int8KV) -> Int8KV:
+    """A ``QuantizedBlockKV`` (the JAX feed, ``quant.payload_kernel_feed``)
+    in the kernel's operand form: a layout pass, no quantization."""
+    if isinstance(feed, Int8KV):
+        return feed
+    return Int8KV(feed.k_q.contiguous(), feed.k_scale.contiguous(),
+                  v_block_layout(feed.v_q, feed.block), feed.v_scale.contiguous(), feed.block)
+
+
+def natural_kv(kv: QuantizedBlockKV | Int8KV) -> QuantizedBlockKV:
+    """The ``QuantizedBlockKV`` an :class:`Int8KV` holds (v as quantized)."""
+    if isinstance(kv, QuantizedBlockKV):
+        return kv
+    return QuantizedBlockKV(kv.k8, kv.k_scale, v_block_natural(kv.v8t, kv.block), kv.v_scale,
+                            kv.block)
+
+
+def quantize_kv_feed(k: torch.Tensor, v: torch.Tensor, block_k: int | None = None) -> Int8KV:
+    """k and v quantized once for every int8 sweep over them: at the fitted
+    block of :func:`q8_block` (``block_k`` as the launch takes it), in the
+    kernel's form.  One K/V quantization."""
+    return kernel_kv(quantize_kv_blocks(k, v, q8_block(k.shape[2], block_k)))
+
+
+_ALIGN = 16  # bytes: each part of a feed blob starts on a cp.async boundary
+
+
+def _feed_parts(b: int, hk: int, nk: int, d: int, block: int) -> list:
+    """``(offset, shape, dtype)`` of k8, k_scale, v8t, v_scale in a feed
+    blob, and its total bytes last."""
+    bp = -(-block // KEY_TILE) * KEY_TILE
+    parts, offset = [], 0
+    for shape, dtype in (((b, hk, nk, d), torch.int8), ((b, hk, nk), torch.float32),
+                         ((b, hk, nk // block, d, bp), torch.int8),
+                         ((b, hk, nk // block), torch.float32)):
+        parts.append((offset, shape, dtype))
+        count = 1
+        for x in shape:
+            count *= x
+        offset += -(-count * dtype.itemsize // _ALIGN) * _ALIGN
+    return parts + [offset]
+
+
+def feed_blob(kv: Int8KV) -> torch.Tensor:
+    """An :class:`Int8KV` as ONE 1-d int8 tensor (k8, k_scale, v8t, v_scale,
+    each at a 16-byte offset): the int8 ring's hop payload, which a
+    ``DistributedRing`` moves in one send and the remote tier's slots hold.
+    :func:`blob_kv` views it again."""
+    b, hk, nk, d = kv.k8.shape
+    *parts, total = _feed_parts(b, hk, nk, d, kv.block)
+    blob = torch.zeros(total, dtype=torch.int8, device=kv.k8.device)
+    for (offset, _, dtype), x in zip(parts, kv[:4]):
+        raw = x.contiguous().reshape(-1).view(torch.int8)
+        blob[offset:offset + raw.numel()] = raw
+    return blob
+
+
+def blob_kv(blob: torch.Tensor, b: int, hk: int, nk: int, d: int, block: int) -> Int8KV:
+    """The :class:`Int8KV` views of a :func:`feed_blob` (no copy)."""
+    *parts, total = _feed_parts(b, hk, nk, d, block)
+    if blob.dim() != 1 or blob.dtype != torch.int8 or blob.numel() != total:
+        raise ValueError(f"blob_kv: expected a 1-d int8 blob of {total} bytes, got "
+                         f"{blob.dtype} {tuple(blob.shape)}")
+    views = []
+    for offset, shape, dtype in parts:
+        count = 1
+        for x in shape:
+            count *= x
+        views.append(blob[offset:offset + count * dtype.itemsize].view(dtype).view(shape))
+    return Int8KV(*views, block)
+
+
+def _kv_operands(fn: str, k, v, block_k, kv_quantized, natural: bool):
+    """``(block, (k8, k_scale, v8 or v8t, v_scale))``: the feed's, checked
+    against the launch's fitted block, or k and v quantized here."""
+    if kv_quantized is None:
+        bk = q8_block(k.shape[2], block_k)
+        feed = quantize_kv_blocks(k, v, bk)
+        return bk, tuple(feed[:4]) if natural else tuple(kernel_kv(feed)[:4])
+    feed = natural_kv(kv_quantized) if natural else kernel_kv(kv_quantized)
+    nk = feed[0].shape[2]
+    bk = q8_block(nk, block_k)
+    if feed.block != bk:
+        raise ValueError(
+            f"{fn}: kv feed block {feed.block} != the launch's fitted block {bk} "
+            f"(q8_block({nk}, {block_k})); quantize the feed at q8_block"
+        )
+    return bk, tuple(feed[:4])
 
 
 class Int8Operands(NamedTuple):
@@ -200,21 +360,23 @@ class Int8Operands(NamedTuple):
     block: int
 
 
-def quantize_operands(q, k, v, block_k: int | None = None) -> Int8Operands:
+def quantize_operands(q, k, v, block_k: int | None = None, kv_quantized=None) -> Int8Operands:
     """The wrapper's quantization before the launch (plain PyTorch, on the
-    tensors' device)."""
-    bk = q8_block(k.shape[2], block_k)
-    v8, v_scale = quantize_blocks(v, bk)
-    return Int8Operands(*quantize_rows(q), *quantize_rows(k), v_block_layout(v8, bk),
-                        v_scale, bk)
+    tensors' device): q per row, and k and v unless ``kv_quantized`` holds
+    them already."""
+    bk, kv = _kv_operands("flash_fwd_q8", k, v, block_k, kv_quantized, natural=False)
+    return Int8Operands(*quantize_rows(q), *kv, bk)
 
 
 def launch_fwd_q8(ops: Int8Operands, kv_mask, band, out_dtype, carry=None,
-                  partials=False, out=None):
+                  partials=False, out=None, q_seg=None, kv_seg=None, doc_tiles=None,
+                  fed=False):
     """Launch the int8 forward kernel on quantized operands: ``(out in
     out_dtype, lse)``, or f32 partials into ``out`` (new tensors when None;
     ``out`` may be ``carry`` itself, each block reading its rows of the
-    carry before it writes them)."""
+    carry before it writes them).  ``q_seg``/``kv_seg`` run the segmented
+    instantiation, ``doc_tiles`` the kDocs one; ``fed`` counts the launch
+    as fed a pre-quantized K/V."""
     q8 = ops.q8
     if q8.device.type != "cuda":
         raise ValueError(f"flash_fwd_q8: no kernel for device {q8.device}")
@@ -222,16 +384,20 @@ def launch_fwd_q8(ops: Int8Operands, kv_mask, band, out_dtype, carry=None,
     _, hk, nk, _ = ops.k8.shape
     if nk % ops.block:
         raise ValueError(f"flash_fwd_q8: block {ops.block} must divide {nk} keys")
+    if q_seg is not None and doc_tiles is not None:
+        raise ValueError("flash_fwd_q8: ids and a doc-tile table both declare the packing")
     padded = -(-ops.block // KEY_TILE) * KEY_TILE
     rows = ((ops.q_scale, (b, h, nq), torch.float32),
             (ops.k_scale, (b, hk, nk), torch.float32),
             (ops.v8t, (b, hk, nk // ops.block, d, padded), torch.int8),
             (ops.v_scale, (b, hk, nk // ops.block), torch.float32))
+    if doc_tiles is not None:
+        rows += ((doc_tiles, (-(-nq // KEY_TILE), 2), torch.int32),)
     for parts in (carry, out):
         if parts is not None:
             rows += _partials_rows(parts, b, h, nq, d)
     _check_kernel_args("flash_fwd_q8", q8, ops.k8, ops.v8t, kv_mask, *rows,
-                       dtypes=(torch.int8,))
+                       dtypes=(torch.int8,), segs=(q_seg, kv_seg))
     if out_dtype not in SUPPORTED_DTYPES:
         raise ValueError(f"flash_fwd_q8: output dtype {out_dtype} unsupported")
     from ._build import flash_fwd_q8_library
@@ -265,12 +431,16 @@ def launch_fwd_q8(ops: Int8Operands, kv_mask, band, out_dtype, carry=None,
             float(band["scale"]),
             *_band_args(band["causal_offset"], band["window_lo"],
                         band["softclamp_value"]),
+            *(None if x is None else x.data_ptr() for x in (q_seg, kv_seg, doc_tiles)),
             ctypes.c_void_p(stream),
         )
     _check_launch(rc, "flash_fwd_q8", q8, ops.k8)
     global fwd_launch_count, seed_launch_count, resume_launch_count
-    global fused_carry_launch_count
+    global fused_carry_launch_count, seg_launch_count, doc_launch_count, feed_launch_count
     fwd_launch_count += 1
+    seg_launch_count += q_seg is not None
+    doc_launch_count += doc_tiles is not None
+    feed_launch_count += bool(fed)
     if partials and carry is None:
         seed_launch_count += 1
     elif partials:
@@ -280,10 +450,58 @@ def launch_fwd_q8(ops: Int8Operands, kv_mask, band, out_dtype, carry=None,
     return result
 
 
+def q8_packing(fn: str, doc_starts, q, k, q_seg, kv_seg, causal_offset, window_lo,
+               block: int):
+    """``(q_seg, kv_seg, doc_tiles)`` of an int8 sweep over keys ``k`` (or
+    the feed's k8) under a declared packing (``cuda_flash.declared_packing``
+    at ``DOC_BLOCKS[("fwd_q8", ...)]``): the kDocs table only where the
+    quantization block is whole 64-key tiles too (each block's tiles then
+    start on the table's grid), else runtime ids."""
+    from .cuda_flash import declared_packing
+
+    q_seg, kv_seg, tiles = declared_packing(fn, "fwd_q8", doc_starts, q, k, q_seg, kv_seg,
+                                            causal_offset, window_lo)
+    if tiles is not None and block % KEY_TILE:
+        from .attention import doc_runtime_ids
+
+        ids = doc_runtime_ids(tuple(doc_starts), q.shape[2], q.shape[0], q.device)
+        return ids, ids, None
+    return q_seg, kv_seg, tiles
+
+
+def _sweep(fn, q, k, v, kv_mask, band, carry, partials, out, block_k, kv_quantized, q_seg,
+           kv_seg, doc_starts):
+    """The wrappers' one body: the plain version on a CPU tensor, else the
+    launch (k and v quantized here unless ``kv_quantized`` holds them)."""
+    keys = k if kv_quantized is None else kv_quantized[0]
+    tiles = None
+    if doc_starts is not None:
+        q_seg, kv_seg, tiles = q8_packing(fn, doc_starts, q, keys, q_seg, kv_seg,
+                                          band["causal_offset"], band["window_lo"],
+                                          q8_block(keys.shape[2], block_k))
+    if q.device.type == "cpu":
+        kw = dict(carry=carry, block_k=block_k, kv_quantized=kv_quantized, q_seg=q_seg,
+                  kv_seg=kv_seg, **band)
+        if not partials:
+            return flash_fwd_q8_reference(q, k, v, kv_mask, **kw)
+        result = flash_partials_q8_reference(q, k, v, kv_mask, **kw)
+        if out is None:
+            return result
+        for dst, src in zip(out, result):
+            dst.copy_(src)
+        return out
+    if kv_quantized is None:
+        _check_kernel_args(fn, q, k, v, kv_mask)
+    ops = quantize_operands(q, k, v, block_k, kv_quantized)
+    return launch_fwd_q8(ops, kv_mask, band, q.dtype, carry=carry, partials=partials, out=out,
+                         q_seg=q_seg, kv_seg=kv_seg, doc_tiles=tiles,
+                         fed=kv_quantized is not None)
+
+
 def flash_fwd_q8(
     q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
+    k: torch.Tensor | None,
+    v: torch.Tensor | None,
     kv_mask: torch.Tensor | None = None,
     *,
     scale: float,
@@ -292,27 +510,30 @@ def flash_fwd_q8(
     softclamp_value: float | None = None,
     carry: FlashPartials | None = None,
     block_k: int | None = None,
+    kv_quantized=None,
+    q_seg: torch.Tensor | None = None,
+    kv_seg: torch.Tensor | None = None,
+    doc_starts: tuple[int, ...] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One int8 forward sweep: ``(out in q.dtype, lse f32)``, resuming
     ``carry`` when given and leaving it unchanged.
 
     Same arguments and result as :func:`flash_fwd_q8_reference`.  CPU
-    tensors take that plain version; CUDA tensors are quantized here and
-    launch the kernel."""
+    tensors take that plain version; CUDA tensors are quantized here (q
+    only, with ``kv_quantized``: an :class:`Int8KV` or a
+    ``QuantizedBlockKV`` at the fitted block) and launch the kernel, its
+    segmented instantiation with ids, its kDocs one with a ``doc_starts``
+    layout that aligns (:func:`q8_packing`)."""
     band = dict(scale=scale, causal_offset=causal_offset, window_lo=window_lo,
                 softclamp_value=softclamp_value)
-    if q.device.type == "cpu":
-        return flash_fwd_q8_reference(q, k, v, kv_mask, carry=carry,
-                                      block_k=block_k, **band)
-    _check_kernel_args("flash_fwd_q8", q, k, v, kv_mask)
-    return launch_fwd_q8(quantize_operands(q, k, v, block_k), kv_mask, band,
-                         q.dtype, carry=carry)
+    return _sweep("flash_fwd_q8", q, k, v, kv_mask, band, carry, False, None, block_k,
+                  kv_quantized, q_seg, kv_seg, doc_starts)
 
 
 def flash_partials_q8(
     q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
+    k: torch.Tensor | None,
+    v: torch.Tensor | None,
     kv_mask: torch.Tensor | None = None,
     *,
     scale: float,
@@ -322,27 +543,22 @@ def flash_partials_q8(
     carry: FlashPartials | None = None,
     out: FlashPartials | None = None,
     block_k: int | None = None,
+    kv_quantized=None,
+    q_seg: torch.Tensor | None = None,
+    kv_seg: torch.Tensor | None = None,
+    doc_starts: tuple[int, ...] | None = None,
 ) -> FlashPartials:
     """One int8 forward sweep returning f32 partials ``(acc, m, l)``,
     seeded or resuming ``carry``; written into ``out`` when given
     (``out=carry`` resumes in place), else into new tensors.
 
     Same arguments and result as :func:`flash_partials_q8_reference`.  CPU
-    tensors take that plain version (copied into ``out``); CUDA tensors are
-    quantized here and launch the kernel."""
+    tensors take that plain version (copied into ``out``); CUDA tensors as
+    in :func:`flash_fwd_q8`."""
     band = dict(scale=scale, causal_offset=causal_offset, window_lo=window_lo,
                 softclamp_value=softclamp_value)
-    if q.device.type == "cpu":
-        result = flash_partials_q8_reference(q, k, v, kv_mask, carry=carry,
-                                             block_k=block_k, **band)
-        if out is None:
-            return result
-        for dst, src in zip(out, result):
-            dst.copy_(src)
-        return out
-    _check_kernel_args("flash_fwd_q8", q, k, v, kv_mask)
-    return launch_fwd_q8(quantize_operands(q, k, v, block_k), kv_mask, band,
-                         q.dtype, carry=carry, partials=True, out=out)
+    return _sweep("flash_partials_q8", q, k, v, kv_mask, band, carry, True, out, block_k,
+                  kv_quantized, q_seg, kv_seg, doc_starts)
 
 
 # ---------------------------------------------------------------------------

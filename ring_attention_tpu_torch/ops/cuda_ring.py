@@ -27,15 +27,22 @@ its work flag.
   rank's rows and ``(b, n_total)`` of the gathered keys, in the span's
   order; a pair attends only within one document.  They run the kernel's
   segmented instantiation, B1's segmented sweep hop by hop.
-- ``fitted_blocks`` is the JAX launch's block fit (``pallas_ring.py:105``),
-  the quantization block an int8 feed of this launch will need; it stays
-  out of the package's exports until that feed is ported.  The float
-  kernels' 64- and 128-row blocks do not change its result.
+- ``kv_quantized`` (the JAX launch's int8 feed, ``:214, :257-269``): the
+  gathered span's K/V already quantized, k per row and v per block of the
+  launch's fitted block (``fitted_blocks``, the JAX ``pallas_ring.py:105``
+  fit), as a ``cuda_flash_q8.Int8KV`` (or a ``QuantizedBlockKV``, laid out
+  here); only q is quantized, once per launch.  It runs the kernel's int8
+  instantiation (with ids: its segmented one), B4's sweep
+  (``csrc/flash_sweep_q8.cuh``) walked hop by hop, so that its output is
+  the int8 hop chain's (``impl="cuda"``, ``compute_dtype="int8"``, fed the
+  same feed) bit for bit.  The plain version is that chain on
+  ``cuda_flash_q8``'s plain versions, each hop fed its origin's slice of
+  the feed.  The float kernels' 64- and 128-row blocks do not depend on
+  the fit.
 
-The int8 feed (``kv_quantized``) of the JAX launch is not ported yet:
-ROADMAP.md Queue 2 K4 (Port queue item 7e).
-``launch_count`` counts the kernel's launches and ``seg_launch_count``
-again those that took ids; plain-version calls do not count.
+``launch_count`` counts the kernel's launches, ``seg_launch_count`` again
+those that took ids and ``q8_launch_count`` those of the int8
+instantiations; plain-version calls do not count.
 """
 
 from __future__ import annotations
@@ -50,12 +57,20 @@ from .cuda_flash import (
     flash_fwd_reference,
     flash_partials_reference,
 )
-from .cuda_flash_q8 import q8_block
+from .cuda_flash_q8 import (
+    Int8KV,
+    flash_fwd_q8_reference,
+    flash_partials_q8_reference,
+    kernel_kv,
+    q8_block,
+)
 from .partials import finalize_partials, init_partials
+from .quant import quantize_rows
 
 # Kernel launches since the last reset; the caller may set them to 0.
 launch_count = 0
-seg_launch_count = 0  # those of the segmented instantiation
+seg_launch_count = 0  # those of the segmented instantiations
+q8_launch_count = 0  # those of the int8 instantiations
 
 
 def fitted_blocks(n_local: int, block_q: int | None = None,
@@ -95,6 +110,29 @@ def _check_ids(q, k_all, q_seg, kv_seg) -> None:
                 f"fused_ring_local: {name} must be int32 of shape ({q.shape[0]}, {n}), "
                 f"got {ids.dtype} {tuple(ids.shape)}"
             )
+
+
+def _check_feed(q, kv_quantized, n_local, block_k) -> Int8KV:
+    """The int8 feed in the kernel's form, at the launch's fitted block."""
+    feed = kernel_kv(kv_quantized)
+    bk = fitted_blocks(n_local, None, block_k)[1]
+    if feed.block != bk:
+        raise ValueError(
+            f"fused_ring_local: kv feed block {feed.block} != fitted bk {bk}; "
+            "quantize the feed at fitted_blocks()"
+        )
+    if feed.k8.dim() != 4 or feed.k8.shape[0] != q.shape[0] or feed.k8.shape[3] != q.shape[3]:
+        raise ValueError(f"fused_ring_local: feed k8 {tuple(feed.k8.shape)} does not fit q "
+                         f"{tuple(q.shape)}")
+    return feed
+
+
+def _feed_rows(feed: Int8KV, origin: int, n_local: int) -> Int8KV:
+    """The slice of a gathered feed that holds rank ``origin``'s keys."""
+    rows = slice(origin * n_local, (origin + 1) * n_local)
+    blocks = slice(origin * n_local // feed.block, (origin + 1) * n_local // feed.block)
+    return Int8KV(feed.k8[:, :, rows], feed.k_scale[:, :, rows], feed.v8t[:, :, blocks],
+                  feed.v_scale[:, :, blocks], feed.block)
 
 
 def _check_span(q, k_all, v_all, kv_mask, n_local) -> None:
@@ -140,6 +178,8 @@ def fused_ring_local_plain(
     softclamp_value: float | None = None,
     q_seg: torch.Tensor | None = None,
     kv_seg: torch.Tensor | None = None,
+    kv_quantized=None,
+    block_k: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`fused_ring_local`: the hop chain of
     ``parallel/ring.py`` over the origins' blocks of the gathered span.
@@ -147,8 +187,14 @@ def fused_ring_local_plain(
     Each hop with work folds ``k_all[:, :, o * n_local:(o + 1) * n_local]``
     (``o = origins[hop]``) into the carry under its band, the last one
     writing ``(out, lse)`` from it; with dense f32 scores, as
-    ``flash_partials_reference`` computes them.  Returns ``(out (b, h,
-    n_local, d) in q.dtype, lse (b, h, n_local) f32)``."""
+    ``flash_partials_reference`` computes them, or, with ``kv_quantized``,
+    the int8 sweep's plain version on the origin's slice of the feed.
+    Returns ``(out (b, h, n_local, d) in q.dtype, lse (b, h, n_local)
+    f32)``."""
+    feed = None
+    if kv_quantized is not None:
+        feed = _check_feed(q, kv_quantized, n_local, block_k)
+        k_all = v_all = feed.k8
     _check_span(q, k_all, v_all, kv_mask, n_local)
     _check_ids(q, k_all, q_seg, kv_seg)
     schedule = [(o, hi, lo) for o, hi, lo, w in
@@ -156,10 +202,14 @@ def fused_ring_local_plain(
     carry = None
     for i, (o, hi, lo) in enumerate(schedule):
         rows = slice(o * n_local, (o + 1) * n_local)
-        carry = fold_hop(q, k_all[:, :, rows], v_all[:, :, rows],
+        k, v = k_all[:, :, rows], v_all[:, :, rows]
+        if feed is not None:
+            k = v = None
+        carry = fold_hop(q, k, v,
                          None if kv_mask is None else kv_mask[:, rows], hi, lo, carry,
                          i == len(schedule) - 1, scale, softclamp_value,
-                         q_seg, None if kv_seg is None else kv_seg[:, rows])
+                         q_seg, None if kv_seg is None else kv_seg[:, rows],
+                         None if feed is None else _feed_rows(feed, o, n_local))
     if carry is None:  # no hop with work: the empty state, normalized, as the
         # kernel writes it (never on a ring's schedule, whose own hop has work)
         out, lse = finalize_partials(init_partials(*q.shape, device=q.device))
@@ -168,13 +218,18 @@ def fused_ring_local_plain(
 
 
 def fold_hop(q, k, v, kv_mask, hi, lo, carry, last, scale, softclamp_value,
-             q_seg=None, kv_seg=None):
+             q_seg=None, kv_seg=None, feed=None):
     """One hop of the plain hop chain: ``(k, v)`` folded into ``carry``
     (None on the first hop with work) under the band ``lo <= j - i <= hi``
     (and the ids, when given); the new f32 partials, or on the ``last`` hop
-    ``(out, lse)``."""
+    ``(out, lse)``.  With ``feed`` (the hop's int8 K/V, an ``Int8KV``), the
+    int8 sweep's plain version at the feed's block instead."""
     kw = dict(scale=scale, causal_offset=hi, window_lo=lo,
               softclamp_value=softclamp_value, carry=carry, q_seg=q_seg, kv_seg=kv_seg)
+    if feed is not None:
+        kw.update(kv_quantized=feed, block_k=feed.block)
+        fn = flash_fwd_q8_reference if last else flash_partials_q8_reference
+        return fn(q, None, None, kv_mask, **kw)
     if last:
         return flash_fwd_reference(q, k, v, kv_mask, **kw)
     return flash_partials_reference(q, k, v, kv_mask, **kw)
@@ -218,6 +273,52 @@ def _launch(q, k_all, v_all, kv_mask, tables, scale, softclamp_value, q_seg=None
     return out, lse
 
 
+def _launch_q8(q, feed: Int8KV, kv_mask, tables, scale, softclamp_value, q_seg=None,
+               kv_seg=None):
+    """One launch of the int8 instantiation: q quantized per row here, the
+    gathered span's K/V from the feed."""
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_ring_local: no kernel for device {q.device}")
+    hops = _check_tables(*tables, q.device)
+    b, h, n, d = q.shape
+    _, hk, n_total, _ = feed.k8.shape
+    q8, qs = quantize_rows(q)
+    padded = feed.v8t.shape[-1]
+    rows = ((qs, (b, h, n), torch.float32), (feed.k_scale, (b, hk, n_total), torch.float32),
+            (feed.v8t, (b, hk, n_total // feed.block, d, padded), torch.int8),
+            (feed.v_scale, (b, hk, n_total // feed.block), torch.float32))
+    _check_kernel_args("fused_ring_local", q8, feed.k8, feed.v8t, kv_mask, *rows,
+                       dtypes=(torch.int8,), segs=(q_seg, kv_seg))
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"fused_ring_local: output dtype {q.dtype} unsupported")
+    if any(not t.is_contiguous() for t in tables):
+        raise ValueError("fused_ring_local: the hop tables must be contiguous")
+    from ._build import flash_ring_q8_library
+
+    lib = flash_ring_q8_library()
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    mask_u8 = None if kv_mask is None else kv_mask.to(torch.uint8).contiguous()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.flash_ring_q8(
+            q8.data_ptr(), qs.data_ptr(), feed.k8.data_ptr(), feed.k_scale.data_ptr(),
+            feed.v8t.data_ptr(), feed.v_scale.data_ptr(),
+            None if mask_u8 is None else mask_u8.data_ptr(),
+            *(t.data_ptr() for t in tables), hops, out.data_ptr(), lse.data_ptr(),
+            b, h, hk, n, n_total, d, feed.block, int(q.dtype == torch.bfloat16),
+            float(scale), float(softclamp_value or 0.0),
+            None if q_seg is None else q_seg.data_ptr(),
+            None if kv_seg is None else kv_seg.data_ptr(), ctypes.c_void_p(stream),
+        )
+    _check_launch(rc, "fused_ring_local", q, feed.k8)
+    global launch_count, seg_launch_count, q8_launch_count
+    launch_count += 1
+    seg_launch_count += q_seg is not None
+    q8_launch_count += 1
+    return out, lse
+
+
 def fused_ring_local(
     q: torch.Tensor,
     k_all: torch.Tensor,
@@ -233,6 +334,8 @@ def fused_ring_local(
     softclamp_value: float | None = None,
     q_seg: torch.Tensor | None = None,
     kv_seg: torch.Tensor | None = None,
+    kv_quantized=None,
+    block_k: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The fused ring forward of one rank over a gathered KV span.
 
@@ -248,6 +351,10 @@ def fused_ring_local(
       q_seg, kv_seg: optional int32 document ids, ``(b, n_local)`` of the
         rank's rows and ``(b, n_total)`` of the gathered keys (packed
         sequences; the segmented instantiation).
+      kv_quantized, block_k: the int8 feed of the gathered span (k_all and
+        v_all are then ignored and may be None), quantized at
+        ``fitted_blocks(n_local, None, block_k)[1]``, or the call raises;
+        the int8 instantiation.
 
     Returns ``(out (b, h, n_local, d) in q.dtype, lse (b, h, n_local)
     f32)``, lse = m + log l.  A CPU tensor runs
@@ -258,7 +365,14 @@ def fused_ring_local(
             q, k_all, v_all, kv_mask, origins=origins, his=his, los=los,
             works=works, n_local=n_local, scale=scale,
             softclamp_value=softclamp_value, q_seg=q_seg, kv_seg=kv_seg,
+            kv_quantized=kv_quantized, block_k=block_k,
         )
+    if kv_quantized is not None:
+        feed = _check_feed(q, kv_quantized, n_local, block_k)
+        _check_span(q, feed.k8, feed.k8, kv_mask, n_local)
+        _check_ids(q, feed.k8, q_seg, kv_seg)
+        return _launch_q8(q, feed, kv_mask, (origins, his, los, works), scale,
+                          softclamp_value, q_seg, kv_seg)
     _check_span(q, k_all, v_all, kv_mask, n_local)
     _check_ids(q, k_all, q_seg, kv_seg)
     return _launch(q, k_all, v_all, kv_mask, (origins, his, los, works), scale,

@@ -30,10 +30,18 @@ gathered span) and the ``impl="cuda"`` hop chain's, bit for bit.
   ``sem_wait``).  ``fn`` names the ``__device__`` function of
   ``csrc/flash_ring_remote.cu`` that holds each site.
 
-The int8 wire (the JAX ``payload=``) is not ported yet: ROADMAP.md Port
-queue item 7e.  Key masks and segment ids go to the local tier, as in
-JAX.  ``launch_count`` counts the kernel's launches (one per ring and
-call); plain-version calls do not count.
+The int8 wire (the JAX ``payload=``, :789-815): ``compute_dtype="int8"``
+with ``kv_quantized``, each rank's K/V as the int8 sweep's operands
+(``cuda_flash_q8.Int8KV``) read off its ``pack_kv(v_block=n_local)``
+payload: one v scale per rank span.  The slots then hold each rank's feed
+as one int8 blob (``cuda_flash_q8.feed_blob``), moved from slot to slot
+as the float KV is, and each hop runs B4's int8 sweep
+(``csrc/flash_sweep_q8.cuh``) on it, the carry spilled in B4's partials
+format: the launch is the int8 hop chain fed the same payload, bit for
+bit.  Only q is quantized, once per rank and launch.  Key masks and
+segment ids go to the local tier, as in JAX.  ``launch_count`` counts the
+kernel's launches (one per ring and call) and ``q8_launch_count`` again
+those of the int8 kernel; plain-version calls do not count.
 """
 
 from __future__ import annotations
@@ -44,10 +52,13 @@ import functools
 import torch
 
 from .cuda_flash import _check_kernel_args, _check_launch
+from .cuda_flash_q8 import Int8KV, feed_blob, kernel_kv
 from .cuda_ring import fold_hop
+from .quant import quantize_rows
 
-# Kernel launches since the last reset; the caller may set it to 0.
+# Kernel launches since the last reset; the caller may set them to 0.
 launch_count = 0
+q8_launch_count = 0  # those of the int8 kernel
 
 # Ranks one launch holds (csrc/flash_ring_remote.cu kMaxRanks).
 MAX_RANKS = 16
@@ -158,6 +169,25 @@ def _schedules(tables, world: int) -> list[tuple[list, list, list]]:
     return schedules
 
 
+def _check_feeds(qs, feeds, n_local) -> list[Int8KV]:
+    """Per-rank int8 feeds of one shape, one v block of ``n_local`` keys
+    (the JAX wire's ``pack_kv(v_block=n_local)``), on q's device."""
+    if feeds is None or len(feeds) != len(qs):
+        raise ValueError('fused_ring_remote: compute_dtype="int8" takes one kv_quantized '
+                         "feed per rank")
+    feeds = [kernel_kv(f) for f in feeds]
+    b, h, n, d = qs[0].shape
+    for f in feeds:
+        hk = f.k8.shape[1]
+        if (f.block != n_local or tuple(f.k8.shape) != (b, hk, n_local, d) or h % hk
+                or f.k8.shape != feeds[0].k8.shape or f.k8.device != qs[0].device):
+            raise ValueError(
+                f"fused_ring_remote: each rank's int8 feed must be (b, hk, {n_local}, d) "
+                f"with one v block of {n_local} keys (pack_kv(v_block=n_local)), on "
+                f"q's device; got {tuple(f.k8.shape)}, block {f.block}")
+    return feeds
+
+
 def _check_ring(qs, ks, vs, n_local) -> None:
     """Per-rank lists of one shape each: q ``(b, h, n_local, d)``, k and v
     ``(b, hk, n_local, d)``, one float dtype, one device."""
@@ -180,7 +210,8 @@ def _check_ring(qs, ks, vs, n_local) -> None:
             "h a multiple of hk")
     if not q0.dtype.is_floating_point:
         raise ValueError(f"fused_ring_remote: dtype {q0.dtype}; the remote tier takes "
-                         "float operands (the int8 wire is ROADMAP.md Port queue item 7e)")
+                         'float operands (the int8 wire: compute_dtype="int8" with '
+                         "kv_quantized)")
     for x, like in [(x, q0) for x in qs] + [(x, k0) for x in (*ks, *vs)]:
         if x.shape != like.shape or x.dtype != like.dtype or x.device != like.device:
             raise ValueError(
@@ -197,29 +228,35 @@ def fused_ring_remote_plain(
     n_local: int,
     scale: float,
     softclamp_value: float | None = None,
+    kv_quantized: list | None = None,
 ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
     """Plain PyTorch version of :func:`fused_ring_remote`: the hop chain of
     every rank, fed by circulation.
 
-    Slot 0 of each rank holds its own ``(k, v)``; after hop ``i`` every
-    rank's slot ``i % 2`` goes to its right neighbour's slot ``(i + 1) %
-    2`` (the tensors are never written, so a reference stands for the
-    kernel's copy).  A hop with work folds the current slot into the
-    rank's carry as ``cuda_ring.fold_hop`` does, with dense f32 scores.
-    Returns per-rank lists ``(outs, lses)``."""
-    _check_ring(qs, ks, vs, n_local)
+    Slot 0 of each rank holds its own ``(k, v)`` (or int8 feed); after hop
+    ``i`` every rank's slot ``i % 2`` goes to its right neighbour's slot
+    ``(i + 1) % 2`` (the tensors are never written, so a reference stands
+    for the kernel's copy).  A hop with work folds the current slot into
+    the rank's carry as ``cuda_ring.fold_hop`` does, with dense f32 scores
+    or, fed int8, the int8 sweep's plain version.  Returns per-rank lists
+    ``(outs, lses)``."""
     world = len(qs)
+    if kv_quantized is not None:
+        feeds = _check_feeds(qs, kv_quantized, n_local)
+        slots = [[(None, None, f), None] for f in feeds]
+    else:
+        _check_ring(qs, ks, vs, n_local)
+        slots = [[(k, v, None), None] for k, v in zip(ks, vs)]
     schedules = _schedules(tables, world)
     hops = len(schedules[0][0])
-    slots = [[(k, v), None] for k, v in zip(ks, vs)]
     lasts = [max(i for i, w in enumerate(works) if w) for _, _, works in schedules]
     carries = [None] * world
     for hop in range(hops):
         for r, (his, los, works) in enumerate(schedules):
             if works[hop]:
-                k, v = slots[r][hop % 2]
+                k, v, feed = slots[r][hop % 2]
                 carries[r] = fold_hop(qs[r], k, v, None, his[hop], los[hop], carries[r],
-                                      hop == lasts[r], scale, softclamp_value)
+                                      hop == lasts[r], scale, softclamp_value, feed=feed)
         if hop < hops - 1:
             for r in range(world):
                 slots[(r + 1) % world][(hop + 1) % 2] = slots[r][hop % 2]
@@ -376,17 +413,20 @@ def _grid_blocks(capacity: int, world: int, bh: int, n_local: int, is_bf16: bool
 
 
 @functools.cache
-def _capacity(device_index: int, is_bf16: bool, clamp: bool) -> int:
+def _capacity(device_index: int, is_bf16: bool, clamp: bool, int8: bool = False) -> int:
     """Blocks of the cooperative launch (one kernel per dtype, with or
-    without a soft clamp) that fit on the card at once: the kernel's
-    occupancy at its block size and dynamic shared memory, times the SMs
-    (bf16: one block an SM)."""
-    from ._build import flash_ring_remote_library
+    without a soft clamp; ``int8`` the int8 kernel) that fit on the card at
+    once: the kernel's occupancy at its block size and dynamic shared
+    memory, times the SMs (bf16 and int8: one block an SM)."""
+    from ._build import flash_ring_remote_library, flash_ring_remote_q8_library
 
-    lib = flash_ring_remote_library()
+    lib = flash_ring_remote_q8_library() if int8 else flash_ring_remote_library()
     blocks = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        rc = lib.flash_ring_remote_capacity(int(is_bf16), int(clamp), ctypes.byref(blocks))
+        if int8:
+            rc = lib.flash_ring_remote_q8_capacity(int(clamp), ctypes.byref(blocks))
+        else:
+            rc = lib.flash_ring_remote_capacity(int(is_bf16), int(clamp), ctypes.byref(blocks))
     if rc != 0:
         raise RuntimeError(f"fused_ring_remote: occupancy query failed: CUDA error {rc}")
     if blocks.value < 1:
@@ -450,10 +490,77 @@ def _launch(qs, ks, vs, tables, scale, softclamp_value, split):
     return outs, lses
 
 
+def _launch_q8(qs, feeds: list[Int8KV], tables, scale, softclamp_value, split):
+    """The int8 kernel's launch: each rank's q quantized per row, its feed
+    packed into one blob (the slots' unit), the carry spilled as f32."""
+    q0, k0 = qs[0], feeds[0].k8
+    if q0.device.type != "cuda":
+        raise ValueError(f"fused_ring_remote: no kernel for device {q0.device}")
+    world = len(qs)
+    b, h, n, d = q0.shape
+    hk = k0.shape[1]
+    if q0.dtype not in (torch.bfloat16, torch.float32) or d != 64:
+        raise ValueError(f"fused_ring_remote: q must be bf16 or f32 of head dim 64, got "
+                         f"{q0.dtype} {tuple(q0.shape)}")
+    for q in qs:
+        if q.shape != q0.shape or q.dtype != q0.dtype or q.device != q0.device:
+            raise ValueError("fused_ring_remote: mismatched query shards")
+    from ._build import flash_ring_remote_q8_library
+    from .cuda_flash_q8 import _feed_parts
+
+    lib = flash_ring_remote_q8_library()
+    capacity = _capacity(q0.device.index, True, bool(softclamp_value), True)
+    if split is None:
+        split = balanced_split(tables, n, b * h, _grid_blocks(capacity, world, b * h, n, True),
+                               _ITEM_ROWS[True])
+    split = [int(x) for x in split]
+    if len(split) != world or min(split) < 1:
+        raise ValueError(f"fused_ring_remote: cta_split {split} needs one count >= 1 "
+                         f"per rank of {world}")
+    if sum(split) > capacity:
+        raise ValueError(
+            f"fused_ring_remote: a grid of {sum(split)} blocks does not fit on the card "
+            f"at once ({capacity} do); every rank's blocks must be resident together")
+    schedules = _schedules(tables, world)
+    hops = len(schedules[0][0])
+    rows = torch.tensor([list(s) for s in schedules], dtype=torch.int32)  # (W, 3, hops)
+    bands = rows.permute(1, 0, 2).contiguous().to(q0.device)  # his, los, works
+    quantized = [quantize_rows(q) for q in qs]
+    blobs = [feed_blob(f) for f in feeds]
+    *parts, total = _feed_parts(b, hk, n, d, n)  # k8 first, at offset 0
+    off_ks, off_vt, off_vs = (offset for offset, _, _ in parts[1:])
+    outs = [torch.empty_like(q) for q in qs]
+    lses = [torch.empty((b, h, n), dtype=torch.float32, device=q0.device) for _ in qs]
+    slots = torch.empty((world, 2, total), dtype=torch.int8, device=q0.device)
+    acc = torch.empty((world, b * h, n, d), dtype=torch.float32, device=q0.device)
+    m, l = (torch.empty((world, b * h, n), dtype=torch.float32, device=q0.device)
+            for _ in range(2))
+    flags = torch.zeros((3, world, hops), dtype=torch.int32, device=q0.device)
+
+    def ptrs(xs):
+        return (ctypes.c_void_p * world)(*(x.data_ptr() for x in xs))
+
+    with torch.cuda.device(q0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.flash_ring_remote_q8(
+            ptrs([x for x, _ in quantized]), ptrs([s for _, s in quantized]), ptrs(blobs),
+            ptrs(outs), ptrs(lses), slots.data_ptr(), acc.data_ptr(), m.data_ptr(),
+            l.data_ptr(), bands[0].data_ptr(), bands[1].data_ptr(), bands[2].data_ptr(),
+            flags.data_ptr(), (ctypes.c_int * world)(*split), world, hops, b, h, hk, n, d,
+            total, off_ks, off_vt, off_vs, int(q0.dtype == torch.bfloat16), float(scale),
+            float(softclamp_value or 0.0), ctypes.c_void_p(stream),
+        )
+    _check_launch(rc, "fused_ring_remote", q0, k0)
+    global launch_count, q8_launch_count
+    launch_count += 1
+    q8_launch_count += 1
+    return outs, lses
+
+
 def fused_ring_remote(
     qs: list[torch.Tensor],
-    ks: list[torch.Tensor],
-    vs: list[torch.Tensor],
+    ks: list[torch.Tensor] | None,
+    vs: list[torch.Tensor] | None,
     kv_masks: list | None = None,
     *,
     tables: list[tuple[torch.Tensor, ...]],
@@ -461,6 +568,7 @@ def fused_ring_remote(
     scale: float,
     softclamp_value: float | None = None,
     compute_dtype: str | None = None,
+    kv_quantized: list | None = None,
     cta_split: list[int] | None = None,
 ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
     """The fused ring forward of every rank of a ring, each rank holding
@@ -477,7 +585,11 @@ def fused_ring_remote(
         circulation order ``(rank - hop) % W``), on the host.
       n_local, scale, softclamp_value: the shard length, the score scale
         and the optional soft clamp.
-      compute_dtype: None; ``"int8"`` (the JAX int8 wire) is not ported.
+      compute_dtype, kv_quantized: ``"int8"`` runs the int8 wire (the JAX
+        ``payload=``): ``kv_quantized`` holds per rank its K/V as the int8
+        sweep's operands with one v block of ``n_local`` keys (an
+        ``Int8KV``, or a ``QuantizedBlockKV`` laid out here), and ``ks``,
+        ``vs`` are ignored (they may be None).
       cta_split: blocks per rank of the one launch (testing: starve a rank
         to force skew); by default :func:`balanced_split` over
         :func:`_grid_blocks` (every block the card holds at once, at most
@@ -492,13 +604,21 @@ def fused_ring_remote(
         raise ValueError(
             "fused_ring_remote: the remote tier takes no key mask; a masked ring "
             "runs the local tier (fused_ring_local over the gathered span)")
-    if compute_dtype == "int8":
-        raise NotImplementedError(
-            'fused_ring_remote: compute_dtype="int8" (the int8 wire) is not ported '
-            "yet; it arrives with ROADMAP.md Port queue item 7e")
-    if compute_dtype is not None:
+    if compute_dtype not in (None, "int8"):
         raise ValueError(f"fused_ring_remote: compute_dtype={compute_dtype!r}; None or "
                          '"int8"')
+    if compute_dtype == "int8":
+        feeds = _check_feeds(qs, kv_quantized, n_local)
+        if len(qs) > MAX_RANKS:
+            raise ValueError(f"fused_ring_remote: {len(qs)} ranks; one launch holds at "
+                             f"most {MAX_RANKS}")
+        if qs[0].device.type == "cpu":
+            return fused_ring_remote_plain(qs, None, None, tables=tables, n_local=n_local,
+                                           scale=scale, softclamp_value=softclamp_value,
+                                           kv_quantized=feeds)
+        return _launch_q8(qs, feeds, tables, scale, softclamp_value, cta_split)
+    if kv_quantized is not None:
+        raise ValueError('fused_ring_remote: kv_quantized goes with compute_dtype="int8"')
     _check_ring(qs, ks, vs, n_local)
     if qs[0].device.type == "cpu":
         return fused_ring_remote_plain(qs, ks, vs, tables=tables, n_local=n_local,

@@ -1,7 +1,13 @@
 """Sequence parallelism: the ring, its transport, the mesh and the layouts,
 zig-zag context parallelism and tree-attention decoding."""
 
-from .collectives import DistributedRing, Ring, VirtualRing
+from .collectives import (
+    DistributedRing,
+    Ring,
+    VirtualRing,
+    dequantize_ring_payload,
+    quantize_ring_payload,
+)
 from .mesh import Mesh, create_mesh, data_world, seq_world, validate_seq_len
 from .ring import ring_flash_attention
 from .sharding import (
@@ -30,11 +36,13 @@ __all__ = [
     "VirtualRing",
     "create_mesh",
     "data_world",
+    "dequantize_ring_payload",
     "layout_for",
     "layout_permute",
     "layout_unpermute",
     "pad_seq_and_mask",
     "pad_to_multiple",
+    "quantize_ring_payload",
     "ring_flash_attention",
     "seq_world",
     "stripe_permute",

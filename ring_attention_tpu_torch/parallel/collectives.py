@@ -33,9 +33,10 @@ Beside the rotation the seam has two collectives and one property:
 
 A ring function handles a *list of payloads*, one per rank this process
 holds (``ring.ranks``, in order); each payload is a tuple of tensors that
-travel together.  ``quantize_ring_payload`` and the other payload codecs of
-the JAX module arrive with the ring variants (ROADMAP.md Port queue
-item 7).
+travel together.  ``quantize_ring_payload`` and ``dequantize_ring_payload``
+are the ring's int8 wire codec (``hop_compression="int8"``, JAX
+``parallel/collectives.py:123, :158``): the K/V of a rank quantized once
+at ring entry into one int8 payload, which then moves unchanged.
 """
 
 from __future__ import annotations
@@ -44,12 +45,31 @@ import abc
 
 import torch
 
+from ..ops import quant
+
 Payload = tuple[torch.Tensor, ...]
 
 
 def ring_perm(world: int, shift: int = 1) -> list[tuple[int, int]]:
     """``(source, destination)`` rank pairs of a rotation by ``shift``."""
     return [(j, (j + shift) % world) for j in range(world)]
+
+
+def quantize_ring_payload(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Int8-compress one rank's hop payload (``hop_compression="int8"``):
+    ONE ``(2, b, hk, n, d + 4)`` int8 tensor, k at index 0 and v at 1, each
+    row's values in ``[0:d]`` and its f32 absmax scale as four bytes in
+    ``[d:d + 4]`` (``quant.pack_kv``, per-row scales).  The ring quantizes
+    once at entry and circulates the bytes unchanged: every hop is a
+    lossless move, so the error is one quantization whatever the ring's
+    size, and a hop moves ``d + 4`` bytes a row for ``2d`` in bf16."""
+    return quant.pack_kv(k, v)
+
+
+def dequantize_ring_payload(payload: torch.Tensor,
+                            dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``(k, v)`` a compressed hop payload represents, in ``dtype``."""
+    return quant.unpack_kv(payload, dtype)
 
 
 class Ring(abc.ABC):

@@ -38,8 +38,10 @@ Three compute paths:
   whose last hop has no work finalizes its carry on the host; hops whose
   band covers the whole span for every rank with work run unmasked.  With
   ``compute_dtype="int8"`` the same launches run the int8 sweep
-  (``ops/cuda_flash_q8.py``), each hop quantized per block of the bucket,
-  as ``_ring_fwd_pallas`` does with its ``_q8_block``;
+  (``ops/cuda_flash_q8.py``) on K/V quantized once per stream at ring
+  entry, per block of the bucket fitted to the shard (``_q8_block``, as
+  ``_ring_fwd_pallas`` packs its feed), and circulated in the kernel's
+  operand form: only q is quantized per launch;
 - ``impl="fused"`` follows ``_ring_fwd_fused`` (:661-762), which has two
   tiers, chosen statically from the configuration as JAX chooses them:
   - the remote tier (TPU kernel B8, ``ops/cuda_ring_remote.py``) when no
@@ -57,6 +59,25 @@ Three compute paths:
   Both walk each rank's hop tables (``_fused_tables``) with the
   online-softmax state on chip.  Its backward is the ``impl="cuda"``
   ring's, as the JAX ``_ring_vjp_bwd`` maps ``"fused"`` to ``"pallas"``.
+  Under int8 the composition rules of ``_ring_fwd_fused`` (:661-762) hold:
+  the remote tier only when ``hop_compression`` and ``compute_dtype`` are
+  both int8 or both off (``q8 == wire8``), its int8 wire packed with one v
+  scale per rank span (``pack_kv(v_block=n_local)``); the local tier's
+  int8 feed is quantized at the fitted block, from the gathered payloads
+  when the wire is on; compression alone round-trips K/V through the codec
+  and runs the float kernels.
+
+The int8 wire (``hop_compression="int8"``, JAX ``_kv_handle`` and
+``_stream_state``): each rank's K/V is quantized ONCE per stream at ring
+entry (``collectives.quantize_ring_payload``) and the int8 bytes circulate
+unchanged, one tensor a hop; every hop dequantizes them for a float sweep
+(``_handle_kv``) or, under ``compute_dtype="int8"``, feeds them to the int8
+sweep with no dequantize/requantize round trip (``_handle_feed``): the
+payload is packed at the bucket's block and laid out as the kernel's
+operands at entry.  Segment ids and the key mask rotate uncompressed beside
+it.  The backward recomputes from the exact K/V, as in JAX (:1417-1440):
+neither knob enters it.  The JAX bidirectional half-streams (and their
+``_handle_slice``) are not ported.
 
 The gradient is one ``torch.autograd.Function`` over the whole ring (the
 counterpart of the JAX ``custom_vjp``): its backward rotates ``(k, v, dk,
@@ -71,15 +92,16 @@ import warnings
 
 import torch
 
+from ..ops import quant
 from ..ops.attention import normalize_segment_ids
 from ..ops.cuda_flash import (
-    check_int8_segments,
     cuda_flash_attention,
     flash_bwd,
     flash_fwd,
     flash_partials,
     int8_compute,
 )
+from ..ops.cuda_flash_q8 import blob_kv, feed_blob, kernel_kv, q8_block
 from ..ops.cuda_ring import fused_ring_local
 from ..ops.cuda_ring_remote import fused_ring_remote
 from ..ops.flash import (
@@ -93,19 +115,16 @@ from ..ops.flash import (
 )
 from ..ops.partials import finalize_partials
 from ..utils.validate import check_attention_args
-from .collectives import Ring
+from .collectives import Ring, dequantize_ring_payload, quantize_ring_payload
 
 IMPLS = ("torch", "cuda", "fused")
 # Where each ring option that is not ported yet will come from (ROADMAP.md).
 UNPORTED = {
     "bidirectional": "the ring variants, ROADMAP.md Port queue item 7",
     "counter_rotate": "the ring variants, ROADMAP.md Port queue item 7",
-    "hop_compression": "the ring variants, ROADMAP.md Port queue item 7",
     "dkv_dtype": "the ring variants, ROADMAP.md Port queue item 7",
 }
-# The fused ring's int8 feed (JAX ``fused_ring_local(kv_quantized=)``).
-UNPORTED_FUSED_INT8 = ("the fused ring's int8 feed (QuantizedBlockKV, ROADMAP.md "
-                       "Queue 2 K4), ROADMAP.md Port queue item 7e")
+HOP_COMPRESSIONS = (None, "int8")
 
 # (rank, hop) pairs whose band had work but whose kv ids shared no document
 # with the queries, skipped since the last reset (the caller may set them
@@ -122,21 +141,82 @@ def _rotate(ring: Ring, payloads: list, shift: int = 1) -> list:
     return ring.rotate(payloads, shift)
 
 
-def _payloads(k, v, kv_mask, segs) -> list:
-    """Each held rank's circulating payload ``(k, v[, kv_mask][, kv_seg])``:
-    a mask or ids that are None never enter the rotation.  The ring has one
-    unidirectional stream (shift 1, the whole shard): the JAX package's
-    bidirectional half-streams are not ported."""
-    none = [None] * len(k)
-    return [tuple(x for x in parts if x is not None)
-            for parts in zip(k, v, kv_mask or none, segs or none)]
+def _payloads(handles, kv_mask, segs) -> list:
+    """Each held rank's circulating payload ``(*handle[, kv_mask][,
+    kv_seg])``: the rank's KV handle (:func:`_kv_handle`) and beside it,
+    uncompressed, the key mask and the kv ids; a mask or ids that are None
+    never enter the rotation.  The ring has one unidirectional stream
+    (shift 1, the whole shard): the JAX package's bidirectional
+    half-streams are not ported."""
+    none = [None] * len(handles)
+    return [tuple(handle) + tuple(x for x in (mask, seg) if x is not None)
+            for handle, mask, seg in zip(handles, kv_mask or none, segs or none)]
 
 
 def _unpack(payload, masked: bool) -> tuple:
-    """``(k, v, kv_mask, kv_seg)`` of a payload, None where absent."""
-    k, v, *rest = payload
+    """``(handle, kv_mask, kv_seg)`` of a payload, None where absent: the
+    handle is ``(k, v)``, or one int8 tensor under compression or int8
+    compute."""
+    n = 1 if payload[0].dtype == torch.int8 else 2
+    handle, rest = payload[:n], list(payload[n:])
     mask = rest.pop(0) if masked else None
-    return k, v, mask, (rest[0] if rest else None)
+    return handle, mask, (rest[0] if rest else None)
+
+
+def _q8_block(bucket_size: int | None, n_local: int) -> int:
+    """The block an int8 sweep over a shard of ``n_local`` keys fits
+    (``cuda_flash_q8.q8_block``, the JAX ``_q8_block``): the granularity of
+    the v scales in the feed that every hop's sweep reads."""
+    return q8_block(n_local, bucket_size)
+
+
+def _kv_handle(k, v, hop_compression, block: int | None = None) -> tuple:
+    """A rank's circulating KV, quantized once here at ring entry (JAX
+    ``_kv_handle``): ``(k, v)`` as they are; with ``hop_compression`` ONE
+    int8 payload (``quantize_ring_payload``); under int8 compute
+    (``block`` set) ONE int8 blob of the int8 sweep's operands at that
+    block (``cuda_flash_q8.feed_blob``), read from a ``pack_kv(v_block=
+    block)`` payload's bytes when compressed (the dequant-free feed), else
+    quantized from the exact k and v."""
+    if block is not None:
+        if hop_compression is None:
+            feed = quant.quantize_kv_blocks(k, v, block)
+        else:
+            feed = quant.payload_kernel_feed(quant.pack_kv(k, v, v_block=block), block)
+        return (feed_blob(kernel_kv(feed)),)
+    if hop_compression is None:
+        return (k, v)
+    return (quantize_ring_payload(k, v),)
+
+
+def _handle_kv(handle, dtype) -> tuple:
+    """The ``(k, v)`` a float handle represents, in ``dtype``."""
+    if len(handle) == 1:
+        return dequantize_ring_payload(handle[0], dtype)
+    return handle
+
+
+def _handle_feed(handle, dtype, geometry) -> tuple:
+    """``(k, v, kv_quantized)`` of a handle for one hop's sweep (JAX
+    ``_handle_feed``): under int8 compute (``geometry`` ``(b, hk, n, d,
+    block)``) the feed's views, with no dequantize and no requantize;
+    otherwise the float ``(k, v)``."""
+    if geometry is not None:
+        return None, None, blob_kv(handle[0], *geometry)
+    return (*_handle_kv(handle, dtype), None)
+
+
+def _stream_state(ks, vs, cfg, n_local) -> tuple[list, tuple | None]:
+    """Every held rank's KV handle, quantized once per stream (JAX
+    ``_stream_state``), and the int8 feed's geometry (None unless int8
+    compute)."""
+    block = geometry = None
+    if cfg["compute_dtype"] == "int8":
+        block = _q8_block(cfg["bucket_size"], n_local)
+        b, hk, _, d = ks[0].shape
+        geometry = (b, hk, n_local, d, block)
+    return ([_kv_handle(k, v, cfg["hop_compression"], block) for k, v in zip(ks, vs)],
+            geometry)
 
 
 def _seg_ranges(ring: Ring, segs: list | None) -> list | None:
@@ -318,7 +398,8 @@ def _ring_fwd_cuda(qs, ks, vs, masks, segs, ranges, ring, cfg):
     holds the own shard, whose band and ids always meet: it seeds, and a
     hop skipped later leaves the carry for the next hop with work."""
     n_local = qs[0].shape[2]
-    payloads = _payloads(ks, vs, masks, segs)
+    handles, feed_geometry = _stream_state(ks, vs, cfg, n_local)
+    payloads = _payloads(handles, masks, segs)
     passes, geo = cfg["passes"], _geometry(cfg, n_local, ring.world)
     carries = [None] * len(qs)
     results = [None] * len(qs)
@@ -326,7 +407,8 @@ def _ring_fwd_cuda(qs, ks, vs, masks, segs, ranges, ring, cfg):
         full = _hop_is_full(i, **geo)
         for j, rank in enumerate(ring.ranks):
             q = qs[j]
-            kx, vx, mask, kv_seg = _unpack(payloads[j], masks is not None)
+            handle, mask, kv_seg = _unpack(payloads[j], masks is not None)
+            kx, vx, feed = _handle_feed(handle, q.dtype, feed_geometry)
             hi, lo = _offsets_at_hop(rank, i, **geo)
             has_work = i == 0 or _hop_works(ranges, rank, i, hi, lo, n_local)
             if full:  # every rank with work sees the whole span
@@ -334,7 +416,7 @@ def _ring_fwd_cuda(qs, ks, vs, masks, segs, ranges, ring, cfg):
             band = dict(scale=cfg["scale"], causal_offset=hi, window_lo=lo,
                         softclamp_value=cfg["softclamp_value"],
                         compute_dtype=cfg["compute_dtype"],
-                        block_k=cfg["bucket_size"],
+                        block_k=cfg["bucket_size"], kv_quantized=feed,
                         q_seg=None if segs is None else segs[j], kv_seg=kv_seg)
             if i == passes - 1:
                 if carries[j] is None:  # one pass: a plain fused sweep
@@ -365,15 +447,28 @@ def _gather(ring: Ring, payloads: list, dim: int) -> list:
 def _ring_fwd_fused(qs, ks, vs, masks, segs, ranges, ring, cfg):
     """Forward of every held rank on a fused ring kernel; ``(out, lse)`` in
     the flat layout of ``impl="cuda"``.  The remote tier when there is no
-    key mask, no ids and one launch can hold the whole ring (as JAX takes
-    it where ``neighbor_mesh_coords`` resolves and ``segment_ids is None``,
-    :706-711), else the local tier: one all-gather of k, v, the key mask
-    and the kv ids, then one launch per held rank over the gathered span."""
-    if masks is None and segs is None and ring.world > 1 and ring.colocated:
+    key mask, no ids, one launch can hold the whole ring (as JAX takes it
+    where ``neighbor_mesh_coords`` resolves and ``segment_ids is None``,
+    :706-711) and the wire and the compute are both int8 or both not
+    (``q8 == wire8``, :711); else the local tier: one all-gather of k, v
+    (or, under int8 compute, of the int8 feed), the key mask and the kv
+    ids, then one launch per held rank over the gathered span.
+    Compression alone round-trips K/V through the codec first (:728-732),
+    so that the fused ring sees the scan ring's wire precision."""
+    q8 = cfg["compute_dtype"] == "int8"
+    wire8 = cfg["hop_compression"] is not None
+    if (masks is None and segs is None and ring.world > 1 and ring.colocated
+            and q8 == wire8):
         return _ring_fwd_remote(qs, ks, vs, ring, cfg)
     n_local = qs[0].shape[2]
     geo = _geometry(cfg, n_local, ring.world)
-    kvs = _gather(ring, list(zip(ks, vs)), dim=2)
+    if wire8 and not q8:
+        ks, vs = zip(*(_handle_kv(_kv_handle(k, v, "int8"), k.dtype) for k, v in zip(ks, vs)))
+    feeds = kvs = [(None, None)] * len(qs)
+    if q8:
+        feeds = _gathered_feeds(ring, ks, vs, cfg, n_local)
+    else:
+        kvs = _gather(ring, list(zip(ks, vs)), dim=2)
     none = [None] * len(qs)
     mask_all = (none if masks is None
                 else [m for (m,) in _gather(ring, [(m,) for m in masks], dim=1)])
@@ -387,29 +482,62 @@ def _ring_fwd_fused(qs, ks, vs, masks, segs, ranges, ring, cfg):
             works=works, n_local=n_local, scale=cfg["scale"],
             softclamp_value=cfg["softclamp_value"],
             q_seg=None if segs is None else segs[j], kv_seg=seg_all[j],
+            kv_quantized=feeds[j] if q8 else None, block_k=cfg["bucket_size"],
         )
         outs.append(out)
         lses.append(lse)
     return outs, lses
 
 
+def _gathered_feeds(ring, ks, vs, cfg, n_local) -> list:
+    """Each held rank's int8 feed over the gathered span (JAX
+    ``ring.py:741-755``), at the fitted block, which divides ``n_local``:
+    with the wire on, one all-gather of the ranks' ``pack_kv(v_block=)``
+    payloads read as the feed; otherwise the exact k and v gathered and
+    quantized once.  Ranks that share one gathered tensor (a
+    ``VirtualRing``) share its feed."""
+    block = _q8_block(cfg["bucket_size"], n_local)
+    if cfg["hop_compression"] is not None:
+        gathered = _gather(ring, [(quant.pack_kv(k, v, v_block=block),)
+                                  for k, v in zip(ks, vs)], dim=3)
+        make = lambda parts: quant.payload_kernel_feed(parts[0], block)  # noqa: E731
+    else:
+        gathered = _gather(ring, list(zip(ks, vs)), dim=2)
+        make = lambda parts: quant.quantize_kv_blocks(*parts, block)  # noqa: E731
+    feeds = {}
+    for parts in gathered:
+        if id(parts) not in feeds:
+            feeds[id(parts)] = kernel_kv(make(parts))
+    return [feeds[id(parts)] for parts in gathered]
+
+
 def _ring_fwd_remote(qs, ks, vs, ring, cfg):
     """Forward of the whole ring in one launch of the remote-tier kernel:
     each rank's own KV circulates inside it; the hop tables stay on the
-    host, where the launch sizes each rank's share of the card."""
+    host, where the launch sizes each rank's share of the card.  Under
+    int8 (wire and compute) each rank's KV is its ``pack_kv(v_block=
+    n_local)`` payload read as the int8 sweep's feed, one v scale per rank
+    span (JAX ``ring.py:719``)."""
     n_local = qs[0].shape[2]
     geo = _geometry(cfg, n_local, ring.world)
     tables = [_fused_tables(rank, cfg["passes"], **geo) for rank in ring.ranks]
-    return fused_ring_remote(qs, ks, vs, tables=tables, n_local=n_local,
-                             scale=cfg["scale"],
-                             softclamp_value=cfg["softclamp_value"])
+    kw = dict(tables=tables, n_local=n_local, scale=cfg["scale"],
+              softclamp_value=cfg["softclamp_value"])
+    if cfg["compute_dtype"] == "int8":
+        feeds = [kernel_kv(quant.payload_kernel_feed(quant.pack_kv(k, v, v_block=n_local),
+                                                     n_local))
+                 for k, v in zip(ks, vs)]
+        return fused_ring_remote(qs, None, None, compute_dtype="int8", kv_quantized=feeds,
+                                 **kw)
+    return fused_ring_remote(qs, ks, vs, **kw)
 
 
 def _ring_fwd_torch(qs, ks, vs, masks, segs, ranges, ring, cfg):
     """Forward of every held rank on the blockwise PyTorch flash."""
     n_local = qs[0].shape[2]
     hk = ks[0].shape[1]
-    payloads = _payloads(ks, vs, masks, segs)
+    handles, _ = _stream_state(ks, vs, cfg, n_local)
+    payloads = _payloads(handles, masks, segs)
     geo = _geometry(cfg, n_local, ring.world)
     ops = [_span_ops(q, hk, cfg["scale"], cfg["bucket_size"],
                      cfg["softclamp_value"], None if segs is None else segs[j])
@@ -417,9 +545,10 @@ def _ring_fwd_torch(qs, ks, vs, masks, segs, ranges, ring, cfg):
     carries = [init() for init, _, _ in ops]
     for i in range(cfg["passes"]):
         for j, rank in enumerate(ring.ranks):
-            kx, vx, mask, kv_seg = _unpack(payloads[j], masks is not None)
+            handle, mask, kv_seg = _unpack(payloads[j], masks is not None)
             hi, lo = _offsets_at_hop(rank, i, **geo)
             if _hop_works(ranges, rank, i, hi, lo, n_local):
+                kx, vx = _handle_kv(handle, qs[j].dtype)
                 carries[j] = ops[j][1](carries[j], kx, vx, mask, hi, lo, kv_seg)
         if i < cfg["passes"] - 1:
             payloads = _rotate(ring, payloads)
@@ -441,7 +570,7 @@ def _ring_bwd(dos, qs, ks, vs, masks, segs, ranges, outs, lses, ring, cfg):
     else:
         deltas = [(_group_q(do, hk).float() * _group_q(o, hk).float()).sum(-1)
                   for do, o in zip(dos, outs)]
-    payloads = _payloads(ks, vs, masks, segs)
+    payloads = _payloads(list(zip(ks, vs)), masks, segs)
     dqs = [torch.zeros(q.shape, dtype=torch.float32, device=q.device) for q in qs]
     dkvs = [(torch.zeros(k.shape, dtype=torch.float32, device=k.device),
              torch.zeros(k.shape, dtype=torch.float32, device=k.device))
@@ -449,7 +578,7 @@ def _ring_bwd(dos, qs, ks, vs, masks, segs, ranges, outs, lses, ring, cfg):
     for i in range(passes):
         full = impl == "cuda" and _hop_is_full(i, **geo)
         for j, rank in enumerate(ring.ranks):
-            kx, vx, mask, kv_seg = _unpack(payloads[j], masks is not None)
+            (kx, vx), mask, kv_seg = _unpack(payloads[j], masks is not None)
             hi, lo = _offsets_at_hop(rank, i, **geo)
             if not _hop_works(ranges, rank, i, hi, lo, n_local, backward=True):
                 continue
@@ -570,17 +699,22 @@ def ring_flash_attention(
         query attends only keys of its document.  The kv ids rotate with k
         and v (``impl="fused"``: are gathered with them, and B7 takes them);
         a hop whose ids share no document with the queries' is skipped.
+      hop_compression: ``"int8"`` quantizes each rank's K/V once at ring
+        entry (per row, ``collectives.quantize_ring_payload``) and
+        circulates the int8 bytes; every hop's float sweep reads them
+        dequantized.  The backward recomputes from the exact K/V.
       compute_dtype: ``"int8"`` runs each hop's forward on int8 operands
-        (``impl="cuda"`` only, as the JAX ring needs the Pallas kernels), q
-        and k quantized per row and v per block of ``bucket_size`` keys
-        fitted to the hop; the backward stays on the float kernels.
+        (``impl="cuda"`` or ``"fused"``, as the JAX ring needs the Pallas
+        kernels): q and k quantized per row and v per block of
+        ``bucket_size`` keys fitted to the shard, K/V once per stream at
+        ring entry (from the int8 payload's bytes with ``hop_compression``:
+        the dequant-free ring); the backward stays on the float kernels.
 
-    ``bidirectional``, ``dkv_dtype``, ``counter_rotate``,
-    ``hop_compression``, ``compute_dtype="int8"`` with ``impl="fused"``,
-    and ``segment_ids`` with ``compute_dtype="int8"`` are not ported yet
-    and raise ``NotImplementedError`` naming their ROADMAP item; ``counter_rotate`` with ``impl="fused"`` is a
-    ``ValueError``, as in the JAX package (the alternating schedule has no
-    fused form).
+    ``bidirectional``, ``dkv_dtype`` and ``counter_rotate`` are not ported
+    yet and raise ``NotImplementedError`` naming their ROADMAP item;
+    ``counter_rotate`` with ``impl="fused"`` is a ``ValueError``, as in the
+    JAX package (the alternating schedule has no fused form), as is a
+    ``hop_compression`` other than None and ``"int8"``.
 
     Cross-attention (unequal q and kv shard lengths) bypasses the ring: each
     rank attends its local KV shard only, as in the JAX package (and takes
@@ -596,8 +730,7 @@ def ring_flash_attention(
         )
     for name, value in (("bidirectional", bidirectional),
                         ("dkv_dtype", dkv_dtype),
-                        ("counter_rotate", counter_rotate),
-                        ("hop_compression", hop_compression)):
+                        ("counter_rotate", counter_rotate)):
         if value is not None and value is not False:
             raise NotImplementedError(
                 f"ring_flash_attention: {name}= is not ported yet; it arrives "
@@ -605,17 +738,18 @@ def ring_flash_attention(
             )
     if impl not in IMPLS:
         raise ValueError(f"ring_flash_attention: impl must be one of {IMPLS}, got {impl!r}")
-    int8 = int8_compute(compute_dtype, "ring_flash_attention")
-    if int8 and impl == "fused":
-        raise NotImplementedError(
-            'ring_flash_attention: compute_dtype="int8" with impl="fused" is '
-            f"not ported yet; it arrives with {UNPORTED_FUSED_INT8}"
+    if hop_compression not in HOP_COMPRESSIONS:
+        raise ValueError(
+            f"ring_flash_attention: hop_compression={hop_compression!r}; supported "
+            'values are None (model-dtype hops) and "int8" (per-token absmax '
+            "quantized hops)"
         )
-    if int8 and impl != "cuda":
+    int8 = int8_compute(compute_dtype, "ring_flash_attention")
+    if int8 and impl == "torch":
         raise ValueError(
             'ring_flash_attention: compute_dtype="int8" runs on the CUDA kernels '
-            'only; pass impl="cuda" (the blockwise PyTorch flash has no int8 '
-            "matmul form)"
+            'only; pass impl="cuda" or impl="fused" (the blockwise PyTorch flash '
+            "has no int8 matmul form)"
         )
     count = len(ring.ranks)
     check_attention_args("ring_flash_attention", q, k, v, kv_mask, shards=count)
@@ -623,8 +757,6 @@ def ring_flash_attention(
         None if segment_ids is None else (segment_ids, segment_ids), q, q,
         "ring_flash_attention",
     )
-    if int8:
-        check_int8_segments("ring_flash_attention", seg)
     if window is not None and not causal:
         raise ValueError("ring_flash_attention: lookback windows require causal attention")
     if scale is None:
@@ -656,5 +788,6 @@ def ring_flash_attention(
         impl=impl, causal=causal, striped=striped, bucket_size=bucket_size,
         passes=min(max_ring_passes or ring.world, ring.world), window=window,
         softclamp_value=softclamp_value, scale=scale, compute_dtype=compute_dtype,
+        hop_compression=hop_compression,
     )
     return _RingFlashAttention.apply(q, k, v, kv_mask, seg, ring, cfg)

@@ -41,6 +41,8 @@ from ring_attention_tpu.parallel import create_mesh as jax_create_mesh
 from ring_attention_tpu.parallel import ring_flash_attention as jax_ring
 from ring_attention_tpu.utils.compat import shard_map
 from ring_attention_tpu_torch.ops import _build, cuda_ring_remote
+from ring_attention_tpu_torch.ops.cuda_flash_q8 import kernel_kv
+from ring_attention_tpu_torch.ops.quant import quantize_kv_blocks
 from ring_attention_tpu_torch.parallel import DistributedRing, VirtualRing, ring_flash_attention
 from ring_attention_tpu_torch.parallel import ring as pring
 
@@ -439,8 +441,16 @@ def test_fused_ring_remote_checks_its_inputs():
     with pytest.raises(ValueError, match="no key mask"):
         cuda_ring_remote.fused_ring_remote(qs, ks, vs, [torch.ones(1, n, dtype=torch.bool)] * 4,
                                            **kw)
-    with pytest.raises(NotImplementedError, match="Port queue item 7e"):
+    # the int8 wire is ported: it takes one feed per rank, with one v block
+    # of n_local keys
+    with pytest.raises(ValueError, match="one kv_quantized feed per rank"):
         cuda_ring_remote.fused_ring_remote(qs, ks, vs, compute_dtype="int8", **kw)
+    feeds = [kernel_kv(quantize_kv_blocks(k, v, n // 2)) for k, v in zip(ks, vs)]
+    with pytest.raises(ValueError, match="one v block of 8 keys"):
+        cuda_ring_remote.fused_ring_remote(qs, None, None, compute_dtype="int8",
+                                           kv_quantized=feeds, **kw)
+    with pytest.raises(ValueError, match="goes with"):
+        cuda_ring_remote.fused_ring_remote(qs, ks, vs, kv_quantized=feeds, **kw)
     with pytest.raises(ValueError, match="float operands"):
         cuda_ring_remote.fused_ring_remote([q.to(torch.int8) for q in qs],
                                            [k.to(torch.int8) for k in ks],

@@ -326,13 +326,15 @@ def test_fused_ring_cross_attention_bypasses_the_ring():
 
 def test_fused_ring_options():
     """counter_rotate has no fused form (a ValueError, as in JAX); the int8
-    feed and bidirectional half-streams are not ported yet."""
+    feed is ported (K4), and bidirectional half-streams and the dk/dv wire
+    dtype are not ported yet, with or without it."""
     x = torch.zeros((1, 2, 8, 16))
     ring = VirtualRing(2)
     with pytest.raises(ValueError, match="counter-rotation"):
         ring_flash_attention(x, x, x, None, ring, impl="fused", counter_rotate=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item 7e"):
-        ring_flash_attention(x, x, x, None, ring, impl="fused", compute_dtype="int8")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item 7"):
+        ring_flash_attention(x, x, x, None, ring, impl="fused", compute_dtype="int8",
+                             dkv_dtype="bfloat16")
     with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item 7"):
         ring_flash_attention(x, x, x, None, ring, impl="fused", bidirectional=True)
 

@@ -80,21 +80,25 @@ def test_default_device_without_cuda_raises(monkeypatch):
 UNPORTED_SETTINGS = {
     "ring_bidirectional": dict(ring_bidirectional=True),
     "ring_counter_rotate": dict(ring_counter_rotate=True),
-    "ring_hop_compression": dict(ring_hop_compression="int8"),
+    # the int8 wire is ported; its counter-rotated schedule (the JAX int8
+    # ring's canonical drive) is not (item 7e)
+    "ring_hop_compression": dict(ring_hop_compression="int8", ring_counter_rotate=True),
     "ring_dkv_dtype": dict(ring_dkv_dtype="bfloat16"),
     # zig-zag is ported; Ulysses and the hybrid factoring are not (item 7d)
     "sequence_parallel_zigzag": dict(sequence_parallel="ulysses"),
     "sequence_parallel_hybrid": dict(sequence_parallel="hybrid"),
-    # the mask algebra and declared packings are ported; a packing on the
-    # int8 sweep is not (ROADMAP.md Queue 2 K3c)
-    "mask": dict(causal=False, mask=Causal() & DocumentMask((0, 8)), compute_dtype="int8"),
+    # the mask algebra and declared packings are ported, also on the int8
+    # sweep; a packing on the hybrid strategy is not (item 7d)
+    "mask": dict(causal=False, mask=Causal() & DocumentMask((0, 8)), compute_dtype="int8",
+                 sequence_parallel="hybrid"),
     "windowed_cache": dict(windowed_cache=True),
     "ff_chunk_size": dict(ff_chunk_size=64),
     "loss_chunk_size": dict(loss_chunk_size=64),
     "remat": dict(remat=True),
-    # the fused ring is ported; its int8 feed is not (ROADMAP item 7e)
-    "impl_fused": dict(impl="fused", compute_dtype="int8",
-                       mesh=create_mesh(ring_size=2)),
+    # the fused ring and its int8 feed and wire are ported; bidirectional
+    # half-streams are not (ROADMAP item 7e)
+    "impl_fused": dict(impl="fused", compute_dtype="int8", ring_hop_compression="int8",
+                       mesh=create_mesh(ring_size=2), ring_bidirectional=True),
     "impl_auto": dict(impl="auto"),
 }
 
@@ -105,7 +109,9 @@ def test_unported_features_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item") as err:
         RingTransformer(**settings)
     if name == "mask":
-        assert "K3c" in str(err.value)
+        assert "hybrid Ulysses x Ring" in str(err.value)
+    if name in ("ring_hop_compression", "impl_fused"):
+        assert "item 7" in str(err.value)
 
 
 # the int8 knobs are ported; the settings they cannot take raise as the JAX
@@ -156,8 +162,10 @@ def test_decode_on_a_mesh_raises(entry):
 
 def test_segment_ids_raise():
     """Packed sequences are ported on the local path, the scan-path ring
-    and the fused ring (its ids, K3b: the same logits as the scan ring);
-    the int8 sweep's ids (K3c) are not, and raise."""
+    and the fused ring (its ids, K3b: the same logits as the scan ring),
+    and on the int8 sweep (K3c) and the int8 ring (the fused int8 ring's
+    logits are the scan int8 ring's); what still raises with them is the
+    ring's counter-rotation (item 7e)."""
     tokens = torch.zeros((1, 8), dtype=torch.long)
     fused = RingTransformer(**SMALL, device="cpu", impl="fused",
                             mesh=create_mesh(ring_size=2))
@@ -165,11 +173,17 @@ def test_segment_ids_raise():
     scan.load_state_dict(fused.state_dict())
     with torch.no_grad():
         assert torch.equal(fused(tokens, segment_ids=tokens), scan(tokens, segment_ids=tokens))
-    int8 = RingTransformer(**SMALL, device="cpu", compute_dtype="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item"):
-        int8(tokens, segment_ids=tokens)
-    with pytest.raises(NotImplementedError, match="K3c"):
-        int8(tokens, segment_ids=tokens)
+    int8 = {impl: RingTransformer(**SMALL, device="cpu", impl=impl, compute_dtype="int8",
+                                  ring_hop_compression="int8", mesh=create_mesh(ring_size=2))
+            for impl in ("cuda", "fused")}
+    int8["cuda"].load_state_dict(fused.state_dict())
+    int8["fused"].load_state_dict(fused.state_dict())
+    with torch.no_grad():
+        assert torch.equal(int8["fused"](tokens, segment_ids=tokens),
+                           int8["cuda"](tokens, segment_ids=tokens))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item 7"):
+        RingTransformer(**SMALL, device="cpu", compute_dtype="int8", mesh=create_mesh(ring_size=2),
+                        ring_hop_compression="int8", ring_counter_rotate=True)
 
 
 def test_unknown_impl_is_a_value_error():

@@ -174,9 +174,12 @@ def test_doc_starts_is_never_dropped():
         cuda_flash_attention(tq, tk, tv, causal=True, doc_starts=starts, segment_ids=ids)
     with pytest.raises(ValueError, match="doc_starts must be sorted unique offsets"):
         cuda_flash_attention(tq, tk, tv, causal=True, doc_starts=(0, 128))
-    with pytest.raises(NotImplementedError, match="K3c"):
-        cuda_flash_attention(tq, tk, tv, causal=True, doc_starts=starts,
-                             compute_dtype="int8")
+    with torch.no_grad():  # and under int8 compute (K3c)
+        assert torch.equal(
+            cuda_flash_attention(tq, tk, tv, causal=True, doc_starts=starts,
+                                 compute_dtype="int8"),
+            cuda_flash_attention(tq, tk, tv, causal=True, segment_ids=ids,
+                                 compute_dtype="int8"))
 
 
 def test_an_empty_row_averages_what_each_side_visits():

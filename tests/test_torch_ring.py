@@ -359,22 +359,22 @@ def test_cuda_ring_launch_schedule_on_cpu(monkeypatch):
 
 
 def test_ring_unported_options_raise():
-    x = torch.zeros((1, 2, 8, 16))
+    x = torch.zeros((1, 2, 8, 64))
     for name, value in (("bidirectional", True), ("counter_rotate", True),
-                        ("hop_compression", "int8"), ("dkv_dtype", "bfloat16")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item"):
+                        ("dkv_dtype", "bfloat16")):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item 7"):
             ring_flash_attention(x, x, x, None, VirtualRing(2), **{name: value})
-    # segment ids are ported on the scan path and the fused ring; the int8
-    # sweep's are not (its ids, with or without the fused ring's int8 feed)
+    # the int8 wire, the int8 sweep's ids and the fused ring's int8 feed are
+    # ported (items 7b, 7e); beside them the ring variants still raise, and
+    # a wire other than None and "int8" is the JAX ring's ValueError
     seg = torch.zeros((1, 8), dtype=torch.int32)
-    for impl, item in (("cuda", "7b"), ("fused", "7e")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Port queue item {item}"):
+    for impl, name in (("cuda", "bidirectional"), ("fused", "dkv_dtype")):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item 7"):
             ring_flash_attention(x, x, x, None, VirtualRing(2), impl=impl,
-                                 compute_dtype="int8", segment_ids=seg)
-    # the fused ring is ported; its int8 feed is not
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item 7e"):
-        ring_flash_attention(x, x, x, None, VirtualRing(2), impl="fused",
-                             compute_dtype="int8")
+                                 compute_dtype="int8", hop_compression="int8",
+                                 segment_ids=seg, **{name: True})
+    with pytest.raises(ValueError, match="hop_compression='fp8'"):
+        ring_flash_attention(x, x, x, None, VirtualRing(2), hop_compression="fp8")
     with pytest.raises(ValueError, match="equal shards"):
         ring_flash_attention(x[:, :, :7], x[:, :, :7], x[:, :, :7], None, VirtualRing(2))
 

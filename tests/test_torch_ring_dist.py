@@ -6,7 +6,8 @@ and runs ``ring_flash_attention`` forward and backward on its shard of the
 same seeded inputs (``impl="fused"`` gathers k, v and the key mask with
 ``DistributedRing.all_gather``, and the kv document ids in its packed
 case; the scan ring's packed case rotates the ids with k and v and skips
-the hops they share no document with).  Every shard of the output and of dq, dk and dv must
+the hops they share no document with; the int8 cases rotate, or gather,
+the int8 payload or feed quantized once at ring entry).  Every shard of the output and of dq, dk and dv must
 equal, bit for bit, the ``VirtualRing`` run of the same ranks in this
 process: the same arithmetic in the same order, only the transport differs.
 The same processes run the collectives of tree decoding and zig-zag:
@@ -63,6 +64,27 @@ CASES = {
     "packed_cuda": (4, 1, dict(causal=True, impl="cuda", packed=True)),
     # the fused ring with ids: the kv ids gathered with k and v (B7's ids)
     "packed_fused": (4, 1, dict(causal=True, impl="fused", packed=True)),
+    # the int8 wire: K/V quantized once at ring entry, rotated as one int8
+    # tensor (the ids and the mask beside it); under int8 compute the tensor
+    # is the int8 sweep's feed, also without the wire
+    "int8_wire_torch": (4, 1, dict(causal=True, impl="torch", bucket_size=8,
+                                   hop_compression="int8")),
+    "int8_wire_q8_striped_cuda": (4, 1, dict(causal=True, striped=True, impl="cuda",
+                                             bucket_size=8, hop_compression="int8",
+                                             compute_dtype="int8")),
+    "int8_q8_packed_cuda": (4, 1, dict(causal=True, impl="cuda", bucket_size=8,
+                                       compute_dtype="int8", packed=True)),
+    # the fused ring's int8 feed over the gathered payloads (B7), with ids and
+    # with a key mask (a DistributedRing, like a masked ring, takes B7)
+    "int8_wire_q8_packed_fused": (4, 1, dict(causal=True, impl="fused", bucket_size=8,
+                                             hop_compression="int8", compute_dtype="int8",
+                                             packed=True)),
+    "int8_wire_q8_mask_fused": (2, 2, dict(impl="fused", bucket_size=8,
+                                           hop_compression="int8", compute_dtype="int8",
+                                           masked=True)),
+    # compression alone on the fused ring: the codec round trip, float B7
+    "int8_wire_fused": (4, 1, dict(causal=True, window=20, max_ring_passes=3,
+                                   impl="fused", hop_compression="int8")),
 }
 
 

@@ -359,12 +359,16 @@ def test_backward_plain_matches_pallas_backward(name):
 
 
 def test_int8_sweep_takes_no_ids_yet():
+    """The int8 sweep takes ids now (K3c); what it still refuses is a
+    malformed pair, as the float sweep does."""
     q, k, v, _ = make_qkv(0)
     seg = torch.zeros((2, 64), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="K3c"):
-        cf.flash_fwd(*_t(q, k, v), scale=0.25, compute_dtype="int8", q_seg=seg, kv_seg=seg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item 7b"):
-        cuda_flash_attention(*_t(q, k, v), compute_dtype="int8", segment_ids=seg)
+    out, _ = cf.flash_fwd(*_t(q, k, v), scale=0.25, compute_dtype="int8", q_seg=seg,
+                          kv_seg=seg)
+    ref, _ = cf.flash_fwd(*_t(q, k, v), scale=0.25, compute_dtype="int8")
+    assert torch.equal(out, ref)  # one document: the unsegmented sweep
+    with pytest.raises(ValueError, match="segment_ids"):
+        cuda_flash_attention(*_t(q, k, v), compute_dtype="int8", segment_ids=seg[:, :7])
 
 
 # ---------------------------------------------------------------------------
@@ -485,13 +489,18 @@ def test_ring_cuda_skipped_hops_keep_the_launch_schedule(monkeypatch):
 
 
 def test_fused_ring_takes_no_ids_yet():
-    """The fused ring takes ids (B7's segmented instantiation); what it still
-    refuses with them is its int8 feed (ROADMAP.md Queue 2 K4)."""
+    """The fused ring takes ids (B7's segmented instantiation) and, since
+    K4, its int8 feed with them; what it still refuses with ids is the
+    counter-rotated schedule, which has no fused form (a ValueError, as in
+    JAX)."""
     q, k, v, _ = make_qkv(0)
-    with pytest.raises(NotImplementedError, match="K4"):
-        ring_flash_attention(*_t(q, k, v), None, VirtualRing(2), impl="fused",
-                             compute_dtype="int8",
-                             segment_ids=torch.zeros((2, 64), dtype=torch.int32))
+    seg = torch.zeros((2, 64), dtype=torch.int32)
+    kw = dict(impl="fused", compute_dtype="int8", segment_ids=seg)
+    out = ring_flash_attention(*_t(q, k, v), None, VirtualRing(2), **kw)
+    ref = ring_flash_attention(*_t(q, k, v), None, VirtualRing(2), **dict(kw, impl="cuda"))
+    assert torch.equal(out, ref)
+    with pytest.raises(ValueError, match="counter-rotation"):
+        ring_flash_attention(*_t(q, k, v), None, VirtualRing(2), counter_rotate=True, **kw)
 
 
 # ---------------------------------------------------------------------------

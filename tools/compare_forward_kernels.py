@@ -328,16 +328,19 @@ def unchanged(trees: dict, name: str) -> bool:
     return (base / f"{name}.cu").is_file() and files(base) == files(head)
 
 
-def q8_fwd_launcher(lib_path: Path, blocked_v: bool):
+def q8_fwd_launcher(lib_path: Path, blocked_v: bool, ids: bool = False):
     """``run(ops, mask, causal, hi, windowed, lo, softclamp, carry, partials,
     out_dtype)``: one B4 launch on quantized operands (``ops``: a dict of
     q8, qs, k8, ks, v8, v8t, vs, block), ``(out, lse)`` or f32 partials;
-    ``blocked_v``: the tree's kernel reads V^T per block (v8t), else v8."""
+    ``blocked_v``: the tree's kernel reads V^T per block (v8t), else v8;
+    ``ids``: its entry point takes ids and a doc-tile table (null here)."""
     import torch
 
     lib = ctypes.CDLL(str(lib_path))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_fwd_q8.argtypes = [ptr] * 15 + [i32] * 7 + [i32, f32] + [i32] * 4 + [f32, ptr]
+    packing = [ptr] * 3 if ids else []
+    lib.flash_fwd_q8.argtypes = ([ptr] * 15 + [i32] * 7 + [i32, f32] + [i32] * 4 + [f32]
+                                 + packing + [ptr])
 
     def run(ops, mask, causal, hi, windowed, lo, softclamp, carry=None, partials=False,
             out_dtype=torch.bfloat16):
@@ -358,7 +361,7 @@ def q8_fwd_launcher(lib_path: Path, blocked_v: bool):
             _ptr(ops["qs"]), _ptr(ops["ks"]), _ptr(ops["vs"]), _ptr(mask), _ptr(out), _ptr(lse),
             *(_ptr(x) for x in (carry or (None, None, None))), *(_ptr(x) for x in parts),
             b, h, hk, nq, nk, d, ops["block"], int(out_dtype == torch.bfloat16), 0.125,
-            int(causal), hi, int(windowed), lo, softclamp, stream)
+            int(causal), hi, int(windowed), lo, softclamp, *[None] * len(packing), stream)
         if rc:
             raise RuntimeError(f"flash_fwd_q8 launch failed: {rc}")
         return parts if partials else (out, lse)
@@ -651,7 +654,8 @@ def main() -> int:
     # B4: each tree on its own layout of v, every mode, held to the base
     # tree's within chip_smoke's int8 bounds (bit for bit when unchanged)
     q8_fwd = {tree: q8_fwd_launcher(built[(tree, "flash_fwd_q8")][0],
-                                    "v_block_layout" in (csrc / "flash_fwd_q8.cu").read_text())
+                                    "v_block_layout" in (csrc / "flash_fwd_q8.cu").read_text(),
+                                    takes_docs(csrc, "flash_fwd_q8"))
               for tree, csrc in trees.items() if (tree, "flash_fwd_q8") in built}
 
     def near(label, got, ref, rel_tol, lse_tol, same):
