@@ -217,7 +217,27 @@ result line):
    the hops the ids skip counted, one step's segmented backward; then the
    local forward and step with doc tables, with runtime ids and unpacked,
    in turns.
-   In phases 3 to 3k every launch counter is set to 0 just before each
+3m. The model over a mesh of processes: four processes (``spawn``), one
+   rank each of ``create_mesh()`` over a gloo process group that meets
+   through a ``FileStore``, all on this card (gloo stages every payload
+   through host memory; the kernels run on the card in every process),
+   joined with a timeout, a failure or a straggler failing the run.  The
+   same model at 1 x 65,536: forward on the ring of 4 with
+   ``impl="cuda"``, ``"fused"`` (B7 once a rank and layer) and the int8
+   wire with int8 compute, striped, phase 3f's 13 documents as
+   ``segment_ids`` (forward and loss), zig-zag (forward and step), an Adam
+   step on the ring of 4 and on data 2 x ring 2 (2 x 32,768), and
+   ``generate`` for 4 x (2,048 + 16 new); each held to the same model on a
+   VirtualRing in this process: logits (RING_LOGITS_REL_TOL, one digest
+   across the processes), losses (MP_LOSS_REL_TOL), the step's gradient
+   (the mesh's sum) leaf by leaf (MP_GRAD_REL_TOL, with a control that
+   must fail it: the gradient without the seq ring's sum), the parameters
+   after the step bit-identical across the processes and within
+   MP_PARAM_ATOL of the VirtualRing step's, greedy tokens equal; the launches of each
+   process per layer, their sum equal to the VirtualRing model's (times
+   the data rows; the fused forward: B7 where the VirtualRing takes B8),
+   and the bytes each collective staged through the host.
+   In phases 3 to 3m every launch counter is set to 0 just before each
    run and read just after; a kernel that never launched fails the run.
 4. Timings with CUDA events (median of 10 runs after warm-up): each kernel
    beside its bound (the larger of its bytes over 3.35 TB/s and its
@@ -287,6 +307,11 @@ result line):
    beside the unsegmented B7 and the segmented B1 chain on the same spans
    (in turns), its bound, plain version and SDPA with the dense mask over
    the gathered span.
+4j. Phase 3m's wall times (host clock around synchronized calls): each
+   forward and ``generate`` the median of 3 after the first, each step the
+   second one, beside the VirtualRing model's, with the card's name and
+   power limit: four processes time-sliced on one card with gloo staging,
+   not a measure of a multi-GPU ring.
 5. The kernels line, one JSON object with eight kernels; the forward
    kernels' entries list their ring modes; the per-shape rows of
    flash_fwd, flash_bwd_dkv and flash_bwd_dq end with phase 4f's, each
@@ -5415,6 +5440,381 @@ def phase_int8_ring_timings(int8_path: dict, serving: dict, training: dict) -> d
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phases 3m and 4j: the model over a mesh of processes.  Four processes
+# (spawn), each one rank of create_mesh() over a gloo process group
+# rendezvousing through a FileStore, all on this one card: gloo stages the
+# collectives' payloads through host memory (NCCL takes no two ranks on one
+# device); the kernels run on the card in every process.
+
+MP_WORLD = 4
+MP_SEQ = 65536
+MP_JOIN_TIMEOUT_S = 480
+MP_LR = 1e-3
+MP_SERVE_NEW = 16
+MP_TIMED_CALLS = 3
+# name: (ring size, data size, model fields, what the case runs)
+MP_CASES = {
+    "cuda": (4, 1, dict(impl="cuda"), ("forward", "step")),
+    "fused": (4, 1, dict(impl="fused"), ("forward",)),
+    "int8": (4, 1, dict(impl="cuda", ring_hop_compression="int8", compute_dtype="int8"),
+             ("forward",)),
+    "striped": (4, 1, dict(impl="cuda", striped=True), ("forward",)),
+    "packed": (4, 1, dict(impl="cuda"), ("forward", "loss")),
+    "zigzag": (4, 1, dict(impl="cuda", sequence_parallel="zigzag"), ("forward", "step")),
+    "data2_ring2": (2, 2, dict(impl="cuda"), ("step",)),
+    "serving": (4, 1, dict(impl="cuda"), ("generate",)),
+}
+# Phase-3m bounds against the same model on a VirtualRing in this process.
+# Logits: RING_LOGITS_REL_TOL (the attention on the same q, k, v is the
+# same arithmetic, but cuBLAS may choose another algorithm for the
+# projections of 16,384 rows than for 65,536).  Loss: the same f32 nll
+# summed in another order (each process's positions, then gloo's sum of
+# the four) from those logits.
+MP_LOSS_REL_TOL = 1e-5
+# The step's gradient (the mesh's sum that the optimizer is given) against
+# the VirtualRing model's, leaf by leaf, ||diff|| / ||ref||, the worst leaf
+# (prediction in PERF.md section 6, PR 18).  The f32 gradient of each weight
+# is a bf16 product summed over the rows: a process rounds its share of
+# 16,384 rows to bf16 once, the VirtualRing model the sum of 65,536 rows,
+# so the two differ by a few bf16 roundings (2^-9 relative each) of
+# shares that partly cancel.  The bound sits above the sound runs' readings
+# and far below the control's: the ring-4 step's gradient without the seq
+# ring's sum (MP_GRAD_CONTROL), which must land outside it.
+MP_GRAD_REL_TOL = 2e-2
+MP_GRAD_CONTROL = "cuda"
+# Parameters after one Adam step (lr MP_LR) from the same parameters, a
+# bound on the parameters alone, not on the gradient (that is
+# MP_GRAD_REL_TOL's): Adam's first update is lr * g / (|g| + eps), never more
+# than lr from zero whatever the gradient's scale, so two such steps differ
+# by at most 2 * lr (plus the f32 rounding of parameters below 8 in
+# magnitude, 1e-6), reached where the two gradients' signs differ.  The
+# norm of the updates' difference over the norm of the update is printed
+# beside it.
+MP_PARAM_ATOL = 2 * MP_LR + 1e-6
+MP_KERNELS = {"flash_fwd": "B1", "flash_bwd_dkv": "B2", "flash_bwd_dq": "B3",
+              "flash_fwd_q8": "B4", "flash_decode": "B5", "flash_ring": "B7",
+              "flash_ring_remote": "B8"}
+
+
+def _mp_tokens(shape, seed):
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + seed)
+    return torch.randint(0, BENCH_MODEL["num_tokens"], shape, generator=gen).cuda()
+
+
+def _mp_staged(mesh) -> dict:
+    """Bytes and calls that the mesh's rings staged through host memory."""
+    from ring_attention_tpu_torch.parallel import DistributedRing
+
+    rings = [r for r in (mesh.ring, mesh.data_ring) if isinstance(r, DistributedRing)]
+    return {op: [sum(r.staged_calls[op] for r in rings), sum(r.staged_bytes[op] for r in rings)]
+            for op in ("rotate", "all_gather", "all_reduce")}
+
+
+def _mp_digest(t) -> str:
+    """A digest of a tensor's bytes (bit-identity across processes)."""
+    import hashlib
+
+    import torch
+
+    data = t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy()
+    return hashlib.sha256(data.tobytes()).hexdigest()
+
+
+def _mp_timed(fn, mesh):
+    """``fn()``'s result, host ms of its first call and the median of
+    MP_TIMED_CALLS more (each synchronized), and the launches and host
+    staging of the first call."""
+    import torch
+
+    _reset_counts()
+    staged = _mp_staged(mesh)
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - start) * 1e3
+    counts = _read_counts()
+    staged = {op: [a - b for a, b in zip(n, staged[op])] for op, n in _mp_staged(mesh).items()}
+    times = []
+    for _ in range(MP_TIMED_CALLS):
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    return out, {"first_ms": first, "ms": statistics.median(times), "counts": counts,
+                 "staged": staged}
+
+
+def _mp_case(name: str, mesh, out_dir: str, tag) -> dict:
+    """One case of MP_CASES on ``mesh`` (a process's, or a VirtualRing's in
+    the parent, ``tag == "ref"``): its launches, times, host staging and
+    digests; rank 0 and the reference save their logits and parameters."""
+    import torch
+
+    from ring_attention_tpu_torch import make_train_step
+
+    ring, data, fields, actions = MP_CASES[name]
+    model = _model(torch.bfloat16, "cuda", mesh=mesh, **fields)
+    ids = packed_ids(MP_SEQ) if name == "packed" else None
+    save = tag in (0, "ref")
+    res = {}
+    if "forward" in actions:
+        tokens = _mp_tokens((1, MP_SEQ), 40)
+        with torch.inference_mode():
+            logits, res["forward"] = _mp_timed(lambda: model(tokens, segment_ids=ids), mesh)
+        res["forward"]["digest"] = _mp_digest(logits)
+        if save:
+            torch.save(logits.cpu(), f"{out_dir}/{name}_{tag}_logits.pt")
+        del logits
+    if "loss" in actions:
+        step_tokens = _mp_tokens((1, MP_SEQ + 1), 41)
+        step_ids = torch.cat([ids, ids[:, -1:]], dim=1)
+        with torch.inference_mode():
+            res["loss"] = float(model(step_tokens, return_loss=True, segment_ids=step_ids))
+    if "step" in actions:
+        step_tokens = _mp_tokens((data, MP_SEQ // data + 1), 41)
+        model.train()
+        if name == MP_GRAD_CONTROL and tag != "ref":
+            # the control: this process's gradient before any step, without
+            # the seq ring's sum (the case has one data row)
+            model(step_tokens, return_loss=True).backward()
+            if save:
+                torch.save([p.grad.float().cpu() for p in model.parameters()],
+                           f"{out_dir}/{name}_{tag}_local.pt")
+            model.zero_grad(set_to_none=True)
+        opt = torch.optim.Adam(model.parameters(), lr=MP_LR)
+        step = make_train_step(lambda t: model(t, return_loss=True), opt, mesh=mesh)
+        _reset_counts()
+        staged = _mp_staged(mesh)
+        loss = float(step(step_tokens))
+        torch.cuda.synchronize()
+        flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()]).cpu()
+        res["step"] = {"loss": loss, "counts": _read_counts(), "digest": _mp_digest(flat),
+                       "staged": {op: [a - b for a, b in zip(n, staged[op])]
+                                  for op, n in _mp_staged(mesh).items()}}
+        if save:
+            torch.save(flat, f"{out_dir}/{name}_{tag}_params.pt")
+            # the step's gradient: on a process the mesh's sum that the step
+            # gave the optimizer (it leaves it in .grad), on the VirtualRing
+            # the model's own
+            torch.save([p.grad.float().cpu() for p in model.parameters()],
+                       f"{out_dir}/{name}_{tag}_grads.pt")
+        # the step compared above is the first; a second one is timed
+        start = time.perf_counter()
+        step(step_tokens)
+        torch.cuda.synchronize()
+        res["step"]["ms"] = (time.perf_counter() - start) * 1e3
+    if "generate" in actions:
+        prompts = _mp_tokens((4, SERVE_PROMPT), 42)
+        with torch.inference_mode():
+            new, res["generate"] = _mp_timed(lambda: model.generate(
+                prompts, max_len=SERVE_MAX_LEN, num_steps=MP_SERVE_NEW), mesh)
+        res["generate"]["tokens"] = new.tolist()
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def _mp_worker(rank: int, store_path: str, out_dir: str) -> None:
+    """One process of the mesh: every case of MP_CASES on its mesh, the
+    results written to ``rank<r>.json``.  A failure raises (the process
+    exits non-zero and the parent fails the run)."""
+    import torch
+    import torch.distributed as dist
+
+    from ring_attention_tpu_torch.parallel import create_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, MP_WORLD), rank=rank,
+                            world_size=MP_WORLD)
+    meshes = {(4, 1): create_mesh(), (2, 2): create_mesh(ring_size=2, data_size=2)}
+    check(meshes[4, 1].ring.host_staged, "a gloo ring must stage CUDA payloads on the host")
+    results = {name: _mp_case(name, meshes[ring, data], out_dir, rank)
+               for name, (ring, data, _, _) in MP_CASES.items()}
+    with open(f"{out_dir}/rank{rank}.json", "w") as f:
+        json.dump(results, f)
+    dist.destroy_process_group()
+
+
+def _mp_spawn(out_dir: str) -> list[dict]:
+    """The MP_WORLD processes, joined within MP_JOIN_TIMEOUT_S; a process
+    that fails or is still running fails the run (the stragglers are
+    terminated first)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_mp_worker, args=(r, f"{out_dir}/store", out_dir))
+             for r in range(MP_WORLD)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MP_JOIN_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    check(not hung, f"phase 3m: ranks {hung} still running after {MP_JOIN_TIMEOUT_S} s")
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * MP_WORLD, f"phase 3m: the processes exited with {codes}")
+    results = []
+    for r in range(MP_WORLD):
+        with open(f"{out_dir}/rank{r}.json") as f:
+            results.append(json.load(f))
+    return results
+
+
+def _staged_text(staged: dict) -> str:
+    calls, nbytes_ = staged["rotate"]
+    text = f"{calls} hops of {nbytes_ // max(calls, 1):,} B"
+    for op in ("all_gather", "all_reduce"):
+        text += f", {op} {staged[op][1]:,} B in {staged[op][0]}"
+    return text
+
+
+def _worst_leaf(got: list, want: list) -> float:
+    """The largest ``||got - want|| / ||want||`` over the leaves."""
+    return max(((g - w).norm() / w.norm()).item() for g, w in zip(got, want))
+
+
+def _per_layer(counts: dict) -> dict:
+    depth = BENCH_MODEL["depth"]
+    return {f"{MP_KERNELS[k]} {k}": v / depth for k, v in counts.items()
+            if k in MP_KERNELS and v}
+
+
+def phase_multiprocess_model() -> dict:
+    """Phases 3m and 4j: the bench model at full width on a mesh of four
+    processes sharing this card over gloo (``DistributedRing``), each case
+    held to the same model on a ``VirtualRing`` in this process; then the
+    processes' times beside the ``VirtualRing`` model's."""
+    import tempfile
+
+    import torch
+
+    from ring_attention_tpu_torch.parallel import create_mesh
+
+    log(f"phase 3m: RingTransformer on a mesh of {MP_WORLD} processes (spawn, gloo through a "
+        f"FileStore, every process on this card; ring 4, and data 2 x ring 2), bench model at "
+        f"full width, bf16: cases {list(MP_CASES)}")
+    depth = BENCH_MODEL["depth"]
+    launches = {name: 0 for name in COUNTERS}
+    with tempfile.TemporaryDirectory() as out_dir:
+        refs = {name: _mp_case(name, create_mesh(ring_size=ring), out_dir, "ref")
+                for name, (ring, _, _, _) in MP_CASES.items()}
+        start = time.perf_counter()
+        procs = _mp_spawn(out_dir)
+        log(f"  the {MP_WORLD} processes ran every case in {time.perf_counter() - start:.1f} s "
+            f"(spawn, CUDA init and the first calls included)")
+        rows = []
+        for name, (ring, data, fields, actions) in MP_CASES.items():
+            ref = refs[name]
+            for action in actions:
+                if action == "loss":
+                    continue
+                got = [p[name][action] for p in procs]
+                summed = {k: sum(g["counts"][k] for g in got) for k in COUNTERS}
+                for k, v in summed.items():
+                    launches[k] += v
+                expected = {k: data * v for k, v in ref[action]["counts"].items()}
+                if name == "fused" and action == "forward":
+                    # a DistributedRing is not colocated: B7 over the gathered
+                    # span once per rank and layer where the VirtualRing takes B8
+                    expected = _counts(flash_ring=MP_WORLD * depth)
+                log(f"  {name} {action}: launches per process and layer "
+                    f"{[_per_layer(g['counts']) for g in got]}; summed over the processes "
+                    f"{ {k: v for k, v in summed.items() if v} }; rank 0 staged through the "
+                    f"host (bytes to and from it, calls): {_staged_text(got[0]['staged'])}")
+                check(summed == expected, f"{name} {action}: the processes launched {summed}, "
+                      f"expected {expected}")
+                for k in ("flash_fwd", "flash_fwd_q8", "flash_ring", "flash_decode"):
+                    if expected.get(k):
+                        check(all(g["counts"][k] > 0 for g in got),
+                              f"{name} {action}: a process never launched {k}")
+            if "forward" in actions:
+                digests = {p[name]["forward"]["digest"] for p in procs}
+                check(len(digests) == 1, f"{name}: the processes' logits differ")
+                logits = torch.load(f"{out_dir}/{name}_0_logits.pt").float()
+                want = torch.load(f"{out_dir}/{name}_ref_logits.pt").float()
+                rel = ((logits - want).norm() / want.norm()).item()
+                log(f"  {name} forward 1 x {MP_SEQ}: global logits on every process (one digest), "
+                    f"vs the VirtualRing model ||diff|| / ||ref|| {rel:.3e} (tol "
+                    f"{RING_LOGITS_REL_TOL}), bit-identical {bool(torch.equal(logits, want))}")
+                check(bool(torch.isfinite(logits).all()) and rel <= RING_LOGITS_REL_TOL,
+                      f"{name}: logits on the processes disagree with the VirtualRing model")
+                del logits, want
+            if "loss" in actions:
+                losses = [p[name]["loss"] for p in procs]
+                rel = abs(losses[0] - ref["loss"]) / abs(ref["loss"])
+                log(f"  {name} loss: {losses} vs the VirtualRing model {ref['loss']:.7f}: "
+                    f"rel {rel:.3e} (tol {MP_LOSS_REL_TOL})")
+                check(len(set(losses)) == 1 and rel <= MP_LOSS_REL_TOL,
+                      f"{name}: packed loss on the processes disagrees")
+            if "step" in actions:
+                losses = [p[name]["step"]["loss"] for p in procs]
+                rel = abs(losses[0] - ref["step"]["loss"]) / abs(ref["step"]["loss"])
+                digests = {p[name]["step"]["digest"] for p in procs}
+                params = torch.load(f"{out_dir}/{name}_0_params.pt")
+                want = torch.load(f"{out_dir}/{name}_ref_params.pt")
+                init = torch.cat([p.detach().reshape(-1).cpu() for p in
+                                  _model(torch.bfloat16, "cpu").parameters()])
+                worst = (params - want).abs().max().item()
+                upd = ((params - want).norm() / (want - init).norm()).item()
+                log(f"  {name} Adam step ({data} x {MP_SEQ // data} tokens): loss {losses} vs "
+                    f"the VirtualRing step {ref['step']['loss']:.7f}: rel {rel:.3e} (tol "
+                    f"{MP_LOSS_REL_TOL}); parameters equal bit for bit on every process "
+                    f"{len(digests) == 1}; vs the VirtualRing step max|diff| {worst:.3e} "
+                    f"(tol {MP_PARAM_ATOL}), ||diff|| / ||VirtualRing update|| {upd:.3e}")
+                check(len(set(losses)) == 1 and rel <= MP_LOSS_REL_TOL,
+                      f"{name}: the step's loss on the processes disagrees")
+                check(len(digests) == 1, f"{name}: the processes' parameters differ")
+                check(worst <= MP_PARAM_ATOL, f"{name}: parameters off the VirtualRing step")
+                want = torch.load(f"{out_dir}/{name}_ref_grads.pt")
+                grad_rel = _worst_leaf(torch.load(f"{out_dir}/{name}_0_grads.pt"), want)
+                log(f"  {name} step gradient (the mesh's sum) vs the VirtualRing model's: worst "
+                    f"leaf ||diff|| / ||ref|| {grad_rel:.3e} (tol {MP_GRAD_REL_TOL})")
+                check(grad_rel <= MP_GRAD_REL_TOL,
+                      f"{name}: the step's gradient disagrees with the VirtualRing model's")
+                if name == MP_GRAD_CONTROL:
+                    control = _worst_leaf(torch.load(f"{out_dir}/{name}_0_local.pt"), want)
+                    scaled = _worst_leaf([MP_WORLD * g for g in want], want)
+                    log(f"  {name} controls, each outside the bound: the gradient without the "
+                        f"seq ring's sum {control:.3e}; the VirtualRing gradient times "
+                        f"{MP_WORLD} {scaled:.3e}")
+                    check(min(control, scaled) > MP_GRAD_REL_TOL,
+                          f"{name}: the gradient bound does not tell a wrong gradient apart")
+            if "generate" in actions:
+                tokens = [p[name]["generate"]["tokens"] for p in procs]
+                same = all(t == ref["generate"]["tokens"] for t in tokens)
+                log(f"  {name}: 4 x ({SERVE_PROMPT} prompt + {MP_SERVE_NEW} new), greedy, "
+                    f"cache {SERVE_MAX_LEN}: tokens equal the VirtualRing model's on every "
+                    f"process {same}")
+                check(same, "generate on the processes differs from the VirtualRing model")
+            for action in ("forward", "step", "generate"):
+                if action in actions:
+                    got = [p[name][action]["ms"] for p in procs]
+                    rows.append((name, action, ref[action]["ms"], got,
+                                 [p[name][action].get("first_ms") for p in procs]))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    log(f"phase 4j: the mesh of processes' wall times, host clock around synchronized calls "
+        f"({smi}). Four processes time-sliced on ONE card with gloo staging every hop "
+        f"through host memory: not a measure of a multi-GPU ring; no claim rests on them")
+    for name, action, ref_ms, got, first in rows:
+        how = ("the second step, after the one compared" if first[0] is None else
+               f"median of {MP_TIMED_CALLS} after the first, first "
+               f"{[round(f, 1) for f in first]}")
+        log(f"  {name} {action}: VirtualRing model {ref_ms:.1f} ms; processes "
+            f"{[round(g, 1) for g in got]} ms ({how})")
+    return {"launches": launches}
+
+
+
 def main() -> int:
     import torch
 
@@ -5466,6 +5866,7 @@ def main() -> int:
     phase_mesh_timings(zigzag, ring, serving, training, tree, mesh_serving)
     doc_rows = phase_doc_timings(doc)
     int8_rows = phase_int8_ring_timings(int8_path, serving, training)
+    mp_launches = phase_multiprocess_model()["launches"]
     # the main paths' launches of this slice: the zig-zag model, config 3,
     # config 5's tree decode and the serving path on the ring
     mesh_launches = {name: zigzag["launches"][name] + config3["launches"][name]
@@ -5475,8 +5876,11 @@ def main() -> int:
     packed_launches = packed["launches"]
     doc_launches = doc["launches"]
     fused_launches = fused["launches"]
+    # phase 3m's processes add the launches of their shards: to B4's here
+    # (q8_launches' B2 and B3 counts include them, so the backward entries
+    # add mp_launches no more), and to each other kernel's entry below
     q8_launches = {name: q8_path["launches"][name] + int8_path["launches"][name]
-                   for name in COUNTERS}
+                   + mp_launches[name] for name in COUNTERS}
     int8_launches = int8_path["launches"]
     flash, pallas_ring = "ring_attention_tpu/ops/pallas_flash.py", "ring_attention_tpu/ops/pallas_ring.py"
     entries = [
@@ -5484,13 +5888,14 @@ def main() -> int:
          serving["launches"] + training["launches"]["flash_fwd"]
          + ring_launches["flash_fwd"] + packed_launches["flash_fwd"]
          + mesh_launches["flash_fwd"] + doc_launches["flash_fwd"]
-         + int8_launches["flash_fwd"],
+         + int8_launches["flash_fwd"] + mp_launches["flash_fwd"],
          max(max_err, *mode_err.values(), mesh_err["fwd"], config3["fwd_err"],
              *(seg_err[m] for m in ("fused", "seed", "resume", "fused_carry")),
              *(doc_err[m] for m in ("fused", "seed", "resume", "fused_carry"))),
          rows + seg_rows["flash_fwd"] + doc_rows["flash_fwd"]),
         ("flash_decode", "flash_decode.cu", f"{flash}:1174",
-         serving["decode_launches"] + mesh_launches["flash_decode"],
+         serving["decode_launches"] + mesh_launches["flash_decode"]
+         + mp_launches["flash_decode"],
          max(decode_err, mesh_err["decode"]), decode_rows),
         ("flash_bwd_dkv", "flash_bwd.cu", f"{flash}:2108",
          training["launches"]["flash_bwd_dkv"] + ring_launches["flash_bwd_dkv"]
@@ -5514,7 +5919,8 @@ def main() -> int:
          q8_launches["flash_decode_q8"] + mesh_launches["flash_decode_q8"],
          max(q8_err["decode"], mesh_err["decode_q8"]), q8_rows["decode"]),
         ("flash_ring", "flash_ring.cu", f"{pallas_ring}:341",
-         fused_launches["flash_ring"] + doc_launches["flash_ring"] + int8_launches["flash_ring"],
+         fused_launches["flash_ring"] + doc_launches["flash_ring"] + int8_launches["flash_ring"]
+         + mp_launches["flash_ring"],
          max(fused_err, doc_err["ring"], int8_err["ring_q8"], int8_err["ring_q8_seg"]),
          fused_rows + doc_rows["flash_ring"]),
         ("flash_ring_remote", "flash_ring_remote.cu", f"{pallas_ring}:866",
@@ -5550,7 +5956,7 @@ def main() -> int:
     # the forward kernel's ring modes, each with its own launches and numbers
     kernels[0]["modes"] = [
         {"mode": mode, "launches": ring_launches[mode] + packed_launches[mode]
-         + mesh_launches[mode],
+         + mesh_launches[mode] + mp_launches[mode],
          "max_abs_err": max(mode_err[mode], seg_err[mode]),
          **{key: mode_rows[mode][0][key] for key in
             ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},

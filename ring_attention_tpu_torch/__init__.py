@@ -21,7 +21,11 @@ ring), and zig-zag context parallelism (``sequence_parallel="zigzag"``,
 ``zigzag_attention``: K and V gathered over the ring, each rank's two query
 chunks on the forward and backward kernels) and decoding on a mesh
 (``prefill``/``decode_step``/``generate`` with a ring-sharded cache, the
-ranks' decode-kernel partials merged by ``tree_attn_decode``).  Entry
+ranks' decode-kernel partials merged by ``tree_attn_decode``), and the
+model over a mesh of processes (``create_mesh`` over an initialized
+process group: each process holds one rank of its row's
+``DistributedRing`` and one data row, cut from the same global batch;
+``make_train_step(mesh=)`` sums the gradients over the whole mesh).  Entry
 points run on the CUDA device unless the caller passes ``device="cpu"``;
 on CPU tensors every kernel wrapper runs its plain PyTorch version.  The
 package imports torch only.
@@ -81,6 +85,7 @@ from .parallel import (
     Ring,
     VirtualRing,
     create_mesh,
+    mesh_all_reduce,
     ring_flash_attention,
     tree_attn_decode,
     zigzag_attention,
@@ -145,6 +150,7 @@ __all__ = [
     "load_jax_params",
     "make_train_step",
     "merge_partials",
+    "mesh_all_reduce",
     "normalize_segment_ids",
     "quantize_kv_cache",
     "ring_flash_attention",

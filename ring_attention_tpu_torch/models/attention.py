@@ -55,7 +55,15 @@ certificate: the ring strategies' certificates are not ported), and
 the int8 sweep takes both (its segmented and doc-table instantiations).
 The ring runs
 on a mesh whose ring this process holds whole (a ``VirtualRing``: one
-GPU, or the CPU).  Locally ``prefill`` attends with ``ops/flash.py``
+GPU, or the CPU) or one rank of (a ``DistributedRing`` per process, from
+``create_mesh`` over an initialized process group): there ``x`` holds this
+process's block of the sequence, or, with ``auto_shard``, the global
+input, which the layer cuts to its rows and block and whose output it
+gathers (``parallel/sharding.py::shard_cut`` / ``shard_gather``).
+``use_ring=False`` or ``force_regular_attn`` turn the ring off, as in the
+JAX layer (``force_regular_attn`` attends with the dense
+``default_attention``); ``use_pallas`` is read as ``impl`` (True:
+``"cuda"``, False: ``"torch"``) when ``impl`` is None.  Locally ``prefill`` attends with ``ops/flash.py``
 under every ``impl``, as the JAX package's does; on a mesh it runs the
 ring over the prompt in the contiguous layout (``_ring_prefill_attend``)
 and ``decode_step`` keeps the cache sharded contiguously over the ranks,
@@ -103,9 +111,10 @@ from ..parallel.zigzag import zigzag_attention, zigzag_positions
 from ..parallel.sharding import (
     layout_for,
     layout_permute,
-    layout_unpermute,
     pad_seq_and_mask,
     pad_to_multiple,
+    shard_cut,
+    shard_gather,
 )
 from ..utils.validate import check_model_input
 from .layers import Dense, RMSNorm, resolve_device
@@ -119,7 +128,7 @@ UNPORTED = {
     "ring_bidirectional": "the ring variants, ROADMAP.md Port queue item 7",
     "ring_counter_rotate": "the ring variants, ROADMAP.md Port queue item 7",
     "ring_dkv_dtype": "the ring variants, ROADMAP.md Port queue item 7",
-    "multiprocess": "the model over a multi-process mesh, ROADMAP.md Port queue item 6",
+    "remat_policy": "the memory knobs, ROADMAP.md Port queue item 7c",
 }
 IMPLS = ("cuda", "torch", "fused")
 UNPORTED_IMPLS = {
@@ -165,15 +174,17 @@ def mask_form(fn: str, mask, causal: bool, lookback) -> mask_algebra.KernelForm 
     return mask_algebra.kernel_form(mask)
 
 
-def check_compute_dtype(fn: str, compute_dtype, impl: str) -> None:
+def check_compute_dtype(fn: str, compute_dtype, impl: str,
+                        force_regular_attn: bool = False) -> None:
     """The int8-compute knob, validated as the JAX layer's
     ``_compute_dtype`` does: ``None`` or ``"int8"``, and ``"int8"`` only on
-    the kernels (the PyTorch path has no int8 matmul form; running the
-    quantized model in the model dtype would misreport it)."""
-    if int8_compute(compute_dtype, fn) and impl == "torch":
+    the kernels (the PyTorch path and the dense oracle of
+    ``force_regular_attn`` have no int8 matmul form; running the quantized
+    model in the model dtype would misreport it)."""
+    if int8_compute(compute_dtype, fn) and (impl == "torch" or force_regular_attn):
         raise ValueError(
             f'{fn}: compute_dtype="int8" runs on the CUDA kernels only; set '
-            f'impl="cuda" or "fused" (got impl="{impl}")'
+            f'impl="cuda" or "fused" and drop force_regular_attn (got impl="{impl}")'
         )
 
 
@@ -186,11 +197,33 @@ def check_hop_compression(fn: str, hop_compression) -> None:
         )
 
 
+def resolve_impl(impl: str | None, use_pallas: bool | None) -> str:
+    """The kernel path: ``impl`` when given (it overrides ``use_pallas``,
+    as in JAX), else the JAX switch ``use_pallas`` (True: the kernels,
+    ``"cuda"``; False: the PyTorch path, ``"torch"``), else ``"cuda"``."""
+    if impl is not None:
+        return impl
+    return "torch" if use_pallas is False else "cuda"
+
+
+def check_constructor(fn: str, pallas_head_chunks, mesh, ring_on: bool) -> None:
+    """The JAX constructor fields the port takes only in their neutral
+    setting, and the ring switches a process mesh cannot take."""
+    if pallas_head_chunks is not None:
+        raise ValueError(
+            f"{fn}: pallas_head_chunks splits a TPU launch's heads to bound its "
+            "program size; the CUDA kernels have no counterpart (leave it None)"
+        )
+    if mesh is not None and mesh.spans_processes and not ring_on:
+        raise ValueError(
+            f"{fn}: use_ring=False or force_regular_attn on a mesh whose ranks are "
+            "processes would run the whole sequence on every process; pass mesh=None"
+        )
+
+
 def check_mesh(fn: str, mesh, sequence_parallel: str) -> None:
-    """Raise for a mesh or strategy the port cannot run yet."""
+    """Raise for a strategy the port cannot run yet."""
     layout_for(sequence_parallel, False, 1)  # raises for unported strategies
-    if mesh is not None and len(mesh.ring.ranks) != mesh.ring.world:
-        raise unported(fn, "multiprocess")
 
 
 def check_zigzag(fn: str, sequence_parallel: str, causal: bool, lookbacks,
@@ -237,11 +270,17 @@ class RingAttention(nn.Module):
     compute dtype (parameters stay float32).  ``mesh`` runs the ring over
     the mesh's sequence ranks, in the ``striped`` layout when set;
     ``auto_shard`` takes ``x`` in the natural order and pads and permutes
-    it for the ring (without it ``x`` arrives in the ring's layout).
+    it for the ring (without it ``x`` arrives in the ring's layout: on a
+    mesh whose ranks are processes, this process's block of it; with it,
+    the global input, and the output is global too).
     ``mask`` (a ``masks.Mask``) replaces ``causal`` and
     ``max_lookback_seq_len``: its kernel form sets ``self.causal`` and
     ``self.max_lookback_seq_len``, and ``self.doc_starts`` to a declared
-    packing."""
+    packing.  ``use_ring=False`` and ``force_regular_attn`` run the local
+    path on any mesh one process holds (``force_regular_attn``: the dense
+    ``default_attention`` where no lookback window is set);
+    ``use_pallas`` selects ``impl`` when that is None;
+    ``pallas_head_chunks`` has no CUDA counterpart and must stay None."""
 
     def __init__(
         self,
@@ -255,7 +294,7 @@ class RingAttention(nn.Module):
         rotary_theta: float = 10000.0,
         softclamp_value: float | None = None,
         max_lookback_seq_len: int | None = None,
-        impl: str = "cuda",
+        impl: str | None = None,
         dtype: torch.dtype | None = None,
         device: torch.device | str | None = None,
         *,
@@ -266,6 +305,10 @@ class RingAttention(nn.Module):
         mask=None,
         quantize_cache: bool = False,
         compute_dtype: str | None = None,
+        use_ring: bool = True,
+        force_regular_attn: bool = False,
+        use_pallas: bool | None = None,
+        pallas_head_chunks: int | None = None,
         ring_bidirectional: bool = False,
         ring_counter_rotate: bool = False,
         ring_hop_compression: str | None = None,
@@ -280,9 +323,12 @@ class RingAttention(nn.Module):
         form = mask_form("RingAttention", mask, causal, max_lookback_seq_len)
         if form is not None:
             causal, max_lookback_seq_len = form.causal, form.window
+        impl = resolve_impl(impl, use_pallas)
         check_impl("RingAttention", impl)
         check_mesh("RingAttention", mesh, sequence_parallel)
-        check_compute_dtype("RingAttention", compute_dtype, impl)
+        check_constructor("RingAttention", pallas_head_chunks, mesh,
+                          use_ring and not force_regular_attn)
+        check_compute_dtype("RingAttention", compute_dtype, impl, force_regular_attn)
         check_zigzag("RingAttention", sequence_parallel, causal,
                      (max_lookback_seq_len,), compute_dtype, mesh)
         kv_heads = kv_heads or heads
@@ -302,6 +348,8 @@ class RingAttention(nn.Module):
         self.max_lookback_seq_len = max_lookback_seq_len
         self.impl = impl
         self.mesh = mesh
+        self.use_ring = use_ring
+        self.force_regular_attn = force_regular_attn
         self.striped = striped
         self.sequence_parallel = sequence_parallel
         self.auto_shard = auto_shard
@@ -315,6 +363,15 @@ class RingAttention(nn.Module):
         self.to_qkv = Dense(dim, (heads + 2 * kv_heads) * dim_head,
                             dtype=dtype, device=device)
         self.to_out = Dense(heads * dim_head, dim, dtype=dtype, device=device)
+
+    @property
+    def _ring_world(self) -> int:
+        """The ring's size as this layer runs it: 1 when ``use_ring`` is
+        off or ``force_regular_attn`` on (JAX ``ring = use_ring and not
+        force_regular_attn and ...``)."""
+        if not self.use_ring or self.force_regular_attn:
+            return 1
+        return seq_world(self.mesh)
 
     @property
     def _kernel_impl(self) -> str:
@@ -353,7 +410,7 @@ class RingAttention(nn.Module):
         (True = attend), ignored when the layer is causal; ``segment_ids:
         (b, n)`` integer document ids of packed sequences."""
         check_model_input("RingAttention", x, self.dim)
-        world = seq_world(self.mesh)
+        world = self._ring_world
         ring = world > 1
         n_orig = x.shape[1]
         scheme, factor = layout_for(self.sequence_parallel, self.striped, world)
@@ -369,24 +426,31 @@ class RingAttention(nn.Module):
                     "segment_ids were passed — declare one packing"
                 )
             if ring:
-                # the ring realizes the declared layout as runtime ids, in its
-                # layout: auto_shard pads and permutes them below; otherwise x
-                # came padded at its end and permuted, and so do they
-                starts = check_doc_starts(self.doc_starts, n_orig, n_orig)
-                segment_ids = doc_runtime_ids(starts, n_orig, x.shape[0], x.device)
+                # the ring realizes the declared layout as runtime ids over the
+                # global batch and sequence, in its layout: auto_shard pads,
+                # permutes and cuts them with x below; otherwise x came
+                # padded at its end, permuted and cut, and so do they
+                rows, n = x.shape[0], n_orig
                 if not self.auto_shard:
-                    segment_ids = layout_permute(segment_ids, scheme, factor)
+                    rows *= self.mesh.data
+                    n = n // len(self.mesh.ring.ranks) * world
+                starts = check_doc_starts(self.doc_starts, n, n)
+                segment_ids = doc_runtime_ids(starts, n, rows, x.device)
+                if not self.auto_shard:
+                    segment_ids = shard_cut(layout_permute(segment_ids, scheme, factor),
+                                            self.mesh)
         if ring and self.auto_shard:
             pad_mult = 2 * world if scheme == "zigzag" else world
             x, mask, n_orig = pad_seq_and_mask(x, mask, pad_mult)
-            x = layout_permute(x, scheme, factor)
+            x = shard_cut(layout_permute(x, scheme, factor), self.mesh)
             if mask is not None:
-                mask = layout_permute(mask, scheme, factor)
+                mask = shard_cut(layout_permute(mask, scheme, factor), self.mesh)
             if segment_ids is not None:
                 # pad slots are a document of their own, attending nothing real
                 segment_ids, _ = pad_to_multiple(segment_ids, pad_mult,
                                                  value=PAD_SEGMENT_ID)
-                segment_ids = layout_permute(segment_ids, scheme, factor)
+                segment_ids = shard_cut(layout_permute(segment_ids, scheme, factor),
+                                        self.mesh)
         q, k, v = self._project_qkv(x)
         if self.causal:
             mask = None
@@ -395,7 +459,7 @@ class RingAttention(nn.Module):
             attend = self._zigzag_attend if scheme == "zigzag" else self._ring_attend
         out = self._merge_heads(attend(q, k, v, mask, segment_ids))
         if ring and self.auto_shard:
-            out = layout_unpermute(out, scheme, factor)[:, :n_orig]
+            out = shard_gather(out, self.mesh, scheme, factor)[:, :n_orig]
         return out
 
     def _ring_leg(self, n_chunk: int) -> tuple[int, int | None, int | None]:
@@ -412,15 +476,17 @@ class RingAttention(nn.Module):
         return bucket, window, max_ring_passes
 
     def _ring_attend(self, q, k, v, mask, segment_ids=None):
+        """The ring over ``q``, which holds the shards of the ranks this
+        process holds (every rank's on a ``VirtualRing``)."""
         ring = self.mesh.ring
-        world = seq_world(self.mesh)
+        world, count = ring.world, len(ring.ranks)
         n = q.shape[2]
-        if n % world:
+        if n % count:
             raise ValueError(
-                f"RingAttention: sequence {n} must divide over {world} (ring); "
+                f"RingAttention: sequence {n} must divide over {count} (ring); "
                 "use auto_shard=True to pad"
             )
-        n_local = n // world
+        n_local = n // count
         bucket, window, max_ring_passes = self._ring_leg(n_local)
         if self.rotary:
             pos = torch.cat([
@@ -441,14 +507,14 @@ class RingAttention(nn.Module):
         from its two chunks (JAX ``_zigzag_attend``, :530-556).  ``mask`` is
         None: the layer is causal."""
         ring = self.mesh.ring
-        world = seq_world(self.mesh)
+        world, count = ring.world, len(ring.ranks)
         n = q.shape[2]
-        if n % (2 * world):
+        if n % (2 * count):
             raise ValueError(
-                f"RingAttention: sequence {n} must divide over {2 * world} "
+                f"RingAttention: sequence {n} must divide over {2 * count} "
                 "(zigzag); use auto_shard=True to pad"
             )
-        n_local = n // world
+        n_local = n // count
         if self.rotary:
             pos = torch.cat([zigzag_positions(n_local, rank, world, device=q.device)
                              for rank in ring.ranks])
@@ -467,6 +533,11 @@ class RingAttention(nn.Module):
         q, k = self._rotate(q, k, torch.arange(n, device=q.device))
         if self.mask is not None:
             mask_algebra.require_certified(self.mask, n)
+        if self.force_regular_attn and self.max_lookback_seq_len is None:
+            return default_attention(
+                q, k, v, mask, causal=self.causal, softclamp_value=self.softclamp_value,
+                segment_ids=segment_ids, doc_starts=self.doc_starts,
+            )
         if self._kernel_impl == "cuda":
             return cuda_flash_attention(
                 q, k, v, mask, causal=self.causal,
@@ -509,7 +580,7 @@ class RingAttention(nn.Module):
         pos = int(pos)
         q, k, v = self._project_qkv(x)
         q, k = self._rotate(q, k, torch.tensor([pos], device=x.device))
-        if seq_world(self.mesh) > 1:
+        if self._ring_world > 1:
             out = self._ring_decode(q, k, v, cache_k, cache_v, pos)
             return self._merge_heads(out), cache_k, cache_v
         size = _shard_slots(cache_k, self.quantize_cache)
@@ -633,27 +704,20 @@ class RingAttention(nn.Module):
         so decoding continues from position ``n``.  Attention runs on the
         blockwise PyTorch path (``ops/flash.py``) on the exact K/V whatever
         ``impl`` and ``compute_dtype`` are, as in the JAX package; on a mesh
-        it runs the ring over the prompt (:meth:`_ring_prefill_attend`).
-        Under ``quantize_cache`` only the cache is quantized.  Returns
-        ``(out (b, n, dim), cache_k, cache_v)``."""
+        it runs the ring over the prompt (:meth:`_mesh_prefill`): on a mesh
+        whose ranks are processes ``x`` is the global prompt, of which this
+        process's rows and block go through the ring and whose output is
+        gathered.  Under ``quantize_cache`` only the cache is quantized.
+        Returns ``(out (b, n, dim), cache_k, cache_v)``."""
         n = x.shape[1]
         lookback = self.max_lookback_seq_len
-        if seq_world(self.mesh) > 1:
-            n_local = _shard_slots(cache_k[0], self.quantize_cache)
-            if n > n_local * len(cache_k):
-                raise ValueError(
-                    f"prefill: prompt ({n}) longer than the ring-sharded cache "
-                    f"({n_local * len(cache_k)}), which holds absolute positions"
-                )
-            q, k, v = self._project_qkv(x)
-            q, k = self._rotate(q, k, torch.arange(n, device=x.device))
-            out = self._ring_prefill_attend(q, k, v)
-            # rank r's shard holds positions [r * n_local, (r + 1) * n_local)
-            for j, r in enumerate(self.mesh.ring.ranks):
-                rows = slice(r * n_local, min(n, (r + 1) * n_local))
-                if rows.start < rows.stop:
-                    self._write(cache_k[j], cache_v[j], k[:, :, rows], v[:, :, rows], 0)
-            return self._merge_heads(out), cache_k, cache_v
+        world = self._ring_world
+        if world > 1:
+            if not self.mesh.spans_processes:
+                return self._mesh_prefill(x, cache_k, cache_v, n), cache_k, cache_v
+            block = shard_cut(pad_to_multiple(x, world)[0], self.mesh)
+            out = self._mesh_prefill(block, cache_k, cache_v, n)
+            return shard_gather(out, self.mesh)[:, :n], cache_k, cache_v
         size = _shard_slots(cache_k, self.quantize_cache)
         if n > size and (lookback is None or size < lookback):
             raise ValueError(
@@ -675,28 +739,55 @@ class RingAttention(nn.Module):
         self._write(cache_k, cache_v, k, v, 0)
         return self._merge_heads(out), cache_k, cache_v
 
-    def _ring_prefill_attend(self, q, k, v) -> torch.Tensor:
-        """The ring over the prompt in the contiguous (cache) layout, whatever
-        ``striped`` and ``sequence_parallel`` say (JAX
-        ``_ring_prefill_attend``, :872-927).  Rotary is applied; the prompt
-        is right-padded to the ring, which causal masking hides (the pad
-        sits after every real query), and the pad rows are sliced off.
-        Runs ``impl`` as it stands (``"fused"`` takes the fused ring) and
+    def _mesh_prefill(self, x, cache_k, cache_v, n: int) -> torch.Tensor:
+        """Prefill on a mesh: ``x (b, m, dim)`` holds the prompt from the
+        first held rank's block on, the prompt (of ``n`` tokens) padded to
+        the ring in blocks of ``p = ceil(n / world)``: every rank's on a
+        ``VirtualRing`` (there ``x`` may stop at the prompt's end), this
+        rank's block on a process.  The blocks go through the ring
+        (:meth:`_ring_prefill_attend`); each held rank's cache shard,
+        positions ``[r * n_local, (r + 1) * n_local)``, is written from the
+        prompt's K/V, all-gathered over the ring on a process (the prompt's
+        blocks and the cache's shards are cut apart).  Returns the output
+        ``(b, m, dim)`` of ``x``'s rows."""
+        ring = self.mesh.ring
+        world, count = ring.world, len(ring.ranks)
+        n_local = _shard_slots(cache_k[0], self.quantize_cache)
+        if n > n_local * world:
+            raise ValueError(
+                f"prefill: prompt ({n}) longer than the ring-sharded cache "
+                f"({n_local * world}), which holds absolute positions"
+            )
+        m, p = x.shape[1], -(-n // world)
+        q, k, v = self._project_qkv(x)
+        q, k = self._rotate(q, k, ring.ranks[0] * p + torch.arange(m, device=x.device))
+        if count * p > m:
+            # right-padded to the ring: causal masking hides the pad, which
+            # sits after every real query, and its rows are sliced off
+            q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, count * p - m))
+                       for t in (q, k, v))
+        out = self._ring_prefill_attend(q, k, v, p)[:, :, :m]
+        if ring.spans_processes:
+            k, v = ring.all_gather([(k, v)], dim=2)[0]
+        for j, r in enumerate(ring.ranks):
+            rows = slice(r * n_local, min(n, (r + 1) * n_local))
+            if rows.start < rows.stop:
+                self._write(cache_k[j], cache_v[j], k[:, :, rows], v[:, :, rows], 0)
+        return self._merge_heads(out)
+
+    def _ring_prefill_attend(self, q, k, v, n_local: int) -> torch.Tensor:
+        """The ring over the prompt's blocks of ``n_local`` in the contiguous
+        (cache) layout, whatever ``striped`` and ``sequence_parallel`` say
+        (JAX ``_ring_prefill_attend``, :872-927); rotary is applied.  Runs
+        ``impl`` as it stands (``"fused"`` takes the fused ring) and
         ``ring_hop_compression``, as JAX does, and never int8 compute."""
-        world = seq_world(self.mesh)
-        n = q.shape[2]
-        pad = (-n) % world
-        if pad:
-            q, k, v = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (q, k, v))
-        n_local = (n + pad) // world
         bucket = _fit_divisor(self.bucket_size, n_local)
         window = self.max_lookback_seq_len
         max_ring_passes = None
         if window is not None:
             max_ring_passes = math.ceil((window - 1) / n_local) + 1
-        out = ring_flash_attention(
+        return ring_flash_attention(
             q, k, v, None, self.mesh.ring, True, False, bucket, max_ring_passes,
             window, self.softclamp_value, None, self.impl,
             hop_compression=self.ring_hop_compression,
         )
-        return out[:, :, :n]

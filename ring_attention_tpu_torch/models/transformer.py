@@ -24,6 +24,22 @@ a mesh keeps the cache sharded
 contiguously over the ring: ``prefill`` runs the ring over the prompt and
 ``decode_step`` merges the ranks' partials by tree attention
 (``parallel/tree_decode.py``).
+
+On a mesh whose ranks are processes (``create_mesh`` over an initialized
+process group: a ``DistributedRing`` per row and a data ring per column)
+every process passes the same global tokens, ids and masks, as the JAX
+model takes global arrays: the model pads and permutes them, keeps this
+process's data rows and seq block (``parallel/sharding.py::shard_cut``,
+the ``NamedSharding(P(data, seq))`` of the JAX model top) and runs the
+layers on that shard.  ``forward`` returns the global logits on every
+process (``shard_gather``); ``return_loss`` the global mean loss, the same
+value on every process, whose gradient is this process's share: the nll
+of its own positions over the mesh's valid count.  The train step sums
+the shares over the mesh (``make_train_step(mesh=)``).  Decoding keeps
+this process's rows and its rank's cache shard; ``prefill`` runs the
+prompt's blocks through the ring and takes the last logits from the rank
+that holds them, and ``generate`` takes each token from the ring's rank 0
+and gathers the rows' tokens over the data ring.
 """
 
 from __future__ import annotations
@@ -33,17 +49,27 @@ from torch import nn
 
 from ..ops.attention import PAD_SEGMENT_ID
 from ..utils.validate import check_tokens_input
-from ..parallel.mesh import seq_world
-from ..parallel.sharding import layout_for, layout_permute, layout_unpermute, pad_to_multiple
+from ..parallel.mesh import mesh_all_reduce, seq_world
+from ..parallel.sharding import (
+    cut_rows,
+    gather_rows,
+    layout_for,
+    layout_permute,
+    pad_to_multiple,
+    shard_cut,
+    shard_gather,
+)
 from .attention import (
     RingAttention,
     check_compute_dtype,
+    check_constructor,
     check_hop_compression,
     check_impl,
     check_mesh,
     check_zigzag,
     mask_form,
     reject_unported,
+    resolve_impl,
 )
 from .layers import Dense, Embed, FeedForward, RMSNorm, resolve_device
 
@@ -84,6 +110,20 @@ def _sample(logits, temperature, top_k, top_p, generator):
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
+class _MeshLoss(torch.autograd.Function):
+    """The loss a process reports on a mesh of processes: the value is the
+    mesh's (``total``, the same on every process), the gradient flows into
+    this process's share (``local``) alone."""
+
+    @staticmethod
+    def forward(ctx, local, total):
+        return total.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
 class RingTransformer(nn.Module):
     """Causal LM ``tokens (b, n) -> logits (b, n, num_tokens)`` (or loss).
 
@@ -92,8 +132,15 @@ class RingTransformer(nn.Module):
     one ``masks.Mask`` or a per-layer tuple (None entries follow ``causal``
     and ``max_lookback_seq_len``); ``mesh``
     (``parallel/mesh.py::create_mesh``) runs every layer's attention on the
-    ring, in the ``striped`` layout when set.  Built on CUDA unless
-    ``device`` names another device."""
+    ring, in the ``striped`` layout when set, in this process or over the
+    mesh's processes.  ``auto_shard=False`` takes tokens already padded and
+    in the ring's layout and returns logits in it (one process only: a
+    process mesh with process-local batches is not ported);
+    ``use_ring=False`` or ``force_regular_attn`` run every layer locally
+    (see ``RingAttention``), ``use_pallas`` selects ``impl`` when that is
+    None; ``pallas_head_chunks`` has no CUDA counterpart and
+    ``remat_policy`` is not ported.  Built on CUDA unless ``device`` names
+    another device."""
 
     def __init__(
         self,
@@ -110,7 +157,7 @@ class RingTransformer(nn.Module):
         max_lookback_seq_len: int | tuple[int | None, ...] | None = None,
         ff_mult: int = 4,
         ignore_index: int = -1,
-        impl: str = "cuda",
+        impl: str | None = None,
         dtype: torch.dtype | None = None,
         device: torch.device | str | None = None,
         *,
@@ -120,10 +167,16 @@ class RingTransformer(nn.Module):
         mask=None,
         quantize_cache: bool = False,
         compute_dtype: str | None = None,
+        auto_shard: bool = True,
+        use_ring: bool = True,
+        force_regular_attn: bool = False,
+        use_pallas: bool | None = None,
+        pallas_head_chunks: int | None = None,
         windowed_cache: bool = False,
         ff_chunk_size: int | None = None,
         loss_chunk_size: int | None = None,
         remat: bool = False,
+        remat_policy: str | tuple[str | None, ...] | None = None,
         ring_bidirectional: bool = False,
         ring_counter_rotate: bool = False,
         ring_hop_compression: str | None = None,
@@ -133,15 +186,24 @@ class RingTransformer(nn.Module):
         reject_unported(
             "RingTransformer",
             windowed_cache=windowed_cache, ff_chunk_size=ff_chunk_size,
-            loss_chunk_size=loss_chunk_size, remat=remat,
+            loss_chunk_size=loss_chunk_size, remat=remat, remat_policy=remat_policy,
             ring_bidirectional=ring_bidirectional,
             ring_counter_rotate=ring_counter_rotate,
             ring_dkv_dtype=ring_dkv_dtype,
         )
         check_hop_compression("RingTransformer", ring_hop_compression)
+        impl = resolve_impl(impl, use_pallas)
         check_impl("RingTransformer", impl)
         check_mesh("RingTransformer", mesh, sequence_parallel)
-        check_compute_dtype("RingTransformer", compute_dtype, impl)
+        check_constructor("RingTransformer", pallas_head_chunks, mesh,
+                          use_ring and not force_regular_attn)
+        if not auto_shard and mesh is not None and mesh.spans_processes:
+            raise NotImplementedError(
+                "RingTransformer: auto_shard=False on a mesh whose ranks are processes "
+                "(each process passing its own shard) is not ported yet; it arrives "
+                "with process-local batches, ROADMAP.md Port queue item 6d"
+            )
+        check_compute_dtype("RingTransformer", compute_dtype, impl, force_regular_attn)
         lookbacks = max_lookback_seq_len
         if not isinstance(lookbacks, tuple):
             lookbacks = (lookbacks,) * depth
@@ -169,7 +231,9 @@ class RingTransformer(nn.Module):
         self.dtype = dtype
         self.mesh = mesh
         self.quantize_cache = quantize_cache
-        self.striped = striped and seq_world(mesh) > 1
+        self.auto_shard = auto_shard
+        self.ring_world = seq_world(mesh) if use_ring and not force_regular_attn else 1
+        self.striped = striped and self.ring_world > 1
         self.sequence_parallel = sequence_parallel
         self.embed = Embed(num_tokens, dim, dtype=dtype, device=device)
         self.attn_layers = nn.ModuleList(
@@ -181,7 +245,9 @@ class RingTransformer(nn.Module):
                 striped=self.striped, sequence_parallel=sequence_parallel,
                 auto_shard=False,  # sharded once at the top
                 mask=layer_mask, quantize_cache=quantize_cache,
-                compute_dtype=compute_dtype, ring_hop_compression=ring_hop_compression,
+                compute_dtype=compute_dtype, use_ring=use_ring,
+                force_regular_attn=force_regular_attn,
+                ring_hop_compression=ring_hop_compression,
             )
             for lookback, layer_mask in zip(lookbacks, masks)
         )
@@ -201,6 +267,17 @@ class RingTransformer(nn.Module):
         synthesis relies on (JAX ``RingTransformer._eff_causal``)."""
         return all(layer.causal for layer in self.attn_layers)
 
+    @property
+    def _sharded(self) -> bool:
+        """Whether this process holds a shard of the batch: a mesh whose
+        ranks are processes."""
+        return self.mesh is not None and self.mesh.spans_processes
+
+    def _ring_splits(self) -> bool:
+        """Whether the ring's ranks are processes (a process holds one
+        block of the sequence)."""
+        return self.ring_world > 1 and self.mesh.ring.spans_processes
+
     def forward(
         self,
         tokens: torch.Tensor,
@@ -217,7 +294,11 @@ class RingTransformer(nn.Module):
         ``segment_ids: (b, n)`` integer document ids pack several documents
         into one row: every attention layer masks cross-document attention,
         and the loss drops each label that starts a new document (it would
-        be predicted from the previous one)."""
+        be predicted from the previous one).
+
+        On a mesh whose ranks are processes every argument is the global
+        one, the same on every process, and so are the logits and the loss
+        value returned (see the module docstring)."""
         check_tokens_input("RingTransformer", tokens)
         tokens = tokens.to(self._device())
         if mask is not None:
@@ -232,11 +313,12 @@ class RingTransformer(nn.Module):
                 # label i is token i + 1: valid only within one document
                 segment_same = segment_ids[:, 1:] == segment_ids[:, :-1]
                 segment_ids = segment_ids[:, :-1]
-        world = seq_world(self.mesh)
+        world = self.ring_world
         n_orig = tokens.shape[1]
         scheme, factor = layout_for(self.sequence_parallel, self.striped, world)
         pad_mult = 2 * world if scheme == "zigzag" else world
-        if world > 1:
+        shard = world > 1 and self.auto_shard
+        if shard:
             tokens, _ = pad_to_multiple(tokens, pad_mult)
             if tokens.shape[1] != n_orig and mask is None and not self._eff_causal():
                 # real tokens must not attend to the pad slots; causal needs
@@ -252,22 +334,35 @@ class RingTransformer(nn.Module):
                 segment_ids, _ = pad_to_multiple(segment_ids, pad_mult,
                                                  value=PAD_SEGMENT_ID)
                 segment_ids = layout_permute(segment_ids, scheme, factor)
+        if self._sharded:
+            tokens, mask, segment_ids = (None if t is None else shard_cut(t, self.mesh)
+                                         for t in (tokens, mask, segment_ids))
         x = self.embed(tokens)
         for attn, ff in zip(self.attn_layers, self.ff_layers):
             x = attn(x, mask, segment_ids) + x
             x = ff(x) + x
         logits = self.to_logits(self.final_norm(x))
-        if world > 1:
-            logits = layout_unpermute(logits, scheme, factor)[:, :n_orig]
         if not return_loss:
+            if shard or self._sharded:
+                logits = shard_gather(logits, self.mesh, scheme, factor)[:, :n_orig]
             return logits
         valid = labels != self.ignore_index
         if example_mask is not None:
             valid = valid & example_mask.to(valid.device)[:, None]
         if segment_same is not None:
             valid = valid & segment_same
-        nll = _position_nll(logits, labels, valid)
-        return nll.sum() / valid.sum().clamp(min=1)
+        # the nll of the positions this process holds, the labels laid out
+        # and cut as the tokens were: the logits are never un-permuted
+        if shard:
+            labels, valid = (layout_permute(pad_to_multiple(t, pad_mult)[0], scheme, factor)
+                             for t in (labels, valid))
+        labels, valid = shard_cut(labels, self.mesh), shard_cut(valid, self.mesh)
+        nll = _position_nll(logits, labels, valid).sum()
+        if not self._sharded:
+            return nll / valid.sum().clamp(min=1)
+        count, total = mesh_all_reduce(self.mesh, [valid.sum(), nll.detach()])
+        count = count.clamp(min=1)
+        return _MeshLoss.apply(nll / count, total / count)
 
     # ------------------------------------------------------------------
     # Incremental decoding
@@ -280,15 +375,23 @@ class RingTransformer(nn.Module):
         entry is an ``(int8 values, f32 scales (batch, kv_heads, max_len))``
         tuple.  On a mesh the cache is sharded contiguously over the ring
         and ``max_len`` must divide over it: each layer's entry is a list of
-        one such entry per rank (the model runs on a virtual ring), rank
-        ``r``'s of ``max_len / W`` slots holding positions ``[r * max_len /
-        W, (r + 1) * max_len / W)``."""
-        world = seq_world(self.mesh)
+        one such entry per rank this process holds (every rank on a virtual
+        ring, one on a process), rank ``r``'s of ``max_len / W`` slots
+        holding positions ``[r * max_len / W, (r + 1) * max_len / W)``, and
+        ``batch`` is the global batch, of which a process holds its data
+        rows."""
+        world = self.ring_world
         if max_len % world:
             raise ValueError(
                 f"init_cache: max_len {max_len} must divide over the ring of "
                 f"{world} (the cache is sharded contiguously)"
             )
+        if self._sharded:
+            if batch % self.mesh.data:
+                raise ValueError(
+                    f"init_cache: batch {batch} does not divide over {self.mesh.data} data rows"
+                )
+            batch //= self.mesh.data
         shape = (batch, self.kv_heads, max_len // world, self.dim_head)
         dtype = self.dtype or torch.float32
         device = self._device()
@@ -300,7 +403,9 @@ class RingTransformer(nn.Module):
             return torch.zeros(shape, dtype=dtype, device=device)
 
         def layer():
-            return entry() if world == 1 else [entry() for _ in range(world)]
+            if world == 1:
+                return entry()
+            return [entry() for _ in self.mesh.ring.ranks]
 
         depth = len(self.attn_layers)
         return {"k": [layer() for _ in range(depth)],
@@ -314,13 +419,19 @@ class RingTransformer(nn.Module):
     ) -> tuple[torch.Tensor, dict[str, list]]:
         """Next-token logits ``(b, vocab)`` given the token at ``pos`` and a
         cache holding positions ``[0, pos)``; the cache is updated in place
-        and returned."""
-        x = self.embed(token.to(self._device())[:, None])
+        and returned.  On a mesh of processes ``token`` and the logits are
+        global, the cache this process's."""
+        token = cut_rows(token.to(self._device()), self.mesh)
+        return gather_rows(self._decode(token, cache, pos), self.mesh), cache
+
+    def _decode(self, token, cache, pos: int) -> torch.Tensor:
+        """:meth:`decode_step` on this process's rows."""
+        x = self.embed(token[:, None])
         for i, (attn, ff) in enumerate(zip(self.attn_layers, self.ff_layers)):
             a, _, _ = attn.decode_step(x, cache["k"][i], cache["v"][i], pos)
             x = a + x
             x = ff(x) + x
-        return self.to_logits(self.final_norm(x))[:, 0], cache
+        return self.to_logits(self.final_norm(x))[:, 0]
 
     def prefill(
         self,
@@ -328,13 +439,44 @@ class RingTransformer(nn.Module):
         cache: dict[str, list],
     ) -> tuple[torch.Tensor, dict[str, list]]:
         """One causal pass over the prompt, filling cache positions
-        ``[0, n)`` in place.  Returns ``(last_logits (b, vocab), cache)``."""
-        x = self.embed(tokens.to(self._device()))
+        ``[0, n)`` in place.  Returns ``(last_logits (b, vocab), cache)``;
+        on a mesh of processes ``tokens`` and the logits are global."""
+        tokens = cut_rows(tokens.to(self._device()), self.mesh)
+        return gather_rows(self._prefill(tokens, cache), self.mesh), cache
+
+    def _prefill(self, tokens, cache) -> torch.Tensor:
+        """:meth:`prefill` on this process's rows.  Where the ring's ranks
+        are processes, this rank's block of the prompt (padded to the ring)
+        goes through the layers, and the last logits come from the rank
+        whose block holds position ``n - 1``."""
+        n = tokens.shape[1]
+        split = self._ring_splits()
+        if split:
+            ring = self.mesh.ring
+            p = -(-n // ring.world)
+            tokens = pad_to_multiple(tokens, ring.world)[0][:, ring.rank * p:(ring.rank + 1) * p]
+        x = self.embed(tokens)
         for i, (attn, ff) in enumerate(zip(self.attn_layers, self.ff_layers)):
-            a, _, _ = attn.prefill(x, cache["k"][i], cache["v"][i])
+            if split:
+                a = attn._mesh_prefill(x, cache["k"][i], cache["v"][i], n)
+            else:
+                a, _, _ = attn.prefill(x, cache["k"][i], cache["v"][i])
             x = a + x
             x = ff(x) + x
-        return self.to_logits(self.final_norm(x))[:, -1], cache
+        if not split:
+            return self.to_logits(self.final_norm(x))[:, -1]
+        owner, row = divmod(n - 1, p)
+        last = self.to_logits(self.final_norm(x[:, row]))
+        (every,) = ring.all_gather([(last[None],)], dim=0)[0]
+        return every[owner]
+
+    def _from_rank0(self, tok: torch.Tensor) -> torch.Tensor:
+        """Rank 0's tokens on every rank of a ring of processes (greedy or
+        sampled, every rank then decodes the same token)."""
+        if not self._ring_splits():
+            return tok
+        (every,) = self.mesh.ring.all_gather([(tok[None],)], dim=0)[0]
+        return every[0]
 
     @torch.inference_mode()
     def generate(
@@ -354,7 +496,10 @@ class RingTransformer(nn.Module):
         ``temperature == 0.0`` (default) is greedy argmax; otherwise
         categorical sampling at that temperature, truncated to the ``top_k``
         most probable tokens and/or the ``top_p`` nucleus, drawn from
-        ``generator`` (which must then be given, on the model's device)."""
+        ``generator`` (which must then be given, on the model's device).
+        On a mesh of processes each data row decodes its own requests, every
+        rank of its ring the token of the ring's rank 0, and the rows'
+        tokens are gathered over the data ring."""
         b, n = prompt.shape
         if n < 1 or num_steps < 1:
             raise ValueError("generate: needs a non-empty prompt and num_steps >= 1")
@@ -374,11 +519,11 @@ class RingTransformer(nn.Module):
             raise ValueError(f"generate: top_p must be in (0, 1], got {top_p}")
 
         cache = self.init_cache(b, max_len)
-        logits, cache = self.prefill(prompt, cache)
-        tok = _sample(logits, temperature, top_k, top_p, generator)
+        logits = self._prefill(cut_rows(prompt.to(self._device()), self.mesh), cache)
+        tok = self._from_rank0(_sample(logits, temperature, top_k, top_p, generator))
         out = [tok]
         for pos in range(n, n + num_steps - 1):
-            logits, cache = self.decode_step(tok, cache, pos)
-            tok = _sample(logits, temperature, top_k, top_p, generator)
+            logits = self._decode(tok, cache, pos)
+            tok = self._from_rank0(_sample(logits, temperature, top_k, top_p, generator))
             out.append(tok)
-        return torch.stack(out, dim=1)
+        return gather_rows(torch.stack(out, dim=1), self.mesh)

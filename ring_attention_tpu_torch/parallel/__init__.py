@@ -1,4 +1,5 @@
-"""Sequence parallelism: the ring, its transport, the mesh and the layouts,
+"""Sequence parallelism: the ring, its transport, the mesh (its seq and data
+rings, the sum over its processes), the layouts and the shard cut,
 zig-zag context parallelism and tree-attention decoding."""
 
 from .collectives import (
@@ -8,14 +9,25 @@ from .collectives import (
     dequantize_ring_payload,
     quantize_ring_payload,
 )
-from .mesh import Mesh, create_mesh, data_world, seq_world, validate_seq_len
+from .mesh import (
+    Mesh,
+    create_mesh,
+    data_world,
+    mesh_all_reduce,
+    seq_world,
+    validate_seq_len,
+)
 from .ring import ring_flash_attention
 from .sharding import (
+    cut_rows,
+    gather_rows,
     layout_for,
     layout_permute,
     layout_unpermute,
     pad_seq_and_mask,
     pad_to_multiple,
+    shard_cut,
+    shard_gather,
     stripe_permute,
     stripe_unpermute,
 )
@@ -35,16 +47,21 @@ __all__ = [
     "Ring",
     "VirtualRing",
     "create_mesh",
+    "cut_rows",
     "data_world",
     "dequantize_ring_payload",
+    "gather_rows",
     "layout_for",
     "layout_permute",
     "layout_unpermute",
+    "mesh_all_reduce",
     "pad_seq_and_mask",
     "pad_to_multiple",
     "quantize_ring_payload",
     "ring_flash_attention",
     "seq_world",
+    "shard_cut",
+    "shard_gather",
     "stripe_permute",
     "stripe_unpermute",
     "tree_attn_decode",

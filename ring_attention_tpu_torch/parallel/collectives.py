@@ -10,7 +10,11 @@ behind a small :class:`Ring` interface with two implementations:
   device copy, no communication.
 - :class:`DistributedRing`: one rank per process, over
   ``torch.distributed.batch_isend_irecv`` (gloo on the CPU, NCCL across
-  GPUs), within a process group.
+  GPUs), within a process group.  On a gloo group the ring stages CUDA
+  payloads through host memory (gloo moves no CUDA tensor point to point
+  and NCCL takes no two ranks on one card): that is the transport of
+  several processes sharing one GPU, never a fallback of the compute,
+  which stays on the card.
 
 Beside the rotation the seam has two collectives and one property:
 
@@ -80,6 +84,13 @@ class Ring(abc.ABC):
     # Every rank lives in this process, on one device: one launch can hold
     # them all.  Static, from the ring's kind, never probed.
     colocated: bool = False
+
+    @property
+    def spans_processes(self) -> bool:
+        """Whether the ring's ranks live in more than this process (a
+        ``DistributedRing`` of more than one process): each process then
+        holds its ranks' blocks of a sequence, not the whole of it."""
+        return len(self.ranks) < self.world
 
     @abc.abstractmethod
     def rotate(self, payloads: list[Payload], shift: int) -> list[Payload]:
@@ -167,7 +178,16 @@ class VirtualRing(Ring):
 
 class DistributedRing(Ring):
     """One rank per process: the ranks of ``group`` (the default group when
-    None) in group-rank order.  ``torch.distributed`` must be initialized."""
+    None) in group-rank order.  ``torch.distributed`` must be initialized.
+
+    The transport follows the group's backend, read once here: on NCCL a
+    payload stays on its device; on gloo, which has no CUDA point-to-point
+    and no CUDA all-gather, a CUDA payload is copied to host memory, moved
+    by gloo, and copied back to the payload's device (``host_staged``).
+    That is how several processes share one card (NCCL refuses two ranks
+    on one device); the kernels run on the card either way.
+    ``staged_bytes`` counts the bytes each collective copied between
+    device and host (both ways) and ``staged_calls`` its staged calls."""
 
     def __init__(self, group=None):
         import torch.distributed as dist
@@ -181,6 +201,29 @@ class DistributedRing(Ring):
         self.world = dist.get_world_size(self.group)
         self.rank = dist.get_rank(self.group)
         self.ranks = (self.rank,)
+        self.host_staged = dist.get_backend(self.group) == "gloo"
+        self.staged_bytes = dict.fromkeys(("rotate", "all_gather", "all_reduce"), 0)
+        self.staged_calls = dict.fromkeys(self.staged_bytes, 0)
+
+    def _to_wire(self, x: torch.Tensor, op: str) -> torch.Tensor:
+        """``x`` as the backend moves it: contiguous, and in host memory when
+        the ring stages a CUDA tensor."""
+        x = x.contiguous()
+        if self.host_staged and x.is_cuda:
+            self.staged_bytes[op] += x.numel() * x.element_size()
+            x = x.cpu()
+        return x
+
+    def _from_wire(self, y: torch.Tensor, device: torch.device, op: str) -> torch.Tensor:
+        """A received tensor back on the payload's device."""
+        if y.device != device:
+            self.staged_bytes[op] += y.numel() * y.element_size()
+            y = y.to(device)
+        return y
+
+    def _staged(self, payload, op: str) -> None:
+        if self.host_staged and any(x.is_cuda for x in payload):
+            self.staged_calls[op] += 1
 
     def rotate(self, payloads: list[Payload], shift: int) -> list[Payload]:
         import torch.distributed as dist
@@ -195,13 +238,15 @@ class DistributedRing(Ring):
         (payload,) = payloads
         dst = dist.get_global_rank(self.group, (self.rank + shift) % self.world)
         src = dist.get_global_rank(self.group, (self.rank - shift) % self.world)
-        sent = tuple(x.contiguous() for x in payload)
+        self._staged(payload, "rotate")
+        sent = tuple(self._to_wire(x, "rotate") for x in payload)
         received = tuple(torch.empty_like(x) for x in sent)
         ops = [dist.P2POp(dist.isend, x, dst, self.group) for x in sent]
         ops += [dist.P2POp(dist.irecv, y, src, self.group) for y in received]
         for request in dist.batch_isend_irecv(ops):
             request.wait()
-        return [received]
+        return [tuple(self._from_wire(y, x.device, "rotate")
+                      for y, x in zip(received, payload))]
 
     def all_gather(self, payloads: list[Payload], dim: int) -> list[Payload]:
         """``torch.distributed.all_gather`` within the group, tensor by
@@ -223,12 +268,14 @@ class DistributedRing(Ring):
     def _gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         import torch.distributed as dist
 
-        sent = x.contiguous()
+        self._staged((x,), "all_gather")
+        sent = self._to_wire(x, "all_gather")
         if sent.dtype == torch.bool:
             sent = sent.to(torch.uint8)
         parts = [torch.empty_like(sent) for _ in range(self.world)]
         dist.all_gather(parts, sent, group=self.group)
-        return torch.cat(parts, dim=dim).to(x.dtype)
+        return self._from_wire(torch.cat(parts, dim=dim), x.device,
+                               "all_gather").to(x.dtype)
 
     def all_reduce(self, payloads: list[Payload], op: str) -> list[Payload]:
         """``torch.distributed.all_reduce`` within the group, tensor by
@@ -242,11 +289,13 @@ class DistributedRing(Ring):
                 f"{len(payloads)}"
             )
         reduce_op = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
+        self._staged(payloads[0], "all_reduce")
         reduced = []
         for x in payloads[0]:
-            y = x.detach().clone(memory_format=torch.contiguous_format)
+            y = self._to_wire(x.detach().clone(memory_format=torch.contiguous_format),
+                              "all_reduce")
             dist.all_reduce(y, op=reduce_op, group=self.group)
-            reduced.append(y)
+            reduced.append(self._from_wire(y, x.device, "all_reduce"))
         return [tuple(reduced)]
 
     def __repr__(self) -> str:

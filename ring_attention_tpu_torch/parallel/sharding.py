@@ -12,6 +12,15 @@ each rank its tokens.
 The schemes ``"contiguous"``, ``"striped"`` and ``"zigzag"`` are ported;
 Ulysses and the hybrid factoring raise ``NotImplementedError`` naming
 their ROADMAP item.
+
+On a mesh whose ranks are processes every process holds the same global
+batch; :func:`shard_cut` keeps its part of a padded, permuted tensor (its
+data rows and its seq rank's contiguous block: what ``NamedSharding(P(data,
+seq))`` gives a device in JAX) and :func:`shard_gather` is the inverse
+(the blocks gathered over the seq ring, the rows over the data ring, then
+un-permuted); :func:`cut_rows` and :func:`gather_rows` do the rows alone
+(decoding).  On a mesh that one process holds they change nothing but
+the un-permute.
 """
 
 from __future__ import annotations
@@ -124,3 +133,66 @@ def layout_unpermute(x: torch.Tensor, scheme: str, factor: int) -> torch.Tensor:
     if scheme in UNPORTED_SCHEMES:
         raise _unported(scheme)
     raise ValueError(f"unknown sequence layout scheme {scheme!r}")
+
+
+def cut_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This process's data rows (axis 0) of a global batch; ``x`` itself
+    with one data row (or no mesh)."""
+    if mesh is None or mesh.data == 1:
+        return x
+    b = x.shape[0]
+    if b % mesh.data:
+        raise ValueError(f"batch {b} does not divide over {mesh.data} data rows")
+    return x.narrow(0, mesh.data_rank * (b // mesh.data), b // mesh.data)
+
+
+def gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Inverse of :func:`cut_rows`: every row group's rows, gathered over
+    the data ring."""
+    if mesh is None or mesh.data == 1:
+        return x
+    return _GatherShards.apply(x, mesh.data_ring, 0)
+
+
+def shard_cut(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This process's part of a global ``(batch, seq, ...)`` tensor laid
+    out for the ring (padded and permuted): its data rows and the
+    contiguous block of the seq ranks it holds.  ``x`` itself on a mesh
+    that one process holds (or no mesh)."""
+    x = cut_rows(x, mesh)
+    if mesh is None or not mesh.ring.spans_processes:
+        return x
+    ring = mesh.ring
+    n = x.shape[1]
+    _check_divides("shard_cut", n, ring.world)
+    n_local = n // ring.world
+    return x[:, ring.ranks[0] * n_local:(ring.ranks[-1] + 1) * n_local].contiguous()
+
+
+def shard_gather(x: torch.Tensor, mesh, scheme: str = "contiguous",
+                 factor: int = 1) -> torch.Tensor:
+    """Inverse of :func:`shard_cut`, then of :func:`layout_permute`: the
+    seq blocks gathered over the mesh's ring, the rows over its data ring,
+    and the layout un-permuted.  Every process gets the same global tensor;
+    its gradient reaches each process as its own slice (its consumer runs
+    alike on every process, so the gradient is not summed over the ranks
+    as ``Ring.all_gather``'s is)."""
+    if mesh is not None and mesh.ring.spans_processes:
+        x = _GatherShards.apply(x, mesh.ring, 1)
+    return layout_unpermute(gather_rows(x, mesh), scheme, factor)
+
+
+class _GatherShards(torch.autograd.Function):
+    """One process's shard gathered over ``ring`` along ``dim``, for a
+    consumer that every process runs alike: the backward keeps this
+    process's slice of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, ring, dim):
+        ctx.ring, ctx.dim, ctx.size = ring, dim, x.shape[dim]
+        return ring.all_gather([(x.detach(),)], dim)[0][0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        start = ctx.ring.ranks[0] * ctx.size
+        return grad.narrow(ctx.dim, start, ctx.size), None, None

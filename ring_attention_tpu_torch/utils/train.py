@@ -17,6 +17,15 @@ updates.
   optimizer is not stepped, so parameters and optimizer state stay
   bit-identical.  The check reads one scalar on the host.
 - ``on_step_end(outputs)`` is called after each step with its return value.
+- ``mesh``: the mesh the model runs on.  On a mesh whose ranks are
+  processes each process's ``loss_fn`` gives its share of the loss (as
+  ``RingTransformer``'s loss does there), and the step sums every
+  parameter's gradient over every process of the mesh, the seq ring and
+  the data ring alike (``parallel/mesh.py::mesh_all_reduce``, the sum
+  that SPMD partitioning inserts in JAX), before it averages the
+  microbatches, clips and checks for non-finite values: every process
+  then takes the same decisions and the same update.  Without a mesh, or
+  on one that this process holds whole, nothing is summed.
 
 The JAX step's ``collect_metrics``, ``offload_opt_state``,
 ``shard_opt_state`` and ``jit_donate`` are not ported yet and raise.
@@ -27,6 +36,8 @@ from __future__ import annotations
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+from ..parallel.mesh import Mesh, mesh_all_reduce
 
 # Where each option that is not ported yet will come from (ROADMAP.md).
 UNPORTED = {
@@ -60,6 +71,7 @@ def make_train_step(
     skip_nonfinite: bool = False,
     clip_grad_norm: float | None = None,
     on_step_end: Callable[[Any], None] | None = None,
+    mesh: Mesh | None = None,
     collect_metrics: bool = False,
     offload_opt_state: bool = False,
     shard_opt_state: bool = False,
@@ -96,7 +108,7 @@ def make_train_step(
             loss = loss_fn(*batch)
             loss.backward()
             grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
-            return loss.detach(), grads
+            return loss.detach(), mesh_all_reduce(mesh, grads)
 
         def split(x):
             n = x.shape[0]
@@ -119,7 +131,7 @@ def make_train_step(
                     a += p.grad.float()
             loss_sum += loss.detach().float()
         inv = 1.0 / accum_steps
-        grads = [(a * inv).to(p.dtype) for a, p in zip(acc, params)]
+        grads = [(a * inv).to(p.dtype) for a, p in zip(mesh_all_reduce(mesh, acc), params)]
         return loss_sum * inv, grads
 
     def compute_update(batch) -> tuple[torch.Tensor, list[torch.Tensor], torch.Tensor | None]:

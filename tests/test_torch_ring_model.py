@@ -37,7 +37,13 @@ from ring_attention_tpu_torch import (
     load_jax_params,
     make_train_step,
 )
-from ring_attention_tpu_torch.parallel import Mesh, Ring, create_mesh
+from ring_attention_tpu_torch.parallel import (
+    Mesh,
+    Ring,
+    create_mesh,
+    stripe_permute,
+    stripe_unpermute,
+)
 
 GRAD_TOL = dict(atol=2e-5, rtol=1e-4)
 CONFIG = dict(num_tokens=256, dim=64, depth=2, heads=4, kv_heads=2,
@@ -186,7 +192,77 @@ class _OneOfTwo(Ring):
         raise AssertionError("never reached")
 
 
+# The model runs on a mesh whose ranks are processes
+# (tests/test_torch_model_dist.py); what still raises there, naming its item
+MULTIPROCESS_UNPORTED = {
+    "ulysses": (dict(sequence_parallel="ulysses"), "Port queue item 7"),
+    "ring_counter_rotate": (dict(ring_counter_rotate=True), "Port queue item 7"),
+    "process_local_batches": (dict(auto_shard=False), "Port queue item 6d"),
+}
+
+
 def test_model_on_a_multiprocess_mesh_raises():
     mesh = Mesh(data=1, seq=2, ring=_OneOfTwo())
-    with pytest.raises(NotImplementedError, match="Port queue item 6"):
-        RingTransformer(**CONFIG, device="cpu", mesh=mesh)
+    assert mesh.spans_processes
+    for settings, item in MULTIPROCESS_UNPORTED.values():
+        with pytest.raises(NotImplementedError, match=item):
+            RingTransformer(**CONFIG, device="cpu", mesh=mesh, **settings)
+    # a ring switched off would run the whole sequence on every process
+    with pytest.raises(ValueError, match="use_ring=False or force_regular_attn"):
+        RingTransformer(**CONFIG, device="cpu", mesh=mesh, use_ring=False)
+
+
+@functools.cache
+def _jax_ring_off(flag):
+    jm = JaxTransformer(**CONFIG, **{flag: flag == "force_regular_attn"},
+                        mesh=jax_create_mesh(ring_size=4, data_size=2))
+    _, params = _jax_model("contiguous")
+    tokens = jnp.asarray(_tokens(1))
+    logits = jax.jit(lambda p: jm.apply(p, tokens[:, :127]))(params)
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p: jm.apply(p, tokens, return_loss=True)))(params)
+    return np.asarray(logits), float(loss), grads
+
+
+@pytest.mark.parametrize("flag", ["use_ring", "force_regular_attn"])
+def test_ring_switched_off_matches_jax(flag):
+    """``use_ring=False`` and ``force_regular_attn=True`` on a ring mesh run
+    every layer locally (the latter on the dense ``default_attention``),
+    as the JAX model does with the same field."""
+    ref_logits, ref_loss, ref_grads = _jax_ring_off(flag)
+    _, params = _jax_model("contiguous")
+    tm = load_jax_params(RingTransformer(**CONFIG, device="cpu", mesh=create_mesh(ring_size=4),
+                                         **{flag: flag == "force_regular_attn"}), params)
+    assert all(layer._ring_world == 1 for layer in tm.attn_layers)
+    tokens = torch.from_numpy(_tokens(1))
+    with torch.no_grad():
+        np.testing.assert_allclose(tm(tokens[:, :127]).numpy(), ref_logits, **GRAD_TOL)
+    loss = tm(tokens, return_loss=True)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), ref_loss, rtol=1e-5)
+    _assert_trees_close(_grads_as_jax(tm), ref_grads, **GRAD_TOL)
+
+
+def test_constructor_surface_of_the_jax_model():
+    """``use_pallas`` selects ``impl`` when that is None; ``auto_shard=False``
+    takes tokens padded and in the ring's layout in one process and returns
+    logits in it; ``pallas_head_chunks`` and ``remat_policy`` raise one line
+    each."""
+    assert RingTransformer(**CONFIG, device="cpu", use_pallas=False).attn_layers[0].impl == "torch"
+    assert RingTransformer(**CONFIG, device="cpu", use_pallas=True).attn_layers[0].impl == "cuda"
+    assert RingAttention(32, device="cpu", impl="fused", use_pallas=False).impl == "fused"
+    _, params = _jax_model("striped")
+    mesh = create_mesh(ring_size=4)
+    shard = _port_model("striped", "cuda", params)
+    raw = load_jax_params(RingTransformer(**CONFIG, **VARIANTS["striped"], device="cpu",
+                                          mesh=mesh, auto_shard=False), params)
+    tokens = torch.from_numpy(_tokens(2))
+    with torch.no_grad():
+        np.testing.assert_array_equal(
+            stripe_unpermute(raw(stripe_permute(tokens, 4)), 4).numpy(), shard(tokens).numpy())
+    with pytest.raises(ValueError, match="no counterpart"):
+        RingTransformer(**CONFIG, device="cpu", pallas_head_chunks=2)
+    with pytest.raises(ValueError, match="no counterpart"):
+        RingAttention(32, device="cpu", pallas_head_chunks=2)
+    with pytest.raises(NotImplementedError, match="Port queue item 7c"):
+        RingTransformer(**CONFIG, device="cpu", remat_policy="dots")
