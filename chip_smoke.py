@@ -237,7 +237,28 @@ result line):
    process per layer, their sum equal to the VirtualRing model's (times
    the data rows; the fused forward: B7 where the VirtualRing takes B8),
    and the bytes each collective staged through the host.
-   In phases 3 to 3m every launch counter is set to 0 just before each
+3n. The memory knobs: the same model at 1 x 65,536 (65,537 ids), one loss
+   and backward without knobs (twice: what a step repeats of itself),
+   with ``remat=True`` under None, ``save_attn``, ``offload_attn``,
+   ``save_attn_and_ffn_inputs`` and ``checkpoint_dots``, and with
+   ``ff_chunk_size=loss_chunk_size=2048``: each against the step without
+   knobs (loss KNOB_LOSS_REL_TOL relative, every gradient leaf
+   KNOB_GRAD_REL_TOL norm-relative; the leaves that are not bit-identical
+   printed), its launches exact (KNOB_B1: B1 4 where the backward reruns
+   the attention, 2 where the region keeps its ``(out, lse)``; B2 and B3
+   2) and its peak memory above live; the int8 model (B4) without remat,
+   under ``save_attn`` and under None likewise.  The windowed cache:
+   ``max_lookback_seq_len=(4096, None), windowed_cache=True`` against the
+   full cache, bf16 and ``quantize_cache``, 4 x (8,192 prompt + 64 new)
+   teacher-forced on the full model's greedy tokens: logits within
+   RING_LOGITS_REL_TOL, the greedy token equal wherever the full model's
+   margin decides it, layer 0's cache bytes, one B5 (B6) launch a layer
+   and step; the int8 cache beside the full int8 model's spread under
+   last-bit weight noise.  ``make_train_step(offload_opt_state=True)``:
+   two Adam steps with parameters bit-identical to the plain steps' (the
+   embedding frozen in both: its backward sums with atomics), the
+   optimizer state in pinned host memory between steps.
+   In phases 3 to 3n every launch counter is set to 0 just before each
    run and read just after; a kernel that never launched fails the run.
 4. Timings with CUDA events (median of 10 runs after warm-up): each kernel
    beside its bound (the larger of its bytes over 3.35 TB/s and its
@@ -312,6 +333,13 @@ result line):
    second one, beside the VirtualRing model's, with the card's name and
    power limit: four processes time-sliced on one card with gloo staging,
    not a measure of a multi-GPU ring.
+4k. bench.py's train configuration (``remat=True,
+   remat_policy="save_attn", ff_chunk_size=loss_chunk_size=2048``) at 1 x
+   262,144 beside the model without knobs, remat alone and the chunks
+   alone (Adam steps, one warm-up each, then a, b, c, d, d, c, b, a on the
+   host clock around synchronized steps): ms, tokens/s, peak memory above
+   live, launches; then ``train1m`` (bench.py phase 7): one step at 1 x
+   1,048,576 after one warm-up.  The phase prints its own seconds.
 5. The kernels line, one JSON object with eight kernels; the forward
    kernels' entries list their ring modes; the per-shape rows of
    flash_fwd, flash_bwd_dkv and flash_bwd_dq end with phase 4f's, each
@@ -5815,6 +5843,376 @@ def phase_multiprocess_model() -> dict:
 
 
 
+# Phase 3n: the memory knobs on the bench model at 1 x 65,536, bf16.  Each
+# configuration's loss and gradients against the step without knobs, held to
+# the bf16 bounds below (loss relative, each gradient leaf norm-relative, as
+# MP_GRAD_REL_TOL holds a bf16 step's gradient taken in another order): the
+# chunks change the FeedForward's and the loss's matmul shapes (cuBLAS may
+# take other kernels) and the loss's f32 sum order.  The remat policies rerun
+# the same kernels and matmuls on the same inputs (or read back what the
+# first forward kept); whether they are bit-identical is printed beside the
+# step without knobs run twice, which shows how far one step repeats itself.
+KNOB_SEQ = 65536
+KNOB_CONFIGS = {
+    "no knobs": {},
+    "no knobs, again": {},
+    "remat None": dict(remat=True, remat_policy=None),
+    "remat save_attn": dict(remat=True, remat_policy="save_attn"),
+    "remat offload_attn": dict(remat=True, remat_policy="offload_attn"),
+    "remat save_attn_and_ffn_inputs": dict(remat=True, remat_policy="save_attn_and_ffn_inputs"),
+    "remat checkpoint_dots": dict(remat=True, remat_policy="checkpoint_dots"),
+    "chunks 2048": dict(ff_chunk_size=2048, loss_chunk_size=2048),
+}
+# B1 launches per step (B2 and B3: 2 each in every configuration)
+KNOB_B1 = {"no knobs": 2, "no knobs, again": 2, "remat None": 4, "remat save_attn": 2, "remat offload_attn": 2,
+           "remat save_attn_and_ffn_inputs": 2, "remat checkpoint_dots": 4, "chunks 2048": 2}
+KNOB_LOSS_REL_TOL = 1e-3
+KNOB_GRAD_REL_TOL = 2e-2
+# bench.py's train model (bench.py:1147-1162) and its phase 7 (train1m)
+BENCH_TRAIN_KNOBS = dict(remat=True, remat_policy="save_attn", ff_chunk_size=2048,
+                         loss_chunk_size=2048)
+# The windowed decode cache: layer 0 looks back 4,096 tokens; 4 requests of
+# 8,192-token prompts, 64 new tokens.  Windowed and full caches hold the same
+# rows for layer 0's window, read by B5 (B6) over another slot order and
+# split; the logits of each teacher-forced step are held norm-relative
+# (RING_LOGITS_REL_TOL: the same bf16 model summing its keys in another
+# order), and the windowed model's greedy token must equal the full model's
+# wherever the full model's top-2 margin exceeds twice the step's largest
+# logit difference.
+WINDOW = 4096
+WINDOW_PROMPT = 8192
+WINDOW_NEW = 64
+# Phase 4k: under save_attn a step launches B1, B2 and B3 once per layer,
+# as without remat
+KNOB_STEP_LAUNCHES = _counts(flash_fwd=2, flash_bwd_dkv=2, flash_bwd_dq=2)
+
+
+def _knob_step(model, tokens) -> dict:
+    """One loss and backward of ``model`` on ``tokens``: the loss, every
+    gradient, the launches and the peak memory above what was live."""
+    import torch
+
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    start = time.perf_counter()
+    loss = model(tokens, return_loss=True)
+    loss.backward()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    counts = _read_counts()
+    out = {"loss": loss.detach(), "grads": [p.grad.detach().clone() for p in model.parameters()],
+           "counts": counts, "above": torch.cuda.max_memory_allocated() - base,
+           "seconds": seconds}
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def _against(res: dict, ref: dict, names: list) -> tuple:
+    """A step's loss and gradients against a reference step's: the loss's
+    relative difference, the worst leaf's norm-relative one and its name,
+    and which leaves differ at all ("none" where the two are bit-identical)."""
+    import torch
+
+    loss_rel = abs(res["loss"].item() - ref["loss"].item()) / abs(ref["loss"].item())
+    rels = [(g.float() - r.float()).norm().item() / max(r.float().norm().item(), 1e-30)
+            for g, r in zip(res["grads"], ref["grads"])]
+    worst = max(range(len(rels)), key=rels.__getitem__)
+    differ = [name for name, g, r in zip(names, res["grads"], ref["grads"])
+              if not torch.equal(g, r)]
+    if not torch.equal(res["loss"], ref["loss"]):
+        differ.insert(0, "the loss")
+    return loss_rel, rels[worst], names[worst], ", ".join(differ) or "none"
+
+
+def _teacher_forced(model, prompts, new_tokens, max_len) -> tuple:
+    """Prefill logits and each teacher-forced decode step's logits ``(steps,
+    b, vocab)`` in f32, and the model's cache."""
+    import torch
+
+    n = prompts.shape[1]
+    with torch.inference_mode():
+        cache = model.init_cache(prompts.shape[0], max_len)
+        logits, cache = model.prefill(prompts, cache)
+        steps = [logits.float()]
+        for i in range(new_tokens.shape[1] - 1):
+            logits, cache = model.decode_step(new_tokens[:, i], cache, n + i)
+            steps.append(logits.float())
+    return torch.stack(steps), cache
+
+
+def _cache_bytes(entry) -> int:
+    return sum(t.numel() * t.element_size() for t in (entry if isinstance(entry, tuple)
+                                                     else (entry,)))
+
+
+def _hold_windowed_cache(quantize: bool) -> dict:
+    """The windowed cache against the full one on the bench model (layer 0
+    windowed); returns the launches of the windowed model's decoding."""
+    import torch
+
+    kind = "int8 cache" if quantize else "bf16 cache"
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    vocab = BENCH_MODEL["num_tokens"]
+    prompts = torch.randint(0, vocab, (4, WINDOW_PROMPT), generator=gen, device="cuda")
+    max_len = WINDOW_PROMPT + WINDOW_NEW
+    kw = dict(max_lookback_seq_len=(WINDOW, None), quantize_cache=quantize)
+    full = _model(torch.bfloat16, "cuda", **kw)
+    windowed = _model(torch.bfloat16, "cuda", windowed_cache=True, **kw)
+    with torch.inference_mode():
+        greedy = full.generate(prompts, max_len=max_len, num_steps=WINDOW_NEW)
+        want, full_cache = _teacher_forced(full, prompts, greedy, max_len)
+        _reset_counts()
+        got, cache = _teacher_forced(windowed, prompts, greedy, max_len)
+        counts = _read_counts()
+    decode = "flash_decode_q8" if quantize else "flash_decode"
+    expected = _counts(**{decode: BENCH_MODEL["depth"] * (WINDOW_NEW - 1)})
+    check(counts == expected, f"windowed {kind}: decoding launched {counts}, expected {expected}")
+    slots = (cache["k"][0][0] if quantize else cache["k"][0]).shape[2]
+    check(slots == WINDOW, f"windowed {kind}: layer 0 holds {slots} slots, expected {WINDOW}")
+    rel = [_rel_err(g, w) for g, w in zip(got, want)]
+    diff = (got - want).abs().amax(dim=-1).amax(dim=-1)  # (steps,)
+    top2 = want.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]  # (steps, b)
+    agree = got.argmax(-1) == want.argmax(-1)
+    decided = margin > 2 * diff[:, None]
+    layer0 = [_cache_bytes(c["k"][0]) + _cache_bytes(c["v"][0]) for c in (cache, full_cache)]
+    line = (f"  windowed {kind} (layer 0 window {WINDOW}): 4 x ({WINDOW_PROMPT} prompt + "
+            f"{WINDOW_NEW} new), teacher-forced on the full model's greedy tokens: logits "
+            f"||windowed - full|| / ||full|| max {max(rel):.3e} (tol {RING_LOGITS_REL_TOL}), "
+            f"max|diff| {diff.max().item():.3e}; greedy tokens equal "
+            f"{int(agree.sum())}/{agree.numel()} ({int(decided.sum())} decided by a margin "
+            f"above 2 x max|diff|, all of them equal: {bool(agree[decided].all())}); layer 0 "
+            f"cache {layer0[0] / 2**20:.1f} MiB windowed, {layer0[1] / 2**20:.1f} MiB full; "
+            f"launches {_nonzero(counts)}")
+    if quantize:
+        # the int8 noise reference (PERF.md, ROADMAP Queue 3): the full int8
+        # model's own logits under last-bit weight noise
+        noisy = _model(torch.bfloat16, "cuda", **kw)
+        cpu_gen = torch.Generator().manual_seed(SEED + 41)
+        with torch.no_grad():
+            for w in noisy.parameters():
+                w.mul_(1 + 1.2e-7 * torch.randn(w.shape, generator=cpu_gen).cuda())
+        spread, _ = _teacher_forced(noisy, prompts, greedy, max_len)
+        line += (f"; the full int8 model's weights x (1 + 1.2e-7 noise) move its logits "
+                 f"{max(_rel_err(s, w) for s, w in zip(spread, want)):.3e}")
+    log(line)
+    check(max(rel) <= RING_LOGITS_REL_TOL, f"windowed {kind}: logits off the full cache's")
+    check(bool(agree[decided].all()), f"windowed {kind}: a greedy token differs where the "
+          "full model's margin decides it")
+    return counts
+
+
+def _nonzero(counts: dict) -> dict:
+    return {name: n for name, n in counts.items() if n}
+
+
+def _hold_offload(tokens) -> dict:
+    """Two Adam steps with ``offload_opt_state=True`` against two plain
+    ones from the same weights; returns the launches of the offloaded
+    steps.  The embedding is frozen in both: its backward sums each row's
+    gradient with atomics, in no fixed order (the repeated step of 3n shows
+    it), and every other parameter's gradient repeats bit for bit."""
+    import torch
+
+    from ring_attention_tpu_torch import make_train_step
+
+    runs, launches = {}, None
+    for offload in (False, True):
+        model = _model(torch.bfloat16, "cuda").train()
+        model.embed.weight.requires_grad_(False)
+        opt = torch.optim.Adam([p for p in model.parameters() if p.requires_grad], lr=1e-3)
+        step = make_train_step(lambda t, m=model: m(t, return_loss=True), opt,
+                               offload_opt_state=offload)
+        device_bytes, where = [], []
+        if offload:
+            _reset_counts()
+        for _ in range(2):
+            step(tokens)
+            torch.cuda.synchronize()
+            state = [t for s in opt.state.values() for t in s.values() if torch.is_tensor(t)]
+            device_bytes.append(sum(t.numel() * t.element_size() for t in state
+                                    if t.device.type == "cuda"))
+            where.append({(t.device.type, t.is_pinned()) for t in state})
+        if offload:
+            launches = _read_counts()
+            parked = sum(t.numel() * t.element_size() for s in opt.state.values()
+                         for t in s.values() if torch.is_tensor(t) and t.is_pinned())
+        runs[offload] = ([p.detach().clone() for p in model.parameters()], device_bytes, where)
+        del model, opt, step
+    same = all(torch.equal(a, b) for a, b in zip(runs[False][0], runs[True][0]))
+    log(f"  offload_opt_state: 2 Adam steps at 1 x {KNOB_SEQ} (embedding frozen): parameters "
+        f"bit-identical to the plain step's: {same}; optimizer state on the device between steps "
+        f"{runs[False][1]} bytes plain, {runs[True][1]} offloaded; {parked} bytes parked "
+        f"in pinned host memory; state placement (device, pinned) after each step "
+        f"{[sorted(w) for w in runs[True][2]]}")
+    check(same, "offload_opt_state: parameters differ from the plain step's")
+    check(all(w <= {("cpu", True), ("cpu", False)} for w in runs[True][2])
+          and all(b == 0 for b in runs[True][1]) and parked > 0,
+          "offload_opt_state: optimizer state left on the device between steps")
+    return launches
+
+
+def phase_memory_knobs() -> dict:
+    """Phase 3n: the memory knobs' parity, launches and memory on the card;
+    returns the launches of their runs."""
+    import torch
+
+    log(f"phase 3n: the memory knobs, bench model at full width, bf16, 1 x {KNOB_SEQ}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 39)
+    tokens = torch.randint(0, BENCH_MODEL["num_tokens"], (1, KNOB_SEQ + 1), generator=gen,
+                           device="cuda")
+    launches = _counts()
+    results = {}
+    for name, kw in KNOB_CONFIGS.items():
+        model = _model(torch.bfloat16, "cuda", **kw).train()
+        names = [param for param, _ in model.named_parameters()]
+        results[name] = _knob_step(model, tokens)
+        del model
+        for key, n in results[name]["counts"].items():
+            launches[key] += n
+    for name, res in results.items():
+        counts = res["counts"]
+        b123 = {k: counts[k] for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
+        loss_rel, grad_rel, leaf, differ = _against(res, results["no knobs"], names)
+        log(f"  {name}: loss {res['loss'].item():.6f} (rel {loss_rel:.2e}), worst gradient "
+            f"leaf ||diff|| / ||ref|| {grad_rel:.2e} ({leaf}), leaves not bit-identical: "
+            f"{differ}; launches {b123}; peak {res['above'] / 2**30:.3f} GiB above live; "
+            f"{res['seconds'] * 1e3:.1f} ms (loss and backward, first call)")
+        expected = _counts(flash_fwd=KNOB_B1[name], flash_bwd_dkv=2, flash_bwd_dq=2)
+        check(counts == expected, f"{name}: launched {_nonzero(counts)}, expected "
+              f"{_nonzero(expected)}")
+        check(loss_rel <= KNOB_LOSS_REL_TOL and grad_rel <= KNOB_GRAD_REL_TOL,
+              f"{name}: loss or gradients off the step without knobs")
+    log("  (the step without knobs, run again, shows what a step repeats: the "
+        "embedding's backward sums its rows' gradients with atomics, in no fixed order)")
+    # compute_dtype="int8": the int8 sweep (B4) under save_attn runs once per
+    # layer, as without remat, and under None twice
+    int8 = {}
+    for name, kw in (("no knobs", {}), ("remat save_attn", KNOB_CONFIGS["remat save_attn"]),
+                     ("remat None", KNOB_CONFIGS["remat None"])):
+        model = _q8_model(torch.bfloat16, "cuda", **kw).train()
+        int8[name] = _knob_step(model, tokens)
+        del model
+        for key, n in int8[name]["counts"].items():
+            launches[key] += n
+    for name, res in int8.items():
+        expected = _counts(flash_fwd_q8=KNOB_B1[name], flash_bwd_dkv=2, flash_bwd_dq=2)
+        loss_rel, grad_rel, leaf, differ = _against(res, int8["no knobs"], names)
+        log(f"  int8 compute, {name}: loss {res['loss'].item():.6f} (rel {loss_rel:.2e}), "
+            f"worst gradient leaf {grad_rel:.2e} ({leaf}) against the int8 step without "
+            f"knobs, leaves not bit-identical: {differ}; launches {_nonzero(res['counts'])}; "
+            f"peak {res['above'] / 2**30:.3f} GiB above live")
+        check(res["counts"] == expected, f"int8 {name}: launched {_nonzero(res['counts'])}")
+        check(loss_rel <= KNOB_LOSS_REL_TOL and grad_rel <= KNOB_GRAD_REL_TOL,
+              f"int8 {name}: loss or gradients off the int8 step without knobs")
+    for quantize in (False, True):
+        for key, n in _hold_windowed_cache(quantize).items():
+            launches[key] += n
+    for key, n in _hold_offload(tokens).items():
+        launches[key] += n
+    return {"launches": launches}
+
+
+def _time_knob_steps(models: dict, tokens, order: list) -> dict:
+    """Each model's Adam step (``make_train_step``): one warm-up step each,
+    then the steps of ``order`` on the host clock around synchronized
+    steps; each model's step times, the peak memory above live, the launches
+    of its warm-up step and its losses."""
+    import torch
+
+    from ring_attention_tpu_torch import make_train_step
+
+    steps = {}
+    for name, model in models.items():
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        steps[name] = make_train_step(lambda t, m=model: m(t, return_loss=True), opt)
+    out = {name: {"ms": [], "above": 0, "losses": []} for name in models}
+    for name, step in steps.items():
+        _reset_counts()
+        out[name]["losses"].append(float(step(tokens)))
+        out[name]["counts"] = _read_counts()
+    for name in order:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        loss = steps[name](tokens)
+        torch.cuda.synchronize()
+        out[name]["ms"].append((time.perf_counter() - start) * 1e3)
+        out[name]["above"] = max(out[name]["above"], torch.cuda.max_memory_allocated() - base)
+        out[name]["losses"].append(float(loss))
+    for name, row in out.items():
+        check(all(math.isfinite(x) for x in row["losses"]), f"{name}: losses {row['losses']}")
+    return out
+
+
+def _log_knob_row(name: str, n: int, row: dict) -> None:
+    ms = statistics.median(row["ms"])
+    log(f"  {name}, 1 x {n}: {ms:.1f} ms a step (median of {len(row['ms'])}: "
+        f"{[round(x, 1) for x in row['ms']]}), {n / ms * 1e3:.0f} tokens/s, peak "
+        f"{row['above'] / 2**30:.3f} GiB above live; losses "
+        f"{[round(x, 6) for x in row['losses']]}; launches a step {_nonzero(row['counts'])}")
+
+
+def phase_memory_timings() -> dict:
+    """Phase 4k: bench.py's train configuration at 262,144 beside the model
+    without knobs, then one train1m step at 1,048,576; returns the launches
+    of the knob model's steps."""
+    import gc
+
+    import torch
+
+    start = time.perf_counter()
+    log("phase 4k: bench.py's train model (remat save_attn, ff and loss chunks 2,048), "
+        "Adam steps (host clock around synchronized steps)")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    log(f"  card: {smi.stdout.strip()}")
+    launches = _counts()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 42)
+    n = 262144
+    tokens = torch.randint(0, BENCH_MODEL["num_tokens"], (1, n + 1), generator=gen,
+                           device="cuda")
+    # the knobs apart: remat alone, the chunks alone
+    chunks = dict(ff_chunk_size=2048, loss_chunk_size=2048)
+    models = {"bench train knobs": _model(torch.bfloat16, "cuda", **BENCH_TRAIN_KNOBS).train(),
+              "no knobs": _model(torch.bfloat16, "cuda").train(),
+              "remat save_attn alone": _model(torch.bfloat16, "cuda", remat=True,
+                                              remat_policy="save_attn").train(),
+              "chunks alone": _model(torch.bfloat16, "cuda", **chunks).train()}
+    names = list(models)
+    rows = _time_knob_steps(models, tokens, names + names[::-1])
+    for name, row in rows.items():
+        _log_knob_row(name, n, row)
+        check(row["counts"] == KNOB_STEP_LAUNCHES, f"{name}: a step launched "
+              f"{_nonzero(row['counts'])}, expected {_nonzero(KNOB_STEP_LAUNCHES)}")
+    for key, count in rows["bench train knobs"]["counts"].items():
+        launches[key] += count
+    del models, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = 1 << 20
+    tokens = torch.randint(0, BENCH_MODEL["num_tokens"], (1, n + 1), generator=gen,
+                           device="cuda")
+    model = _model(torch.bfloat16, "cuda", **BENCH_TRAIN_KNOBS).train()
+    row = _time_knob_steps({"train1m": model}, tokens, ["train1m"])["train1m"]
+    _log_knob_row("train1m (bench.py phase 7), one step after one warm-up", n, row)
+    check(row["counts"] == KNOB_STEP_LAUNCHES, f"train1m: a step launched "
+          f"{_nonzero(row['counts'])}, expected {_nonzero(KNOB_STEP_LAUNCHES)}")
+    for key, count in row["counts"].items():
+        launches[key] += count
+    del model, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 4k took {time.perf_counter() - start:.1f} s")
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -5857,6 +6255,7 @@ def main() -> int:
     mesh_serving = phase_mesh_serving()
     doc = phase_doc_mask_path(serving, training)
     int8_path = phase_int8_ring_path(serving, training)
+    knobs = phase_memory_knobs()
     rows, decode_rows = phase_timings(serving)
     bwd_rows = phase_train_timings(training)
     mode_rows = phase_ring_timings(ring, serving, training, rows)
@@ -5867,6 +6266,10 @@ def main() -> int:
     doc_rows = phase_doc_timings(doc)
     int8_rows = phase_int8_ring_timings(int8_path, serving, training)
     mp_launches = phase_multiprocess_model()["launches"]
+    # phases 3n and 4k: the memory knobs on the bench model (B1, B2, B3; B4
+    # in the int8 remat case; B5 and B6 on the windowed caches)
+    knob_timed = phase_memory_timings()["launches"]
+    knob_launches = {name: knobs["launches"][name] + knob_timed[name] for name in COUNTERS}
     # the main paths' launches of this slice: the zig-zag model, config 3,
     # config 5's tree decode and the serving path on the ring
     mesh_launches = {name: zigzag["launches"][name] + config3["launches"][name]
@@ -5888,20 +6291,21 @@ def main() -> int:
          serving["launches"] + training["launches"]["flash_fwd"]
          + ring_launches["flash_fwd"] + packed_launches["flash_fwd"]
          + mesh_launches["flash_fwd"] + doc_launches["flash_fwd"]
-         + int8_launches["flash_fwd"] + mp_launches["flash_fwd"],
+         + int8_launches["flash_fwd"] + mp_launches["flash_fwd"]
+         + knob_launches["flash_fwd"],
          max(max_err, *mode_err.values(), mesh_err["fwd"], config3["fwd_err"],
              *(seg_err[m] for m in ("fused", "seed", "resume", "fused_carry")),
              *(doc_err[m] for m in ("fused", "seed", "resume", "fused_carry"))),
          rows + seg_rows["flash_fwd"] + doc_rows["flash_fwd"]),
         ("flash_decode", "flash_decode.cu", f"{flash}:1174",
          serving["decode_launches"] + mesh_launches["flash_decode"]
-         + mp_launches["flash_decode"],
+         + mp_launches["flash_decode"] + knob_launches["flash_decode"],
          max(decode_err, mesh_err["decode"]), decode_rows),
         ("flash_bwd_dkv", "flash_bwd.cu", f"{flash}:2108",
          training["launches"]["flash_bwd_dkv"] + ring_launches["flash_bwd_dkv"]
          + fused_launches["flash_bwd_dkv"] + q8_launches["flash_bwd_dkv"]
          + packed_launches["flash_bwd_dkv"] + mesh_launches["flash_bwd_dkv"]
-         + doc_launches["flash_bwd_dkv"],
+         + doc_launches["flash_bwd_dkv"] + knob_launches["flash_bwd_dkv"],
          max(bwd_err["dk"], bwd_err["dv"], seg_err["dk"], seg_err["dv"], mesh_err["dk"],
              mesh_err["dv"], config3["dk"], config3["dv"], doc_err["dk"], doc_err["dv"]),
          bwd_rows["flash_bwd_dkv"] + seg_rows["flash_bwd_dkv"] + doc_rows["flash_bwd_dkv"]),
@@ -5909,14 +6313,16 @@ def main() -> int:
          training["launches"]["flash_bwd_dq"] + ring_launches["flash_bwd_dq"]
          + fused_launches["flash_bwd_dq"] + q8_launches["flash_bwd_dq"]
          + packed_launches["flash_bwd_dq"] + mesh_launches["flash_bwd_dq"]
-         + doc_launches["flash_bwd_dq"],
+         + doc_launches["flash_bwd_dq"] + knob_launches["flash_bwd_dq"],
          max(bwd_err["dq"], seg_err["dq"], mesh_err["dq"], config3["dq"], doc_err["dq"]),
          bwd_rows["flash_bwd_dq"] + seg_rows["flash_bwd_dq"] + doc_rows["flash_bwd_dq"]),
-        ("flash_fwd_q8", "flash_fwd_q8.cu", f"{flash}:1174", q8_launches["flash_fwd_q8"],
+        ("flash_fwd_q8", "flash_fwd_q8.cu", f"{flash}:1174",
+         q8_launches["flash_fwd_q8"] + knob_launches["flash_fwd_q8"],
          max(*(q8_err[m] for m in ("fused", "seed", "resume", "fused_carry")),
              int8_err["seg"], int8_err["docs"], int8_err["feed"]), q8_rows["fwd"]),
         ("flash_decode_q8", "flash_decode_q8.cu", f"{flash}:1585",
-         q8_launches["flash_decode_q8"] + mesh_launches["flash_decode_q8"],
+         q8_launches["flash_decode_q8"] + mesh_launches["flash_decode_q8"]
+         + knob_launches["flash_decode_q8"],
          max(q8_err["decode"], mesh_err["decode_q8"]), q8_rows["decode"]),
         ("flash_ring", "flash_ring.cu", f"{pallas_ring}:341",
          fused_launches["flash_ring"] + doc_launches["flash_ring"] + int8_launches["flash_ring"]

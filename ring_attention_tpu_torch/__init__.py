@@ -25,8 +25,10 @@ ranks' decode-kernel partials merged by ``tree_attn_decode``), and the
 model over a mesh of processes (``create_mesh`` over an initialized
 process group: each process holds one rank of its row's
 ``DistributedRing`` and one data row, cut from the same global batch;
-``make_train_step(mesh=)`` sums the gradients over the whole mesh).  Entry
-points run on the CUDA device unless the caller passes ``device="cpu"``;
+``make_train_step(mesh=)`` sums the gradients over the whole mesh), and
+the memory knobs (``remat`` with its ``remat_policy`` registry,
+``ff_chunk_size``, ``loss_chunk_size``, ``windowed_cache``,
+``make_train_step(offload_opt_state=True)``).  Entry points run on the CUDA device unless the caller passes ``device="cpu"``;
 on CPU tensors every kernel wrapper runs its plain PyTorch version.  The
 package imports torch only.
 """

@@ -121,14 +121,9 @@ from .layers import Dense, RMSNorm, resolve_device
 
 # Where each feature that is not ported yet will come from (ROADMAP.md).
 UNPORTED = {
-    "windowed_cache": "the memory knobs, ROADMAP.md Port queue item 7",
-    "ff_chunk_size": "the memory knobs, ROADMAP.md Port queue item 7",
-    "loss_chunk_size": "the memory knobs, ROADMAP.md Port queue item 7",
-    "remat": "the memory knobs, ROADMAP.md Port queue item 7",
     "ring_bidirectional": "the ring variants, ROADMAP.md Port queue item 7",
     "ring_counter_rotate": "the ring variants, ROADMAP.md Port queue item 7",
     "ring_dkv_dtype": "the ring variants, ROADMAP.md Port queue item 7",
-    "remat_policy": "the memory knobs, ROADMAP.md Port queue item 7c",
 }
 IMPLS = ("cuda", "torch", "fused")
 UNPORTED_IMPLS = {
@@ -143,12 +138,6 @@ def reject_unported(fn: str, **settings) -> None:
             raise NotImplementedError(
                 f"{fn}: {name}= is not ported yet; it arrives with {UNPORTED[name]}"
             )
-
-
-def unported(fn: str, name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{fn}: {name} is not ported yet; it arrives with {UNPORTED[name]}"
-    )
 
 
 def mask_form(fn: str, mask, causal: bool, lookback) -> mask_algebra.KernelForm | None:

@@ -1,6 +1,6 @@
 """Transformer building blocks: Dense, Embed, RMSNorm and FeedForward.
 
-Ports of ``ring_attention_tpu/models/layers.py:34-83`` and of the flax
+Ports of ``ring_attention_tpu/models/layers.py:34-150`` and of the flax
 ``nn.Dense``/``nn.Embed`` semantics the JAX model relies on: parameters are
 kept in float32 and cast to the module's compute ``dtype`` at use (with
 ``dtype=None`` the computation runs in the promoted input/parameter type,
@@ -12,6 +12,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.residuals import checkpoint_name
+from .remat import remat_call
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -72,14 +75,59 @@ class RMSNorm(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """prenorm -> Dense(mult * dim) -> exact (erf) GELU -> Dense(dim)."""
+    """prenorm -> Dense(mult * dim) -> exact (erf) GELU -> Dense(dim).
+
+    ``chunk_size`` runs the blockwise feedforward (JAX ``FeedForward(
+    chunk_size=, seq_shards=)``, ``models/layers.py:85-150``): the sequence
+    is cut into chunks of ``chunk_size`` positions, each run under its own
+    checkpoint, so that the ``(b, chunk, mult * dim)`` intermediate exists
+    for one chunk at a time, in the forward and the backward.  Chunks are
+    taken within each of ``seq_shards`` sequence shards (the ring's layout:
+    chunk ``i`` is every shard's chunk ``i``); a shard length that does not
+    divide is padded up and the padding sliced off; a chunk of at least the
+    shard length (a decode step's single token, say) runs the dense block.
+    The post-norm input is the residual ``ffn_in`` that the remat policies
+    ``save_ffn_inputs`` and ``save_attn_and_ffn_inputs`` keep."""
 
     def __init__(self, dim: int, mult: int = 4, *,
-                 dtype: torch.dtype | None = None, device=None):
+                 dtype: torch.dtype | None = None, device=None,
+                 chunk_size: int | None = None, seq_shards: int = 1):
         super().__init__()
         self.norm = RMSNorm(dim, device=device)
         self.proj_in = Dense(dim, dim * mult, dtype=dtype, device=device)
         self.proj_out = Dense(dim * mult, dim, dtype=dtype, device=device)
+        self.chunk_size = chunk_size
+        self.seq_shards = max(seq_shards, 1)
+
+    def _block(self, x: torch.Tensor) -> torch.Tensor:
+        h = checkpoint_name(self.norm(x), "ffn_in")
+        return self.proj_out(F.gelu(self.proj_in(h)))
+
+    def chunk_for(self, n: int) -> int | None:
+        """The chunk the blockwise path takes on ``n`` positions, or None
+        where the layer runs dense (no ``chunk_size``, shards that do not
+        divide ``n``, or a chunk of at least one shard)."""
+        c, shards = self.chunk_size, self.seq_shards
+        if c is None or c <= 0 or n % shards:
+            return None
+        c = min(c, n // shards)
+        return c if c < n // shards else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.proj_out(F.gelu(self.proj_in(self.norm(x))))
+        c = self.chunk_for(x.shape[1])
+        if c is None:
+            return self._block(x)
+        b, n, d = x.shape
+        shards = self.seq_shards
+        n_local = n // shards
+        pad = -n_local % c
+        xs = x.reshape(b, shards, n_local, d)
+        if pad:
+            xs = F.pad(xs, (0, 0, 0, pad))
+        # each chunk a plain checkpoint: its body is recomputed in the
+        # backward whatever the layer's remat policy (JAX's scanned remat)
+        out = torch.cat([remat_call(None, self._block, xs[:, :, i:i + c])
+                         for i in range(0, n_local + pad, c)], dim=2)
+        if pad:
+            out = out[:, :, :n_local]
+        return out.reshape(b, n, d)

@@ -5,9 +5,12 @@ Port of ``ring_attention_tpu/models/transformer.py``: token embedding,
 and logits, the dense cross-entropy loss with label shift and
 ``ignore_index`` (differentiable into the float32 parameters; train with
 ``utils/train.py::make_train_step``), and incremental decoding
-(``init_cache`` / ``prefill`` / ``decode_step`` / ``generate``), with the
-int8 knobs ``quantize_cache``, ``compute_dtype="int8"`` and the ring's
-int8 wire ``ring_hop_compression="int8"`` of ``models/attention.py``.  On a
+(``init_cache`` / ``prefill`` / ``decode_step`` / ``generate``), the
+memory knobs (``remat`` with the ``remat_policy`` registry of
+``models/remat.py``, ``ff_chunk_size``, ``loss_chunk_size``,
+``windowed_cache``), the int8 knobs ``quantize_cache``,
+``compute_dtype="int8"`` and the ring's int8 wire
+``ring_hop_compression="int8"`` of ``models/attention.py``.  On a
 ``mesh`` the model shards once at its top (pad, stripe when ``striped``)
 and every layer runs the ring on that layout, hop by hop under
 ``impl="cuda"`` or fused under ``"fused"`` (one launch for the whole
@@ -72,6 +75,7 @@ from .attention import (
     resolve_impl,
 )
 from .layers import Dense, Embed, FeedForward, RMSNorm, resolve_device
+from .remat import layer_policies, remat_call
 
 
 def _position_nll(
@@ -138,9 +142,16 @@ class RingTransformer(nn.Module):
     process mesh with process-local batches is not ported);
     ``use_ring=False`` or ``force_regular_attn`` run every layer locally
     (see ``RingAttention``), ``use_pallas`` selects ``impl`` when that is
-    None; ``pallas_head_chunks`` has no CUDA counterpart and
-    ``remat_policy`` is not ported.  Built on CUDA unless ``device`` names
-    another device."""
+    None; ``pallas_head_chunks`` has no CUDA counterpart.  The memory
+    knobs: ``remat`` checkpoints each layer's attention and FeedForward,
+    each a region of its own, under ``remat_policy`` (a name of
+    ``models/remat.py``'s registry, or a per-layer tuple; None saves
+    nothing); ``ff_chunk_size`` runs the blockwise FeedForward
+    (``layers.FeedForward``), chunked within each sequence shard;
+    ``loss_chunk_size`` computes the loss a chunk of positions at a time
+    (:meth:`_chunked_nll`); ``windowed_cache`` sizes a lookback layer's
+    decode cache to its window (local decoding only).  Built on CUDA unless
+    ``device`` names another device."""
 
     def __init__(
         self,
@@ -185,12 +196,25 @@ class RingTransformer(nn.Module):
         super().__init__()
         reject_unported(
             "RingTransformer",
-            windowed_cache=windowed_cache, ff_chunk_size=ff_chunk_size,
-            loss_chunk_size=loss_chunk_size, remat=remat, remat_policy=remat_policy,
             ring_bidirectional=ring_bidirectional,
             ring_counter_rotate=ring_counter_rotate,
             ring_dkv_dtype=ring_dkv_dtype,
         )
+        # validated up front, as the JAX setup does: 0 would quietly disable
+        # chunking and a negative size would break the padding
+        if loss_chunk_size is not None and loss_chunk_size <= 0:
+            raise ValueError(
+                f"RingTransformer: loss_chunk_size must be None or a positive int, got "
+                f"{loss_chunk_size!r} (None disables chunking; 0 would silently disable "
+                f"it, a negative value breaks padding)"
+            )
+        if ff_chunk_size is not None and ff_chunk_size <= 0:
+            raise ValueError(
+                f"RingTransformer: ff_chunk_size must be None or a positive int, got "
+                f"{ff_chunk_size!r} (None disables the blockwise feedforward; any "
+                f"positive size works — shard lengths that don't divide are padded)"
+            )
+        remat_policies = layer_policies(remat_policy, depth)
         check_hop_compression("RingTransformer", ring_hop_compression)
         impl = resolve_impl(impl, use_pallas)
         check_impl("RingTransformer", impl)
@@ -231,6 +255,11 @@ class RingTransformer(nn.Module):
         self.dtype = dtype
         self.mesh = mesh
         self.quantize_cache = quantize_cache
+        self.windowed_cache = windowed_cache
+        self.lookbacks = lookbacks
+        self.loss_chunk_size = loss_chunk_size
+        self.remat = remat
+        self.remat_policies = remat_policies
         self.auto_shard = auto_shard
         self.ring_world = seq_world(mesh) if use_ring and not force_regular_attn else 1
         self.striped = striped and self.ring_world > 1
@@ -251,8 +280,12 @@ class RingTransformer(nn.Module):
             )
             for lookback, layer_mask in zip(lookbacks, masks)
         )
+        # the shards this process's sequence holds: every rank's on a
+        # virtual ring, its own on a process
+        shards = len(mesh.ring.ranks) if self.ring_world > 1 else 1
         self.ff_layers = nn.ModuleList(
-            FeedForward(dim, ff_mult, dtype=dtype, device=device)
+            FeedForward(dim, ff_mult, dtype=dtype, device=device,
+                        chunk_size=ff_chunk_size, seq_shards=shards)
             for _ in range(depth)
         )
         self.final_norm = RMSNorm(dim, device=device)
@@ -338,10 +371,13 @@ class RingTransformer(nn.Module):
             tokens, mask, segment_ids = (None if t is None else shard_cut(t, self.mesh)
                                          for t in (tokens, mask, segment_ids))
         x = self.embed(tokens)
-        for attn, ff in zip(self.attn_layers, self.ff_layers):
-            x = attn(x, mask, segment_ids) + x
-            x = ff(x) + x
-        logits = self.to_logits(self.final_norm(x))
+        for i, (attn, ff) in enumerate(zip(self.attn_layers, self.ff_layers)):
+            x = self._remat(i, attn, x, mask, segment_ids) + x
+            # a blockwise FeedForward checkpoints each chunk itself
+            x = (ff(x) if ff.chunk_for(x.shape[1]) else self._remat(i, ff, x)) + x
+        x = self.final_norm(x)
+        if not (return_loss and self.loss_chunk_size):
+            logits = self.to_logits(x)
         if not return_loss:
             if shard or self._sharded:
                 logits = shard_gather(logits, self.mesh, scheme, factor)[:, :n_orig]
@@ -357,12 +393,45 @@ class RingTransformer(nn.Module):
             labels, valid = (layout_permute(pad_to_multiple(t, pad_mult)[0], scheme, factor)
                              for t in (labels, valid))
         labels, valid = shard_cut(labels, self.mesh), shard_cut(valid, self.mesh)
-        nll = _position_nll(logits, labels, valid).sum()
+        if self.loss_chunk_size:
+            nll = self._chunked_nll(x, labels, valid)
+        else:
+            nll = _position_nll(logits, labels, valid).sum()
         if not self._sharded:
             return nll / valid.sum().clamp(min=1)
         count, total = mesh_all_reduce(self.mesh, [valid.sum(), nll.detach()])
         count = count.clamp(min=1)
         return _MeshLoss.apply(nll / count, total / count)
+
+    def _remat(self, i: int, layer, *args):
+        """Layer ``i``'s ``layer(*args)``, a checkpointed region of its own
+        under the layer's policy with ``remat`` (JAX ``nn.remat(RingAttention,
+        policy=)`` and ``nn.remat(FeedForward, policy=)``)."""
+        if not self.remat:
+            return layer(*args)
+        return remat_call(self.remat_policies[i], layer, *args)
+
+    def _chunk_nll(self, x, labels, valid) -> torch.Tensor:
+        return _position_nll(self.to_logits(x), labels, valid).sum()
+
+    def _chunked_nll(self, x, labels, valid) -> torch.Tensor:
+        """The f32 sum of the nll over ``x``'s positions (the final-norm
+        features ``(b, n, dim)`` this process holds, in the layout the labels
+        were cut to), projected and scored one chunk of ``loss_chunk_size``
+        positions at a time under a checkpoint of its own (JAX
+        ``_chunked_ce``): no more than one chunk's ``(b, chunk, vocab)``
+        logits exist, in the forward or the backward.  The chunk is clamped
+        to ``n``; padded positions are invalid."""
+        n = x.shape[1]
+        c = min(self.loss_chunk_size, n)
+        x, _ = pad_to_multiple(x, c)
+        labels, _ = pad_to_multiple(labels, c)
+        valid, _ = pad_to_multiple(valid, c, value=False)
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(0, x.shape[1], c):
+            total = total + remat_call(None, self._chunk_nll, x[:, i:i + c],
+                                       labels[:, i:i + c], valid[:, i:i + c])
+        return total
 
     # ------------------------------------------------------------------
     # Incremental decoding
@@ -386,30 +455,36 @@ class RingTransformer(nn.Module):
                 f"init_cache: max_len {max_len} must divide over the ring of "
                 f"{world} (the cache is sharded contiguously)"
             )
+        if self.windowed_cache and world > 1:
+            raise ValueError(
+                "init_cache: windowed_cache is a local-decode optimization; the "
+                "ring-sharded cache uses absolute positions"
+            )
         if self._sharded:
             if batch % self.mesh.data:
                 raise ValueError(
                     f"init_cache: batch {batch} does not divide over {self.mesh.data} data rows"
                 )
             batch //= self.mesh.data
-        shape = (batch, self.kv_heads, max_len // world, self.dim_head)
         dtype = self.dtype or torch.float32
         device = self._device()
 
-        def entry():
+        def entry(size):
+            shape = (batch, self.kv_heads, size, self.dim_head)
             if self.quantize_cache:
                 return (torch.zeros(shape, dtype=torch.int8, device=device),
                         torch.zeros(shape[:3], dtype=torch.float32, device=device))
             return torch.zeros(shape, dtype=dtype, device=device)
 
-        def layer():
-            if world == 1:
-                return entry()
-            return [entry() for _ in self.mesh.ring.ranks]
+        def layer(lookback):
+            if world > 1:
+                return [entry(max_len // world) for _ in self.mesh.ring.ranks]
+            if self.windowed_cache and lookback is not None:
+                return entry(min(max_len, lookback))
+            return entry(max_len)
 
-        depth = len(self.attn_layers)
-        return {"k": [layer() for _ in range(depth)],
-                "v": [layer() for _ in range(depth)]}
+        return {"k": [layer(lb) for lb in self.lookbacks],
+                "v": [layer(lb) for lb in self.lookbacks]}
 
     def decode_step(
         self,

@@ -81,6 +81,7 @@ from .attention import (
     softclamp,
 )
 from .partials import FlashPartials, finalize_partials, init_partials
+from .residuals import attention_pair
 from ..utils.validate import check_attention_args
 
 SUPPORTED_HEAD_DIMS = (64,)
@@ -769,17 +770,20 @@ class _CudaFlashAttention(torch.autograd.Function):
     the backward recomputes p from lse.
     With ``compute_dtype="int8"`` the forward is the int8 sweep and the
     backward the same float kernels, from the exact ``(q, k, v)`` and the
-    int8 forward's ``(out, lse)``, as in the JAX package (:2258-2275)."""
+    int8 forward's ``(out, lse)``, as in the JAX package (:2258-2275).
+    ``(out, lse)`` are the residuals ``flash_out`` / ``flash_lse`` that a
+    ``save_attn`` region keeps (``ops/residuals.py``): its recompute takes
+    them back and launches nothing."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, q_seg, kv_seg, scale, causal_offset,
                 window_lo, softclamp_value, compute_dtype, doc_starts=None):
-        out, lse = flash_fwd(
+        out, lse = attention_pair(lambda: flash_fwd(
             q, k, v, kv_mask, scale=scale, causal_offset=causal_offset,
             window_lo=window_lo, softclamp_value=softclamp_value,
             compute_dtype=compute_dtype, q_seg=q_seg, kv_seg=kv_seg,
             doc_starts=doc_starts,
-        )
+        ))
         ctx.save_for_backward(q, k, v, kv_mask, q_seg, kv_seg, out, lse)
         ctx.band = dict(scale=scale, causal_offset=causal_offset,
                         window_lo=window_lo, softclamp_value=softclamp_value,

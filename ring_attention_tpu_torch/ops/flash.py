@@ -32,6 +32,7 @@ from .attention import (
     normalize_segment_ids,
     softclamp,
 )
+from .residuals import attention_pair
 from ..utils.validate import check_attention_args
 
 
@@ -267,7 +268,9 @@ def flash_backward_blocks(
 
 class _FlashAttentionCore(torch.autograd.Function):
     """Port of the ``_flash_attention_core`` custom_vjp: the forward keeps
-    ``(out, lse)``, the backward runs :func:`flash_backward_blocks`."""
+    ``(out, lse)`` (the residuals ``flash_out`` / ``flash_lse`` that a
+    ``save_attn`` region keeps, ``ops/residuals.py``), the backward runs
+    :func:`flash_backward_blocks`."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, q_seg, kv_seg, causal_offset, scale,
@@ -277,11 +280,15 @@ class _FlashAttentionCore(torch.autograd.Function):
         band = dict(scale=scale, bucket_size=bucket_size,
                     causal_offset=causal_offset, window_lo=window_lo,
                     softclamp_value=softclamp_value)
-        carry = init_carry(b, hk, h // hk, nq, d, device=q.device)
-        carry = attend_blocks(q, k, v, carry, kv_mask=kv_mask, q_segment_ids=q_seg,
-                              kv_segment_ids=kv_seg, **band)
-        out_g, lse = finalize(carry)
-        out = _ungroup(out_g).to(q.dtype)
+
+        def sweep():
+            carry = init_carry(b, hk, h // hk, nq, d, device=q.device)
+            carry = attend_blocks(q, k, v, carry, kv_mask=kv_mask, q_segment_ids=q_seg,
+                                  kv_segment_ids=kv_seg, **band)
+            out_g, lse = finalize(carry)
+            return _ungroup(out_g).to(q.dtype), lse
+
+        out, lse = attention_pair(sweep)
         ctx.save_for_backward(q, k, v, kv_mask, q_seg, kv_seg, out, lse)
         ctx.band = band
         return out

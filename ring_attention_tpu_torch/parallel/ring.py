@@ -114,6 +114,7 @@ from ..ops.flash import (
     init_carry,
 )
 from ..ops.partials import finalize_partials
+from ..ops.residuals import attention_pair
 from ..utils.validate import check_attention_args
 from .collectives import Ring, dequantize_ring_payload, quantize_ring_payload
 
@@ -620,7 +621,12 @@ def _shards(x: torch.Tensor | None, count: int, dim: int) -> list | None:
 
 class _RingFlashAttention(torch.autograd.Function):
     """The whole ring's forward and backward; the counterpart of the JAX
-    ``_ring_flash_attention_core`` custom_vjp."""
+    ``_ring_flash_attention_core`` custom_vjp.  Every rank's ``(out, lse)``
+    are the residuals ``flash_out`` / ``flash_lse`` that a ``save_attn``
+    region keeps (``ops/residuals.py``; JAX tags them in its scan ring):
+    its recompute takes them back and runs no hop.  The fused ring tags
+    none, as in JAX, and reruns.  The shards are saved tensors, so that a
+    checkpointed region frees them."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, seg, ring, cfg):
@@ -630,16 +636,28 @@ class _RingFlashAttention(torch.autograd.Function):
         ranges = _seg_ranges(ring, segs)
         fwd = {"torch": _ring_fwd_torch, "cuda": _ring_fwd_cuda,
                "fused": _ring_fwd_fused}[cfg["impl"]]
-        outs, lses = fwd(qs, ks, vs, masks, segs, ranges, ring, cfg)
-        ctx.shards = (qs, ks, vs, masks, segs, ranges, outs, lses)
-        ctx.ring, ctx.cfg = ring, cfg
+
+        def run():
+            return fwd(qs, ks, vs, masks, segs, ranges, ring, cfg)
+
+        outs, lses = run() if cfg["impl"] == "fused" else attention_pair(run)
+        none = [None] * count
+        ctx.save_for_backward(*qs, *ks, *vs, *(masks or none), *(segs or none),
+                              *outs, *lses)
+        ctx.masked, ctx.packed = masks is not None, segs is not None
+        ctx.ranges, ctx.ring, ctx.cfg = ranges, ring, cfg
         return torch.cat(outs, dim=2)
 
     @staticmethod
     def backward(ctx, do):
-        qs, ks, vs, masks, segs, ranges, outs, lses = ctx.shards
+        saved = ctx.saved_tensors
+        count = len(saved) // 7
+        qs, ks, vs, masks, segs, outs, lses = (list(saved[i * count:(i + 1) * count])
+                                               for i in range(7))
+        masks = masks if ctx.masked else None
+        segs = segs if ctx.packed else None
         dos = _shards(do.to(qs[0].dtype), len(qs), 2)
-        dqs, dks, dvs = _ring_bwd(dos, qs, ks, vs, masks, segs, ranges, outs,
+        dqs, dks, dvs = _ring_bwd(dos, qs, ks, vs, masks, segs, ctx.ranges, outs,
                                   lses, ctx.ring, ctx.cfg)
         return (torch.cat(dqs, dim=2).to(qs[0].dtype),
                 torch.cat(dks, dim=2).to(ks[0].dtype),

@@ -27,8 +27,17 @@ updates.
   then takes the same decisions and the same update.  Without a mesh, or
   on one that this process holds whole, nothing is summed.
 
-The JAX step's ``collect_metrics``, ``offload_opt_state``,
-``shard_opt_state`` and ``jit_donate`` are not ported yet and raise.
+- ``offload_opt_state=True`` (JAX ``utils/train.py:102-128``): between
+  steps the optimizer's state tensors on the CUDA device (Adam's moments)
+  wait in pinned host memory; each step brings them to the device for
+  ``optimizer.step()`` and parks them again, then waits for the copy, so
+  that the state read on the host between steps is the step's.  The
+  parameters are bit-identical to the step without it.  State on the CPU
+  (a CPU model, Adam's step count) stays where it is: on the CPU the
+  option changes nothing, as JAX's does without a host memory space.
+
+The JAX step's ``collect_metrics``, ``shard_opt_state`` and ``jit_donate``
+are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -42,7 +51,6 @@ from ..parallel.mesh import Mesh, mesh_all_reduce
 # Where each option that is not ported yet will come from (ROADMAP.md).
 UNPORTED = {
     "collect_metrics": "the runtime's telemetry, ROADMAP.md Port queue item 7",
-    "offload_opt_state": "the memory knobs, ROADMAP.md Port queue item 7",
     "shard_opt_state": "ZeRO-1 with the memory knobs, ROADMAP.md Port queue item 7",
     "jit_donate": "a captured (CUDA-graph) step with the runtime, ROADMAP.md Port queue item 7",
 }
@@ -61,6 +69,43 @@ class StepStats(NamedTuple):
 
 def init_step_stats() -> StepStats:
     return StepStats(step_ok=True, skipped=0)
+
+
+class _ParkedState:
+    """An optimizer's CUDA state tensors in pinned host memory between its
+    steps (``make_train_step(offload_opt_state=True)``): one pinned buffer
+    per state tensor, reused every step."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer):
+        self.optimizer = optimizer
+        self.parked: dict = {}  # (param, key) -> (pinned buffer, its device)
+
+    def fetch(self) -> None:
+        """The parked tensors back on their devices (in the current stream,
+        after the copy that parked them)."""
+        for p, state in self.optimizer.state.items():
+            for key in state:
+                host, device = self.parked.get((p, key), (None, None))
+                if state[key] is host:
+                    state[key] = host.to(device, non_blocking=True)
+
+    def park(self) -> None:
+        """Every CUDA state tensor copied into its pinned buffer, which then
+        stands in the state; waits for the copies."""
+        streams = set()
+        for p, state in self.optimizer.state.items():
+            for key, value in state.items():
+                if not (torch.is_tensor(value) and value.device.type == "cuda"):
+                    continue
+                host, _ = self.parked.get((p, key), (None, None))
+                if host is None or host.shape != value.shape or host.dtype != value.dtype:
+                    host = torch.empty(value.shape, dtype=value.dtype, pin_memory=True)
+                self.parked[p, key] = host, value.device
+                host.copy_(value, non_blocking=True)
+                streams.add(torch.cuda.current_stream(value.device))
+                state[key] = host
+        for stream in streams:
+            stream.synchronize()
 
 
 def make_train_step(
@@ -86,7 +131,6 @@ def make_train_step(
     of the microbatch losses (float32).  A parameter that gets no gradient
     is updated with a zero one, as the JAX step's dense gradient tree is."""
     for name, value in (("collect_metrics", collect_metrics),
-                        ("offload_opt_state", offload_opt_state),
                         ("shard_opt_state", shard_opt_state),
                         ("jit_donate", jit_donate)):
         if value:
@@ -146,10 +190,17 @@ def make_train_step(
             grads = [(g * clip).to(g.dtype) for g in grads]
         return loss, grads, gnorm
 
+    parked = _ParkedState(optimizer) if offload_opt_state else None
+
     def apply(grads) -> None:
         for p, g in zip(params, grads):
             p.grad = g
+        if parked is None:
+            optimizer.step()
+            return
+        parked.fetch()
         optimizer.step()
+        parked.park()
 
     def finish(step):
         if on_step_end is None:

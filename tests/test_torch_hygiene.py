@@ -91,10 +91,6 @@ UNPORTED_SETTINGS = {
     # sweep; a packing on the hybrid strategy is not (item 7d)
     "mask": dict(causal=False, mask=Causal() & DocumentMask((0, 8)), compute_dtype="int8",
                  sequence_parallel="hybrid"),
-    "windowed_cache": dict(windowed_cache=True),
-    "ff_chunk_size": dict(ff_chunk_size=64),
-    "loss_chunk_size": dict(loss_chunk_size=64),
-    "remat": dict(remat=True),
     # the fused ring and its int8 feed and wire are ported; bidirectional
     # half-streams are not (ROADMAP item 7e)
     "impl_fused": dict(impl="fused", compute_dtype="int8", ring_hop_compression="int8",
@@ -131,14 +127,16 @@ def test_invalid_int8_settings_raise(name):
 
 
 # decoding on a mesh is ported (a ring-sharded cache, tree-attention merge);
-# each entry raises a one-line error for an input it cannot take, and the
-# windowed cache stays unported (item 7c)
+# each entry raises a one-line error for an input it cannot take; the
+# windowed cache is a local-decode optimization, refused on a ring as the
+# JAX model refuses it
 DECODE_ON_A_MESH_ERRORS = {
     "init_cache": (ValueError, "init_cache: max_len 9 must divide over the ring"),
     "prefill": (ValueError, r"prefill: prompt \(8\) longer than the ring-sharded cache"),
     "decode_step": (ValueError, "decode_step: position 8 is past the ring-sharded cache"),
     "generate": (ValueError, "generate: cache of 8 too small"),
-    "windowed_cache": (NotImplementedError, "ROADMAP.md Port queue item 7"),
+    "windowed_cache": (ValueError, "windowed_cache is a local-decode optimization; the "
+                       "ring-sharded cache uses absolute positions"),
 }
 
 
@@ -153,7 +151,7 @@ def test_decode_on_a_mesh_raises(entry):
         "decode_step": lambda: model.decode_step(tokens[:, 0], model.init_cache(1, 8), 8),
         "generate": lambda: model.generate(tokens, max_len=8, num_steps=2),
         "windowed_cache": lambda: RingTransformer(**SMALL, device="cpu", mesh=mesh,
-                                                  windowed_cache=True),
+                                                  windowed_cache=True).init_cache(1, 8),
     }
     error, message = DECODE_ON_A_MESH_ERRORS[entry]
     with pytest.raises(error, match=message):
@@ -191,8 +189,7 @@ def test_unknown_impl_is_a_value_error():
         RingTransformer(**SMALL, device="cpu", impl="pallas")
 
 
-UNPORTED_STEP_OPTIONS = ("collect_metrics", "offload_opt_state",
-                         "shard_opt_state", "jit_donate")
+UNPORTED_STEP_OPTIONS = ("collect_metrics", "shard_opt_state", "jit_donate")
 
 
 @pytest.mark.parametrize("name", UNPORTED_STEP_OPTIONS)

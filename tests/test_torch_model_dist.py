@@ -10,7 +10,9 @@ the process's share: the sum over the mesh (``mesh_all_reduce``, what
 ``make_train_step(mesh=)`` sums) is the whole gradient.  Cases: the ring of
 4 with ``impl="torch"``, ``"cuda"`` and ``"fused"`` in both layouts, data 2
 x ring 2, ``segment_ids``, ``mask=Causal() & DocumentMask(...)``, zig-zag,
-the int8 wire with int8 compute; three ``make_train_step`` SGD steps with
+the int8 wire with int8 compute, the memory knobs (``remat`` under
+``nothing_saveable`` and ``save_attn`` with ``ff_chunk_size`` and
+``loss_chunk_size``); three ``make_train_step`` SGD steps with
 ``clip_grad_norm`` and ``skip_nonfinite`` (ring 4, striped, and data 2 x
 ring 2); ``prefill`` / ``decode_step`` / ``generate`` (greedy and with a
 seeded generator) with a plain and an int8 cache.

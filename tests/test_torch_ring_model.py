@@ -246,8 +246,8 @@ def test_ring_switched_off_matches_jax(flag):
 def test_constructor_surface_of_the_jax_model():
     """``use_pallas`` selects ``impl`` when that is None; ``auto_shard=False``
     takes tokens padded and in the ring's layout in one process and returns
-    logits in it; ``pallas_head_chunks`` and ``remat_policy`` raise one line
-    each."""
+    logits in it; ``pallas_head_chunks`` raises one line, and an unknown
+    ``remat_policy`` JAX's ``ValueError`` listing the valid names."""
     assert RingTransformer(**CONFIG, device="cpu", use_pallas=False).attn_layers[0].impl == "torch"
     assert RingTransformer(**CONFIG, device="cpu", use_pallas=True).attn_layers[0].impl == "cuda"
     assert RingAttention(32, device="cpu", impl="fused", use_pallas=False).impl == "fused"
@@ -264,5 +264,6 @@ def test_constructor_surface_of_the_jax_model():
         RingTransformer(**CONFIG, device="cpu", pallas_head_chunks=2)
     with pytest.raises(ValueError, match="no counterpart"):
         RingAttention(32, device="cpu", pallas_head_chunks=2)
-    with pytest.raises(NotImplementedError, match="Port queue item 7c"):
+    with pytest.raises(ValueError, match="unknown remat_policy 'dots'; valid policies: "
+                       "checkpoint_dots, checkpoint_dots_no_batch, everything_saveable"):
         RingTransformer(**CONFIG, device="cpu", remat_policy="dots")

@@ -36,6 +36,13 @@ CASES = {
     "zigzag": (4, 1, dict(impl="cuda", sequence_parallel="zigzag"), False),
     "int8": (4, 1, dict(impl="cuda", compute_dtype="int8",
                         ring_hop_compression="int8"), False),
+    # the memory knobs: under nothing_saveable the backward reruns each
+    # layer's ring, its gloo rotations in the same order on every process
+    "remat_nothing_saveable": (4, 1, dict(impl="cuda", striped=True, remat=True,
+                                          remat_policy="nothing_saveable",
+                                          ff_chunk_size=12, loss_chunk_size=40), False),
+    "remat_save_attn": (2, 2, dict(impl="cuda", remat=True, remat_policy="save_attn",
+                                   ff_chunk_size=20, loss_chunk_size=24), False),
 }
 # three SGD steps: name -> (ring size, data size)
 STEP_CASES = {"steps_ring4": (4, 1), "steps_data2_ring2": (2, 2)}
