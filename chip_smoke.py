@@ -258,7 +258,35 @@ result line):
    two Adam steps with parameters bit-identical to the plain steps' (the
    embedding frozen in both: its backward sums with atomics), the
    optimizer state in pinned host memory between steps.
-   In phases 3 to 3n every launch counter is set to 0 just before each
+3o. Ulysses and the hybrid strategy in one process (the held ranks folded
+   into the batch): the same model at 1 x 65,536 with
+   ``sequence_parallel="ulysses"`` on ``create_mesh(ring_size=4)`` and
+   ``"hybrid"`` on ``create_mesh(ulysses_size=2, ring_size=2)``
+   (contiguous, striped, ``impl="fused"``): logits against the local
+   model's (RING_LOGITS_REL_TOL), one loss and backward against the local
+   model's (SP_LOSS_REL_TOL, every gradient leaf SP_GRAD_REL_TOL), the
+   launches exact (Ulysses: B1 once a layer, B2 and B3 once; hybrid:
+   HYBRID_SCHEDULE, the outer ring of 2; fused: B8 once a layer); the int8
+   hybrid (B4 fed, per HYBRID_SCHEDULE) against the local model
+   (Q8_FWD_REL_L2); ``kv_head_reshard``'s small-hk branch on the
+   attention alone (SP_ATTN_CASES: 32 heads over 4 kv heads on Ulysses of
+   8, 12 over 3 on 4, at 32,768) against ``cuda_flash_attention`` over
+   the whole span, with the ring's moves (K/V gathered once); the f32 int8
+   hybrid at seq 256 on the card against the CPU beside the CPU's spread
+   under weight noise.
+3p. Ulysses (world 4) and the hybrid strategy (ulysses 2 x ring 2) on
+   four gloo processes sharing the card, as in 3m: logits bit for bit
+   against the VirtualRing mesh in this process, the loss the same on
+   every process and, for Ulysses, bit for bit with it; for the hybrid
+   within MP_LOSS_REL_TOL of it (its processes sum their shares' nll in
+   another order: over the ulysses group, then the ring), the
+   launches summed over the processes (the VirtualRing mesh's times the
+   ranks it folds), the all-to-alls' host staging; ZeRO-1 on data 2 x ring
+   2: two Adam steps plain, with ``shard_opt_state=True`` and with
+   ``offload_opt_state=True`` as well (embedding frozen): parameters
+   bit-identical to the plain steps' on every process, each process holding
+   half the optimizer state.
+   In phases 3 to 3p every launch counter is set to 0 just before each
    run and read just after; a kernel that never launched fails the run.
 4. Timings with CUDA events (median of 10 runs after warm-up): each kernel
    beside its bound (the larger of its bytes over 3.35 TB/s and its
@@ -340,6 +368,13 @@ result line):
    host clock around synchronized steps): ms, tokens/s, peak memory above
    live, launches; then ``train1m`` (bench.py phase 7): one step at 1 x
    1,048,576 after one warm-up.  The phase prints its own seconds.
+4l. Ulysses of 4 and hybrid 2 x 2 (scan ring and fused) beside the local
+   model and the scan ring of 4 at 1 x 65,536: the forward (CUDA events,
+   in turns) and the Adam step (host clock around synchronized steps, in
+   turns), each beside its attention kernels' device time (CUDA events
+   around every B1, B2, B3, B7 and B8 launch of one forward and one step)
+   and the step's peak memory above live.  The phase prints its own
+   seconds.
 5. The kernels line, one JSON object with eight kernels; the forward
    kernels' entries list their ring modes; the per-shape rows of
    flash_fwd, flash_bwd_dkv and flash_bwd_dq end with phase 4f's, each
@@ -6213,6 +6248,569 @@ def phase_memory_timings() -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phases 3o, 3p and 4l: Ulysses and the hybrid Ulysses x Ring strategy on the
+# factored mesh, and ZeRO-1 over the data ring.  In one process the held
+# ranks are folded into the batch: Ulysses of 4 runs ONE launch of B1 (and of
+# B2 and B3) a layer over 4 x 2 heads, the hybrid strategy on ulysses 2 x
+# ring 2 ONE outer ring of 2 over 2 x 4 heads (parallel/hybrid.py).
+
+SP_SEQ = 65536
+SP_ULYSSES = 4
+SP_HYBRID = dict(ulysses_size=2, ring_size=2)
+# Launches per layer of the outer ring of 2 (the hop schedule of
+# RING_SCHEDULE at ring 2): (seed, resume, fused_carry, dkv, dq).  Contiguous
+# causal: rank 0 has work on hop 0 only (and finalizes on the host), rank 1
+# on both; striped: every hop of every rank.
+HYBRID_SCHEDULE = {False: (2, 0, 1, 3, 3), True: (2, 0, 2, 4, 4)}
+# name: (create_mesh arguments, model fields)
+SP_CASES = {
+    "ulysses 4": (dict(ring_size=SP_ULYSSES), dict(sequence_parallel="ulysses", impl="cuda")),
+    "hybrid 2x2": (SP_HYBRID, dict(sequence_parallel="hybrid", impl="cuda")),
+    "hybrid 2x2 striped": (SP_HYBRID, dict(sequence_parallel="hybrid", impl="cuda",
+                                           striped=True)),
+    "hybrid 2x2 fused": (SP_HYBRID, dict(sequence_parallel="hybrid", impl="fused")),
+}
+# Phase-3o bounds against the local model with the same weights, bf16: the
+# logits RING_LOGITS_REL_TOL (the ring's hop spans sum the keys in another
+# order; Ulysses attends the same span on the same kernel and is held to it
+# alike); a loss and backward's loss and worst gradient leaf the bounds of a
+# bf16 step taken another way (KNOB_LOSS_REL_TOL, KNOB_GRAD_REL_TOL: phase
+# 3n's, whose reruns of the same step differ in the embedding's atomics).
+SP_LOSS_REL_TOL = KNOB_LOSS_REL_TOL
+SP_GRAD_REL_TOL = KNOB_GRAD_REL_TOL
+# The attention-only cases of kv_head_reshard's small-hk branch on the card:
+# name: (ulysses degree, b, h, hk, n); bf16, d 64, causal.  BASELINE.json's
+# GQA shape (32 query heads, 4 kv heads: every rank's 4 query heads share
+# one kv head, sliced) and an unaligned group (12 over 3 on 4 ranks: one kv
+# copy per query head).
+SP_ATTN_CASES = {
+    "GQA h32 hk4, Ulysses of 8": (8, 1, 32, 4, 32768),
+    "unaligned h12 hk3, Ulysses of 4": (4, 1, 12, 3, 32768),
+}
+SP_WORLD = 4
+SP_JOIN_TIMEOUT_S = 480
+SP_LR = 1e-3
+
+
+def _sp_counts(name: str, backward: bool) -> dict[str, int]:
+    """Launches of one forward (and backward) of SP_CASES[name]'s model in
+    one process (the folded design)."""
+    depth = BENCH_MODEL["depth"]
+    mesh_kw, fields = SP_CASES[name]
+    if fields["sequence_parallel"] == "ulysses":
+        return _counts(flash_fwd=depth, flash_bwd_dkv=depth if backward else 0,
+                       flash_bwd_dq=depth if backward else 0)
+    striped = fields.get("striped", False)
+    seed, resume, fused, dkv, dq = (x * depth for x in HYBRID_SCHEDULE[striped])
+    bwd = dict(flash_bwd_dkv=dkv if backward else 0, flash_bwd_dq=dq if backward else 0)
+    if fields["impl"] == "fused":
+        return _counts(flash_ring_remote=depth, **bwd)
+    return _counts(flash_fwd=seed + resume + fused, seed=seed, resume=resume,
+                   fused_carry=fused, **bwd)
+
+
+def _sp_attention_cases(launches: dict) -> float:
+    """Ulysses' small-hk K/V resharding on the card: ``ulysses_attention``
+    against ``cuda_flash_attention`` over the whole sequence (the same
+    kernels), output and gradients; the launches (one B1, one B2 and one B3:
+    the ranks folded into the batch) and the ring's moves (K/V gathered
+    once, only q and the output through the all-to-all).  Returns the worst
+    norm-relative error."""
+    import torch
+
+    from ring_attention_tpu_torch.ops.cuda_flash import cuda_flash_attention
+    from ring_attention_tpu_torch.parallel import VirtualRing
+    from ring_attention_tpu_torch.parallel.ulysses import ulysses_attention
+
+    worst = 0.0
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    for name, (world, b, h, hk, n) in SP_ATTN_CASES.items():
+        q = _rand(gen, (b, h, n, 64), torch.bfloat16).requires_grad_()
+        k, v = (_rand(gen, (b, hk, n, 64), torch.bfloat16).requires_grad_() for _ in range(2))
+        do = _rand(gen, (b, h, n, 64), torch.bfloat16)
+        ring = VirtualRing(world)
+        _reset_counts()
+        out = ulysses_attention(q, k, v, ring, causal=True, impl="cuda")
+        grads = torch.autograd.grad(out, (q, k, v), do)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        ref = cuda_flash_attention(q, k, v, causal=True)
+        ref_grads = torch.autograd.grad(ref, (q, k, v), do)
+        errs = [_rel_err(out, ref)] + [_rel_err(g, r) for g, r in zip(grads, ref_grads)]
+        same = [bool(torch.equal(a, b_)) for a, b_ in zip((out, *grads), (ref, *ref_grads))]
+        expected = _counts(flash_fwd=1, flash_bwd_dkv=1, flash_bwd_dq=1)
+        moves = {op: ring.calls[op] for op in ("all_to_all", "all_gather")}
+        log(f"  {name} (b{b} n{n} d64 bf16, causal): vs cuda_flash_attention over the whole "
+            f"span ||diff|| / ||ref|| out {errs[0]:.3e} (tol {RING_REL_TOL['torch.bfloat16']}), "
+            f"dq {errs[1]:.3e}, dk {errs[2]:.3e}, dv {errs[3]:.3e} (tol "
+            f"{BWD_REL_TOL['torch.bfloat16']}); bit-identical (out, dq, dk, dv) {same}; "
+            f"launches {_nonzero(counts)}; the ring's moves (tensors) {moves}")
+        check(counts == expected, f"{name}: launched {_nonzero(counts)}, expected "
+              f"{_nonzero(expected)}")
+        check(moves == {"all_to_all": 2, "all_gather": 2},
+              f"{name}: K/V moved {moves}, expected one gather each and q/out all-to-alls")
+        check(errs[0] <= RING_REL_TOL["torch.bfloat16"]
+              and max(errs[1:]) <= BWD_REL_TOL["torch.bfloat16"],
+              f"{name}: Ulysses disagrees with the whole-span kernels")
+        for key, c in counts.items():
+            launches[key] += c
+        worst = max(worst, errs[0])
+        del q, k, v, do, out, grads, ref, ref_grads
+    return worst
+
+
+def _hold_f32_int8_hybrid_to_cpu() -> None:
+    """The f32 int8 hybrid model (seq 256, ulysses 2 x ring 2, the int8 wire
+    and compute on the outer ring) on the card against the same weights on
+    the CPU, with the CPU's own spread under last-bit weight noise beside
+    it (the int8 noise reference of ROADMAP Queue 3)."""
+    import torch
+
+    from ring_attention_tpu_torch.parallel import create_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(SEED + 51)
+    tokens = torch.randint(0, BENCH_MODEL["num_tokens"], (2, 256), generator=gen)
+    gpu = _model(None, "cuda", mesh=create_mesh(**SP_HYBRID), sequence_parallel="hybrid",
+                 impl="cuda", compute_dtype="int8", ring_hop_compression="int8",
+                 bucket_size=32)
+    cpu = copy.deepcopy(gpu).to("cpu")
+    with torch.inference_mode():
+        ref = cpu(tokens)
+        err = _rel_err(gpu(tokens.cuda()).cpu(), ref)
+        noisy = copy.deepcopy(cpu)
+        for w in noisy.parameters():
+            w.mul_(1 + 1.2e-7 * torch.randn(w.shape, generator=gen))
+        spread = _rel_err(noisy(tokens), ref)
+    log(f"  f32 int8 hybrid model (ulysses 2 x ring 2, int8 wire and compute) seq 256, card vs "
+        f"CPU: ||card - cpu|| / ||cpu|| {err:.3e} (tol {Q8_MODEL_REL_TOL}); on the CPU, weights "
+        f"x (1 + 1.2e-7 noise) move it {spread:.3e}")
+    check(err <= Q8_MODEL_REL_TOL, "f32 int8 hybrid model disagrees with the CPU")
+
+
+def phase_sp_path(serving: dict, training: dict) -> dict:
+    """Phase 3o: Ulysses of 4 and the hybrid strategy (ulysses 2 x ring 2:
+    contiguous, striped, fused; int8) on the bench model at full width in
+    one process, each against the local model with the same weights:
+    logits, one loss and backward, exact launch counts; the small-hk
+    attention cases; the f32 int8 hybrid against the CPU.  Returns the
+    launches and the models (for phase 4l)."""
+    import torch
+
+    from ring_attention_tpu_torch.parallel import create_mesh
+
+    start = time.perf_counter()
+    log(f"phase 3o: Ulysses and hybrid Ulysses x Ring on one card (the held ranks folded into "
+        f"the batch), bench model at full width, bf16, 1 x {SP_SEQ}: {list(SP_CASES)}")
+    tokens, local = serving["tokens"], serving["model"]
+    with torch.inference_mode():
+        ref = local(tokens).float()
+    local.train()
+    names = [name for name, _ in local.named_parameters()]
+    ref_step = _knob_step(local, training["tokens"])
+    local.eval()
+    launches = _counts()
+    models = {}
+    for name, (mesh_kw, fields) in SP_CASES.items():
+        model = _model(torch.bfloat16, "cuda", mesh=create_mesh(**mesh_kw), **fields)
+        with torch.inference_mode():
+            _reset_counts()
+            logits = model(tokens)
+            torch.cuda.synchronize()
+            counts = _read_counts()
+        rel = ((logits.float() - ref).norm() / ref.norm()).item()
+        finite = bool(torch.isfinite(logits.float()).all())
+        del logits
+        model.train()
+        res = _knob_step(model, training["tokens"])
+        model.eval()
+        loss_rel, grad_rel, leaf, _ = _against(res, ref_step, names)
+        log(f"  {name}: forward launches {_nonzero(counts)}, logits vs the local model "
+            f"||diff|| / ||local|| {rel:.3e} (tol {RING_LOGITS_REL_TOL}); loss "
+            f"{res['loss'].item():.6f} vs local {ref_step['loss'].item():.6f} (rel "
+            f"{loss_rel:.2e}, tol {SP_LOSS_REL_TOL}), worst gradient leaf {grad_rel:.2e} "
+            f"({leaf}; tol {SP_GRAD_REL_TOL}); loss and backward launches "
+            f"{_nonzero(res['counts'])}, peak {res['above'] / 2**30:.3f} GiB above live")
+        for got, backward in ((counts, False), (res["counts"], True)):
+            want = _sp_counts(name, backward)
+            check(got == want, f"{name}: launched {_nonzero(got)}, expected {_nonzero(want)}")
+            for key, c in got.items():
+                launches[key] += c
+        check(finite and rel <= RING_LOGITS_REL_TOL, f"{name}: logits off the local model")
+        check(loss_rel <= SP_LOSS_REL_TOL and grad_rel <= SP_GRAD_REL_TOL,
+              f"{name}: loss or gradients off the local model")
+        models[name] = model
+        del res
+    # the int8 hybrid: the int8 wire and compute on the outer ring (B4 fed
+    # K/V quantized once per stream, per HYBRID_SCHEDULE)
+    q8 = _model(torch.bfloat16, "cuda", mesh=create_mesh(**SP_HYBRID), sequence_parallel="hybrid",
+                impl="cuda", compute_dtype="int8", ring_hop_compression="int8")
+    with torch.inference_mode():
+        _reset_counts()
+        logits = q8(tokens)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+    depth = BENCH_MODEL["depth"]
+    seed, resume, fused, *_ = (x * depth for x in HYBRID_SCHEDULE[False])
+    want = _counts(flash_fwd_q8=seed + resume + fused, q8_seed=seed, q8_resume=resume,
+                   q8_fused_carry=fused, feed_flash_fwd_q8=seed + resume + fused)
+    rel = _rel_err(logits, ref)
+    log(f"  hybrid 2x2 int8 (compute_dtype='int8', ring_hop_compression='int8'): launches "
+        f"{_nonzero(counts)}; logits vs the bf16 local model ||diff|| / ||local|| {rel:.3e} "
+        f"(tol {Q8_FWD_REL_L2})")
+    check(counts == want, f"hybrid int8: launched {_nonzero(counts)}, expected {_nonzero(want)}")
+    check(rel <= Q8_FWD_REL_L2, "hybrid int8 logits off the local model")
+    for key, c in counts.items():
+        launches[key] += c
+    del q8, logits
+    attn_err = _sp_attention_cases(launches)
+    _hold_f32_int8_hybrid_to_cpu()
+    log(f"  phase 3o took {time.perf_counter() - start:.1f} s")
+    return {"launches": launches, "models": models, "attn_err": attn_err}
+
+
+def _sp_worker(rank: int, store_path: str, out_dir: str) -> None:
+    """One process of phase 3p: Ulysses over the ring of 4 and the hybrid
+    strategy on ulysses 2 x ring 2 (forward and loss), then the ZeRO-1
+    steps on data 2 x ring 2; the results written to ``sp<rank>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from ring_attention_tpu_torch.parallel import create_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, SP_WORLD), rank=rank,
+                            world_size=SP_WORLD)
+    # every process creates the meshes' groups in the same order
+    meshes = {"ulysses 4": create_mesh(), "hybrid 2x2": create_mesh(**SP_HYBRID),
+              "zero": create_mesh(ring_size=2, data_size=2)}
+    results = {name: _sp_model_case(name, meshes[name], out_dir, rank)
+               for name in ("ulysses 4", "hybrid 2x2")}
+    results["zero"] = _zero_case(meshes["zero"], out_dir, rank)
+    with open(f"{out_dir}/sp{rank}.json", "w") as f:
+        json.dump(results, f)
+    dist.destroy_process_group()
+
+
+def _sp_staged(mesh) -> dict:
+    """Calls and bytes each collective of the mesh's rings staged through
+    host memory."""
+    from ring_attention_tpu_torch.parallel import DistributedRing
+
+    rings = [r for r in (mesh.ring, mesh.data_ring, mesh.ulysses_ring)
+             if isinstance(r, DistributedRing)]
+    return {op: [sum(r.staged_calls[op] for r in rings), sum(r.staged_bytes[op] for r in rings)]
+            for op in ("rotate", "all_gather", "all_reduce", "all_to_all")}
+
+
+def _sp_model_case(name: str, mesh, out_dir: str, tag) -> dict:
+    """SP_CASES[name]'s model on ``mesh`` (a process's, or the VirtualRing
+    mesh in the parent, ``tag == "ref"``): the forward's launches, staging,
+    digest and ms; the loss; rank 0 and the reference save their logits."""
+    import torch
+
+    _, fields = SP_CASES[name]
+    model = _model(torch.bfloat16, "cuda", mesh=mesh, **fields)
+    tokens = _mp_tokens((1, SP_SEQ), 60)
+    res = {}
+    with torch.inference_mode():
+        staged = _sp_staged(mesh)
+        logits, res["forward"] = _mp_timed(lambda: model(tokens), mesh)
+        # the staging of the first call alone: the timed calls repeat it
+        res["forward"]["staged"] = {op: [(a - b) // (1 + MP_TIMED_CALLS) for a, b in
+                                         zip(n, staged[op])]
+                                    for op, n in _sp_staged(mesh).items()}
+        res["forward"]["digest"] = _mp_digest(logits)
+        if tag in (0, "ref"):
+            torch.save(logits.cpu(), f"{out_dir}/sp_{name}_{tag}_logits.pt")
+        del logits
+        loss = model(_mp_tokens((1, SP_SEQ + 1), 61), return_loss=True)
+        res["loss"] = loss.item()
+        res["loss_digest"] = _mp_digest(loss)
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def _opt_bytes(opt) -> dict:
+    """Bytes of the optimizer's state tensors, in all and on the device."""
+    import torch
+
+    state = [t for s in opt.state.values() for t in s.values() if torch.is_tensor(t)]
+    return {"all": sum(t.numel() * t.element_size() for t in state),
+            "device": sum(t.numel() * t.element_size() for t in state
+                          if t.device.type == "cuda")}
+
+
+ZERO_RUNS = {"plain": {}, "shard_opt_state": dict(shard_opt_state=True),
+             "shard_opt_state + offload_opt_state": dict(shard_opt_state=True,
+                                                         offload_opt_state=True)}
+
+
+def _zero_case(mesh, out_dir: str, rank: int) -> dict:
+    """Two Adam steps on data 2 x ring 2 (2 x 32,768 tokens), plain, with
+    ``shard_opt_state=True`` and with ``offload_opt_state=True`` as well,
+    from the same weights (the embedding frozen in all: its backward sums
+    with atomics in no fixed order): each run's parameter digest, whether
+    they equal the plain run's bit for bit, the optimizer state it holds
+    and its step ms."""
+    import torch
+
+    from ring_attention_tpu_torch import make_train_step
+
+    tokens = _mp_tokens((2, SP_SEQ // 2 + 1), 62)
+    out, plain = {}, None
+    for run, options in ZERO_RUNS.items():
+        model = _model(torch.bfloat16, "cuda", mesh=mesh, impl="cuda").train()
+        model.embed.weight.requires_grad_(False)
+        opt = torch.optim.Adam([p for p in model.parameters() if p.requires_grad], lr=SP_LR)
+        step = make_train_step(lambda t, m=model: m(t, return_loss=True), opt, mesh=mesh,
+                               **options)
+        _reset_counts()
+        staged = _sp_staged(mesh)
+        times = []
+        for _ in range(2):
+            start = time.perf_counter()
+            step(tokens)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - start) * 1e3)
+        flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+        staged = {op: [a - b for a, b in zip(n, staged[op])]
+                  for op, n in _sp_staged(mesh).items()}
+        out[run] = {"digest": _mp_digest(flat), "bytes": _opt_bytes(opt), "ms": times,
+                    "counts": _read_counts(), "staged": staged,
+                    "equal_plain": None if plain is None else bool(torch.equal(flat, plain))}
+        if plain is None:
+            plain = flat.clone()
+        del model, opt, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def _sp_spawn(out_dir: str) -> list[dict]:
+    """The SP_WORLD processes of phase 3p, joined within SP_JOIN_TIMEOUT_S;
+    a process that fails or is still running fails the run."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_sp_worker, args=(r, f"{out_dir}/sp_store", out_dir))
+             for r in range(SP_WORLD)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SP_JOIN_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    check(not hung, f"phase 3p: ranks {hung} still running after {SP_JOIN_TIMEOUT_S} s")
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * SP_WORLD, f"phase 3p: the processes exited with {codes}")
+    results = []
+    for r in range(SP_WORLD):
+        with open(f"{out_dir}/sp{r}.json") as f:
+            results.append(json.load(f))
+    return results
+
+
+def phase_sp_processes() -> dict:
+    """Phase 3p: Ulysses (world 4) and the hybrid strategy (ulysses 2 x ring
+    2) on four gloo processes sharing this card, each held to the same model
+    on the VirtualRing mesh in this process; ZeRO-1 (``shard_opt_state``)
+    over the data ring of a 2 x 2 mesh.  Returns the processes' launches."""
+    import tempfile
+
+    import torch
+
+    from ring_attention_tpu_torch.parallel import create_mesh
+
+    start = time.perf_counter()
+    log(f"phase 3p: Ulysses over {SP_WORLD} processes and hybrid ulysses 2 x ring 2 over "
+        f"{SP_WORLD} processes (spawn, gloo through a FileStore, every process on this card), "
+        f"bench model at full width, bf16, 1 x {SP_SEQ}; then ZeRO-1 on data 2 x ring 2")
+    launches = _counts()
+    with tempfile.TemporaryDirectory() as out_dir:
+        refs = {name: _sp_model_case(name, create_mesh(**SP_CASES[name][0]), out_dir, "ref")
+                for name in ("ulysses 4", "hybrid 2x2")}
+        procs = _sp_spawn(out_dir)
+        for name, ref in refs.items():
+            got = [p[name] for p in procs]
+            summed = {k: sum(g["forward"]["counts"][k] for g in got) for k in COUNTERS}
+            # each process attends its own heads (Ulysses) or its ulysses
+            # index's outer ring (hybrid), the VirtualRing mesh all of them
+            # folded into one launch
+            folded = SP_WORLD if name.startswith("ulysses") else SP_HYBRID["ulysses_size"]
+            want = {k: folded * v for k, v in ref["forward"]["counts"].items()}
+            for k, v in summed.items():
+                launches[k] += v
+            digests = {g["forward"]["digest"] for g in got}
+            logits = torch.load(f"{out_dir}/sp_{name}_0_logits.pt")
+            ref_logits = torch.load(f"{out_dir}/sp_{name}_ref_logits.pt")
+            same = bool(torch.equal(logits, ref_logits))
+            rel = _rel_err(logits, ref_logits)
+            losses = [g["loss"] for g in got]
+            loss_same = all(g["loss_digest"] == ref["loss_digest"] for g in got)
+            loss_rel = max(abs(x - ref["loss"]) for x in losses) / abs(ref["loss"])
+            # Ulysses' processes sum their four shares in one all-reduce and
+            # give the VirtualRing model's loss bit for bit; the hybrid's sum
+            # over the ulysses group, then the ring, another order than the
+            # VirtualRing model's one sum: its last bits may differ
+            exact = name.startswith("ulysses")
+            staged = got[0]["forward"]["staged"]
+            log(f"  {name}: launches per process and layer "
+                f"{[_per_layer(g['forward']['counts']) for g in got]}, summed "
+                f"{_nonzero(summed)} (the VirtualRing mesh's x {folded}); logits on every "
+                f"process one digest {len(digests) == 1}, bit-identical to the VirtualRing "
+                f"model's {same} (||diff|| / ||ref|| {rel:.3e}); losses {losses} vs the "
+                f"VirtualRing model {ref['loss']:.7f}, bit for bit {loss_same} (rel "
+                f"{loss_rel:.2e}, tol {'bit for bit' if exact else MP_LOSS_REL_TOL}); rank 0 staged "
+                f"through the host in one forward (calls, bytes): all_to_all "
+                f"{staged['all_to_all']}, all_gather {staged['all_gather']}, rotate "
+                f"{staged['rotate']}; forward ms {[round(g['forward']['ms'], 1) for g in got]} "
+                f"(VirtualRing {ref['forward']['ms']:.1f})")
+            check(summed == want, f"{name}: the processes launched {_nonzero(summed)}, "
+                  f"expected {_nonzero(want)}")
+            check(len(digests) == 1 and same, f"{name}: logits on the processes differ from "
+                  "the VirtualRing model's")
+            loss_ok = loss_same if exact else loss_rel <= MP_LOSS_REL_TOL
+            check(len(set(losses)) == 1 and loss_ok,
+                  f"{name}: the processes' loss disagrees with the VirtualRing model's")
+        zero = [p["zero"] for p in procs]
+        for run in ZERO_RUNS:
+            rows = [z[run] for z in zero]
+            digests = {r["digest"] for r in rows}
+            for r in rows:
+                for k, v in r["counts"].items():
+                    launches[k] += v
+            log(f"  ZeRO-1 {run}: 2 Adam steps (embedding frozen), parameters one digest on "
+                f"every process {len(digests) == 1}, equal to the plain steps' bit for bit "
+                f"{[r['equal_plain'] for r in rows]}; optimizer state a process holds "
+                f"{[r['bytes']['all'] for r in rows]} B ({[r['bytes']['device'] for r in rows]} "
+                f"on the device between steps); step ms {[[round(t, 1) for t in r['ms']] for r in rows]}; "
+                f"rank 0 all_gather staged (calls, bytes) {rows[0]['staged']['all_gather']}")
+            check(len(digests) == 1, f"ZeRO-1 {run}: the processes' parameters differ")
+            if run != "plain":
+                check(all(r["equal_plain"] for r in rows),
+                      f"ZeRO-1 {run}: parameters differ from the plain steps'")
+                for r, p in zip(rows, (z["plain"] for z in zero)):
+                    half = p["bytes"]["all"] // 2
+                    check(half - 4096 <= r["bytes"]["all"] <= half + 4096,
+                          f"ZeRO-1 {run}: a process holds {r['bytes']['all']} B of state, "
+                          f"not half of {p['bytes']['all']}")
+            if "offload" in run:
+                check(all(r["bytes"]["device"] == 0 for r in rows),
+                      "ZeRO-1 with offload: optimizer state left on the device")
+    log(f"  phase 3p took {time.perf_counter() - start:.1f} s")
+    return {"launches": launches}
+
+
+class _KernelClock:
+    """CUDA events around every launch of B1, B2, B3, B7 and B8 while
+    active (the ctypes entries of their cached libraries wrapped): the sum
+    of the launches' device time, read after a synchronize."""
+
+    ENTRIES = (("flash_fwd_library", "flash_fwd"), ("flash_bwd_library", "flash_bwd_dkv"),
+               ("flash_bwd_library", "flash_bwd_dq"), ("flash_ring_library", "flash_ring"),
+               ("flash_ring_remote_library", "flash_ring_remote"))
+
+    def __enter__(self):
+        import torch
+
+        from ring_attention_tpu_torch.ops import _build
+
+        self.events, self.saved = [], []
+        for library, entry in self.ENTRIES:
+            lib = getattr(_build, library)()
+            fn = getattr(lib, entry)
+
+            def timed(*args, fn=fn):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                rc = fn(*args)
+                end.record()
+                self.events.append((start, end))
+                return rc
+
+            self.saved.append((lib, entry, fn))
+            setattr(lib, entry, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for lib, entry, fn in self.saved:
+            setattr(lib, entry, fn)
+
+    def ms(self) -> float:
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+def phase_sp_timings(sp: dict, ring: dict, serving: dict, training: dict) -> None:
+    """Phase 4l: the forward and the Adam step at 1 x 65,536 of Ulysses of
+    4, hybrid 2 x 2 (scan and fused), the local model and the scan ring of
+    4, in turns; beside each, its attention kernels' device time (CUDA
+    events around every B1, B2, B3, B7 and B8 launch of one forward and one
+    step) and the peak memory above live."""
+    import torch
+
+    from ring_attention_tpu_torch import make_train_step
+
+    start = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    log(f"phase 4l: Ulysses and hybrid beside the local model and the scan ring of 4, 1 x "
+        f"{SP_SEQ}, bf16 ({smi}); forward: CUDA events, median of 10 after 2 warm-up, in turns; "
+        f"Adam step: host clock around synchronized steps, one warm-up each, then in turns")
+    tokens, step_tokens = serving["tokens"], training["tokens"]
+    models = {"local": serving["model"], "ring 4 (scan)": ring["models"]["contiguous"][0],
+              "ulysses 4": sp["models"]["ulysses 4"], "hybrid 2x2": sp["models"]["hybrid 2x2"],
+              "hybrid 2x2 fused": sp["models"]["hybrid 2x2 fused"]}
+    for model in models.values():
+        model.eval()
+
+    def forward(m):
+        def run():
+            with torch.inference_mode():
+                m(tokens)
+        return run
+
+    fwd_ms = _time_turns({name: forward(m) for name, m in models.items()})
+    kernel_fwd = {}
+    for name, model in models.items():
+        with _KernelClock() as clock, torch.inference_mode():
+            model(tokens)
+        kernel_fwd[name] = clock.ms()
+    for model in models.values():
+        model.train()
+    names = list(models)
+    steps = _time_knob_steps(models, step_tokens, 2 * (names + names[::-1]))
+    kernel_step = {}
+    for name, model in models.items():
+        opt = torch.optim.SGD(model.parameters(), lr=0.0)
+        step = make_train_step(lambda t, m=model: m(t, return_loss=True), opt)
+        with _KernelClock() as clock:
+            step(step_tokens)
+        kernel_step[name] = clock.ms()
+    for name in models:
+        row = steps[name]
+        step_ms = statistics.median(row["ms"])
+        log(f"  {name}: forward {fwd_ms[name]:.3f} ms ({SP_SEQ / fwd_ms[name] * 1e3:.0f} "
+            f"tokens/s), its B1/B7/B8 launches {kernel_fwd[name]:.3f} ms of it "
+            f"({kernel_fwd[name] / fwd_ms[name]:.1%}); Adam step {step_ms:.1f} ms (median of "
+            f"{len(row['ms'])}: {[round(x, 1) for x in row['ms']]}), its B1/B2/B3/B7/B8 "
+            f"launches {kernel_step[name]:.3f} ms, peak {row['above'] / 2**30:.3f} GiB above "
+            f"live; step launches {_nonzero(row['counts'])}")
+        check(all(math.isfinite(x) for x in row["losses"]), f"{name}: losses {row['losses']}")
+    log(f"  phase 4l took {time.perf_counter() - start:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -6270,6 +6868,12 @@ def main() -> int:
     # in the int8 remat case; B5 and B6 on the windowed caches)
     knob_timed = phase_memory_timings()["launches"]
     knob_launches = {name: knobs["launches"][name] + knob_timed[name] for name in COUNTERS}
+    # phases 3o, 3p and 4l: Ulysses, the hybrid strategy and ZeRO-1 (B1, B2,
+    # B3; B8 in the fused hybrid; B4 in the int8 hybrid)
+    sp = phase_sp_path(serving, training)
+    sp_mp = phase_sp_processes()["launches"]
+    phase_sp_timings(sp, ring, serving, training)
+    sp_launches = {name: sp["launches"][name] + sp_mp[name] for name in COUNTERS}
     # the main paths' launches of this slice: the zig-zag model, config 3,
     # config 5's tree decode and the serving path on the ring
     mesh_launches = {name: zigzag["launches"][name] + config3["launches"][name]
@@ -6283,7 +6887,7 @@ def main() -> int:
     # (q8_launches' B2 and B3 counts include them, so the backward entries
     # add mp_launches no more), and to each other kernel's entry below
     q8_launches = {name: q8_path["launches"][name] + int8_path["launches"][name]
-                   + mp_launches[name] for name in COUNTERS}
+                   + mp_launches[name] + sp_launches[name] for name in COUNTERS}
     int8_launches = int8_path["launches"]
     flash, pallas_ring = "ring_attention_tpu/ops/pallas_flash.py", "ring_attention_tpu/ops/pallas_ring.py"
     entries = [
@@ -6292,7 +6896,7 @@ def main() -> int:
          + ring_launches["flash_fwd"] + packed_launches["flash_fwd"]
          + mesh_launches["flash_fwd"] + doc_launches["flash_fwd"]
          + int8_launches["flash_fwd"] + mp_launches["flash_fwd"]
-         + knob_launches["flash_fwd"],
+         + knob_launches["flash_fwd"] + sp_launches["flash_fwd"],
          max(max_err, *mode_err.values(), mesh_err["fwd"], config3["fwd_err"],
              *(seg_err[m] for m in ("fused", "seed", "resume", "fused_carry")),
              *(doc_err[m] for m in ("fused", "seed", "resume", "fused_carry"))),
@@ -6326,12 +6930,12 @@ def main() -> int:
          max(q8_err["decode"], mesh_err["decode_q8"]), q8_rows["decode"]),
         ("flash_ring", "flash_ring.cu", f"{pallas_ring}:341",
          fused_launches["flash_ring"] + doc_launches["flash_ring"] + int8_launches["flash_ring"]
-         + mp_launches["flash_ring"],
+         + mp_launches["flash_ring"] + sp_launches["flash_ring"],
          max(fused_err, doc_err["ring"], int8_err["ring_q8"], int8_err["ring_q8_seg"]),
          fused_rows + doc_rows["flash_ring"]),
         ("flash_ring_remote", "flash_ring_remote.cu", f"{pallas_ring}:866",
          fused_launches["flash_ring_remote"] + mesh_launches["flash_ring_remote"]
-         + int8_launches["flash_ring_remote"],
+         + int8_launches["flash_ring_remote"] + sp_launches["flash_ring_remote"],
          max(remote_err, int8_err["remote_q8"]), fused["remote_rows"]),
     ]
     kernels = []
@@ -6362,7 +6966,7 @@ def main() -> int:
     # the forward kernel's ring modes, each with its own launches and numbers
     kernels[0]["modes"] = [
         {"mode": mode, "launches": ring_launches[mode] + packed_launches[mode]
-         + mesh_launches[mode] + mp_launches[mode],
+         + mesh_launches[mode] + mp_launches[mode] + sp_launches[mode],
          "max_abs_err": max(mode_err[mode], seg_err[mode]),
          **{key: mode_rows[mode][0][key] for key in
             ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},

@@ -43,6 +43,7 @@ from .ops import (
     QuantizedKV,
     SegmentIds,
     apply_rotary,
+    hybrid_positions,
     attend_blocks,
     cuda_flash_attention,
     cuda_flash_decode,
@@ -145,6 +146,7 @@ __all__ = [
     "fused_ring_local_plain",
     "fused_ring_remote",
     "fused_ring_remote_plain",
+    "hybrid_positions",
     "init_carry",
     "init_partials",
     "init_random_params",

@@ -40,17 +40,27 @@ On a mesh whose sequence world is above one the forward runs
 ``parallel/ring.py::ring_flash_attention`` with each rank's rotary
 positions, or with ``sequence_parallel="zigzag"``
 ``parallel/zigzag.py::zigzag_attention`` (causal only, no lookback, no
-int8 compute; ``"fused"`` runs as ``"cuda"``); with ``auto_shard`` the
-layer pads, permutes (striped or zig-zag) and unpermutes around it.  ``forward(segment_ids=)`` packs documents into one row: a
-query attends only keys of its own document, locally and on the
-``"torch"``/``"cuda"`` ring (padding takes ``PAD_SEGMENT_ID``); rotary
-positions stay global, as in the JAX layer (rotary is relative).
+int8 compute; ``"fused"`` runs as ``"cuda"``), with ``"ulysses"``
+``parallel/ulysses.py::ulysses_attention`` (the contiguous layout whatever
+``striped`` says, no int8 compute; ``"fused"`` runs as ``"cuda"``), or
+with ``"hybrid"`` on a factored mesh (``create_mesh(ulysses_size=U)``)
+``parallel/hybrid.py::hybrid_attention`` (rotary from
+``hybrid_positions`` before the all-to-all, the ring knobs sized against
+the ring chunk, ``impl`` and the int8 knobs passed to the outer ring);
+with ``auto_shard`` the layer pads, permutes (striped, at the outer
+ring's degree for hybrid, or zig-zag) and unpermutes around it.  Every
+strategy but hybrid runs on a plain mesh, hybrid only on a factored one.
+``forward(segment_ids=)`` packs documents into one row: a query attends
+only keys of its own document, locally and on the ``"torch"``/``"cuda"``
+ring (padding takes ``PAD_SEGMENT_ID``); rotary positions stay global, as
+in the JAX layer (rotary is relative).
 ``mask=`` takes a mask expression (``masks.py``, JAX ``mask=``) in place of
 ``causal``/``max_lookback_seq_len``: ``Causal() & DocumentMask(starts)``
 declares a packing, which the local path keeps for the kernels' doc-tile
 tables (``doc_starts``; certified first, ``masks.require_certified``) and
 every ring realizes as runtime ids in the ring's layout (without a
-certificate: the ring strategies' certificates are not ported), and
+certificate: the ring strategies' certificates are not ported), Ulysses
+(which attends the whole span locally) as ``doc_starts`` again, and
 ``... & Segments()`` asks for ``segment_ids``; under ``compute_dtype="int8"``
 the int8 sweep takes both (its segmented and doc-table instantiations).
 The ring runs
@@ -68,7 +78,8 @@ under every ``impl``, as the JAX package's does; on a mesh it runs the
 ring over the prompt in the contiguous layout (``_ring_prefill_attend``)
 and ``decode_step`` keeps the cache sharded contiguously over the ranks,
 one tensor per rank's shard that the kernels read in place, merging each rank's partials by tree attention
-(``parallel/tree_decode.py``).  Features not ported yet raise
+(``parallel/tree_decode.py``); on a factored mesh prefill and decode raise
+``NotImplementedError``, as in JAX.  Features not ported yet raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
@@ -98,8 +109,9 @@ from ..ops.cuda_flash_q8 import (
     quantize_kv_cache,
 )
 from ..ops.flash import flash_attention
-from ..ops.rotary import apply_rotary, ring_positions, rotary_freqs
-from ..parallel.mesh import seq_world
+from ..ops.rotary import apply_rotary, hybrid_positions, ring_positions, rotary_freqs
+from ..parallel.hybrid import hybrid_attention
+from ..parallel.mesh import is_factored, seq_world
 from ..parallel.ring import (
     HOP_COMPRESSIONS,
     _fit_bucket,
@@ -107,6 +119,7 @@ from ..parallel.ring import (
     ring_flash_attention,
 )
 from ..parallel.tree_decode import tree_attn_decode
+from ..parallel.ulysses import ulysses_attention
 from ..parallel.zigzag import zigzag_attention, zigzag_positions
 from ..parallel.sharding import (
     layout_for,
@@ -121,13 +134,13 @@ from .layers import Dense, RMSNorm, resolve_device
 
 # Where each feature that is not ported yet will come from (ROADMAP.md).
 UNPORTED = {
-    "ring_bidirectional": "the ring variants, ROADMAP.md Port queue item 7",
-    "ring_counter_rotate": "the ring variants, ROADMAP.md Port queue item 7",
-    "ring_dkv_dtype": "the ring variants, ROADMAP.md Port queue item 7",
+    "ring_bidirectional": "the ring variants, ROADMAP.md Port queue item 7e",
+    "ring_counter_rotate": "the ring variants, ROADMAP.md Port queue item 7e",
+    "ring_dkv_dtype": "the ring variants, ROADMAP.md Port queue item 7e",
 }
 IMPLS = ("cuda", "torch", "fused")
 UNPORTED_IMPLS = {
-    "auto": "the degradation runtime (utils/resilience.py), ROADMAP.md Port queue item 7",
+    "auto": "the degradation runtime (utils/resilience.py), ROADMAP.md Port queue item 7f",
 }
 
 
@@ -210,16 +223,37 @@ def check_constructor(fn: str, pallas_head_chunks, mesh, ring_on: bool) -> None:
         )
 
 
-def check_mesh(fn: str, mesh, sequence_parallel: str) -> None:
-    """Raise for a strategy the port cannot run yet."""
-    layout_for(sequence_parallel, False, 1)  # raises for unported strategies
+def check_mesh(fn: str, mesh, sequence_parallel: str, ring_on: bool,
+               compute_dtype) -> None:
+    """The strategy against the mesh, where the ring runs (JAX
+    ``_check_mesh`` and the strategy test of ``_compute_dtype``): hybrid
+    needs a factored mesh and every other strategy refuses one; int8
+    compute runs on the ring, hybrid and local paths only."""
+    layout_for(sequence_parallel, False, 1)  # an unknown strategy raises
+    if not ring_on or seq_world(mesh) <= 1:
+        return
+    factored = is_factored(mesh)
+    if sequence_parallel == "hybrid" and not factored:
+        raise ValueError(
+            f'{fn}: sequence_parallel="hybrid" needs a factored mesh — build it with '
+            "create_mesh(ulysses_size=U, ring_size=R)"
+        )
+    if sequence_parallel != "hybrid" and factored:
+        raise ValueError(
+            f'{fn}: sequence_parallel="{sequence_parallel}" runs on a plain (data, seq) '
+            'mesh; the factored (data, ring, ulysses) mesh is for sequence_parallel="hybrid"'
+        )
+    if compute_dtype == "int8" and sequence_parallel not in ("ring", "hybrid"):
+        raise ValueError(
+            f'{fn}: compute_dtype="int8" supports the "ring" strategy, the "hybrid" one '
+            f'and the local path; got sequence_parallel="{sequence_parallel}"'
+        )
 
 
-def check_zigzag(fn: str, sequence_parallel: str, causal: bool, lookbacks,
-                 compute_dtype, mesh) -> None:
-    """Zig-zag balances causal work over a gathered span: causal only, no
-    lookback window, and no int8 compute on a mesh (the JAX layer's checks,
-    its asserts made one-line errors)."""
+def check_zigzag(fn: str, sequence_parallel: str, causal: bool, lookbacks) -> None:
+    """Zig-zag balances causal work over a gathered span: causal only and no
+    lookback window (the JAX layer's checks, its asserts made one-line
+    errors)."""
     if sequence_parallel != "zigzag":
         return
     if not causal:
@@ -228,10 +262,15 @@ def check_zigzag(fn: str, sequence_parallel: str, causal: bool, lookbacks,
         raise ValueError(
             f'{fn}: sequence_parallel="zigzag" takes no max_lookback_seq_len'
         )
-    if compute_dtype == "int8" and seq_world(mesh) > 1:
-        raise ValueError(
-            f'{fn}: compute_dtype="int8" supports the "ring" strategy (and the '
-            f'local path); got sequence_parallel="zigzag"'
+
+
+def check_factored_decode(fn: str, mesh) -> None:
+    """Prefill and decode on a factored mesh raise, with JAX's words."""
+    if is_factored(mesh):
+        raise NotImplementedError(
+            f"{fn}: ring-sharded prefill/decode runs on a plain (data, seq) mesh; the "
+            "factored hybrid mesh is a training/forward layout — decode with "
+            "create_mesh(ring_size=...)"
         )
 
 
@@ -314,12 +353,11 @@ class RingAttention(nn.Module):
             causal, max_lookback_seq_len = form.causal, form.window
         impl = resolve_impl(impl, use_pallas)
         check_impl("RingAttention", impl)
-        check_mesh("RingAttention", mesh, sequence_parallel)
-        check_constructor("RingAttention", pallas_head_chunks, mesh,
-                          use_ring and not force_regular_attn)
+        ring_on = use_ring and not force_regular_attn
+        check_mesh("RingAttention", mesh, sequence_parallel, ring_on, compute_dtype)
+        check_constructor("RingAttention", pallas_head_chunks, mesh, ring_on)
         check_compute_dtype("RingAttention", compute_dtype, impl, force_regular_attn)
-        check_zigzag("RingAttention", sequence_parallel, causal,
-                     (max_lookback_seq_len,), compute_dtype, mesh)
+        check_zigzag("RingAttention", sequence_parallel, causal, (max_lookback_seq_len,))
         kv_heads = kv_heads or heads
         if heads % kv_heads:
             raise ValueError(
@@ -363,6 +401,10 @@ class RingAttention(nn.Module):
         return seq_world(self.mesh)
 
     @property
+    def _ulysses_size(self) -> int:
+        return self.mesh.ulysses if is_factored(self.mesh) else 1
+
+    @property
     def _kernel_impl(self) -> str:
         """The kernel path of every call but the ring's forward: ``"fused"``
         runs as ``"cuda"`` there (JAX ``_use_pallas``)."""
@@ -402,7 +444,9 @@ class RingAttention(nn.Module):
         world = self._ring_world
         ring = world > 1
         n_orig = x.shape[1]
-        scheme, factor = layout_for(self.sequence_parallel, self.striped, world)
+        scheme, factor = layout_for(self.sequence_parallel, self.striped, world,
+                                    self._ulysses_size)
+        ulysses = ring and self.sequence_parallel == "ulysses"
         if self.needs_segment_ids and segment_ids is None:
             raise ValueError(
                 "RingAttention: the mask includes Segments() — pass the runtime "
@@ -414,15 +458,16 @@ class RingAttention(nn.Module):
                     "RingAttention: the mask declares a DocumentMask layout AND "
                     "segment_ids were passed — declare one packing"
                 )
-            if ring:
+            if ring and not ulysses:
                 # the ring realizes the declared layout as runtime ids over the
                 # global batch and sequence, in its layout: auto_shard pads,
                 # permutes and cuts them with x below; otherwise x came
                 # padded at its end, permuted and cut, and so do they
+                # (Ulysses attends the whole span: its kernels take doc_starts)
                 rows, n = x.shape[0], n_orig
                 if not self.auto_shard:
                     rows *= self.mesh.data
-                    n = n // len(self.mesh.ring.ranks) * world
+                    n = n // len(self.mesh.seq_ranks) * world
                 starts = check_doc_starts(self.doc_starts, n, n)
                 segment_ids = doc_runtime_ids(starts, n, rows, x.device)
                 if not self.auto_shard:
@@ -445,7 +490,9 @@ class RingAttention(nn.Module):
             mask = None
         attend = self._local_attend
         if ring:
-            attend = self._zigzag_attend if scheme == "zigzag" else self._ring_attend
+            attend = {"zigzag": self._zigzag_attend, "ulysses": self._ulysses_attend,
+                      "hybrid": self._hybrid_attend}.get(self.sequence_parallel,
+                                                         self._ring_attend)
         out = self._merge_heads(attend(q, k, v, mask, segment_ids))
         if ring and self.auto_shard:
             out = shard_gather(out, self.mesh, scheme, factor)[:, :n_orig]
@@ -489,6 +536,58 @@ class RingAttention(nn.Module):
             max_ring_passes, window, self.softclamp_value, None, self.impl,
             segment_ids=segment_ids, compute_dtype=self.compute_dtype,
             hop_compression=self.ring_hop_compression,
+        )
+
+    def _held_shard(self, n: int, count: int) -> int:
+        """The shard length of ``n`` rows over ``count`` held ranks."""
+        if n % count:
+            raise ValueError(
+                f"RingAttention: sequence {n} must divide over {count} "
+                f"({self.sequence_parallel}); use auto_shard=True to pad"
+            )
+        return n // count
+
+    def _ulysses_attend(self, q, k, v, mask, segment_ids=None):
+        """Ulysses over the mesh's ring (JAX ``_ulysses_attend``, :557-586):
+        each held rank's contiguous rotary positions, then the all-to-alls
+        around the whole span's local flash; a declared packing reaches the
+        kernels as ``doc_starts``, certified over the whole span."""
+        ring = self.mesh.ring
+        n_local = self._held_shard(q.shape[2], len(ring.ranks))
+        if self.rotary:
+            pos = torch.cat([ring_positions(n_local, rank, striped=False, world=ring.world,
+                                            device=q.device) for rank in ring.ranks])
+            q, k = self._rotate(q, k, pos)
+        if self.mask is not None:
+            mask_algebra.require_certified(self.mask, n_local * ring.world)
+        return ulysses_attention(
+            q, k, v, ring, causal=self.causal, kv_mask=mask, bucket_size=self.bucket_size,
+            window=self.max_lookback_seq_len, softclamp_value=self.softclamp_value,
+            impl=self._kernel_impl, segment_ids=segment_ids,
+            doc_starts=None if segment_ids is not None else self.doc_starts,
+        )
+
+    def _hybrid_attend(self, q, k, v, mask, segment_ids=None):
+        """Ulysses x Ring over the factored mesh (JAX ``_hybrid_attend``,
+        :588-630): rotary on the resident shards from the combined rank
+        (``hybrid_positions``), the ring knobs sized against the ring chunk
+        ``U * n_local``, and ``impl`` and the int8 knobs on the outer ring."""
+        mesh = self.mesh
+        ring, uring, u = mesh.ring, mesh.ulysses_ring, mesh.ulysses
+        n_local = self._held_shard(q.shape[2], len(mesh.seq_ranks))
+        bucket, window, max_ring_passes = self._ring_leg(u * n_local)
+        if self.rotary:
+            pos = torch.cat([
+                hybrid_positions(n_local, j, r, ulysses=u, ring=ring.world,
+                                 striped=self.striped, device=q.device)
+                for r in ring.ranks for j in uring.ranks
+            ])
+            q, k = self._rotate(q, k, pos)
+        return hybrid_attention(
+            q, k, v, mask, uring, ring, causal=self.causal, striped=self.striped,
+            bucket_size=bucket, max_ring_passes=max_ring_passes, window=window,
+            softclamp_value=self.softclamp_value, impl=self.impl, segment_ids=segment_ids,
+            hop_compression=self.ring_hop_compression, compute_dtype=self.compute_dtype,
         )
 
     def _zigzag_attend(self, q, k, v, mask, segment_ids=None):
@@ -567,6 +666,8 @@ class RingAttention(nn.Module):
         ring: it holds absolute positions (:meth:`_ring_decode`).  Returns ``(out (b, 1, dim), cache_k,
         cache_v)``."""
         pos = int(pos)
+        if self._ring_world > 1:
+            check_factored_decode("decode_step", self.mesh)
         q, k, v = self._project_qkv(x)
         q, k = self._rotate(q, k, torch.tensor([pos], device=x.device))
         if self._ring_world > 1:
@@ -702,6 +803,7 @@ class RingAttention(nn.Module):
         lookback = self.max_lookback_seq_len
         world = self._ring_world
         if world > 1:
+            check_factored_decode("prefill", self.mesh)
             if not self.mesh.spans_processes:
                 return self._mesh_prefill(x, cache_k, cache_v, n), cache_k, cache_v
             block = shard_cut(pad_to_multiple(x, world)[0], self.mesh)

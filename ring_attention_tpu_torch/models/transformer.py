@@ -16,8 +16,11 @@ and every layer runs the ring on that layout, hop by hop under
 ``impl="cuda"`` or fused under ``"fused"`` (one launch for the whole
 ring, or one per rank when padding added a key mask), or with
 ``sequence_parallel="zigzag"`` pads to ``2 * W`` and runs zig-zag
-attention (``parallel/zigzag.py``); the parameters are the same as
-without a mesh.  ``forward(segment_ids=)`` trains and scores packed
+attention (``parallel/zigzag.py``), with ``"ulysses"`` Ulysses
+(``parallel/ulysses.py``, never striped), with ``"hybrid"`` on a factored
+mesh (``create_mesh(ulysses_size=U, ring_size=R)``) Ulysses x Ring
+(``parallel/hybrid.py``, striped at the outer degree ``R``); the
+parameters are the same as without a mesh.  ``forward(segment_ids=)`` trains and scores packed
 documents (the ids are padded with ``PAD_SEGMENT_ID`` and permuted with
 the tokens on a mesh); ``mask=`` takes a mask expression (``masks.py``),
 one for every layer or a tuple with one per layer, in place of ``causal``
@@ -29,12 +32,13 @@ contiguously over the ring: ``prefill`` runs the ring over the prompt and
 (``parallel/tree_decode.py``).
 
 On a mesh whose ranks are processes (``create_mesh`` over an initialized
-process group: a ``DistributedRing`` per row and a data ring per column)
+process group: a ``DistributedRing`` per row and a data ring per column,
+and on a factored mesh a ulysses group per ring chunk)
 every process passes the same global tokens, ids and masks, as the JAX
 model takes global arrays: the model pads and permutes them, keeps this
 process's data rows and seq block (``parallel/sharding.py::shard_cut``,
-the ``NamedSharding(P(data, seq))`` of the JAX model top) and runs the
-layers on that shard.  ``forward`` returns the global logits on every
+the ``NamedSharding(P(data, seq))`` of the JAX model top; its combined
+rank's block on a factored mesh) and runs the layers on that shard.  ``forward`` returns the global logits on every
 process (``shard_gather``); ``return_loss`` the global mean loss, the same
 value on every process, whose gradient is this process's share: the nll
 of its own positions over the mesh's valid count.  The train step sums
@@ -42,7 +46,8 @@ the shares over the mesh (``make_train_step(mesh=)``).  Decoding keeps
 this process's rows and its rank's cache shard; ``prefill`` runs the
 prompt's blocks through the ring and takes the last logits from the rank
 that holds them, and ``generate`` takes each token from the ring's rank 0
-and gathers the rows' tokens over the data ring.
+and gathers the rows' tokens over the data ring.  Decoding on a factored
+mesh raises ``NotImplementedError``, as in JAX.
 """
 
 from __future__ import annotations
@@ -66,6 +71,7 @@ from .attention import (
     RingAttention,
     check_compute_dtype,
     check_constructor,
+    check_factored_decode,
     check_hop_compression,
     check_impl,
     check_mesh,
@@ -218,7 +224,8 @@ class RingTransformer(nn.Module):
         check_hop_compression("RingTransformer", ring_hop_compression)
         impl = resolve_impl(impl, use_pallas)
         check_impl("RingTransformer", impl)
-        check_mesh("RingTransformer", mesh, sequence_parallel)
+        check_mesh("RingTransformer", mesh, sequence_parallel,
+                   use_ring and not force_regular_attn, compute_dtype)
         check_constructor("RingTransformer", pallas_head_chunks, mesh,
                           use_ring and not force_regular_attn)
         if not auto_shard and mesh is not None and mesh.spans_processes:
@@ -246,8 +253,7 @@ class RingTransformer(nn.Module):
                  for m, lb in zip(masks, lookbacks)]
         check_zigzag("RingTransformer", sequence_parallel,
                      all(causal if f is None else f.causal for f in forms),
-                     tuple(lb if f is None else f.window for f, lb in zip(forms, lookbacks)),
-                     compute_dtype, mesh)
+                     tuple(lb if f is None else f.window for f, lb in zip(forms, lookbacks)))
         device = resolve_device(device)
         self.kv_heads = kv_heads or heads
         self.dim_head = dim_head
@@ -282,7 +288,7 @@ class RingTransformer(nn.Module):
         )
         # the shards this process's sequence holds: every rank's on a
         # virtual ring, its own on a process
-        shards = len(mesh.ring.ranks) if self.ring_world > 1 else 1
+        shards = len(mesh.seq_ranks) if self.ring_world > 1 else 1
         self.ff_layers = nn.ModuleList(
             FeedForward(dim, ff_mult, dtype=dtype, device=device,
                         chunk_size=ff_chunk_size, seq_shards=shards)
@@ -309,7 +315,11 @@ class RingTransformer(nn.Module):
     def _ring_splits(self) -> bool:
         """Whether the ring's ranks are processes (a process holds one
         block of the sequence)."""
-        return self.ring_world > 1 and self.mesh.ring.spans_processes
+        return self.ring_world > 1 and self.mesh.seq_splits
+
+    @property
+    def _ulysses_size(self) -> int:
+        return self.mesh.ulysses if self.ring_world > 1 and self.mesh.factored else 1
 
     def forward(
         self,
@@ -348,7 +358,8 @@ class RingTransformer(nn.Module):
                 segment_ids = segment_ids[:, :-1]
         world = self.ring_world
         n_orig = tokens.shape[1]
-        scheme, factor = layout_for(self.sequence_parallel, self.striped, world)
+        scheme, factor = layout_for(self.sequence_parallel, self.striped, world,
+                                    self._ulysses_size)
         pad_mult = 2 * world if scheme == "zigzag" else world
         shard = world > 1 and self.auto_shard
         if shard:
@@ -450,6 +461,8 @@ class RingTransformer(nn.Module):
         ``batch`` is the global batch, of which a process holds its data
         rows."""
         world = self.ring_world
+        if world > 1:
+            check_factored_decode("init_cache", self.mesh)
         if max_len % world:
             raise ValueError(
                 f"init_cache: max_len {max_len} must divide over the ring of "
@@ -525,6 +538,8 @@ class RingTransformer(nn.Module):
         goes through the layers, and the last logits come from the rank
         whose block holds position ``n - 1``."""
         n = tokens.shape[1]
+        if self.ring_world > 1:
+            check_factored_decode("prefill", self.mesh)
         split = self._ring_splits()
         if split:
             ring = self.mesh.ring

@@ -67,7 +67,7 @@ from .quant import (
     quantize_rows,
     unpack_kv,
 )
-from .rotary import apply_rotary, ring_positions, rotary_freqs, rotate_half
+from .rotary import apply_rotary, hybrid_positions, ring_positions, rotary_freqs, rotate_half
 from .. import masks as _masks
 from ..utils.validate import check_attention_args as _check_attention_args
 
@@ -208,6 +208,7 @@ __all__ = [
     "fused_ring_local_plain",
     "fused_ring_remote",
     "fused_ring_remote_plain",
+    "hybrid_positions",
     "init_carry",
     "init_partials",
     "kernel_kv",

@@ -10,13 +10,14 @@ behind a small :class:`Ring` interface with two implementations:
   device copy, no communication.
 - :class:`DistributedRing`: one rank per process, over
   ``torch.distributed.batch_isend_irecv`` (gloo on the CPU, NCCL across
-  GPUs), within a process group.  On a gloo group the ring stages CUDA
+  GPUs), within a process group; its all-to-all is point to point too.
+  On a gloo group the ring stages CUDA
   payloads through host memory (gloo moves no CUDA tensor point to point
   and NCCL takes no two ranks on one card): that is the transport of
   several processes sharing one GPU, never a fallback of the compute,
   which stays on the card.
 
-Beside the rotation the seam has two collectives and one property:
+Beside the rotation the seam has three collectives and one property:
 
 - ``all_gather``: each held rank's view of the rank-major concatenation of
   every rank's payload (the JAX ``lax.all_gather(..., tiled=True)`` of the
@@ -30,6 +31,13 @@ Beside the rotation the seam has two collectives and one property:
 - ``all_reduce(op)``: the elementwise ``"max"`` or ``"sum"`` of every
   rank's payload (``lax.pmax`` / ``lax.psum`` of tree decoding,
   ``parallel/tree_decode.py``), for each held rank;
+- ``all_to_all(split_dim, concat_dim)``: the tiled ``lax.all_to_all`` of
+  Ulysses and the hybrid strategy (``parallel/ulysses.py``,
+  ``parallel/hybrid.py``): rank ``j`` receives chunk ``j`` of every rank's
+  payload along ``split_dim``, concatenated along ``concat_dim`` in rank
+  order.  It carries gradients: its backward is the inverse all-to-all (on
+  a ``VirtualRing`` through ``split`` and ``cat``, on a
+  ``DistributedRing`` through an autograd function);
 - ``colocated``: whether one kernel launch can address every rank, so
   that the fused ring's remote tier can pass KV between the ranks inside
   it (the port's counterpart of ``pallas_ring.neighbor_mesh_coords`` not
@@ -37,7 +45,11 @@ Beside the rotation the seam has two collectives and one property:
 
 A ring function handles a *list of payloads*, one per rank this process
 holds (``ring.ranks``, in order); each payload is a tuple of tensors that
-travel together.  ``quantize_ring_payload`` and ``dequantize_ring_payload``
+travel together.  A ``VirtualRing`` counts in ``calls`` the tensors each
+of the four operations has moved (one per tensor a call carries): how many
+times a strategy moves K/V is read there (a ``DistributedRing`` counts the
+payloads it stages through the host, ``staged_calls``).
+``quantize_ring_payload`` and ``dequantize_ring_payload``
 are the ring's int8 wire codec (``hop_compression="int8"``, JAX
 ``parallel/collectives.py:123, :158``): the K/V of a rank quantized once
 at ring entry into one int8 payload, which then moves unchanged.
@@ -112,13 +124,33 @@ class Ring(abc.ABC):
         held rank in order (tree decoding's merge and the gather's
         backward)."""
 
+    @abc.abstractmethod
+    def all_to_all(self, payloads: list[Payload], split_dim: int,
+                   concat_dim: int) -> list[Payload]:
+        """Tensor by tensor: cut every rank's payload into ``world`` equal
+        chunks along ``split_dim`` and give rank ``j`` chunk ``j`` of every
+        rank's, concatenated along ``concat_dim`` in rank order (JAX
+        ``lax.all_to_all(..., tiled=True)``), for each held rank in order,
+        differentiably."""
 
+
+OPS = ("rotate", "all_gather", "all_reduce", "all_to_all")
 REDUCE_OPS = ("max", "sum")
 
 
 def _check_op(fn: str, op: str) -> None:
     if op not in REDUCE_OPS:
         raise ValueError(f"{fn}: op must be one of {REDUCE_OPS}, got {op!r}")
+
+
+def _check_split(fn: str, payloads: list[Payload], split_dim: int, world: int) -> None:
+    for payload in payloads:
+        for x in payload:
+            if x.shape[split_dim] % world:
+                raise ValueError(
+                    f"{fn}: dimension {split_dim} of size {x.shape[split_dim]} does not "
+                    f"split over {world} ranks"
+                )
 
 
 class VirtualRing(Ring):
@@ -131,13 +163,17 @@ class VirtualRing(Ring):
             raise ValueError(f"VirtualRing: world must be >= 1, got {world}")
         self.world = world
         self.ranks = tuple(range(world))
+        self.calls = dict.fromkeys(OPS, 0)
 
-    def rotate(self, payloads: list[Payload], shift: int) -> list[Payload]:
+    def _check(self, fn: str, payloads: list[Payload]) -> None:
         if len(payloads) != self.world:
             raise ValueError(
-                f"VirtualRing.rotate: {len(payloads)} payloads for a ring of "
-                f"{self.world}"
+                f"VirtualRing.{fn}: {len(payloads)} payloads for a ring of {self.world}"
             )
+        self.calls[fn] += len(payloads[0])
+
+    def rotate(self, payloads: list[Payload], shift: int) -> list[Payload]:
+        self._check("rotate", payloads)
         out: list = [None] * self.world
         for src, dst in ring_perm(self.world, shift):
             out[dst] = payloads[src]
@@ -146,11 +182,7 @@ class VirtualRing(Ring):
     def all_gather(self, payloads: list[Payload], dim: int) -> list[Payload]:
         """One ``torch.cat`` per tensor, shared by every rank: no bytes move
         between devices, as none do in :meth:`rotate`."""
-        if len(payloads) != self.world:
-            raise ValueError(
-                f"VirtualRing.all_gather: {len(payloads)} payloads for a ring "
-                f"of {self.world}"
-            )
+        self._check("all_gather", payloads)
         gathered = tuple(torch.cat(parts, dim=dim) for parts in zip(*payloads))
         return [gathered] * self.world
 
@@ -158,11 +190,7 @@ class VirtualRing(Ring):
         """The ranks' tensors folded in rank order, one result shared by
         every rank."""
         _check_op("VirtualRing.all_reduce", op)
-        if len(payloads) != self.world:
-            raise ValueError(
-                f"VirtualRing.all_reduce: {len(payloads)} payloads for a ring "
-                f"of {self.world}"
-            )
+        self._check("all_reduce", payloads)
         fold = torch.maximum if op == "max" else torch.add
         reduced = []
         for parts in zip(*payloads):
@@ -171,6 +199,19 @@ class VirtualRing(Ring):
                 acc = fold(acc, x)
             reduced.append(acc)
         return [tuple(reduced)] * self.world
+
+    def all_to_all(self, payloads: list[Payload], split_dim: int,
+                   concat_dim: int) -> list[Payload]:
+        """A reshuffle of the held payloads: one ``torch.cat`` per rank and
+        tensor of the chunks ``split`` cuts (views), differentiable through
+        autograd."""
+        self._check("all_to_all", payloads)
+        _check_split("VirtualRing.all_to_all", payloads, split_dim, self.world)
+        chunks = [tuple(x.chunk(self.world, dim=split_dim) for x in payload)
+                  for payload in payloads]
+        return [tuple(torch.cat([chunks[i][t][j] for i in range(self.world)], dim=concat_dim)
+                      for t in range(len(payloads[0])))
+                for j in range(self.world)]
 
     def __repr__(self) -> str:
         return f"VirtualRing(world={self.world})"
@@ -187,7 +228,11 @@ class DistributedRing(Ring):
     That is how several processes share one card (NCCL refuses two ranks
     on one device); the kernels run on the card either way.
     ``staged_bytes`` counts the bytes each collective copied between
-    device and host (both ways) and ``staged_calls`` its staged calls."""
+    device and host (both ways) and ``staged_calls`` its staged calls (one
+    per tensor for ``all_gather`` and ``all_to_all``, one per payload for
+    ``rotate`` and ``all_reduce``).  The all-to-all runs point to point on
+    every backend, as the rotation does (gloo's CUDA builds have no
+    all-to-all; NCCL's is grouped sends and receives itself)."""
 
     def __init__(self, group=None):
         import torch.distributed as dist
@@ -202,8 +247,8 @@ class DistributedRing(Ring):
         self.rank = dist.get_rank(self.group)
         self.ranks = (self.rank,)
         self.host_staged = dist.get_backend(self.group) == "gloo"
-        self.staged_bytes = dict.fromkeys(("rotate", "all_gather", "all_reduce"), 0)
-        self.staged_calls = dict.fromkeys(self.staged_bytes, 0)
+        self.staged_bytes = dict.fromkeys(OPS, 0)
+        self.staged_calls = dict.fromkeys(OPS, 0)
 
     def _to_wire(self, x: torch.Tensor, op: str) -> torch.Tensor:
         """``x`` as the backend moves it: contiguous, and in host memory when
@@ -298,6 +343,44 @@ class DistributedRing(Ring):
             reduced.append(self._from_wire(y, x.device, "all_reduce"))
         return [tuple(reduced)]
 
+    def all_to_all(self, payloads: list[Payload], split_dim: int,
+                   concat_dim: int) -> list[Payload]:
+        """The tiled all-to-all within the group, tensor by tensor, through
+        :class:`_AllToAll` (its backward is the inverse exchange)."""
+        if len(payloads) != 1:
+            raise ValueError(
+                f"DistributedRing.all_to_all: one payload per process, got "
+                f"{len(payloads)}"
+            )
+        _check_split("DistributedRing.all_to_all", payloads, split_dim, self.world)
+        return [tuple(_AllToAll.apply(x, split_dim, concat_dim, self)
+                      for x in payloads[0])]
+
+    def _exchange(self, x: torch.Tensor, split_dim: int, concat_dim: int) -> torch.Tensor:
+        """One tiled all-to-all of ``x``; a bool tensor travels as uint8.
+        Each chunk goes point to point to its rank (``batch_isend_irecv``,
+        as a rotation moves its payload): the same bytes as the
+        collective."""
+        import torch.distributed as dist
+
+        self._staged((x,), "all_to_all")
+        sent = self._to_wire(x, "all_to_all")
+        if sent.dtype == torch.bool:
+            sent = sent.to(torch.uint8)
+        parts = [c.contiguous() for c in sent.chunk(self.world, dim=split_dim)]
+        received = [torch.empty_like(c) for c in parts]
+        received[self.rank] = parts[self.rank]
+        ops = []
+        for j in range(self.world):
+            if j != self.rank:
+                peer = dist.get_global_rank(self.group, j)
+                ops += [dist.P2POp(dist.isend, parts[j], peer, self.group),
+                        dist.P2POp(dist.irecv, received[j], peer, self.group)]
+        for request in dist.batch_isend_irecv(ops) if ops else ():
+            request.wait()
+        return self._from_wire(torch.cat(received, dim=concat_dim), x.device,
+                               "all_to_all").to(x.dtype)
+
     def __repr__(self) -> str:
         return f"DistributedRing(world={self.world}, rank={self.rank})"
 
@@ -317,3 +400,18 @@ class _GatherWithGrad(torch.autograd.Function):
         (total,) = ctx.ring.all_reduce([(grad,)], "sum")[0]
         mine = total.narrow(ctx.dim, ctx.ring.rank * ctx.size, ctx.size)
         return mine.contiguous(), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """``DistributedRing`` tiled all-to-all whose backward is the inverse
+    exchange (the transpose of ``lax.all_to_all``): the gradient cut along
+    ``concat_dim`` and concatenated along ``split_dim``."""
+
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, ring):
+        ctx.split_dim, ctx.concat_dim, ctx.ring = split_dim, concat_dim, ring
+        return ring._exchange(x, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.ring._exchange(grad, ctx.concat_dim, ctx.split_dim), None, None, None

@@ -121,9 +121,9 @@ from .collectives import Ring, dequantize_ring_payload, quantize_ring_payload
 IMPLS = ("torch", "cuda", "fused")
 # Where each ring option that is not ported yet will come from (ROADMAP.md).
 UNPORTED = {
-    "bidirectional": "the ring variants, ROADMAP.md Port queue item 7",
-    "counter_rotate": "the ring variants, ROADMAP.md Port queue item 7",
-    "dkv_dtype": "the ring variants, ROADMAP.md Port queue item 7",
+    "bidirectional": "the ring variants, ROADMAP.md Port queue item 7e",
+    "counter_rotate": "the ring variants, ROADMAP.md Port queue item 7e",
+    "dkv_dtype": "the ring variants, ROADMAP.md Port queue item 7e",
 }
 HOP_COMPRESSIONS = (None, "int8")
 

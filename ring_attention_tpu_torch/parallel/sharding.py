@@ -9,18 +9,21 @@ token granularity, as the JAX package stripes.  The zig-zag layout
 seq, ...)`` tensor; sharding the result contiguously over the ring gives
 each rank its tokens.
 
-The schemes ``"contiguous"``, ``"striped"`` and ``"zigzag"`` are ported;
-Ulysses and the hybrid factoring raise ``NotImplementedError`` naming
-their ROADMAP item.
+:func:`layout_for` is the one derivation of a strategy's layout: Ulysses
+never stripes (head parallelism balances causal work by itself), and the
+hybrid strategy stripes at the OUTER ring's degree only, ``seq_world //
+ulysses_size``: the all-to-all over the ulysses group reassembles
+contiguous ring chunks, so striping balances ring ranks, not devices.
 
 On a mesh whose ranks are processes every process holds the same global
 batch; :func:`shard_cut` keeps its part of a padded, permuted tensor (its
-data rows and its seq rank's contiguous block: what ``NamedSharding(P(data,
-seq))`` gives a device in JAX) and :func:`shard_gather` is the inverse
-(the blocks gathered over the seq ring, the rows over the data ring, then
-un-permuted); :func:`cut_rows` and :func:`gather_rows` do the rows alone
-(decoding).  On a mesh that one process holds they change nothing but
-the un-permute.
+data rows and its combined seq rank's contiguous block: what
+``NamedSharding(P(data, seq))`` gives a device in JAX; on a factored mesh
+rank ``r * U + u`` of ``R * U``, ``P(data, ("ring", "ulysses"))``) and
+:func:`shard_gather` is the inverse (the blocks gathered over the ulysses
+group and then the ring, the rows over the data ring, then un-permuted);
+:func:`cut_rows` and :func:`gather_rows` do the rows alone (decoding).
+On a mesh that one process holds they change nothing but the un-permute.
 """
 
 from __future__ import annotations
@@ -30,17 +33,7 @@ import torch.nn.functional as F
 
 from .zigzag import zigzag_permute, zigzag_unpermute
 
-UNPORTED_SCHEMES = {
-    "ulysses": "the Ulysses strategy, ROADMAP.md Port queue item 7",
-    "hybrid": "the hybrid Ulysses x Ring strategy, ROADMAP.md Port queue item 7",
-}
-
-
-def _unported(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f'sequence_parallel="{name}" is not ported yet; it arrives with '
-        f"{UNPORTED_SCHEMES[name]}"
-    )
+STRATEGIES = ("ring", "zigzag", "ulysses", "hybrid")
 
 
 def pad_to_multiple(
@@ -95,18 +88,25 @@ def stripe_unpermute(x: torch.Tensor, ring_size: int, axis: int = 1) -> torch.Te
     return x.transpose(axis, axis + 1).reshape(shape)
 
 
-def layout_for(sequence_parallel: str, striped: bool, seq_world: int) -> tuple[str, int]:
+def layout_for(sequence_parallel: str, striped: bool, seq_world: int,
+               ulysses_size: int = 1) -> tuple[str, int]:
     """``(scheme, factor)`` of the model-top sequence permutation: the one
-    derivation the attention layer and the transformer both consult."""
-    if sequence_parallel in UNPORTED_SCHEMES:
-        raise _unported(sequence_parallel)
-    if sequence_parallel not in ("ring", "zigzag"):
+    derivation the attention layer and the transformer both consult.  The
+    factor is the degree the layout interleaves at: the whole sequence
+    world for the 1-D schemes, the outer ring's for hybrid."""
+    if sequence_parallel not in STRATEGIES:
         raise ValueError(f"unknown sequence_parallel {sequence_parallel!r}")
     if seq_world <= 1:
         return "contiguous", 1
     if sequence_parallel == "zigzag":
         return "zigzag", seq_world
-    return ("striped" if striped else "contiguous"), seq_world
+    if not striped:
+        return "contiguous", seq_world
+    if sequence_parallel == "hybrid":
+        return "striped", seq_world // ulysses_size
+    if sequence_parallel == "ring":
+        return "striped", seq_world
+    return "contiguous", seq_world  # ulysses: no striping
 
 
 def layout_permute(x: torch.Tensor, scheme: str, factor: int) -> torch.Tensor:
@@ -117,8 +117,6 @@ def layout_permute(x: torch.Tensor, scheme: str, factor: int) -> torch.Tensor:
         return stripe_permute(x, factor)
     if scheme == "zigzag":
         return zigzag_permute(x, factor)
-    if scheme in UNPORTED_SCHEMES:
-        raise _unported(scheme)
     raise ValueError(f"unknown sequence layout scheme {scheme!r}")
 
 
@@ -130,8 +128,6 @@ def layout_unpermute(x: torch.Tensor, scheme: str, factor: int) -> torch.Tensor:
         return stripe_unpermute(x, factor)
     if scheme == "zigzag":
         return zigzag_unpermute(x, factor)
-    if scheme in UNPORTED_SCHEMES:
-        raise _unported(scheme)
     raise ValueError(f"unknown sequence layout scheme {scheme!r}")
 
 
@@ -157,16 +153,15 @@ def gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
 def shard_cut(x: torch.Tensor, mesh) -> torch.Tensor:
     """This process's part of a global ``(batch, seq, ...)`` tensor laid
     out for the ring (padded and permuted): its data rows and the
-    contiguous block of the seq ranks it holds.  ``x`` itself on a mesh
-    that one process holds (or no mesh)."""
+    contiguous block of the (combined) seq ranks it holds.  ``x`` itself on
+    a mesh that one process holds (or no mesh)."""
     x = cut_rows(x, mesh)
-    if mesh is None or not mesh.ring.spans_processes:
+    if mesh is None or not mesh.seq_splits:
         return x
-    ring = mesh.ring
-    n = x.shape[1]
-    _check_divides("shard_cut", n, ring.world)
-    n_local = n // ring.world
-    return x[:, ring.ranks[0] * n_local:(ring.ranks[-1] + 1) * n_local].contiguous()
+    ranks, n = mesh.seq_ranks, x.shape[1]
+    _check_divides("shard_cut", n, mesh.seq)
+    n_local = n // mesh.seq
+    return x[:, ranks[0] * n_local:(ranks[-1] + 1) * n_local].contiguous()
 
 
 def shard_gather(x: torch.Tensor, mesh, scheme: str = "contiguous",
@@ -176,9 +171,12 @@ def shard_gather(x: torch.Tensor, mesh, scheme: str = "contiguous",
     and the layout un-permuted.  Every process gets the same global tensor;
     its gradient reaches each process as its own slice (its consumer runs
     alike on every process, so the gradient is not summed over the ranks
-    as ``Ring.all_gather``'s is)."""
-    if mesh is not None and mesh.ring.spans_processes:
-        x = _GatherShards.apply(x, mesh.ring, 1)
+    as ``Ring.all_gather``'s is).  On a factored mesh the blocks gather
+    over the ulysses group first (the ring chunk), then over the ring."""
+    if mesh is not None and mesh.seq_splits:
+        for ring in (mesh.ulysses_ring, mesh.ring):
+            if ring is not None and ring.spans_processes:
+                x = _GatherShards.apply(x, ring, 1)
     return layout_unpermute(gather_rows(x, mesh), scheme, factor)
 
 

@@ -36,8 +36,27 @@ updates.
   (a CPU model, Adam's step count) stays where it is: on the CPU the
   option changes nothing, as JAX's does without a host memory space.
 
-The JAX step's ``collect_metrics``, ``shard_opt_state`` and ``jit_donate``
-are not ported yet and raise.
+- ``shard_opt_state=True`` (ZeRO-1, JAX ``utils/train.py:129-140,
+  170-174, 240-248``): over the data ring of ``mesh=`` (JAX's
+  ``shard_mesh=``: here the one mesh the gradients are summed over and the
+  state sharded over; without it the step raises JAX's ``ValueError``,
+  naming ``mesh=``), of ``D`` processes, each process keeps the
+  optimizer's state for its contiguous ``1/D`` of every parameter (the
+  flattened parameter cut in ``D`` equal slices, the last padded with
+  zeros).  The optimizer is rebuilt in place on those slices: its param
+  groups hold them and its state is theirs (a state tensor it already
+  holds shaped like its parameter is cut the same way).  Each step gives
+  every slice its part of the summed, clipped gradient, steps the
+  optimizer on the slices, and all-gathers the updated slices over the
+  data ring into the replicated parameters, one flat buffer per dtype.
+  An elementwise optimizer (Adam, AdamW, SGD with momentum) then updates
+  every element as the plain step does: the same implementation (the
+  group's ``foreach`` and ``fused`` flags, the same devices) on the same
+  numbers.  With one data replica it changes nothing.  With
+  ``offload_opt_state`` the slices' state is what is parked.
+
+The JAX step's ``collect_metrics`` and ``jit_donate`` are not ported yet
+and raise.
 """
 
 from __future__ import annotations
@@ -46,13 +65,13 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from ..parallel.collectives import Ring
 from ..parallel.mesh import Mesh, mesh_all_reduce
 
 # Where each option that is not ported yet will come from (ROADMAP.md).
 UNPORTED = {
-    "collect_metrics": "the runtime's telemetry, ROADMAP.md Port queue item 7",
-    "shard_opt_state": "ZeRO-1 with the memory knobs, ROADMAP.md Port queue item 7",
-    "jit_donate": "a captured (CUDA-graph) step with the runtime, ROADMAP.md Port queue item 7",
+    "collect_metrics": "the runtime's telemetry, ROADMAP.md Port queue item 7f",
+    "jit_donate": "a captured (CUDA-graph) step with the runtime, ROADMAP.md Port queue item 7f",
 }
 
 
@@ -108,6 +127,65 @@ class _ParkedState:
             stream.synchronize()
 
 
+class _ShardedState:
+    """ZeRO-1 (``make_train_step(shard_opt_state=True)``): ``optimizer``
+    rebuilt on this process's slices of its parameters, one slice of
+    ``ceil(numel / D)`` elements per parameter (rank ``j`` of the data ring
+    of ``D`` holds flat elements ``[j * size, (j + 1) * size)``, zero-padded
+    past the end)."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer, ring: Ring):
+        self.optimizer, self.ring = optimizer, ring
+        world, rank = ring.world, ring.ranks[0]
+        self.slots = []  # (parameter, its slice, the slice's size)
+        for group in optimizer.param_groups:
+            shards = []
+            for p in group["params"]:
+                size = -(-p.numel() // world)
+                shard = self._cut(p.detach(), rank, size).requires_grad_()
+                state = optimizer.state.pop(p, None)
+                if state:
+                    optimizer.state[shard] = {
+                        key: self._cut(value, rank, size)
+                        if torch.is_tensor(value) and value.dim() and value.shape == p.shape
+                        else value
+                        for key, value in state.items()}
+                self.slots.append((p, shard, size))
+                shards.append(shard)
+            group["params"] = shards
+        self.rank = rank
+
+    @staticmethod
+    def _cut(x: torch.Tensor, rank: int, size: int) -> torch.Tensor:
+        """Elements ``[rank * size, (rank + 1) * size)`` of ``x`` flattened,
+        zero-padded to ``size``, in a tensor of their own."""
+        flat = x.reshape(-1)[rank * size:(rank + 1) * size]
+        out = torch.zeros(size, dtype=x.dtype, device=x.device)
+        out[:flat.numel()] = flat
+        return out
+
+    def step(self, grads: list[torch.Tensor]) -> None:
+        """Step the optimizer on the slices with their part of ``grads``
+        (one per parameter, in the optimizer's order), then gather the
+        updated slices into the parameters."""
+        for (_, shard, size), g in zip(self.slots, grads):
+            shard.grad = self._cut(g.detach(), self.rank, size)
+        self.optimizer.step()
+        by_dtype: dict[torch.dtype, list] = {}
+        for slot in self.slots:
+            by_dtype.setdefault(slot[1].dtype, []).append(slot)
+        with torch.no_grad():
+            for slots in by_dtype.values():
+                flat = torch.cat([shard.detach() for _, shard, _ in slots])
+                (every,) = self.ring.all_gather([(flat,)], 0)[0]
+                every = every.view(self.ring.world, flat.numel())
+                offset = 0
+                for p, _, size in slots:
+                    whole = every[:, offset:offset + size].reshape(-1)[:p.numel()]
+                    p.copy_(whole.view(p.shape))
+                    offset += size
+
+
 def make_train_step(
     loss_fn: Callable[..., torch.Tensor],
     optimizer: torch.optim.Optimizer,
@@ -130,9 +208,7 @@ def make_train_step(
     leading dimension must divide by it; the returned loss is then the mean
     of the microbatch losses (float32).  A parameter that gets no gradient
     is updated with a zero one, as the JAX step's dense gradient tree is."""
-    for name, value in (("collect_metrics", collect_metrics),
-                        ("shard_opt_state", shard_opt_state),
-                        ("jit_donate", jit_donate)):
+    for name, value in (("collect_metrics", collect_metrics), ("jit_donate", jit_donate)):
         if value:
             raise NotImplementedError(
                 f"make_train_step: {name}= is not ported yet; it arrives with "
@@ -144,11 +220,24 @@ def make_train_step(
         raise ValueError(
             f"make_train_step: clip_grad_norm must be > 0, got {clip_grad_norm}"
         )
+    if shard_opt_state and mesh is None:
+        raise ValueError(
+            "make_train_step: shard_opt_state=True needs mesh= "
+            "(the mesh whose data axis the optimizer state shards over)"
+        )
     params = [p for group in optimizer.param_groups for p in group["params"]]
+    sharded = None
+    if shard_opt_state and mesh.data > 1:
+        sharded = _ShardedState(optimizer, mesh.data_ring)
+
+    def zero_grad() -> None:
+        # the model's parameters (the optimizer may hold ZeRO-1 slices)
+        for p in params:
+            p.grad = None
 
     def gradients(batch) -> tuple[torch.Tensor, list[torch.Tensor]]:
         if accum_steps == 1:
-            optimizer.zero_grad(set_to_none=True)
+            zero_grad()
             loss = loss_fn(*batch)
             loss.backward()
             grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
@@ -167,7 +256,7 @@ def make_train_step(
         acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in params]
         loss_sum = torch.zeros((), dtype=torch.float32, device=params[0].device)
         for mb in micro:
-            optimizer.zero_grad(set_to_none=True)
+            zero_grad()
             loss = loss_fn(*mb)
             loss.backward()
             for a, p in zip(acc, params):
@@ -195,11 +284,12 @@ def make_train_step(
     def apply(grads) -> None:
         for p, g in zip(params, grads):
             p.grad = g
+        update = optimizer.step if sharded is None else (lambda: sharded.step(grads))
         if parked is None:
-            optimizer.step()
+            update()
             return
         parked.fetch()
-        optimizer.step()
+        update()
         parked.park()
 
     def finish(step):

@@ -10,7 +10,8 @@
 - Every feature the port leaves out (model settings and
   ``make_train_step`` options) raises ``NotImplementedError`` naming the
   ROADMAP item that brings it; decoding on a mesh raises a one-line
-  ``ValueError`` for an input it cannot take.
+  ``ValueError`` for an input it cannot take, and ``shard_opt_state``
+  without a mesh JAX's ``ValueError``.
 """
 
 import ast
@@ -84,13 +85,18 @@ UNPORTED_SETTINGS = {
     # ring's canonical drive) is not (item 7e)
     "ring_hop_compression": dict(ring_hop_compression="int8", ring_counter_rotate=True),
     "ring_dkv_dtype": dict(ring_dkv_dtype="bfloat16"),
-    # zig-zag is ported; Ulysses and the hybrid factoring are not (item 7d)
-    "sequence_parallel_zigzag": dict(sequence_parallel="ulysses"),
-    "sequence_parallel_hybrid": dict(sequence_parallel="hybrid"),
+    # zig-zag, Ulysses and the hybrid factoring are ported; the ring
+    # variants of item 7e raise on the hybrid strategy's outer ring as on the
+    # ring
+    "sequence_parallel_zigzag": dict(sequence_parallel="hybrid", ring_bidirectional=True,
+                                     mesh=create_mesh(ring_size=2, ulysses_size=2)),
+    "sequence_parallel_hybrid": dict(sequence_parallel="hybrid", ring_dkv_dtype="bfloat16",
+                                     mesh=create_mesh(ring_size=2, ulysses_size=2)),
     # the mask algebra and declared packings are ported, also on the int8
-    # sweep; a packing on the hybrid strategy is not (item 7d)
+    # sweep and the hybrid strategy; impl="auto" is not (item 7f)
     "mask": dict(causal=False, mask=Causal() & DocumentMask((0, 8)), compute_dtype="int8",
-                 sequence_parallel="hybrid"),
+                 sequence_parallel="hybrid", mesh=create_mesh(ring_size=2, ulysses_size=2),
+                 impl="auto"),
     # the fused ring and its int8 feed and wire are ported; bidirectional
     # half-streams are not (ROADMAP item 7e)
     "impl_fused": dict(impl="fused", compute_dtype="int8", ring_hop_compression="int8",
@@ -104,10 +110,11 @@ def test_unported_features_raise(name):
     settings = {**SMALL, "device": "cpu", **UNPORTED_SETTINGS[name]}
     with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item") as err:
         RingTransformer(**settings)
-    if name == "mask":
-        assert "hybrid Ulysses x Ring" in str(err.value)
-    if name in ("ring_hop_compression", "impl_fused"):
-        assert "item 7" in str(err.value)
+    if name in ("mask", "impl_auto"):
+        assert "item 7f" in str(err.value)
+    if name in ("ring_hop_compression", "impl_fused", "sequence_parallel_zigzag",
+                "sequence_parallel_hybrid"):
+        assert "item 7e" in str(err.value)
 
 
 # the int8 knobs are ported; the settings they cannot take raise as the JAX
@@ -194,7 +201,27 @@ UNPORTED_STEP_OPTIONS = ("collect_metrics", "shard_opt_state", "jit_donate")
 
 @pytest.mark.parametrize("name", UNPORTED_STEP_OPTIONS)
 def test_unported_train_step_options_raise(name):
+    """``collect_metrics`` and ``jit_donate`` are not ported (item 7f);
+    ``shard_opt_state`` (ZeRO-1) is, and without a mesh raises JAX's
+    ``ValueError``."""
     model = RingTransformer(**SMALL, device="cpu")
     opt = torch.optim.SGD(model.parameters(), lr=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item"):
+    if name == "shard_opt_state":
+        with pytest.raises(ValueError, match=r"shard_opt_state=True needs mesh= \(the "
+                                             "mesh whose data axis the optimizer state shards"):
+            make_train_step(lambda t: model(t, return_loss=True), opt, shard_opt_state=True)
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item 7f"):
         make_train_step(lambda t: model(t, return_loss=True), opt, **{name: True})
+
+
+def test_shard_opt_state_takes_only_the_step_mesh():
+    """ZeRO-1 shards over the data ring of ``mesh=``, the mesh the step sums
+    the gradients over.  JAX's separate ``shard_mesh=`` is refused: alone,
+    it would shard the state over a data ring whose gradients were never
+    summed."""
+    model = RingTransformer(**SMALL, device="cpu")
+    opt = torch.optim.SGD(model.parameters(), lr=0.1)
+    with pytest.raises(TypeError, match="shard_mesh"):
+        make_train_step(lambda t: model(t, return_loss=True), opt, shard_opt_state=True,
+                        shard_mesh=create_mesh(ring_size=2))

@@ -12,10 +12,15 @@ the process's share: the sum over the mesh (``mesh_all_reduce``, what
 x ring 2, ``segment_ids``, ``mask=Causal() & DocumentMask(...)``, zig-zag,
 the int8 wire with int8 compute, the memory knobs (``remat`` under
 ``nothing_saveable`` and ``save_attn`` with ``ff_chunk_size`` and
-``loss_chunk_size``); three ``make_train_step`` SGD steps with
-``clip_grad_norm`` and ``skip_nonfinite`` (ring 4, striped, and data 2 x
-ring 2); ``prefill`` / ``decode_step`` / ``generate`` (greedy and with a
-seeded generator) with a plain and an int8 cache.
+``loss_chunk_size``), Ulysses over the ring of 4 and the hybrid strategy on
+``create_mesh(ring_size=2, ulysses_size=2)`` (its all-to-alls and the
+gradient's sum over the ulysses groups cross the processes); three
+``make_train_step`` SGD steps with ``clip_grad_norm`` and
+``skip_nonfinite`` (ring 4, striped, and data 2 x ring 2); two Adam steps
+on data 2 x ring 2 with ``shard_opt_state=True`` (ZeRO-1 over the data
+ring), also with ``offload_opt_state=True``, against the same steps without
+it; ``prefill`` / ``decode_step`` / ``generate`` (greedy and with a seeded
+generator) with a plain and an int8 cache.
 
 Each case is held three ways: against the same model on a ``VirtualRing``
 in this process (the forward's logits bit for bit; the loss, the
@@ -67,6 +72,7 @@ from torch_model_dist_worker import (
     STEP_SEEDS,
     STEPS,
     WORLD,
+    ZERO_CASES,
     _ids,
     _layer_case,
     _model_case,
@@ -74,6 +80,7 @@ from torch_model_dist_worker import (
     _steps,
     _tokens,
     _worker,
+    mesh_kw,
 )
 
 GRAD_TOL = dict(atol=2e-5, rtol=1e-4)
@@ -169,7 +176,7 @@ def _virtual(fn, ring_size, *args):
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        return fn(create_mesh(ring_size=ring_size), *args)
+        return fn(create_mesh(**mesh_kw(ring_size)), *args)
     finally:
         torch.set_num_threads(threads)
 
@@ -244,7 +251,7 @@ def test_model_on_processes_matches_jax(results, name):
         logits, _, _ = _jax_reference("plain")
         assert _rel(got[0], logits) <= Q8_FWD_REL_L2, _rel(got[0], logits)
         return
-    form = {"segment_ids": "segments", "doc_mask": "doc_mask"}.get(name, "plain")
+    form = "segments" if CASES[name][3] else {"doc_mask": "doc_mask"}.get(name, "plain")
     logits, loss, grads = _jax_reference(form)
     np.testing.assert_allclose(got[0], logits, **GRAD_TOL)
     np.testing.assert_allclose(float(got[1]), loss, rtol=1e-5)
@@ -282,6 +289,26 @@ def test_train_step_without_the_seq_sum_drifts(results):
         worst = max(_rel(g, w) for g, w in zip(got[rank][1:], want[1:]))
         assert worst > 1e-3, (rank, worst)
     assert not all(np.array_equal(g, w) for g, w in zip(got[0][1:], got[1][1:]))
+
+
+@pytest.mark.parametrize("name", [n for n in ZERO_CASES if n != "zero1_plain"])
+def test_zero1_steps_on_processes(results, name):
+    """ZeRO-1 (``shard_opt_state=True``) over the data ring of 2: each
+    process holds half of Adam's moments (every parameter's flat half,
+    padded), the parameters after two clipped Adam steps equal the steps
+    without it bit for bit (Adam is elementwise: the same arithmetic on the
+    same numbers, its slice on each process, then gathered) and are the
+    same on every process; with ``offload_opt_state`` as well (the CPU
+    state stays where it is)."""
+    plain, got = results("zero1_plain"), results(name)
+    sizes = [p.size for p in got[0][1:]]
+    assert int(plain[0][0]) == 2 * sum(sizes)
+    for rank in range(WORLD):
+        assert int(got[rank][0]) == 2 * sum(-(-n // 2) for n in sizes), rank
+        for i, (g, w) in enumerate(zip(got[rank][1:], plain[rank][1:])):
+            assert np.array_equal(g, w), (rank, i)
+        for i, (g, w) in enumerate(zip(got[rank][1:], got[0][1:])):
+            assert np.array_equal(g, w), (rank, i)
 
 
 @pytest.mark.parametrize("name", list(SERVE_CASES))

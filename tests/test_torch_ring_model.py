@@ -191,12 +191,15 @@ class _OneOfTwo(Ring):
     def all_reduce(self, payloads, op):
         raise AssertionError("never reached")
 
+    def all_to_all(self, payloads, split_dim, concat_dim):
+        raise AssertionError("never reached")
+
 
 # The model runs on a mesh whose ranks are processes
-# (tests/test_torch_model_dist.py); what still raises there, naming its item
+# (tests/test_torch_model_dist.py), Ulysses and hybrid included; what still
+# raises there, naming its item
 MULTIPROCESS_UNPORTED = {
-    "ulysses": (dict(sequence_parallel="ulysses"), "Port queue item 7"),
-    "ring_counter_rotate": (dict(ring_counter_rotate=True), "Port queue item 7"),
+    "ring_counter_rotate": (dict(ring_counter_rotate=True), "Port queue item 7e"),
     "process_local_batches": (dict(auto_shard=False), "Port queue item 6d"),
 }
 
@@ -207,6 +210,16 @@ def test_model_on_a_multiprocess_mesh_raises():
     for settings, item in MULTIPROCESS_UNPORTED.values():
         with pytest.raises(NotImplementedError, match=item):
             RingTransformer(**CONFIG, device="cpu", mesh=mesh, **settings)
+    # Ulysses builds on it; hybrid needs a factored one, where decoding
+    # raises with JAX's words
+    RingTransformer(**CONFIG, device="cpu", mesh=mesh, sequence_parallel="ulysses")
+    with pytest.raises(ValueError, match="factored mesh"):
+        RingTransformer(**CONFIG, device="cpu", mesh=mesh, sequence_parallel="hybrid")
+    factored = Mesh(data=1, seq=4, ring=_OneOfTwo(), ulysses=2, ulysses_ring=_OneOfTwo())
+    assert factored.spans_processes and factored.seq_ranks == (0,)
+    model = RingTransformer(**CONFIG, device="cpu", mesh=factored, sequence_parallel="hybrid")
+    with pytest.raises(NotImplementedError, match="factored hybrid mesh is a training/forward"):
+        model.init_cache(2, 16)
     # a ring switched off would run the whole sequence on every process
     with pytest.raises(ValueError, match="use_ring=False or force_regular_attn"):
         RingTransformer(**CONFIG, device="cpu", mesh=mesh, use_ring=False)

@@ -21,7 +21,8 @@ JOIN_TIMEOUT_S = 120
 CONFIG = dict(num_tokens=256, dim=64, depth=2, heads=4, kv_heads=2, dim_head=16,
               causal=True, bucket_size=16)
 STARTS = (0, 40, 72, 100)
-# name: (ring size, data size, model kwargs, packed ids given)
+# name: (ring size, or (outer ring size, ulysses size) of a factored mesh,
+# data size, model kwargs, packed ids given)
 CASES = {
     "torch": (4, 1, dict(impl="torch"), False),
     "cuda": (4, 1, dict(impl="cuda"), False),
@@ -43,10 +44,19 @@ CASES = {
                                           ff_chunk_size=12, loss_chunk_size=40), False),
     "remat_save_attn": (2, 2, dict(impl="cuda", remat=True, remat_policy="save_attn",
                                    ff_chunk_size=20, loss_chunk_size=24), False),
+    # Ulysses over the ring of 4 (small-hk GQA: 4 heads, 2 kv heads) and the
+    # hybrid strategy on ring 2 x ulysses 2: the all-to-alls cross the
+    # processes, the gradient sums over the ulysses group too
+    "ulysses": (4, 1, dict(impl="cuda", sequence_parallel="ulysses"), False),
+    "hybrid": ((2, 2), 1, dict(impl="cuda", striped=True, sequence_parallel="hybrid"), True),
 }
 # three SGD steps: name -> (ring size, data size)
 STEP_CASES = {"steps_ring4": (4, 1), "steps_data2_ring2": (2, 2)}
 LR, CLIP, STEP_SEEDS = 0.5, 1.0, (3, 4, 5)
+# ZeRO-1: two Adam steps on data 2 x ring 2, name -> make_train_step options
+ZERO_CASES = {"zero1_plain": {}, "zero1": dict(shard_opt_state=True),
+              "zero1_offload": dict(shard_opt_state=True, offload_opt_state=True)}
+ZERO_LR = 1e-2
 # decoding: name -> (ring size, data size, quantize_cache)
 SERVE_CASES = {"serve_plain": (4, 1, False), "serve_quantized": (4, 1, True),
                "serve_data2_ring2": (2, 2, False)}
@@ -55,6 +65,13 @@ MAX_LEN, PROMPT, STEPS = 24, 10, 6
 LAYER_CASES = {"layer_ring4": (4, 1), "layer_data2_ring2": (2, 2)}
 LAYER = dict(dim=32, heads=4, dim_head=8, kv_heads=2, striped=True, auto_shard=True,
              bucket_size=4)
+
+
+def mesh_kw(ring) -> dict:
+    """``create_mesh`` arguments of a case's ring entry."""
+    if isinstance(ring, tuple):
+        return dict(ring_size=ring[0], ulysses_size=ring[1])
+    return dict(ring_size=ring)
 
 
 def _tokens(seed, b=2, n=128):
@@ -101,6 +118,21 @@ def _steps(mesh, state, summed=True, seeds=STEP_SEEDS):
         assert stats.step_ok
         losses.append(float(loss))
     return [np.asarray(losses)] + [p.detach().numpy() for p in model.parameters()]
+
+
+def _zero_steps(mesh, state, name):
+    """Two clipped Adam steps with ZERO_CASES' options: the optimizer-state
+    elements the process holds (its moments, Adam's step counts apart),
+    then every parameter."""
+    model = _model(mesh, state, impl="cuda", striped=True)
+    opt = torch.optim.Adam(model.parameters(), lr=ZERO_LR)
+    step = make_train_step(lambda t: model(t, return_loss=True), opt, clip_grad_norm=CLIP,
+                           mesh=mesh, **ZERO_CASES[name])
+    for seed in STEP_SEEDS[:2]:
+        step(torch.from_numpy(_tokens(seed)))
+    moments = sum(v.numel() for st in opt.state.values()
+                  for key, v in st.items() if key != "step")
+    return [np.asarray(moments)] + [p.detach().numpy() for p in model.parameters()]
 
 
 def _serve(mesh, state, quantize):
@@ -155,7 +187,8 @@ def _worker(rank, store_path, out_dir):
         torch.set_num_threads(1)
         dist.init_process_group("gloo", store=dist.FileStore(store_path, WORLD),
                                 rank=rank, world_size=WORLD)
-        meshes = {(4, 1): create_mesh(), (2, 2): create_mesh(ring_size=2, data_size=2)}
+        meshes = {(4, 1): create_mesh(), (2, 2): create_mesh(ring_size=2, data_size=2),
+                  ((2, 2), 1): create_mesh(ring_size=2, ulysses_size=2)}
         state = torch.load(f"{out_dir}/weights.pt")
         for name, (ring, data, _, _) in CASES.items():
             np.savez(f"{out_dir}/{name}_{rank}.npz",
@@ -164,6 +197,8 @@ def _worker(rank, store_path, out_dir):
             np.savez(f"{out_dir}/{name}_{rank}.npz", *_steps(meshes[ring, data], state))
         np.savez(f"{out_dir}/unsummed_{rank}.npz",
                  *_steps(meshes[4, 1], state, summed=False, seeds=STEP_SEEDS[:1]))
+        for name in ZERO_CASES:
+            np.savez(f"{out_dir}/{name}_{rank}.npz", *_zero_steps(meshes[2, 2], state, name))
         for name, (ring, data, quantize) in SERVE_CASES.items():
             np.savez(f"{out_dir}/{name}_{rank}.npz",
                      *_serve(meshes[ring, data], state, quantize))
