@@ -126,7 +126,18 @@ result line):
        ring bit for bit, and the fused mask model's launches (4 x 16,384)
        against the segmented B1 hop chain bit for bit; with the JAX
        launch's tables (the hops whose ids share no document visited) the
-       difference is printed. through the entry points a user calls: RingTransformer
+       difference is printed.
+   2k. the ring variants' call shapes (every rank of a causal ring of 4 at
+       n_local 4,096, contiguous and striped, bf16 and f32): the forward
+       kernel's seed, resume and fused modes and both backward kernels on
+       the bidirectional half-streams (spans of 2,048 keys, the reverse
+       stream's bands shifted by -2,048) and on the counter-rotated
+       schedule (the carry unpacked from the f32 ``[q | acc | m | l]``
+       pack), and the int8 forward fed per-stream blobs and on the
+       counter schedule (bf16), each ring function against the same
+       function with every span through its plain version (OUT_TOL and
+       RING_REL_TOL, BWD_REL_TOL, Q8_REL_TOL and Q8_LSE_TOL).
+3. The serving path through the entry points a user calls: RingTransformer
    at the full width of the repository's benchmark model (vocab 256,
    dim 512, 8 heads of 64, depth 2, ff_mult 4, rotary, causal, bf16) with
    weights from a seeded generator: logits for one 65,536-token request,
@@ -286,7 +297,27 @@ result line):
    ``offload_opt_state=True`` as well (embedding frozen): parameters
    bit-identical to the plain steps' on every process, each process holding
    half the optimizer state.
-   In phases 3 to 3p every launch counter is set to 0 just before each
+3q. The ring variants on the virtual ring of 4 (1 x 65,536, bf16), each
+   against the unidirectional ring model with the same weights: the
+   counter-rotated model (logits, loss and every gradient but the frozen
+   embedding's compared bit for bit and printed; held within
+   RING_LOGITS_REL_TOL, SP_LOSS_REL_TOL and SP_GRAD_REL_TOL), the
+   bidirectional one (the same bounds), ``ring_dkv_dtype="bfloat16"``
+   (logits and loss bit for bit, gradients within DKV_BF16_REL_TOL), the
+   counter-rotated int8 ring (the unidirectional int8 ring's logits,
+   Q8_FWD_REL_L2 from the bf16 local model) and the hybrid 2 x 2 with its
+   outer ring counter-rotated; launches per RING_SCHEDULE and
+   BIDIR_SCHEDULE.
+3r. Four gloo processes as in 3p: the counter-rotated (striped), the
+   bidirectional and the counter-rotated int8-wire models' logits bit for
+   bit against the VirtualRing mesh, each rotation's (shift, bytes) against
+   JAX's ``hop_bytes`` (``analysis/contracts.py``: the compressed KV handle
+   ``2*b*hk*chunk*(d+4)``, the f32 q pack ``4*b*h*chunk*(2d+2)``) and the
+   host staging twice those bytes; process-local batches on data 2 x ring
+   2: ``shard_batch`` of each process's row feeding ``auto_shard=False``,
+   whose block logits and parameters after one SGD step (embedding frozen)
+   equal the ``auto_shard=True`` model's bit for bit.
+   In phases 3 to 3r every launch counter is set to 0 just before each
    run and read just after; a kernel that never launched fails the run.
 4. Timings with CUDA events (median of 10 runs after warm-up): each kernel
    beside its bound (the larger of its bytes over 3.35 TB/s and its
@@ -375,6 +406,12 @@ result line):
    around every B1, B2, B3, B7 and B8 launch of one forward and one step)
    and the step's peak memory above live.  The phase prints its own
    seconds.
+4m. The counter-rotated, bidirectional and ``ring_dkv_dtype="bfloat16"``
+   models beside the scan ring of 4 at 1 x 65,536, as 4l (forward and Adam
+   step in turns, each with its B1/B2/B3 device time); one layer's
+   counter-rotated int8 ring (wire and compute) at n_local 16,384 beside
+   the unidirectional int8 ring, in turns (bench.py phase 4d's
+   counterpart).  The phase prints its own seconds.
 5. The kernels line, one JSON object with eight kernels; the forward
    kernels' entries list their ring modes; the per-shape rows of
    flash_fwd, flash_bwd_dkv and flash_bwd_dq end with phase 4f's, each
@@ -1312,6 +1349,8 @@ def _local_tier(qs, ks, vs, tables, clamp=None):
 def _chain_ring(qs, ks, vs, ring_kw, clamp=None):
     """The ``impl="cuda"`` hop chain of every rank, as
     ``parallel/ring.py::_ring_fwd_cuda`` runs it: per-rank (outs, lses)."""
+    import torch
+
     from ring_attention_tpu_torch.parallel import VirtualRing
     from ring_attention_tpu_torch.parallel import ring as pring
 
@@ -1320,7 +1359,8 @@ def _chain_ring(qs, ks, vs, ring_kw, clamp=None):
                striped=ring_kw.get("striped", False), bucket_size=None,
                passes=min(ring_kw.get("max_ring_passes") or ring_size, ring_size),
                window=ring_kw.get("window"), softclamp_value=clamp, scale=0.125,
-               compute_dtype=None, hop_compression=None)
+               compute_dtype=None, hop_compression=None, streams=[(1, 0, qs[0].shape[2])],
+               counter_rotate=False, dkv_dtype=torch.float32)
     return pring._ring_fwd_cuda(qs, ks, vs, None, None, None, VirtualRing(ring_size), cfg)
 
 
@@ -4271,9 +4311,11 @@ def _doc_ids(starts, n, b=1):
 
 
 def _ranges(ids, n_local):
-    """Each ring rank's (min, max) id, as parallel/ring.py reads them."""
+    """Each ring rank's (min, max) id, as parallel/ring.py reads them: the
+    queries' ranges and the one stream's kv ranges (the same)."""
     shards = ids[0].reshape(-1, n_local)
-    return list(zip(shards.min(1).values.tolist(), shards.max(1).values.tolist()))
+    q = list(zip(shards.min(1).values.tolist(), shards.max(1).values.tolist()))
+    return q, [q]
 
 
 def _id_tables(rank, n_local, ranges, striped=False, skip_docs=True):
@@ -5938,7 +5980,8 @@ def _knob_step(model, tokens) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     counts = _read_counts()
-    out = {"loss": loss.detach(), "grads": [p.grad.detach().clone() for p in model.parameters()],
+    out = {"loss": loss.detach(),
+           "grads": [p.grad.detach().clone() for p in model.parameters() if p.grad is not None],
            "counts": counts, "above": torch.cuda.max_memory_allocated() - base,
            "seconds": seconds}
     model.zero_grad(set_to_none=True)
@@ -6811,6 +6854,631 @@ def phase_sp_timings(sp: dict, ring: dict, serving: dict, training: dict) -> Non
     log(f"  phase 4l took {time.perf_counter() - start:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phases 2k, 3q, 3r and 4m: the ring variants (bidirectional half-streams,
+# counter-rotation, dkv_dtype) and process-local batches
+# ---------------------------------------------------------------------------
+
+VARIANT_N_LOCAL = 4096
+# Launches per layer on the contiguous causal ring of 4 (seed, resume,
+# fused_carry, dkv, dq).  The counter-rotated ring pairs the unidirectional
+# ring's blocks hop for hop: RING_SCHEDULE.  The half-streams run 8 spans a
+# rank: the forward stream's hop i on ranks >= i, the reverse stream's hop
+# 0 on every rank and hop i on ranks >= 4 - i; the last span (the reverse
+# stream's hop 3) fuses on ranks 1-3, rank 0 finalizes on the host.
+BIDIR_SCHEDULE = (4, 13, 3, 20, 20)
+# name: model fields, on the bench model on a virtual ring of 4
+VARIANT_MODELS = {
+    "counter": dict(ring_counter_rotate=True),
+    "bidirectional": dict(ring_bidirectional=True),
+    "dkv bf16": dict(ring_dkv_dtype="bfloat16"),
+}
+# dk/dv rounded to bf16 a hop: tests/test_ring.py::test_ring_dkv_bf16_circulation
+DKV_BF16_REL_TOL = 2e-2
+VARIANT_WORLD = 4
+VARIANT_JOIN_TIMEOUT_S = 480
+# phase 3r's cases on a DistributedRing of the four processes: name ->
+# model fields (held to the VirtualRing mesh's logits bit for bit)
+VARIANT_MP_CASES = {
+    "counter": dict(impl="cuda", striped=True, ring_counter_rotate=True),
+    "bidirectional": dict(impl="cuda", ring_bidirectional=True),
+    "counter int8 wire": dict(impl="cuda", ring_counter_rotate=True,
+                              ring_hop_compression="int8"),
+}
+BATCH_LR = 1e-3
+VARIANT_INT8_N = 16384
+
+
+class _PlainKernels:
+    """While active, ``parallel/ring.py``'s kernel wrappers are their plain
+    versions on the card's tensors (``flash_partials_reference``,
+    ``flash_fwd_reference``, their int8 forms under int8 compute, and
+    ``flash_bwd_reference``): the same hop schedule, each span computed by
+    the plain version, so that a ring function's result is its plain
+    version's on the same inputs."""
+
+    def __enter__(self):
+        from ring_attention_tpu_torch.ops import cuda_flash as cf
+        from ring_attention_tpu_torch.ops import cuda_flash_q8 as q8
+        from ring_attention_tpu_torch.parallel import ring as pring
+
+        def plain(fwd_q8, fwd):
+            def run(q, k, v, mask=None, *, out=None, compute_dtype=None, block_k=None,
+                    kv_quantized=None, **band):
+                if compute_dtype == "int8":
+                    res = fwd_q8(q, k, v, mask, block_k=block_k, kv_quantized=kv_quantized,
+                                 **band)
+                else:
+                    res = fwd(q, k, v, mask, **band)
+                if out is None:
+                    return res
+                for dst, src in zip(out, res):
+                    dst.copy_(src)
+                return out
+            return run
+
+        self.ring = pring
+        self.saved = {name: getattr(pring, name)
+                      for name in ("flash_partials", "flash_fwd", "flash_bwd")}
+        pring.flash_partials = plain(q8.flash_partials_q8_reference, cf.flash_partials_reference)
+        pring.flash_fwd = plain(q8.flash_fwd_q8_reference, cf.flash_fwd_reference)
+        pring.flash_bwd = cf.flash_bwd_reference
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.ring, name, fn)
+
+
+def _variant_cfg(n_local, striped, **knobs) -> dict:
+    """The ring's configuration of a causal ring of 4 on the CUDA kernels,
+    as ``ring_flash_attention`` builds it (the bench model's bucket)."""
+    import torch
+
+    cfg = dict(impl="cuda", causal=True, striped=striped,
+               bucket_size=BENCH_MODEL["bucket_size"], passes=RING_SIZE, window=None,
+               softclamp_value=None, scale=0.125, compute_dtype=None, hop_compression=None,
+               streams=[(1, 0, n_local)], counter_rotate=False, dkv_dtype=torch.float32)
+    cfg.update(knobs)
+    return cfg
+
+
+def _hold_q8(name, out, ref, lse, ref_lse, errors) -> None:
+    """An int8 ring's output and lse against its plain version (Q8_REL_TOL,
+    Q8_LSE_TOL)."""
+    rel = _rel_err(out, ref)
+    lse_err = (lse - ref_lse).abs().max().item()
+    errors.append((out.float() - ref.float()).abs().max().item())
+    log(f"  {name:<44} ||out-plain||/||plain|| {rel:.3e} (tol "
+        f"{Q8_REL_TOL['torch.bfloat16']}), max|lse-plain| {lse_err:.3e} (tol {Q8_LSE_TOL})")
+    check(rel <= Q8_REL_TOL["torch.bfloat16"] and lse_err <= Q8_LSE_TOL,
+          f"{name}: the int8 ring disagrees with its plain version")
+
+
+def phase_variants_vs_plain() -> dict:
+    """Phase 2k: the kernels on the ring variants' call shapes against
+    their plain versions, every rank of a causal ring of 4 at n_local
+    4,096, contiguous and striped, bf16 and f32: B1's seed, resume and
+    fused modes and B2/B3 on the bidirectional half-streams (spans of
+    2,048 keys, bands shifted by -2,048 on the reverse stream, its
+    wrapped hops unmasked) and on the counter-rotated schedule (the carry
+    unpacked from the f32 ``[q | acc | m | l]`` pack); B4 fed per-stream
+    blobs (the int8 wire and compute on the half-streams) and on the
+    counter schedule.  Returns the largest |kernel - plain| of B1, B2, B3
+    and B4."""
+    import torch
+
+    from ring_attention_tpu_torch.parallel import VirtualRing
+    from ring_attention_tpu_torch.parallel import ring as pring
+
+    n = VARIANT_N_LOCAL
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 70)
+    ring = VirtualRing(RING_SIZE)
+    errors: dict[str, list[float]] = {"fwd": [], "q8": []}
+    log(f"phase 2k: the ring variants' call shapes vs the plain versions, a causal ring of "
+        f"{RING_SIZE} at n_local {n}: half-streams of {n // 2} keys and the counter-rotated "
+        f"schedule")
+    schedules = {"bidirectional": dict(streams=pring._streams(True, n)),
+                 "counter": dict(counter_rotate=True)}
+    for dtype in (torch.bfloat16, torch.float32):
+        for striped in (False, True):
+            layout = "striped" if striped else "contiguous"
+            q, do = (_rand(gen, (1, 8, RING_SIZE * n, 64), dtype) for _ in range(2))
+            k, v = (_rand(gen, (1, 8, RING_SIZE * n, 64), dtype) for _ in range(2))
+            qs, ks, vs, dos = ([c.contiguous() for c in x.chunk(RING_SIZE, dim=2)]
+                               for x in (q, k, v, do))
+            for label, knobs in schedules.items():
+                cfg = _variant_cfg(n, striped, **knobs)
+                fwd = pring._counter_fwd if cfg["counter_rotate"] else pring._ring_fwd_cuda
+                outs, lses = fwd(qs, ks, vs, None, None, None, ring, cfg)
+                torch.cuda.synchronize()
+                with _PlainKernels():
+                    ref_outs, ref_lses = fwd(qs, ks, vs, None, None, None, ring, cfg)
+                _compare(f"{label} {layout} (B1)", dtype, torch.cat(outs, 2),
+                         torch.cat(ref_outs, 2), torch.cat(lses, 2), torch.cat(ref_lses, 2),
+                         errors["fwd"], rel_tol=RING_REL_TOL[str(dtype)])
+                got = pring._ring_bwd(dos, qs, ks, vs, None, None, None, outs, lses, ring, cfg)
+                torch.cuda.synchronize()
+                with _PlainKernels():
+                    ref = pring._ring_bwd(dos, qs, ks, vs, None, None, None, outs, lses, ring,
+                                          cfg)
+                _compare_bwd(f"{label} {layout} (B2, B3)", dtype,
+                             [torch.cat(x, 2) for x in got], [torch.cat(x, 2) for x in ref],
+                             errors)
+                del outs, lses, ref_outs, ref_lses, got, ref
+            if dtype != torch.bfloat16:
+                continue
+            for label, knobs in schedules.items():
+                for wire in ("int8", None):
+                    cfg = _variant_cfg(n, striped, compute_dtype="int8", hop_compression=wire,
+                                       **knobs)
+                    fwd = pring._counter_fwd if cfg["counter_rotate"] else pring._ring_fwd_cuda
+                    outs, lses = fwd(qs, ks, vs, None, None, None, ring, cfg)
+                    torch.cuda.synchronize()
+                    with _PlainKernels():
+                        ref_outs, ref_lses = fwd(qs, ks, vs, None, None, None, ring, cfg)
+                    _hold_q8(f"{label} {layout} int8, wire {wire} (B4 fed)",
+                             torch.cat(outs, 2), torch.cat(ref_outs, 2), torch.cat(lses, 2),
+                             torch.cat(ref_lses, 2), errors["q8"])
+            del q, k, v, do, qs, ks, vs, dos
+    torch.cuda.empty_cache()
+    return {label: max(errs) for label, errs in errors.items()}
+
+
+def _variant_step(model, tokens) -> dict:
+    """``_knob_step`` with the embedding frozen (its backward sums each
+    row's gradient with atomics, in no fixed order: phase 3n), so that two
+    steps can be compared bit for bit."""
+    model.embed.weight.requires_grad_(False)
+    try:
+        return _knob_step(model, tokens)
+    finally:
+        model.embed.weight.requires_grad_(True)
+
+
+def phase_variants_path(serving: dict, training: dict) -> dict:
+    """Phase 3q: the ring variants on the bench model at full width on a
+    virtual ring of 4 (1 x 65,536, bf16), each against the unidirectional
+    ring model with the same weights: the counter-rotated model (logits,
+    loss and gradients expected bit for bit: hop i runs the same launch on
+    the same blocks), the bidirectional one (within the ring's bf16
+    bounds), ``ring_dkv_dtype="bfloat16"`` (gradients within 2e-2), the
+    counter-rotated int8 ring (wire and compute: the unidirectional int8
+    ring's logits bit for bit, within Q8_FWD_REL_L2 of the bf16 local
+    model) and the hybrid 2 x 2 with its outer ring counter-rotated; exact
+    launch counts.  Returns the launches and the models (for phase 4m)."""
+    import torch
+
+    from ring_attention_tpu_torch.parallel import create_mesh
+
+    start = time.perf_counter()
+    depth = BENCH_MODEL["depth"]
+    tokens, step_tokens = serving["tokens"], training["tokens"]
+    log(f"phase 3q: the ring variants on a virtual ring of {RING_SIZE}, bench model at full "
+        f"width, bf16, 1 x {tokens.shape[1]}: {list(VARIANT_MODELS)}, the counter-rotated "
+        f"int8 ring and the counter-rotated hybrid 2 x 2, each against its unidirectional "
+        f"model with the same weights (embedding frozen in the gradient steps)")
+    launches = _counts()
+    uni = _model(torch.bfloat16, "cuda", mesh=create_mesh(ring_size=RING_SIZE), impl="cuda")
+    with torch.inference_mode():
+        ref = uni(tokens)
+    uni.train()
+    ref_step = _variant_step(uni, step_tokens)
+    again = _variant_step(uni, step_tokens)
+    uni.eval()
+    names = [name for name, p in uni.named_parameters() if name != "embed.weight"]
+    _, _, _, rerun_differ = _against(again, ref_step, names)
+    log(f"  the unidirectional ring model's step run twice: leaves that differ: "
+        f"{rerun_differ}")
+    seed, resume, fused, dkv, dq = (x * depth for x in BIDIR_SCHEDULE)
+    bidir = _counts(flash_fwd=seed + resume + fused, seed=seed, resume=resume,
+                    fused_carry=fused, flash_bwd_dkv=dkv, flash_bwd_dq=dq)
+    expected = {"counter": (_ring_counts(False, backward=False), _ring_counts(False, True)),
+                "bidirectional": ({k: v if k not in ("flash_bwd_dkv", "flash_bwd_dq") else 0
+                                   for k, v in bidir.items()}, bidir),
+                "dkv bf16": (_ring_counts(False, backward=False), _ring_counts(False, True))}
+    models = {"ring 4 (scan)": uni}
+    for name, fields in VARIANT_MODELS.items():
+        model = _model(torch.bfloat16, "cuda", mesh=create_mesh(ring_size=RING_SIZE),
+                       impl="cuda", **fields)
+        with torch.inference_mode():
+            _reset_counts()
+            logits = model(tokens)
+            torch.cuda.synchronize()
+            counts = _read_counts()
+        same = bool(torch.equal(logits, ref))
+        rel = _rel_err(logits, ref)
+        max_diff = (logits.float() - ref.float()).abs().max().item()
+        del logits
+        model.train()
+        res = _variant_step(model, step_tokens)
+        model.eval()
+        loss_rel, grad_rel, leaf, differ = _against(res, ref_step, names)
+        log(f"  {name}: forward launches {_nonzero(counts)}; logits vs the unidirectional "
+            f"ring model bit for bit {same} (||diff|| / ||ring|| {rel:.3e}, max|diff| "
+            f"{max_diff:.3e}); loss {res['loss'].item():.6f} vs {ref_step['loss'].item():.6f} "
+            f"(rel {loss_rel:.2e}), worst gradient leaf {grad_rel:.2e} ({leaf}), leaves that "
+            f"differ: {differ}; loss and backward launches {_nonzero(res['counts'])}, peak "
+            f"{res['above'] / 2**30:.3f} GiB above live")
+        for got, want in ((counts, expected[name][0]), (res["counts"], expected[name][1])):
+            check(got == want, f"{name}: launched {_nonzero(got)}, expected {_nonzero(want)}")
+            for key, c in got.items():
+                launches[key] += c
+        check(rel <= RING_LOGITS_REL_TOL, f"{name}: logits off the unidirectional ring")
+        if name == "dkv bf16":
+            check(same and loss_rel == 0.0 and grad_rel <= DKV_BF16_REL_TOL,
+                  f"{name}: gradients off the float32 accumulators' beyond {DKV_BF16_REL_TOL}")
+        else:
+            check(loss_rel <= SP_LOSS_REL_TOL and grad_rel <= SP_GRAD_REL_TOL,
+                  f"{name}: loss or gradients off the unidirectional ring")
+        models[name] = model
+        del res
+    torch.cuda.empty_cache()
+    # the counter-rotated int8 ring (JAX counter_q8): every hop's B4 fed the
+    # payload's bytes, the carry travelling in the f32 pack
+    q8 = {counter: _int8_ring_model("q8", ring_counter_rotate=counter)
+          for counter in (False, True)}
+    seed, resume, fused, _, _ = (x * depth for x in RING_SCHEDULE[False])
+    want = _counts(flash_fwd_q8=seed + resume + fused, q8_seed=seed, q8_resume=resume,
+                   q8_fused_carry=fused, feed_flash_fwd_q8=seed + resume + fused)
+    with torch.inference_mode():
+        # a fresh local model: phase 4l's timed Adam steps moved the serving model's weights
+        local = _model(torch.bfloat16, "cuda")(tokens)
+        q8_logits = {}
+        for counter, model in q8.items():
+            _reset_counts()
+            q8_logits[counter] = model(tokens)
+            torch.cuda.synchronize()
+            counts = _read_counts()
+            check(counts == want, f"int8 ring, counter-rotated {counter}: launched "
+                  f"{_nonzero(counts)}, expected {_nonzero(want)}")
+            for key, c in counts.items():
+                launches[key] += c
+    same = bool(torch.equal(q8_logits[True], q8_logits[False]))
+    rel = _rel_err(q8_logits[True], local)
+    log(f"  counter int8 ring (ring_hop_compression='int8', compute_dtype='int8'): launches "
+        f"{_nonzero(counts)} (as the unidirectional int8 ring's); logits bit for bit the "
+        f"unidirectional int8 ring's {same} (||diff|| / ||ring|| "
+        f"{_rel_err(q8_logits[True], q8_logits[False]):.3e}); vs the bf16 local model "
+        f"{rel:.3e} (tol {Q8_FWD_REL_L2})")
+    check(rel <= Q8_FWD_REL_L2, "counter int8 ring logits off the bf16 local model")
+    check(_rel_err(q8_logits[True], q8_logits[False]) <= RING_LOGITS_REL_TOL,
+          "counter int8 ring logits off the unidirectional int8 ring")
+    del q8, q8_logits, local
+    # the hybrid's outer ring counter-rotated
+    hybrid = {counter: _model(torch.bfloat16, "cuda", mesh=create_mesh(**SP_HYBRID),
+                              sequence_parallel="hybrid", impl="cuda",
+                              ring_counter_rotate=counter) for counter in (False, True)}
+    want = _sp_counts("hybrid 2x2", backward=False)
+    with torch.inference_mode():
+        hyb_logits = {}
+        for counter, model in hybrid.items():
+            _reset_counts()
+            hyb_logits[counter] = model(tokens)
+            torch.cuda.synchronize()
+            counts = _read_counts()
+            check(counts == want, f"hybrid, counter-rotated {counter}: launched "
+                  f"{_nonzero(counts)}, expected {_nonzero(want)}")
+            for key, c in counts.items():
+                launches[key] += c
+    same = bool(torch.equal(hyb_logits[True], hyb_logits[False]))
+    log(f"  hybrid 2x2 with its outer ring counter-rotated: launches {_nonzero(counts)}; "
+        f"logits bit for bit the hybrid's {same} (||diff|| / ||hybrid|| "
+        f"{_rel_err(hyb_logits[True], hyb_logits[False]):.3e})")
+    check(_rel_err(hyb_logits[True], hyb_logits[False]) <= RING_LOGITS_REL_TOL,
+          "counter hybrid logits off the hybrid's")
+    del hybrid, hyb_logits
+    torch.cuda.empty_cache()
+    log(f"  phase 3q took {time.perf_counter() - start:.1f} s")
+    return {"launches": launches, "models": models}
+
+
+def _recording_rotations(ring) -> list:
+    """Record, on ``ring`` (a DistributedRing), each rotation's shift and
+    the bytes of the payload it sends; returns the record."""
+    record = []
+    rotate = ring.rotate
+
+    def recorded(payloads, shift):
+        record.append((shift, sum(x.numel() * x.element_size() for x in payloads[0])))
+        return rotate(payloads, shift)
+
+    ring.rotate = recorded
+    return record
+
+
+def _variant_mp_case(name: str, mesh, out_dir: str, tag) -> dict:
+    """VARIANT_MP_CASES[name]'s model on ``mesh``: the forward's launches,
+    digest, ms, each rotation (shift, bytes) and the bytes staged through
+    the host; rank 0 and the reference save their logits."""
+    import torch
+
+    model = _model(torch.bfloat16, "cuda", mesh=mesh, **VARIANT_MP_CASES[name])
+    tokens = _mp_tokens((1, SP_SEQ), 70)
+    record = [] if tag == "ref" else _recording_rotations(mesh.ring)
+    res = {}
+    with torch.inference_mode():
+        staged = _sp_staged(mesh)
+        logits, res["forward"] = _mp_timed(lambda: model(tokens), mesh)
+        calls = 1 + MP_TIMED_CALLS
+        res["forward"]["rotations"] = record[:len(record) // calls]
+        res["forward"]["staged"] = {op: [(a - b) // calls for a, b in zip(n, staged[op])]
+                                    for op, n in _sp_staged(mesh).items()}
+        res["forward"]["digest"] = _mp_digest(logits)
+        if tag in (0, "ref"):
+            torch.save(logits.cpu(), f"{out_dir}/var_{name}_{tag}_logits.pt")
+    if tag != "ref":
+        del mesh.ring.rotate
+    del model, logits
+    torch.cuda.empty_cache()
+    return res
+
+
+def _batch_case(mesh, rank: int) -> dict:
+    """Process-local batches on data 2 x ring 2 (2 x 32,768 tokens): one SGD
+    step of the model with ``auto_shard=True`` on the global batch and one
+    with ``auto_shard=False`` on ``shard_batch`` of this process's row (its
+    seq block and one token of overlap), from the same weights (embedding
+    frozen): each one's parameter digest, whether they are equal bit for
+    bit, the block's logits against the global ones', the losses and the
+    launches."""
+    import torch
+
+    from ring_attention_tpu_torch import make_train_step
+    from ring_attention_tpu_torch.parallel import shard_batch
+
+    tokens = _mp_tokens((2, SP_SEQ // 2 + 1), 71)
+    row = tokens[mesh.data_rank:mesh.data_rank + 1]
+    part = shard_batch(row, mesh, overlap=1)
+    out, flats = {"part_shape": list(part.shape)}, {}
+    for auto in (True, False):
+        model = _model(torch.bfloat16, "cuda", mesh=mesh, impl="cuda", auto_shard=auto).train()
+        model.embed.weight.requires_grad_(False)
+        with torch.inference_mode():
+            logits = model(tokens[:, :-1] if auto else part[:, :-1])
+        if auto:
+            logits = shard_batch(logits[mesh.data_rank:mesh.data_rank + 1], mesh)
+        opt = torch.optim.SGD([p for p in model.parameters() if p.requires_grad], lr=BATCH_LR)
+        step = make_train_step(lambda t, m=model: m(t, return_loss=True), opt, mesh=mesh)
+        _reset_counts()
+        loss = float(step(tokens if auto else part))
+        torch.cuda.synchronize()
+        tag = "auto" if auto else "local"
+        flats[tag] = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+        out[tag] = {"digest": _mp_digest(flats[tag]), "loss": loss, "counts": _read_counts(),
+                    "logits_digest": _mp_digest(logits)}
+        del model, opt, step, logits
+        torch.cuda.empty_cache()
+    out["equal"] = bool(torch.equal(flats["auto"], flats["local"]))
+    return out
+
+
+def _variant_worker(rank: int, store_path: str, out_dir: str) -> None:
+    """One process of phase 3r: the variants on the ring of 4, then the
+    process-local batches on data 2 x ring 2; results to ``var<rank>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from ring_attention_tpu_torch.parallel import create_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, VARIANT_WORLD),
+                            rank=rank, world_size=VARIANT_WORLD)
+    meshes = {"ring": create_mesh(), "batch": create_mesh(ring_size=2, data_size=2)}
+    results = {name: _variant_mp_case(name, meshes["ring"], out_dir, rank)
+               for name in VARIANT_MP_CASES}
+    results["batch"] = _batch_case(meshes["batch"], rank)
+    with open(f"{out_dir}/var{rank}.json", "w") as f:
+        json.dump(results, f)
+    dist.destroy_process_group()
+
+
+def _hop_bytes(b, h, hk, chunk, d) -> dict:
+    """JAX's ``hop_bytes`` of the counter-rotated ring with the int8 wire
+    (``analysis/contracts.py:80-175``): the compressed KV handle and the
+    f32 q pack; beside them the f32 ``[out | lse]`` catch-up."""
+    return {"kv handle": 2 * b * hk * chunk * (d + 4), "q pack": 4 * b * h * chunk * (2 * d + 2),
+            "catch-up": 4 * b * h * chunk * (d + 1)}
+
+
+def phase_variants_processes() -> dict:
+    """Phase 3r: the counter-rotated and bidirectional models on four gloo
+    processes sharing this card (a DistributedRing of 4), their logits held
+    to the VirtualRing mesh's bit for bit, each rotation's bytes to JAX's
+    ``hop_bytes``; then process-local batches (``shard_batch`` feeding
+    ``auto_shard=False``) on data 2 x ring 2, the parameters after a step
+    held to the ``auto_shard=True`` step's bit for bit.  Returns the
+    processes' launches."""
+    import multiprocessing
+    import tempfile
+
+    import torch
+
+    from ring_attention_tpu_torch.parallel import create_mesh
+
+    start = time.perf_counter()
+    log(f"phase 3r: {list(VARIANT_MP_CASES)} on {VARIANT_WORLD} gloo processes (spawn, every "
+        f"process on this card), bench model at full width, bf16, 1 x {SP_SEQ}; then "
+        f"process-local batches on data 2 x ring 2")
+    launches = _counts()
+    with tempfile.TemporaryDirectory() as out_dir:
+        refs = {name: _variant_mp_case(name, create_mesh(ring_size=VARIANT_WORLD), out_dir,
+                                       "ref") for name in VARIANT_MP_CASES}
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_variant_worker, args=(r, f"{out_dir}/var_store", out_dir))
+                 for r in range(VARIANT_WORLD)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + VARIANT_JOIN_TIMEOUT_S
+        try:
+            for p in procs:
+                p.join(max(0.0, deadline - time.monotonic()))
+            hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(10)
+        check(not hung, f"phase 3r: ranks {hung} still running after {VARIANT_JOIN_TIMEOUT_S} s")
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * VARIANT_WORLD, f"phase 3r: the processes exited with {codes}")
+        got = []
+        for r in range(VARIANT_WORLD):
+            with open(f"{out_dir}/var{r}.json") as f:
+                got.append(json.load(f))
+        chunk = SP_SEQ // VARIANT_WORLD
+        formulas = _hop_bytes(1, BENCH_MODEL["heads"], BENCH_MODEL["heads"], chunk,
+                              BENCH_MODEL["dim_head"])
+        # a half-stream's k and v halves, bf16 (the bench model has no GQA)
+        half_kv = 2 * BENCH_MODEL["heads"] * (chunk // 2) * BENCH_MODEL["dim_head"] * 2
+        for name, ref in refs.items():
+            rows = [g[name]["forward"] for g in got]
+            summed = {k: sum(r["counts"][k] for r in rows) for k in COUNTERS}
+            for k, v in summed.items():
+                launches[k] += v
+            logits = torch.load(f"{out_dir}/var_{name}_0_logits.pt")
+            ref_logits = torch.load(f"{out_dir}/var_{name}_ref_logits.pt")
+            same = bool(torch.equal(logits, ref_logits))
+            digests = {r["digest"] for r in rows}
+            rotations = rows[0]["rotations"]
+            staged = rows[0]["staged"]["rotate"]
+            sent = sum(nbytes for _, nbytes in rotations)
+            log(f"  {name}: launches summed over the processes {_nonzero(summed)} (the "
+                f"VirtualRing mesh's {_nonzero(ref['forward']['counts'])}); logits one digest "
+                f"on every process {len(digests) == 1}, bit-identical to the VirtualRing "
+                f"mesh's {same} (||diff|| / ||ref|| {_rel_err(logits, ref_logits):.3e}); rank "
+                f"0's rotations in one forward (shift, bytes) {rotations}; staged through the "
+                f"host (calls, bytes) {staged} (twice the bytes sent {2 * sent}); forward ms "
+                f"{[round(r['ms'], 1) for r in rows]} (VirtualRing {ref['forward']['ms']:.1f})")
+            check(summed == ref["forward"]["counts"], f"{name}: the processes launched "
+                  f"{_nonzero(summed)}, the VirtualRing mesh {_nonzero(ref['forward']['counts'])}")
+            check(len(digests) == 1 and same, f"{name}: logits on the processes differ from "
+                  "the VirtualRing mesh's")
+            check(staged[1] == 2 * sent, f"{name}: staged {staged[1]} B for {sent} B sent")
+            depth = BENCH_MODEL["depth"]
+            if name == "counter int8 wire":
+                want = [(-1, formulas["q pack"]), (1, formulas["kv handle"]),
+                        (-1, formulas["q pack"]), (2, formulas["catch-up"])] * depth
+                log(f"    JAX hop_bytes (analysis/contracts.py counter_compressed): kv handle "
+                    f"2*b*hk*chunk*(d+4) = {formulas['kv handle']}, q pack "
+                    f"4*b*h*chunk*(2d+2) = {formulas['q pack']}; the [out | lse] catch-up "
+                    f"4*b*h*chunk*(d+1) = {formulas['catch-up']}")
+                check([tuple(x) for x in rotations] == want,
+                      f"{name}: rotations {rotations}, expected {want}")
+            elif name == "bidirectional":
+                want = [(1, half_kv), (-1, half_kv)] * (VARIANT_WORLD - 1) * depth
+                check([tuple(x) for x in rotations] == want,
+                      f"{name}: rotations {rotations}, expected {want}")
+        batch = [g["batch"] for g in got]
+        for row in batch:
+            for tag in ("auto", "local"):
+                for k, v in row[tag]["counts"].items():
+                    launches[k] += v
+        digests = {row[tag]["digest"] for row in batch for tag in ("auto", "local")}
+        losses = [(row["auto"]["loss"], row["local"]["loss"]) for row in batch]
+        log(f"  process-local batches (data 2 x ring 2, 2 x {SP_SEQ // 2} tokens): each "
+            f"process's shard_batch part {[row['part_shape'] for row in batch]}; after one SGD "
+            f"step the auto_shard=False parameters equal the auto_shard=True ones bit for bit "
+            f"{[row['equal'] for row in batch]}, one digest on every process "
+            f"{len(digests) == 1}; block logits equal the global logits' block "
+            f"{[row['auto']['logits_digest'] == row['local']['logits_digest'] for row in batch]}; "
+            f"losses (auto, local) {losses}")
+        check(all(row["equal"] for row in batch) and len(digests) == 1,
+              "process-local batches: the parameters differ from the auto_shard=True step's")
+        check(all(row["auto"]["logits_digest"] == row["local"]["logits_digest"]
+                  for row in batch), "process-local batches: block logits differ")
+    log(f"  phase 3r took {time.perf_counter() - start:.1f} s")
+    return {"launches": launches}
+
+
+def phase_variants_timings(variants: dict, serving: dict, training: dict) -> None:
+    """Phase 4m: the forward (CUDA events, in turns) and the Adam step (host
+    clock around synchronized steps, in turns) at 1 x 65,536 of the
+    counter-rotated, bidirectional and ``ring_dkv_dtype="bfloat16"`` models
+    beside the unidirectional scan ring, each with its attention kernels'
+    device time (CUDA events around every B1, B2 and B3 launch of one
+    forward and one step); then one layer's counter-rotated int8 ring
+    (wire and compute) at n_local 16,384 beside the unidirectional int8
+    ring (bench.py phase 4d's counterpart), in turns."""
+    import torch
+
+    from ring_attention_tpu_torch.parallel import VirtualRing, ring_flash_attention
+
+    start = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    log(f"phase 4m: the ring variants beside the scan ring of {RING_SIZE}, 1 x {SP_SEQ}, bf16 "
+        f"({smi}); forward: CUDA events, median of 10 after 2 warm-up, in turns; Adam step: "
+        f"host clock around synchronized steps, one warm-up each, then in turns")
+    tokens, step_tokens = serving["tokens"], training["tokens"]
+    models = variants["models"]
+    for model in models.values():
+        model.eval()
+
+    def forward(m):
+        def run():
+            with torch.inference_mode():
+                m(tokens)
+        return run
+
+    fwd_ms = _time_turns({name: forward(m) for name, m in models.items()})
+    kernel_fwd = {}
+    for name, model in models.items():
+        with _KernelClock() as clock, torch.inference_mode():
+            model(tokens)
+        kernel_fwd[name] = clock.ms()
+    for model in models.values():
+        model.train()
+    names = list(models)
+    steps = _time_knob_steps(models, step_tokens, 2 * (names + names[::-1]))
+    kernel_step = {}
+    from ring_attention_tpu_torch import make_train_step
+
+    for name, model in models.items():
+        opt = torch.optim.SGD(model.parameters(), lr=0.0)
+        step = make_train_step(lambda t, m=model: m(t, return_loss=True), opt)
+        with _KernelClock() as clock:
+            step(step_tokens)
+        kernel_step[name] = clock.ms()
+    for name in models:
+        row = steps[name]
+        step_ms = statistics.median(row["ms"])
+        log(f"  {name}: forward {fwd_ms[name]:.3f} ms ({SP_SEQ / fwd_ms[name] * 1e3:.0f} "
+            f"tokens/s), its B1 launches {kernel_fwd[name]:.3f} ms of it "
+            f"({kernel_fwd[name] / fwd_ms[name]:.1%}); Adam step {step_ms:.1f} ms (median of "
+            f"{len(row['ms'])}: {[round(x, 1) for x in row['ms']]}), its B1/B2/B3 launches "
+            f"{kernel_step[name]:.3f} ms ({kernel_step[name] / step_ms:.1%}), peak "
+            f"{row['above'] / 2**30:.3f} GiB above live; step launches {_nonzero(row['counts'])}")
+    for model in models.values():
+        model.eval()
+    # one layer's int8 ring at n_local 16,384: counter-rotated and not
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 72)
+    q, k, v = (_rand(gen, (1, 8, RING_SIZE * VARIANT_INT8_N, 64), torch.bfloat16)
+               for _ in range(3))
+    kw = dict(causal=True, impl="cuda", hop_compression="int8", compute_dtype="int8",
+              bucket_size=BENCH_MODEL["bucket_size"])
+
+    def layer(counter):
+        def run():
+            with torch.inference_mode():
+                ring_flash_attention(q, k, v, None, VirtualRing(RING_SIZE),
+                                     counter_rotate=counter, **kw)
+        return run
+
+    with torch.inference_mode():
+        a = ring_flash_attention(q, k, v, None, VirtualRing(RING_SIZE), counter_rotate=True, **kw)
+        b = ring_flash_attention(q, k, v, None, VirtualRing(RING_SIZE), **kw)
+    same = bool(torch.equal(a, b))
+    del a, b
+    ms = _time_turns({"int8 ring": layer(False), "counter int8 ring": layer(True)})
+    log(f"  one layer's int8 ring (wire and compute), causal, 4 x {VARIANT_INT8_N}: "
+        f"counter-rotated {ms['counter int8 ring']:.3f} ms, unidirectional "
+        f"{ms['int8 ring']:.3f} ms ({ms['counter int8 ring'] / ms['int8 ring']:.3f}x); outputs "
+        f"bit-identical {same}")
+    check(same, "the counter-rotated int8 layer differs from the unidirectional one")
+    log(f"  phase 4m took {time.perf_counter() - start:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -6841,6 +7509,7 @@ def main() -> int:
     mesh_err = phase_mesh_kernels_vs_plain()
     doc_err = phase_doc_tables_vs_plain()
     int8_err = phase_int8_ring_vs_plain()
+    variant_err = phase_variants_vs_plain()
     serving = phase_serving_path()
     training = phase_training_path()
     ring = phase_ring_path(serving, training)
@@ -6874,6 +7543,13 @@ def main() -> int:
     sp_mp = phase_sp_processes()["launches"]
     phase_sp_timings(sp, ring, serving, training)
     sp_launches = {name: sp["launches"][name] + sp_mp[name] for name in COUNTERS}
+    # phases 3q, 3r and 4m: the ring variants and process-local batches (B1,
+    # B2, B3; B4 in the counter-rotated int8 ring), added to the hybrid's
+    variants = phase_variants_path(serving, training)
+    variants_mp = phase_variants_processes()["launches"]
+    phase_variants_timings(variants, serving, training)
+    sp_launches = {name: sp_launches[name] + variants["launches"][name] + variants_mp[name]
+                   for name in COUNTERS}
     # the main paths' launches of this slice: the zig-zag model, config 3,
     # config 5's tree decode and the serving path on the ring
     mesh_launches = {name: zigzag["launches"][name] + config3["launches"][name]
@@ -6898,6 +7574,7 @@ def main() -> int:
          + int8_launches["flash_fwd"] + mp_launches["flash_fwd"]
          + knob_launches["flash_fwd"] + sp_launches["flash_fwd"],
          max(max_err, *mode_err.values(), mesh_err["fwd"], config3["fwd_err"],
+             variant_err["fwd"],
              *(seg_err[m] for m in ("fused", "seed", "resume", "fused_carry")),
              *(doc_err[m] for m in ("fused", "seed", "resume", "fused_carry"))),
          rows + seg_rows["flash_fwd"] + doc_rows["flash_fwd"]),
@@ -6911,19 +7588,22 @@ def main() -> int:
          + packed_launches["flash_bwd_dkv"] + mesh_launches["flash_bwd_dkv"]
          + doc_launches["flash_bwd_dkv"] + knob_launches["flash_bwd_dkv"],
          max(bwd_err["dk"], bwd_err["dv"], seg_err["dk"], seg_err["dv"], mesh_err["dk"],
-             mesh_err["dv"], config3["dk"], config3["dv"], doc_err["dk"], doc_err["dv"]),
+             mesh_err["dv"], config3["dk"], config3["dv"], doc_err["dk"], doc_err["dv"],
+             variant_err["dk"], variant_err["dv"]),
          bwd_rows["flash_bwd_dkv"] + seg_rows["flash_bwd_dkv"] + doc_rows["flash_bwd_dkv"]),
         ("flash_bwd_dq", "flash_bwd.cu", f"{flash}:2186",
          training["launches"]["flash_bwd_dq"] + ring_launches["flash_bwd_dq"]
          + fused_launches["flash_bwd_dq"] + q8_launches["flash_bwd_dq"]
          + packed_launches["flash_bwd_dq"] + mesh_launches["flash_bwd_dq"]
          + doc_launches["flash_bwd_dq"] + knob_launches["flash_bwd_dq"],
-         max(bwd_err["dq"], seg_err["dq"], mesh_err["dq"], config3["dq"], doc_err["dq"]),
+         max(bwd_err["dq"], seg_err["dq"], mesh_err["dq"], config3["dq"], doc_err["dq"],
+             variant_err["dq"]),
          bwd_rows["flash_bwd_dq"] + seg_rows["flash_bwd_dq"] + doc_rows["flash_bwd_dq"]),
         ("flash_fwd_q8", "flash_fwd_q8.cu", f"{flash}:1174",
          q8_launches["flash_fwd_q8"] + knob_launches["flash_fwd_q8"],
          max(*(q8_err[m] for m in ("fused", "seed", "resume", "fused_carry")),
-             int8_err["seg"], int8_err["docs"], int8_err["feed"]), q8_rows["fwd"]),
+             int8_err["seg"], int8_err["docs"], int8_err["feed"], variant_err["q8"]),
+         q8_rows["fwd"]),
         ("flash_decode_q8", "flash_decode_q8.cu", f"{flash}:1585",
          q8_launches["flash_decode_q8"] + mesh_launches["flash_decode_q8"]
          + knob_launches["flash_decode_q8"],

@@ -25,7 +25,10 @@ ranks' decode-kernel partials merged by ``tree_attn_decode``), and the
 model over a mesh of processes (``create_mesh`` over an initialized
 process group: each process holds one rank of its row's
 ``DistributedRing`` and one data row, cut from the same global batch;
-``make_train_step(mesh=)`` sums the gradients over the whole mesh), and
+``make_train_step(mesh=)`` sums the gradients over the whole mesh; with
+``auto_shard=False`` each process passes its own part, ``shard_batch``),
+the ring variants (``bidirectional`` half-streams, TokenRing
+``counter_rotate``, ``dkv_dtype``) and the ragged-batch helpers, and
 the memory knobs (``remat`` with its ``remat_policy`` registry,
 ``ff_chunk_size``, ``loss_chunk_size``, ``windowed_cache``,
 ``make_train_step(offload_opt_state=True)``).  Entry points run on the CUDA device unless the caller passes ``device="cpu"``;
@@ -90,6 +93,7 @@ from .parallel import (
     create_mesh,
     mesh_all_reduce,
     ring_flash_attention,
+    shard_batch,
     tree_attn_decode,
     zigzag_attention,
     zigzag_permute,
@@ -162,6 +166,7 @@ __all__ = [
     "rotary_freqs",
     "rotate_half",
     "segments_overlap",
+    "shard_batch",
     "softclamp",
     "tree_attn_decode",
     "zigzag_attention",

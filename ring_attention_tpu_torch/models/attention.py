@@ -34,7 +34,12 @@ entry and circulates the int8 bytes (``parallel/ring.py``); with
 ``compute_dtype="int8"`` every hop's int8 sweep reads them with no
 dequantize/requantize round trip (the dequant-free ring), and under
 ``"fused"`` the whole ring is one launch of the int8 remote tier where
-there is no key mask and no ids.
+there is no key mask and no ids.  The ring variants pass to every ring
+leg (the ring, the hybrid's outer ring, the ring prefill):
+``ring_bidirectional`` (an odd shard warns and runs unidirectional, JAX
+``_bidirectional``), ``ring_counter_rotate`` (under ``impl="fused"`` the
+ring runs the scan-path ``"cuda"`` ring, JAX ``_kernel_impl``) and
+``ring_dkv_dtype``.
 
 On a mesh whose sequence world is above one the forward runs
 ``parallel/ring.py::ring_flash_attention`` with each rank's rotary
@@ -79,13 +84,14 @@ ring over the prompt in the contiguous layout (``_ring_prefill_attend``)
 and ``decode_step`` keeps the cache sharded contiguously over the ranks,
 one tensor per rank's shard that the kernels read in place, merging each rank's partials by tree attention
 (``parallel/tree_decode.py``); on a factored mesh prefill and decode raise
-``NotImplementedError``, as in JAX.  Features not ported yet raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+``NotImplementedError``, as in JAX.  ``impl="auto"``, not ported yet,
+raises ``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 
 import torch
 from torch import nn
@@ -132,25 +138,10 @@ from ..parallel.sharding import (
 from ..utils.validate import check_model_input
 from .layers import Dense, RMSNorm, resolve_device
 
-# Where each feature that is not ported yet will come from (ROADMAP.md).
-UNPORTED = {
-    "ring_bidirectional": "the ring variants, ROADMAP.md Port queue item 7e",
-    "ring_counter_rotate": "the ring variants, ROADMAP.md Port queue item 7e",
-    "ring_dkv_dtype": "the ring variants, ROADMAP.md Port queue item 7e",
-}
 IMPLS = ("cuda", "torch", "fused")
 UNPORTED_IMPLS = {
     "auto": "the degradation runtime (utils/resilience.py), ROADMAP.md Port queue item 7f",
 }
-
-
-def reject_unported(fn: str, **settings) -> None:
-    """Raise for any setting that asks for a feature not ported yet."""
-    for name, value in settings.items():
-        if value is not None and value is not False:
-            raise NotImplementedError(
-                f"{fn}: {name}= is not ported yet; it arrives with {UNPORTED[name]}"
-            )
 
 
 def mask_form(fn: str, mask, causal: bool, lookback) -> mask_algebra.KernelForm | None:
@@ -343,10 +334,6 @@ class RingAttention(nn.Module):
         ring_dkv_dtype: str | None = None,
     ):
         super().__init__()
-        reject_unported("RingAttention",
-                        ring_bidirectional=ring_bidirectional,
-                        ring_counter_rotate=ring_counter_rotate,
-                        ring_dkv_dtype=ring_dkv_dtype)
         check_hop_compression("RingAttention", ring_hop_compression)
         form = mask_form("RingAttention", mask, causal, max_lookback_seq_len)
         if form is not None:
@@ -383,6 +370,9 @@ class RingAttention(nn.Module):
         self.quantize_cache = quantize_cache
         self.compute_dtype = compute_dtype
         self.ring_hop_compression = ring_hop_compression
+        self.ring_bidirectional = ring_bidirectional
+        self.ring_counter_rotate = ring_counter_rotate
+        self.ring_dkv_dtype = ring_dkv_dtype
         self.mask = mask
         self.doc_starts = None if form is None else form.doc_starts
         self.needs_segment_ids = form is not None and form.needs_segment_ids
@@ -409,6 +399,35 @@ class RingAttention(nn.Module):
         """The kernel path of every call but the ring's forward: ``"fused"``
         runs as ``"cuda"`` there (JAX ``_use_pallas``)."""
         return "cuda" if self.impl == "fused" else self.impl
+
+    @property
+    def _ring_impl(self) -> str:
+        """The ring's kernel path: ``impl``, but ``"fused"`` runs the
+        scan-path ``"cuda"`` ring under ``ring_counter_rotate``, whose
+        alternating schedule has no fused form (JAX ``_kernel_impl``)."""
+        if self.impl == "fused" and self.ring_counter_rotate:
+            return "cuda"
+        return self.impl
+
+    def _bidirectional(self, n_local: int) -> bool:
+        """Bidirectional streams need an even shard: on an odd one warn and
+        run the unidirectional ring, so that a benchmark is not misread
+        (JAX ``_bidirectional``)."""
+        if self.ring_bidirectional and n_local % 2:
+            warnings.warn(
+                f"ring_bidirectional requested but the per-device sequence length "
+                f"({n_local}) is odd; running the unidirectional ring",
+                stacklevel=3,
+            )
+            return False
+        return self.ring_bidirectional
+
+    def _ring_knobs(self, n_local: int) -> dict:
+        """The ring variants' keywords for shards of ``n_local``, as every
+        ring leg passes them (JAX :603-627, :646-667, :899-914)."""
+        return dict(bidirectional=self._bidirectional(n_local), dkv_dtype=self.ring_dkv_dtype,
+                    counter_rotate=self.ring_counter_rotate,
+                    hop_compression=self.ring_hop_compression)
 
     def _project_qkv(self, x: torch.Tensor):
         """prenorm + fused qkv -> heads-major (b, h|hk, n, dh)."""
@@ -533,9 +552,9 @@ class RingAttention(nn.Module):
             q, k = self._rotate(q, k, pos)
         return ring_flash_attention(
             q, k, v, mask, ring, self.causal, self.striped, bucket,
-            max_ring_passes, window, self.softclamp_value, None, self.impl,
+            max_ring_passes, window, self.softclamp_value, None, self._ring_impl,
             segment_ids=segment_ids, compute_dtype=self.compute_dtype,
-            hop_compression=self.ring_hop_compression,
+            **self._ring_knobs(n_local),
         )
 
     def _held_shard(self, n: int, count: int) -> int:
@@ -586,8 +605,9 @@ class RingAttention(nn.Module):
         return hybrid_attention(
             q, k, v, mask, uring, ring, causal=self.causal, striped=self.striped,
             bucket_size=bucket, max_ring_passes=max_ring_passes, window=window,
-            softclamp_value=self.softclamp_value, impl=self.impl, segment_ids=segment_ids,
-            hop_compression=self.ring_hop_compression, compute_dtype=self.compute_dtype,
+            softclamp_value=self.softclamp_value, impl=self._ring_impl,
+            segment_ids=segment_ids, compute_dtype=self.compute_dtype,
+            **self._ring_knobs(u * n_local),
         )
 
     def _zigzag_attend(self, q, k, v, mask, segment_ids=None):
@@ -870,8 +890,9 @@ class RingAttention(nn.Module):
         """The ring over the prompt's blocks of ``n_local`` in the contiguous
         (cache) layout, whatever ``striped`` and ``sequence_parallel`` say
         (JAX ``_ring_prefill_attend``, :872-927); rotary is applied.  Runs
-        ``impl`` as it stands (``"fused"`` takes the fused ring) and
-        ``ring_hop_compression``, as JAX does, and never int8 compute."""
+        ``impl`` as it stands (``"fused"`` takes the fused ring, but the
+        scan ring under ``ring_counter_rotate``) and the ring variants, as
+        JAX does, and never int8 compute."""
         bucket = _fit_divisor(self.bucket_size, n_local)
         window = self.max_lookback_seq_len
         max_ring_passes = None
@@ -879,6 +900,5 @@ class RingAttention(nn.Module):
             max_ring_passes = math.ceil((window - 1) / n_local) + 1
         return ring_flash_attention(
             q, k, v, None, self.mesh.ring, True, False, bucket, max_ring_passes,
-            window, self.softclamp_value, None, self.impl,
-            hop_compression=self.ring_hop_compression,
+            window, self.softclamp_value, None, self._ring_impl, **self._ring_knobs(n_local),
         )

@@ -10,7 +10,9 @@ memory knobs (``remat`` with the ``remat_policy`` registry of
 ``models/remat.py``, ``ff_chunk_size``, ``loss_chunk_size``,
 ``windowed_cache``), the int8 knobs ``quantize_cache``,
 ``compute_dtype="int8"`` and the ring's int8 wire
-``ring_hop_compression="int8"`` of ``models/attention.py``.  On a
+``ring_hop_compression="int8"`` of ``models/attention.py``, and the ring
+variants ``ring_bidirectional``, ``ring_counter_rotate`` and
+``ring_dkv_dtype``, passed to every layer.  On a
 ``mesh`` the model shards once at its top (pad, stripe when ``striped``)
 and every layer runs the ring on that layout, hop by hop under
 ``impl="cuda"`` or fused under ``"fused"`` (one launch for the whole
@@ -38,7 +40,12 @@ every process passes the same global tokens, ids and masks, as the JAX
 model takes global arrays: the model pads and permutes them, keeps this
 process's data rows and seq block (``parallel/sharding.py::shard_cut``,
 the ``NamedSharding(P(data, seq))`` of the JAX model top; its combined
-rank's block on a factored mesh) and runs the layers on that shard.  ``forward`` returns the global logits on every
+rank's block on a factored mesh) and runs the layers on that shard.  With
+``auto_shard=False`` each process passes only its part instead
+(process-local batches, ``parallel/mesh.py::shard_batch``): its rows and
+its block, padded and in the ring's layout (with ``return_loss`` one token
+more, the label of the block's last position), and gets that block's
+logits; its loss is the mesh's, as with ``auto_shard``.  ``forward`` returns the global logits on every
 process (``shard_gather``); ``return_loss`` the global mean loss, the same
 value on every process, whose gradient is this process's share: the nll
 of its own positions over the mesh's valid count.  The train step sums
@@ -77,7 +84,6 @@ from .attention import (
     check_mesh,
     check_zigzag,
     mask_form,
-    reject_unported,
     resolve_impl,
 )
 from .layers import Dense, Embed, FeedForward, RMSNorm, resolve_device
@@ -144,8 +150,8 @@ class RingTransformer(nn.Module):
     (``parallel/mesh.py::create_mesh``) runs every layer's attention on the
     ring, in the ``striped`` layout when set, in this process or over the
     mesh's processes.  ``auto_shard=False`` takes tokens already padded and
-    in the ring's layout and returns logits in it (one process only: a
-    process mesh with process-local batches is not ported);
+    in the ring's layout and returns logits in it (on a mesh of processes,
+    this process's rows and block: ``shard_batch``);
     ``use_ring=False`` or ``force_regular_attn`` run every layer locally
     (see ``RingAttention``), ``use_pallas`` selects ``impl`` when that is
     None; ``pallas_head_chunks`` has no CUDA counterpart.  The memory
@@ -200,12 +206,6 @@ class RingTransformer(nn.Module):
         ring_dkv_dtype: str | None = None,
     ):
         super().__init__()
-        reject_unported(
-            "RingTransformer",
-            ring_bidirectional=ring_bidirectional,
-            ring_counter_rotate=ring_counter_rotate,
-            ring_dkv_dtype=ring_dkv_dtype,
-        )
         # validated up front, as the JAX setup does: 0 would quietly disable
         # chunking and a negative size would break the padding
         if loss_chunk_size is not None and loss_chunk_size <= 0:
@@ -228,12 +228,6 @@ class RingTransformer(nn.Module):
                    use_ring and not force_regular_attn, compute_dtype)
         check_constructor("RingTransformer", pallas_head_chunks, mesh,
                           use_ring and not force_regular_attn)
-        if not auto_shard and mesh is not None and mesh.spans_processes:
-            raise NotImplementedError(
-                "RingTransformer: auto_shard=False on a mesh whose ranks are processes "
-                "(each process passing its own shard) is not ported yet; it arrives "
-                "with process-local batches, ROADMAP.md Port queue item 6d"
-            )
         check_compute_dtype("RingTransformer", compute_dtype, impl, force_regular_attn)
         lookbacks = max_lookback_seq_len
         if not isinstance(lookbacks, tuple):
@@ -283,6 +277,8 @@ class RingTransformer(nn.Module):
                 compute_dtype=compute_dtype, use_ring=use_ring,
                 force_regular_attn=force_regular_attn,
                 ring_hop_compression=ring_hop_compression,
+                ring_bidirectional=ring_bidirectional,
+                ring_counter_rotate=ring_counter_rotate, ring_dkv_dtype=ring_dkv_dtype,
             )
             for lookback, layer_mask in zip(lookbacks, masks)
         )
@@ -378,7 +374,7 @@ class RingTransformer(nn.Module):
                 segment_ids, _ = pad_to_multiple(segment_ids, pad_mult,
                                                  value=PAD_SEGMENT_ID)
                 segment_ids = layout_permute(segment_ids, scheme, factor)
-        if self._sharded:
+        if self._sharded and self.auto_shard:
             tokens, mask, segment_ids = (None if t is None else shard_cut(t, self.mesh)
                                          for t in (tokens, mask, segment_ids))
         x = self.embed(tokens)
@@ -390,7 +386,7 @@ class RingTransformer(nn.Module):
         if not (return_loss and self.loss_chunk_size):
             logits = self.to_logits(x)
         if not return_loss:
-            if shard or self._sharded:
+            if shard or (self._sharded and self.auto_shard):
                 logits = shard_gather(logits, self.mesh, scheme, factor)[:, :n_orig]
             return logits
         valid = labels != self.ignore_index
@@ -403,7 +399,8 @@ class RingTransformer(nn.Module):
         if shard:
             labels, valid = (layout_permute(pad_to_multiple(t, pad_mult)[0], scheme, factor)
                              for t in (labels, valid))
-        labels, valid = shard_cut(labels, self.mesh), shard_cut(valid, self.mesh)
+        if self.auto_shard:
+            labels, valid = shard_cut(labels, self.mesh), shard_cut(valid, self.mesh)
         if self.loss_chunk_size:
             nll = self._chunked_nll(x, labels, valid)
         else:

@@ -1,14 +1,21 @@
-"""Sequence parallelism: the ring, its transport, the mesh (its seq and data
-rings, the factored mesh's ulysses group, the sum over its processes), the
-layouts and the shard cut, zig-zag context parallelism, Ulysses, the
-hybrid Ulysses x Ring strategy and tree-attention decoding."""
+"""Sequence parallelism: the ring (and its variants), its transport, the
+ragged-batch helpers, the mesh (its seq and data rings, the factored
+mesh's ulysses group, the sum over its processes, a process's part of a
+batch), the layouts and the shard cut, zig-zag context parallelism,
+Ulysses, the hybrid Ulysses x Ring strategy and tree-attention decoding."""
 
 from .collectives import (
     DistributedRing,
     Ring,
     VirtualRing,
+    all_gather_variable,
+    compact_masked,
     dequantize_ring_payload,
+    fold_batch_into_seq,
+    gather_sizes,
     quantize_ring_payload,
+    split_by_rank,
+    unfold_seq_into_batch,
 )
 from .hybrid import hybrid_attention
 from .mesh import (
@@ -19,6 +26,7 @@ from .mesh import (
     mesh_all_reduce,
     seq_axes,
     seq_world,
+    shard_batch,
     validate_seq_len,
 )
 from .ring import ring_flash_attention
@@ -51,11 +59,15 @@ __all__ = [
     "Mesh",
     "Ring",
     "VirtualRing",
+    "all_gather_variable",
+    "compact_masked",
     "create_mesh",
     "cut_rows",
     "data_world",
     "dequantize_ring_payload",
+    "fold_batch_into_seq",
     "gather_rows",
+    "gather_sizes",
     "hybrid_attention",
     "is_factored",
     "kv_head_reshard",
@@ -69,12 +81,15 @@ __all__ = [
     "ring_flash_attention",
     "seq_axes",
     "seq_world",
+    "shard_batch",
     "shard_cut",
     "shard_gather",
+    "split_by_rank",
     "stripe_permute",
     "stripe_unpermute",
     "tree_attn_decode",
     "ulysses_attention",
+    "unfold_seq_into_batch",
     "validate_seq_len",
     "zigzag_attention",
     "zigzag_permute",

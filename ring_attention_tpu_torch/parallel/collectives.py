@@ -49,6 +49,11 @@ travel together.  A ``VirtualRing`` counts in ``calls`` the tensors each
 of the four operations has moved (one per tensor a call carries): how many
 times a strategy moves K/V is read there (a ``DistributedRing`` counts the
 payloads it stages through the host, ``staged_calls``).
+The ragged-batch helpers (``gather_sizes``, ``all_gather_variable``,
+``compact_masked``, ``split_by_rank``, ``fold_batch_into_seq``,
+``unfold_seq_into_batch``; JAX ``parallel/collectives.py:48-188``) sit on
+the same seam, and ``VirtualRing.rotations`` counts its rotations (one per
+call, the JAX ring's collective-permutes where a payload is one array).
 ``quantize_ring_payload`` and ``dequantize_ring_payload``
 are the ring's int8 wire codec (``hop_compression="int8"``, JAX
 ``parallel/collectives.py:123, :158``): the K/V of a rank quantized once
@@ -164,6 +169,7 @@ class VirtualRing(Ring):
         self.world = world
         self.ranks = tuple(range(world))
         self.calls = dict.fromkeys(OPS, 0)
+        self.rotations = 0
 
     def _check(self, fn: str, payloads: list[Payload]) -> None:
         if len(payloads) != self.world:
@@ -174,6 +180,7 @@ class VirtualRing(Ring):
 
     def rotate(self, payloads: list[Payload], shift: int) -> list[Payload]:
         self._check("rotate", payloads)
+        self.rotations += 1
         out: list = [None] * self.world
         for src, dst in ring_perm(self.world, shift):
             out[dst] = payloads[src]
@@ -415,3 +422,92 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return ctx.ring._exchange(grad, ctx.concat_dim, ctx.split_dim), None, None, None
+
+
+# ---------------------------------------------------------------------------
+# Ragged batches (JAX parallel/collectives.py:48-188, the reference's
+# distributed.py:50-127): sizes, a variable-size gather, rank splitting and
+# batch folding, each held rank's shard a list entry as every ring
+# function takes it
+# ---------------------------------------------------------------------------
+
+
+def gather_sizes(sizes: list, ring: Ring) -> torch.Tensor:
+    """Every rank's size, ``(world,)`` int64 in rank order (JAX
+    ``gather_sizes``): ``sizes`` holds one int or 0-d tensor per held rank.
+    One all-gather of one int per rank, on the sizes' device (the CPU for
+    ints)."""
+    local = [(torch.as_tensor(s, dtype=torch.int64).reshape(1),) for s in sizes]
+    if ring.world == 1:
+        return local[0][0]
+    return ring.all_gather(local, 0)[0][0]
+
+
+def all_gather_variable(xs: list, lengths: list, ring: Ring, *,
+                        max_size: int | None = None,
+                        axis: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gather shards whose USED length differs per rank (JAX
+    ``all_gather_variable``).  Each held rank's ``x`` is padded to a common
+    ``max_size`` along ``axis`` (default its size there) and ``lengths``
+    holds its used length.  Returns ``(gathered, mask)``: the ``world *
+    max_size`` entries along ``axis`` in rank order, and the flat bool
+    validity mask ``(world * max_size,)``; :func:`compact_masked` drops the
+    padding.  The gather carries gradients, as ``Ring.all_gather`` does."""
+    if max_size is None:
+        max_size = xs[0].shape[axis]
+    for x in xs:
+        if x.shape[axis] != max_size:
+            raise ValueError(
+                f"all_gather_variable: pad x to max_size {max_size} along axis {axis} "
+                f"before gathering, got {x.shape[axis]}"
+            )
+    gathered = xs[0] if ring.world == 1 else ring.all_gather([(x,) for x in xs], axis)[0][0]
+    sizes = gather_sizes(lengths, ring).to(gathered.device)
+    slot = torch.arange(ring.world * max_size, device=gathered.device)
+    return gathered, slot % max_size < sizes[slot // max_size]
+
+
+def compact_masked(gathered: torch.Tensor, mask: torch.Tensor, *,
+                   axis: int = 0) -> torch.Tensor:
+    """Drop the padding slots of an :func:`all_gather_variable` result: the
+    dense rank-order concatenation of the used entries (JAX
+    ``compact_masked``).  Its length depends on the data, so the mask is
+    read on the host: one sync."""
+    if tuple(mask.shape) != (gathered.shape[axis],):
+        raise ValueError(
+            f"compact_masked: mask shape {tuple(mask.shape)} must be "
+            f"({gathered.shape[axis]},) — the flat validity mask returned by "
+            f"all_gather_variable for axis {axis}"
+        )
+    keep = mask.to(torch.bool).cpu().nonzero().flatten()
+    return gathered.index_select(axis, keep.to(gathered.device))
+
+
+def split_by_rank(x: torch.Tensor, ring: Ring, *, axis: int = 0) -> list:
+    """Each held rank's equal slice of a tensor every rank holds whole (JAX
+    ``split_by_rank``), in held-rank order."""
+    if x.shape[axis] % ring.world:
+        raise ValueError(
+            f"split_by_rank: axis {axis} size {x.shape[axis]} must divide over "
+            f"{ring.world} ranks; pad first (pad_to_multiple)"
+        )
+    size = x.shape[axis] // ring.world
+    return [x.narrow(axis, r * size, size) for r in ring.ranks]
+
+
+def fold_batch_into_seq(x: torch.Tensor, num_sharded_batches: int) -> torch.Tensor:
+    """``(b, n, ...) -> (b / k, k * n, ...)``: ``k`` batch groups laid side
+    by side along the sequence (JAX ``fold_batch_into_seq``, the
+    reference's ``sharded_batch_to_sharded_seq``)."""
+    b, n, k = x.shape[0], x.shape[1], num_sharded_batches
+    if b % k:
+        raise ValueError(f"fold_batch_into_seq: batch {b} does not divide into {k} groups")
+    return x.reshape(b // k, k * n, *x.shape[2:])
+
+
+def unfold_seq_into_batch(x: torch.Tensor, num_sharded_batches: int) -> torch.Tensor:
+    """Inverse of :func:`fold_batch_into_seq`."""
+    b, kn, k = x.shape[0], x.shape[1], num_sharded_batches
+    if kn % k:
+        raise ValueError(f"unfold_seq_into_batch: sequence {kn} does not divide into {k} groups")
+    return x.reshape(b * k, kn // k, *x.shape[2:])

@@ -29,10 +29,10 @@ all-to-all every ulysses index holds ``h / U`` heads over the same chunk
 length), so that each of the ring's launches serves all of them: the
 launch counts of a ring of ``R`` over ``U * b`` rows.
 
-``impl`` (``"torch"``, ``"cuda"``, ``"fused"``), ``hop_compression`` and
-``compute_dtype`` pass through to the outer ring and mean what they mean
-there; ``bidirectional``, ``counter_rotate`` and ``dkv_dtype`` raise as the
-ring's do (ROADMAP.md Port queue item 7e).
+``impl`` (``"torch"``, ``"cuda"``, ``"fused"``) and every ring knob
+(``bidirectional``, ``counter_rotate``, ``dkv_dtype``, ``hop_compression``,
+``compute_dtype``) pass through to the outer ring and mean what they mean
+there (JAX :61-64, :141-142).
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ import torch
 from ..ops.attention import normalize_segment_ids
 from ..utils.validate import check_attention_args
 from .collectives import Ring
-from .ring import UNPORTED, ring_flash_attention
+from .ring import ring_flash_attention
 from .ulysses import gather_tokens, kv_head_reshard, to_heads, to_seq
 
 
@@ -77,13 +77,6 @@ def hybrid_attention(
     The ring knobs (``bucket_size``, ``max_ring_passes``, ``window``) read
     ``n_local`` as the ring chunk, ``U`` times the resident shard.  Returns
     ``(b, h, n_held, d)`` in ``q.dtype``."""
-    for name, value in (("bidirectional", bidirectional), ("dkv_dtype", dkv_dtype),
-                        ("counter_rotate", counter_rotate)):
-        if value is not None and value is not False:
-            raise NotImplementedError(
-                f"hybrid_attention: {name}= is not ported yet; it arrives with "
-                f"{UNPORTED[name]}"
-            )
     chunks = len(ring.ranks)
     check_attention_args("hybrid_attention", q, k, v, kv_mask, equal_qkv_len=True,
                          shards=chunks * len(ulysses_ring.ranks))
@@ -112,7 +105,8 @@ def hybrid_attention(
     seg_c = per_chunk(lambda c: gather_tokens(ulysses_ring, c), seg, dim=1)
     out = ring_flash_attention(
         qh, kh, vh, mask_c, ring, causal, striped, bucket_size, max_ring_passes, window,
-        softclamp_value, scale, impl, segment_ids=seg_c, hop_compression=hop_compression,
+        softclamp_value, scale, impl, bidirectional, dkv_dtype, segment_ids=seg_c,
+        counter_rotate=counter_rotate, hop_compression=hop_compression,
         compute_dtype=compute_dtype,
     )
     return per_chunk(lambda c: to_seq(ulysses_ring, c), out)

@@ -33,6 +33,10 @@ its ring and ulysses ranks.  In one process ``ulysses_ring`` is a
 ``VirtualRing(U)`` and ``ring`` a ``VirtualRing(R)``: the hybrid strategy
 folds the U outer rings into the batch dimension of one ring of R.
 
+``shard_batch`` (JAX :517) gives a process its part of a batch whose rows
+it passes: on a mesh of processes the block of its sequence ranks, which
+``RingTransformer(auto_shard=False)`` takes.
+
 The torus ring order and the ``dcn_data`` level, ``remesh_plan`` and
 ``mesh_descriptor`` are not ported (ROADMAP.md Port queue item 7f).
 """
@@ -221,3 +225,50 @@ def validate_seq_len(seq_len: int, mesh: Mesh | None) -> None:
             f"{world}; pad the sequence or pick a ring size that divides "
             f"{seq_len}"
         )
+
+
+def shard_batch(batch, mesh: Mesh | None, *, overlap: int = 0, device=None):
+    """This process's part of a batch, on ``device`` (JAX ``shard_batch``:
+    ``jax.make_array_from_process_local_data``).  As in JAX, every process
+    passes only ITS rows of the global batch (a data loader's local slice;
+    the whole batch on a mesh of one data row, and in one process), never
+    the global batch; each leaf of rank >= 2, ``(b_local, n + overlap,
+    ...)``, keeps the block of its sequence that this process's seq ranks
+    hold (ring-major, ulysses-minor on a factored mesh: combined rank
+    ``r * U + u``, JAX ``seq_sharding``), rank-1 leaves (one value a row) stay whole, and scalars
+    replicate.  ``overlap=1`` keeps one token past each block: the label of
+    its last position, as ``RingTransformer(auto_shard=False)`` reads a
+    block's tokens ``(b_local, n_local + 1)`` with ``return_loss`` (its
+    mask stays ``(b_local, n_local)``: shard it with ``overlap=0``).
+
+    Works on a tensor, a numpy array or a Python scalar, and on dicts,
+    lists and tuples of them.  The sequence must already be padded and in
+    the ring's layout (``layout_for`` / ``layout_permute``), as
+    ``auto_shard=False`` takes it.  ``device`` defaults to CUDA (the
+    model's default); pass ``"cpu"`` to stay on the CPU."""
+    from ..models.layers import resolve_device
+
+    dev = resolve_device(device)
+    world = seq_world(mesh)
+    ranks = (0,) if mesh is None else mesh.seq_ranks
+
+    def block(n: int) -> slice:
+        if n % world:
+            raise ValueError(
+                f"shard_batch: sequence {n} does not divide over the sequence world "
+                f"{world}; pad it first (pad_to_multiple)"
+            )
+        n_local = n // world
+        return slice(ranks[0] * n_local, (ranks[-1] + 1) * n_local + overlap)
+
+    def place(x):
+        if isinstance(x, dict):
+            return {key: place(value) for key, value in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(place(value) for value in x)
+        x = torch.as_tensor(x)
+        if x.dim() >= 2:
+            x = x[:, block(x.shape[1] - overlap)]
+        return x.to(dev).contiguous()
+
+    return place(batch)

@@ -326,17 +326,24 @@ def test_fused_ring_cross_attention_bypasses_the_ring():
 
 def test_fused_ring_options():
     """counter_rotate has no fused form (a ValueError, as in JAX); the int8
-    feed is ported (K4), and bidirectional half-streams and the dk/dv wire
-    dtype are not ported yet, with or without it."""
-    x = torch.zeros((1, 2, 8, 16))
+    feed is ported (K4), and so are the dk/dv dtype, which the fused
+    forward's backward takes (the same gradients as the scan ring's), and
+    bidirectional, which the fused kernels drop with JAX's warning."""
+    x = torch.randn((1, 2, 8, 16), generator=torch.Generator().manual_seed(0))
     ring = VirtualRing(2)
     with pytest.raises(ValueError, match="counter-rotation"):
         ring_flash_attention(x, x, x, None, ring, impl="fused", counter_rotate=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item 7"):
-        ring_flash_attention(x, x, x, None, ring, impl="fused", compute_dtype="int8",
-                             dkv_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item 7"):
-        ring_flash_attention(x, x, x, None, ring, impl="fused", bidirectional=True)
+    grads = {}
+    for impl in ("fused", "cuda"):
+        qkv = [x.clone().requires_grad_() for _ in range(3)]
+        ring_flash_attention(*qkv, None, ring, impl=impl, causal=True,
+                             dkv_dtype="bfloat16").sum().backward()
+        grads[impl] = [t.grad for t in qkv]
+    for a, b in zip(grads["fused"], grads["cuda"]):
+        assert torch.equal(a, b)
+    with pytest.warns(UserWarning, match='impl="fused" circulates whole KV blocks'):
+        out = ring_flash_attention(x, x, x, None, ring, impl="fused", bidirectional=True)
+    assert torch.equal(out, ring_flash_attention(x, x, x, None, ring, impl="fused"))
 
 
 def test_virtual_ring_all_gather():

@@ -19,7 +19,8 @@ logits, loss and every gradient, the chunked loss against the dense one,
 and the f32 int8 hybrid within the int8 bound of the JAX float model.
 Pins: the outer ring's hops number R - 1 (the pure ring's W - 1), small-hk
 K/V move once per ring chunk (two all-gathers, no all-to-all of repeated
-heads), ``ring_bidirectional`` raises naming item 7e, decoding on a
+heads), the outer ring refuses what the ring refuses (an odd chunk under
+``bidirectional``, counter-rotation on the fused kernels), decoding on a
 factored mesh raises with JAX's words.
 
 Tolerances: outputs 2e-5 absolute, gradients 5e-4 absolute (JAX's ``ATOL``
@@ -265,14 +266,24 @@ def test_hybrid_lookback_window(striped):
 
 
 def test_hybrid_bidirectional_raises():
-    """JAX passes ``ring_bidirectional`` to the outer ring; the port's ring
-    variants are item 7e, on the hybrid strategy as on the ring."""
-    with pytest.raises(NotImplementedError, match="Port queue item 7e"):
-        RingAttention(**LAYER, causal=True, ring_bidirectional=True, device="cpu",
-                      mesh=create_mesh(ring_size=4, ulysses_size=2), sequence_parallel="hybrid")
-    q = torch.zeros(1, 8, 16, 4)
-    with pytest.raises(NotImplementedError, match="Port queue item 7e"):
-        hybrid_attention(q, q, q, None, VirtualRing(2), VirtualRing(2), counter_rotate=True)
+    """JAX passes ``ring_bidirectional`` to the outer ring
+    (``tests/test_hybrid.py::test_hybrid_bidirectional``), and so does the
+    port since item 7e; what still raises there is the ring's own
+    refusals: an odd outer-ring chunk under ``bidirectional`` and
+    counter-rotation on the fused kernels.  A layer on an odd shard warns
+    and runs unidirectional instead, as JAX's ``_bidirectional`` (on the
+    plain ring here: a hybrid chunk of ``U * n_local`` is even at U = 2)."""
+    q = torch.zeros(1, 8, 20, 4)
+    with pytest.raises(ValueError, match="bidirectional ring needs an even local sequence"):
+        hybrid_attention(q[:, :, :10], q[:, :, :10], q[:, :, :10], None, VirtualRing(1),
+                         VirtualRing(2), bidirectional=True)
+    with pytest.raises(ValueError, match="counter-rotation schedule has no fused form"):
+        hybrid_attention(q, q, q, None, VirtualRing(2), VirtualRing(2), impl="fused",
+                         counter_rotate=True)
+    layer = RingAttention(**LAYER, causal=True, ring_bidirectional=True, device="cpu",
+                          mesh=create_mesh(ring_size=2))
+    with pytest.warns(UserWarning, match=r"per-device sequence length \(5\) is odd"):
+        layer(torch.zeros(1, 10, LAYER["dim"]))
 
 
 @functools.cache

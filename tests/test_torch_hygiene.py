@@ -23,7 +23,7 @@ import torch
 import ring_attention_tpu_torch
 from ring_attention_tpu_torch import RingAttention, RingTransformer, make_train_step
 from ring_attention_tpu_torch.masks import Causal, DocumentMask
-from ring_attention_tpu_torch.parallel import create_mesh
+from ring_attention_tpu_torch.parallel import VirtualRing, create_mesh, ring_flash_attention
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = Path(ring_attention_tpu_torch.__file__).resolve().parent
@@ -78,43 +78,47 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 # test ids must be the same in every pytest-xdist worker: plain strings,
 # never an object's repr (which carries its address)
+# The ring variants (item 7e) are ported: each case now pins what its
+# settings still cannot take, a JAX ValueError or impl="auto" (item 7f).
+# name: (settings, the error they raise, its message)
 UNPORTED_SETTINGS = {
-    "ring_bidirectional": dict(ring_bidirectional=True),
-    "ring_counter_rotate": dict(ring_counter_rotate=True),
-    # the int8 wire is ported; its counter-rotated schedule (the JAX int8
-    # ring's canonical drive) is not (item 7e)
-    "ring_hop_compression": dict(ring_hop_compression="int8", ring_counter_rotate=True),
-    "ring_dkv_dtype": dict(ring_dkv_dtype="bfloat16"),
-    # zig-zag, Ulysses and the hybrid factoring are ported; the ring
-    # variants of item 7e raise on the hybrid strategy's outer ring as on the
-    # ring
-    "sequence_parallel_zigzag": dict(sequence_parallel="hybrid", ring_bidirectional=True,
-                                     mesh=create_mesh(ring_size=2, ulysses_size=2)),
-    "sequence_parallel_hybrid": dict(sequence_parallel="hybrid", ring_dkv_dtype="bfloat16",
-                                     mesh=create_mesh(ring_size=2, ulysses_size=2)),
+    "ring_bidirectional": (dict(ring_bidirectional=True, impl="auto"), NotImplementedError,
+                           "ROADMAP.md Port queue item 7f"),
+    "ring_counter_rotate": (dict(ring_counter_rotate=True, impl="auto"), NotImplementedError,
+                            "ROADMAP.md Port queue item 7f"),
+    # the int8 wire on the counter-rotated ring is ported; a wire other than
+    # None and "int8" is JAX's ValueError
+    "ring_hop_compression": (dict(ring_hop_compression="fp8", ring_counter_rotate=True),
+                             ValueError, "ring_hop_compression='fp8'"),
+    "ring_dkv_dtype": (dict(ring_dkv_dtype="bfloat16", impl="auto"), NotImplementedError,
+                       "ROADMAP.md Port queue item 7f"),
+    # the ring variants pass to the hybrid strategy's outer ring; each
+    # strategy still refuses the other kind of mesh, with JAX's words
+    "sequence_parallel_zigzag": (dict(sequence_parallel="zigzag", ring_bidirectional=True,
+                                      mesh=create_mesh(ring_size=2, ulysses_size=2)),
+                                 ValueError, r"runs on a plain \(data, seq\) mesh"),
+    "sequence_parallel_hybrid": (dict(sequence_parallel="hybrid", ring_dkv_dtype="bfloat16",
+                                      mesh=create_mesh(ring_size=2)),
+                                 ValueError, "needs a factored mesh"),
     # the mask algebra and declared packings are ported, also on the int8
     # sweep and the hybrid strategy; impl="auto" is not (item 7f)
-    "mask": dict(causal=False, mask=Causal() & DocumentMask((0, 8)), compute_dtype="int8",
-                 sequence_parallel="hybrid", mesh=create_mesh(ring_size=2, ulysses_size=2),
-                 impl="auto"),
-    # the fused ring and its int8 feed and wire are ported; bidirectional
-    # half-streams are not (ROADMAP item 7e)
-    "impl_fused": dict(impl="fused", compute_dtype="int8", ring_hop_compression="int8",
-                       mesh=create_mesh(ring_size=2), ring_bidirectional=True),
-    "impl_auto": dict(impl="auto"),
+    "mask": (dict(causal=False, mask=Causal() & DocumentMask((0, 8)), compute_dtype="int8",
+                  sequence_parallel="hybrid", mesh=create_mesh(ring_size=2, ulysses_size=2),
+                  impl="auto"), NotImplementedError, "ROADMAP.md Port queue item 7f"),
+    # the fused int8 ring takes bidirectional (it warns and drops it, as
+    # JAX does); int8 compute off the kernels is JAX's ValueError
+    "impl_fused": (dict(impl="fused", compute_dtype="int8", ring_hop_compression="int8",
+                        mesh=create_mesh(ring_size=2), ring_bidirectional=True,
+                        force_regular_attn=True), ValueError, "compute_dtype"),
+    "impl_auto": (dict(impl="auto"), NotImplementedError, "ROADMAP.md Port queue item 7f"),
 }
 
 
 @pytest.mark.parametrize("name", list(UNPORTED_SETTINGS))
 def test_unported_features_raise(name):
-    settings = {**SMALL, "device": "cpu", **UNPORTED_SETTINGS[name]}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item") as err:
-        RingTransformer(**settings)
-    if name in ("mask", "impl_auto"):
-        assert "item 7f" in str(err.value)
-    if name in ("ring_hop_compression", "impl_fused", "sequence_parallel_zigzag",
-                "sequence_parallel_hybrid"):
-        assert "item 7e" in str(err.value)
+    settings, error, message = UNPORTED_SETTINGS[name]
+    with pytest.raises(error, match=message):
+        RingTransformer(**{**SMALL, "device": "cpu", **settings})
 
 
 # the int8 knobs are ported; the settings they cannot take raise as the JAX
@@ -168,9 +172,11 @@ def test_decode_on_a_mesh_raises(entry):
 def test_segment_ids_raise():
     """Packed sequences are ported on the local path, the scan-path ring
     and the fused ring (its ids, K3b: the same logits as the scan ring),
-    and on the int8 sweep (K3c) and the int8 ring (the fused int8 ring's
-    logits are the scan int8 ring's); what still raises with them is the
-    ring's counter-rotation (item 7e)."""
+    on the int8 sweep (K3c) and the int8 ring (the fused int8 ring's
+    logits are the scan int8 ring's), and on the counter-rotated int8 ring
+    (item 7e: the same logits again); what still raises with them is the
+    counter-rotated schedule on the fused kernels, which has no fused form
+    (JAX's ValueError)."""
     tokens = torch.zeros((1, 8), dtype=torch.long)
     fused = RingTransformer(**SMALL, device="cpu", impl="fused",
                             mesh=create_mesh(ring_size=2))
@@ -186,9 +192,17 @@ def test_segment_ids_raise():
     with torch.no_grad():
         assert torch.equal(int8["fused"](tokens, segment_ids=tokens),
                            int8["cuda"](tokens, segment_ids=tokens))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item 7"):
-        RingTransformer(**SMALL, device="cpu", compute_dtype="int8", mesh=create_mesh(ring_size=2),
-                        ring_hop_compression="int8", ring_counter_rotate=True)
+    counter = RingTransformer(**SMALL, device="cpu", compute_dtype="int8",
+                              mesh=create_mesh(ring_size=2), ring_hop_compression="int8",
+                              ring_counter_rotate=True)
+    counter.load_state_dict(fused.state_dict())
+    with torch.no_grad():
+        assert torch.equal(counter(tokens, segment_ids=tokens),
+                           int8["cuda"](tokens, segment_ids=tokens))
+    x = torch.zeros((1, 2, 8, 16))
+    with pytest.raises(ValueError, match="counter-rotation schedule has no fused form"):
+        ring_flash_attention(x, x, x, None, VirtualRing(2), impl="fused", counter_rotate=True,
+                             segment_ids=torch.zeros((1, 8), dtype=torch.int32))
 
 
 def test_unknown_impl_is_a_value_error():

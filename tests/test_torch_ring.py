@@ -75,21 +75,25 @@ def test_hop_helpers_equal_jax(ring_size, band):
     causal, striped, window = BANDS[band]
     n = 16
     geo = (n, causal, striped, window, ring_size)
-    stream = (1, 0, n)
-    # the port's one stream is the JAX package's unidirectional stream
-    for i in range(ring_size):
-        assert pring._hop_is_full(i, *geo) == jring._static_hop_band(
-            stream, i, *geo)[0]
-        for rank in range(ring_size):
-            origin = (rank - i) % ring_size
-            hi, lo = pring._hop_offsets(rank, origin, *geo)
-            jhi, jlo = jring._hop_offsets(rank, origin, *geo)
-            as_int = lambda x: None if x is None else int(x)
-            assert (hi, lo) == (as_int(jhi), as_int(jlo)), (rank, i)
-            assert pring._offsets_at_hop(rank, i, *geo) == (hi, lo)
-            assert tuple(map(as_int, jring._stream_offsets(stream, rank, i, *geo))) == (hi, lo)
-            assert pring._hop_has_work(hi, lo, n, n) == bool(
-                jring._hop_has_work(jhi, jlo, n, n)), (rank, i)
+    as_int = lambda x: None if x is None else int(x)  # noqa: E731
+    # the unidirectional stream and the bidirectional half-streams
+    for bidirectional in (False, True):
+        streams = pring._streams(bidirectional, n)
+        assert streams == jring._streams(bidirectional, n)
+        for stream, i in ((s, i) for s in streams for i in range(ring_size)):
+            assert pring._hop_is_full(stream, i, *geo) == jring._static_hop_band(
+                stream, i, *geo)[0]
+            for rank in range(ring_size):
+                origin = (rank - stream[0] * i) % ring_size
+                if stream[1] == 0:
+                    hi, lo = pring._hop_offsets(rank, origin, *geo)
+                    jhi, jlo = jring._hop_offsets(rank, origin, *geo)
+                    assert (hi, lo) == (as_int(jhi), as_int(jlo)), (rank, i)
+                hi, lo = pring._stream_offsets(stream, rank, i, *geo)
+                jhi, jlo = jring._stream_offsets(stream, rank, i, *geo)
+                assert (hi, lo) == (as_int(jhi), as_int(jlo)), (stream, rank, i)
+                assert pring._hop_has_work(hi, lo, n, stream[2]) == bool(
+                    jring._hop_has_work(jhi, jlo, n, stream[2])), (stream, rank, i)
 
 
 def test_fit_bucket_equals_jax():
@@ -359,20 +363,28 @@ def test_cuda_ring_launch_schedule_on_cpu(monkeypatch):
 
 
 def test_ring_unported_options_raise():
+    """The ring variants are ported (item 7e); what they still refuse is
+    JAX's: counter-rotation on the fused kernels, the bidirectional ring on
+    an odd shard (JAX asserts), a dk/dv dtype that is not floating, and a
+    wire other than None and "int8"; bidirectional beside impl="fused" or
+    counter_rotate warns and is dropped."""
     x = torch.zeros((1, 2, 8, 64))
-    for name, value in (("bidirectional", True), ("counter_rotate", True),
-                        ("dkv_dtype", "bfloat16")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item 7"):
-            ring_flash_attention(x, x, x, None, VirtualRing(2), **{name: value})
-    # the int8 wire, the int8 sweep's ids and the fused ring's int8 feed are
-    # ported (items 7b, 7e); beside them the ring variants still raise, and
-    # a wire other than None and "int8" is the JAX ring's ValueError
+    with pytest.raises(ValueError, match="counter-rotation schedule has no fused form"):
+        ring_flash_attention(x, x, x, None, VirtualRing(2), impl="fused", counter_rotate=True)
+    odd = torch.zeros((1, 2, 10, 16))
+    with pytest.raises(ValueError, match="bidirectional ring needs an even local sequence, got 5"):
+        ring_flash_attention(odd, odd, odd, None, VirtualRing(2), bidirectional=True)
+    # limited passes run one stream: an odd shard is no error there
+    ring_flash_attention(odd, odd, odd, None, VirtualRing(2), bidirectional=True,
+                         causal=True, max_ring_passes=1)
+    with pytest.raises(ValueError, match="dkv_dtype='int8'"):
+        ring_flash_attention(x, x, x, None, VirtualRing(2), dkv_dtype="int8")
     seg = torch.zeros((1, 8), dtype=torch.int32)
-    for impl, name in (("cuda", "bidirectional"), ("fused", "dkv_dtype")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Port queue item 7"):
-            ring_flash_attention(x, x, x, None, VirtualRing(2), impl=impl,
-                                 compute_dtype="int8", hop_compression="int8",
-                                 segment_ids=seg, **{name: True})
+    for impl, kw in (("fused", dict(bidirectional=True)),
+                     ("cuda", dict(bidirectional=True, counter_rotate=True))):
+        with pytest.warns(UserWarning, match="ignoring bidirectional half-streams"):
+            ring_flash_attention(x, x, x, None, VirtualRing(2), impl=impl, compute_dtype="int8",
+                                 hop_compression="int8", segment_ids=seg, **kw)
     with pytest.raises(ValueError, match="hop_compression='fp8'"):
         ring_flash_attention(x, x, x, None, VirtualRing(2), hop_compression="fp8")
     with pytest.raises(ValueError, match="equal shards"):

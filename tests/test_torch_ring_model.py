@@ -196,11 +196,12 @@ class _OneOfTwo(Ring):
 
 
 # The model runs on a mesh whose ranks are processes
-# (tests/test_torch_model_dist.py), Ulysses and hybrid included; what still
-# raises there, naming its item
+# (tests/test_torch_model_dist.py), Ulysses and hybrid included, and since
+# items 7e and 6d with the ring variants and process-local batches
+# (auto_shard=False); beside each, impl="auto" still raises, naming 7f
 MULTIPROCESS_UNPORTED = {
-    "ring_counter_rotate": (dict(ring_counter_rotate=True), "Port queue item 7e"),
-    "process_local_batches": (dict(auto_shard=False), "Port queue item 6d"),
+    "ring_counter_rotate": (dict(ring_counter_rotate=True), "Port queue item 7f"),
+    "process_local_batches": (dict(auto_shard=False), "Port queue item 7f"),
 }
 
 
@@ -208,8 +209,12 @@ def test_model_on_a_multiprocess_mesh_raises():
     mesh = Mesh(data=1, seq=2, ring=_OneOfTwo())
     assert mesh.spans_processes
     for settings, item in MULTIPROCESS_UNPORTED.values():
+        model = RingTransformer(**CONFIG, device="cpu", mesh=mesh, **settings)
+        assert model.auto_shard == settings.get("auto_shard", True)
+        assert model.attn_layers[0].ring_counter_rotate == settings.get(
+            "ring_counter_rotate", False)
         with pytest.raises(NotImplementedError, match=item):
-            RingTransformer(**CONFIG, device="cpu", mesh=mesh, **settings)
+            RingTransformer(**CONFIG, device="cpu", mesh=mesh, impl="auto", **settings)
     # Ulysses builds on it; hybrid needs a factored one, where decoding
     # raises with JAX's words
     RingTransformer(**CONFIG, device="cpu", mesh=mesh, sequence_parallel="ulysses")

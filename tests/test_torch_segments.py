@@ -490,15 +490,19 @@ def test_ring_cuda_skipped_hops_keep_the_launch_schedule(monkeypatch):
 
 def test_fused_ring_takes_no_ids_yet():
     """The fused ring takes ids (B7's segmented instantiation) and, since
-    K4, its int8 feed with them; what it still refuses with ids is the
-    counter-rotated schedule, which has no fused form (a ValueError, as in
-    JAX)."""
+    K4, its int8 feed with them; the counter-rotated schedule takes them
+    on the scan ring (item 7e: the same output); what the fused ring still
+    refuses with ids is that schedule, which has no fused form (a
+    ValueError, as in JAX)."""
     q, k, v, _ = make_qkv(0)
     seg = torch.zeros((2, 64), dtype=torch.int32)
     kw = dict(impl="fused", compute_dtype="int8", segment_ids=seg)
     out = ring_flash_attention(*_t(q, k, v), None, VirtualRing(2), **kw)
     ref = ring_flash_attention(*_t(q, k, v), None, VirtualRing(2), **dict(kw, impl="cuda"))
     assert torch.equal(out, ref)
+    counter = ring_flash_attention(*_t(q, k, v), None, VirtualRing(2), counter_rotate=True,
+                                   **dict(kw, impl="cuda"))
+    assert torch.equal(counter, ref)
     with pytest.raises(ValueError, match="counter-rotation"):
         ring_flash_attention(*_t(q, k, v), None, VirtualRing(2), counter_rotate=True, **kw)
 
